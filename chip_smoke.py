@@ -7,23 +7,45 @@ Phases, in order; any failure raises, and the script exits non-zero without
 printing its result line:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: nvcc builds the kernels from ``vits_tpu_torch/csrc`` (seconds);
+2. build: nvcc builds the kernels from ``vits_tpu_torch/csrc`` (one process
+   per source, in parallel; seconds);
 3. kernels vs plain: each hand-written kernel against its plain PyTorch
-   version on the card, at the shapes of a 128-token MMS request (320
-   frames): max |diff| against the stated tolerance, and the median ms of
-   both (CUDA events);
-4. the slice: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
+   version on the card, max |diff| against the stated tolerance and the
+   median ms of both (CUDA events). Serving kernels A, B, C at the shapes of
+   a 128-token MMS request (320 frames); training kernels: A's logsumexp and
+   the attention backward (kernel 4) at B=2, L=512, lengths (507, 0), and
+   the trainable trio (kernel 5: output and saved activations; its backward
+   alone on the plain forward's activations; forward and backward together,
+   with the count of saved activations the two forwards round to opposite
+   signs) at the decoded-segment shapes of a 32-frame segment, batch 4;
+4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; three single requests, then one batch of three texts with
    per-row seeds. Audio is finite, in [-1, 1], of positive length; every
    kernel's launch count rose during those requests; each batch row equals
    its solo run; a repeated seed gives identical audio; and one dispatch on
    the card agrees with the same dispatch through the plain versions on the
-   CPU, given the same noise.
+   CPU, given the same noise;
+5. training at full MMS width (random weights with the training modules,
+   seed 0; the discriminator at seed 0): the inference kernels refuse
+   autograd; a warm-up GAN step, then three on a batch of 512 and 300 tokens
+   (padded to 512) over 1280 frames -- losses finite, every parameter with a
+   finite gradient and moved, kernels A-with-lse, 4 and 5 launched and B, C
+   not -- with ms per step and peak memory; one step with each call site
+   timed between synchronisations and one under ``torch.profiler`` (device
+   busy time, idle share, device ms per kernel family); one ``generator_loss``
+   and its gradients at the weights the steps started from, on the card vs
+   the plain CPU path with the same noise (equal MAS durations; losses, and
+   gradients by relative L2 error per module and per tensor, within a
+   multiple of the CPU's own noise floor: the largest movement when every
+   weight is perturbed by 1e-7, over three perturbations); and ``train()``
+   on a synthetic micro-corpus for 4 steps with checkpoints, resumed to
+   step 6.
 
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``: the sum of
-the medians over the kernel's shapes), and last
-``{"ok": true, "device": {...}}``.
+the medians over the kernel's shapes; ``launches``: the count over the path
+that runs the kernel, serving for A, B, C and training for 4 and 5), and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -43,6 +65,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 # Kernel-vs-plain tolerance: max |diff| <= KERNEL_TOL * max(1, max |plain|).
 # fp32 on both sides, sums in another order over up to 126 taps x C inputs.
 KERNEL_TOL = 5e-5
+# Gradients are held per tensor by relative L2 error ||got - plain|| / ||plain||.
+# The trio's backward alone, run on the plain forward's saved activations,
+# differs from plain autograd only in summation order: GRAD_RTOL.
+GRAD_RTOL = 1e-5
+# The whole trainable trio (kernel forward, then the backward on the kernel's
+# activations): leaky's derivative steps at 0, so a saved pre-activation that
+# kernel and plain round to opposite signs moves one entry of dy by 0.9 |dh|,
+# and |dh| reaches hundreds at random MMS weights. The script counts those
+# entries; with none the bound is GRAD_RTOL, with some it is FLIP_GRAD_RTOL.
+FLIP_GRAD_RTOL = 1e-2
+# Card vs CPU: a gradient tensor that a 1e-7 relative weight perturbation
+# moves by more than this share of its norm is rounding noise on the CPU.
+NOISY_GRAD = 1e-2
+TENSOR_FLOOR_FACTOR = 30
+# Card vs CPU: the noise floor is the largest movement over this many perturbations.
+FLOOR_SAMPLES = 3
 # Card vs CPU for one whole dispatch. Random weights inflate the activations
 # (latents reach ~255; most samples saturate the final tanh), so fp32 noise
 # is larger than on trained weights: on the CPU, perturbing every weight by
@@ -86,20 +124,34 @@ def median_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def compare(name: str, shape: str, kernel, plain) -> dict:
-    """Kernel vs plain on the same inputs; raises past the tolerance."""
+def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None,
+            timed: bool = True) -> dict:
+    """Kernel vs plain on the same inputs (a tensor or a tuple of tensors each);
+    raises past the tolerance, per tensor: max |diff| <= KERNEL_TOL x
+    max(1, max|plain|), or with ``grad_rtol`` relative L2 error <= grad_rtol."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        raise RuntimeError(f"{name} {shape}: non-finite output")
-    err = float((got - want).abs().max())
-    tol = KERNEL_TOL * max(1.0, float(want.abs().max()))
-    ms, plain_ms = median_ms(kernel), median_ms(plain)
-    print(f"  {name:22s} {shape:28s} max|diff| {err:.3e} (tol {tol:.3e})  "
-          f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
-    if not err <= tol:
-        raise RuntimeError(f"{name} {shape}: max|diff| {err} > {tol}")
-    return {"shape": shape, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms}
+    pairs = list(zip(got, want)) if isinstance(got, (tuple, list)) else [(got, want)]
+    err = worst = 0.0
+    for i, (g, w) in enumerate(pairs):
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{name} {shape}: non-finite output {i}")
+        e = float((g - w).abs().max())
+        if grad_rtol is None:
+            ratio = e / (KERNEL_TOL * max(1.0, float(w.abs().max())))
+        else:
+            ratio = float(torch.linalg.vector_norm(g - w)
+                          / torch.linalg.vector_norm(w).clamp_min(1e-30)) / grad_rtol
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{name} {shape}: output {i} of {len(pairs)} off by {ratio:.3g} "
+                               f"times the tolerance (max|diff| {e})")
+        err, worst = max(err, e), max(worst, ratio)
+    ms, plain_ms = (median_ms(kernel), median_ms(plain)) if timed else (None, None)
+    times = f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms" if timed else "(not timed)"
+    print(f"  {name:24s} {shape:34s} max|diff| {err:.3e} ({worst:.3g} of tol)  {times}",
+          flush=True)
+    return {"shape": shape, "max_abs_err": err, "err_over_tol": worst, "ms": ms,
+            "plain_ms": plain_ms}
 
 
 def kernels_vs_plain(params: dict, config, device) -> dict:
@@ -155,6 +207,99 @@ def kernels_vs_plain(params: dict, config, device) -> dict:
             "flash_rel_attention", f"B=2 H={heads} L={L} d={d} len=({L - 5},0)",
             lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens),
             lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens)))
+    return results
+
+
+def training_kernels_vs_plain(params: dict, config, device) -> dict:
+    """Phase 3, training kernels: kernel A's lse and kernel 4 at B=2, L=512 (lengths
+    507 and 0), kernel 5 at the decoded-segment shapes of 32 frames, batch 4."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.cuda.resblock import pair_weights
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trainable_trio,
+        trio_backward,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+
+    rng = np.random.default_rng(2)
+    results = {"flash_rel_attention": [], "trainable_rel_attention": [], "trainable_trio": []}
+    layer = ParamView(params).sub("text_encoder.encoder.layers.0.attention")
+    heads, d, w, L = config.num_attention_heads, config.head_dim, config.window_size, 512
+    q, k, v, dout = (torch.tensor(rng.standard_normal((2, heads, L, d)) * 0.5,
+                                  dtype=torch.float32, device=device) for _ in range(4))
+    rel = (layer["emb_rel_k"][0], layer["emb_rel_v"][0])
+    lens = torch.tensor([L - 5, 0], dtype=torch.int32, device=device)
+    shape = f"B=2 H={heads} L={L} d={d} len=({L - 5},0)"
+    out, lse = flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True)
+    if not bool(torch.isfinite(lse).all()):
+        raise RuntimeError("kernel A: non-finite lse (a length-0 row must stay finite)")
+    results["flash_rel_attention"].append(compare(
+        "flash_rel_attention+lse", shape + " lse row 0",
+        lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True)[1][0],
+        lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens,
+                                        return_lse=True)[1][0]))
+
+    def valid(grads):  # row 0 up to its length, the length-0 row whole, the rel tables
+        return (*(g[0, :, :L - 5] for g in grads[:3]), *(g[1] for g in grads[:3]), *grads[3:])
+    args = (q, k, v, *rel, lse, dout, out)
+    results["trainable_rel_attention"].append(compare(
+        "rel_attention_bwd", shape + " valid region",
+        lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens)),
+        lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens))))
+
+    decoder = ParamView(params).sub("decoder")
+    slope = config.leaky_relu_slope
+    for i, T in ((0, 256), (1, 2048)):
+        blocks = [{**blk, **{n: [t.detach().clone().requires_grad_() for t in blk[n]]
+                             for n in ("w1", "b1", "w2", "b2")}}
+                  for blk in _stage_resblocks(decoder, config, i)]
+        C = blocks[0]["w1"][0].shape[-1]
+        x = torch.tensor(rng.standard_normal((4, T, C)), dtype=torch.float32, device=device)
+        g = torch.tensor(rng.standard_normal((4, T, C)), dtype=torch.float32, device=device)
+        shape = f"B=4 C={C} T={T}"
+
+        def flat(out_acts):
+            return (out_acts[0], *flat_acts(out_acts[1]))
+
+        with torch.no_grad():
+            results["trainable_trio"].append(compare(
+                "trio_forward_with_acts", shape + " out+acts",
+                lambda: flat(trio_forward_with_acts(x, blocks, slope=slope)),
+                lambda: flat(trio_forward_with_acts_reference(x, blocks, slope=slope))))
+            kernel_acts = flat_acts(trio_forward_with_acts(x, blocks, slope=slope)[1])
+            plain_acts = flat_acts(trio_forward_with_acts_reference(x, blocks, slope=slope)[1])
+            flips = sum(int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(kernel_acts, plain_acts))
+        print(f"  saved activations of opposite sign, kernel vs plain: {flips} of "
+              f"{sum(a.numel() for a in plain_acts)}", flush=True)
+        xg = x.clone().requires_grad_()
+        leaves = [xg, *pair_weights(blocks)]
+
+        def plain_grads():
+            out = trio_forward_with_acts_reference(xg, blocks, slope=slope)[0]
+            return torch.autograd.grad((out * g).sum(), leaves)
+
+        def backward_on_plain_acts():
+            with torch.no_grad():
+                dx, dweights = trio_backward(g, x, blocks, plain_acts, slope=slope)
+            return (dx, *dweights)
+
+        # the backward alone, on the activations plain autograd saves itself
+        results["trainable_trio"].append(compare(
+            "trio_backward", shape + " grads on plain acts", backward_on_plain_acts,
+            plain_grads, grad_rtol=GRAD_RTOL, timed=False))
+        results["trainable_trio"].append(compare(
+            "trainable_trio fwd+bwd", shape + " grads",
+            lambda: torch.autograd.grad((trainable_trio(xg, blocks, slope=slope) * g).sum(),
+                                        leaves),
+            plain_grads, grad_rtol=FLIP_GRAD_RTOL if flips else GRAD_RTOL))
     return results
 
 
@@ -277,12 +422,349 @@ def card_vs_cpu(model) -> None:
         raise RuntimeError("card and CPU disagree past the tolerance")
 
 
+def training_batch(config, device, token_lengths=(512, 300), frame_lengths=(1280, 800)):
+    """A seeded batch padded to 512 tokens (so kernels A-with-lse and 4 run) and 1280 frames."""
+    from vits_tpu_torch.train.data import linear_spectrogram
+    from vits_tpu_torch.train.step import TrainBatch, batch_to
+
+    rng = np.random.default_rng(3)
+    B, T, S, up = len(token_lengths), max(token_lengths), max(frame_lengths), config.total_upsample
+    ids = np.zeros((B, T), np.int64)
+    token_mask = np.zeros((B, T), np.float32)
+    spec = np.zeros((B, S, config.spectrogram_bins), np.float32)
+    frame_mask = np.zeros((B, S), np.float32)
+    audio = np.zeros((B, S * up), np.float32)
+    for b, (t, f) in enumerate(zip(token_lengths, frame_lengths)):
+        ids[b, :t] = rng.integers(1, config.vocab_size, t)
+        token_mask[b, :t] = 1.0
+        audio[b, : f * up] = (rng.standard_normal(f * up) * 0.1).astype(np.float32)
+        spec[b, :f] = linear_spectrogram(audio[b, : f * up], 2 * (config.spectrogram_bins - 1),
+                                         up)[:f]
+        frame_mask[b, :f] = 1.0
+    return batch_to(TrainBatch(ids, token_mask, spec, frame_mask, audio), device)
+
+
+def gan_steps(config, device, card: str) -> dict:
+    """Phase 5a: three GAN steps at full MMS width; the launch counts over them."""
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.io.params import from_jax_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+    from vits_tpu_torch.ops.cuda.trio_grad import trio_forward_with_acts
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import make_gan_train_step
+
+    gen = {k: v.requires_grad_() for k, v in
+           from_jax_params(random_params(config, seed=0, keep_training=True), device).items()}
+    disc = {k: v.requires_grad_() for k, v in
+            from_jax_params(init_discriminator_params(0), device).items()}
+    n_gen, n_disc = (sum(p.numel() for p in ps.values()) for ps in (gen, disc))
+    step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen), vits_optimizer(disc))
+    batch = training_batch(config, device)
+    before = {k: p.detach().clone() for k, p in {**gen, **disc}.items()}
+
+    # the inference kernels refuse autograd (their output would carry no grad_fn)
+    x = torch.zeros((1, 64, 256), device=device, requires_grad=True)
+    blocks = [{"kernel_size": 3, "dilations": (1,), "w1": [gen["decoder.resblocks.0.convs1.0.weight"]],
+               "b1": [gen["decoder.resblocks.0.convs1.0.bias"]],
+               "w2": [gen["decoder.resblocks.0.convs2.0.weight"]],
+               "b2": [gen["decoder.resblocks.0.convs2.0.bias"]]}]
+    try:
+        fused_resblock_trio(x, blocks, slope=config.leaky_relu_slope)
+    except RuntimeError as err:
+        if "no backward" not in str(err):
+            raise
+    else:
+        raise RuntimeError("kernel B ran under autograd instead of refusing")
+    print("  kernel B under autograd: refused (no backward), as it must", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    noise_gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    step_fn(batch, noise_gen)
+    torch.cuda.synchronize()
+    print(f"  warm-up GAN step: {1e3 * (time.perf_counter() - t0):.1f} ms (first use of "
+          "cuDNN/cuBLAS at these shapes)", flush=True)
+
+    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts,
+                fused_resblock_trio, fused_stage)
+    for fn in wrappers:
+        fn.launches = 0
+    flash_rel_attention.lse_launches = 0
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        metrics = step_fn(batch, noise_gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        values = {k: float(v) for k, v in metrics._asdict().items()}
+        print(f"  GAN step {i + 1}: {times[-1]:.1f} ms  "
+              + " ".join(f"{k}={v:.4g}" for k, v in values.items()), flush=True)
+        if not all(np.isfinite(v) for v in values.values()):
+            raise RuntimeError(f"GAN step {i + 1}: non-finite loss {values}")
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches["flash_rel_attention_lse"] = flash_rel_attention.lse_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches over the 3 steps: {launches}", flush=True)
+    print(f"  median {float(np.median(times)):.1f} ms per step after the warm-up (B=2, 512 "
+          f"tokens, 1280 frames, {n_gen / 1e6:.1f} M generator + {n_disc / 1e6:.1f} M "
+          f"discriminator parameters), peak {peak_gib:.2f} GiB allocated ({card})", flush=True)
+    for name in ("flash_rel_attention_lse", "rel_attention_bwd", "trio_forward_with_acts"):
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was never launched on the training path")
+    for name in ("fused_resblock_trio", "fused_stage"):
+        if launches[name]:
+            raise RuntimeError(f"inference kernel {name} launched on the training path")
+    if launches["flash_rel_attention"] != launches["flash_rel_attention_lse"]:
+        raise RuntimeError("kernel A launched without lse on the training path")
+    for name, p in {**gen, **disc}.items():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise RuntimeError(f"parameter {name}: no finite gradient")
+        if torch.equal(p.detach(), before[name]):
+            raise RuntimeError(f"parameter {name} did not move in 3 steps")
+    print(f"  all {len(gen)} generator and {len(disc)} discriminator parameters have finite "
+          "gradients and moved", flush=True)
+    profile = profile_step(step_fn, batch, noise_gen, float(np.median(times)), card)
+    initial = {k: before[k].requires_grad_() for k in gen}
+    return {"launches": launches, "step_ms": times, "peak_gib": peak_gib, "gen": initial,
+            "batch": batch, "profile": profile}
+
+
+# Call sites of one GAN step, names in ``vits_tpu_torch.train.step``.
+STEP_SITES = ("text_encoder", "posterior_encoder", "residual_coupling_forward",
+              "prior_log_likelihood", "monotonic_align", "stochastic_duration_predictor_nll",
+              "hifigan", "log_mel_spectrogram", "discriminate", "gradients", "_apply")
+# Device kernel families, by the first pattern their name contains.
+KERNEL_FAMILIES = (
+    ("port kernels A, 4, 5", ("rel_attention_kernel", "dq_kernel", "dkv_kernel",
+                              "conv_kernel<")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce",)),
+    ("FFT", ("fft",)),
+    ("cuDNN convolutions", ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm", "conv")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass")),
+)
+
+
+def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict:
+    """Phase 5: where one GAN step's time goes.
+
+    One step with a synchronisation before and after each call site of the
+    step, timed on the host clock. Then one step under ``torch.profiler``:
+    device busy time (the union of its kernel, memcpy and memset intervals),
+    launches and device ms per kernel family, and the device idle share of the
+    steady step (1 - busy / median ms).
+    """
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vits_tpu_torch.train import step as step_module
+
+    spent = dict.fromkeys(STEP_SITES, 0.0)
+    originals = {name: getattr(step_module, name) for name in STEP_SITES}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += 1e3 * (time.perf_counter() - start)
+            return out
+        return call
+
+    try:
+        for name, fn in originals.items():
+            setattr(step_module, name, timed(name, fn))
+        t0 = time.perf_counter()
+        step_fn(batch, noise_gen)
+        torch.cuda.synchronize()
+        sites_wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for name, fn in originals.items():
+            setattr(step_module, name, fn)
+    print(f"  call sites of one GAN step, each between synchronisations ({sites_wall_ms:.1f} ms "
+          f"wall; {card}):", flush=True)
+    for name, ms in sorted(spent.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:34s} {ms:8.2f} ms", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(batch, noise_gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise RuntimeError("the profiler saw no device activity in a GAN step")
+    busy_ms, end = 0.0, -np.inf
+    for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy_ms += max(0.0, stop - max(start, end)) / 1e3
+        end = max(end, stop)
+    families: dict[str, list] = {}
+    for e in device:
+        name = e["name"] if e["cat"] == "kernel" else e["cat"]
+        family = next((fam for fam, keys in KERNEL_FAMILIES if any(k in name for k in keys)),
+                      "memcpy/memset" if e["cat"] != "kernel" else "other")
+        entry = families.setdefault(family, [0.0, 0])
+        entry[0] += e["dur"] / 1e3
+        entry[1] += 1
+    idle = 1.0 - busy_ms / steady_ms
+    print(f"  profiled GAN step: {wall_ms:.1f} ms wall under the profiler, {len(device)} device "
+          f"operations, device busy {busy_ms:.1f} ms, idle share of the {steady_ms:.1f} ms "
+          f"steady step {idle:.3f} ({card})", flush=True)
+    for family, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {family:24s} {ms:8.2f} ms  {n:6d} launches", flush=True)
+    return {"sites_ms": spent, "sites_wall_ms": sites_wall_ms, "wall_ms_profiled": wall_ms,
+            "device_busy_ms": busy_ms, "idle_share": idle, "device_ops": len(device),
+            "families_ms": {k: v[0] for k, v in families.items()}}
+
+
+def train_card_vs_cpu(config, gen: dict, batch) -> None:
+    """Phase 5b: one generator_loss and its gradients on the card vs the plain CPU path.
+
+    ``gen`` are the weights the GAN steps started from: the weights after the
+    steps differ between runs (cuDNN's backward is not bit-reproducible), and
+    so would the bounds.
+    """
+    from vits_tpu_torch.train.step import (
+        TrainBatch,
+        TrainNoise,
+        draw_noise,
+        generator_forward,
+        gradients,
+    )
+
+    noise = draw_noise(config, batch,
+                       torch.Generator(device=batch.input_ids.device).manual_seed(1))
+
+    def run(params, batch, noise):
+        out = generator_forward(params, config, batch, noise)
+        return out, [g.detach().cpu() for g in gradients(out.loss, params)]
+
+    card_out, card_g = run(gen, batch, noise)
+    cpu = lambda t: None if t is None else t.detach().cpu()  # noqa: E731
+    cpu_batch, cpu_noise = TrainBatch(*map(cpu, batch)), TrainNoise(*map(cpu, noise))
+    rng = torch.Generator().manual_seed(2)
+    runs = []
+    # the CPU result, then its noise floor: every weight moved by 1e-7, FLOOR_SAMPLES times
+    for rel in (0.0,) + (1e-7,) * FLOOR_SAMPLES:
+        params = {k: (p.detach().cpu() * (1 + rel * torch.randn(p.shape, generator=rng)))
+                  .requires_grad_() for k, p in gen.items()}
+        t0 = time.perf_counter()
+        runs.append(run(params, cpu_batch, cpu_noise))
+        print(f"  CPU generator_loss + gradients: {time.perf_counter() - t0:.1f} s", flush=True)
+    (cpu_out, cpu_g), perts = runs[0], runs[1:]
+    if not torch.equal(card_out.durations.cpu(), cpu_out.durations):
+        raise RuntimeError("card and CPU MAS durations differ")
+    if not all(torch.equal(out.durations, cpu_out.durations) for out, _ in perts):
+        raise RuntimeError("a 1e-7 weight perturbation changed the CPU MAS durations")
+    for name in cpu_out.metrics._fields:
+        c, g = (float(getattr(o.metrics, name).detach()) for o in (cpu_out, card_out))
+        floor = max(abs(float(getattr(o.metrics, name).detach()) - c) for o, _ in perts)
+        bound = 10 * floor + 1e-6 * max(1.0, abs(c))
+        print(f"  {name}: card {g:.7g}  CPU {c:.7g}  |diff| {abs(g - c):.3e}  "
+              f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
+        if not abs(g - c) <= bound:
+            raise RuntimeError(f"card and CPU {name} differ past the bound")
+    # Relative L2 error of the card's gradients against the CPU's, beside the
+    # same measure of the CPU's noise floor: per module (all its tensors) within
+    # 10x the module's floor, and per tensor within TENSOR_FLOOR_FACTOR x the
+    # larger of its own and its module's floor (a tensor's floor is a noisy
+    # estimate, and the worst of ~700 tensors reached 6.6x a one-sample floor on
+    # an H100; a wrong or missing tensor is off by ~1, far past that bound).
+    # A tensor whose own floor passes NOISY_GRAD is rounding noise (the
+    # attention key biases: their exact gradient is 0, softmax being shift-
+    # invariant), and is held in its module's units against the module's bound.
+    def rel(a, b, scale):
+        return float(torch.linalg.vector_norm(a - b)) / scale
+
+    groups: dict[str, list] = {}
+    for i, name in enumerate(gen):
+        groups.setdefault(name.split(".")[0], []).append(
+            (name, card_g[i], cpu_g[i], [grads[i] for _, grads in perts]))
+    for module, items in groups.items():
+        g, c = (torch.cat([t[i].flatten() for t in items]) for i in (1, 2))
+        norm = float(torch.linalg.vector_norm(c))
+        err = rel(g, c, norm)
+        floor = max(rel(torch.cat([t[3][j].flatten() for t in items]), c, norm)
+                    for j in range(FLOOR_SAMPLES))
+        bound = 10 * floor + 1e-6
+        worst, worst_name, noisy = 0.0, items[0][0], []
+        for name, tg, tc, tps in items:
+            scale = float(torch.linalg.vector_norm(tc)) or norm
+            t_floor = max(rel(tp, tc, scale) for tp in tps)
+            if t_floor > NOISY_GRAD:
+                noisy.append(name)
+                t_err, t_bound = rel(tg, tc, norm), bound
+            else:
+                t_err = rel(tg, tc, scale)
+                t_bound = TENSOR_FLOOR_FACTOR * max(t_floor, floor) + 1e-6
+            if not t_err <= t_bound:
+                raise RuntimeError(f"card and CPU gradients of {name} differ: relative L2 "
+                                   f"{t_err:.3e} > {t_bound:.3e}")
+            if t_err / t_bound > worst:
+                worst, worst_name = t_err / t_bound, name
+        print(f"  gradients of {module} ({len(items)} tensors): card vs CPU relative L2 "
+              f"{err:.3e}, max|diff| {float((g - c).abs().max()):.3e} of max "
+              f"{float(c.abs().max()):.3e} (noise floor {floor:.3e}, bound {bound:.3e}); "
+              f"worst tensor {worst_name} at {worst:.3f} of its bound; rounding noise on the "
+              f"CPU: {noisy or 'none'}", flush=True)
+        if not err <= bound:
+            raise RuntimeError(f"card and CPU gradients of {module} differ past the bound")
+    print(f"  card vs CPU: equal MAS durations ({int(cpu_out.durations.sum())} frames), "
+          "losses and gradients within bounds", flush=True)
+
+
+def train_loop(card: str) -> None:
+    """Phase 5c: ``train()`` on a synthetic micro-corpus, checkpoints, then a resume."""
+    import tempfile
+
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
+    from vits_tpu_torch.train.loop import train
+
+    config = VitsConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, model, out_dir = f"{tmp}/corpus", f"{tmp}/model.ggml", f"{tmp}/run"
+        generate_micro_corpus(corpus, n_utts=16)
+        tokenizer = VitsTokenizer(vocab=corpus_vocab(), pad_token="_", unk_token="?")
+        export_to_ggml(model, config, tokenizer, random_params(config, seed=0,
+                                                               keep_training=True),
+                       fp16_convs=False)
+        for steps in (4, 6):
+            logs, rates = [], []
+            t0 = time.perf_counter()
+            gen = train(corpus, model, out_dir, steps=steps, batch_size=4, checkpoint_every=2,
+                        log_every=1, log=logs.append, device="cuda",
+                        metrics_hook=lambda step, values, rate: rates.append(rate))
+            torch.cuda.synchronize()
+            for line in logs:
+                print(f"    {line}", flush=True)
+            if not all(bool(torch.isfinite(p).all()) for p in gen.values()):
+                raise RuntimeError("train(): non-finite parameters")
+            print(f"  train(steps={steps}): {time.perf_counter() - t0:.1f} s wall, median "
+                  f"{float(np.median(rates)):.2f} it/s ({card})", flush=True)
+        expected = ("resumed from step 4", "restored EMA weights", "checkpointed step 6")
+        if not all(e in logs for e in expected):
+            raise RuntimeError(f"resume to step 6 did not run as expected: {logs}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     device = torch.device("cuda")
     card = card_line()
-    print("[1/4] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/5] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -291,38 +773,64 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/4] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/5] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     model = mms_model(device)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/4] kernels vs plain on the card ({card}), tolerance "
-          f"{KERNEL_TOL} x max(1, max|plain|):", flush=True)
+    print(f"[3/5] kernels vs plain on the card ({card}), tolerance "
+          f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
+    for name, runs in training_kernels_vs_plain(model.params, model.config, device).items():
+        measured.setdefault(name, []).extend(runs)
 
-    print(f"[4/4] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/5] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     launches = run_slice(model, card)
     card_vs_cpu(model)
 
+    print(f"[5/5] training at MMS-TTS width, random weights ({card}):", flush=True)
+    config = model.config
+    del model
+    trained = gan_steps(config, device, card)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 must be off on the training path")
+    train_card_vs_cpu(config, trained["gen"], trained["batch"])
+    del trained["gen"], trained["batch"]
+    train_loop(card)
+
+    train_launches = trained["launches"]
     sources = {
         "flash_rel_attention": ("vits_tpu_torch/csrc/rel_attention.cu",
-                                "vits_tpu/ops/pallas/attention.py:97"),
+                                "vits_tpu/ops/pallas/attention.py:97", launches),
         "fused_resblock_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
-                                "vits_tpu/ops/pallas/resblock.py:238"),
-        "fused_stage": ("vits_tpu_torch/csrc/stage.cu", "vits_tpu/ops/pallas/stage.py:379"),
+                                "vits_tpu/ops/pallas/resblock.py:238", launches),
+        "fused_stage": ("vits_tpu_torch/csrc/stage.cu", "vits_tpu/ops/pallas/stage.py:379",
+                        launches),
+        "trainable_rel_attention": ("vits_tpu_torch/csrc/rel_attention_bwd.cu",
+                                    "vits_tpu/ops/pallas/attention_grad.py:262",
+                                    {"trainable_rel_attention":
+                                     train_launches["rel_attention_bwd"]}),
+        "trainable_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
+                           "vits_tpu/ops/pallas/trio_grad.py:183",
+                           {"trainable_trio": train_launches["trio_forward_with_acts"]}),
     }
     report = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": sources[name][0],
         "replaces": sources[name][1],
-        "launches": launches[name],
+        "launches": sources[name][2][name],
         "max_abs_err": max(r["max_abs_err"] for r in runs),
-        "ms": sum(r["ms"] for r in runs),
-        "plain_ms": sum(r["plain_ms"] for r in runs),
+        "ms": sum(r["ms"] for r in runs if r["ms"] is not None),
+        "plain_ms": sum(r["plain_ms"] for r in runs if r["ms"] is not None),
         "shapes": runs,
     } for name, runs in measured.items()]}
+    for entry in report["kernels"]:
+        if entry["name"] == "flash_rel_attention":
+            entry["lse_launches_training"] = train_launches["flash_rel_attention_lse"]
+    report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
+                          "profile": trained["profile"], "card": card}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,3 +100,99 @@ def test_attention_kernel_matches_plain_on_card(cuda_device):
     assert bool(torch.isfinite(got).all())
     _assert_close(got.cpu(), rel_attention_reference(q, k, v, rel_k, rel_v, window=w,
                                                      lengths=lens).cpu())
+
+
+@pytest.mark.cuda
+def test_attention_lse_and_backward_match_plain_on_card(cuda_device):
+    """Kernel A's lse and kernel 4's five gradients vs the plain versions, valid region."""
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    B, H, L, d, w = 3, 2, 77, 96, 4
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, dtype=torch.float32, device=cuda_device)
+    q, k, v, dout = (dev(B, H, L, d) for _ in range(4))
+    rel_k, rel_v = dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lengths = [77, 0, 30]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = flash_rel_attention.lse_launches
+    out, lse = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                   return_lse=True)
+    assert flash_rel_attention.lse_launches == before + 1
+    _, want_lse = rel_attention_reference(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                          return_lse=True)
+    assert bool(torch.isfinite(lse).all())
+    for b in range(B):  # per row: the length-0 row's lse is near finfo.min
+        _assert_close(lse[b].cpu(), want_lse[b].cpu())
+    before = rel_attention_bwd.launches
+    got = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, window=w, lengths=lens)
+    assert rel_attention_bwd.launches == before + 1
+    want = rel_attention_bwd_reference(q, k, v, rel_k, rel_v, lse, dout, out, window=w,
+                                       lengths=lens)
+    for g, ref in zip(got[:3], want[:3]):
+        for b, n in enumerate(lengths):
+            if n:
+                _assert_close(g[b, :, :n].cpu(), ref[b, :, :n].cpu())
+    for g, ref in zip(got[3:], want[3:]):
+        _assert_close(g.cpu(), ref.cpu())
+    again = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, window=w, lengths=lens)
+    for g, g2 in zip(got, again):  # no atomics: repeated runs are bit-identical
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_trainable_trio_matches_plain_on_card(cuda_device):
+    """Kernel 5's output, saved activations and autograd gradients vs the plain versions."""
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        trainable_trio,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((2, 100, 128)), dtype=torch.float32,
+                     device=cuda_device)
+    blocks = _to(_blocks(rng, 128, scale=0.03),
+                 lambda a: torch.tensor(a, device=cuda_device, requires_grad=True))
+    with torch.no_grad():
+        out, acts = trio_forward_with_acts(x, blocks, slope=SLOPE)
+        want, want_acts = trio_forward_with_acts_reference(x, blocks, slope=SLOPE)
+    _assert_close(out.cpu(), want.cpu())
+    for (y1s, xs), (wy1s, wxs) in zip(acts, want_acts):
+        for a, b in zip([*y1s, *xs], [*wy1s, *wxs]):
+            _assert_close(a.cpu(), b.cpu())
+    g = torch.tensor(rng.standard_normal((2, 100, 128)), dtype=torch.float32,
+                     device=cuda_device)
+    xg = x.clone().requires_grad_()
+    leaves = [xg] + [blk[n] for blk in blocks for n in ("w1", "b1", "w2", "b2")]
+    before = trio_forward_with_acts.launches
+    got = torch.autograd.grad((trainable_trio(xg, blocks, slope=SLOPE) * g).sum(), leaves)
+    assert trio_forward_with_acts.launches == before + 1
+    ref = torch.autograd.grad((resblock_trio_reference(xg, blocks, slope=SLOPE) * g).sum(),
+                              leaves)
+    for a, b in zip(got, ref):
+        _assert_close(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_inference_kernels_refuse_autograd(cuda_device):
+    """Kernels A (without lse), B and C have no backward: under autograd they raise."""
+    rng = np.random.default_rng(6)
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.1, dtype=torch.float32, device=cuda_device)
+    q, rel = dev(1, 2, 16, 32).requires_grad_(), dev(9, 32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_rel_attention(q, q, q, rel, rel, window=4)
+    blocks = _to(_blocks(rng, 128), lambda a: torch.tensor(a, device=cuda_device))
+    x = dev(1, 32, 128).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_resblock_trio(x, blocks, slope=SLOPE)
+    up_w, up_b = dev(4, 64, 32).requires_grad_(), dev(32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_stage(dev(1, 16, 64), up_w, up_b, _to(_blocks(rng, 32), lambda a: torch.tensor(
+            a, device=cuda_device)), stride=2, up_padding=1, slope=SLOPE)
+    with torch.no_grad():  # the serving path: no autograd, the kernels run
+        assert fused_resblock_trio(x, blocks, slope=SLOPE).shape == x.shape

@@ -2,12 +2,16 @@
 
 Same synthesis path as the JAX package, which stays the reference: text
 encoder with relative-position attention, stochastic duration predictor,
-duration alignment, reverse coupling flow and HiFiGAN vocoder. The three
-kernels of that path are hand-written CUDA for sm_90a (``csrc/``), built on
-first use; on CPU tensors each takes its plain PyTorch version.
+duration alignment, reverse coupling flow and HiFiGAN vocoder; and the same
+adversarial training path (``vits_tpu_torch.train``). The kernels of both
+paths are hand-written CUDA for sm_90a (``csrc/``), built on first use; on
+CPU tensors each takes its plain PyTorch version.
 
     model = vits_tpu_torch.load_model("voice.ggml", device="cuda")
     audio = model.synthesize("hello world")  # float32 PCM
+
+    from vits_tpu_torch.train.loop import train
+    train("corpus/", "voice.ggml", "run/", steps=1000, device="cuda")
 
 The package imports torch and the JAX-free host modules of ``vits_tpu``
 (config, io, text), never jax.

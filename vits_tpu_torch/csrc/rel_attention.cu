@@ -5,7 +5,9 @@
 //             + (j < len ? 0 : finfo(float32).min)
 //   out_i   = sum_j p[i, j] v_j + sum_{|r - w| <= w} p[i, i + r - w] rel_v[r]
 //
-// q arrives pre-scaled by 1/sqrt(d). Replaces
+// q arrives pre-scaled by 1/sqrt(d). With a non-null lse the kernel also
+// writes each query row's logsumexp m + log(l), the residual the backward
+// (rel_attention_bwd.cu) rebuilds the probabilities from. Replaces
 // vits_tpu/ops/pallas/attention.py::flash_rel_attention (_attn_kernel). The key
 // mask is the module's finite additive finfo.min, never -inf: a padding row
 // (len = 0) then gets a uniform softmax over its keys and stays finite, like
@@ -49,7 +51,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ rel_k,
                          const float* __restrict__ rel_v, const int* __restrict__ lengths,
-                         float* __restrict__ out, int H, int L, int d, int w) {
+                         float* __restrict__ out, float* __restrict__ lse, int H, int L,
+                         int d, int w) {
   extern __shared__ float smem[];
   const int nr = 2 * w + 1;
   const int dk = d + 1;  // padded K rows: lanes read one channel of 32 different keys
@@ -66,6 +69,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float* kh = k + head;
   const float* vh = v + head;
   float* oh = out + head;
+  float* lseh = lse ? lse + ((size_t)b * H + blockIdx.y) * L : nullptr;
   const int len = lengths[b];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -165,6 +169,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int c = lane + 32 * cc;
         if (c < d) oh[(size_t)i * d + c] = o[cc];
       }
+      if (lseh && lane == 0) lseh[i] = m[u] + logf(l[u]);
     }
   }
 }
@@ -173,7 +178,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 VK_EXPORT int vk_rel_attention(const float* q, const float* k, const float* v,
                                const float* rel_k, const float* rel_v, const int* lengths,
-                               float* out, int B, int H, int L, int d, int w, void* stream) {
+                               float* out, float* lse, int B, int H, int L, int d, int w,
+                               void* stream) {
   const int nr = 2 * w + 1;
   if (d < 1 || d > 32 * kMaxDPerLane || w < 0 || nr > 32 || L < 1) return cudaErrorInvalidValue;
   const int smem =
@@ -182,6 +188,6 @@ VK_EXPORT int vk_rel_attention(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kTQ - 1) / kTQ, H, B);
   rel_attention_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, rel_k, rel_v, lengths, out, H, L, d, w);
+      q, k, v, rel_k, rel_v, lengths, out, lse, H, L, d, w);
   return cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""JAX-package parameters -> the port's tensors.
+"""JAX-package parameters <-> the port's tensors.
 
 The port keeps the JAX package's canonical layouts (``vits_tpu/io/params.py``):
 Linear ``(in, out)``, Conv1d ``(k, in/groups, out)``, ConvTranspose1d
@@ -32,6 +32,15 @@ def from_jax_params(params: Mapping[str, np.ndarray], device) -> dict[str, torch
     for name, value in params.items():
         out[name] = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
     return out
+
+
+def to_jax_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of :func:`from_jax_params`: fp32 numpy arrays in the canonical layout.
+
+    What checkpoints write and ``vits_tpu.io.loader.export_to_ggml`` reads.
+    """
+    return {name: np.ascontiguousarray(value.detach().to("cpu", torch.float32).numpy())
+            for name, value in params.items()}
 
 
 class ParamView:

@@ -1,9 +1,10 @@
-"""Duration predictors: stochastic (normalizing-flow, reverse direction) and
+"""Duration predictors: stochastic (normalizing-flow, both directions) and
 deterministic.
 
 Counterpart of ``vits_tpu/models/duration.py``. Layout (batch, time,
-channels); channel flips are along the last axis. The training (NLL)
-direction is not ported yet.
+channels); channel flips are along the last axis. The sampling direction
+serves synthesis; the NLL (:func:`stochastic_duration_predictor_nll`) is the
+training direction, with the flows' log-determinants.
 """
 
 from __future__ import annotations
@@ -52,8 +53,9 @@ def conv_flow(
     inputs: torch.Tensor,  # (B, T, depth_separable_channels)
     padding_mask: torch.Tensor,
     global_conditioning: torch.Tensor | None,
-) -> torch.Tensor:
-    """Spline coupling flow, sampling (reverse) direction."""
+    reverse: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Spline coupling flow: (outputs, log-determinant (B,) or None when reverse)."""
     half = config.depth_separable_channels // 2
     num_bins = config.duration_predictor_flow_bins
     first_half, second_half = inputs[..., :half], inputs[..., half:]
@@ -67,22 +69,28 @@ def conv_flow(
     # channel split order matches HF's reshape(B, half, 3nb-1, T) on channels-first data
     h = h.reshape(batch, length, half, num_bins * 3 - 1)
     scale = 1.0 / math.sqrt(config.hidden_size)
-    second_half, _ = unconstrained_rational_quadratic_spline(
+    second_half, log_abs_det = unconstrained_rational_quadratic_spline(
         second_half,
         h[..., :num_bins] * scale,
         h[..., num_bins : 2 * num_bins] * scale,
         h[..., 2 * num_bins :],
-        reverse=True,
+        reverse=reverse,
         tail_bound=config.duration_predictor_tail_bound,
     )
-    return torch.cat([first_half, second_half], dim=-1) * padding_mask
+    outputs = torch.cat([first_half, second_half], dim=-1) * padding_mask
+    if reverse:
+        return outputs, None
+    return outputs, torch.sum(log_abs_det * padding_mask, dim=(1, 2))
 
 
-def elementwise_affine(p: ParamView, inputs: torch.Tensor,
-                       padding_mask: torch.Tensor) -> torch.Tensor:
-    """Elementwise affine flow, reverse: (x - translate) * exp(-log_scale); params (C, 1)."""
+def elementwise_affine(p: ParamView, inputs: torch.Tensor, padding_mask: torch.Tensor,
+                       reverse: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Elementwise affine flow, params (C, 1): (outputs, log-det (B,) or None when reverse)."""
     translate, log_scale = p["translate"][:, 0], p["log_scale"][:, 0]
-    return (inputs - translate) * torch.exp(-log_scale) * padding_mask
+    if reverse:
+        return (inputs - translate) * torch.exp(-log_scale) * padding_mask, None
+    outputs = (translate + torch.exp(log_scale) * inputs) * padding_mask
+    return outputs, torch.sum(log_scale * padding_mask, dim=(1, 2))
 
 
 def stochastic_duration_predictor_reverse(
@@ -108,10 +116,56 @@ def stochastic_duration_predictor_reverse(
         latents = torch.flip(latents, dims=(-1,))
         fp = p.sub(f"flows.{i}")
         if i == 0:
-            latents = elementwise_affine(fp, latents, padding_mask)
+            latents, _ = elementwise_affine(fp, latents, padding_mask)
         else:
-            latents = conv_flow(fp, config, latents, padding_mask, h)
+            latents, _ = conv_flow(fp, config, latents, padding_mask, h)
     return latents[..., :1]
+
+
+def stochastic_duration_predictor_nll(
+    params: ParamView,
+    config: VitsConfig,
+    inputs: torch.Tensor,  # (B, T, hidden), the (stop-grad) encoder output
+    padding_mask: torch.Tensor,  # (B, T, 1)
+    durations: torch.Tensor,  # (B, T, 1) target durations
+    posterior_noise: torch.Tensor,  # (B, T, 2) standard normal
+) -> torch.Tensor:
+    """Training direction: negative log-likelihood of the target durations, (B,)."""
+    p = params.sub("duration_predictor")
+    h = conv1d(inputs, p["conv_pre.weight"], p["conv_pre.bias"])
+    h = dilated_depth_separable_conv(p.sub("conv_dds"), config, h, padding_mask)
+    h = conv1d(h, p["conv_proj.weight"], p["conv_proj.bias"]) * padding_mask
+
+    hd = conv1d(durations, p["post_conv_pre.weight"], p["post_conv_pre.bias"])
+    hd = dilated_depth_separable_conv(p.sub("post_conv_dds"), config, hd, padding_mask)
+    hd = conv1d(hd, p["post_conv_proj.weight"], p["post_conv_proj.bias"]) * padding_mask
+
+    def run_flows(prefix, latents, cond, log_det):
+        for i in range(config.duration_predictor_num_flows + 1):
+            fp = p.sub(f"{prefix}.{i}")
+            if i == 0:
+                latents, ld = elementwise_affine(fp, latents, padding_mask, reverse=False)
+            else:
+                latents, ld = conv_flow(fp, config, latents, padding_mask, cond, reverse=False)
+            latents = torch.flip(latents, dims=(-1,))
+            log_det = log_det + ld
+        return latents, log_det
+
+    random_posterior = posterior_noise * padding_mask
+    latents_posterior, log_det_posterior = run_flows("post_flows", random_posterior, h + hd, 0.0)
+    first_half, second_half = latents_posterior[..., :1], latents_posterior[..., 1:]
+    log_det_posterior = log_det_posterior + torch.sum(
+        (F.logsigmoid(first_half) + F.logsigmoid(-first_half)) * padding_mask, dim=(1, 2))
+    logq = torch.sum(-0.5 * (math.log(2 * math.pi) + random_posterior**2) * padding_mask,
+                     dim=(1, 2)) - log_det_posterior
+
+    first_half = (durations - torch.sigmoid(first_half)) * padding_mask
+    first_half = torch.log(torch.clamp(first_half, min=1e-5)) * padding_mask
+    latents, log_det_sum = run_flows("flows", torch.cat([first_half, second_half], dim=-1), h,
+                                     torch.sum(-first_half, dim=(1, 2)))
+    nll = torch.sum(0.5 * (math.log(2 * math.pi) + latents**2) * padding_mask,
+                    dim=(1, 2)) - log_det_sum
+    return nll + logq
 
 
 def duration_predictor(

@@ -1,8 +1,12 @@
 """VITS text encoder: transformer with windowed relative-position attention.
 
-Counterpart of ``vits_tpu/models/encoder.py``. Self-attention always goes
-through kernel A (``ops/cuda/attention.py``), which takes its plain version
-on the CPU; the projections and the conv-FFN are plain PyTorch.
+Counterpart of ``vits_tpu/models/encoder.py``. Self-attention goes through
+kernel A (``ops/cuda/attention.py``), which takes its plain version on the
+CPU; the projections and the conv-FFN are plain PyTorch. With
+``trainable=True`` (the training step) attention is differentiable: from
+:data:`FLASH_TRAIN_TOKENS` tokens up through kernel A with lse forward and
+kernel 4 backward (``ops/cuda/attention_grad.py``), below it plain autograd
+attention -- the JAX package's gate (``vits_tpu/train/step.py:182``).
 """
 
 from __future__ import annotations
@@ -16,7 +20,10 @@ import torch.nn.functional as F
 from vits_tpu.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, layer_norm
-from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
+from vits_tpu_torch.ops.cuda.attention_grad import trainable_rel_attention
+
+FLASH_TRAIN_TOKENS = 512  # training token length from which attention takes kernels A + 4
 
 
 class EncoderOutput(NamedTuple):
@@ -26,7 +33,7 @@ class EncoderOutput(NamedTuple):
 
 
 def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
-               config: VitsConfig) -> torch.Tensor:
+               config: VitsConfig, trainable: bool = False) -> torch.Tensor:
     """Multi-head self-attention with relative position bias; x: (B, T, H)."""
     if not config.window_size:
         raise NotImplementedError("attention without a relative window is not ported")
@@ -39,7 +46,13 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     query = (x @ p["q_proj.weight"] + p["q_proj.bias"]) * head_dim**-0.5
     key = x @ p["k_proj.weight"] + p["k_proj.bias"]
     value = x @ p["v_proj.weight"] + p["v_proj.bias"]
-    attn = flash_rel_attention(
+    if not trainable:
+        attend = flash_rel_attention
+    elif tgt_len >= FLASH_TRAIN_TOKENS:
+        attend = trainable_rel_attention
+    else:
+        attend = rel_attention_reference
+    attn = attend(
         shape4(query), shape4(key), shape4(value),
         p["emb_rel_k"][0], p["emb_rel_v"][0],
         window=config.window_size, lengths=lengths,
@@ -64,9 +77,10 @@ def _feed_forward(p: ParamView, x: torch.Tensor, padding_mask: torch.Tensor,
 
 
 def encoder_layer(layer: ParamView, hidden: torch.Tensor, lengths: torch.Tensor,
-                  padding_mask: torch.Tensor, config: VitsConfig) -> torch.Tensor:
+                  padding_mask: torch.Tensor, config: VitsConfig,
+                  trainable: bool = False) -> torch.Tensor:
     """One transformer layer: rel-pos attention + conv-FFN, post-layernorms."""
-    attn_out = _attention(layer.sub("attention"), hidden, lengths, config)
+    attn_out = _attention(layer.sub("attention"), hidden, lengths, config, trainable)
     hidden = layer_norm(hidden + attn_out, layer["layer_norm.weight"],
                         layer["layer_norm.bias"], config.layer_norm_eps)
     ffn_out = _feed_forward(layer.sub("feed_forward"), hidden, padding_mask, config)
@@ -79,6 +93,7 @@ def text_encoder(
     config: VitsConfig,
     input_ids: torch.Tensor,  # (B, T) int
     padding_mask: torch.Tensor,  # (B, T, 1) float, a prefix mask
+    trainable: bool = False,
 ) -> EncoderOutput:
     p = params.sub("text_encoder")
     hidden = p["embed_tokens.weight"][input_ids] * math.sqrt(config.hidden_size)
@@ -87,7 +102,8 @@ def text_encoder(
 
     enc = p.sub("encoder")
     for i in range(config.num_hidden_layers):
-        hidden = encoder_layer(enc.sub(f"layers.{i}"), hidden, lengths, padding_mask, config)
+        hidden = encoder_layer(enc.sub(f"layers.{i}"), hidden, lengths, padding_mask, config,
+                               trainable)
 
     hidden = hidden * padding_mask
     stats = conv1d(hidden, p["project.weight"], p["project.bias"]) * padding_mask

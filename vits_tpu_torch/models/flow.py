@@ -1,9 +1,10 @@
-"""WaveNet stack and residual-coupling flow, reverse (sampling) direction.
+"""WaveNet stack and residual-coupling flow, both directions.
 
 Counterpart of ``vits_tpu/models/flow.py``. Plain PyTorch: the JAX package
 leaves this to XLA by default (its fused flow kernel is opt-in and not ported
-yet). Speaker conditioning and the forward direction wait for the voice
-conversion port.
+yet). The reverse direction samples; the forward direction
+(:func:`residual_coupling_forward`) maps posterior latents to the prior
+space in training. Speaker conditioning waits for the voice-conversion port.
 """
 
 from __future__ import annotations
@@ -49,15 +50,16 @@ def residual_coupling_layer(
     config: VitsConfig,
     inputs: torch.Tensor,  # (B, T, flow_size)
     padding_mask: torch.Tensor,
+    reverse: bool = True,
 ) -> torch.Tensor:
-    """Mean-only coupling, reverse: second_half -= mean(first_half)."""
+    """Mean-only coupling: second_half -/+= mean(first_half) (log-det 0)."""
     half = config.flow_size // 2
     first_half, second_half = inputs[..., :half], inputs[..., half:]
     h = conv1d(first_half, p["conv_pre.weight"], p["conv_pre.bias"]) * padding_mask
     h = wavenet(p.sub("wavenet"), config, h, padding_mask,
                 config.prior_encoder_num_wavenet_layers)
     mean = conv1d(h, p["conv_post.weight"], p["conv_post.bias"]) * padding_mask
-    second_half = (second_half - mean) * padding_mask
+    second_half = (second_half - mean if reverse else mean + second_half) * padding_mask
     return torch.cat([first_half, second_half], dim=-1)
 
 
@@ -74,3 +76,23 @@ def residual_coupling_block(
         cur = torch.flip(cur, dims=(-1,))
         cur = residual_coupling_layer(p.sub(f"flows.{i}"), config, cur, padding_mask)
     return cur
+
+
+def residual_coupling_forward(
+    params: ParamView,
+    config: VitsConfig,
+    inputs: torch.Tensor,  # (B, T, flow_size) posterior latents
+    padding_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior latents -> prior space (the training direction): (z_p, log_det (B,)).
+
+    Mean-only couplings have a zero log-determinant, returned for the JAX
+    signature.
+    """
+    p = params.sub("flow")
+    cur = inputs
+    for i in range(config.prior_encoder_num_flows):
+        cur = residual_coupling_layer(p.sub(f"flows.{i}"), config, cur, padding_mask,
+                                      reverse=False)
+        cur = torch.flip(cur, dims=(-1,))
+    return cur, inputs.new_zeros(inputs.shape[0])

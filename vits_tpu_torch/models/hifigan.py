@@ -13,6 +13,11 @@ routing (its ``use_pallas`` path):
 After every conv the padded tail of each row is re-zeroed with the stage's
 upsampled mask, so a padded batch row equals its solo run. The final
 activation uses torch's default slope (0.01), not ``leaky_relu_slope``.
+
+With ``trainable=True`` (the training step decodes unmasked segments) the
+routing is the JAX package's training one (``hifigan.py:356-367``): wide
+stages run kernel 5 (``ops/cuda/trio_grad.py``), differentiable; every other
+stage takes the plain path. Kernels B and C are not reached under autograd.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
 from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
 from vits_tpu_torch.ops.cuda.stage import FINAL_SLOPE, fused_stage
+from vits_tpu_torch.ops.cuda.trio_grad import trainable_trio
 
 
 def _resblock(p: ParamView, x: torch.Tensor, mask: torch.Tensor | None,
@@ -75,8 +81,11 @@ def hifigan(
     config: VitsConfig,
     spectrogram: torch.Tensor,  # (B, T, flow_size) latents
     frame_mask: torch.Tensor | None = None,  # (B, T, 1)
+    trainable: bool = False,
 ) -> torch.Tensor:
     """Latents -> waveform (B, T * prod(upsample_rates))."""
+    if trainable and frame_mask is not None:
+        raise ValueError("trainable decoding takes unmasked segments (frame_mask=None)")
     p = params.sub("decoder")
     num_kernels = len(config.resblock_kernel_sizes)
     slope = config.leaky_relu_slope
@@ -93,7 +102,7 @@ def hifigan(
         c_in, c_out = up_w.shape[1], up_w.shape[2]
         up_padding = (kernel_size - rate) // 2
 
-        if _stage_fusable(c_in, c_out, rate):
+        if not trainable and _stage_fusable(c_in, c_out, rate):
             final_conv = None
             if i == n_stages - 1:
                 w_post = p["conv_post.weight"]
@@ -116,8 +125,12 @@ def hifigan(
             h = h * mask
 
         if c_out % 128 == 0:
-            h = fused_resblock_trio(h.contiguous(), _stage_resblocks(p, config, i),
-                                    slope=slope, lengths=_lengths(mask))
+            blocks = _stage_resblocks(p, config, i)
+            if trainable:
+                h = trainable_trio(h.contiguous(), blocks, slope=slope)
+            else:
+                h = fused_resblock_trio(h.contiguous(), blocks, slope=slope,
+                                        lengths=_lengths(mask))
             continue
 
         res_state = None

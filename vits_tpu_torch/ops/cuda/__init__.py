@@ -1,17 +1,22 @@
 """Hand-written CUDA kernels for Hopper: build, load, launch and count.
 
 The sources under ``vits_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface and loaded with
-``ctypes``. The build runs at first use into ``vits_tpu_torch/_build/``
-(git-ignored), keyed by a hash of the sources and flags, so a fresh checkout
+``sm_90a`` (one process per source, in parallel) and linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use into ``vits_tpu_torch/_build/`` (git-ignored), keyed by a hash of
+the sources and flags, so a fresh checkout
 builds everything on its first kernel call and later processes reuse the
 library. Nothing here runs at import: the CPU tests import every module.
 
-Each kernel's wrapper (``ops/cuda/attention.py``, ``resblock.py``,
-``stage.py``) takes its plain PyTorch version for a tensor on the CPU and
-launches the kernel for a tensor on a CUDA device, raising on anything the
-kernel does not take -- there is no fallback and no switch. Each wrapper
-carries a plain-integer ``launches`` count, bumped only where it launches.
+Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
+``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
+version for a tensor on the CPU and launches the kernel for a tensor on a
+CUDA device, raising on anything the kernel does not take -- there is no
+fallback and no switch. Each wrapper carries a plain-integer ``launches``
+count, bumped only where it launches. The inference kernels write into fresh
+buffers that autograd cannot see, so their CUDA branches raise under
+autograd (:func:`no_autograd`); training goes through the autograd Functions
+of ``attention_grad.py`` and ``trio_grad.py``.
 """
 
 from __future__ import annotations
@@ -31,17 +36,19 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t as int).
 _SIGNATURES = {
-    "vk_rel_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_rel_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_rel_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
     "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -75,7 +82,10 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless this source hash is already built."""
+    """Compile the kernels unless this source hash is already built.
+
+    One ``nvcc -c`` per source, all started together, then one link.
+    """
     global build_seconds
     out = library_path()
     if out.exists():
@@ -83,14 +93,28 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objects.append(str(obj))
+        failures = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{' '.join(cmd)}\n{err}")
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_out), *objects]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stderr}")
         os.replace(tmp_out, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -144,6 +168,15 @@ def on_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> bool:
         if t.dtype != dtype:
             raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     return True
+
+
+def no_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record ``tensors``: the kernel's output has no grad_fn."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires grad, so every "
+            "parameter upstream would silently get no gradient (train through "
+            "ops/cuda/attention_grad.py or trio_grad.py, or run under torch.no_grad())")
 
 
 def cuda_lengths(lengths: torch.Tensor | None, batch: int, full: int,

@@ -4,6 +4,8 @@ Replaces ``vits_tpu/ops/pallas/attention.py::flash_rel_attention``. The CUDA
 kernel is ``vits_tpu_torch/csrc/rel_attention.cu`` (fp32, online softmax
 over 32-key chunks, finite additive key mask); its plain PyTorch twin is
 :func:`rel_attention_reference`, the encoder module's einsum-and-shuffle math.
+With ``return_lse`` both also return each query row's logsumexp, the residual
+of the backward (``ops/cuda/attention_grad.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,24 @@ from vits_tpu_torch.ops.attention import (
     get_relative_embeddings,
     relative_position_to_absolute_position,
 )
-from vits_tpu_torch.ops.cuda import check, cuda_lengths, library, on_cuda, stream_of
+from vits_tpu_torch.ops.cuda import (
+    check,
+    cuda_lengths,
+    library,
+    no_autograd,
+    on_cuda,
+    stream_of,
+)
+
+
+def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor,
+                         window: int) -> torch.Tensor:
+    """(B*H, L, L) scores q.k plus the windowed rel-key logits, before any mask."""
+    B, H, L, d = q.shape
+    qf, kf = q.reshape(B * H, L, d), k.reshape(B * H, L, d)
+    key_rel = get_relative_embeddings(rel_k[None], L, window)
+    rel_logits = torch.einsum("bqd,rd->bqr", qf, key_rel[0])
+    return torch.bmm(qf, kf.transpose(1, 2)) + relative_position_to_absolute_position(rel_logits)
 
 
 def rel_attention_reference(
@@ -27,24 +46,27 @@ def rel_attention_reference(
     *,
     window: int,
     lengths: torch.Tensor | None = None,  # (B,) valid keys per row
-) -> torch.Tensor:
-    """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel values."""
+    return_lse: bool = False,
+):
+    """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel values.
+
+    With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) the logsumexp of
+    each query row's masked scores.
+    """
     B, H, L, d = q.shape
-    qf, kf, vf = (t.reshape(B * H, L, d) for t in (q, k, v))
-    weights = torch.bmm(qf, kf.transpose(1, 2))
-    key_rel = get_relative_embeddings(rel_k[None], L, window)
-    rel_logits = torch.einsum("bqd,rd->bqr", qf, key_rel[0])
-    weights = weights + relative_position_to_absolute_position(rel_logits)
+    vf = v.reshape(B * H, L, d)
+    weights = rel_attention_scores(q, k, rel_k, window)
     if lengths is not None:
         keep = (torch.arange(L, device=q.device)[None, :] < lengths[:, None]).to(q.dtype)
         bias = (1.0 - keep[:, None, None, :]) * torch.finfo(q.dtype).min
         weights = (weights.reshape(B, H, L, L) + bias).reshape(B * H, L, L)
+    lse = torch.logsumexp(weights, dim=-1) if return_lse else None
     weights = torch.softmax(weights, dim=-1)
     out = torch.bmm(weights, vf)
     value_rel = get_relative_embeddings(rel_v[None], L, window)
     rel_weights = absolute_position_to_relative_position(weights)
-    out = out + torch.einsum("bqr,rd->bqd", rel_weights, value_rel[0])
-    return out.reshape(B, H, L, d)
+    out = (out + torch.einsum("bqr,rd->bqd", rel_weights, value_rel[0])).reshape(B, H, L, d)
+    return (out, lse.reshape(B, H, L)) if return_lse else out
 
 
 def flash_rel_attention(
@@ -56,14 +78,19 @@ def flash_rel_attention(
     *,
     window: int,
     lengths: torch.Tensor | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """(B, H, L, d) attention output before the out-projection.
 
-    CPU tensors take :func:`rel_attention_reference`; CUDA tensors launch the
-    kernel (fp32, contiguous, d <= 128, 2*window+1 <= 32) or raise.
+    With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) fp32. CPU
+    tensors take :func:`rel_attention_reference`; CUDA tensors launch the
+    kernel (fp32, contiguous, d <= 128, 2*window+1 <= 32, no autograd) or
+    raise.
     """
     if not on_cuda("flash_rel_attention", q, k, v, rel_k, rel_v):
-        return rel_attention_reference(q, k, v, rel_k, rel_v, window=window, lengths=lengths)
+        return rel_attention_reference(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
+                                       return_lse=return_lse)
+    no_autograd("flash_rel_attention", q, k, v, rel_k, rel_v)
     B, H, L, d = q.shape
     nr = 2 * window + 1
     if k.shape != q.shape or v.shape != q.shape:
@@ -74,12 +101,18 @@ def flash_rel_attention(
         raise ValueError(f"kernel takes head_dim <= 128 and window <= 15, got {d}, {window}")
     lens = cuda_lengths(lengths, B, L, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None
     check(library().vk_rel_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, H, L, d, window, stream_of(q)),
+        lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        B, H, L, d, window, stream_of(q)),
         "rel_attention kernel")
     flash_rel_attention.launches += 1
+    if return_lse:
+        flash_rel_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 flash_rel_attention.launches = 0
+flash_rel_attention.lse_launches = 0  # the launches that also wrote lse

@@ -19,7 +19,15 @@ from typing import Sequence
 import torch
 
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
-from vits_tpu_torch.ops.cuda import check, cuda_lengths, library, on_cuda, stream_of
+from vits_tpu_torch.ops.cuda import (
+    check,
+    cuda_lengths,
+    library,
+    no_autograd,
+    on_cuda,
+    stream_of,
+)
+
 
 def length_mask(lengths: torch.Tensor | None, T: int, dtype) -> torch.Tensor | None:
     """(B,) lengths -> (B, T, 1) 0/1 mask, or None."""
@@ -62,19 +70,23 @@ def pair_weights(blocks: Sequence[dict]) -> list[torch.Tensor]:
 
 
 def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
-              lengths: torch.Tensor, slope: float) -> None:
+              lengths: torch.Tensor, slope: float, acts: Sequence | None = None) -> None:
     """Launch two conv kernels per pair of every block; ``out`` gets the mean.
 
     ``x`` is left untouched; y1 and the pair outputs go through three
     scratch buffers. Shared by kernel B and the stage kernel (kernel C).
+    With ``acts`` -- per block ``(y1s, xs)``, ``pairs`` and ``pairs - 1``
+    (B, T, C) buffers -- each pair's y1 and each later pair's input land there
+    instead, saved for the backward (kernel 5, ``ops/cuda/trio_grad.py``).
     """
     lib = library()
     B, T, C = x.shape
     if C % 32:
         raise ValueError(f"resblock conv kernel needs C % 32 == 0, got C={C}")
     stream = stream_of(x)
-    y1 = torch.empty_like(x)
-    scratch = (torch.empty_like(x), torch.empty_like(x))
+    if acts is None:
+        y1 = torch.empty_like(x)
+        scratch = (torch.empty_like(x), torch.empty_like(x))
     n = len(blocks)
     for j, blk in enumerate(blocks):
         k = blk["kernel_size"]
@@ -93,7 +105,11 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
                     raise ValueError(f"resblock conv bias {tuple(bias.shape)} != ({C},)"
                                      " or not 16-byte aligned")
             last = i == len(dilations) - 1
-            dst = out if last else scratch[i % 2]
+            if acts is not None:
+                y1 = acts[j][0][i]
+                dst = out if last else acts[j][1][i]
+            else:
+                dst = out if last else scratch[i % 2]
             accumulate = int(last and j > 0)
             scale = 1.0 / n if last and j == n - 1 else 1.0
             # y1 = mask(dilated conv(leaky(src)) + b1)
@@ -119,10 +135,11 @@ def fused_resblock_trio(
     """mean_j resblock_j(x) with per-row length masking.
 
     CPU tensors take :func:`resblock_trio_reference`; CUDA tensors launch the
-    kernel (fp32, contiguous) or raise.
+    kernel (fp32, contiguous, no autograd) or raise.
     """
     if not on_cuda("fused_resblock_trio", x, *pair_weights(blocks)):
         return resblock_trio_reference(x, blocks, slope=slope, lengths=lengths)
+    no_autograd("fused_resblock_trio", x, *pair_weights(blocks))
     B, T, _ = x.shape
     out = torch.empty_like(x)
     run_pairs(x, out, blocks, cuda_lengths(lengths, B, T, x.device), slope)

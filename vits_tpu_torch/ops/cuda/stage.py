@@ -17,7 +17,14 @@ from typing import Sequence
 import torch
 
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
-from vits_tpu_torch.ops.cuda import check, cuda_lengths, library, on_cuda, stream_of
+from vits_tpu_torch.ops.cuda import (
+    check,
+    cuda_lengths,
+    library,
+    no_autograd,
+    on_cuda,
+    stream_of,
+)
 from vits_tpu_torch.ops.cuda.resblock import (
     length_mask,
     pair_weights,
@@ -74,7 +81,7 @@ def fused_stage(
     with ``final_conv``.
 
     CPU tensors take :func:`stage_reference`; CUDA tensors launch the kernels
-    (fp32, contiguous, k_up - 2*up_padding == stride) or raise.
+    (fp32, contiguous, k_up - 2*up_padding == stride, no autograd) or raise.
     """
     tensors = [x, up_weight, up_bias, *pair_weights(resblocks)]
     if final_conv is not None:
@@ -83,6 +90,7 @@ def fused_stage(
         return stage_reference(
             x, up_weight, up_bias, resblocks, stride=stride, up_padding=up_padding,
             slope=slope, lengths=lengths, final_conv=final_conv)
+    no_autograd("fused_stage", *tensors)
     B, T_in, C_in = x.shape
     k_up, w_in, C_out = up_weight.shape
     if w_in != C_in or up_bias.shape != (C_out,):

@@ -1,0 +1,110 @@
+"""Optimizer, learning-rate schedule and parameter EMA of VITS training.
+
+Counterpart of ``vits_tpu/train/schedule.py``, matched to its optax chain:
+``clip_by_global_norm(500)`` (no epsilon: ``torch.nn.utils.clip_grad_norm_``
+adds 1e-6), then ``adamw(b1=0.8, b2=0.99, eps=1e-9, weight_decay=1e-4)``
+(torch's AdamW default decay is 1e-2) at the per-step rate
+``base_lr * (gamma ** (1 / steps_per_epoch)) ** count``, count 0 on the first
+update. The EMA warms its decay up as ``min(decay, (1 + t) / (10 + t))``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+class VitsOptimizer:
+    """The VITS AdamW recipe over a flat dict of parameters (updated in place).
+
+    ``step()`` reads each parameter's ``.grad``, as ``torch.optim`` does.
+    """
+
+    def __init__(self, params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
+                 steps_per_epoch: int = 1000, clip_norm: float | None = 500.0,
+                 gamma_per_epoch: float = 0.999875):
+        self.names = list(params)
+        self.params = list(params.values())
+        self.base_lr = base_lr
+        self.per_step = gamma_per_epoch ** (1.0 / steps_per_epoch)
+        self.clip_norm = clip_norm
+        self.count = 0  # completed updates
+        self.adamw = torch.optim.AdamW(self.params, lr=base_lr, betas=(0.8, 0.99), eps=1e-9,
+                                       weight_decay=1e-4)
+
+    def learning_rate(self) -> float:
+        return self.base_lr * self.per_step ** self.count
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        if self.clip_norm:
+            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                         for g in grads]))
+            scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.learning_rate()
+        self.adamw.step()
+        self.count += 1
+
+    def state_arrays(self) -> dict[str, np.ndarray]:
+        """Adam moments by parameter name, and the update count, as numpy."""
+        out = {"count": np.asarray(self.count, np.int64)}
+        for name, p in zip(self.names, self.params):
+            state = self.adamw.state.get(p)
+            if state:
+                out[f"{name}.exp_avg"] = state["exp_avg"].detach().cpu().numpy()
+                out[f"{name}.exp_avg_sq"] = state["exp_avg_sq"].detach().cpu().numpy()
+        return out
+
+    def load_state_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
+        """Inverse of :meth:`state_arrays`; raises if a parameter is missing."""
+        self.count = int(arrays["count"])
+        for name, p in zip(self.names, self.params):
+            if self.count and f"{name}.exp_avg" not in arrays:
+                raise ValueError(f"optimizer state lacks parameter {name!r}")
+            if f"{name}.exp_avg" in arrays:
+                self.adamw.state[p] = {
+                    "step": torch.tensor(float(self.count)),
+                    "exp_avg": torch.tensor(arrays[f"{name}.exp_avg"], device=p.device),
+                    "exp_avg_sq": torch.tensor(arrays[f"{name}.exp_avg_sq"], device=p.device),
+                }
+
+
+def vits_optimizer(params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
+                   steps_per_epoch: int = 1000, clip_norm: float | None = 500.0) -> VitsOptimizer:
+    return VitsOptimizer(params, base_lr, steps_per_epoch, clip_norm)
+
+
+class ParamEMA:
+    """Exponential moving average of a flat parameter dict (the serving weights)."""
+
+    def __init__(self, decay: float = 0.9999, warmup: bool = True):
+        self.decay = decay
+        self.warmup = warmup
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in params.items()}
+
+    def decay_at(self, step: int) -> float:
+        """Effective decay after ``step`` completed updates (0-based), in fp32."""
+        d = np.float32(self.decay)
+        if self.warmup:
+            t = np.float32(step)
+            d = min(d, (np.float32(1.0) + t) / (np.float32(10.0) + t))
+        return float(d)
+
+    @torch.no_grad()
+    def update(self, ema_params: dict[str, torch.Tensor], new_params: Mapping[str, torch.Tensor],
+               step: int | None = None) -> dict[str, torch.Tensor]:
+        """One EMA step in place; ``step`` is the 0-based update count."""
+        d = self.decay if step is None else self.decay_at(step)
+        ema = list(ema_params.values())
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, [new_params[k].detach() for k in ema_params],
+                            alpha=float(np.float32(1.0) - np.float32(d)))
+        return ema_params
