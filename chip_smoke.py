@@ -10,14 +10,21 @@ printing its result line:
 2. build: nvcc builds the kernels from ``vits_tpu_torch/csrc`` (one process
    per source, in parallel; seconds);
 3. kernels vs plain: each hand-written kernel against its plain PyTorch
-   version on the card, max |diff| against the stated tolerance and the
-   median ms of both (CUDA events). Serving kernels A, B, C at the shapes of
-   a 128-token MMS request (320 frames); training kernels: A's logsumexp and
-   the attention backward (kernel 4) at B=2, L=512, lengths (507, 0), and
-   the trainable trio (kernel 5: output and saved activations; its backward
-   alone on the plain forward's activations; forward and backward together,
-   with the count of saved activations the two forwards round to opposite
-   signs) at the decoded-segment shapes of a 32-frame segment, batch 4;
+   version on the card, max |diff| against the stated tolerance, the median
+   ms of both (CUDA events) and the kernel's bound (the larger of its FLOPs at
+   67 TFLOP/s fp32 and its bytes at 3.35 TB/s, from this run's shapes and
+   valid lengths). Serving kernels A, B, C at the shapes of a 128-token MMS
+   request (320 frames); training kernels: A's logsumexp and the attention
+   backward (kernel 4) at B=2, L=512, lengths (507, 0), and the trainable
+   trio (kernel 5: output and saved activations; its backward alone on the
+   plain forward's activations; forward and backward together, with the
+   count of saved activations the two forwards round to opposite signs) at
+   the decoded-segment shapes of a 32-frame segment, batch 4; kernel 6 (the
+   reverse flow) at VCTK width with speaker conditioning, at B=1 and at B=3
+   with lengths (320, 137, 0) for T=320, and at B=8, T=640 and B=16,
+   T=1280, with the B=1 call's host enqueue ms and its device busy ms under
+   ``torch.profiler``, kernel and plain; kernel 7 (one resblock) and kernel
+   C at C_out 16 and 8 at the shapes of HiFi-GAN V2's stages for 320 frames;
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; three single requests, then one batch of three texts with
@@ -26,7 +33,18 @@ printing its result line:
    its solo run; a repeated seed gives identical audio; and one dispatch on
    the card agrees with the same dispatch through the plain versions on the
    CPU, given the same noise;
-5. training at full MMS width (random weights with the training modules,
+5. multi-speaker serving at the published VCTK width (109 speakers, 256-wide
+   embeddings, random weights with the posterior encoder, seed 0) with
+   ``EngineConfig(use_pallas_flow=True)``: as phase 4 with speakers 0, 17 and
+   108 and per-row speakers in the batch, kernels A, B, C and 6 launched,
+   speakers 0 and 17 differing on the same text and seed, and the ms per
+   request with the flow kernel on and off; then voice conversion of a
+   synthesized utterance from speaker 0 to 17 (posterior mean: finite,
+   frames x hop long, identical on a second call, card vs CPU);
+6. the narrow vocoder: one request at HiFi-GAN V2's decoder (MMS text side,
+   ``upsample_initial_channel=128``) through kernels 7 and C at C_out 16 and
+   8, and the card-vs-CPU check;
+7. training at full MMS width (random weights with the training modules,
    seed 0; the discriminator at seed 0): the inference kernels refuse
    autograd; a warm-up GAN step, then three on a batch of 512 and 300 tokens
    (padded to 512) over 1280 frames -- losses finite, every parameter with a
@@ -42,14 +60,17 @@ printing its result line:
    on a synthetic micro-corpus for 4 steps with checkpoints, resumed to
    step 6.
 
-Then one JSON line of the kernels' numbers (``ms``/``plain_ms``: the sum of
-the medians over the kernel's shapes; ``launches``: the count over the path
-that runs the kernel, serving for A, B, C and training for 4 and 5), and
-last ``{"ok": true, "device": {...}}``.
+Each path's launch counts are set to 0 just before it and read just after.
+Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``bound_ms``:
+the sums over the kernel's timed shapes; ``launches``: the count over the
+paths that run the kernel, the serving paths for A, B, C, 6, 7 and training
+for 4 and 5; ``library_ms`` is null: no single PyTorch call computes any of
+these functions), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import subprocess
@@ -91,6 +112,10 @@ WAVE_ATOL = 1e-3
 # Batch row vs solo run: one int16 PCM step (1/32767) of transfer rounding
 # plus the plain convs' batch-size-dependent summation order.
 BATCH_ATOL = 2e-3
+# The card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet): fp32
+# outside the tensor cores, and HBM.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 SINGLE_TEXTS = (
     "hello world.",
@@ -101,6 +126,8 @@ SINGLE_TEXTS = (
 BATCH_TEXTS = ("good morning.", "how are you today?", "see you soon, my friend.")
 BATCH_SEEDS = (11, 22, 33)
 VOCAB = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+SINGLE_SPEAKERS = (0, 17, 108)
+BATCH_SPEAKERS = (5, 17, 0)
 
 
 def card_line() -> str:
@@ -124,11 +151,40 @@ def median_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def conv_flops(steps: int, k: int, c_in: int, c_out: int) -> int:
+    return 2 * steps * k * c_in * c_out
+
+
+def steps_of(x: torch.Tensor, lens: torch.Tensor | None) -> int:
+    """Valid time steps over the batch: the work this run's data needs."""
+    return x.shape[0] * x.shape[1] if lens is None else int(lens.sum())
+
+
+def resblocks_flops(steps: int, C: int, blocks) -> int:
+    return sum(2 * len(blk["dilations"]) * conv_flops(steps, blk["kernel_size"], C, C)
+               for blk in blocks)
+
+
+def attention_flops(lengths, heads: int, d: int, window: int, backward: bool = False) -> int:
+    """QK^T and PV (and their relative-position terms) over each row's valid keys;
+    the backward recomputes the scores and takes five such products."""
+    products = 5 if backward else 2
+    return sum(heads * products * (2 * n * n * d + 2 * n * (2 * window + 1) * d)
+               for n in lengths)
+
+
 def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None,
-            timed: bool = True) -> dict:
+            timed: bool = True, work: tuple[int, int] | None = None) -> dict:
     """Kernel vs plain on the same inputs (a tensor or a tuple of tensors each);
     raises past the tolerance, per tensor: max |diff| <= KERNEL_TOL x
-    max(1, max|plain|), or with ``grad_rtol`` relative L2 error <= grad_rtol."""
+    max(1, max|plain|), or with ``grad_rtol`` relative L2 error <= grad_rtol.
+    ``work`` = (FLOPs, bytes) of the call gives its bound: the larger of the
+    FLOPs at PEAK_FP32_FLOPS and the bytes (each input read once, each output
+    written once) at PEAK_HBM_BYTES."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, (tuple, list)) else [(got, want)]
@@ -148,10 +204,18 @@ def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None
         err, worst = max(err, e), max(worst, ratio)
     ms, plain_ms = (median_ms(kernel), median_ms(plain)) if timed else (None, None)
     times = f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms" if timed else "(not timed)"
+    result = {"shape": shape, "max_abs_err": err, "err_over_tol": worst, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": None}
+    if timed and work is not None:
+        ops_ms, bytes_ms = (1e3 * work[0] / PEAK_FP32_FLOPS, 1e3 * work[1] / PEAK_HBM_BYTES)
+        result.update(flops=work[0], bytes=work[1], ops_ms=ops_ms, bytes_ms=bytes_ms,
+                      bound_ms=max(ops_ms, bytes_ms),
+                      bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        times += (f"  bound {result['bound_ms']:.4f} ms ({result['bound_by']})"
+                  "  library: none (no one PyTorch call computes it)")
     print(f"  {name:24s} {shape:34s} max|diff| {err:.3e} ({worst:.3g} of tol)  {times}",
           flush=True)
-    return {"shape": shape, "max_abs_err": err, "err_over_tol": worst, "ms": ms,
-            "plain_ms": plain_ms}
+    return result
 
 
 def kernels_vs_plain(params: dict, config, device) -> dict:
@@ -159,8 +223,11 @@ def kernels_vs_plain(params: dict, config, device) -> dict:
     from vits_tpu_torch.io.params import ParamView
     from vits_tpu_torch.models.hifigan import _stage_resblocks
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
-    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio, resblock_trio_reference
-    from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference
+    from vits_tpu_torch.ops.cuda.resblock import (
+        fused_resblock_trio,
+        pair_weights,
+        resblock_trio_reference,
+    )
 
     rng = np.random.default_rng(0)
     decoder = ParamView(params).sub("decoder")
@@ -181,20 +248,13 @@ def kernels_vs_plain(params: dict, config, device) -> dict:
         results["fused_resblock_trio"].append(compare(
             "fused_resblock_trio", f"C={C} T={T}",
             lambda: fused_resblock_trio(x, blocks, slope=slope, lengths=lens),
-            lambda: resblock_trio_reference(x, blocks, slope=slope, lengths=lens)))
+            lambda: resblock_trio_reference(x, blocks, slope=slope, lengths=lens),
+            work=(resblocks_flops(steps_of(x, lens), C, blocks),
+                  nbytes(x, x, lens, *pair_weights(blocks)))))
     # C: MMS stage 2 (128->64) and terminal stage 3 (64->32 + conv_post)
     for i, T_in in ((2, 64 * frames), (3, 128 * frames)):
-        up_w = decoder[f"upsampler.{i}.weight"]
-        x, lens = activ(T_in, up_w.shape[1], T_in - 37)
-        kw = dict(stride=config.upsample_rates[i],
-                  up_padding=(config.upsample_kernel_sizes[i] - config.upsample_rates[i]) // 2,
-                  slope=slope, lengths=lens,
-                  final_conv=(decoder["conv_post.weight"], 3) if i == 3 else None)
-        args = (x, up_w, decoder[f"upsampler.{i}.bias"], _stage_resblocks(decoder, config, i))
-        results["fused_stage"].append(compare(
-            "fused_stage", f"{up_w.shape[1]}->{up_w.shape[2]} T_in={T_in}"
-            + (" +conv_post" if i == 3 else ""),
-            lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw)))
+        results["fused_stage"].append(compare_stage(decoder, config, i, activ(
+            T_in, decoder[f"upsampler.{i}.weight"].shape[1], T_in - 37)))
     # A: encoder attention, H=2, d=96, w=4; the second row is padding (length 0)
     layer = ParamView(params).sub("text_encoder.encoder.layers.0.attention")
     heads, d, w = config.num_attention_heads, config.head_dim, config.window_size
@@ -206,7 +266,113 @@ def kernels_vs_plain(params: dict, config, device) -> dict:
         results["flash_rel_attention"].append(compare(
             "flash_rel_attention", f"B=2 H={heads} L={L} d={d} len=({L - 5},0)",
             lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens),
-            lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens)))
+            lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens),
+            work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, q, *rel, lens))))
+    return results
+
+
+def compare_stage(decoder, config, i: int, x_lens) -> dict:
+    """Kernel C against its plain version on stage i of ``decoder``."""
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.resblock import pair_weights
+    from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference
+
+    x, lens = x_lens
+    up_w = decoder[f"upsampler.{i}.weight"]
+    (k_up, c_in, c_out), rate = up_w.shape, config.upsample_rates[i]
+    final = i == len(config.upsample_rates) - 1
+    blocks = _stage_resblocks(decoder, config, i)
+    kw = dict(stride=rate, up_padding=(config.upsample_kernel_sizes[i] - rate) // 2,
+              slope=config.leaky_relu_slope, lengths=lens,
+              final_conv=(decoder["conv_post.weight"], 3) if final else None)
+    args = (x, up_w, decoder[f"upsampler.{i}.bias"], blocks)
+    steps = steps_of(x, lens)
+    flops = conv_flops(steps, k_up, c_in, c_out) + resblocks_flops(steps * rate, c_out, blocks)
+    weights = [up_w, args[2], *pair_weights(blocks)]
+    if final:
+        flops += conv_flops(steps * rate, decoder["conv_post.weight"].shape[0], c_out, 1)
+        weights.append(decoder["conv_post.weight"])
+    out_bytes = 4 * x.shape[0] * x.shape[1] * rate * (1 if final else c_out)
+    return compare("fused_stage", f"{c_in}->{c_out} B={x.shape[0]} T_in={x.shape[1]}"
+                   + (" +conv_post" if final else ""),
+                   lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw),
+                   work=(flops, nbytes(x, lens, *weights) + out_bytes))
+
+
+def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
+    """Phase 3, the multi-speaker and narrow-vocoder kernels at the shapes of 320
+    frames: kernel 6 at VCTK width with per-row speakers (B=1 and B=3 with
+    lengths 320, 137, 0 at 320 frames; B=8 at 640 and B=16 at 1280 frames,
+    batches that fill the card), kernel 7
+    on HiFi-GAN V2's stages 0-1 (C=64 at 8F steps, C=32 at 64F) and kernel C on its
+    stages 2-3 (32->16, 16->8 + conv_post), each with a length-0 row."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import (
+        fused_resblock,
+        pair_weights,
+        resblock_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    frames = 320
+    results = {"fused_flow": [], "fused_resblock": [], "fused_stage": []}
+
+    def activ(T, C, length):
+        x = torch.tensor(rng.standard_normal((2, T, C)), dtype=torch.float32, device=device)
+        x[0, length:] = 0.0
+        x[1] = 0.0
+        return x, torch.tensor([length, 0], dtype=torch.int32, device=device)
+
+    # 6: the reverse flow at VCTK width, per-row speakers
+    config, params = vctk.config, vctk.params
+    p = ParamView(params)
+    half, hidden = config.flow_size // 2, config.hidden_size
+    nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
+                config.prior_encoder_num_flows)
+    per_frame = 2 * (half * hidden + nl * k * hidden * 2 * hidden
+                     + (nl - 1) * hidden * 2 * hidden + hidden * hidden + hidden * half)
+    flow_weights = [v for name, v in params.items() if name.startswith("flow.")]
+    for T, lengths in ((frames, (frames,)), (frames, (frames, 137, 0)),
+                       (2 * frames, (2 * frames,) * 8), (4 * frames, (4 * frames,) * 16)):
+        B = len(lengths)
+        x = torch.tensor(rng.standard_normal((B, T, config.flow_size)), dtype=torch.float32,
+                         device=device)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        x = x * (torch.arange(T, device=device)[None, :] < lens[:, None])[..., None]
+        speakers = torch.arange(B, device=device) * 53 % config.num_speakers
+        emb = params["embed_speaker.weight"][speakers][:, None]
+        kw = dict(lengths=lens, speaker_embeddings=emb)
+        kernel = lambda: fused_flow(x, p, config, **kw)  # noqa: E731
+        plain = lambda: flow_reference(x, p, config, **kw)  # noqa: E731
+        results["fused_flow"].append(compare(
+            "fused_flow", f"B={B} T={T} len={lengths[:3]} +speaker", kernel, plain,
+            work=(n * per_frame * sum(lengths), nbytes(x, x, lens, emb, *flow_weights))))
+        if B == 1:  # a single request's flow: bound by the host's enqueue or the device?
+            split = {"kernel": host_and_device(kernel), "plain": host_and_device(plain)}
+            results["fused_flow"][-1]["host_device"] = split
+            print("  fused_flow B=1 host vs device: " + "; ".join(
+                f"{name} enqueue {v['enqueue_ms']:.3f} ms/call, {v['device_ops']} device ops "
+                f"busy {v['device_busy_ms']:.3f} ms" for name, v in split.items()), flush=True)
+
+    # 7 and C at HiFi-GAN V2's stages
+    config = narrow.config
+    decoder = ParamView(narrow.params).sub("decoder")
+    slope = config.leaky_relu_slope
+    for i, T in ((0, 8 * frames), (1, 64 * frames)):
+        x, lens = activ(T, decoder[f"upsampler.{i}.weight"].shape[2], T - 37)
+        C = x.shape[-1]
+        for j, blk in enumerate(_stage_resblocks(decoder, config, i)):
+            results["fused_resblock"].append(compare(
+                "fused_resblock", f"C={C} B=2 T={T} k={blk['kernel_size']} len=({T - 37},0)",
+                lambda: fused_resblock(x, blk, slope=slope, lengths=lens),
+                lambda: resblock_reference(x, blk, slope=slope, lengths=lens),
+                work=(resblocks_flops(steps_of(x, lens), C, [blk]),
+                      nbytes(x, x, lens, *pair_weights([blk])))))
+    for i, T_in in ((2, 64 * frames), (3, 128 * frames)):
+        results["fused_stage"].append(compare_stage(decoder, config, i, activ(
+            T_in, decoder[f"upsampler.{i}.weight"].shape[1], T_in - 37)))
     return results
 
 
@@ -245,7 +411,8 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
         "flash_rel_attention+lse", shape + " lse row 0",
         lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True)[1][0],
         lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens,
-                                        return_lse=True)[1][0]))
+                                        return_lse=True)[1][0],
+        work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, out, lse, *rel, lens))))
 
     def valid(grads):  # row 0 up to its length, the length-0 row whole, the rel tables
         return (*(g[0, :, :L - 5] for g in grads[:3]), *(g[1] for g in grads[:3]), *grads[3:])
@@ -253,7 +420,9 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
     results["trainable_rel_attention"].append(compare(
         "rel_attention_bwd", shape + " valid region",
         lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens)),
-        lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens))))
+        lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens)),
+        work=(attention_flops((L - 5, 0), heads, d, w, backward=True),
+              nbytes(*args, lens, q, k, v, *rel))))
 
     decoder = ParamView(params).sub("decoder")
     slope = config.leaky_relu_slope
@@ -269,11 +438,14 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
         def flat(out_acts):
             return (out_acts[0], *flat_acts(out_acts[1]))
 
+        fwd_flops = resblocks_flops(steps_of(x, None), C, blocks)
+        n_acts = sum(2 * len(blk["dilations"]) - 1 for blk in blocks)
         with torch.no_grad():
             results["trainable_trio"].append(compare(
                 "trio_forward_with_acts", shape + " out+acts",
                 lambda: flat(trio_forward_with_acts(x, blocks, slope=slope)),
-                lambda: flat(trio_forward_with_acts_reference(x, blocks, slope=slope))))
+                lambda: flat(trio_forward_with_acts_reference(x, blocks, slope=slope)),
+                work=(fwd_flops, nbytes(x, *pair_weights(blocks)) + nbytes(x) * (1 + n_acts))))
             kernel_acts = flat_acts(trio_forward_with_acts(x, blocks, slope=slope)[1])
             plain_acts = flat_acts(trio_forward_with_acts_reference(x, blocks, slope=slope)[1])
             flips = sum(int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(kernel_acts, plain_acts))
@@ -299,23 +471,25 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
             "trainable_trio fwd+bwd", shape + " grads",
             lambda: torch.autograd.grad((trainable_trio(xg, blocks, slope=slope) * g).sum(),
                                         leaves),
-            plain_grads, grad_rtol=FLIP_GRAD_RTOL if flips else GRAD_RTOL))
+            plain_grads, grad_rtol=FLIP_GRAD_RTOL if flips else GRAD_RTOL,
+            work=(3 * fwd_flops, 2 * nbytes(*leaves) + nbytes(g))))
     return results
 
 
-def mms_model(device):
-    """A full-width MMS-TTS model with random weights, loaded as a user would."""
+def make_model(device, config=None, engine_config=None, keep_training: bool = False):
+    """A model with random weights (seed 0), loaded as a user would: MMS-TTS at full
+    width unless ``config`` says otherwise."""
     import vits_tpu_torch
     from vits_tpu_torch import VitsConfig
     from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
 
-    config = VitsConfig()
-    params = random_params(config, seed=0, keep_training=False)
+    config = config or VitsConfig()
+    params = random_params(config, seed=0, keep_training=keep_training)
     tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)},
                               pad_token="k", unk_token="z")
     checkpoint = io.BytesIO()
     export_to_ggml(checkpoint, config, tokenizer, params, fp16_convs=False)
-    return vits_tpu_torch.load_model(checkpoint.getvalue(), device=device)
+    return vits_tpu_torch.load_model(checkpoint.getvalue(), engine_config, device=device)
 
 
 def check_audio(audio: np.ndarray, what: str) -> None:
@@ -325,35 +499,34 @@ def check_audio(audio: np.ndarray, what: str) -> None:
         raise RuntimeError(f"{what}: audio not finite or outside [-1, 1]")
 
 
-def run_slice(model, card: str) -> dict:
-    """Phase 4: the requests, with every kernel's launch count over them."""
-    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
-    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
-    from vits_tpu_torch.ops.cuda.stage import fused_stage
-
-    wrappers = (flash_rel_attention, fused_resblock_trio, fused_stage)
+def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=None) -> dict:
+    """Phases 4-5: the requests, with the launch counts of ``wrappers`` over them."""
     rate = model.config.sampling_rate
+    single_speakers = single_speakers or (None,) * len(SINGLE_TEXTS)
 
     t0 = time.perf_counter()
-    check_audio(model.synthesize(SINGLE_TEXTS[0], seed=0), "warm-up request")
+    check_audio(model.synthesize(SINGLE_TEXTS[0], seed=0, speaker_id=single_speakers[0]),
+                "warm-up request")
     print(f"  warm-up request: {1e3 * (time.perf_counter() - t0):.1f} ms wall "
           f"(first use of cuDNN/cuBLAS)", flush=True)
 
     for fn in wrappers:
         fn.launches = 0
-    requests = [([text], [seed]) for seed, text in enumerate(SINGLE_TEXTS, start=1)]
-    requests.append((list(BATCH_TEXTS), list(BATCH_SEEDS)))
+    requests = [([text], [seed], None if spk is None else [spk]) for seed, (text, spk)
+                in enumerate(zip(SINGLE_TEXTS, single_speakers), start=1)]
+    requests.append((list(BATCH_TEXTS), list(BATCH_SEEDS), batch_speakers))
     batch_out = None
-    for n, (texts, seeds) in enumerate(requests, start=1):
+    for n, (texts, seeds, speakers) in enumerate(requests, start=1):
         tokens = [len(model.tokenizer.encode(t)) for t in texts]
         t0 = time.perf_counter()
-        out = model.synthesize_raw(texts, seed=seeds)
+        out = model.synthesize_raw(texts, seed=seeds, speaker_id=speakers)
         wall_ms = 1e3 * (time.perf_counter() - t0)
         for i in range(len(texts)):
             check_audio(out.waveform[i, : out.lengths[i]], f"request {n} row {i}")
         audio_s = float(out.lengths.sum()) / rate
-        print(f"  request {n}: rows={len(texts)} tokens={tokens} "
-              f"frames={out.frame_lengths.tolist()} capacity={out.waveform.shape[1] // model.config.total_upsample} "
+        capacity = out.waveform.shape[1] // model.config.total_upsample
+        print(f"  request {n}: rows={len(texts)} tokens={tokens} speakers={speakers} "
+              f"frames={out.frame_lengths.tolist()} capacity={capacity} "
               f"audio {audio_s:.3f} s  wall {wall_ms:.1f} ms  "
               f"xRT {audio_s / (wall_ms / 1e3):.1f}  ({card})", flush=True)
         batch_out = out
@@ -364,8 +537,9 @@ def run_slice(model, card: str) -> dict:
             raise RuntimeError(f"kernel {name} was never launched on the main path")
 
     worst = 0.0
-    for i, (text, seed) in enumerate(zip(BATCH_TEXTS, BATCH_SEEDS)):
-        solo = model.synthesize_raw([text], seed=[seed])
+    batch_speakers = batch_speakers or (None,) * len(BATCH_TEXTS)
+    for i, (text, seed, spk) in enumerate(zip(BATCH_TEXTS, BATCH_SEEDS, batch_speakers)):
+        solo = model.synthesize_raw([text], seed=[seed], speaker_id=spk)
         if solo.frame_lengths[0] != batch_out.frame_lengths[i]:
             raise RuntimeError(f"batch row {i}: {batch_out.frame_lengths[i]} frames, "
                                f"solo run {solo.frame_lengths[0]}")
@@ -378,7 +552,8 @@ def run_slice(model, card: str) -> dict:
     if not worst <= BATCH_ATOL:
         raise RuntimeError(f"batch rows differ from solo runs by {worst}")
 
-    again = model.synthesize(list(BATCH_TEXTS), seed=list(BATCH_SEEDS))
+    speakers = None if batch_speakers[0] is None else list(batch_speakers)
+    again = model.synthesize(list(BATCH_TEXTS), seed=list(BATCH_SEEDS), speaker_id=speakers)
     for i, audio in enumerate(again):
         if not np.array_equal(audio, batch_out.waveform[i, : batch_out.lengths[i]]):
             raise RuntimeError(f"repeated seed {BATCH_SEEDS[i]} gave different audio")
@@ -386,7 +561,25 @@ def run_slice(model, card: str) -> dict:
     return launches
 
 
-def card_vs_cpu(model) -> None:
+def check_close(what: str, gpu: dict, cpu: dict) -> None:
+    """Card vs CPU plain path: equal frame counts (where there are any), latents
+    within LATENT_RTOL of their scale, waveform within WAVE_ATOL."""
+    lat_err = float(np.abs(gpu["latents"] - cpu["latents"]).max())
+    lat_tol = LATENT_RTOL * float(np.abs(cpu["latents"]).max())
+    wave_err = float(np.abs(gpu["waveform"] - cpu["waveform"]).max())
+    frames = ""
+    if "frame_lengths" in cpu:
+        frames = f"frames {gpu['frame_lengths'].tolist()} / {cpu['frame_lengths'].tolist()}, "
+    print(f"  card vs CPU plain path, {what}: {frames}latents max|diff| {lat_err:.3e} "
+          f"(tol {lat_tol:.3e}), waveform max|diff| {wave_err:.3e} (atol {WAVE_ATOL})",
+          flush=True)
+    if "frame_lengths" in cpu and not np.array_equal(gpu["frame_lengths"], cpu["frame_lengths"]):
+        raise RuntimeError(f"{what}: card and CPU predict different frame counts")
+    if not (lat_err <= lat_tol and wave_err <= WAVE_ATOL):
+        raise RuntimeError(f"{what}: card and CPU disagree past the tolerance")
+
+
+def card_vs_cpu(model, speaker_id=None) -> None:
     """One dispatch on the card vs the same dispatch through the plain versions."""
     from vits_tpu_torch.models.vits import NoiseOverride, synthesize
 
@@ -405,21 +598,64 @@ def card_vs_cpu(model) -> None:
                 params, config, torch.tensor(ids, dtype=torch.long, device=device),
                 torch.tensor(mask, dtype=torch.float32, device=device), num_frames,
                 noise=NoiseOverride(torch.tensor(dur, device=device),
-                                    torch.tensor(prior, device=device)))
+                                    torch.tensor(prior, device=device)),
+                speaker_id=None if speaker_id is None else torch.tensor(speaker_id,
+                                                                        device=device),
+                use_pallas_flow=model.engine.use_pallas_flow)
         outs[device] = {k: getattr(out, k).cpu().numpy()
                         for k in ("waveform", "latents", "frame_lengths")}
-    gpu, cpu = outs[model.device], outs["cpu"]
-    lat_err = float(np.abs(gpu["latents"] - cpu["latents"]).max())
-    lat_tol = LATENT_RTOL * float(np.abs(cpu["latents"]).max())
-    wave_err = float(np.abs(gpu["waveform"] - cpu["waveform"]).max())
-    print(f"  card vs CPU plain path, 3 rows x {num_frames} frames: frames "
-          f"{gpu['frame_lengths'].tolist()} / {cpu['frame_lengths'].tolist()}, latents "
-          f"max|diff| {lat_err:.3e} (tol {lat_tol:.3e}), waveform max|diff| "
-          f"{wave_err:.3e} (atol {WAVE_ATOL})", flush=True)
-    if not np.array_equal(gpu["frame_lengths"], cpu["frame_lengths"]):
-        raise RuntimeError("card and CPU predict different frame counts")
-    if not (lat_err <= lat_tol and wave_err <= WAVE_ATOL):
-        raise RuntimeError("card and CPU disagree past the tolerance")
+    check_close(f"3 rows x {num_frames} frames" + ("" if speaker_id is None
+                                                   else f", speakers {list(speaker_id)}"),
+                outs[model.device], outs["cpu"])
+
+
+def flow_on_off(model, card: str, reps: int = 4) -> dict:
+    """ms per request with the flow kernel (use_pallas_flow) on and off, in turns."""
+    times = {True: [], False: []}
+    for flag in (True, False, False, True) * (reps // 2):
+        model.engine = dataclasses.replace(model.engine, use_pallas_flow=flag)
+        t0 = time.perf_counter()
+        model.synthesize_raw([SINGLE_TEXTS[1]], seed=[5], speaker_id=[17])
+        times[flag].append(1e3 * (time.perf_counter() - t0))
+    model.engine = dataclasses.replace(model.engine, use_pallas_flow=True)
+    medians = {("on" if k else "off"): float(np.median(v)) for k, v in times.items()}
+    print(f"  one request ({len(model.tokenizer.encode(SINGLE_TEXTS[1]))} tokens, speaker 17), "
+          f"median of {reps} each, flow kernel on {medians['on']:.1f} ms, off "
+          f"{medians['off']:.1f} ms wall ({card}); all: {times}", flush=True)
+    return medians
+
+
+def voice_conversion(model, card: str) -> None:
+    """Phase 5: an utterance of speaker 0 converted to speaker 17, card vs CPU."""
+    from vits_tpu_torch.models.vits import voice_convert
+    from vits_tpu_torch.train.data import linear_spectrogram
+
+    hop = model.config.total_upsample
+    audio = model.synthesize(SINGLE_TEXTS[1], seed=3, speaker_id=0)
+    t0 = time.perf_counter()
+    first = model.convert_voice(audio, source_speaker=0, target_speaker=17)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    again = model.convert_voice(audio, source_speaker=0, target_speaker=17)
+    frames = len(audio) // hop
+    check_audio(first, "voice conversion")
+    if first.shape != (frames * hop,):
+        raise RuntimeError(f"voice conversion: {first.shape} samples, want {frames} x {hop}")
+    if not np.array_equal(first, again):
+        raise RuntimeError("voice conversion at noise_scale=0 is not deterministic")
+    print(f"  voice conversion 0 -> 17: {frames} frames, {wall_ms:.1f} ms wall, a second call "
+          f"identical ({card})", flush=True)
+    n_fft = 2 * (model.config.spectrogram_bins - 1)
+    spec = linear_spectrogram(audio[: frames * hop], n_fft, hop)[None, :frames]
+    outs = {}
+    for device, params in ((model.device, model.params),
+                           ("cpu", {k: v.cpu() for k, v in model.params.items()})):
+        with torch.inference_mode():
+            out = voice_convert(params, model.config, torch.tensor(spec, device=device),
+                                torch.ones((1, frames), device=device),
+                                torch.tensor([0], device=device),
+                                torch.tensor([17], device=device))
+        outs[device] = {k: getattr(out, k).cpu().numpy() for k in ("waveform", "latents")}
+    check_close(f"voice conversion, {frames} frames", outs[model.device], outs["cpu"])
 
 
 def training_batch(config, device, token_lengths=(512, 300), frame_lengths=(1280, 800)):
@@ -549,6 +785,48 @@ KERNEL_FAMILIES = (
 )
 
 
+def profiled(fn) -> tuple[float, list, float]:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock to a
+    synchronise), its device events (kernels, memcpy, memset) and the device
+    busy ms (the union of their intervals)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise RuntimeError("the profiler saw no device activity")
+    busy_ms, end = 0.0, -np.inf
+    for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy_ms += max(0.0, stop - max(start, end)) / 1e3
+        end = max(end, stop)
+    return wall_ms, device, busy_ms
+
+
+def host_and_device(fn, calls: int = 5) -> dict:
+    """Host ms to enqueue one call of ``fn`` (the mean over ``calls`` with no
+    synchronisation between them), and its device operations and busy ms from
+    one profiled call: which of the two bounds the call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    _, device, busy_ms = profiled(fn)
+    return {"enqueue_ms": enqueue_ms, "device_ops": len(device), "device_busy_ms": busy_ms}
+
+
 def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict:
     """Phase 5: where one GAN step's time goes.
 
@@ -558,10 +836,6 @@ def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict
     launches and device ms per kernel family, and the device idle share of the
     steady step (1 - busy / median ms).
     """
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
     from vits_tpu_torch.train import step as step_module
 
     spent = dict.fromkeys(STEP_SITES, 0.0)
@@ -592,23 +866,7 @@ def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict
     for name, ms in sorted(spent.items(), key=lambda kv: -kv[1]):
         print(f"    {name:34s} {ms:8.2f} ms", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(batch, noise_gen)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        with open(f"{tmp}/trace.json") as f:
-            events = json.load(f)["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not device:
-        raise RuntimeError("the profiler saw no device activity in a GAN step")
-    busy_ms, end = 0.0, -np.inf
-    for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        busy_ms += max(0.0, stop - max(start, end)) / 1e3
-        end = max(end, stop)
+    wall_ms, device, busy_ms = profiled(lambda: step_fn(batch, noise_gen))
     families: dict[str, list] = {}
     for e in device:
         name = e["name"] if e["cat"] == "kernel" else e["cat"]
@@ -759,39 +1017,95 @@ def train_loop(card: str) -> None:
             raise RuntimeError(f"resume to step 6 did not run as expected: {logs}")
 
 
+def narrow_vocoder(model, card: str, wrappers) -> dict:
+    """Phase 6: one request through HiFi-GAN V2's decoder (kernels 7 and C at 16, 8)."""
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+
+    check_audio(model.synthesize(SINGLE_TEXTS[0], seed=0), "warm-up request")
+    for fn in (*wrappers, fused_resblock_trio):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = model.synthesize_raw([SINGLE_TEXTS[1]], seed=[4])
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    check_audio(out.waveform[0, : out.lengths[0]], "narrow-vocoder request")
+    print(f"  request: frames={out.frame_lengths.tolist()} {wall_ms:.1f} ms wall, launches "
+          f"{launches}, kernel B {fused_resblock_trio.launches} ({card})", flush=True)
+    if any(count == 0 for count in launches.values()) or fused_resblock_trio.launches:
+        raise RuntimeError("the narrow vocoder did not run kernels 7 and C (and not B)")
+    card_vs_cpu(model)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     device = torch.device("cuda")
     card = card_line()
-    print("[1/5] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/7] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
 
+    from vits_tpu_torch import EngineConfig, VitsConfig
     from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/5] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
-    model = mms_model(device)
+    t0 = time.perf_counter()
+    model = make_model(device)
+    # the published VCTK VITS (jaywalnut310/vits configs/vctk_base.json), random weights
+    # with the posterior encoder for voice conversion
+    vctk = make_model(device, VitsConfig(num_speakers=109, speaker_embedding_size=256,
+                                         sampling_rate=22050),
+                      EngineConfig(use_pallas_flow=True), keep_training=True)
+    # MMS-TTS's text side with HiFi-GAN V2's decoder (jik876/hifi-gan config_v2.json)
+    narrow = make_model(device, VitsConfig(upsample_initial_channel=128))
+    print(f"      models (MMS, VCTK, HiFi-GAN V2 decoder) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/5] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/7] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
-    for name, runs in training_kernels_vs_plain(model.params, model.config, device).items():
-        measured.setdefault(name, []).extend(runs)
+    for runs in (training_kernels_vs_plain(model.params, model.config, device),
+                 slice_kernels_vs_plain(vctk, narrow, device)):
+        for name, shapes in runs.items():
+            measured.setdefault(name, []).extend(shapes)
 
-    print(f"[4/5] the slice at MMS-TTS width, random weights ({card}):", flush=True)
-    launches = run_slice(model, card)
+    print(f"[4/7] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
+                                            fused_stage))}
     card_vs_cpu(model)
 
-    print(f"[5/5] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[5/7] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+          flush=True)
+    paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
+                                           fused_stage, fused_flow),
+                              SINGLE_SPEAKERS, BATCH_SPEAKERS)
+    a, b = (vctk.synthesize(SINGLE_TEXTS[0], seed=1, speaker_id=s) for s in (0, 17))
+    if a.shape == b.shape and np.allclose(a, b):
+        raise RuntimeError("speakers 0 and 17 gave the same audio")
+    print("  speakers 0 and 17 on the same text and seed: different audio", flush=True)
+    card_vs_cpu(vctk, speaker_id=BATCH_SPEAKERS)
+    flow_ms = flow_on_off(vctk, card)
+    voice_conversion(vctk, card)
+
+    print(f"[6/7] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+          f"({card}):", flush=True)
+    paths["narrow"] = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock,
+                                                    fused_stage))
+
+    print(f"[7/7] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
-    del model
+    del model, vctk, narrow
     trained = gan_steps(config, device, card)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the training path")
@@ -800,37 +1114,51 @@ def main() -> None:
     train_loop(card)
 
     train_launches = trained["launches"]
+    serving = {name: sum(path.get(name, 0) for path in paths.values())
+               for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage",
+                            "fused_flow", "fused_resblock")}
     sources = {
         "flash_rel_attention": ("vits_tpu_torch/csrc/rel_attention.cu",
-                                "vits_tpu/ops/pallas/attention.py:97", launches),
+                                "vits_tpu/ops/pallas/attention.py:97"),
         "fused_resblock_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
-                                "vits_tpu/ops/pallas/resblock.py:238", launches),
-        "fused_stage": ("vits_tpu_torch/csrc/stage.cu", "vits_tpu/ops/pallas/stage.py:379",
-                        launches),
+                                "vits_tpu/ops/pallas/resblock.py:238"),
+        "fused_stage": ("vits_tpu_torch/csrc/stage.cu", "vits_tpu/ops/pallas/stage.py:379"),
         "trainable_rel_attention": ("vits_tpu_torch/csrc/rel_attention_bwd.cu",
-                                    "vits_tpu/ops/pallas/attention_grad.py:262",
-                                    {"trainable_rel_attention":
-                                     train_launches["rel_attention_bwd"]}),
+                                    "vits_tpu/ops/pallas/attention_grad.py:262"),
         "trainable_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
-                           "vits_tpu/ops/pallas/trio_grad.py:183",
-                           {"trainable_trio": train_launches["trio_forward_with_acts"]}),
+                           "vits_tpu/ops/pallas/trio_grad.py:183"),
+        "fused_flow": ("vits_tpu_torch/csrc/flow.cu", "vits_tpu/ops/pallas/flow.py:230"),
+        "fused_resblock": ("vits_tpu_torch/csrc/resblock_trio.cu",
+                           "vits_tpu/ops/pallas/resblock.py:629"),
     }
-    report = {"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": sources[name][0],
-        "replaces": sources[name][1],
-        "launches": sources[name][2][name],
-        "max_abs_err": max(r["max_abs_err"] for r in runs),
-        "ms": sum(r["ms"] for r in runs if r["ms"] is not None),
-        "plain_ms": sum(r["plain_ms"] for r in runs if r["ms"] is not None),
-        "shapes": runs,
-    } for name, runs in measured.items()]}
+    launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
+                "trainable_trio": train_launches["trio_forward_with_acts"]}
+    report = {"kernels": []}
+    for name, runs in measured.items():
+        timed = [r for r in runs if r["ms"] is not None]
+        ops_ms, bytes_ms = (sum(r[k] for r in timed) for k in ("ops_ms", "bytes_ms"))
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "launches_by_path": {path: counts.get(name) for path, counts in paths.items()},
+            "shapes": runs,
+        })
     for entry in report["kernels"]:
         if entry["name"] == "flash_rel_attention":
             entry["lse_launches_training"] = train_launches["flash_rel_attention_lse"]
+    report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
+    print(card, flush=True)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,12 @@ Every test here needs an NVIDIA GPU with nvcc (the kernels build on first
 use) and skips without one; run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Inputs are seeded
 numpy draws; tolerance atol 1e-5 relative to max(1, |output|) (fp32 sums in
-another order). The plain versions are pinned against the JAX package by
-``tests/test_torch_kernels.py``.
+another order), 1e-4 for the flow at MMS width (as its JAX test). The plain
+versions are pinned against the JAX package by ``tests/test_torch_kernels.py``
+and ``tests/test_torch_flow_kernel.py``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -196,3 +199,108 @@ def test_inference_kernels_refuse_autograd(cuda_device):
             a, device=cuda_device)), stride=2, up_padding=1, slope=SLOPE)
     with torch.no_grad():  # the serving path: no autograd, the kernels run
         assert fused_resblock_trio(x, blocks, slope=SLOPE).shape == x.shape
+
+
+@pytest.fixture(scope="module")
+def vctk_flow():
+    """Flow weights of a multi-speaker model at VCTK/MMS width (flow 192, hidden 192, 4x4)."""
+    from vits_tpu_torch.config import VitsConfig
+    from vits_tpu_torch.io import random_params
+
+    if not torch.cuda.is_available():  # a module fixture is set up before cuda_device skips
+        pytest.skip("needs an NVIDIA GPU and nvcc (vits_tpu_torch CUDA kernels)")
+    config = VitsConfig(num_speakers=109, speaker_embedding_size=256)
+    params = random_params(config, seed=0, keep_training=False)
+    return config, {k: v for k, v in params.items() if k.startswith("flow.")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speaker", [False, True])
+def test_flow_kernel_matches_plain_on_card(cuda_device, vctk_flow, speaker):
+    """Kernel 6 with a length-0 row, with and without speaker conditioning."""
+    from vits_tpu_torch.io.params import ParamView, from_jax_params
+    from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow
+
+    config, params = vctk_flow
+    p = ParamView(from_jax_params(params, cuda_device))
+    rng = np.random.default_rng(7)
+    lengths = [150, 0, 61]
+    x = torch.tensor(_masked(rng, 3, 150, config.flow_size, lengths), device=cuda_device)
+    emb = None
+    if speaker:
+        emb = torch.tensor(rng.standard_normal((3, 1, config.speaker_embedding_size)) * 0.3,
+                           dtype=torch.float32, device=cuda_device)
+    kw = dict(lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              speaker_embeddings=emb)
+    before = fused_flow.launches
+    got = fused_flow(x, p, config, **kw)
+    assert fused_flow.launches == before + 1
+    assert float(got[1].abs().max()) == 0.0 and float(got[2, 61:].abs().max()) == 0.0
+    _assert_close(got.cpu(), flow_reference(x, p, config, **kw).cpu(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+def test_resblock_kernel_matches_plain_on_card(cuda_device, C):
+    """Kernel 7 (one resblock) at the narrow stage widths, with a length-0 row."""
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, resblock_reference
+
+    rng = np.random.default_rng(C)
+    lengths = [300, 0, 123]
+    x = torch.tensor(_masked(rng, 3, 300, C, lengths), device=cuda_device)
+    block = _to(_blocks(rng, C, ks=(11,), scale=0.1),
+                lambda a: torch.tensor(a, device=cuda_device))[0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fused_resblock.launches
+    got = fused_resblock(x, block, slope=SLOPE, lengths=lens)
+    assert fused_resblock.launches == before + 1
+    _assert_close(got.cpu(), resblock_reference(x, block, slope=SLOPE, lengths=lens).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_in,C_out,final", [(32, 16, False), (16, 8, True)])
+def test_narrow_stage_kernel_matches_plain_on_card(cuda_device, C_in, C_out, final):
+    """Kernel C at HiFi-GAN V2's tail widths, C_out 16 and 8 (+ conv_post)."""
+    rng = np.random.default_rng(C_out)
+    lengths = [200, 77]
+    x = torch.tensor(_masked(rng, 2, 200, C_in, lengths), device=cuda_device)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    up_w = dev(rng.standard_normal((4, C_in, C_out)) * 0.2)
+    up_b = dev(rng.standard_normal(C_out) * 0.1)
+    blocks = _to(_blocks(rng, C_out, scale=0.1), dev)
+    kw = dict(stride=2, up_padding=1, slope=SLOPE,
+              lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              final_conv=(dev(rng.standard_normal((7, C_out, 1)) * 0.3), 3) if final else None)
+    before = fused_stage.launches
+    got = fused_stage(x, up_w, up_b, blocks, **kw)
+    assert fused_stage.launches == before + 1
+    _assert_close(got.cpu(), stage_reference(x, up_w, up_b, blocks, **kw).cpu())
+
+
+@pytest.mark.cuda
+def test_multispeaker_batch_rows_equal_solo_runs_on_card(cuda_device):
+    """A narrow multi-speaker model through kernels A, 6, 7 and C: per-row speakers."""
+    from vits_tpu_torch.config import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.synthesizer import Synthesizer
+    from vits_tpu_torch.io import VitsTokenizer, random_params
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock
+
+    config = dataclasses.replace(
+        VitsConfig(), hidden_size=64, ffn_dim=128, num_hidden_layers=2, flow_size=32,
+        upsample_initial_channel=64, num_speakers=4, speaker_embedding_size=16)
+    vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
+                              unk_token="z")
+    model = Synthesizer(config, tokenizer, random_params(config, seed=1, keep_training=False),
+                        EngineConfig(use_pallas_flow=True), device=cuda_device)
+    counts = {fn: fn.launches for fn in (fused_flow, fused_resblock, fused_stage)}
+    texts, seeds, speakers = ["hello there", "good day to you all", "hi"], [1, 2, 3], [0, 3, 1]
+    batch = model.synthesize_raw(texts, seed=seeds, speaker_id=speakers)
+    assert all(fn.launches > n for fn, n in counts.items())
+    for i, (text, seed, spk) in enumerate(zip(texts, seeds, speakers)):
+        solo = model.synthesize_raw([text], seed=[seed], speaker_id=[spk])
+        assert solo.frame_lengths[0] == batch.frame_lengths[i]
+        n = solo.lengths[0]
+        np.testing.assert_allclose(batch.waveform[i, :n], solo.waveform[0, :n], atol=2e-3,
+                                   rtol=0)

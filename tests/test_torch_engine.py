@@ -102,7 +102,7 @@ def test_adaptive_capacity_align_stays_on_rungs():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compute_dtype", "bfloat16"), ("use_pallas_flow", True), ("pallas_precision", "high"),
+    ("compute_dtype", "bfloat16"), ("use_pallas_attention", True), ("pallas_precision", "high"),
     ("batch_buckets", (1, 4)), ("aot_bundle_dir", "bundle"), ("use_pallas_vocoder", False),
 ])
 def test_engine_rejects_unported_fields(field, value):

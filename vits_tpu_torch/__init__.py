@@ -13,11 +13,12 @@ CPU tensors each takes its plain PyTorch version.
     from vits_tpu_torch.train.loop import train
     train("corpus/", "voice.ggml", "run/", steps=1000, device="cuda")
 
-The package imports torch and the JAX-free host modules of ``vits_tpu``
-(config, io, text), never jax.
+The package imports torch and nothing of jax or of ``vits_tpu``: the host
+modules it shares with the JAX package (config, checkpoint io, text, wav) are
+copies of their own, kept diffable against the originals.
 """
 
-from vits_tpu.config import EngineConfig, VitsConfig
+from vits_tpu_torch.config import EngineConfig, VitsConfig
 
 __all__ = ["VitsConfig", "EngineConfig", "load_model"]
 

@@ -21,6 +21,28 @@ __host__ __device__ __forceinline__ int vk_floordiv(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
+// 16-byte asynchronous copy global -> shared (sm_80+), and its group fences.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Number of SMs of the current device (read once).
+inline int vk_sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 // Raise a kernel's dynamic shared-memory ceiling when it asks for more than
 // the 48 KB default; returns the CUDA status.
 template <typename Kernel>

@@ -26,6 +26,14 @@
 // thread are strided by the number of time groups, so the groups of one warp
 // read neighbouring rows, on different banks. wgmma/TMA, bf16 and a one-launch
 // pair are later work.
+//
+// Narrow channels (C_in % 16 or C_out % 32, i.e. C = 1 .. 16 on the vocoder's
+// narrow stages: kernel 7, vits_tpu/ops/pallas/resblock.py::fused_resblock,
+// and the C_out = 16, 8 tail of kernel C) take narrow_conv_kernel instead: a
+// direct convolution, one thread per (time step, out-channel) output at a
+// time, the whole (k, C_in, C_out) weight and the block's leaky(x) window in
+// shared memory. At C = 16 a conv is 2*k*256 FLOP per step, so these stages
+// are small; a tiled narrow path is later work.
 #include "common.cuh"
 
 namespace {
@@ -34,16 +42,6 @@ constexpr int kThreads = 128;
 constexpr int kKc = 16;         // input channels per chunk
 constexpr int kAs = kKc + 1;    // window row stride (floats): odd, so rows hit distinct banks
 constexpr int kCoThread = 8;    // out-channels per thread: two float4 halves
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Geometry of one CO_T x (groups * R) output tile.
 template <int CO_T, int R>
@@ -162,6 +160,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowTile = 256;  // output steps per block
+
+__global__ void __launch_bounds__(kNarrowThreads)
+    narrow_conv_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       const float* __restrict__ w, const float* __restrict__ bias,
+                       const float* __restrict__ residual, const int* __restrict__ lengths,
+                       int T, int C_in, int C_out, int k, int dil, int pad, float slope,
+                       int accumulate, float scale) {
+  extern __shared__ float smem[];
+  float* ws = smem;                        // (k, C_in, C_out) weights
+  float* xs = smem + k * C_in * C_out;     // window row r <-> position t0 - pad + r
+  const int win = kNarrowTile + (k - 1) * dil;
+  const int t0 = blockIdx.x * kNarrowTile;
+  const int b = blockIdx.y;
+  const int len = lengths[b];
+  const float* xb = x + (size_t)b * T * C_in;
+  for (int idx = threadIdx.x; idx < k * C_in * C_out; idx += kNarrowThreads) ws[idx] = w[idx];
+  for (int idx = threadIdx.x; idx < win * C_in; idx += kNarrowThreads) {
+    const int r = idx / C_in, c = idx - r * C_in;
+    const int p = t0 - pad + r;
+    xs[idx] = (p >= 0 && p < T) ? vk_leaky(xb[(size_t)p * C_in + c], slope) : 0.f;
+  }
+  __syncthreads();
+  float* ob = out + (size_t)b * T * C_out;
+  const float* rb = residual ? residual + (size_t)b * T * C_out : nullptr;
+  for (int idx = threadIdx.x; idx < kNarrowTile * C_out; idx += kNarrowThreads) {
+    const int t = idx / C_out, co = idx - t * C_out;
+    const int p = t0 + t;
+    if (p >= T) break;  // idx only grows, and p with it
+    float acc = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float* row = xs + (t + j * dil) * C_in;
+      const float* wj = ws + j * C_in * C_out + co;
+      for (int ci = 0; ci < C_in; ++ci) acc = fmaf(row[ci], wj[ci * C_out], acc);
+    }
+    float y = acc + bias[co];
+    const size_t at = (size_t)p * C_out + co;
+    if (p >= len) {
+      y = 0.f;
+    } else if (rb) {
+      y += rb[at];
+    }
+    if (accumulate) y += ob[at];
+    ob[at] = y * scale;
+  }
+}
+
+cudaError_t launch_narrow_conv(const float* x, float* out, const float* w, const float* bias,
+                               const float* residual, const int* lengths, int B, int T,
+                               int C_in, int C_out, int k, int dil, int pad, float slope,
+                               int accumulate, float scale, cudaStream_t stream) {
+  const int smem =
+      (k * C_in * C_out + (kNarrowTile + (k - 1) * dil) * C_in) * static_cast<int>(sizeof(float));
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem(narrow_conv_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kNarrowTile - 1) / kNarrowTile, B);
+  narrow_conv_kernel<<<grid, kNarrowThreads, smem, stream>>>(
+      x, out, w, bias, residual, lengths, T, C_in, C_out, k, dil, pad, slope, accumulate, scale);
+  return cudaGetLastError();
+}
+
 template <int CO_T, int R>
 int conv_smem(int k, int dil) {
   using G = Tile<CO_T, R>;
@@ -196,26 +257,25 @@ VK_EXPORT const char* vk_error_string(int code) {
 // same), mask_p zeroes p >= lengths[b], and with accumulate the result is added
 // to out; the sum is then multiplied by scale. x (B, T, C_in), w (k, C_in,
 // C_out) as the JAX loader lays it out, out/residual (B, T, C_out), all fp32
-// and contiguous; C_in % 16 == 0, C_out % 32 == 0, 16-byte aligned.
+// and contiguous; the tiled path (C_in % 16 == 0, C_out % 32 == 0) needs
+// 16-byte aligned weights and biases, other channel counts take the direct path.
 VK_EXPORT int vk_conv(const float* x, float* out, const float* w, const float* bias,
                       const float* residual, const int* lengths, int B, int T, int C_in,
                       int C_out, int k, int dil, int pad, float slope, int accumulate,
                       float scale, void* stream) {
-  if (C_in % kKc || C_out % 32 || k < 1 || dil < 1 || T < 1) return cudaErrorInvalidValue;
+  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C_in % kKc || C_out % 32) {
+    return launch_narrow_conv(x, out, w, bias, residual, lengths, B, T, C_in, C_out, k, dil,
+                              pad, slope, accumulate, scale, s);
+  }
   if (C_out % 64) {
     return launch_conv<32, 8>(x, out, w, bias, residual, lengths, B, T, C_in, C_out, k, dil,
                               pad, slope, accumulate, scale, s);
   }
   // Fewer rows per thread when the full tiles would leave SMs idle (C=256 at B=1).
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
   const int blocks = (T + Tile<64, 8>::rows - 1) / Tile<64, 8>::rows * (C_out / 64) * B;
-  if (blocks < 2 * sms) {
+  if (blocks < 2 * vk_sm_count()) {
     return launch_conv<64, 4>(x, out, w, bias, residual, lengths, B, T, C_in, C_out, k, dil,
                               pad, slope, accumulate, scale, s);
   }

@@ -7,7 +7,10 @@
 // stage is three kinds of launch, driven by vits_tpu_torch/ops/cuda/stage.py:
 // upsample_kernel below, the resblock conv kernel of resblock_trio.cu for the
 // resblocks, and wave_kernel below for the terminal conv_post. No packing: the
-// narrow channels (C = 64, 32) map onto threads directly.
+// narrow channels map onto threads directly -- C_out = 64, 32 on MMS stages
+// 2-3 and C_out = 16, 8 on HiFi-GAN V2's (the resblock convs then take the
+// direct narrow path of resblock_trio.cu); the upsampler takes any C_out that
+// divides 128 (4 out-channels a thread, or 1 below 4).
 //
 // What bounds it on an H100: the resblock convs (fp32 FFMA, as in
 // resblock_trio.cu). The upsampler does k/stride taps of C_in x C_out per
@@ -19,20 +22,21 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCo = 4;    // output channels per thread
 constexpr int kRows = 8;  // output steps per thread
 constexpr int kWaveTile = 256;
 
 // y[v] = bias + sum_j x_d[v + j - pe] @ w[j], with x_d the stride-dilated
 // leaky(x) and pe = k - 1 - pad (w is the loader's spatially reversed kernel,
 // so this is torch's ConvTranspose1d). Output steps v >= len*stride are zero.
+// Each thread owns CO (4 or 1) output channels.
+template <int CO>
 __global__ void __launch_bounds__(kThreads)
     upsample_kernel(const float* __restrict__ x, float* __restrict__ y,
                     const float* __restrict__ w, const float* __restrict__ bias,
                     const int* __restrict__ lengths, int T_in, int C_in, int C_out, int k,
                     int stride, int pad, float slope) {
   extern __shared__ float smem[];
-  const int cg = C_out / kCo;
+  const int cg = C_out / CO;
   const int tile = (kThreads / cg) * kRows;
   const int T_out = T_in * stride;
   const int pe = k - 1 - pad;
@@ -51,14 +55,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int co = (threadIdx.x % cg) * kCo;
+  const int co = (threadIdx.x % cg) * CO;
   const int vbase = v0 + (threadIdx.x / cg) * kRows;
-  float acc[kRows][kCo];
+  float acc[kRows][CO];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int c = 0; c < kCo; ++c) acc[i][c] = 0.f;
-  const int c4 = C_out / 4;
+    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
   for (int j = 0; j < k; ++j) {
     int off[kRows];
     bool use[kRows];
@@ -69,17 +72,24 @@ __global__ void __launch_bounds__(kThreads)
       use[i] = m == t * stride;
       off[i] = (t - t_lo) * S;
     }
-    const float4* wt = reinterpret_cast<const float4*>(w + (size_t)j * C_in * C_out + co);
+    const float* wt = w + (size_t)j * C_in * C_out + co;
     for (int ci = 0; ci < C_in; ++ci) {
-      const float4 wv = __ldg(wt + (size_t)ci * c4);
+      float wv[CO];
+      if constexpr (CO == 4) {
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * C_out));
+        wv[0] = w4.x;
+        wv[1] = w4.y;
+        wv[2] = w4.z;
+        wv[3] = w4.w;
+      } else {
+        wv[0] = __ldg(wt + (size_t)ci * C_out);
+      }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         if (!use[i]) continue;
         const float v = smem[off[i] + ci];
-        acc[i][0] = fmaf(v, wv.x, acc[i][0]);
-        acc[i][1] = fmaf(v, wv.y, acc[i][1]);
-        acc[i][2] = fmaf(v, wv.z, acc[i][2]);
-        acc[i][3] = fmaf(v, wv.w, acc[i][3]);
+#pragma unroll
+        for (int c = 0; c < CO; ++c) acc[i][c] = fmaf(v, wv[c], acc[i][c]);
       }
     }
   }
@@ -90,7 +100,7 @@ __global__ void __launch_bounds__(kThreads)
     const int v = vbase + i;
     if (v >= T_out) break;
 #pragma unroll
-    for (int c = 0; c < kCo; ++c)
+    for (int c = 0; c < CO; ++c)
       yb[(size_t)v * C_out + co + c] = v < len_out ? acc[i][c] + bias[co + c] : 0.f;
   }
 }
@@ -128,10 +138,26 @@ __global__ void __launch_bounds__(kWaveTile)
   wave[(size_t)b * T + t] = t < lengths[b] * len_scale ? tanhf(acc) : 0.f;
 }
 
-int upsample_smem(int C_in, int C_out, int k, int stride) {
-  const int tile = (kThreads / (C_out / kCo)) * kRows;
+int upsample_smem(int C_in, int C_out, int co, int k, int stride) {
+  const int tile = (kThreads / (C_out / co)) * kRows;
   const int rows = (tile - 1 + k - 1) / stride + 2;  // bound on t_hi - t_lo + 1
   return rows * (C_in + 1) * static_cast<int>(sizeof(float));
+}
+
+template <int CO>
+cudaError_t launch_upsample(const float* x, float* y, const float* w, const float* bias,
+                            const int* lengths, int B, int T_in, int C_in, int C_out, int k,
+                            int stride, int pad, float slope, cudaStream_t stream) {
+  if (kThreads % (C_out / CO)) return cudaErrorInvalidValue;
+  const int smem = upsample_smem(C_in, C_out, CO, k, stride);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem(upsample_kernel<CO>, smem);
+  if (err != cudaSuccess) return err;
+  const int tile = (kThreads / (C_out / CO)) * kRows;
+  const dim3 grid((T_in * stride + tile - 1) / tile, B);
+  upsample_kernel<CO><<<grid, kThreads, smem, stream>>>(x, y, w, bias, lengths, T_in, C_in,
+                                                        C_out, k, stride, pad, slope);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -139,17 +165,14 @@ int upsample_smem(int C_in, int C_out, int k, int stride) {
 VK_EXPORT int vk_upsample(const float* x, float* y, const float* w, const float* bias,
                           const int* lengths, int B, int T_in, int C_in, int C_out, int k,
                           int stride, int pad, float slope, void* stream) {
-  if (C_out < kCo || C_out % kCo || kThreads % (C_out / kCo) || stride < 1)
-    return cudaErrorInvalidValue;
-  const int smem = upsample_smem(C_in, C_out, k, stride);
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(upsample_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int tile = (kThreads / (C_out / kCo)) * kRows;
-  const dim3 grid((T_in * stride + tile - 1) / tile, B);
-  upsample_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, w, bias, lengths, T_in, C_in, C_out, k, stride, pad, slope);
-  return cudaGetLastError();
+  if (C_in < 1 || C_out < 1 || stride < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C_out % 4 == 0) {
+    return launch_upsample<4>(x, y, w, bias, lengths, B, T_in, C_in, C_out, k, stride, pad,
+                              slope, s);
+  }
+  return launch_upsample<1>(x, y, w, bias, lengths, B, T_in, C_in, C_out, k, stride, pad, slope,
+                            s);
 }
 
 VK_EXPORT int vk_wave(const float* h, float* wave, const float* w, const int* lengths, int B,

@@ -4,7 +4,11 @@ Counterpart of ``vits_tpu/engine/synthesizer.py``, reduced to the main path:
 ``load``/``__init__``, ``synthesize``, ``synthesize_raw``, ``submit`` /
 ``collect``, token buckets, the frame capacity of
 ``EngineConfig.frame_bucket`` with its adaptive raise and decay, the overflow
-re-dispatch ladder, trimming and per-row seeds.
+re-dispatch ladder, trimming, per-row seeds, per-row speakers of a
+multi-speaker model (``speaker_id``) and voice conversion
+(:meth:`Synthesizer.convert_voice`). ``EngineConfig.use_pallas_flow`` runs
+the reverse flow of synthesis as kernel 6, as it runs the fused flow kernel in
+the JAX engine; without it the plain flow runs.
 
 Every dispatch pads a batch into its token bucket and runs at a static frame
 capacity; ``collect`` reads the predicted frame counts and, when they exceed
@@ -31,16 +35,17 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from vits_tpu.config import EngineConfig, VitsConfig
+from vits_tpu_torch.config import EngineConfig, VitsConfig
 from vits_tpu_torch.io import VitsTokenizer, load_ggml, load_hf_pretrained
 from vits_tpu_torch.io.params import from_jax_params
 from vits_tpu_torch.models.vits import synthesize as synthesize_fn
+from vits_tpu_torch.models.vits import voice_convert
 
 # EngineConfig fields the port does not honour yet: each must keep its default.
 _UNSUPPORTED_FIELDS = (
     "compute_dtype", "batch_buckets", "use_pallas_vocoder", "pallas_precision",
     "pallas_value_dtype", "pallas_weight_format", "use_pallas_attention",
-    "use_pallas_flow", "matmul_precision", "compilation_cache_dir", "aot_bundle_dir",
+    "matmul_precision", "compilation_cache_dir", "aot_bundle_dir",
 )
 
 
@@ -76,6 +81,7 @@ class PendingSynthesis(NamedTuple):
     mask: np.ndarray
     num_frames: int
     seed: int | tuple[int, ...]
+    speaker: np.ndarray | None
     controls: tuple
 
 
@@ -85,6 +91,22 @@ def _next_bucket(buckets: Sequence[int], value: int) -> int:
             return b
     biggest = buckets[-1]
     return ((value + biggest - 1) // biggest) * biggest
+
+
+def _speaker_rows(value, rows: int, given: int, name: str) -> np.ndarray | None:
+    """One speaker id for every row, from one id or one per input; rows past
+    the inputs (padding) ride speaker 0."""
+    if value is None:
+        return None
+    arr = np.asarray(value, np.int64)
+    out = np.zeros((rows,), np.int64)
+    if arr.ndim == 0:
+        out[:] = arr
+    elif arr.shape == (given,):
+        out[:given] = arr
+    else:
+        raise ValueError(f"{name} list length {arr.shape} != number of inputs ({given})")
+    return out
 
 
 class Synthesizer:
@@ -97,7 +119,7 @@ class Synthesizer:
         *,
         device: torch.device | str,
     ):
-        """``params``: the JAX package's canonical numpy parameters (``vits_tpu.io``)."""
+        """``params``: canonical-layout numpy parameters (``vits_tpu_torch.io``)."""
         self.config = config
         self.tokenizer = tokenizer
         self.engine = engine_config or EngineConfig()
@@ -143,9 +165,17 @@ class Synthesizer:
             return [torch.Generator(self.device).manual_seed(s) for s in seed]
         return torch.Generator(self.device).manual_seed(seed)
 
+    def _speaker_tensor(self, speaker: np.ndarray | None) -> torch.Tensor | None:
+        if speaker is None:
+            return None
+        if speaker.min() < 0 or speaker.max() >= self.config.num_speakers:
+            raise ValueError(f"speaker ids {speaker.tolist()} outside "
+                             f"[0, {self.config.num_speakers})")
+        return torch.as_tensor(speaker, dtype=torch.long).to(self.device)
+
     @torch.inference_mode()
     def _dispatch(self, ids: np.ndarray, mask: np.ndarray, num_frames: int, seed,
-                  controls: tuple) -> tuple:
+                  speaker: np.ndarray | None, controls: tuple) -> tuple:
         t0 = time.perf_counter()
         noise_scale, noise_scale_duration, speaking_rate = controls
         out = synthesize_fn(
@@ -154,9 +184,11 @@ class Synthesizer:
             torch.as_tensor(mask, dtype=torch.float32).to(self.device),
             num_frames,
             generator=self._generators(seed),
+            speaker_id=self._speaker_tensor(speaker),
             noise_scale=noise_scale,
             noise_scale_duration=noise_scale_duration,
             speaking_rate=speaking_rate,
+            use_pallas_flow=self.engine.use_pallas_flow,
         )
         wave = out.waveform
         if self.engine.transfer_int16:
@@ -179,6 +211,7 @@ class Synthesizer:
         texts: str | Sequence[str],
         *,
         seed: int | Sequence[int] = 0,
+        speaker_id: Optional[int | Sequence[int]] = None,
         trim: bool = True,
         max_redispatch: int = 3,
         noise_scale: Optional[float] = None,
@@ -188,11 +221,13 @@ class Synthesizer:
         """Text(s) -> float32 PCM at ``config.sampling_rate``.
 
         A single string returns one 1-D array; a list returns a list, each
-        trimmed to its predicted length unless ``trim=False``.
+        trimmed to its predicted length unless ``trim=False``. ``speaker_id``
+        (a multi-speaker model) is one id for all texts or one per text.
         """
         single = isinstance(texts, str)
         out = self.synthesize_raw(
-            texts, seed=seed, max_redispatch=max_redispatch, noise_scale=noise_scale,
+            texts, seed=seed, speaker_id=speaker_id, max_redispatch=max_redispatch,
+            noise_scale=noise_scale,
             noise_scale_duration=noise_scale_duration, speaking_rate=speaking_rate,
         )
         n_texts = 1 if single else len(texts)
@@ -205,6 +240,7 @@ class Synthesizer:
         texts: str | Sequence[str],
         *,
         seed: int | Sequence[int] = 0,
+        speaker_id: Optional[int | Sequence[int]] = None,
         noise_scale: Optional[float] = None,
         noise_scale_duration: Optional[float] = None,
         speaking_rate: Optional[float] = None,
@@ -223,10 +259,11 @@ class Synthesizer:
             if len(seed_spec) != len(texts):
                 raise ValueError(
                     f"seed list length {len(seed_spec)} != number of texts ({len(texts)})")
+        speaker = _speaker_rows(speaker_id, ids.shape[0], len(texts), "speaker_id")
         controls = self._controls(noise_scale, noise_scale_duration, speaking_rate)
         num_frames = self._frame_capacity(t_bucket)
-        device_out = self._dispatch(ids, mask, num_frames, seed_spec, controls)
-        return PendingSynthesis(device_out, ids, mask, num_frames, seed_spec, controls)
+        device_out = self._dispatch(ids, mask, num_frames, seed_spec, speaker, controls)
+        return PendingSynthesis(device_out, ids, mask, num_frames, seed_spec, speaker, controls)
 
     def collect(self, pending: PendingSynthesis, max_redispatch: int = 3) -> EngineOutput:
         """Fetch a dispatch to the host, re-dispatching at double capacity on overflow."""
@@ -243,7 +280,7 @@ class Synthesizer:
                     num_frames *= 2
                 self.stats["redispatches"] += 1
                 device_out = self._dispatch(pending.ids, pending.mask, num_frames,
-                                            pending.seed, pending.controls)
+                                            pending.seed, pending.speaker, pending.controls)
                 predicted = int(device_out[2].max().item())
                 if predicted <= num_frames or attempt == max_redispatch - 1:
                     out = self._fetch(device_out)
@@ -256,6 +293,7 @@ class Synthesizer:
         texts: str | Sequence[str],
         *,
         seed: int | Sequence[int] = 0,
+        speaker_id: Optional[int | Sequence[int]] = None,
         max_redispatch: int = 3,
         noise_scale: Optional[float] = None,
         noise_scale_duration: Optional[float] = None,
@@ -263,10 +301,70 @@ class Synthesizer:
     ) -> EngineOutput:
         """Untrimmed batched output (host numpy) plus per-row lengths."""
         pending = self.submit(
-            texts, seed=seed, noise_scale=noise_scale,
+            texts, seed=seed, speaker_id=speaker_id, noise_scale=noise_scale,
             noise_scale_duration=noise_scale_duration, speaking_rate=speaking_rate,
         )
         return self.collect(pending, max_redispatch=max_redispatch)
+
+    @torch.inference_mode()
+    def convert_voice(
+        self,
+        audio: np.ndarray | Sequence[np.ndarray],
+        *,
+        source_speaker: Optional[int | Sequence[int]] = None,
+        target_speaker: Optional[int | Sequence[int]] = None,
+        seed: int = 0,
+        noise_scale: float = 0.0,
+        trim: bool = True,
+    ):
+        """Voice conversion: source audio -> the same speech in the target voice.
+
+        ``audio`` is one 1-D float32 waveform at ``config.sampling_rate`` (or a
+        list; returns a list). The spectrogram is framed as in training (hop =
+        total_upsample, n_fft = 2*(spectrogram_bins-1)), so posterior frames
+        align 1:1 with latent frames, and padded to the smallest frame bucket
+        that holds the longest input. ``noise_scale=0`` converts the posterior
+        mean: deterministic. Otherwise row r draws its noise from its own
+        ``torch.Generator`` seeded from (seed, r).
+        """
+        from vits_tpu_torch.train.data import linear_spectrogram
+
+        single = isinstance(audio, np.ndarray) and np.ndim(audio) == 1
+        waves_in = [audio] if single else list(audio)
+        hop = self.config.total_upsample
+        n_fft = 2 * (self.config.spectrogram_bins - 1)
+        specs = []
+        for a in waves_in:
+            a = np.asarray(a, np.float32).reshape(-1)
+            floor = max(hop, (n_fft - hop) // 2 + 1)  # reflect padding and one frame
+            if len(a) < floor:
+                a = np.pad(a, (0, floor - len(a)))
+            n_frames = len(a) // hop
+            specs.append(linear_spectrogram(a[: n_frames * hop], n_fft, hop)[:n_frames])
+        batch = len(specs)
+        capacity = _next_bucket([self._frame_capacity(tb) for tb in self.engine.token_buckets],
+                                max(s.shape[0] for s in specs))
+        spec = np.zeros((batch, capacity, self.config.spectrogram_bins), np.float32)
+        mask = np.zeros((batch, capacity), np.float32)
+        for i, s in enumerate(specs):
+            spec[i, : s.shape[0]] = s
+            mask[i, : s.shape[0]] = 1.0
+        src = _speaker_rows(source_speaker, batch, batch, "source_speaker")
+        tgt = _speaker_rows(target_speaker, batch, batch, "target_speaker")
+        generators = [torch.Generator(self.device).manual_seed(
+            int(np.random.SeedSequence([seed, r]).generate_state(1, np.uint64)[0]))
+            for r in range(batch)]
+        t0 = time.perf_counter()
+        out = voice_convert(
+            self.params, self.config, torch.as_tensor(spec).to(self.device),
+            torch.as_tensor(mask).to(self.device), self._speaker_tensor(src),
+            self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale)
+        wave = out.waveform.cpu().numpy()
+        self.stats["dispatches"] += 1
+        self.stats["wall_seconds"] += time.perf_counter() - t0
+        results = [wave[i, : specs[i].shape[0] * hop] if trim else wave[i]
+                   for i in range(batch)]
+        return results[0] if single else results
 
     # ------------------------------------------------------------------ #
     # Frame capacity: the JAX engine's adaptive ratio, on host numbers only.

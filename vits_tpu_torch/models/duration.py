@@ -14,7 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from vits_tpu.config import VitsConfig
+from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, depthwise_conv1d, layer_norm
 from vits_tpu_torch.ops.spline import unconstrained_rational_quadratic_spline
@@ -93,6 +93,17 @@ def elementwise_affine(p: ParamView, inputs: torch.Tensor, padding_mask: torch.T
     return outputs, torch.sum(log_scale * padding_mask, dim=(1, 2))
 
 
+def _conditioned_pre(p: ParamView, config: VitsConfig, inputs: torch.Tensor,
+                     padding_mask: torch.Tensor,
+                     global_conditioning: torch.Tensor | None) -> torch.Tensor:
+    """The SDP's shared trunk: conv_pre (+ speaker cond) -> DDS convs -> conv_proj."""
+    h = conv1d(inputs, p["conv_pre.weight"], p["conv_pre.bias"])
+    if global_conditioning is not None:
+        h = h + conv1d(global_conditioning, p["cond.weight"], p["cond.bias"])
+    h = dilated_depth_separable_conv(p.sub("conv_dds"), config, h, padding_mask)
+    return conv1d(h, p["conv_proj.weight"], p["conv_proj.bias"]) * padding_mask
+
+
 def stochastic_duration_predictor_reverse(
     params: ParamView,
     config: VitsConfig,
@@ -100,6 +111,7 @@ def stochastic_duration_predictor_reverse(
     padding_mask: torch.Tensor,  # (B, T, 1)
     noise: torch.Tensor,  # (B, T, 2) standard normal
     noise_scale: float,
+    global_conditioning: torch.Tensor | None = None,  # (B, 1, speaker_emb)
 ) -> torch.Tensor:
     """Sampling direction: noise -> log durations (B, T, 1).
 
@@ -107,9 +119,7 @@ def stochastic_duration_predictor_reverse(
     HF does ("remove a useless vflow").
     """
     p = params.sub("duration_predictor")
-    h = conv1d(inputs, p["conv_pre.weight"], p["conv_pre.bias"])
-    h = dilated_depth_separable_conv(p.sub("conv_dds"), config, h, padding_mask)
-    h = conv1d(h, p["conv_proj.weight"], p["conv_proj.bias"]) * padding_mask
+    h = _conditioned_pre(p, config, inputs, padding_mask, global_conditioning)
 
     latents = noise * noise_scale
     for i in [i for i in range(config.duration_predictor_num_flows, -1, -1) if i != 1]:
@@ -129,12 +139,11 @@ def stochastic_duration_predictor_nll(
     padding_mask: torch.Tensor,  # (B, T, 1)
     durations: torch.Tensor,  # (B, T, 1) target durations
     posterior_noise: torch.Tensor,  # (B, T, 2) standard normal
+    global_conditioning: torch.Tensor | None = None,  # (B, 1, speaker_emb)
 ) -> torch.Tensor:
     """Training direction: negative log-likelihood of the target durations, (B,)."""
     p = params.sub("duration_predictor")
-    h = conv1d(inputs, p["conv_pre.weight"], p["conv_pre.bias"])
-    h = dilated_depth_separable_conv(p.sub("conv_dds"), config, h, padding_mask)
-    h = conv1d(h, p["conv_proj.weight"], p["conv_proj.bias"]) * padding_mask
+    h = _conditioned_pre(p, config, inputs, padding_mask, global_conditioning)
 
     hd = conv1d(durations, p["post_conv_pre.weight"], p["post_conv_pre.bias"])
     hd = dilated_depth_separable_conv(p.sub("post_conv_dds"), config, hd, padding_mask)
@@ -173,11 +182,14 @@ def duration_predictor(
     config: VitsConfig,
     inputs: torch.Tensor,  # (B, T, hidden)
     padding_mask: torch.Tensor,
+    global_conditioning: torch.Tensor | None = None,  # (B, 1, speaker_emb)
 ) -> torch.Tensor:
     """Deterministic VitsDurationPredictor (use_stochastic_duration_prediction=False)."""
     p = params.sub("duration_predictor")
     k = config.duration_predictor_kernel_size
     eps = config.layer_norm_eps
+    if global_conditioning is not None:
+        inputs = inputs + conv1d(global_conditioning, p["cond.weight"], p["cond.bias"])
     h = conv1d(inputs * padding_mask, p["conv_1.weight"], p["conv_1.bias"], padding=k // 2)
     h = layer_norm(torch.relu(h), p["norm_1.weight"], p["norm_1.bias"], eps)
     h = conv1d(h * padding_mask, p["conv_2.weight"], p["conv_2.bias"], padding=k // 2)

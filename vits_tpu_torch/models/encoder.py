@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from vits_tpu.config import VitsConfig
+from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, layer_norm
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference

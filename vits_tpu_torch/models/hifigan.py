@@ -8,7 +8,14 @@ routing (its ``use_pallas`` path):
   also applies conv_post + tanh and returns the waveform;
 * a wide stage (C_out % 128 == 0, MMS stages 0-1) runs leaky ->
   ConvTranspose1d -> mask in plain PyTorch and its resblocks as kernel B;
+* a narrow stage that fails that check (C_out dividing 128: HiFi-GAN V2's
+  stages 0-1 at C 64, 32; the multi-speaker test model's at C 16, 8) runs its
+  upsampler in plain PyTorch and each resblock as kernel 7, summed and divided
+  by the number of blocks;
 * any other stage takes the plain per-block path.
+
+``global_conditioning`` (B, 1, speaker_emb) is 1x1-convolved by
+``decoder.cond`` and added after ``conv_pre``.
 
 After every conv the padded tail of each row is re-zeroed with the stage's
 upsampled mask, so a padded batch row equals its solo run. The final
@@ -24,10 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from vits_tpu.config import VitsConfig
+from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
-from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
 from vits_tpu_torch.ops.cuda.stage import FINAL_SLOPE, fused_stage
 from vits_tpu_torch.ops.cuda.trio_grad import trainable_trio
 
@@ -81,6 +88,7 @@ def hifigan(
     config: VitsConfig,
     spectrogram: torch.Tensor,  # (B, T, flow_size) latents
     frame_mask: torch.Tensor | None = None,  # (B, T, 1)
+    global_conditioning: torch.Tensor | None = None,  # (B, 1, speaker_emb)
     trainable: bool = False,
 ) -> torch.Tensor:
     """Latents -> waveform (B, T * prod(upsample_rates))."""
@@ -91,6 +99,8 @@ def hifigan(
     slope = config.leaky_relu_slope
 
     h = conv1d(spectrogram, p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
+    if global_conditioning is not None:
+        h = h + conv1d(global_conditioning, p["cond.weight"], p["cond.bias"])
     mask = frame_mask
     if mask is not None:
         h = h * mask
@@ -133,11 +143,17 @@ def hifigan(
                                         lengths=_lengths(mask))
             continue
 
+        narrow = not trainable and 128 % c_out == 0
+        if narrow:
+            h, blocks, lengths = h.contiguous(), _stage_resblocks(p, config, i), _lengths(mask)
         res_state = None
         for j in range(num_kernels):
-            block_out = _resblock(
-                p.sub(f"resblocks.{i * num_kernels + j}"), h, mask,
-                config.resblock_kernel_sizes[j], config.resblock_dilation_sizes[j], slope)
+            if narrow:
+                block_out = fused_resblock(h, blocks[j], slope=slope, lengths=lengths)
+            else:
+                block_out = _resblock(
+                    p.sub(f"resblocks.{i * num_kernels + j}"), h, mask,
+                    config.resblock_kernel_sizes[j], config.resblock_dilation_sizes[j], slope)
             res_state = block_out if res_state is None else res_state + block_out
         h = res_state / num_kernels
 

@@ -9,7 +9,7 @@ builds everything on its first kernel call and later processes reuse the
 library. Nothing here runs at import: the CPU tests import every module.
 
 Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
-``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
+``flow.py``, ``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
 version for a tensor on the CPU and launches the kernel for a tensor on a
 CUDA device, raising on anything the kernel does not take -- there is no
 fallback and no switch. Each wrapper carries a plain-integer ``launches``
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "vk_flow_coupling": [_P, _P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

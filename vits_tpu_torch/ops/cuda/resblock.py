@@ -1,11 +1,17 @@
-"""Kernel B: the HiFiGAN resblock trio of a wide vocoder stage.
+"""Kernels B and 7: the HiFiGAN resblocks of a vocoder stage.
 
-Replaces ``vits_tpu/ops/pallas/resblock.py::fused_resblock_trio``: the mean
-over the stage's resblocks, each a chain of masked (dilated conv, conv)
-pairs. The CUDA kernel is the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``,
-launched twice per pair (18 launches for MMS); the last pair of each resblock
-folds its output into the mean in place. The plain PyTorch twin is
-:func:`resblock_trio_reference`.
+Kernel B replaces ``vits_tpu/ops/pallas/resblock.py::fused_resblock_trio``:
+the mean over a wide stage's resblocks, each a chain of masked (dilated conv,
+conv) pairs. Kernel 7 replaces ``fused_resblock`` of the same file: ONE
+resblock, which the JAX package runs on the narrow stages (C = 8 .. 64) that
+fail the stage kernel's check; the caller sums the blocks and divides. Both
+are the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``, launched twice per
+pair (18 launches for a trio, 6 for one block); the last pair of each resblock
+folds its output into the mean in place. The conv takes every channel count
+the JAX kernels take: a tiled path for C % 32 == 0 and a direct one for
+narrower C. The 128-lane time packing of the narrow TPU kernel is not carried
+over. The plain PyTorch twins are :func:`resblock_trio_reference` and
+:func:`resblock_reference`.
 
 A block is ``{kernel_size, dilations, w1, b1, w2, b2}`` with ``w1[i]``,
 ``w2[i]`` the pair's (k, C, C) kernels and ``b1[i]``, ``b2[i]`` its (C,)
@@ -81,8 +87,6 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
     """
     lib = library()
     B, T, C = x.shape
-    if C % 32:
-        raise ValueError(f"resblock conv kernel needs C % 32 == 0, got C={C}")
     stream = stream_of(x)
     if acts is None:
         y1 = torch.empty_like(x)
@@ -148,3 +152,40 @@ def fused_resblock_trio(
 
 
 fused_resblock_trio.launches = 0
+
+
+def resblock_reference(
+    x: torch.Tensor,  # (B, T, C); zero at and past each row's length
+    block: dict,
+    *,
+    slope: float,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch: one resblock, re-zeroing [len, T) after every conv."""
+    return resblock_trio_reference(x, [block], slope=slope, lengths=lengths)
+
+
+def fused_resblock(
+    x: torch.Tensor,  # (B, T, C)
+    block: dict,
+    *,
+    slope: float,
+    lengths: torch.Tensor | None = None,  # (B,) valid steps; None = all T
+) -> torch.Tensor:
+    """One masked resblock, ``{kernel_size, dilations, w1, b1, w2, b2}``.
+
+    CPU tensors take :func:`resblock_reference`; CUDA tensors launch the conv
+    kernel twice per pair (fp32, contiguous, no autograd) or raise.
+    """
+    weights = pair_weights([block])
+    if not on_cuda("fused_resblock", x, *weights):
+        return resblock_reference(x, block, slope=slope, lengths=lengths)
+    no_autograd("fused_resblock", x, *weights)
+    B, T, _ = x.shape
+    out = torch.empty_like(x)
+    run_pairs(x, out, [block], cuda_lengths(lengths, B, T, x.device), slope)
+    fused_resblock.launches += 1
+    return out
+
+
+fused_resblock.launches = 0

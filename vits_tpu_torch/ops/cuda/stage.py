@@ -5,8 +5,10 @@ ConvTranspose1d + bias -> zero outside [0, len*stride) -> mean of the
 resblocks; with ``final_conv`` it goes on: leaky(0.01) -> conv_post -> tanh
 -> zero outside [0, len*stride), and returns the waveform. The CUDA side is
 ``vits_tpu_torch/csrc/stage.cu`` (upsampler and terminal conv_post) plus the
-resblock conv kernel of ``resblock_trio.cu`` (two launches per pair). The 128-lane time packing of
-the TPU kernel is not carried over. The plain PyTorch twin is
+resblock conv kernel of ``resblock_trio.cu`` (two launches per pair). The
+128-lane time packing of the TPU kernel is not carried over, but its domain
+is: every C_in, C_out that divide 128 with 128 / C_out = stride * 128 / C_in
+(HiFi-GAN V2's tail runs at C_out 16 and 8). The plain PyTorch twin is
 :func:`stage_reference`.
 """
 
@@ -81,7 +83,9 @@ def fused_stage(
     with ``final_conv``.
 
     CPU tensors take :func:`stage_reference`; CUDA tensors launch the kernels
-    (fp32, contiguous, k_up - 2*up_padding == stride, no autograd) or raise.
+    (fp32, contiguous, no autograd, the JAX kernel's channel domain and
+    k_up - 2*up_padding == stride, so that the stage makes T_in*stride steps)
+    or raise.
     """
     tensors = [x, up_weight, up_bias, *pair_weights(resblocks)]
     if final_conv is not None:
@@ -98,8 +102,11 @@ def fused_stage(
     if k_up - 2 * up_padding != stride:
         raise ValueError("stage kernel needs k_up - 2*up_padding == stride "
                          f"(got k={k_up}, padding={up_padding}, stride={stride})")
-    if C_out < 32 or C_out > 512 or C_out & (C_out - 1) or up_weight.data_ptr() % 16:
-        raise ValueError(f"stage kernel needs C_out a power of two in [32, 512], got {C_out}")
+    if 128 % C_in or 128 % C_out or 128 // C_out != stride * (128 // C_in):
+        raise ValueError("stage kernel needs C_in and C_out dividing 128 with "
+                         f"128/C_out == stride*128/C_in (got {C_in}->{C_out}, stride {stride})")
+    if up_weight.data_ptr() % 16:
+        raise ValueError("stage kernel needs a 16-byte aligned upsampler weight")
     lib = library()
     stream = stream_of(x)
     lens = cuda_lengths(lengths, B, T_in, x.device)

@@ -15,7 +15,7 @@ loader only: the JAX package's optional C++ loader is not carried over.
 :class:`Prefetcher` re-raises a producer error in the consumer, where the
 JAX one ends the stream early; ``close()`` stops the thread. (The loop's
 side of the teardown is in ``train/loop.py``.) The synthetic micro-corpus
-(``generate_micro_corpus``, ``corpus_vocab``) is the JAX-free host module
+(``generate_micro_corpus``, ``corpus_vocab``) is the port's copy of
 ``vits_tpu/train/synthetic.py``, re-exported here.
 """
 
@@ -30,12 +30,12 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from vits_tpu.config import VitsConfig
-from vits_tpu.text.tokenizer import VitsTokenizer
-from vits_tpu.train.synthetic import corpus_vocab, generate_micro_corpus  # noqa: F401
-from vits_tpu.utils.wav import read_wav
+from vits_tpu_torch.config import VitsConfig
+from vits_tpu_torch.text.tokenizer import VitsTokenizer
 from vits_tpu_torch.train.step import TrainBatch
+from vits_tpu_torch.train.synthetic import corpus_vocab, generate_micro_corpus  # noqa: F401
 from vits_tpu_torch.utils.mel import hann_window
+from vits_tpu_torch.utils.wav import read_wav
 
 
 def linear_spectrogram(audio: np.ndarray, n_fft: int, hop: int) -> np.ndarray:

@@ -20,14 +20,14 @@ import time
 import numpy as np
 import torch
 
-from vits_tpu.io import loader
-from vits_tpu.train.watchdog import Watchdog
+from vits_tpu_torch.io import loader
 from vits_tpu_torch.io.params import from_jax_params
 from vits_tpu_torch.models.discriminator import init_discriminator_params
 from vits_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from vits_tpu_torch.train.data import Prefetcher, VitsDataset
 from vits_tpu_torch.train.schedule import ParamEMA, vits_optimizer
 from vits_tpu_torch.train.step import batch_to, make_gan_train_step, make_train_step
+from vits_tpu_torch.train.watchdog import Watchdog
 
 
 def _load_into(params: dict[str, torch.Tensor], arrays) -> None:

@@ -31,7 +31,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vits_tpu.config import VitsConfig
+from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.models.discriminator import discriminate
 from vits_tpu_torch.models.duration import stochastic_duration_predictor_nll
