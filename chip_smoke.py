@@ -11,10 +11,12 @@ printing its result line:
    per source, in parallel; seconds);
 3. kernels vs plain: each hand-written kernel against its plain PyTorch
    version on the card, max |diff| against the stated tolerance, the median
-   ms of both (CUDA events) and the kernel's bound (the larger of its FLOPs at
-   67 TFLOP/s fp32 and its bytes at 3.35 TB/s, from this run's shapes and
-   valid lengths). Serving kernels A, B, C at the shapes of a 128-token MMS
-   request (320 frames); training kernels: A's logsumexp and the attention
+   ms of both (CUDA events), the device ms of both (the profiler's busy time
+   per call: what the kernels take, where the event ms of a short call is the
+   host's) and the kernel's bound (the larger of its FLOPs at 165 TFLOP/s, the
+   fp32-accurate 3xTF32 tensor-core rate, and its bytes at 3.35 TB/s, from
+   this run's shapes and valid lengths). Serving kernels A, B, C at the
+   shapes of a 128-token MMS request (320 frames); training kernels: A's logsumexp and the attention
    backward (kernel 4) at B=2, L=512, lengths (507, 0), and the trainable
    trio (kernel 5: output and saved activations; its backward alone on the
    plain forward's activations; forward and backward together, with the
@@ -30,9 +32,11 @@ printing its result line:
    seed 0) on ``cuda``; three single requests, then one batch of three texts with
    per-row seeds. Audio is finite, in [-1, 1], of positive length; every
    kernel's launch count rose during those requests; each batch row equals
-   its solo run; a repeated seed gives identical audio; and one dispatch on
+   its solo run; a repeated seed gives identical audio; one dispatch on
    the card agrees with the same dispatch through the plain versions on the
-   CPU, given the same noise;
+   CPU, given the same noise; and one request of the second text under
+   ``torch.profiler``: device busy ms, idle share, device ms of the resblock
+   convs (kernels B, C) and of kernel A;
 5. multi-speaker serving at the published VCTK width (109 speakers, 256-wide
    embeddings, random weights with the posterior encoder, seed 0) with
    ``EngineConfig(use_pallas_flow=True)``: as phase 4 with speakers 0, 17 and
@@ -61,11 +65,11 @@ printing its result line:
    step 6.
 
 Each path's launch counts are set to 0 just before it and read just after.
-Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``bound_ms``:
-the sums over the kernel's timed shapes; ``launches``: the count over the
-paths that run the kernel, the serving paths for A, B, C, 6, 7 and training
-for 4 and 5; ``library_ms`` is null: no single PyTorch call computes any of
-these functions), and last ``{"ok": true, "device": {...}}``.
+Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
+``plain_device_ms``/``bound_ms``: the sums over the kernel's timed shapes;
+``launches``: the count over the paths that run the kernel, the serving
+paths for A, B, C, 6, 7 and training for 4 and 5; ``library_ms`` is null:
+no single PyTorch call computes any of these functions), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -112,9 +116,12 @@ WAVE_ATOL = 1e-3
 # Batch row vs solo run: one int16 PCM step (1/32767) of transfer rounding
 # plus the plain convs' batch-size-dependent summation order.
 BATCH_ATOL = 2e-3
-# The card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet): fp32
-# outside the tensor cores, and HBM.
-PEAK_FP32_FLOPS = 67e12
+# The card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet). An
+# fp32-accurate product on the tensor cores is three TF32 products (3xTF32:
+# hi*hi + hi*lo + lo*hi), so the least time for fp32 work is its FLOPs at a
+# third of the 495 TFLOP/s TF32 rate -- faster than the 67 TFLOP/s of fp32
+# outside the tensor cores. And HBM.
+PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
 SINGLE_TEXTS = (
@@ -183,8 +190,11 @@ def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None
     raises past the tolerance, per tensor: max |diff| <= KERNEL_TOL x
     max(1, max|plain|), or with ``grad_rtol`` relative L2 error <= grad_rtol.
     ``work`` = (FLOPs, bytes) of the call gives its bound: the larger of the
-    FLOPs at PEAK_FP32_FLOPS and the bytes (each input read once, each output
-    written once) at PEAK_HBM_BYTES."""
+    FLOPs at PEAK_FP32_ACCURATE_FLOPS and the bytes (each input read once, each
+    output written once) at PEAK_HBM_BYTES. Timed calls also get their device
+    ms, kernel and plain: the profiler's busy time per call (``host_and_device``),
+    what the kernels themselves take; the CUDA-event ms of a call of tens of us
+    is mostly the host's launch path."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, (tuple, list)) else [(got, want)]
@@ -203,11 +213,20 @@ def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None
                                f"times the tolerance (max|diff| {e})")
         err, worst = max(err, e), max(worst, ratio)
     ms, plain_ms = (median_ms(kernel), median_ms(plain)) if timed else (None, None)
-    times = f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms" if timed else "(not timed)"
+    device_ms = plain_device_ms = None
+    if timed:
+        device_ms = host_and_device(kernel)["device_busy_ms"]
+        plain_device_ms = host_and_device(plain)["device_busy_ms"]
+        times = (f"kernel {ms:.3f} ms (device {device_ms:.4f})  plain {plain_ms:.3f} ms "
+                 f"(device {plain_device_ms:.4f})")
+    else:
+        times = "(not timed)"
     result = {"shape": shape, "max_abs_err": err, "err_over_tol": worst, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": None}
+              "plain_ms": plain_ms, "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+              "library_ms": None}
     if timed and work is not None:
-        ops_ms, bytes_ms = (1e3 * work[0] / PEAK_FP32_FLOPS, 1e3 * work[1] / PEAK_HBM_BYTES)
+        ops_ms, bytes_ms = (1e3 * work[0] / PEAK_FP32_ACCURATE_FLOPS,
+                            1e3 * work[1] / PEAK_HBM_BYTES)
         result.update(flops=work[0], bytes=work[1], ops_ms=ops_ms, bytes_ms=bytes_ms,
                       bound_ms=max(ops_ms, bytes_ms),
                       bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -353,7 +372,7 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
             split = {"kernel": host_and_device(kernel), "plain": host_and_device(plain)}
             results["fused_flow"][-1]["host_device"] = split
             print("  fused_flow B=1 host vs device: " + "; ".join(
-                f"{name} enqueue {v['enqueue_ms']:.3f} ms/call, {v['device_ops']} device ops "
+                f"{name} enqueue {v['enqueue_ms']:.3f} ms/call, {v['device_ops']:g} device ops "
                 f"busy {v['device_busy_ms']:.3f} ms" for name, v in split.items()), flush=True)
 
     # 7 and C at HiFi-GAN V2's stages
@@ -559,6 +578,55 @@ def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=N
             raise RuntimeError(f"repeated seed {BATCH_SEEDS[i]} gave different audio")
     print("  repeated seeds: identical audio", flush=True)
     return launches
+
+
+# Device kernel families of a serving request, by the first pattern their name contains.
+REQUEST_FAMILIES = (
+    ("resblock convs (kernels B, C)", ("conv_kernel",)),
+    ("kernel A", ("rel_attention_kernel",)),
+    ("kernel C upsample, conv_post", ("upsample_kernel", "wave_kernel")),
+    ("kernel 6", ("flow_gemm_kernel",)),
+    ("cuDNN convolutions", ("cudnn", "fprop", "implicit_gemm", "conv")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce",)),
+)
+
+
+def request_profile(model, card: str, reps: int = 3) -> dict:
+    """One request of the second text (87 tokens): the
+    steady wall ms (median of ``reps``, host clock to a synchronise), then one
+    request under ``torch.profiler``: device busy ms, the idle share of the
+    steady request, and device ms per kernel family."""
+    def request():
+        return model.synthesize_raw([SINGLE_TEXTS[1]], seed=[5])
+
+    out = request()
+    frames = int(out.frame_lengths[0])
+    capacity = out.waveform.shape[1] // model.config.total_upsample
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    steady_ms = float(np.median(walls))
+    wall_ms, device, busy_ms = profiled(request)
+    families = by_family(device, REQUEST_FAMILIES)
+    idle = 1.0 - busy_ms / steady_ms
+    tokens = len(model.tokenizer.encode(SINGLE_TEXTS[1]))
+    print(f"  one {tokens}-token request ({frames} frames at capacity {capacity}): steady "
+          f"{steady_ms:.1f} ms wall (median of {reps}; "
+          f"all {[round(w, 1) for w in walls]}), {wall_ms:.1f} ms under the profiler, "
+          f"{len(device)} device operations, device busy {busy_ms:.2f} ms, idle share "
+          f"{idle:.3f} ({card})", flush=True)
+    for family, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {family:30s} {ms:8.3f} ms  {n:5d} launches", flush=True)
+    return {"tokens": tokens, "frames": frames, "capacity": capacity, "steady_ms": steady_ms,
+            "walls_ms": walls, "device_busy_ms": busy_ms, "idle_share": idle,
+            "device_ops": len(device),
+            "families_ms": {k: v[0] for k, v in families.items()}}
 
 
 def check_close(what: str, gpu: dict, cpu: dict) -> None:
@@ -785,26 +853,31 @@ KERNEL_FAMILIES = (
 )
 
 
-def profiled(fn) -> tuple[float, list, float]:
+def profiled(fn, attempts: int = 3) -> tuple[float, list, float]:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock to a
     synchronise), its device events (kernels, memcpy, memset) and the device
-    busy ms (the union of their intervals)."""
+    busy ms (the union of their intervals). A session that records no device
+    event at all (CUPTI now and then returns none on this machine) is run
+    again, up to ``attempts`` times."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    with tempfile.TemporaryDirectory() as tmp:
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        with open(f"{tmp}/trace.json") as f:
-            events = json.load(f)["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not device:
-        raise RuntimeError("the profiler saw no device activity")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                events = json.load(f)["traceEvents"]
+        device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if device:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no device activity in {attempts} sessions")
     busy_ms, end = 0.0, -np.inf
     for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
         start, stop = e["ts"], e["ts"] + e["dur"]
@@ -813,18 +886,35 @@ def profiled(fn) -> tuple[float, list, float]:
     return wall_ms, device, busy_ms
 
 
+def by_family(device: list, families) -> dict[str, list]:
+    """Device ms and launches per family of ``families`` ((name, patterns) pairs:
+    the first whose pattern the event's name contains); memcpy/memset and other
+    kernels apart."""
+    out: dict[str, list] = {}
+    for e in device:
+        name = e["name"] if e["cat"] == "kernel" else e["cat"]
+        family = next((fam for fam, keys in families if any(k in name for k in keys)),
+                      "memcpy/memset" if e["cat"] != "kernel" else "other")
+        entry = out.setdefault(family, [0.0, 0])
+        entry[0] += e["dur"] / 1e3
+        entry[1] += 1
+    return out
+
+
 def host_and_device(fn, calls: int = 5) -> dict:
     """Host ms to enqueue one call of ``fn`` (the mean over ``calls`` with no
-    synchronisation between them), and its device operations and busy ms from
-    one profiled call: which of the two bounds the call."""
+    synchronisation between them), and its device operations and busy ms per
+    call from ``calls`` calls under one profiler: which of the two bounds the
+    call."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
     enqueue_ms = 1e3 * (time.perf_counter() - t0) / calls
     torch.cuda.synchronize()
-    _, device, busy_ms = profiled(fn)
-    return {"enqueue_ms": enqueue_ms, "device_ops": len(device), "device_busy_ms": busy_ms}
+    _, device, busy_ms = profiled(lambda: [fn() for _ in range(calls)])
+    return {"enqueue_ms": enqueue_ms, "device_ops": len(device) / calls,
+            "device_busy_ms": busy_ms / calls}
 
 
 def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict:
@@ -867,14 +957,7 @@ def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict
         print(f"    {name:34s} {ms:8.2f} ms", flush=True)
 
     wall_ms, device, busy_ms = profiled(lambda: step_fn(batch, noise_gen))
-    families: dict[str, list] = {}
-    for e in device:
-        name = e["name"] if e["cat"] == "kernel" else e["cat"]
-        family = next((fam for fam, keys in KERNEL_FAMILIES if any(k in name for k in keys)),
-                      "memcpy/memset" if e["cat"] != "kernel" else "other")
-        entry = families.setdefault(family, [0.0, 0])
-        entry[0] += e["dur"] / 1e3
-        entry[1] += 1
+    families = by_family(device, KERNEL_FAMILIES)
     idle = 1.0 - busy_ms / steady_ms
     print(f"  profiled GAN step: {wall_ms:.1f} ms wall under the profiler, {len(device)} device "
           f"operations, device busy {busy_ms:.1f} ms, idle share of the {steady_ms:.1f} ms "
@@ -1084,6 +1167,7 @@ def main() -> None:
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
+    mms_request = request_profile(model, card)
 
     print(f"[5/7] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
@@ -1146,6 +1230,8 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in runs),
             "ms": sum(r["ms"] for r in timed),
             "plain_ms": sum(r["plain_ms"] for r in timed),
+            "device_ms": sum(r["device_ms"] for r in timed),
+            "plain_device_ms": sum(r["plain_device_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
@@ -1155,7 +1241,8 @@ def main() -> None:
     for entry in report["kernels"]:
         if entry["name"] == "flash_rel_attention":
             entry["lse_launches_training"] = train_launches["flash_rel_attention_lse"]
-    report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "card": card}
+    report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "mms_request": mms_request,
+                         "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
     print(card, flush=True)

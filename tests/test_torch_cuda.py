@@ -304,3 +304,87 @@ def test_multispeaker_batch_rows_equal_solo_runs_on_card(cuda_device):
         n = solo.lengths[0]
         np.testing.assert_allclose(batch.waveform[i, :n], solo.waveform[0, :n], atol=2e-3,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+def test_trio_kernel_split_path_matches_plain_on_card(cuda_device):
+    """Kernel B at B=1, C=256 with T a multiple of no tile: a split-K cluster."""
+    from vits_tpu_torch.ops.cuda import device_sm_count
+    from vits_tpu_torch.ops.cuda.resblock import conv_plan
+
+    T = 1000
+    assert conv_plan(1, T, 256, 256, 3, device_sm_count(cuda_device)).split > 1
+    rng = np.random.default_rng(8)
+    x = torch.tensor(_masked(rng, 1, T, 256, [T - 37]), device=cuda_device)
+    blocks = _to(_blocks(rng, 256, scale=0.03), lambda a: torch.tensor(a, device=cuda_device))
+    lens = torch.tensor([T - 37], dtype=torch.int32, device=cuda_device)
+    got = fused_resblock_trio(x, blocks, slope=SLOPE, lengths=lens)
+    assert float(got[0, T - 37:].abs().max()) == 0.0
+    _assert_close(got.cpu(), resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens).cpu())
+
+
+@pytest.mark.cuda
+def test_trio_forward_with_acts_at_training_shape_on_card(cuda_device):
+    """Kernel 5's forward with its saved activations at B=4, T=256, C=256."""
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.standard_normal((4, 256, 256)), dtype=torch.float32, device=cuda_device)
+    blocks = _to(_blocks(rng, 256, scale=0.03), lambda a: torch.tensor(a, device=cuda_device))
+    with torch.no_grad():
+        out, acts = trio_forward_with_acts(x, blocks, slope=SLOPE)
+        want, want_acts = trio_forward_with_acts_reference(x, blocks, slope=SLOPE)
+    _assert_close(out.cpu(), want.cpu())
+    for a, b in zip(flat_acts(acts), flat_acts(want_acts)):
+        _assert_close(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_in,C_out,final", [(128, 64, False), (64, 32, True)])
+def test_stage_kernel_accumulate_paths_on_card(cuda_device, C_in, C_out, final):
+    """Kernel C at C_out 64 and 32: the conv's residual and accumulate epilogues,
+    with a length-0 row and a ragged one."""
+    rng = np.random.default_rng(C_in)
+    lengths = [700, 0, 333]
+    x = torch.tensor(_masked(rng, 3, 700, C_in, lengths), device=cuda_device)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    # weights that keep the stage's activations O(1), so that the waveform's
+    # atol is not spent on cuDNN's own fp32 error (1e-6 of the scale)
+    up_w = dev(rng.standard_normal((4, C_in, C_out)) * 0.05)
+    up_b = dev(rng.standard_normal(C_out) * 0.05)
+    blocks = _to(_blocks(rng, C_out, scale=0.03), dev)
+    kw = dict(stride=2, up_padding=1, slope=SLOPE,
+              lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              final_conv=(dev(rng.standard_normal((7, C_out, 1)) * 0.1), 3) if final else None)
+    got = fused_stage(x, up_w, up_b, blocks, **kw)
+    assert float(got[1].abs().max()) == 0.0
+    _assert_close(got.cpu(), stage_reference(x, up_w, up_b, blocks, **kw).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_attention_kernel_long_rows_on_card(cuda_device, with_lse):
+    """Kernel A at B=3, L=512 with lengths (512, 200, 0): the loop that stops at a
+    row's length, and the length-0 row's uniform weights, finite."""
+    rng = np.random.default_rng(10)
+    B, H, L, d, w = 3, 2, 512, 96, 4
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, dtype=torch.float32, device=cuda_device)
+    q, k, v, rel_k, rel_v = dev(B, H, L, d), dev(B, H, L, d), dev(B, H, L, d), \
+        dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lens = torch.tensor([512, 200, 0], dtype=torch.int32, device=cuda_device)
+    got = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                              return_lse=with_lse)
+    want = rel_attention_reference(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                   return_lse=with_lse)
+    if with_lse:
+        (got, lse), (want, want_lse) = got, want
+        assert bool(torch.isfinite(lse).all())
+        for b in range(B):
+            _assert_close(lse[b].cpu(), want_lse[b].cpu())
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got.cpu(), want.cpu())

@@ -1,5 +1,4 @@
-// VITS windowed relative-position self-attention, one (batch, head, 16-query
-// tile) per block, with an online softmax over 32-key chunks:
+// VITS windowed relative-position self-attention with an online softmax:
 //
 //   s[i, j] = q_i . k_j + (|j - i| <= w ? q_i . rel_k[j - i + w] : 0)
 //             + (j < len ? 0 : finfo(float32).min)
@@ -14,32 +13,45 @@
 // the JAX module and kernel; -inf would give 0/0 = NaN, and a later multiply by
 // the zero mask does not clear NaN.
 //
-// What bounds it on an H100: at the encoder's shapes (H=2, d=96, L <= 512) the
-// whole attention is under 0.2 GFLOP per row, so the kernel is bound by
-// latency: few blocks (L/16 x H x B) and one __syncthreads pair per 32-key
-// chunk. Nothing quadratic touches device memory: each block reads its Q tile
-// once and K/V once per chunk; the rel_k logits are one (16, 2w+1) product per
-// block, and the rel_v weights are gathered from the chunk's probabilities with
-// warp shuffles.
+// What bounds it on an H100: latency. At the encoder's shapes (H=2, d=96,
+// L <= 512) the whole attention is under 0.2 GFLOP per row, a few us of FFMA,
+// and nothing quadratic touches device memory, so the time is the chain of
+// dependent steps each warp walks. The design cuts that chain:
+// - One block per (batch, head, 16-query tile) with up to 8 warps that split
+//   the keys: warp w takes 16-key steps w, w + 8, ..., each with its own
+//   online-softmax state (m, l, acc), merged once through shared memory at the
+//   end. There is no block barrier inside the key loop.
+// - Each warp streams its K and V steps through its own two-stage cp.async
+//   buffer (the next step lands while this one computes; __syncwarp only).
+// - The products are register-tiled FFMA: for q.k a lane holds 4 queries x 2
+//   keys over float4 columns (rows padded to 8 + 4 floats: conflict-free), for
+//   p.v 4 queries x 4 columns per 32, the probabilities moving by shuffles
+//   within 8-lane groups. FFMA and not 3xTF32 MMA: the work is a few us at the
+//   FFMA rate, so the tensor cores would shorten no part of the chain that
+//   matters.
+// - The loop stops at ceil(len / 16) steps for a row with len > 0. That is
+//   exact: a key at or past len scores s + finfo.min, which rounds to finfo.min
+//   in fp32, and exp(finfo.min - m) is exactly 0 because m comes from a valid
+//   key. A len = 0 row walks all L keys and keeps its uniform weights.
+// - The rel_v term needs the final weights of the 2w+1 keys around each
+//   query: after the merge the block recomputes those few scores (one warp
+//   per (query, r), lanes over d) and weights them with the merged m and l.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kQPerWarp = 4;
-constexpr int kTQ = kWarps * kQPerWarp;  // queries per block
-constexpr int kTK = 32;                  // keys per chunk: one per lane
-constexpr int kMaxDPerLane = 4;          // head_dim <= 128
+constexpr int kTQ = 16;         // queries per block
+constexpr int kTK = 16;         // keys per warp step
+constexpr int kMaxWarps = 8;
+constexpr int kMaxR = 32;       // 2w + 1 <= 32
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -3.402823466e+38f;  // finfo(float32).min
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
+// K and Q row stride: d rounded up to 8, plus 4, so that the 8 rows a quarter
+// warp reads as float4 at one column fall on 32 distinct banks.
+inline __host__ __device__ int qk_stride(int d) { return (d + 7) / 8 * 8 + 4; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -47,21 +59,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// Fixed shared memory (floats): Q tile, rel_k logits, per-warp m and l, merged
+// m and l, per-warp merge scales, window weights.
+inline __host__ __device__ int fixed_floats(int d) {
+  return kTQ * qk_stride(d) + kTQ * kMaxR + 2 * kMaxWarps * kTQ + 2 * kTQ +
+         kMaxWarps * kTQ + kTQ * kMaxR;
+}
+
+// NC = ceil(d / 32): the float4 column groups a lane owns in p.v.
+template <int NC>
+__global__ void __launch_bounds__(kMaxWarps * 32)
     rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ rel_k,
                          const float* __restrict__ rel_v, const int* __restrict__ lengths,
                          float* __restrict__ out, float* __restrict__ lse, int H, int L,
-                         int d, int w) {
-  extern __shared__ float smem[];
+                         int d, int w, int vec) {
+  extern __shared__ __align__(16) float smem[];
   const int nr = 2 * w + 1;
-  const int dk = d + 1;  // padded K rows: lanes read one channel of 32 different keys
-  float* qs = smem;             // kTQ x d
-  float* ks = qs + kTQ * d;     // kTK x dk
-  float* vs = ks + kTK * dk;    // kTK x d
-  float* rks = vs + kTK * d;    // nr x d
-  float* rvs = rks + nr * d;    // nr x d
-  float* rl = rvs + nr * d;     // kTQ x nr: q_i . rel_k[r]
+  const int dp = qk_stride(d);  // Q and K rows
+  constexpr int dv = 32 * NC;   // V rows: every column a lane reads exists
+  const int nw = blockDim.x >> 5;
+  const int stage = kTK * (dp + dv);  // K and V of one step
+  float* qs = smem;                   // kTQ x dp, zero-padded
+  float* rl = qs + kTQ * dp;          // kTQ x kMaxR: q_i . rel_k[r]
+  float* ms = rl + kTQ * kMaxR;       // kMaxWarps x kTQ: each warp's running max
+  float* ls = ms + kMaxWarps * kTQ;   // ... and running sum
+  float* mt = ls + kMaxWarps * kTQ;   // kTQ merged max
+  float* lt = mt + kTQ;               // kTQ merged sum
+  float* sc = lt + kTQ;               // kMaxWarps x kTQ: exp(m_w - m) / l
+  float* pw = sc + kMaxWarps * kTQ;   // kTQ x kMaxR: final weights of the window keys
+  float* kv = pw + kTQ * kMaxR;       // per warp: 2 stages of (K kTK x dp, V kTK x dv)
+
   const int q0 = blockIdx.x * kTQ;
   const int b = blockIdx.z;
   const size_t head = ((size_t)b * H + blockIdx.y) * L * d;
@@ -71,107 +105,225 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* oh = out + head;
   float* lseh = lse ? lse + ((size_t)b * H + blockIdx.y) * L : nullptr;
   const int len = lengths[b];
+  const int nk = len > 0 ? min(len, L) : L;  // keys that can weigh anything
+  const int steps = (nk + kTK - 1) / kTK;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int qg = lane >> 3, kg = lane & 7;  // 4 groups of 4 queries; key / column group
+  float* kvw = kv + warp * 2 * stage;
 
-  for (int idx = tid; idx < kTQ * d; idx += blockDim.x) {
-    const int r = idx / d;
-    qs[idx] = q0 + r < L ? qh[(size_t)(q0 + r) * d + idx - r * d] : 0.f;
+  for (int idx = tid; idx < kTQ * dp; idx += blockDim.x) {
+    const int r = idx / dp, c = idx - r * dp;
+    qs[idx] = c < d && q0 + r < L ? qh[(size_t)(q0 + r) * d + c] : 0.f;
   }
-  for (int idx = tid; idx < nr * d; idx += blockDim.x) {
-    rks[idx] = rel_k[idx];
-    rvs[idx] = rel_v[idx];
-  }
+  // padding columns of K and V are never copied: they stay zero
+  for (int idx = tid; idx < nw * 2 * stage; idx += blockDim.x) kv[idx] = 0.f;
   __syncthreads();
-  for (int idx = tid; idx < kTQ * nr; idx += blockDim.x) {
-    const int qi = idx / nr;
-    const int r = idx - qi * nr;
+  for (int task = warp; task < kTQ * nr; task += nw) {
+    const int qi = task / nr, r = task - qi * nr;
     float s = 0.f;
-    for (int c = 0; c < d; ++c) s = fmaf(qs[qi * d + c], rks[r * d + c], s);
-    rl[idx] = s;
+    for (int c = lane; c < d; c += 32) s = fmaf(qs[qi * dp + c], rel_k[r * d + c], s);
+    s = warp_sum(s);
+    if (lane == 0) rl[qi * kMaxR + r] = s;
   }
+  __syncthreads();  // the last block barrier before the merge
 
-  float m[kQPerWarp], l[kQPerWarp], racc[kQPerWarp], acc[kQPerWarp][kMaxDPerLane];
+  auto issue = [&](int step, int slot) {
+    float* ks = kvw + slot * stage;
+    float* vs = ks + kTK * dp;
+    const int j0 = step * kTK;
+    if (vec) {
+      const int d4 = d >> 2;
+      for (int idx = lane; idx < kTK * d4; idx += 32) {
+        const int r = idx / d4, c = (idx - r * d4) * 4;
+        const bool in = j0 + r < L;
+        const size_t off = in ? (size_t)(j0 + r) * d + c : 0;
+        cp_async16_zfill(ks + r * dp + c, kh + off, in ? 16 : 0);
+        cp_async16_zfill(vs + r * dv + c, vh + off, in ? 16 : 0);
+      }
+    } else {
+      for (int idx = lane; idx < kTK * d; idx += 32) {
+        const int r = idx / d, c = idx - r * d;
+        const bool in = j0 + r < L;
+        const size_t off = in ? (size_t)(j0 + r) * d + c : 0;
+        cp_async4_zfill(ks + r * dp + c, kh + off, in ? 4 : 0);
+        cp_async4_zfill(vs + r * dv + c, vh + off, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[4], l[4], acc[4][4 * NC];
 #pragma unroll
-  for (int u = 0; u < kQPerWarp; ++u) {
+  for (int u = 0; u < 4; ++u) {
     m[u] = -INFINITY;
     l[u] = 0.f;
-    racc[u] = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < kMaxDPerLane; ++cc) acc[u][cc] = 0.f;
+    for (int e = 0; e < 4 * NC; ++e) acc[u][e] = 0.f;
   }
+  const int dq4 = (d + 7) / 8 * 2;  // float4 columns of a padded Q/K row
+  int slot = 0;
+  if (warp < steps) issue(warp, 0);
+  for (int step = warp; step < steps; step += nw) {
+    if (step + nw < steps)
+      issue(step + nw, slot ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const float* ks = kvw + slot * stage;
+    const float* vs = ks + kTK * dp;
+    const int j0 = step * kTK;
 
-  for (int kc0 = 0; kc0 < L; kc0 += kTK) {
-    __syncthreads();  // previous chunk fully consumed (and rl visible on the first)
-    for (int idx = tid; idx < kTK * d; idx += blockDim.x) {
-      const int r = idx / d;
-      const int c = idx - r * d;
-      const int j = kc0 + r;
-      const bool in = j < L;
-      ks[r * dk + c] = in ? kh[(size_t)j * d + c] : 0.f;
-      vs[r * d + c] = in ? vh[(size_t)j * d + c] : 0.f;
+    // scores: lane (qg, kg) holds queries qg*4 + u against keys kg and kg + 8
+    float s[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u][0] = s[u][1] = 0.f;
+#pragma unroll 4
+    for (int c4 = 0; c4 < dq4; ++c4) {
+      const float4 k0 = *reinterpret_cast<const float4*>(ks + kg * dp + 4 * c4);
+      const float4 k1 = *reinterpret_cast<const float4*>(ks + (kg + 8) * dp + 4 * c4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + (qg * 4 + u) * dp + 4 * c4);
+        s[u][0] = fmaf(qv.x, k0.x, s[u][0]);
+        s[u][0] = fmaf(qv.y, k0.y, s[u][0]);
+        s[u][0] = fmaf(qv.z, k0.z, s[u][0]);
+        s[u][0] = fmaf(qv.w, k0.w, s[u][0]);
+        s[u][1] = fmaf(qv.x, k1.x, s[u][1]);
+        s[u][1] = fmaf(qv.y, k1.y, s[u][1]);
+        s[u][1] = fmaf(qv.z, k1.z, s[u][1]);
+        s[u][1] = fmaf(qv.w, k1.w, s[u][1]);
+      }
     }
-    __syncthreads();
-    const int j = kc0 + lane;
+    // relative logits, key mask, and the online softmax of each query row
 #pragma unroll
-    for (int u = 0; u < kQPerWarp; ++u) {
-      const int qi = warp * kQPerWarp + u;
-      const int i = q0 + qi;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qs[qi * d + c], ks[lane * dk + c], s);
-      const int delta = j - i;
-      if (delta >= -w && delta <= w) s += rl[qi * nr + delta + w];
-      if (j < L)
-        s += j < len ? 0.f : kNeg;
-      else
-        s = -INFINITY;  // past the sequence: no weight at all
-      const float m_new = fmaxf(m[u], warp_max(s));
+    for (int u = 0; u < 4; ++u) {
+      const int qi = qg * 4 + u;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + kg + 8 * e;
+        const int delta = j - (q0 + qi);
+        float x = s[u][e];
+        if (delta >= -w && delta <= w) x += rl[qi * kMaxR + delta + w];
+        if (j < L)
+          x += j < len ? 0.f : kNeg;
+        else
+          x = -INFINITY;  // past the sequence: no weight at all
+        s[u][e] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[u], mx);  // finite: every step holds a key < L
       const float alpha = expf(m[u] - m_new);
-      const float p = expf(s - m_new);
-      l[u] = l[u] * alpha + warp_sum(p);
+      s[u][0] = expf(s[u][0] - m_new);
+      s[u][1] = expf(s[u][1] - m_new);
+      float sum = s[u][0] + s[u][1];
 #pragma unroll
-      for (int cc = 0; cc < kMaxDPerLane; ++cc) acc[u][cc] *= alpha;
-      for (int jj = 0; jj < kTK; ++jj) {
-        const float pj = __shfl_sync(kFull, p, jj);
+      for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      l[u] = l[u] * alpha + sum;
+      m[u] = m_new;
 #pragma unroll
-        for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-          const int c = lane + 32 * cc;
-          if (c < d) acc[u][cc] = fmaf(pj, vs[jj * d + c], acc[u][cc]);
+      for (int e = 0; e < 4 * NC; ++e) acc[u][e] *= alpha;
+    }
+    // p.v: lane (qg, kg) holds queries qg*4 + u at columns 4*kg + 32*n + (0..3)
+#pragma unroll
+    for (int jj = 0; jj < kTK; ++jj) {
+      float p[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) p[u] = __shfl_sync(kFull, s[u][jj >> 3], (lane & 24) | (jj & 7));
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + jj * dv + 4 * kg + 32 * n);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[u][4 * n + 0] = fmaf(p[u], vv.x, acc[u][4 * n + 0]);
+          acc[u][4 * n + 1] = fmaf(p[u], vv.y, acc[u][4 * n + 1]);
+          acc[u][4 * n + 2] = fmaf(p[u], vv.z, acc[u][4 * n + 2]);
+          acc[u][4 * n + 3] = fmaf(p[u], vv.w, acc[u][4 * n + 3]);
         }
       }
-      // lane r < nr collects the probability of key i + r - w for rel_v[r]
-      const int src = i + lane - w - kc0;
-      const float pr = __shfl_sync(kFull, p, src & 31);
-      racc[u] = racc[u] * alpha + ((lane < nr && src >= 0 && src < kTK) ? pr : 0.f);
-      m[u] = m_new;
     }
+    __syncwarp();  // this stage is consumed before it is refilled
+    slot ^= 1;
   }
+  cp_async_wait<0>();
+  __syncwarp();
 
+  // merge: each warp's state to shared memory (acc over its own stage buffers)
+  float* accw = kvw;  // kTQ x dv
+  if (kg == 0) {
 #pragma unroll
-  for (int u = 0; u < kQPerWarp; ++u) {
-    const int i = q0 + warp * kQPerWarp + u;
-    const float inv = 1.f / l[u];
-    float o[kMaxDPerLane];
-#pragma unroll
-    for (int cc = 0; cc < kMaxDPerLane; ++cc) o[cc] = acc[u][cc] * inv;
-    for (int r = 0; r < nr; ++r) {
-      const float pr = __shfl_sync(kFull, racc[u], r) * inv;
-#pragma unroll
-      for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-        const int c = lane + 32 * cc;
-        if (c < d) o[cc] = fmaf(pr, rvs[r * d + c], o[cc]);
-      }
-    }
-    if (i < L) {
-#pragma unroll
-      for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-        const int c = lane + 32 * cc;
-        if (c < d) oh[(size_t)i * d + c] = o[cc];
-      }
-      if (lseh && lane == 0) lseh[i] = m[u] + logf(l[u]);
+    for (int u = 0; u < 4; ++u) {
+      ms[warp * kTQ + qg * 4 + u] = m[u];
+      ls[warp * kTQ + qg * 4 + u] = l[u];
     }
   }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float4*>(accw + (qg * 4 + u) * dv + 4 * kg + 32 * n) =
+          make_float4(acc[u][4 * n], acc[u][4 * n + 1], acc[u][4 * n + 2], acc[u][4 * n + 3]);
+  __syncthreads();
+  if (tid < kTQ) {
+    float mm = -INFINITY;
+    for (int wi = 0; wi < nw; ++wi) mm = fmaxf(mm, ms[wi * kTQ + tid]);
+    float ll = 0.f;
+    for (int wi = 0; wi < nw; ++wi) ll += ls[wi * kTQ + tid] * expf(ms[wi * kTQ + tid] - mm);
+    mt[tid] = mm;
+    lt[tid] = ll;
+    for (int wi = 0; wi < nw; ++wi) sc[wi * kTQ + tid] = expf(ms[wi * kTQ + tid] - mm) / ll;
+    if (lseh && q0 + tid < L) lseh[q0 + tid] = mm + logf(ll);
+  }
+  __syncthreads();
+  // the final weights of the keys i + r - w, for the rel_v term
+  for (int task = warp; task < kTQ * nr; task += nw) {
+    const int qi = task / nr, r = task - qi * nr;
+    const int i = q0 + qi, j = i + r - w;
+    float p = 0.f;
+    if (i < L && j >= 0 && j < L) {
+      float x = 0.f;
+      for (int c = lane; c < d; c += 32) x = fmaf(qs[qi * dp + c], kh[(size_t)j * d + c], x);
+      x = warp_sum(x) + rl[qi * kMaxR + r];
+      if (j >= len) x += kNeg;
+      p = expf(x - mt[qi]) / lt[qi];
+    }
+    if (lane == 0) pw[qi * kMaxR + r] = p;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kTQ * d; idx += blockDim.x) {
+    const int qi = idx / d, c = idx - qi * d;
+    const int i = q0 + qi;
+    if (i >= L) break;  // idx only grows, and i with it
+    float o = 0.f;
+    for (int wi = 0; wi < nw; ++wi)
+      o = fmaf(kv[wi * 2 * stage + qi * dv + c], sc[wi * kTQ + qi], o);
+    for (int r = 0; r < nr; ++r) o = fmaf(pw[qi * kMaxR + r], rel_v[r * d + c], o);
+    oh[(size_t)i * d + c] = o;
+  }
+}
+
+template <int NC>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* rel_k,
+                   const float* rel_v, const int* lengths, float* out, float* lse, int B, int H,
+                   int L, int d, int w, cudaStream_t stream) {
+  const int per_warp = 2 * kTK * (qk_stride(d) + 32 * NC);  // two stages of K and V
+  const int fixed = fixed_floats(d);
+  int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed) / per_warp;
+  nw = nw < kMaxWarps ? nw : kMaxWarps;
+  if (nw < 1) return cudaErrorInvalidValue;
+  const int smem = (fixed + nw * per_warp) * static_cast<int>(sizeof(float));
+  cudaError_t err = vk_set_smem(rel_attention_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 4 == 0 && reinterpret_cast<size_t>(k) % 16 == 0 &&
+                  reinterpret_cast<size_t>(v) % 16 == 0;
+  const dim3 grid((L + kTQ - 1) / kTQ, H, B);
+  rel_attention_kernel<NC><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths, out,
+                                                            lse, H, L, d, w, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -181,13 +333,16 @@ VK_EXPORT int vk_rel_attention(const float* q, const float* k, const float* v,
                                float* out, float* lse, int B, int H, int L, int d, int w,
                                void* stream) {
   const int nr = 2 * w + 1;
-  if (d < 1 || d > 32 * kMaxDPerLane || w < 0 || nr > 32 || L < 1) return cudaErrorInvalidValue;
-  const int smem =
-      (kTQ * d + kTK * (d + 1) + kTK * d + 2 * nr * d + kTQ * nr) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kTQ - 1) / kTQ, H, B);
-  rel_attention_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, rel_k, rel_v, lengths, out, lse, H, L, d, w);
-  return cudaGetLastError();
+  if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32) {
+    case 1:
+      return launch<1>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 2:
+      return launch<2>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 3:
+      return launch<3>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    default:
+      return launch<4>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+  }
 }

@@ -22,6 +22,7 @@ of ``attention_grad.py`` and ``trio_grad.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,7 +50,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vk_rel_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vk_rel_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
-    "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
+    "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "vk_flow_coupling": [_P, _P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 10 + [_P],
@@ -142,6 +143,12 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = library().vk_error_string(status).decode()
         raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,9 +1,11 @@
 """Kernel A: windowed relative-position self-attention (the text encoder's).
 
 Replaces ``vits_tpu/ops/pallas/attention.py::flash_rel_attention``. The CUDA
-kernel is ``vits_tpu_torch/csrc/rel_attention.cu`` (fp32, online softmax
-over 32-key chunks, finite additive key mask); its plain PyTorch twin is
-:func:`rel_attention_reference`, the encoder module's einsum-and-shuffle math.
+kernel is ``vits_tpu_torch/csrc/rel_attention.cu`` (fp32; the warps of a
+block split the keys, each with its own online softmax, merged at the end;
+the key loop stops at a row's length; finite additive key mask); its plain
+PyTorch twin is :func:`rel_attention_reference`, the encoder module's
+einsum-and-shuffle math.
 With ``return_lse`` both also return each query row's logsumexp, the residual
 of the backward (``ops/cuda/attention_grad.py``).
 """

@@ -8,10 +8,11 @@ fail the stage kernel's check; the caller sums the blocks and divides. Both
 are the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``, launched twice per
 pair (18 launches for a trio, 6 for one block); the last pair of each resblock
 folds its output into the mean in place. The conv takes every channel count
-the JAX kernels take: a tiled path for C % 32 == 0 and a direct one for
-narrower C. The 128-lane time packing of the narrow TPU kernel is not carried
-over. The plain PyTorch twins are :func:`resblock_trio_reference` and
-:func:`resblock_reference`.
+the JAX kernels take: a tensor-core path (3xTF32 MMA) for C % 32 == 0 and a
+direct one for other C; :func:`conv_plan` picks the path, the tile and
+the split of each launch. The 128-lane time packing of the narrow TPU
+kernel is not carried over. The plain PyTorch twins are
+:func:`resblock_trio_reference` and :func:`resblock_reference`.
 
 A block is ``{kernel_size, dilations, w1, b1, w2, b2}`` with ``w1[i]``,
 ``w2[i]`` the pair's (k, C, C) kernels and ``b1[i]``, ``b2[i]`` its (C,)
@@ -20,7 +21,8 @@ biases -- a stacked (pairs, ...) tensor or a per-pair list.
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -28,11 +30,62 @@ from vits_tpu_torch.ops.conv import conv1d, leaky_relu
 from vits_tpu_torch.ops.cuda import (
     check,
     cuda_lengths,
+    device_sm_count,
     library,
     no_autograd,
     on_cuda,
     stream_of,
 )
+
+# Block tiles (time steps, out-channels) of the tensor-core conv, by the id
+# resblock_trio.cu::vk_conv takes.
+CONV_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))
+CONV_CHUNK = 32  # input channels per K step
+CONV_SPLITS = (1, 2, 4, 8)  # cluster sizes that may share one tile's K steps
+# The plan's cost model, fitted to scripts/torch_conv_probe.py on an H100
+# (every tile and split at the main paths' shapes): each tile's rate relative
+# to the 128 x 64 tile, and a block's fixed cost (prologue, cluster reduction,
+# epilogue) in K steps.
+CONV_TILE_RATES = (1.0, 0.9, 0.85, 0.7)
+CONV_BLOCK_STEPS = 2
+
+
+class ConvPlan(NamedTuple):
+    tile: int  # index into CONV_TILES; -1 = the direct path
+    split: int  # blocks of a cluster, each summing 1/split of the K steps
+    blocks: int  # grid size, counting every block of a cluster
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_plan(B: int, T: int, C_in: int, C_out: int, k: int, sm_count: int) -> ConvPlan:
+    """Tile and K split of one conv launch.
+
+    Channels off the tensor-core path's grid (C_in % 32 or C_out % 32) take
+    the direct path. Otherwise, among the tiles and splits (dividing the
+    k * C_in / 32 steps) whose grid puts two blocks on every SM, the one of
+    least modelled time: waves of one block per SM, each as long as a block's
+    share of the steps plus its fixed cost, scaled by the tile's area over its
+    rate. When no grid is that large, the largest grid.
+    """
+    if C_in % CONV_CHUNK or C_out % 32:
+        return ConvPlan(-1, 1, -(-T // 256) * B)
+    steps = k * (C_in // CONV_CHUNK)
+    plans = []
+    for tile, (bm, bn) in enumerate(CONV_TILES):
+        if C_out % bn:
+            continue
+        tiles = -(-T // bm) * (C_out // bn) * B
+        for split in CONV_SPLITS:
+            if steps % split:
+                continue
+            blocks = tiles * split
+            cost = (-(-blocks // sm_count) * (steps / split + CONV_BLOCK_STEPS) * bm * bn
+                    / CONV_TILE_RATES[tile])
+            plans.append((blocks >= 2 * sm_count, -cost, ConvPlan(tile, split, blocks)))
+    full = [p for p in plans if p[0]]
+    if full:
+        return max(full, key=lambda p: p[1])[2]
+    return max(plans, key=lambda p: p[2].blocks)[2]
 
 
 def length_mask(lengths: torch.Tensor | None, T: int, dtype) -> torch.Tensor | None:
@@ -88,6 +141,9 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
     lib = library()
     B, T, C = x.shape
     stream = stream_of(x)
+    sms = device_sm_count(x.device)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("resblock conv kernel needs 16-byte aligned activations")
     if acts is None:
         y1 = torch.empty_like(x)
         scratch = (torch.empty_like(x), torch.empty_like(x))
@@ -98,6 +154,7 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
             raise ValueError(f"resblock conv kernel needs an odd kernel size, got {k}")
         src = x
         dilations = tuple(blk["dilations"])
+        tile, split, _ = conv_plan(B, T, C, C, k, sms)
         for i, d in enumerate(dilations):
             w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
             for w in (w1, w2):
@@ -120,12 +177,12 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
             check(lib.vk_conv(
                 src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
                 lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, slope, 0, 1.0,
-                stream), "resblock conv1 kernel")
+                tile, split, stream), "resblock conv1 kernel")
             # dst = mask(src + conv(leaky(y1)) + b2), folded into the mean on the last pair
             check(lib.vk_conv(
                 y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
                 lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, slope, accumulate, scale,
-                stream), "resblock conv2 kernel")
+                tile, split, stream), "resblock conv2 kernel")
             src = dst
 
 
