@@ -16,8 +16,13 @@ printing its result line:
    host's) and the kernel's bound (the larger of its FLOPs at 165 TFLOP/s, the
    fp32-accurate 3xTF32 tensor-core rate, and its bytes at 3.35 TB/s, from
    this run's shapes and valid lengths). Serving kernels A, B, C at the
-   shapes of a 128-token MMS request (320 frames); training kernels: A's logsumexp and the attention
-   backward (kernel 4) at B=2, L=512, lengths (507, 0), and the trainable
+   shapes of a 128-token MMS request (320 frames), each kernel C row with its
+   device ms split by launch (upsample, resblock convs, conv_post) beside the
+   device ms of cuDNN's ``F.conv_transpose1d`` and ``F.conv1d`` for the same
+   upsampler and conv_post (a yardstick for that launch; the port never calls
+   them); training kernels: A's logsumexp and the attention backward (kernel 4)
+   at B=2, L=512, lengths (507, 0), kernel 4 also at lengths (512, 300) (the
+   training batch of phase 7), and the trainable
    trio (kernel 5: output and saved activations; its backward alone on the
    plain forward's activations; forward and backward together, with the
    count of saved activations the two forwards round to opposite signs) at
@@ -312,10 +317,27 @@ def compare_stage(decoder, config, i: int, x_lens) -> dict:
         flops += conv_flops(steps * rate, decoder["conv_post.weight"].shape[0], c_out, 1)
         weights.append(decoder["conv_post.weight"])
     out_bytes = 4 * x.shape[0] * x.shape[1] * rate * (1 if final else c_out)
-    return compare("fused_stage", f"{c_in}->{c_out} B={x.shape[0]} T_in={x.shape[1]}"
-                   + (" +conv_post" if final else ""),
-                   lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw),
-                   work=(flops, nbytes(x, lens, *weights) + out_bytes))
+    result = compare("fused_stage", f"{c_in}->{c_out} B={x.shape[0]} T_in={x.shape[1]}"
+                     + (" +conv_post" if final else ""),
+                     lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw),
+                     work=(flops, nbytes(x, lens, *weights) + out_bytes))
+    split = launch_device_ms(lambda: fused_stage(*args, **kw), STAGE_LAUNCHES)
+    # cuDNN on the same upsampler and conv_post, channels-first: a yardstick for
+    # those launches only (the port never calls them)
+    xt = x.transpose(1, 2).contiguous()
+    wt = up_w.flip(0).permute(1, 2, 0).contiguous()
+    yard = {"upsample": host_and_device(lambda: torch.nn.functional.conv_transpose1d(
+        xt, wt, args[2], stride=rate, padding=kw["up_padding"]))["device_busy_ms"]}
+    if final:
+        ht = torch.zeros((x.shape[0], c_out, x.shape[1] * rate), device=x.device)
+        wp = decoder["conv_post.weight"].permute(2, 1, 0).contiguous()
+        yard["conv_post"] = host_and_device(
+            lambda: torch.nn.functional.conv1d(ht, wp, padding=3))["device_busy_ms"]
+    print("    device ms by launch: " + ", ".join(
+        f"{name} {ms:.4f}" + (f" (cuDNN yardstick {yard[name]:.4f})" if name in yard else "")
+        for name, ms in split.items()), flush=True)
+    result.update(launch_device_ms=split, cudnn_yardstick_ms=yard)
+    return result
 
 
 def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
@@ -433,15 +455,20 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
                                         return_lse=True)[1][0],
         work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, out, lse, *rel, lens))))
 
-    def valid(grads):  # row 0 up to its length, the length-0 row whole, the rel tables
-        return (*(g[0, :, :L - 5] for g in grads[:3]), *(g[1] for g in grads[:3]), *grads[3:])
-    args = (q, k, v, *rel, lse, dout, out)
-    results["trainable_rel_attention"].append(compare(
-        "rel_attention_bwd", shape + " valid region",
-        lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens)),
-        lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens)),
-        work=(attention_flops((L - 5, 0), heads, d, w, backward=True),
-              nbytes(*args, lens, q, k, v, *rel))))
+    def valid(grads, lengths):  # each row up to its length (a length-0 row whole), rel tables
+        return (*(g[b, :, :n or L] for g in grads[:3] for b, n in enumerate(lengths)),
+                *grads[3:])
+    # (507, 0): a padding row; (512, 300): phase 7's training batch, no length-0 shortcut
+    for lengths in ((L - 5, 0), (L, 300)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        out, lse = flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True)
+        args = (q, k, v, *rel, lse, dout, out)
+        results["trainable_rel_attention"].append(compare(
+            "rel_attention_bwd", f"B=2 H={heads} L={L} d={d} len={lengths} valid region",
+            lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens), lengths),
+            lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens), lengths),
+            work=(attention_flops(lengths, heads, d, w, backward=True),
+                  nbytes(*args, lens, q, k, v, *rel))))
 
     decoder = ParamView(params).sub("decoder")
     slope = config.leaky_relu_slope
@@ -580,6 +607,23 @@ def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=N
     return launches
 
 
+# The launches of one kernel C call, by the first pattern their name contains.
+STAGE_LAUNCHES = (
+    ("upsample", ("upsample_kernel",)),
+    ("resblock convs", ("conv_kernel",)),  # conv_kernel<...> and narrow_conv_kernel<...>
+    ("conv_post", ("wave_kernel",)),
+)
+
+
+def launch_device_ms(fn, families, calls: int = 5) -> dict[str, float]:
+    """Device ms per call of each family of ``fn``'s launches (``calls`` calls
+    under one profiler)."""
+    torch.cuda.synchronize()
+    _, device, _ = profiled(lambda: [fn() for _ in range(calls)])
+    found = by_family(device, families)
+    return {name: found[name][0] / calls for name, _ in families if name in found}
+
+
 # Device kernel families of a serving request, by the first pattern their name contains.
 REQUEST_FAMILIES = (
     ("resblock convs (kernels B, C)", ("conv_kernel",)),
@@ -622,7 +666,8 @@ def request_profile(model, card: str, reps: int = 3) -> dict:
           f"{len(device)} device operations, device busy {busy_ms:.2f} ms, idle share "
           f"{idle:.3f} ({card})", flush=True)
     for family, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
-        print(f"    {family:30s} {ms:8.3f} ms  {n:5d} launches", flush=True)
+        print(f"    {family:30s} {ms:8.3f} ms  {n:5d} launches  "
+              f"{1e3 * ms / capacity:7.3f} us per frame of capacity", flush=True)
     return {"tokens": tokens, "frames": frames, "capacity": capacity, "steady_ms": steady_ms,
             "walls_ms": walls, "device_busy_ms": busy_ms, "idle_share": idle,
             "device_ops": len(device),
@@ -843,7 +888,7 @@ STEP_SITES = ("text_encoder", "posterior_encoder", "residual_coupling_forward",
               "hifigan", "log_mel_spectrogram", "discriminate", "gradients", "_apply")
 # Device kernel families, by the first pattern their name contains.
 KERNEL_FAMILIES = (
-    ("port kernels A, 4, 5", ("rel_attention_kernel", "dq_kernel", "dkv_kernel",
+    ("port kernels A, 4, 5", ("rel_attention_kernel", "rel_attention_bwd_kernel",
                               "conv_kernel<")),
     ("elementwise", ("elementwise",)),
     ("reductions", ("reduce",)),
@@ -1236,8 +1281,13 @@ def main() -> None:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "launches_by_path": {path: counts.get(name) for path, counts in paths.items()},
+            # the queue's order: launches x the mean over the timed shapes of (device ms - bound)
+            "priority": launches[name] * sum(r["device_ms"] - r["bound_ms"] for r in timed)
+            / len(timed),
             "shapes": runs,
         })
+        print(f"  {name:24s} launches {launches[name]:4d} x mean (device ms - bound ms) = "
+              f"{report['kernels'][-1]['priority']:.2f}", flush=True)
     for entry in report["kernels"]:
         if entry["name"] == "flash_rel_attention":
             entry["lse_launches_training"] = train_launches["flash_rel_attention_lse"]

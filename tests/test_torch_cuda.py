@@ -388,3 +388,87 @@ def test_attention_kernel_long_rows_on_card(cuda_device, with_lse):
             _assert_close(lse[b].cpu(), want_lse[b].cpu())
     assert bool(torch.isfinite(got).all())
     _assert_close(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_attention_backward_long_rows_on_card(cuda_device):
+    """Kernel 4 at B=3, L=512, lengths (512, 200, 0) against its plain version: the
+    key loop that stops at the length, the dk/dv tiles past it, the length-0 row's
+    zeros; and a second run on the same inputs, bit-identical (no atomics)."""
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+
+    rng = np.random.default_rng(11)
+    B, H, L, d, w = 3, 2, 512, 96, 4
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, dtype=torch.float32, device=cuda_device)
+    q, k, v, dout = (dev(B, H, L, d) for _ in range(4))
+    rel_k, rel_v = dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lengths = [512, 200, 0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    out, lse = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                   return_lse=True)
+    args = (q, k, v, rel_k, rel_v, lse, dout, out)
+    got = rel_attention_bwd(*args, window=w, lengths=lens)
+    want = rel_attention_bwd_reference(*args, window=w, lengths=lens)
+    for g, ref in zip(got[:3], want[:3]):
+        for b, n in enumerate(lengths):
+            if n:
+                _assert_close(g[b, :, :n].cpu(), ref[b, :, :n].cpu())
+            else:
+                assert float(g[b].abs().max()) == 0.0
+    for g in got[1:3]:  # dk, dv of keys past the length: exactly 0
+        assert float(g[1, :, 200:].abs().max()) == 0.0
+    for g, ref in zip(got[3:], want[3:]):
+        _assert_close(g.cpu(), ref.cpu())
+    again = rel_attention_bwd(*args, window=w, lengths=lens)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_upsampler_unequal_phases_on_card(cuda_device):
+    """Kernel C's polyphase upsampler at (stride, k, pad) = (4, 6, 1), 64 -> 16: the
+    phases take 2, 1, 1 and 2 taps. The upsampler alone against conv_transpose1d,
+    then the whole stage against its plain version; a length-0 row."""
+    from vits_tpu_torch.ops.cuda import library, stream_of
+    from vits_tpu_torch.ops.cuda.stage import polyphase_upsample
+
+    rng = np.random.default_rng(12)
+    lengths = [150, 0, 61]
+    x = torch.tensor(_masked(rng, 3, 150, 64, lengths), device=cuda_device)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    up_w, up_b = dev(rng.standard_normal((6, 64, 16)) * 0.1), dev(rng.standard_normal(16) * 0.1)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    y = torch.empty((3, 600, 16), dtype=torch.float32, device=cuda_device)
+    assert library().vk_upsample(x.data_ptr(), y.data_ptr(), up_w.data_ptr(), up_b.data_ptr(),
+                                 lens.data_ptr(), 3, 150, 64, 16, 6, 4, 1, SLOPE,
+                                 stream_of(x)) == 0
+    want = polyphase_upsample(x.cpu(), up_w.cpu(), up_b.cpu(), stride=4, padding=1, slope=SLOPE,
+                              lengths=lens.cpu())
+    _assert_close(y.cpu(), want)
+    assert float(y[1].abs().max()) == 0.0
+    blocks = _to(_blocks(rng, 16, ks=(3, 7), scale=0.1), dev)
+    kw = dict(stride=4, up_padding=1, slope=SLOPE, lengths=lens)
+    got = fused_stage(x, up_w, up_b, blocks, **kw)
+    _assert_close(got.cpu(), stage_reference(x, up_w, up_b, blocks, **kw).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16])
+def test_narrow_conv_accumulate_and_residual_on_card(cuda_device, C):
+    """The narrow conv tile at C = 8 and 16 through three resblocks: the residual
+    epilogue (each pair's second conv) and the accumulate/scale epilogue (the mean),
+    with a length-0 row whose tiles skip their products."""
+    rng = np.random.default_rng(20 + C)
+    lengths = [300, 0, 123]
+    x = torch.tensor(_masked(rng, 3, 300, C, lengths), device=cuda_device)
+    blocks = _to(_blocks(rng, C, scale=0.1), lambda a: torch.tensor(a, device=cuda_device))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fused_resblock_trio.launches
+    got = fused_resblock_trio(x, blocks, slope=SLOPE, lengths=lens)
+    assert fused_resblock_trio.launches == before + 1
+    assert float(got[1].abs().max()) == 0.0 and float(got[2, 123:].abs().max()) == 0.0
+    _assert_close(got.cpu(), resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens).cpu())

@@ -69,10 +69,12 @@ def test_attention_lse_matches_jax_kernel():
         _assert_close(lse[b], want_lse[b], what=f"lse row {b}")
 
 
-@pytest.mark.parametrize("L,lengths", [(16, [16, 11]), (40, [40, 23]), (40, None)])
+@pytest.mark.parametrize("L,lengths", [(16, [16, 11]), (40, [40, 23]), (40, None),
+                                       (40, [37, 0])])
 def test_attention_grads_match_jax(L, lengths):
     """dq, dk, dv, drel_k, drel_v vs the Pallas backward and vs jax.grad of the XLA math;
-    one (L=16) and several (L=40) 16-query tiles; valid region only."""
+    one (L=16) and several (L=40) 16-query tiles; valid region only, and a length-0
+    row's whole gradients, exactly 0."""
     B, H, d, w = 2, 2, 8, 4
     arrays = _attention_inputs(B, H, L, d, w, L)
     g0 = np.random.default_rng(L + 1).standard_normal((B, H, L, d)).astype(np.float32)
@@ -96,6 +98,10 @@ def test_attention_grads_match_jax(L, lengths):
         got, wp, wx = leaf.grad.numpy(), np.asarray(wp), np.asarray(wx)
         if got.ndim == 4 and lengths is not None:
             for b, n in enumerate(lengths):
+                if n == 0:  # every p of the row is 0: so is each gradient
+                    assert not np.any(got[b]), name
+                    _assert_close(got[b], wp[b], what=name)
+                    continue
                 _assert_close(got[b, :, :n], wp[b, :, :n], what=name)
                 _assert_close(got[b, :, :n], wx[b, :, :n], what=name)
         else:

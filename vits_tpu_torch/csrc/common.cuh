@@ -32,10 +32,46 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, i
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
+// 4-byte asynchronous copy (any alignment), reading src_bytes (0 or 4) of gmem.
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 3xTF32, the fp32 tier on the tensor cores: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in fp32); lo*hi + hi*lo + hi*hi summed in fp32.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c += a * b on the tensor cores, one m16n8k8 TF32 product with fp32 sums.
+// Fragments (g = lane / 4, t = lane % 4): a0..a3 = A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g]; c0..c3 = C[g][2t],
+// C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of one m16n8k8 TF32 MMA in one instruction: ldmatrix's four
+// 8x8 b16 matrices are four 8-row x 4-word blocks of tf32 (rows 0-7 / 8-15,
+// words 0-3 / 4-7), and thread (g, t) of each gets word t of row g -- exactly
+// a0..a3. Lane l passes the address of row l % 8 of block l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 // Number of SMs of the current device (read once).

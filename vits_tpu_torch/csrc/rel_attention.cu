@@ -59,12 +59,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
 // Fixed shared memory (floats): Q tile, rel_k logits, per-warp m and l, merged
 // m and l, per-warp merge scales, window weights.
 inline __host__ __device__ int fixed_floats(int d) {

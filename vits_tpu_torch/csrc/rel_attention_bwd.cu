@@ -14,293 +14,515 @@
 //   drel_k[r] = sum_i ds_{i,i+r-w} q_i,   drel_v[r] = sum_i p_{i,i+r-w} dout_i
 //
 // The Pallas grid walks the query tiles of one (batch, head) in order and
-// carries dK/dV in VMEM scratch. CUDA blocks run in parallel, so the work is
-// split into two passes with no float atomics (repeated runs give bit-identical
-// gradients):
-//   * a query-major pass (one block per 16 queries) writes dq and, per query
-//     tile, partial rel-embedding gradients (nr, d), from delta-masked row sums
-//     gathered with warp shuffles as in the forward;
-//   * a key-major pass (one block per 16 keys) walks all queries and writes dk
-//     and dv.
-// The partial rel gradients are summed over (batch, head, tile) by the caller,
-// as JAX sums its per-(batch, head) ones outside the kernel.
+// carries dK/dV in VMEM scratch. CUDA blocks run in parallel, so one launch
+// holds two kinds of block with disjoint outputs and no float atomics
+// (repeated runs give bit-identical gradients):
+//   * a dkv block per 16 keys walks all L queries and writes dk and dv;
+//   * a dq block per 16 queries walks the keys and writes dq and the tile's
+//     partial rel-table gradients (nr, d), summed over (batch, head, tile) by
+//     the caller as JAX sums its per-(batch, head) ones outside the kernel.
 //
-// What bounds it on an H100: like the forward, latency. At the encoder's
-// shapes (H=2, d=96, L=512) each pass recomputes the (L, L) scores and dp
-// (two d-long dots per pair) for under 0.5 GFLOP per row; the blocks number
-// B*H*L/16, so a short batch leaves SMs idle. Nothing quadratic touches device
-// memory.
+// What bounds it on an H100: latency. At the encoder's shapes (B=2, H=2,
+// d=96, L=512) the five products are under 1 GFLOP, 0.003 ms at the
+// fp32-accurate tensor-core rate, and nothing quadratic touches device
+// memory, so the time is the chain of dependent steps each warp walks. The
+// design is kernel A's:
+// - Both passes in one grid (the dkv blocks first: they walk further), so a
+//   batch of two rows puts 256 blocks in flight, not two serial waves of 128.
+// - Up to 8 warps per block split the loop: warp w takes 16-row steps w,
+//   w + 8, ... with its own dq (or dk, dv) partials in registers, merged once
+//   through shared memory in warp order (a fixed order: deterministic). No
+//   block barrier inside the loop.
+// - Each warp streams its steps through its own two-stage cp.async buffer:
+//   K and V (dq blocks) or Q, dout, lse and D (dkv blocks).
+// - The window logits q.rel_k and dout.rel_v are computed once per block
+//   before the loop: for the block's 16 queries, or for the 16 + 2w queries
+//   that fall in the window of the block's 16 keys.
+// - The products are register-tiled FFMA: lane (group of 4 rows, one of 8
+//   columns) holds 4 x 2 (row, column) pairs of s and dp over float4
+//   channels (rows padded to 32 * ceil(d / 32) + 4 floats: conflict-free),
+//   then 4 rows x 4 channels per 32 of dq (dk, dv), ds and p moving by
+//   shuffles within 8-lane groups. FFMA and not 3xTF32 MMA, as in kernel A:
+//   the whole work is a few us at the FFMA rate, so the tensor cores would
+//   shorten no part of the chain that matters.
+// - Exact skips: keys at or past len have p = 0, so a dq block stops its key
+//   loop at ceil(len / 16) steps, a dkv block whose keys all lie at or past
+//   len writes zeros and returns, and a len = 0 row writes only zeros. A dkv
+//   block still walks every query: queries past len weigh valid keys, and
+//   their dout need not be 0 (the JAX kernel walks them too).
+// - Each (query, key) pair of the window belongs to one lane of one step, so
+//   the rel-table row sums ds_{i,i+r-w} and p_{i,i+r-w} are single writes
+//   into shared memory, not sums.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;            // queries (dq pass) or keys (dkv pass) per warp
-constexpr int kTile = kWarps * kRowsPerWarp;  // rows per block
-constexpr int kChunk = 32;                 // keys (dq pass) or queries (dkv pass): one per lane
-constexpr int kMaxDPerLane = 4;            // head_dim <= 128
+constexpr int kT = 16;                // rows per block (queries or keys) and per warp step
+constexpr int kMaxWarps = 8;
+constexpr int kMaxR = 32;             // 2w + 1 <= 32
+constexpr int kWin = kT + kMaxR - 1;  // queries within the window of a 16-key tile
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows [r0, r0 + n) of one (L, d) head into shared memory at row stride
-// `stride`, zeros past L.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0, int n, int L,
-                                           int d, int stride) {
-  for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    dst[r * stride + c] = r0 + r < L ? src[(size_t)(r0 + r) * d + c] : 0.f;
-  }
+// Row stride of every staged (rows, d) tile: the 32 * NC channels a lane
+// reads in dq (dk, dv), plus 4, so that the 8 rows a quarter warp reads as
+// float4 at one column fall on 32 distinct banks. Columns past d stay zero.
+template <int NC>
+__host__ __device__ constexpr int row_stride() {
+  return 32 * NC + 4;
+}
+// Shared memory (floats): the block's fixed tiles, and each warp's region.
+template <int NC>
+__host__ __device__ constexpr int fixed_floats() {
+  return 2 * kT * row_stride<NC>() + 2 * kWin * kMaxR;
+}
+template <int NC>
+__host__ __device__ constexpr int warp_floats() {  // two stages of two tiles and two row vectors
+  return 2 * (2 * kT * row_stride<NC>() + 2 * kT);
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) s = fmaf(a[c], b[c], s);
-  return s;
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-// a[i] . table[r] for the n rows of a and the nr rows of table.
-__device__ __forceinline__ void rel_dots(float* out, const float* a, const float* table, int n,
-                                         int a_stride, int nr, int d) {
-  for (int idx = threadIdx.x; idx < n * nr; idx += blockDim.x) {
-    const int i = idx / nr;
-    const int r = idx - i * nr;
-    out[idx] = dot(a + i * a_stride, table + r * d, d);
-  }
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ rel_k,
-              const float* __restrict__ rel_v, const int* __restrict__ lengths,
-              const float* __restrict__ lse, const float* __restrict__ drow,
-              const float* __restrict__ dout, float* __restrict__ dq,
-              float* __restrict__ drk_part, float* __restrict__ drv_part, int H, int L, int d,
-              int w) {
-  extern __shared__ float smem[];
-  const int nr = 2 * w + 1;
-  const int dk = d + 1;  // padded key rows: lanes read one channel of 32 different keys
-  float* qs = smem;                 // kTile x d
-  float* dos = qs + kTile * d;      // kTile x d
-  float* ks = dos + kTile * d;      // kChunk x dk
-  float* vs = ks + kChunk * dk;     // kChunk x dk
-  float* rks = vs + kChunk * dk;    // nr x d
-  float* rvs = rks + nr * d;        // nr x d
-  float* rl = rvs + nr * d;         // kTile x nr: q_i . rel_k[r]
-  float* dr = rl + kTile * nr;      // kTile x nr: dout_i . rel_v[r]
-  float* dsr_s = dr + kTile * nr;   // kTile x nr: sum of ds at delta r - w
-  float* pr_s = dsr_s + kTile * nr; // kTile x nr: sum of p at delta r - w
-  const int q0 = blockIdx.x * kTile;
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * H + blockIdx.y;
-  const size_t head = bh * L * d;
-  const int len = lengths[b];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__device__ __forceinline__ void fma4(float* acc, float s, float4 x) {
+  acc[0] = fmaf(s, x.x, acc[0]);
+  acc[1] = fmaf(s, x.y, acc[1]);
+  acc[2] = fmaf(s, x.z, acc[2]);
+  acc[3] = fmaf(s, x.w, acc[3]);
+}
 
-  stage_rows(qs, q + head, q0, kTile, L, d, d);
-  stage_rows(dos, dout + head, q0, kTile, L, d, d);
-  for (int idx = tid; idx < nr * d; idx += blockDim.x) {
-    rks[idx] = rel_k[idx];
-    rvs[idx] = rel_v[idx];
-  }
-  __syncthreads();
-  rel_dots(rl, qs, rks, kTile, d, nr, d);
-  rel_dots(dr, dos, rvs, kTile, d, nr, d);
-
-  float lse_u[kRowsPerWarp], d_u[kRowsPerWarp], dsr[kRowsPerWarp], pr[kRowsPerWarp];
-  float acc[kRowsPerWarp][kMaxDPerLane];
-#pragma unroll
-  for (int u = 0; u < kRowsPerWarp; ++u) {
-    const int i = q0 + warp * kRowsPerWarp + u;
-    lse_u[u] = i < L ? lse[bh * L + i] : 0.f;
-    d_u[u] = i < L ? drow[bh * L + i] : 0.f;
-    dsr[u] = 0.f;
-    pr[u] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < kMaxDPerLane; ++cc) acc[u][cc] = 0.f;
-  }
-
-  for (int kc0 = 0; kc0 < L; kc0 += kChunk) {
-    __syncthreads();  // previous chunk consumed (and rl/dr visible on the first)
-    stage_rows(ks, k + head, kc0, kChunk, L, d, dk);
-    stage_rows(vs, v + head, kc0, kChunk, L, d, dk);
-    __syncthreads();
-    const int j = kc0 + lane;
-#pragma unroll
-    for (int u = 0; u < kRowsPerWarp; ++u) {
-      const int qi = warp * kRowsPerWarp + u;
-      const int i = q0 + qi;
-      float s = dot(qs + qi * d, ks + lane * dk, d);
-      float dp = dot(dos + qi * d, vs + lane * dk, d);
-      const int delta = j - i;
-      if (delta >= -w && delta <= w) {
-        s += rl[qi * nr + delta + w];
-        dp += dr[qi * nr + delta + w];
-      }
-      const float p = (i < L && j < L && j < len) ? expf(s - lse_u[u]) : 0.f;
-      const float ds = p * (dp - d_u[u]);
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float dsj = __shfl_sync(kFull, ds, jj);
-#pragma unroll
-        for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-          const int c = lane + 32 * cc;
-          if (c < d) acc[u][cc] = fmaf(dsj, ks[jj * dk + c], acc[u][cc]);
-        }
-      }
-      // lane r < nr collects key i + r - w for the rel-embedding row sums
-      const int src = i + lane - w - kc0;
-      const float dsx = __shfl_sync(kFull, ds, src & 31);
-      const float px = __shfl_sync(kFull, p, src & 31);
-      if (lane < nr && src >= 0 && src < kChunk) {
-        dsr[u] += dsx;
-        pr[u] += px;
-      }
+// One warp's asynchronous copy of rows [r0, r0 + kT) of an (L, d) head into
+// dst at row stride rs (zero rows past L; columns past d untouched).
+__device__ __forceinline__ void issue_rows(float* dst, const float* src, int r0, int L, int d,
+                                           int rs, int vec, int lane) {
+  if (vec) {
+    const int d4 = d >> 2;
+    for (int idx = lane; idx < kT * d4; idx += 32) {
+      const int r = idx / d4, c = (idx - r * d4) * 4;
+      const bool in = r0 + r < L;
+      cp_async16_zfill(dst + r * rs + c, src + (in ? (size_t)(r0 + r) * d + c : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int idx = lane; idx < kT * d; idx += 32) {
+      const int r = idx / d, c = idx - r * d;
+      const bool in = r0 + r < L;
+      cp_async4_zfill(dst + r * rs + c, src + (in ? (size_t)(r0 + r) * d + c : 0), in ? 4 : 0);
     }
   }
+}
 
+// Rows [r0, r0 + kT) of an (L, d) head into dst at row stride rs, zero past L and d.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int L, int d,
+                                          int rs) {
+  for (int idx = threadIdx.x; idx < kT * rs; idx += blockDim.x) {
+    const int r = idx / rs, c = idx - r * rs;
+    dst[idx] = c < d && r0 + r < L ? src[(size_t)(r0 + r) * d + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void zero_rows(float* dst, int r0, int L, int d) {
+  for (int idx = threadIdx.x; idx < kT * d; idx += blockDim.x) {
+    if (r0 + idx / d >= L) break;  // idx only grows, and the row with it
+    dst[(size_t)r0 * d + idx] = 0.f;
+  }
+}
+
+struct Args {
+  const float *q, *k, *v, *rel_k, *rel_v;
+  const int* lengths;
+  const float *lse, *drow, *dout;
+  float *dq, *dk, *dv, *drk_part, *drv_part;
+  int H, L, d, w, vec;
+};
+
+// dq and the rel-table partials of queries [q0, q0 + kT).
+template <int NC>
+__device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t bh, int nk) {
+  constexpr int RS = row_stride<NC>();
+  constexpr int DV = 32 * NC;
+  const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
+  const int q0 = tile * kT;
+  const size_t head = bh * L * d;
+  const size_t part = (bh * tiles + tile) * nr * d;
+  if (nk == 0) {  // every p of the row is 0
+    zero_rows(a.dq + head, q0, L, d);
+    for (int idx = threadIdx.x; idx < nr * d; idx += blockDim.x) {
+      a.drk_part[part + idx] = 0.f;
+      a.drv_part[part + idx] = 0.f;
+    }
+    return;
+  }
+  const int nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qg = lane >> 3, kg = lane & 7;  // queries qg*4 + u; keys kg, kg + 8 / columns 4*kg
+  float* qs = smem;               // kT x RS
+  float* dos = qs + kT * RS;      // kT x RS
+  float* rl = dos + kT * RS;      // kT x kMaxR: q_i . rel_k[r]
+  float* dr = rl + kT * kMaxR;    // kT x kMaxR: dout_i . rel_v[r]
+  float* dsr = dr + kT * kMaxR;   // kT x kMaxR: ds_{i, i+r-w}
+  float* pr = dsr + kT * kMaxR;   // kT x kMaxR: p_{i, i+r-w}
+  float* region = smem + fixed_floats<NC>();
+  float* kvw = region + warp * warp_floats<NC>();
+  constexpr int stage = 2 * kT * RS;  // K and V of one step
+
+  load_tile(qs, a.q + head, q0, L, d, RS);
+  load_tile(dos, a.dout + head, q0, L, d, RS);
+  for (int idx = tid; idx < 2 * kT * kMaxR; idx += blockDim.x) dsr[idx] = 0.f;  // dsr and pr
+  for (int idx = tid; idx < nw * warp_floats<NC>(); idx += blockDim.x) region[idx] = 0.f;
+  __syncthreads();
+  for (int task = warp; task < kT * nr; task += nw) {
+    const int qi = task / nr, r = task - qi * nr;
+    float x = 0.f, y = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      x = fmaf(qs[qi * RS + c], a.rel_k[r * d + c], x);
+      y = fmaf(dos[qi * RS + c], a.rel_v[r * d + c], y);
+    }
+    x = warp_sum(x);
+    y = warp_sum(y);
+    if (lane == 0) {
+      rl[qi * kMaxR + r] = x;
+      dr[qi * kMaxR + r] = y;
+    }
+  }
+  __syncthreads();  // the last block barrier before the merge
+
+  float lse_u[4], d_u[4], acc[4][4 * NC];
 #pragma unroll
-  for (int u = 0; u < kRowsPerWarp; ++u) {
-    const int qi = warp * kRowsPerWarp + u;
+  for (int u = 0; u < 4; ++u) {
+    const int i = q0 + qg * 4 + u;
+    lse_u[u] = i < L ? a.lse[bh * L + i] : 0.f;
+    d_u[u] = i < L ? a.drow[bh * L + i] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * NC; ++e) acc[u][e] = 0.f;
+  }
+  const float* kh = a.k + head;
+  const float* vh = a.v + head;
+  auto issue = [&](int step, int slot) {
+    float* ks = kvw + slot * stage;
+    issue_rows(ks, kh, step * kT, L, d, RS, a.vec, lane);
+    issue_rows(ks + kT * RS, vh, step * kT, L, d, RS, a.vec, lane);
+    cp_async_commit();
+  };
+  const int steps = (nk + kT - 1) / kT;
+  const int d4 = (d + 3) / 4;
+  int slot = 0;
+  if (warp < steps) issue(warp, 0);
+  for (int step = warp; step < steps; step += nw) {
+    if (step + nw < steps)
+      issue(step + nw, slot ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const float* ks = kvw + slot * stage;
+    const float* vs = ks + kT * RS;
+    const int j0 = step * kT;
+
+    // s and dp: lane (qg, kg) holds queries qg*4 + u against keys kg and kg + 8
+    float s[4][2], t[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u][0] = s[u][1] = t[u][0] = t[u][1] = 0.f;
+#pragma unroll 2
+    for (int c4 = 0; c4 < d4; ++c4) {
+      const float4 k0 = *reinterpret_cast<const float4*>(ks + kg * RS + 4 * c4);
+      const float4 k1 = *reinterpret_cast<const float4*>(ks + (kg + 8) * RS + 4 * c4);
+      const float4 v0 = *reinterpret_cast<const float4*>(vs + kg * RS + 4 * c4);
+      const float4 v1 = *reinterpret_cast<const float4*>(vs + (kg + 8) * RS + 4 * c4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + (qg * 4 + u) * RS + 4 * c4);
+        const float4 ov = *reinterpret_cast<const float4*>(dos + (qg * 4 + u) * RS + 4 * c4);
+        s[u][0] = dot4(qv, k0, s[u][0]);
+        s[u][1] = dot4(qv, k1, s[u][1]);
+        t[u][0] = dot4(ov, v0, t[u][0]);
+        t[u][1] = dot4(ov, v1, t[u][1]);
+      }
+    }
+    // window logits, p (0 past len), ds; the window's ds and p into dsr and pr
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int qi = qg * 4 + u, i = q0 + qi;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + kg + 8 * e;
+        const int delta = j - i;
+        const bool win = delta >= -w && delta <= w;
+        float x = s[u][e], y = t[u][e];
+        if (win) {
+          x += rl[qi * kMaxR + delta + w];
+          y += dr[qi * kMaxR + delta + w];
+        }
+        const float p = j < nk && i < L ? expf(x - lse_u[u]) : 0.f;
+        const float ds = p * (y - d_u[u]);
+        if (win) {
+          dsr[qi * kMaxR + delta + w] = ds;
+          pr[qi * kMaxR + delta + w] = p;
+        }
+        s[u][e] = ds;
+      }
+    }
+    // dq += ds k: lane (qg, kg) holds queries qg*4 + u at columns 4*kg + 32*n + (0..3)
+#pragma unroll
+    for (int jj = 0; jj < kT; ++jj) {
+      float g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) g[u] = __shfl_sync(kFull, s[u][jj >> 3], (lane & 24) | (jj & 7));
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + jj * RS + 4 * kg + 32 * n);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) fma4(&acc[u][4 * n], g[u], kk);
+      }
+    }
+    __syncwarp();  // this stage is consumed before it is refilled
+    slot ^= 1;
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // merge the warps' dq in warp order, add the rel_k term, write
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float4*>(kvw + (qg * 4 + u) * DV + 4 * kg + 32 * n) =
+          make_float4(acc[u][4 * n], acc[u][4 * n + 1], acc[u][4 * n + 2], acc[u][4 * n + 3]);
+  __syncthreads();
+  for (int idx = tid; idx < kT * d; idx += blockDim.x) {
+    const int qi = idx / d, c = idx - qi * d;
     const int i = q0 + qi;
-    for (int r = 0; r < nr; ++r) {
-      const float x = __shfl_sync(kFull, dsr[u], r);
-#pragma unroll
-      for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-        const int c = lane + 32 * cc;
-        if (c < d) acc[u][cc] = fmaf(x, rks[r * d + c], acc[u][cc]);
-      }
-    }
-    if (i < L) {
-#pragma unroll
-      for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-        const int c = lane + 32 * cc;
-        if (c < d) dq[head + (size_t)i * d + c] = acc[u][cc];
-      }
-    }
-    if (lane < nr) {
-      dsr_s[qi * nr + lane] = dsr[u];
-      pr_s[qi * nr + lane] = pr[u];
-    }
+    if (i >= L) break;  // idx only grows, and i with it
+    float o = 0.f;
+    for (int wi = 0; wi < nw; ++wi) o += region[wi * warp_floats<NC>() + qi * DV + c];
+    for (int r = 0; r < nr; ++r) o = fmaf(dsr[qi * kMaxR + r], a.rel_k[r * d + c], o);
+    a.dq[head + (size_t)i * d + c] = o;
   }
-  __syncthreads();
   // this tile's share of drel_k = sum_i dsr_i q_i and drel_v = sum_i pr_i dout_i
-  const size_t part = (bh * gridDim.x + blockIdx.x) * nr * d;
   for (int idx = tid; idx < nr * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    float a = 0.f, bsum = 0.f;
-    for (int qi = 0; qi < kTile; ++qi) {
-      a = fmaf(dsr_s[qi * nr + r], qs[qi * d + c], a);
-      bsum = fmaf(pr_s[qi * nr + r], dos[qi * d + c], bsum);
+    const int r = idx / d, c = idx - r * d;
+    float x = 0.f, y = 0.f;
+    for (int qi = 0; qi < kT; ++qi) {
+      x = fmaf(dsr[qi * kMaxR + r], qs[qi * RS + c], x);
+      y = fmaf(pr[qi * kMaxR + r], dos[qi * RS + c], y);
     }
-    drk_part[part + idx] = a;
-    drv_part[part + idx] = bsum;
+    a.drk_part[part + idx] = x;
+    a.drv_part[part + idx] = y;
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ rel_k,
-               const float* __restrict__ rel_v, const int* __restrict__ lengths,
-               const float* __restrict__ lse, const float* __restrict__ drow,
-               const float* __restrict__ dout, float* __restrict__ dk_out,
-               float* __restrict__ dv_out, int H, int L, int d, int w) {
-  extern __shared__ float smem[];
-  const int nr = 2 * w + 1;
-  const int dq = d + 1;  // padded query rows: lanes read one channel of 32 different queries
-  float* ks = smem;                // kTile x d
-  float* vs = ks + kTile * d;      // kTile x d
-  float* qs = vs + kTile * d;      // kChunk x dq
-  float* dos = qs + kChunk * dq;   // kChunk x dq
-  float* rks = dos + kChunk * dq;  // nr x d
-  float* rvs = rks + nr * d;       // nr x d
-  float* rl = rvs + nr * d;        // kChunk x nr
-  float* dr = rl + kChunk * nr;    // kChunk x nr
-  float* lse_s = dr + kChunk * nr; // kChunk
-  float* d_s = lse_s + kChunk;     // kChunk
-  const int k0 = blockIdx.x * kTile;
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * H + blockIdx.y;
+// dk and dv of keys [k0, k0 + kT).
+template <int NC>
+__device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int nk) {
+  constexpr int RS = row_stride<NC>();
+  constexpr int DV = 32 * NC;
+  const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
+  const int k0 = tile * kT;
   const size_t head = bh * L * d;
-  const int len = lengths[b];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  stage_rows(ks, k + head, k0, kTile, L, d, d);
-  stage_rows(vs, v + head, k0, kTile, L, d, d);
-  for (int idx = tid; idx < nr * d; idx += blockDim.x) {
-    rks[idx] = rel_k[idx];
-    rvs[idx] = rel_v[idx];
+  if (k0 >= nk) {  // every key of the tile lies at or past len: p = 0 throughout
+    zero_rows(a.dk + head, k0, L, d);
+    zero_rows(a.dv + head, k0, L, d);
+    return;
   }
+  const int nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kq = lane >> 3, qc = lane & 7;  // keys kq*4 + u; queries qc, qc + 8 / columns 4*qc
+  float* ks = smem;                // kT x RS
+  float* vs = ks + kT * RS;        // kT x RS
+  float* qrl = vs + kT * RS;       // kWin x kMaxR: q_i . rel_k[r] for i = k0 - w + row
+  float* drl = qrl + kWin * kMaxR; // kWin x kMaxR: dout_i . rel_v[r]
+  float* region = smem + fixed_floats<NC>();
+  float* qw = region + warp * warp_floats<NC>();
+  constexpr int stage = 2 * kT * RS + 2 * kT;  // Q, dout, lse and D of one step
 
-  float dka[kRowsPerWarp][kMaxDPerLane], dva[kRowsPerWarp][kMaxDPerLane];
-#pragma unroll
-  for (int t = 0; t < kRowsPerWarp; ++t)
-#pragma unroll
-    for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-      dka[t][cc] = 0.f;
-      dva[t][cc] = 0.f;
-    }
-
-  for (int qc0 = 0; qc0 < L; qc0 += kChunk) {
-    __syncthreads();  // previous chunk consumed (and the key tile visible on the first)
-    stage_rows(qs, q + head, qc0, kChunk, L, d, dq);
-    stage_rows(dos, dout + head, qc0, kChunk, L, d, dq);
-    if (tid < kChunk) {
-      const int i = qc0 + tid;
-      lse_s[tid] = i < L ? lse[bh * L + i] : 0.f;
-      d_s[tid] = i < L ? drow[bh * L + i] : 0.f;
-    }
-    __syncthreads();
-    rel_dots(rl, qs, rks, kChunk, dq, nr, d);
-    rel_dots(dr, dos, rvs, kChunk, dq, nr, d);
-    __syncthreads();
-    const int i = qc0 + lane;
-#pragma unroll
-    for (int t = 0; t < kRowsPerWarp; ++t) {
-      const int jl = warp * kRowsPerWarp + t;
-      const int j = k0 + jl;
-      float s = dot(qs + lane * dq, ks + jl * d, d);
-      float dp = dot(dos + lane * dq, vs + jl * d, d);
-      const int delta = j - i;
-      if (delta >= -w && delta <= w) {
-        s += rl[lane * nr + delta + w];
-        dp += dr[lane * nr + delta + w];
+  load_tile(ks, a.k + head, k0, L, d, RS);
+  load_tile(vs, a.v + head, k0, L, d, RS);
+  for (int idx = tid; idx < nw * warp_floats<NC>(); idx += blockDim.x) region[idx] = 0.f;
+  const float* qh = a.q + head;
+  const float* oh = a.dout + head;
+  const int nwin = kT + 2 * w;
+  for (int task = warp; task < nwin * nr; task += nw) {
+    const int row = task / nr, r = task - row * nr;
+    const int i = k0 - w + row;
+    float x = 0.f, y = 0.f;
+    if (i >= 0 && i < L) {
+      for (int c = lane; c < d; c += 32) {
+        x = fmaf(qh[(size_t)i * d + c], a.rel_k[r * d + c], x);
+        y = fmaf(oh[(size_t)i * d + c], a.rel_v[r * d + c], y);
       }
-      const float p = (i < L && j < L && j < len) ? expf(s - lse_s[lane]) : 0.f;
-      const float ds = p * (dp - d_s[lane]);
-      for (int ii = 0; ii < kChunk; ++ii) {
-        const float dsi = __shfl_sync(kFull, ds, ii);
-        const float pi = __shfl_sync(kFull, p, ii);
+    }
+    x = warp_sum(x);
+    y = warp_sum(y);
+    if (lane == 0) {
+      qrl[row * kMaxR + r] = x;
+      drl[row * kMaxR + r] = y;
+    }
+  }
+  __syncthreads();  // the last block barrier before the merge
+
+  const float* lseh = a.lse + bh * L;
+  const float* drh = a.drow + bh * L;
+  auto issue = [&](int step, int slot) {
+    float* qs = qw + slot * stage;
+    const int i0 = step * kT;
+    issue_rows(qs, qh, i0, L, d, RS, a.vec, lane);
+    issue_rows(qs + kT * RS, oh, i0, L, d, RS, a.vec, lane);
+    if (lane < 2 * kT) {
+      const int i = i0 + (lane & (kT - 1));
+      const float* src = lane < kT ? lseh : drh;
+      cp_async4_zfill(qs + 2 * kT * RS + lane, src + (i < L ? i : 0), i < L ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  float dka[4][4 * NC], dva[4][4 * NC];
 #pragma unroll
-        for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-          const int c = lane + 32 * cc;
-          if (c < d) {
-            dka[t][cc] = fmaf(dsi, qs[ii * dq + c], dka[t][cc]);
-            dva[t][cc] = fmaf(pi, dos[ii * dq + c], dva[t][cc]);
-          }
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 4 * NC; ++e) dka[u][e] = dva[u][e] = 0.f;
+  const int steps = (L + kT - 1) / kT;
+  const int d4 = (d + 3) / 4;
+  int slot = 0;
+  if (warp < steps) issue(warp, 0);
+  for (int step = warp; step < steps; step += nw) {
+    if (step + nw < steps)
+      issue(step + nw, slot ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const float* qs = qw + slot * stage;
+    const float* dos = qs + kT * RS;
+    const float* lses = dos + kT * RS;
+    const float* ds_row = lses + kT;
+    const int i0 = step * kT;
+
+    // s and dp: lane (kq, qc) holds keys kq*4 + u against queries qc and qc + 8
+    float s[4][2], t[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u][0] = s[u][1] = t[u][0] = t[u][1] = 0.f;
+#pragma unroll 2
+    for (int c4 = 0; c4 < d4; ++c4) {
+      const float4 q0v = *reinterpret_cast<const float4*>(qs + qc * RS + 4 * c4);
+      const float4 q1v = *reinterpret_cast<const float4*>(qs + (qc + 8) * RS + 4 * c4);
+      const float4 o0v = *reinterpret_cast<const float4*>(dos + qc * RS + 4 * c4);
+      const float4 o1v = *reinterpret_cast<const float4*>(dos + (qc + 8) * RS + 4 * c4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (kq * 4 + u) * RS + 4 * c4);
+        const float4 vv = *reinterpret_cast<const float4*>(vs + (kq * 4 + u) * RS + 4 * c4);
+        s[u][0] = dot4(kv, q0v, s[u][0]);
+        s[u][1] = dot4(kv, q1v, s[u][1]);
+        t[u][0] = dot4(vv, o0v, t[u][0]);
+        t[u][1] = dot4(vv, o1v, t[u][1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = k0 + kq * 4 + u;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int il = qc + 8 * e, i = i0 + il;
+        const int delta = j - i;
+        float x = s[u][e], y = t[u][e];
+        if (delta >= -w && delta <= w) {
+          const int row = i - k0 + w;
+          x += qrl[row * kMaxR + delta + w];
+          y += drl[row * kMaxR + delta + w];
+        }
+        const float p = j < nk && i < L ? expf(x - lses[il]) : 0.f;
+        s[u][e] = p * (y - ds_row[il]);
+        t[u][e] = p;
+      }
+    }
+    // dk += ds q, dv += p dout: lane (kq, qc) holds keys kq*4 + u at columns 4*qc + 32*n
+#pragma unroll
+    for (int ii = 0; ii < kT; ++ii) {
+      float g[4], h[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        g[u] = __shfl_sync(kFull, s[u][ii >> 3], (lane & 24) | (ii & 7));
+        h[u] = __shfl_sync(kFull, t[u][ii >> 3], (lane & 24) | (ii & 7));
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float4 qq = *reinterpret_cast<const float4*>(qs + ii * RS + 4 * qc + 32 * n);
+        const float4 oo = *reinterpret_cast<const float4*>(dos + ii * RS + 4 * qc + 32 * n);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          fma4(&dka[u][4 * n], g[u], qq);
+          fma4(&dva[u][4 * n], h[u], oo);
         }
       }
     }
+    __syncwarp();  // this stage is consumed before it is refilled
+    slot ^= 1;
   }
+  cp_async_wait<0>();
+  __syncwarp();
 
+  // merge the warps' dk and dv in warp order, write
 #pragma unroll
-  for (int t = 0; t < kRowsPerWarp; ++t) {
-    const int j = k0 + warp * kRowsPerWarp + t;
-    if (j >= L) continue;
+  for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int cc = 0; cc < kMaxDPerLane; ++cc) {
-      const int c = lane + 32 * cc;
-      if (c < d) {
-        dk_out[head + (size_t)j * d + c] = dka[t][cc];
-        dv_out[head + (size_t)j * d + c] = dva[t][cc];
-      }
+    for (int n = 0; n < NC; ++n) {
+      float* at = qw + (kq * 4 + u) * DV + 4 * qc + 32 * n;
+      *reinterpret_cast<float4*>(at) =
+          make_float4(dka[u][4 * n], dka[u][4 * n + 1], dka[u][4 * n + 2], dka[u][4 * n + 3]);
+      *reinterpret_cast<float4*>(at + kT * DV) =
+          make_float4(dva[u][4 * n], dva[u][4 * n + 1], dva[u][4 * n + 2], dva[u][4 * n + 3]);
     }
+  __syncthreads();
+  for (int idx = tid; idx < kT * d; idx += blockDim.x) {
+    const int kl = idx / d, c = idx - kl * d;
+    const int j = k0 + kl;
+    if (j >= L) break;  // idx only grows, and j with it
+    float x = 0.f, y = 0.f;
+    for (int wi = 0; wi < nw; ++wi) {
+      const float* src = region + wi * warp_floats<NC>() + kl * DV + c;
+      x += src[0];
+      y += src[kT * DV];
+    }
+    a.dk[head + (size_t)j * d + c] = x;
+    a.dv[head + (size_t)j * d + c] = y;
   }
+}
+
+// Block x < tiles: the dkv block of key tile x; else the dq block of query tile x - tiles.
+template <int NC>
+__global__ void __launch_bounds__(kMaxWarps * 32) rel_attention_bwd_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int tiles = gridDim.x / 2;
+  const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
+  const int len = a.lengths[blockIdx.z];
+  const int nk = len < 0 ? 0 : (len < a.L ? len : a.L);  // keys that can weigh anything
+  if ((int)blockIdx.x < tiles)
+    dkv_block<NC>(a, smem, blockIdx.x, bh, nk);
+  else
+    dq_block<NC>(a, smem, blockIdx.x - tiles, tiles, bh, nk);
+}
+
+template <int NC>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed_floats<NC>()) /
+           warp_floats<NC>();
+  nw = nw < kMaxWarps ? nw : kMaxWarps;
+  if (nw < 1) return cudaErrorInvalidValue;
+  const int smem = (fixed_floats<NC>() + nw * warp_floats<NC>()) * static_cast<int>(sizeof(float));
+  cudaError_t err = vk_set_smem(rel_attention_bwd_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.L + kT - 1) / kT;
+  rel_attention_bwd_kernel<NC><<<dim3(2 * tiles, a.H, B), nw * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -316,23 +538,21 @@ VK_EXPORT int vk_rel_attention_bwd(const float* q, const float* k, const float* 
                                    float* drv_part, int B, int H, int L, int d, int w,
                                    void* stream) {
   const int nr = 2 * w + 1;
-  if (d < 1 || d > 32 * kMaxDPerLane || w < 0 || nr > 32 || L < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1 || B < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout);
+  const Args a{q, k, v, rel_k, rel_v, lengths, lse, drow, dout, dq, dk, dv, drk_part, drv_part,
+               H, L, d, w, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + kTile - 1) / kTile, H, B);
-  const int smem_q = (2 * kTile * d + 2 * kChunk * (d + 1) + 2 * nr * d + 4 * kTile * nr) *
-                     static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(dq_kernel, smem_q);
-  if (err != cudaSuccess) return err;
-  dq_kernel<<<grid, kWarps * 32, smem_q, s>>>(q, k, v, rel_k, rel_v, lengths, lse, drow, dout,
-                                               dq, drk_part, drv_part, H, L, d, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem_kv = (2 * kTile * d + 2 * kChunk * (d + 1) + 2 * nr * d + 2 * kChunk * nr +
-                       2 * kChunk) *
-                      static_cast<int>(sizeof(float));
-  err = vk_set_smem(dkv_kernel, smem_kv);
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<grid, kWarps * 32, smem_kv, s>>>(q, k, v, rel_k, rel_v, lengths, lse, drow, dout,
-                                                dk, dv, H, L, d, w);
-  return cudaGetLastError();
+  switch ((d + 31) / 32) {
+    case 1:
+      return launch<1>(a, B, s);
+    case 2:
+      return launch<2>(a, B, s);
+    case 3:
+      return launch<3>(a, B, s);
+    default:
+      return launch<4>(a, B, s);
+  }
 }

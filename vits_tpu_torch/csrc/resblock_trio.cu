@@ -60,13 +60,19 @@
 //
 // Narrow channels (C_in % 32 or C_out % 32, i.e. C = 1 .. 16 on the vocoder's
 // narrow stages: kernel 7 and the C_out = 16, 8 tail of kernel C) take
-// narrow_conv_kernel instead: a direct convolution, one thread per (time step,
-// out-channel) output at a time, the whole (k, C_in, C_out) weight and the
-// block's leaky(x) window in shared memory. At C = 16 a conv is 2*k*256 FLOP
-// per step, so these stages are small; a tiled narrow path is later work.
+// narrow_conv_kernel instead, narrow_gemm.cuh's tile: 64 time steps x up to 64
+// out-channels per block, the (k, C_in, cols) weights and the raw x window
+// staged once in shared memory by 16-byte cp.async, all in flight at once (K
+// zero-padded to a multiple of 8), each warp one m16 tile against one to
+// eight n8 tiles in 3xTF32. At C = 16 a conv is 2*k*256 FLOP per step, so
+// bytes and the block's latency bound these launches: the input read once,
+// the output (and residual, and with accumulate the running mean) once each.
+// A tile at or past its row's length skips its loads and products and runs
+// only the epilogue (zeros, or out * scale with accumulate).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "narrow_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -76,32 +82,6 @@ constexpr int kKc = 32;       // input channels per step: two pairs of k8 MMA sl
 constexpr int kAs = kKc + 4;  // window row stride (floats): rows 4 banks apart
 constexpr int kStages = 3;    // weight tiles in flight
 constexpr int kMaxSplit = 8;  // portable cluster size
-
-// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in fp32.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// c += a * b on the tensor cores, one m16n8k8 TF32 product with fp32 sums.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of one m16n8k8 TF32 MMA in one instruction: ldmatrix's four
-// 8x8 b16 matrices are four 8-row x 4-word blocks of tf32 (rows 0-7 / 8-15,
-// words 0-3 / 4-7), and thread (g, t) of each gets word t of row g -- exactly
-// a0..a3. Lane l passes the address of row l % 8 of block l / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
 
 // A WM x WN grid of warps, each owning a (16*MT time steps) x (32 out-channels) tile.
 template <int WM, int WN, int MT>
@@ -300,67 +280,44 @@ __global__ void __launch_bounds__(32 * WM * WN)
   if (split > 1) cluster.sync();  // the peers' shared memory outlives every remote read
 }
 
-constexpr int kNarrowThreads = 256;
-constexpr int kNarrowTile = 256;  // output steps per block
+template <int NT>
+__global__ void __launch_bounds__(narrow::kWarps * 32) narrow_conv_kernel(const narrow::Conv c,
+                                                                          int k, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  narrow::conv_tile<NT>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM,
+                        blockIdx.y * narrow::kCols, k, pad, 0, 0);
+}
 
-__global__ void __launch_bounds__(kNarrowThreads)
-    narrow_conv_kernel(const float* __restrict__ x, float* __restrict__ out,
-                       const float* __restrict__ w, const float* __restrict__ bias,
-                       const float* __restrict__ residual, const int* __restrict__ lengths,
-                       int T, int C_in, int C_out, int k, int dil, int pad, float slope,
-                       int accumulate, float scale) {
-  extern __shared__ float smem[];
-  float* ws = smem;                        // (k, C_in, C_out) weights
-  float* xs = smem + k * C_in * C_out;     // window row r <-> position t0 - pad + r
-  const int win = kNarrowTile + (k - 1) * dil;
-  const int t0 = blockIdx.x * kNarrowTile;
-  const int b = blockIdx.y;
-  const int len = lengths[b];
-  const float* xb = x + (size_t)b * T * C_in;
-  for (int idx = threadIdx.x; idx < k * C_in * C_out; idx += kNarrowThreads) ws[idx] = w[idx];
-  for (int idx = threadIdx.x; idx < win * C_in; idx += kNarrowThreads) {
-    const int r = idx / C_in, c = idx - r * C_in;
-    const int p = t0 - pad + r;
-    xs[idx] = (p >= 0 && p < T) ? vk_leaky(xb[(size_t)p * C_in + c], slope) : 0.f;
-  }
-  __syncthreads();
-  float* ob = out + (size_t)b * T * C_out;
-  const float* rb = residual ? residual + (size_t)b * T * C_out : nullptr;
-  for (int idx = threadIdx.x; idx < kNarrowTile * C_out; idx += kNarrowThreads) {
-    const int t = idx / C_out, co = idx - t * C_out;
-    const int p = t0 + t;
-    if (p >= T) break;  // idx only grows, and p with it
-    float acc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float* row = xs + (t + j * dil) * C_in;
-      const float* wj = ws + j * C_in * C_out + co;
-      for (int ci = 0; ci < C_in; ++ci) acc = fmaf(row[ci], wj[ci * C_out], acc);
-    }
-    float y = acc + bias[co];
-    const size_t at = (size_t)p * C_out + co;
-    if (p >= len) {
-      y = 0.f;
-    } else if (rb) {
-      y += rb[at];
-    }
-    if (accumulate) y += ob[at];
-    ob[at] = y * scale;
-  }
+template <int NT>
+cudaError_t launch_narrow(const narrow::Conv& c, int B, int k, int pad, cudaStream_t stream) {
+  const int smem = narrow::smem_floats(NT, k, c.dil, c.C_in) * static_cast<int>(sizeof(float));
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem(narrow_conv_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((c.T + narrow::kBM - 1) / narrow::kBM,
+                  (c.C_out + narrow::kCols - 1) / narrow::kCols, B);
+  narrow_conv_kernel<NT><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, pad);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_narrow_conv(const float* x, float* out, const float* w, const float* bias,
                                const float* residual, const int* lengths, int B, int T,
                                int C_in, int C_out, int k, int dil, int pad, float slope,
                                int accumulate, float scale, cudaStream_t stream) {
-  const int smem =
-      (k * C_in * C_out + (kNarrowTile + (k - 1) * dil) * C_in) * static_cast<int>(sizeof(float));
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(narrow_conv_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kNarrowTile - 1) / kNarrowTile, B);
-  narrow_conv_kernel<<<grid, kNarrowThreads, smem, stream>>>(
-      x, out, w, bias, residual, lengths, T, C_in, C_out, k, dil, pad, slope, accumulate, scale);
-  return cudaGetLastError();
+  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const narrow::Conv c{x, out, w, bias, residual, lengths, T, T, C_in, C_out, dil, 1, 1,
+                       slope, accumulate, scale, C_in % 4 == 0 && aligned(x),
+                       C_out % 4 == 0 && aligned(w)};
+  switch (narrow::tiles_for(C_out)) {
+    case 1:
+      return launch_narrow<1>(c, B, k, pad, stream);
+    case 2:
+      return launch_narrow<2>(c, B, k, pad, stream);
+    case 4:
+      return launch_narrow<4>(c, B, k, pad, stream);
+    default:
+      return launch_narrow<8>(c, B, k, pad, stream);
+  }
 }
 
 template <int WM, int WN, int MT>

@@ -5,184 +5,197 @@
 // Replaces vits_tpu/ops/pallas/stage.py::fused_stage (_stage_kernel), which
 // runs the whole stage on one VMEM window with 128-lane time packing. Here a
 // stage is three kinds of launch, driven by vits_tpu_torch/ops/cuda/stage.py:
-// upsample_kernel below, the resblock conv kernel of resblock_trio.cu for the
-// resblocks, and wave_kernel below for the terminal conv_post. No packing: the
-// narrow channels map onto threads directly -- C_out = 64, 32 on MMS stages
-// 2-3 and C_out = 16, 8 on HiFi-GAN V2's (the resblock convs then take the
-// direct narrow path of resblock_trio.cu); the upsampler takes any C_out that
-// divides 128 (4 out-channels a thread, or 1 below 4).
+// upsample_kernel below, the resblock convs of resblock_trio.cu (conv_kernel
+// on the tensor cores at C_out = 64, 32 on MMS stages 2-3; narrow_conv_kernel
+// at C_out = 16, 8 on HiFi-GAN V2's), and wave_kernel below for the terminal
+// conv_post. No packing: the channels map onto MMA tiles and threads directly.
 //
-// What bounds it on an H100: the resblock convs (fp32 FFMA, as in
-// resblock_trio.cu). The upsampler does k/stride taps of C_in x C_out per
-// output step (2 x 128 x 64 at MMS stage 2) and conv_post 7 x 32 per sample;
-// both are small next to the 126 resblock taps of C_out x C_out and read their
-// input once through a shared-memory window.
-#include "common.cuh"
+// What bounds a stage on an H100: the resblock convs, 18 launches of 3xTF32
+// products (operations at C_out = 64, 32; bytes at 16, 8). The upsampler and
+// conv_post are bound by bytes: each reads its input once and writes its
+// output once (21 MB and 11 MB at MMS stage 2 and 3 for 320 frames, 3-6 us
+// at 3.35 TB/s), against 1.3 GFLOP of upsampler products (8 us at the
+// fp32-accurate 165 TFLOP/s).
+//
+// upsample_kernel: the ConvTranspose1d as a polyphase implicit GEMM. With
+// pe = k - 1 - pad, output row v = s*t + phi takes only the taps
+// j = j_phi + s*i (j_phi = (pe - phi) mod s, i < n_phi = ceil((k - j_phi)/s))
+// of input row t + i - o_phi (o_phi = (pe - phi - j_phi)/s), so each phase is
+// a plain Conv1d over the input steps and no tap off the stride grid is ever
+// multiplied; the mask v < len*s is t < len. One block is one phase (in the
+// grid) x 64 input steps x up to 64 out-channels: narrow_gemm.cuh's 3xTF32
+// tile (shape (a): a kernel of its own, not conv_kernel with strides, so that
+// kernel B's launches stay as they are). C_out = 8, 16 fill one and two n8
+// tiles; any C_in is zero-padded to a multiple of 8.
+//
+// wave_kernel: one thread per 4 consecutive samples, the leaky(h) window
+// staged channel-major in shared memory by 16-byte loads, so that a thread
+// reads its 4 + k - 1 rows of a channel as float4 (conflict-free) and reuses
+// each for all k taps. A block whose samples all lie past the length writes
+// zeros without loading anything; a thread past the length writes zeros.
+#include <math.h>
+
+#include "narrow_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;  // output steps per thread
-constexpr int kWaveTile = 256;
+constexpr int kWaveThreads = 128;
+constexpr int kWaveSamples = 4;                           // per thread
+constexpr int kWaveTile = kWaveThreads * kWaveSamples;    // samples per block
+constexpr int kMaxPostTaps = 13;
+constexpr int kWaveRows = kWaveTile + 4 * ((kMaxPostTaps + 6) / 4);  // window row stride
 
-// y[v] = bias + sum_j x_d[v + j - pe] @ w[j], with x_d the stride-dilated
-// leaky(x) and pe = k - 1 - pad (w is the loader's spatially reversed kernel,
-// so this is torch's ConvTranspose1d). Output steps v >= len*stride are zero.
-// Each thread owns CO (4 or 1) output channels.
-template <int CO>
-__global__ void __launch_bounds__(kThreads)
-    upsample_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    const float* __restrict__ w, const float* __restrict__ bias,
-                    const int* __restrict__ lengths, int T_in, int C_in, int C_out, int k,
-                    int stride, int pad, float slope) {
-  extern __shared__ float smem[];
-  const int cg = C_out / CO;
-  const int tile = (kThreads / cg) * kRows;
-  const int T_out = T_in * stride;
+// Phase phi of a stride-s ConvTranspose1d of k taps and padding pad.
+struct Phase {
+  int j, n, o;  // first weight tap, taps, input offset
+};
+__host__ __device__ inline Phase phase_of(int phi, int k, int s, int pad) {
   const int pe = k - 1 - pad;
-  const int v0 = blockIdx.x * tile;
-  const int b = blockIdx.y;
-  const int t_lo = vk_floordiv(v0 - pe, stride);
-  const int t_hi = vk_floordiv(v0 + tile - 1 + k - 1 - pe, stride);
-  const int rows = t_hi - t_lo + 1;
-  const int S = C_in + 1;
-  const float* xb = x + (size_t)b * T_in * C_in;
-  for (int idx = threadIdx.x; idx < rows * C_in; idx += kThreads) {
-    const int r = idx / C_in;
-    const int c = idx - r * C_in;
-    const int t = t_lo + r;
-    smem[r * S + c] = (t >= 0 && t < T_in) ? vk_leaky(xb[(size_t)t * C_in + c], slope) : 0.f;
-  }
-  __syncthreads();
+  int j = (pe - phi) % s;
+  if (j < 0) j += s;
+  return {j, (k - j + s - 1) / s, (pe - phi - j) / s};
+}
 
-  const int co = (threadIdx.x % cg) * CO;
-  const int vbase = v0 + (threadIdx.x / cg) * kRows;
-  float acc[kRows][CO];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
-  for (int j = 0; j < k; ++j) {
-    int off[kRows];
-    bool use[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int m = vbase + i + j - pe;
-      const int t = vk_floordiv(m, stride);
-      use[i] = m == t * stride;
-      off[i] = (t - t_lo) * S;
-    }
-    const float* wt = w + (size_t)j * C_in * C_out + co;
-    for (int ci = 0; ci < C_in; ++ci) {
-      float wv[CO];
-      if constexpr (CO == 4) {
-        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wt + (size_t)ci * C_out));
-        wv[0] = w4.x;
-        wv[1] = w4.y;
-        wv[2] = w4.z;
-        wv[3] = w4.w;
-      } else {
-        wv[0] = __ldg(wt + (size_t)ci * C_out);
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (!use[i]) continue;
-        const float v = smem[off[i] + ci];
-#pragma unroll
-        for (int c = 0; c < CO; ++c) acc[i][c] = fmaf(v, wv[c], acc[i][c]);
-      }
-    }
-  }
-  const int len_out = lengths[b] * stride;
-  float* yb = y + (size_t)b * T_out * C_out;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int v = vbase + i;
-    if (v >= T_out) break;
-#pragma unroll
-    for (int c = 0; c < CO; ++c)
-      yb[(size_t)v * C_out + co + c] = v < len_out ? acc[i][c] + bias[co + c] : 0.f;
-  }
+template <int NT>
+__global__ void __launch_bounds__(narrow::kWarps * 32)
+    upsample_kernel(const narrow::Conv c, int k, int stride, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  const int chunks = (c.C_out + narrow::kCols - 1) / narrow::kCols;
+  const int phi = blockIdx.y / chunks;
+  const int co0 = (blockIdx.y - phi * chunks) * narrow::kCols;
+  const Phase ph = phase_of(phi, k, stride, pad);
+  narrow::conv_tile<NT>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM, co0, ph.n, ph.o, ph.j,
+                        phi);
 }
 
 // wave[t] = tanh(sum_j sum_c leaky(h[t + j - pad][c], slope) * w[j][c]) for
 // t < lengths[b] * len_scale, else 0. w is conv_post's (k, C, 1) kernel, no bias.
-__global__ void __launch_bounds__(kWaveTile)
+__global__ void __launch_bounds__(kWaveThreads)
     wave_kernel(const float* __restrict__ h, float* __restrict__ wave,
                 const float* __restrict__ w, const int* __restrict__ lengths, int T, int C,
-                int k, int pad, int len_scale, float slope) {
-  extern __shared__ float smem[];
-  const int S = C + 1;  // consecutive threads read consecutive rows: no bank conflicts
-  const int rows = kWaveTile + k - 1;
-  float* hs = smem;
-  float* ws = smem + rows * S;
+                int k, int pad, int len_scale, float slope, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;                   // C x kWaveRows: row r <-> position t0 - pad + r
+  float* ws = smem + C * kWaveRows;   // k x C
   const int t0 = blockIdx.x * kWaveTile;
   const int b = blockIdx.y;
+  const int valid = lengths[b] * len_scale;
+  float* wb = wave + (size_t)b * T;
+  const int tid = threadIdx.x;
+  const int ts = t0 + kWaveSamples * tid;
+  if (t0 >= valid) {  // the whole tile is padding
+    for (int u = 0; u < kWaveSamples; ++u)
+      if (ts + u < T) wb[ts + u] = 0.f;
+    return;
+  }
+  const int rows = kWaveTile + k - 1;
   const float* hb = h + (size_t)b * T * C;
-  for (int idx = threadIdx.x; idx < rows * C; idx += kWaveTile) {
-    const int r = idx / C;
-    const int c = idx - r * C;
-    const int p = t0 - pad + r;
-    hs[r * S + c] = (p >= 0 && p < T) ? vk_leaky(hb[(size_t)p * C + c], slope) : 0.f;
+  if (vec) {  // row fastest: a warp writes 32 consecutive rows of one channel
+    for (int idx = tid; idx < rows * (C / 4); idx += kWaveThreads) {
+      const int c4 = idx / rows, r = idx - c4 * rows;
+      const int p = t0 - pad + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (p >= 0 && p < T) v = __ldg(reinterpret_cast<const float4*>(hb + (size_t)p * C + 4 * c4));
+      hs[(4 * c4 + 0) * kWaveRows + r] = vk_leaky(v.x, slope);
+      hs[(4 * c4 + 1) * kWaveRows + r] = vk_leaky(v.y, slope);
+      hs[(4 * c4 + 2) * kWaveRows + r] = vk_leaky(v.z, slope);
+      hs[(4 * c4 + 3) * kWaveRows + r] = vk_leaky(v.w, slope);
+    }
+  } else {
+    for (int idx = tid; idx < rows * C; idx += kWaveThreads) {
+      const int c = idx / rows, r = idx - c * rows;
+      const int p = t0 - pad + r;
+      hs[c * kWaveRows + r] = p >= 0 && p < T ? vk_leaky(__ldg(hb + (size_t)p * C + c), slope) : 0.f;
+    }
   }
-  for (int idx = threadIdx.x; idx < k * C; idx += kWaveTile) ws[idx] = w[idx];
+  for (int idx = tid; idx < k * C; idx += kWaveThreads) ws[idx] = w[idx];
   __syncthreads();
-  const int t = t0 + threadIdx.x;
-  if (t >= T) return;
-  float acc = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const float* row = hs + (threadIdx.x + j) * S;
-    const float* wj = ws + j * C;
-    for (int c = 0; c < C; ++c) acc = fmaf(row[c], wj[c], acc);
+
+  float acc[kWaveSamples] = {0.f, 0.f, 0.f, 0.f};
+  if (ts < valid) {
+    const int nq = (kWaveSamples + k - 1 + 3) / 4;  // float4 rows a thread reads
+    for (int c = 0; c < C; ++c) {
+      float x[4 * ((kMaxPostTaps + 6) / 4)];
+      const float* row = hs + c * kWaveRows + kWaveSamples * tid;
+#pragma unroll
+      for (int q = 0; q < (kMaxPostTaps + 6) / 4; ++q) {
+        if (q < nq) {
+          const float4 v = *reinterpret_cast<const float4*>(row + 4 * q);
+          x[4 * q] = v.x;
+          x[4 * q + 1] = v.y;
+          x[4 * q + 2] = v.z;
+          x[4 * q + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMaxPostTaps; ++j) {
+        if (j < k) {
+          const float wj = ws[j * C + c];
+#pragma unroll
+          for (int u = 0; u < kWaveSamples; ++u) acc[u] = fmaf(x[u + j], wj, acc[u]);
+        }
+      }
+    }
   }
-  wave[(size_t)b * T + t] = t < lengths[b] * len_scale ? tanhf(acc) : 0.f;
+  for (int u = 0; u < kWaveSamples; ++u)
+    if (ts + u < T) wb[ts + u] = ts + u < valid ? tanhf(acc[u]) : 0.f;
 }
 
-int upsample_smem(int C_in, int C_out, int co, int k, int stride) {
-  const int tile = (kThreads / (C_out / co)) * kRows;
-  const int rows = (tile - 1 + k - 1) / stride + 2;  // bound on t_hi - t_lo + 1
-  return rows * (C_in + 1) * static_cast<int>(sizeof(float));
-}
-
-template <int CO>
-cudaError_t launch_upsample(const float* x, float* y, const float* w, const float* bias,
-                            const int* lengths, int B, int T_in, int C_in, int C_out, int k,
-                            int stride, int pad, float slope, cudaStream_t stream) {
-  if (kThreads % (C_out / CO)) return cudaErrorInvalidValue;
-  const int smem = upsample_smem(C_in, C_out, CO, k, stride);
+template <int NT>
+cudaError_t launch_upsample(const narrow::Conv& c, int B, int k, int stride, int pad,
+                            cudaStream_t stream) {
+  int taps = 0;
+  for (int phi = 0; phi < stride; ++phi) {
+    const int n = phase_of(phi, k, stride, pad).n;
+    taps = n > taps ? n : taps;
+  }
+  const int smem = narrow::smem_floats(NT, taps, 1, c.C_in) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(upsample_kernel<CO>, smem);
+  cudaError_t err = vk_set_smem(upsample_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
-  const int tile = (kThreads / (C_out / CO)) * kRows;
-  const dim3 grid((T_in * stride + tile - 1) / tile, B);
-  upsample_kernel<CO><<<grid, kThreads, smem, stream>>>(x, y, w, bias, lengths, T_in, C_in,
-                                                        C_out, k, stride, pad, slope);
+  const int chunks = (c.C_out + narrow::kCols - 1) / narrow::kCols;
+  const dim3 grid((c.T + narrow::kBM - 1) / narrow::kBM, stride * chunks, B);
+  upsample_kernel<NT><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, stride, pad);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// y (B, T_in*stride, C_out) = ConvTranspose1d(leaky(x), w) + bias, zero at
+// output rows >= lengths[b]*stride, for x (B, T_in, C_in) and the loader's
+// spatially reversed w (k, C_in, C_out), all fp32 and contiguous.
 VK_EXPORT int vk_upsample(const float* x, float* y, const float* w, const float* bias,
                           const int* lengths, int B, int T_in, int C_in, int C_out, int k,
                           int stride, int pad, float slope, void* stream) {
-  if (C_in < 1 || C_out < 1 || stride < 1) return cudaErrorInvalidValue;
+  if (C_in < 1 || C_out < 1 || stride < 1 || k < 1 || pad < 0 || T_in < 1 || B < 1)
+    return cudaErrorInvalidValue;
+  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const narrow::Conv c{x, y, w, bias, nullptr, lengths, T_in, T_in, C_in, C_out,
+                       1, stride, stride, slope, 0, 1.f,
+                       C_in % 4 == 0 && aligned(x), C_out % 4 == 0 && aligned(w)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C_out % 4 == 0) {
-    return launch_upsample<4>(x, y, w, bias, lengths, B, T_in, C_in, C_out, k, stride, pad,
-                              slope, s);
+  switch (narrow::tiles_for(C_out)) {
+    case 1:
+      return launch_upsample<1>(c, B, k, stride, pad, s);
+    case 2:
+      return launch_upsample<2>(c, B, k, stride, pad, s);
+    case 4:
+      return launch_upsample<4>(c, B, k, stride, pad, s);
+    default:
+      return launch_upsample<8>(c, B, k, stride, pad, s);
   }
-  return launch_upsample<1>(x, y, w, bias, lengths, B, T_in, C_in, C_out, k, stride, pad, slope,
-                            s);
 }
 
 VK_EXPORT int vk_wave(const float* h, float* wave, const float* w, const int* lengths, int B,
                       int T, int C, int k, int pad, int len_scale, float slope, void* stream) {
-  const int smem = ((kWaveTile + k - 1) * (C + 1) + k * C) * static_cast<int>(sizeof(float));
+  if (C < 1 || k < 1 || k > kMaxPostTaps || T < 1 || B < 1) return cudaErrorInvalidValue;
+  const int smem = (C * kWaveRows + k * C) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   cudaError_t err = vk_set_smem(wave_kernel, smem);
   if (err != cudaSuccess) return err;
+  const int vec = C % 4 == 0 && reinterpret_cast<size_t>(h) % 16 == 0;
   const dim3 grid((T + kWaveTile - 1) / kWaveTile, B);
-  wave_kernel<<<grid, kWaveTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      h, wave, w, lengths, T, C, k, pad, len_scale, slope);
+  wave_kernel<<<grid, kWaveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      h, wave, w, lengths, T, C, k, pad, len_scale, slope, vec);
   return cudaGetLastError();
 }

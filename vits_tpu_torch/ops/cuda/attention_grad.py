@@ -3,8 +3,9 @@
 Replaces ``vits_tpu/ops/pallas/attention_grad.py::make_trainable_attention``
 (its backward ``_flash_bwd``). :func:`trainable_rel_attention` is a
 ``torch.autograd.Function``: the forward is kernel A with its logsumexp output
-(``ops/cuda/attention.py``), the backward the two-pass CUDA kernel of
-``vits_tpu_torch/csrc/rel_attention_bwd.cu`` via :func:`rel_attention_bwd`,
+(``ops/cuda/attention.py``), the backward the one-launch CUDA kernel of
+``vits_tpu_torch/csrc/rel_attention_bwd.cu`` (dq blocks and dk/dv blocks in
+one grid) via :func:`rel_attention_bwd`,
 whose plain PyTorch twin is :func:`rel_attention_bwd_reference`. Both rebuild
 the probabilities from the saved lse as ``p = exp(s - lse)``, 0 for keys at or
 past each row's length, and form ``ds = p (dp - D)`` with ``D = dout . out``.
@@ -22,7 +23,7 @@ from vits_tpu_torch.ops.attention import (
 from vits_tpu_torch.ops.cuda import check, cuda_lengths, library, on_cuda, stream_of
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_scores
 
-_TILE = 16  # queries per block of the dq pass (rel_attention_bwd.cu)
+_TILE = 16  # queries per dq block, one rel-table partial each (rel_attention_bwd.cu)
 
 
 def _rel_table_grad(rel: torch.Tensor, L: int, window: int) -> torch.Tensor:
@@ -41,10 +42,11 @@ def _rel_table_grad(rel: torch.Tensor, L: int, window: int) -> torch.Tensor:
     return out
 
 
-def rel_attention_bwd_reference(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths):
-    """Plain PyTorch: (dq, dk, dv, drel_k, drel_v) with the kernel's math, full matrices."""
+def rel_attention_bwd_terms(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths):
+    """Plain PyTorch: the (B*H, L, L) probabilities p and ds = p (dp - D) that the
+    backward rebuilds from lse; p is exactly 0 for keys at or past a row's length."""
     B, H, L, d = q.shape
-    qf, kf, vf, dof = (t.reshape(B * H, L, d) for t in (q, k, v, dout))
+    dof, vf = dout.reshape(B * H, L, d), v.reshape(B * H, L, d)
     s = rel_attention_scores(q, k, rel_k, window)
     keep = torch.ones((B, L), dtype=torch.bool, device=q.device) if lengths is None else \
         torch.arange(L, device=q.device)[None, :] < lengths[:, None]
@@ -54,7 +56,15 @@ def rel_attention_bwd_reference(q, k, v, rel_k, rel_v, lse, dout, out, *, window
     dp = torch.bmm(dof, vf.transpose(1, 2)) + relative_position_to_absolute_position(
         torch.einsum("bqd,rd->bqr", dof, value_rel))
     drow = (dout * out).sum(dim=-1).reshape(B * H, L, 1)
-    ds = p * (dp - drow)
+    return p, p * (dp - drow)
+
+
+def rel_attention_bwd_reference(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths):
+    """Plain PyTorch: (dq, dk, dv, drel_k, drel_v) with the kernel's math, full matrices."""
+    B, H, L, d = q.shape
+    qf, kf, dof = (t.reshape(B * H, L, d) for t in (q, k, dout))
+    p, ds = rel_attention_bwd_terms(q, k, v, rel_k, rel_v, lse, dout, out, window=window,
+                                    lengths=lengths)
     key_rel = get_relative_embeddings(rel_k[None], L, window)[0]
     ds_rel = absolute_position_to_relative_position(ds)  # (B*H, L, 2L-1)
     p_rel = absolute_position_to_relative_position(p)

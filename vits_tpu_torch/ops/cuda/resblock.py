@@ -9,8 +9,8 @@ are the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``, launched twice per
 pair (18 launches for a trio, 6 for one block); the last pair of each resblock
 folds its output into the mean in place. The conv takes every channel count
 the JAX kernels take: a tensor-core path (3xTF32 MMA) for C % 32 == 0 and a
-direct one for other C; :func:`conv_plan` picks the path, the tile and
-the split of each launch. The 128-lane time packing of the narrow TPU
+narrow one (3xTF32 on n8 tiles, ``csrc/narrow_gemm.cuh``) for other C;
+:func:`conv_plan` picks the path, the tile and the split of each launch. The 128-lane time packing of the narrow TPU
 kernel is not carried over. The plain PyTorch twins are
 :func:`resblock_trio_reference` and :func:`resblock_reference`.
 
@@ -48,10 +48,14 @@ CONV_SPLITS = (1, 2, 4, 8)  # cluster sizes that may share one tile's K steps
 # epilogue) in K steps.
 CONV_TILE_RATES = (1.0, 0.9, 0.85, 0.7)
 CONV_BLOCK_STEPS = 2
+# The narrow path's block (csrc/narrow_gemm.cuh): time steps, and out-channels
+# in n8 MMA tiles of at most NARROW_COLS.
+NARROW_ROWS = 64
+NARROW_COLS = 64
 
 
 class ConvPlan(NamedTuple):
-    tile: int  # index into CONV_TILES; -1 = the direct path
+    tile: int  # index into CONV_TILES; -1 = the narrow path
     split: int  # blocks of a cluster, each summing 1/split of the K steps
     blocks: int  # grid size, counting every block of a cluster
 
@@ -61,14 +65,15 @@ def conv_plan(B: int, T: int, C_in: int, C_out: int, k: int, sm_count: int) -> C
     """Tile and K split of one conv launch.
 
     Channels off the tensor-core path's grid (C_in % 32 or C_out % 32) take
-    the direct path. Otherwise, among the tiles and splits (dividing the
+    the narrow path (tile -1: NARROW_ROWS steps x up to NARROW_COLS
+    out-channels per block). Otherwise, among the tiles and splits (dividing the
     k * C_in / 32 steps) whose grid puts two blocks on every SM, the one of
     least modelled time: waves of one block per SM, each as long as a block's
     share of the steps plus its fixed cost, scaled by the tile's area over its
     rate. When no grid is that large, the largest grid.
     """
     if C_in % CONV_CHUNK or C_out % 32:
-        return ConvPlan(-1, 1, -(-T // 256) * B)
+        return ConvPlan(-1, 1, -(-T // NARROW_ROWS) * -(-C_out // NARROW_COLS) * B)
     steps = k * (C_in // CONV_CHUNK)
     plans = []
     for tile, (bm, bn) in enumerate(CONV_TILES):

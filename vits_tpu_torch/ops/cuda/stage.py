@@ -5,16 +5,27 @@ ConvTranspose1d + bias -> zero outside [0, len*stride) -> mean of the
 resblocks; with ``final_conv`` it goes on: leaky(0.01) -> conv_post -> tanh
 -> zero outside [0, len*stride), and returns the waveform. The CUDA side is
 ``vits_tpu_torch/csrc/stage.cu`` (upsampler and terminal conv_post) plus the
-resblock conv kernel of ``resblock_trio.cu`` (two launches per pair). The
+resblock conv kernels of ``resblock_trio.cu`` (two launches per pair). The
 128-lane time packing of the TPU kernel is not carried over, but its domain
 is: every C_in, C_out that divide 128 with 128 / C_out = stride * 128 / C_in
 (HiFi-GAN V2's tail runs at C_out 16 and 8). The plain PyTorch twin is
 :func:`stage_reference`.
+
+The upsampler kernel is polyphase. With pe = k - 1 - padding, output row
+v = stride * t + phi takes only the taps j = j_phi + stride * i of the
+loader's reversed kernel, i < n_phi, applied to input row t + i - o_phi:
+
+    j_phi = (pe - phi) mod stride,   n_phi = ceil((k - j_phi) / stride),
+    o_phi = (pe - phi - j_phi) / stride,
+
+so each phase is a plain Conv1d over the input steps (:func:`upsample_phases`
+gives the table, :func:`polyphase_upsample` the plain PyTorch form), and the
+mask v < len * stride is t < len.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -36,6 +47,56 @@ from vits_tpu_torch.ops.cuda.resblock import (
 
 # The vocoder's final activation uses torch's default slope, not leaky_relu_slope.
 FINAL_SLOPE = 0.01
+
+
+class UpsamplePhase(NamedTuple):
+    first_tap: int  # j_phi: the phase's first tap of the (reversed) kernel
+    taps: int  # n_phi: taps first_tap, first_tap + stride, ...
+    offset: int  # o_phi: tap i reads input row t + i - offset
+
+
+def upsample_phases(k: int, stride: int, padding: int) -> tuple[UpsamplePhase, ...]:
+    """The polyphase table of a ConvTranspose1d (k, stride, padding), phase by phase.
+
+    ``csrc/stage.cu::phase_of`` computes the same per block.
+    """
+    pe = k - 1 - padding
+    phases = []
+    for phi in range(stride):
+        j = (pe - phi) % stride
+        phases.append(UpsamplePhase(j, -(-(k - j) // stride), (pe - phi - j) // stride))
+    return tuple(phases)
+
+
+def polyphase_upsample(
+    x: torch.Tensor,  # (B, T_in, C_in), pre-leaky
+    weight: torch.Tensor,  # (k, C_in, C_out), spatially reversed (loader layout)
+    bias: torch.Tensor,
+    *,
+    stride: int,
+    padding: int,
+    slope: float,
+    lengths: torch.Tensor | None = None,  # (B,) valid INPUT steps
+) -> torch.Tensor:
+    """Plain PyTorch: the upsampler as the kernel computes it, one Conv1d per phase.
+
+    Equals ``conv_transpose1d(leaky(x))`` + bias, zeroed at output rows
+    >= lengths * stride, when k - 2 * padding == stride.
+    """
+    B, T_in, _ = x.shape
+    h = leaky_relu(x, slope)
+    phases = []
+    for j, taps, offset in upsample_phases(weight.shape[0], stride, padding):
+        acc = bias.expand(B, T_in, -1).clone()
+        for i in range(taps):
+            shift = i - offset  # output row t reads input row t + shift
+            lo, hi = max(0, -shift), min(T_in, T_in - shift)
+            if lo < hi:
+                acc[:, lo:hi] += h[:, lo + shift:hi + shift] @ weight[j + stride * i]
+        phases.append(acc)
+    y = torch.stack(phases, dim=2).reshape(B, T_in * stride, -1)  # row stride * t + phi
+    mask = length_mask(None if lengths is None else lengths * stride, y.shape[1], y.dtype)
+    return y if mask is None else y * mask
 
 
 def stage_reference(
