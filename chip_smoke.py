@@ -24,13 +24,15 @@ printing its result line:
    at B=2, L=512, lengths (507, 0), kernel 4 also at lengths (512, 300) (the
    training batch of phase 7), and the trainable
    trio (kernel 5: output and saved activations; its backward alone on the
-   plain forward's activations; forward and backward together, with the
+   plain forward's activations, against plain autograd and, timed, against
+   its plain twin ``trio_backward_reference``; forward and backward together, with the
    count of saved activations the two forwards round to opposite signs) at
    the decoded-segment shapes of a 32-frame segment, batch 4; kernel 6 (the
    reverse flow) at VCTK width with speaker conditioning, at B=1 and at B=3
    with lengths (320, 137, 0) for T=320, and at B=8, T=640 and B=16,
    T=1280, with the B=1 call's host enqueue ms and its device busy ms under
-   ``torch.profiler``, kernel and plain; kernel 7 (one resblock) and kernel
+   ``torch.profiler``, kernel and plain (the kernel on weights packed once, as
+   the engine keeps them); kernel 7 (one resblock) and kernel
    C at C_out 16 and 8 at the shapes of HiFi-GAN V2's stages for 320 frames;
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
@@ -57,7 +59,8 @@ printing its result line:
    seed 0; the discriminator at seed 0): the inference kernels refuse
    autograd; a warm-up GAN step, then three on a batch of 512 and 300 tokens
    (padded to 512) over 1280 frames -- losses finite, every parameter with a
-   finite gradient and moved, kernels A-with-lse, 4 and 5 launched and B, C
+   finite gradient and moved, kernels A-with-lse, 4 and 5 (forward and
+   backward) launched and B, C
    not -- with ms per step and peak memory; one step with each call site
    timed between synchronisations and one under ``torch.profiler`` (device
    busy time, idle share, device ms per kernel family); one ``generator_loss``
@@ -73,7 +76,8 @@ Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``plain_device_ms``/``bound_ms``: the sums over the kernel's timed shapes;
 ``launches``: the count over the paths that run the kernel, the serving
-paths for A, B, C, 6, 7 and training for 4 and 5; ``library_ms`` is null:
+paths for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
+apart as ``backward_launches``; ``library_ms`` is null:
 no single PyTorch call computes any of these functions), and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -349,7 +353,7 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
     stages 2-3 (32->16, 16->8 + conv_post), each with a length-0 row."""
     from vits_tpu_torch.io.params import ParamView
     from vits_tpu_torch.models.hifigan import _stage_resblocks
-    from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow
+    from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow, pack_flow_weights
     from vits_tpu_torch.ops.cuda.resblock import (
         fused_resblock,
         pair_weights,
@@ -375,6 +379,7 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
     per_frame = 2 * (half * hidden + nl * k * hidden * 2 * hidden
                      + (nl - 1) * hidden * 2 * hidden + hidden * hidden + hidden * half)
     flow_weights = [v for name, v in params.items() if name.startswith("flow.")]
+    packed = pack_flow_weights(p, config)  # once per parameter set, as the engine keeps it
     for T, lengths in ((frames, (frames,)), (frames, (frames, 137, 0)),
                        (2 * frames, (2 * frames,) * 8), (4 * frames, (4 * frames,) * 16)):
         B = len(lengths)
@@ -385,7 +390,7 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
         speakers = torch.arange(B, device=device) * 53 % config.num_speakers
         emb = params["embed_speaker.weight"][speakers][:, None]
         kw = dict(lengths=lens, speaker_embeddings=emb)
-        kernel = lambda: fused_flow(x, p, config, **kw)  # noqa: E731
+        kernel = lambda: fused_flow(x, p, config, packed=packed, **kw)  # noqa: E731
         plain = lambda: flow_reference(x, p, config, **kw)  # noqa: E731
         results["fused_flow"].append(compare(
             "fused_flow", f"B={B} T={T} len={lengths[:3]} +speaker", kernel, plain,
@@ -432,6 +437,7 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
         flat_acts,
         trainable_trio,
         trio_backward,
+        trio_backward_reference,
         trio_forward_with_acts,
         trio_forward_with_acts_reference,
     )
@@ -509,10 +515,22 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
                 dx, dweights = trio_backward(g, x, blocks, plain_acts, slope=slope)
             return (dx, *dweights)
 
-        # the backward alone, on the activations plain autograd saves itself
+        def reference_on_plain_acts():
+            with torch.no_grad():
+                dx, dweights = trio_backward_reference(g, x, blocks, plain_acts, slope=slope)
+            return (dx, *dweights)
+
+        # the backward alone, on the activations plain autograd saves itself: against
+        # plain autograd, then timed against its plain twin (cuDNN's conv gradients and
+        # the elementwise glue) on the same activations
         results["trainable_trio"].append(compare(
             "trio_backward", shape + " grads on plain acts", backward_on_plain_acts,
             plain_grads, grad_rtol=GRAD_RTOL, timed=False))
+        weights = pair_weights(blocks)
+        results["trainable_trio"].append(compare(
+            "trio_backward", shape + " bwd alone vs its plain twin", backward_on_plain_acts,
+            reference_on_plain_acts, grad_rtol=GRAD_RTOL,
+            work=(2 * fwd_flops, nbytes(x, g, *plain_acts, *weights) + nbytes(x, *weights))))
         results["trainable_trio"].append(compare(
             "trainable_trio fwd+bwd", shape + " grads",
             lambda: torch.autograd.grad((trainable_trio(xg, blocks, slope=slope) * g).sum(),
@@ -626,10 +644,10 @@ def launch_device_ms(fn, families, calls: int = 5) -> dict[str, float]:
 
 # Device kernel families of a serving request, by the first pattern their name contains.
 REQUEST_FAMILIES = (
+    ("kernel 6", ("FlowEpi",)),
     ("resblock convs (kernels B, C)", ("conv_kernel",)),
     ("kernel A", ("rel_attention_kernel",)),
     ("kernel C upsample, conv_post", ("upsample_kernel", "wave_kernel")),
-    ("kernel 6", ("flow_gemm_kernel",)),
     ("cuDNN convolutions", ("cudnn", "fprop", "implicit_gemm", "conv")),
     ("matmul (cuBLAS)", ("gemm", "cutlass")),
     ("elementwise", ("elementwise",)),
@@ -802,7 +820,7 @@ def gan_steps(config, device, card: str) -> dict:
     from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
     from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
     from vits_tpu_torch.ops.cuda.stage import fused_stage
-    from vits_tpu_torch.ops.cuda.trio_grad import trio_forward_with_acts
+    from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
     from vits_tpu_torch.train.schedule import vits_optimizer
     from vits_tpu_torch.train.step import make_gan_train_step
 
@@ -838,7 +856,7 @@ def gan_steps(config, device, card: str) -> dict:
     print(f"  warm-up GAN step: {1e3 * (time.perf_counter() - t0):.1f} ms (first use of "
           "cuDNN/cuBLAS at these shapes)", flush=True)
 
-    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts,
+    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward,
                 fused_resblock_trio, fused_stage)
     for fn in wrappers:
         fn.launches = 0
@@ -861,7 +879,8 @@ def gan_steps(config, device, card: str) -> dict:
     print(f"  median {float(np.median(times)):.1f} ms per step after the warm-up (B=2, 512 "
           f"tokens, 1280 frames, {n_gen / 1e6:.1f} M generator + {n_disc / 1e6:.1f} M "
           f"discriminator parameters), peak {peak_gib:.2f} GiB allocated ({card})", flush=True)
-    for name in ("flash_rel_attention_lse", "rel_attention_bwd", "trio_forward_with_acts"):
+    for name in ("flash_rel_attention_lse", "rel_attention_bwd", "trio_forward_with_acts",
+                 "trio_backward"):
         if launches[name] == 0:
             raise RuntimeError(f"kernel {name} was never launched on the training path")
     for name in ("fused_resblock_trio", "fused_stage"):
@@ -889,7 +908,7 @@ STEP_SITES = ("text_encoder", "posterior_encoder", "residual_coupling_forward",
 # Device kernel families, by the first pattern their name contains.
 KERNEL_FAMILIES = (
     ("port kernels A, 4, 5", ("rel_attention_kernel", "rel_attention_bwd_kernel",
-                              "conv_kernel<")),
+                              "conv_kernel<", "wgrad_kernel")),
     ("elementwise", ("elementwise",)),
     ("reductions", ("reduce",)),
     ("FFT", ("fft",)),
@@ -1291,6 +1310,9 @@ def main() -> None:
     for entry in report["kernels"]:
         if entry["name"] == "flash_rel_attention":
             entry["lse_launches_training"] = train_launches["flash_rel_attention_lse"]
+        if entry["name"] == "trainable_trio":  # the forward's launches above; the backward's here
+            entry["backward_launches"] = train_launches["trio_backward"]
+            entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
     report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "mms_request": mms_request,
                          "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],

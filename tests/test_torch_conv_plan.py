@@ -2,8 +2,9 @@
 
 ``conv_plan`` (``vits_tpu_torch/ops/cuda/resblock.py``) is plain Python: it
 picks the tile and the K split of every conv launch of kernels B, C, 5 and
-7 (``csrc/resblock_trio.cu``). Pinned here at the shapes the main paths give
-it, on an H100's 132 SMs. Kernel A (``csrc/rel_attention.cu``) stops its key
+7 (``csrc/conv_gemm.cuh``), and ``ops/cuda/flow.py::flow_plan`` those of
+kernel 6's products. Pinned here at the shapes the main paths give them, on
+an H100's 132 SMs. Kernel A (``csrc/rel_attention.cu``) stops its key
 loop at a row's length; the argument that this is exact is held against the
 plain version, ``rel_attention_reference``.
 """
@@ -80,3 +81,43 @@ def test_keys_past_length_weigh_exactly_zero(length):
     else:
         assert bool((weights == weights[0, 0]).all())
         assert float(weights[0, 0]) == pytest.approx(1.0 / L, rel=1e-6)
+
+
+# Kernel 6 at chip_smoke.py's shapes (VCTK width: half 96, hidden 192, k=5), and
+# a narrow model's (half 16, hidden 64).
+FLOW_SHAPES = [(1, 320, 96, 192), (3, 320, 96, 192), (8, 640, 96, 192), (16, 1280, 96, 192),
+               (3, 160, 16, 64)]
+
+
+@pytest.mark.parametrize("B,T,half,hidden", FLOW_SHAPES)
+def test_flow_plan_gives_every_block_steps(B, T, half, hidden):
+    """flow_plan's (tile, split) per product: a known tile, a split of at most 8 that
+    divides the tile's rows, and no block of a cluster left without K steps."""
+    from vits_tpu_torch.ops.cuda.flow import flow_plan
+
+    plan = list(flow_plan(B, T, half, hidden, 5, H100_SMS))
+    for (tile, split), (c_in, taps) in zip(zip(plan[0::2], plan[1::2]),
+                                           ((half, 1), (hidden, 5), (hidden, 1), (hidden, 1))):
+        assert 0 <= tile < len(CONV_TILES) and split in (1, 2, 4, 8)
+        assert CONV_TILES[tile][0] % split == 0
+        steps = taps * -(-c_in // CONV_CHUNK)
+        assert (split - 1) * -(-steps // split) < steps
+
+
+def test_flow_plan_splits_short_sequences_and_not_long_ones():
+    """The gate's 30 K steps go to 8-block clusters for one 320-frame row (4 steps a
+    block) and stay whole at B=16, T=1280, where the 128 x 64 tiles fill the card;
+    res/skip runs unsplit at B=16 (the fits of scripts/torch_flow_trio_probe.py)."""
+    from vits_tpu_torch.ops.cuda.flow import flow_plan
+
+    short, long = (list(flow_plan(B, T, 96, 192, 5, H100_SMS)) for B, T in ((1, 320), (16, 1280)))
+    assert short[2:4] == [1, 8] and long[2:4] == [0, 1]
+    assert long[4:6] == [1, 1]
+
+
+@pytest.mark.parametrize("steps", [3, 6, 30, 33])
+def test_uneven_split_leaves_no_block_idle(steps):
+    """conv_plan(uneven=True) may split K steps unevenly (ceil(steps / split) a
+    block), never so that a block of the cluster gets none."""
+    plan = conv_plan(1, 320, CONV_CHUNK * steps, 384, 1, H100_SMS, uneven=True)
+    assert (plan.split - 1) * -(-steps // plan.split) < steps

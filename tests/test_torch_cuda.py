@@ -472,3 +472,69 @@ def test_narrow_conv_accumulate_and_residual_on_card(cuda_device, C):
     assert fused_resblock_trio.launches == before + 1
     assert float(got[1].abs().max()) == 0.0 and float(got[2, 123:].abs().max()) == 0.0
     _assert_close(got.cpu(), resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speaker", [False, True])
+def test_flow_kernel_three_rows_repeats_bit_identical_on_card(cuda_device, vctk_flow, speaker):
+    """Kernel 6 at B=3, T=320, lengths (320, 137, 0): plain within 1e-4, packed once or
+    on the call alike, a length-0 row exactly zero, and a repeated call bit-identical."""
+    from vits_tpu_torch.io.params import ParamView, from_jax_params
+    from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow, pack_flow_weights
+
+    config, params = vctk_flow
+    p = ParamView(from_jax_params(params, cuda_device))
+    rng = np.random.default_rng(11)
+    T, lengths = 320, [320, 137, 0]
+    x = torch.tensor(_masked(rng, 3, T, config.flow_size, lengths), device=cuda_device)
+    emb = None
+    if speaker:
+        emb = torch.tensor(rng.standard_normal((3, 1, config.speaker_embedding_size)) * 0.3,
+                           dtype=torch.float32, device=cuda_device)
+    kw = dict(lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              speaker_embeddings=emb)
+    packed = pack_flow_weights(p, config)
+    before = fused_flow.launches
+    got = fused_flow(x, p, config, packed=packed, **kw)
+    again = fused_flow(x, p, config, packed=packed, **kw)
+    unpacked = fused_flow(x, p, config, **kw)
+    assert fused_flow.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, unpacked)
+    assert float(got[2].abs().max()) == 0.0 and float(got[1, 137:].abs().max()) == 0.0
+    _assert_close(got.cpu(), flow_reference(x, p, config, **kw).cpu(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_x", [True, False])
+def test_trio_backward_kernel_matches_plain_on_card(cuda_device, need_x):
+    """Kernel 5's backward kernels vs trio_backward_reference on the same saved
+    activations at B=2, T=300 (not a multiple of the 32-frame step), C=128: each
+    gradient within GRAD_RTOL = 1e-5 relative L2; dx only when asked; a repeated
+    backward bit-identical; the launch count rising by one a call."""
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trio_backward,
+        trio_backward_reference,
+        trio_forward_with_acts_reference,
+    )
+
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.standard_normal((2, 300, 128)), dtype=torch.float32, device=cuda_device)
+    g = torch.tensor(rng.standard_normal((2, 300, 128)), dtype=torch.float32, device=cuda_device)
+    blocks = _to(_blocks(rng, 128, scale=0.03), lambda a: torch.tensor(a, device=cuda_device))
+    with torch.no_grad():
+        saved = flat_acts(trio_forward_with_acts_reference(x, blocks, slope=SLOPE)[1])
+        before = trio_backward.launches
+        dx, dw = trio_backward(g, x, blocks, saved, slope=SLOPE, need_x=need_x)
+        dx2, dw2 = trio_backward(g, x, blocks, saved, slope=SLOPE, need_x=need_x)
+        want_dx, want_dw = trio_backward_reference(g, x, blocks, saved, slope=SLOPE,
+                                                   need_x=need_x)
+    assert trio_backward.launches == before + 2
+    assert (dx is None) == (not need_x) and (want_dx is None) == (not need_x)
+    pairs = list(zip(dw, want_dw)) + ([(dx, want_dx)] if need_x else [])
+    for got, want in pairs:
+        assert got.shape == want.shape
+        rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        assert rel <= 1e-5, rel
+    for a, b in zip(dw + ([dx] if need_x else []), dw2 + ([dx2] if need_x else [])):
+        assert torch.equal(a, b)

@@ -34,7 +34,14 @@ from vits_tpu.ops.pallas.flow import pack_flow_weights
 from vits_tpu.ops.pallas.resblock import fused_resblock as jax_fused_resblock
 from vits_tpu.ops.pallas.stage import fused_stage as jax_fused_stage
 from vits_tpu_torch.io.params import ParamView, from_jax_params
-from vits_tpu_torch.ops.cuda.flow import flow_reference, flow_steps, fused_flow, pack_flow_cond
+from vits_tpu_torch.ops.cuda.flow import (
+    flow_packed_reference,
+    flow_reference,
+    flow_steps,
+    fused_flow,
+    pack_flow_cond,
+)
+from vits_tpu_torch.ops.cuda.flow import pack_flow_weights as torch_pack_flow_weights
 from vits_tpu_torch.ops.cuda.resblock import fused_resblock
 from vits_tpu_torch.ops.cuda.stage import fused_stage
 
@@ -118,6 +125,64 @@ def test_flow_plain_zeroes_a_length_zero_row(small_params):
     out = fused_flow(x, ParamView(from_jax_params(small_params, "cpu")), config,
                      lengths=torch.tensor([16, 0], dtype=torch.int32))
     assert float(out[1].abs().max()) == 0.0 and float(out[0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["small", "mms"])
+def test_pack_flow_weights_matches_jax_pack(case, small_params, mms_params):
+    """The port's pack is the JAX pack, bit for bit, under the interleaving map: JAX's
+    tanh / sigmoid (res / skip) column j is the port's column 2j / 2j + 1; biases lose
+    JAX's singleton row. The stacked cond weights give pack_flow_cond's vectors."""
+    if case == "mms":
+        config, params = VitsConfig(), mms_params
+    else:
+        config, params = _small_config(num_speakers=4, speaker_embedding_size=8), small_params
+    want, _ = pack_flow_weights(JaxParamView(params), config)
+    tp = ParamView(from_jax_params(params, "cpu"))
+    got = torch_pack_flow_weights(tp, config).arrays
+    pairs = {"wpre": got["w_pre"], "bpre": got["b_pre"][:, None], "wpost": got["w_post"],
+             "bpost": got["b_post"][:, None],
+             "wt": got["w_gate"][..., 0::2], "ws": got["w_gate"][..., 1::2],
+             "bt": got["b_gate"][..., 0::2], "bs": got["b_gate"][..., 1::2],
+             "wres": got["w_rs"][..., 0::2], "wskip": got["w_rs"][..., 1::2],
+             "bres": got["b_rs"][..., 0::2], "bskip": got["b_rs"][..., 1::2]}
+    assert set(pairs) == set(want)
+    for name, arr in pairs.items():
+        np.testing.assert_array_equal(arr.numpy(), np.asarray(want[name]), err_msg=name)
+    if case == "small":
+        emb = np.random.default_rng(3).standard_normal((2, 1, 8)).astype(np.float32)
+        want_cond = pack_flow_cond(tp, config, torch.tensor(emb))
+        got_cond = torch.tensor(emb)[:, 0] @ got["w_cond"] + got["b_cond"]  # the cond kernel
+        np.testing.assert_allclose(got_cond.reshape(want_cond.shape).numpy(), want_cond.numpy(),
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["masked", "speaker", "mms"])
+def test_flow_packed_reference_matches_jax_kernel(case, small_params, mms_params):
+    """The kernel's arithmetic on the packed weights (flow_packed_reference) vs JAX
+    fused_flow in interpret mode at precision="highest": masked rows with a length-0
+    row, with a speaker, and at MMS width (1e-4, fp32 sums over 192-wide products)."""
+    if case == "mms":
+        config, params, B, T, lengths, atol = VitsConfig(), mms_params, 2, 24, [20, 0], 1e-4
+    else:
+        config = _small_config(num_speakers=4, speaker_embedding_size=8)
+        params, B, T, lengths, atol = small_params, 3, 48, [48, 0, 33], 1e-5
+    rng = np.random.default_rng(5)
+    mask = (np.arange(T)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)[..., None]
+    x = rng.standard_normal((B, T, config.flow_size)).astype(np.float32) * mask
+    jp, tp = JaxParamView(params), ParamView(from_jax_params(params, "cpu"))
+    cond = None
+    if case == "speaker":
+        emb = rng.standard_normal((B, 1, config.speaker_embedding_size)).astype(np.float32)
+        cond = np.asarray(jax_pack_flow_cond(jp, config, jnp.asarray(emb)))
+    packed, type_a = pack_flow_weights(jp, config)
+    want = np.asarray(jax_fused_flow(
+        jnp.asarray(x), packed, type_a, config, lengths=jnp.asarray(lengths, jnp.int32),
+        cond=None if cond is None else jnp.asarray(cond), interpret=True, precision="highest"))
+    got = flow_packed_reference(torch.tensor(x), torch_pack_flow_weights(tp, config), config,
+                                lengths=torch.tensor(lengths, dtype=torch.int32),
+                                cond=None if cond is None else torch.tensor(cond))
+    _assert_close(got, want * mask, atol)
+    assert float(got[1].abs().max()) == 0.0  # the length-0 row
 
 
 def _block(rng, C, k=7, dilations=(1, 3, 5), scale=0.1):

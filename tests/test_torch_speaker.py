@@ -31,6 +31,7 @@ from vits_tpu_torch.engine.synthesizer import Synthesizer
 from vits_tpu_torch.io import VitsTokenizer
 from vits_tpu_torch.io.params import ParamView, from_jax_params
 from vits_tpu_torch.models import duration, flow, hifigan, posterior, vits
+from vits_tpu_torch.train.data import linear_spectrogram
 
 torch.set_num_threads(2)
 
@@ -213,3 +214,45 @@ def test_engine_convert_voice_posterior_mean_is_deterministic(spk_engine):
     rows = spk_engine.convert_voice([audio, audio[: 5 * hop]], source_speaker=0,
                                     target_speaker=[3, 3], noise_scale=0.5, seed=2)
     assert [len(r) for r in rows] == [len(first), 5 * hop]
+
+
+@pytest.mark.parametrize("transfer_int16", [True, False])
+def test_engine_convert_voice_transfer_matches_jax_engine(spk_bundle, transfer_int16):  # noqa: F811
+    """convert_voice brings the waveform to the host as int16 when the engine says so (the
+    samples lie on the k/32767 grid) and agrees with the JAX engine within one step; with
+    ``transfer_int16=False`` the float waveform comes back as the model made it."""
+    from vits_tpu.config import EngineConfig as JaxEngineConfig
+    from vits_tpu.engine.synthesizer import Synthesizer as JaxSynthesizer
+    from vits_tpu.text.tokenizer import VitsTokenizer as JaxVitsTokenizer
+
+    config, params = spk_bundle
+    vocab = {c: i for i, c in enumerate(VOCAB[:config.vocab_size])}
+    port = Synthesizer(config, VitsTokenizer(vocab=vocab, pad_token="k", unk_token="z"), params,
+                       EngineConfig(transfer_int16=transfer_int16), device="cpu")
+    ref = JaxSynthesizer(config, JaxVitsTokenizer(vocab=vocab, pad_token="k", unk_token="z"),
+                         params, JaxEngineConfig(transfer_int16=transfer_int16))
+    audio = port.synthesize("hello world", seed=1, speaker_id=0)
+    got = port.convert_voice(audio, source_speaker=0, target_speaker=3)
+    want = ref.convert_voice(audio, source_speaker=0, target_speaker=3)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=INT16_STEP, rtol=0)
+    steps = got.astype(np.float64) * 32767.0
+    on_grid = np.abs(steps - np.round(steps)) < 1e-3
+    if transfer_int16:
+        assert on_grid.all()
+    else:
+        assert not on_grid.all()
+        hop = config.total_upsample
+        frames = len(audio) // hop
+        spec = linear_spectrogram(np.asarray(audio, np.float32)[: frames * hop],
+                                  2 * (config.spectrogram_bins - 1), hop)[None, :frames]
+        capacity = len(port.convert_voice(audio, source_speaker=0, target_speaker=3,
+                                          trim=False)) // hop
+        padded = np.zeros((1, capacity, config.spectrogram_bins), np.float32)
+        padded[:, :frames] = spec
+        mask = np.zeros((1, capacity), np.float32)
+        mask[:, :frames] = 1.0
+        with torch.inference_mode():
+            out = vits.voice_convert(port.params, config, torch.tensor(padded),
+                                     torch.tensor(mask), torch.tensor([0]), torch.tensor([3]))
+        np.testing.assert_array_equal(got, out.waveform[0, : frames * hop].numpy())

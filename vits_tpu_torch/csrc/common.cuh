@@ -93,3 +93,17 @@ inline cudaError_t vk_set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// The same for a kernel launched many times a call: the ceiling is raised once
+// per device and only when a launch needs more than it was raised to.
+template <auto kKernel>
+inline cudaError_t vk_set_smem_once(size_t bytes) {
+  static int raised[64] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && static_cast<int>(bytes) <= raised[dev]) return cudaSuccess;
+  const cudaError_t err = vk_set_smem(kKernel, bytes);
+  if (err == cudaSuccess && dev < 64) raised[dev] = static_cast<int>(bytes);
+  return err;
+}

@@ -1,0 +1,380 @@
+// The tensor-core conv of the port: an implicit GEMM per batch row, 3xTF32 on
+// mma.sync, with the output's elementwise work in a pluggable epilogue.
+//
+// out[b, p] = epilogue(sum_tap sum_ci leaky(x[b, p + tap*dil - pad, ci]) * W[tap][ci][co])
+//
+// M = output time steps, N = C_out, K = taps x C_in, walked as (C_in chunk of
+// 32, tap) steps. Users: kernel B's resblock convs, kernel C's resblocks and
+// kernel 5's forward (resblock_trio.cu, ResEpi), kernel 5's input gradients
+// (trio_grad.cu: the weights read flipped in time and transposed, ResEpi with
+// leaky's derivative), and kernel 6's products (flow.cu, its own epilogues).
+//
+// What bounds it on an H100: operations. A trio does 2*k*C*C multiply-adds per
+// conv per time step over 126 taps of C x C (42 GFLOP at C=256, T=2560; 85
+// GFLOP at C=128, T=20480); bytes are minor (a pass reads its input once plus a
+// halo and writes its output once: 10.5 MB at C=128, T=20480, ~3 us of HBM).
+// The products run on the tensor cores as 3xTF32, the fp32-accurate twin of
+// the JAX package's bf16x3 split: each operand x becomes hi = tf32(x) and
+// lo = tf32(x - hi), and lo*hi + hi*lo + hi*hi accumulate in fp32 (relative
+// error ~2^-21 per product, lo*lo dropped). So the card's ceiling is 495/3 =
+// 165 TFLOP/s, not the 67 of fp32 FFMA; mma.sync itself reaches about 280
+// TFLOP/s of TF32 on this card (a loop of independent MMAs), 93 of fp32.
+// The tensor cores' own sums truncate: summed straight into one accumulator
+// over K = 11 x 128, that bias reached 7e-6 of the output's scale on the card.
+// So each step's products sum into a zeroed partial, small products first,
+// and the partial is added to the accumulator in fp32 (round to nearest):
+// 2e-7 - 6e-7 of the scale against an fp64 reference, below cuDNN's fp32
+// convolution (5e-7 - 2e-6) at the same shapes (scripts/torch_conv_probe.py).
+//
+// Design:
+// - mma.sync.m16n8k8 TF32 with a 16*MT x 32 warp tile (MT m16 tiles, four n8
+//   tiles). wgmma would need both TF32 operands K-major in shared memory (a
+//   second, transposed weight layout, and the split staged through shared
+//   memory for both operands) and is later work: mma.sync tops out at about
+//   57% of wgmma's TF32 rate here.
+// - A 3-stage cp.async ring of (32 x BN) weight tiles over the steps, and a
+//   small ring of the chunk's raw x window ((BM + (k-1)*dil) x 32; zero rows
+//   outside [0, T) come from zero-fill), loaded with the chunk's first tap.
+//   When a chunk's window lands, the block applies leaky and splits it once,
+//   hi in place and lo beside it, for all k taps and all warps that read it;
+//   A fragments then come in one ldmatrix each. The weights are split in
+//   registers right after their shared-memory load. Row strides (32 + 4 and
+//   BN + 8 floats) make every fragment load conflict-free.
+// - kTransW reads W[tap][ci][co] = w[k-1-tap][co][ci] straight from the
+//   forward conv's weights (the input gradient's conv): each out-channel's 32
+//   input channels of a step are contiguous in w, so the stage holds BN rows
+//   of 32 + 4 floats and a B fragment reads along the row (conflict-free).
+// - The caller's plan (ops/cuda/resblock.py::conv_plan) picks the block tile
+//   and a split of the K steps, by a small cost model fitted on the card.
+//   A split of s runs as a thread-block cluster of s blocks: each sums its
+//   share of the steps (ceil(steps / s); the last share may be shorter),
+//   stages its partial tile in shared memory, and after a cluster barrier each
+//   block reduces 1/s of the tile's rows over the cluster's distributed shared
+//   memory and runs their epilogue (no workspace, no second launch). Every
+//   block stages its tile, so the epilogue gets whole rows as float4.
+// - A tile that starts at or past its row's length skips the products
+//   (data-dependent work: a padding row costs only its epilogue).
+// - Channel counts off the 32-channel grid (the flow's 16-wide halves of a
+//   narrow model) zero-fill the tail of the last K step and of the last column
+//   tile in the loaders; the epilogue skips columns past C_out.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace conv {
+
+namespace cg = cooperative_groups;
+
+constexpr int kKc = 32;       // input channels per step: two pairs of k8 MMA slices
+constexpr int kAs = kKc + 4;  // window row stride (floats): rows 4 banks apart
+constexpr int kStages = 3;    // weight tiles in flight
+constexpr int kMaxSplit = 8;  // portable cluster size
+
+// A WM x WN grid of warps, each owning a (16*MT time steps) x (32 out-channels) tile.
+template <int WM, int WN, int MT, bool kTransW>
+struct Tile {
+  static constexpr int threads = 32 * WM * WN;
+  static constexpr int wm = 16 * MT;  // warp tile rows
+  static constexpr int bm = WM * wm;  // block tile rows (time steps)
+  static constexpr int bn = WN * 32;  // block tile out-channels
+  // weight stage: kKc rows of bn (+ 8) floats, or with kTransW bn rows of kKc (+ 4)
+  static constexpr int ws = kTransW ? kKc + 4 : bn + 8;
+  static constexpr int w_floats = kTransW ? bn * ws : kKc * ws;
+  static constexpr int os = bn + 8;  // staged output row stride
+};
+
+// One conv: x (B, T, ldx) rows whose first C_in channels are the input; w
+// (k, C_in, C_out), or with kTransW the forward weights (k, C_out, C_in) read
+// flipped in time and transposed. slope 1 makes leaky the identity.
+struct Gemm {
+  const float* x;
+  int ldx;
+  const float* w;
+  const int* lengths;
+  int T, C_in, C_out, k, dil, pad;
+  float slope;
+  int split, nwin;
+};
+
+// The resblock epilogue: y (+ bias), zero at p >= len; else times leaky'(aux)
+// (1 at aux >= 0, aux_slope below) when aux is set, plus residual when set;
+// with accumulate added to out; then times scale. All (B, T, C) fp32.
+struct ResEpi {
+  float* out;
+  const float* bias;
+  const float* residual;
+  const float* aux;
+  float aux_slope;
+  int T, C, accumulate;
+  float scale;
+
+  __device__ __forceinline__ void operator()(int b, int p, int co, float4 y, bool valid) const {
+    const size_t off = ((size_t)b * T + p) * C + co;
+    if (bias) {
+      const float4 bv = *reinterpret_cast<const float4*>(bias + co);
+      y = make_float4(y.x + bv.x, y.y + bv.y, y.z + bv.z, y.w + bv.w);
+    }
+    if (!valid) {
+      y = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (aux) {
+        const float4 a = *reinterpret_cast<const float4*>(aux + off);
+        y = make_float4(a.x >= 0.f ? y.x : y.x * aux_slope, a.y >= 0.f ? y.y : y.y * aux_slope,
+                        a.z >= 0.f ? y.z : y.z * aux_slope, a.w >= 0.f ? y.w : y.w * aux_slope);
+      }
+      if (residual) {
+        const float4 r4 = *reinterpret_cast<const float4*>(residual + off);
+        y = make_float4(r4.x + y.x, r4.y + y.y, r4.z + y.z, r4.w + y.w);
+      }
+    }
+    float4* o = reinterpret_cast<float4*>(out + off);
+    if (accumulate) {
+      const float4 prev = *o;
+      y = make_float4(prev.x + y.x, prev.y + y.y, prev.z + y.z, prev.w + y.w);
+    }
+    *o = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+  }
+};
+
+template <int WM, int WN, int MT, bool kTransW, class Epi>
+__global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const Epi epi) {
+  using G = Tile<WM, WN, MT, kTransW>;
+  extern __shared__ __align__(16) float smem[];
+  const int k = g.k, dil = g.dil, T = g.T, C_in = g.C_in, C_out = g.C_out, split = g.split;
+  const int nwin = g.nwin;
+  float* ws = smem;                            // kStages weight tiles
+  float* wins = smem + kStages * G::w_floats;  // nwin windows of win x kAs
+  const int win = G::bm + (k - 1) * dil;
+  float* wlo = wins + nwin * win * kAs;        // lo halves of the current window
+  const int rank = blockIdx.x % split;         // the cluster rank: clusters are (split, 1, 1)
+  const int t0 = blockIdx.x / split * G::bm;
+  const int co0 = blockIdx.y * G::bn;
+  const int b = blockIdx.z;
+  const int len = g.lengths[b];
+  const float* xb = g.x + (size_t)b * T * g.ldx;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, t = lane & 3;  // fragment row group, thread in group
+  const int wm0 = warp % WM * G::wm, wn0 = warp / WM * 32;
+
+  const int steps = (C_in + kKc - 1) / kKc * k;
+  const int per = (steps + split - 1) / split;  // steps of each block but the last
+  const int s0 = rank * per;
+  const int mine = steps - s0 < per ? steps - s0 : per;
+  const int n = t0 < len && mine > 0 ? mine : 0;
+  const int chunk0 = s0 / k;
+
+  auto issue = [&](int i) {  // the copies of local step i
+    const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
+    float* dst = ws + i % kStages * G::w_floats;
+    if constexpr (kTransW) {  // row c: out-channel co0 + c's 32 input channels of this chunk
+      const float* src = g.w + ((size_t)(k - 1 - tap) * C_out + co0) * C_in + chunk * kKc;
+      for (int idx = tid; idx < G::bn * (kKc / 4); idx += G::threads) {
+        const int c = idx / (kKc / 4), r4 = idx - c * (kKc / 4);
+        cp_async16(dst + c * G::ws + r4 * 4, src + (size_t)c * C_in + r4 * 4);
+      }
+    } else {
+      const float* src = g.w + ((size_t)tap * C_in + chunk * kKc) * C_out + co0;
+      for (int idx = tid; idx < kKc * G::bn / 4; idx += G::threads) {
+        const int r = idx / (G::bn / 4), c4 = idx - r * (G::bn / 4);
+        // zero rows past C_in and columns past C_out (a K or N tail)
+        const bool in = chunk * kKc + r < C_in && co0 + c4 * 4 < C_out;
+        cp_async16_zfill(dst + r * G::ws + c4 * 4, in ? src + (size_t)r * C_out + c4 * 4 : g.w,
+                         in ? 16 : 0);
+      }
+    }
+    if (tap == 0 || i == 0) {  // the chunk's raw window: row r <-> position t0 - pad + r
+      float* wdst = wins + (chunk - chunk0) % nwin * win * kAs;
+      const float* xs = xb + chunk * kKc;
+      for (int idx = tid; idx < win * (kKc / 4); idx += G::threads) {
+        const int r = idx / (kKc / 4), c4 = idx - r * (kKc / 4);
+        const int p = t0 - g.pad + r;
+        const bool in = p >= 0 && p < T && chunk * kKc + c4 * 4 < C_in;
+        cp_async16_zfill(wdst + r * kAs + c4 * 4, in ? xs + (size_t)p * g.ldx + c4 * 4 : xs,
+                         in ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step i landed for every thread; step i - 1's buffers are free
+    if (i + kStages - 1 < n) issue(i + kStages - 1);
+    cp_async_commit();
+    const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
+    float* whi = wins + (chunk - chunk0) % nwin * win * kAs;
+    if (tap == 0 || i == 0) {  // a new chunk: leaky, then hi (in place) and lo, once for k taps
+      for (int idx = tid; idx < win * kKc; idx += G::threads) {
+        const int r = idx / kKc, c = idx - r * kKc;
+        unsigned hi, lo;
+        split_tf32(vk_leaky(whi[r * kAs + c], g.slope), hi, lo);
+        whi[r * kAs + c] = __uint_as_float(hi);
+        wlo[r * kAs + c] = __uint_as_float(lo);
+      }
+      __syncthreads();
+    }
+    // this lane's ldmatrix row: row lane % 8 of block lane / 8 of the fragment
+    const int a_off =
+        (wm0 + tap * dil + (lane >> 3 & 1) * 8 + (lane & 7)) * kAs + (lane >> 4) * 4;
+    const float* a_hi = whi + a_off;
+    const float* a_lo = wlo + a_off;
+    const float* wst = ws + i % kStages * G::w_floats;
+    // B[kk][n] of the warp's n8 tile nt, for this lane's n = gr
+    auto bw = [&](int kk, int nt) {
+      if constexpr (kTransW)
+        return wst[(wn0 + nt * 8 + gr) * G::ws + kk + t];
+      else
+        return wst[(kk + t) * G::ws + wn0 + nt * 8 + gr];
+    };
+    // The tensor cores truncate each sum to the accumulator's precision, a bias
+    // that grows with every MMA into one accumulator: the step's four k8
+    // slices sum into a zeroed partial, each pair's four small products before
+    // its two large ones, and the partial is added to acc in fp32 (round to
+    // nearest).
+    float part[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < kKc; kp += 16) {  // a pair of k8 slices
+      unsigned bh[2][4][2], bl[2][4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          split_tf32(bw(kp + 8 * h, nt), bh[h][nt][0], bl[h][nt][0]);
+          split_tf32(bw(kp + 8 * h + 4, nt), bh[h][nt][1], bl[h][nt][1]);
+        }
+      // one pass: 4 * MT independent MMAs of slice h, A (hi or lo) from shared memory
+      auto pass = [&](const float* a_s, int h, const unsigned (&bb)[2][4][2]) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          unsigned a[4];
+          ldmatrix_x4(a, a_s + mt * 16 * kAs + kp + 8 * h);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], a, bb[h][nt][0], bb[h][nt][1]);
+        }
+      };
+      pass(a_lo, 0, bh);
+      pass(a_hi, 0, bl);
+      pass(a_lo, 1, bh);
+      pass(a_hi, 1, bl);
+      pass(a_hi, 0, bh);
+      pass(a_hi, 1, bh);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is consumed: its memory takes the staged tile
+
+  float* tile = smem;  // bm x os partial sums of this block
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* o = tile + (wm0 + mt * 16 + gr) * G::os + wn0 + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(o + 8 * G::os) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1)
+    cluster.sync();  // every block's partial tile is staged
+  else
+    __syncthreads();
+
+  // Rows [r0, r0 + rows) of the tile: sum the cluster's partials, then the epilogue.
+  const int rows = G::bm / split, r0 = rank * rows;
+  for (int idx = tid; idx < rows * (G::bn / 4); idx += G::threads) {
+    const int r = r0 + idx / (G::bn / 4), c = idx % (G::bn / 4) * 4;
+    const int p = t0 + r;
+    if (p >= T || co0 + c >= C_out) continue;
+    float* at = tile + r * G::os + c;
+    float4 y = *reinterpret_cast<const float4*>(at);
+    for (int q = 1; q < split; ++q) {
+      const float4 o =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(at, (rank + q) % split));
+      y = make_float4(y.x + o.x, y.y + o.y, y.z + o.z, y.w + o.w);
+    }
+    epi(b, p, co0 + c, y, p < len);
+  }
+  if (split > 1) cluster.sync();  // the peers' shared memory outlives every remote read
+}
+
+template <int WM, int WN, int MT, bool kTransW, class Epi>
+cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
+  using G = Tile<WM, WN, MT, kTransW>;
+  const int steps = (g.C_in + kKc - 1) / kKc * g.k;
+  const int per = g.split > 0 ? (steps + g.split - 1) / g.split : 0;
+  if ((kTransW && g.C_out % G::bn) || g.split < 1 || g.split > kMaxSplit || G::bm % g.split ||
+      (g.split - 1) * per >= steps)  // every block of a cluster has steps
+    return cudaErrorInvalidValue;
+  // window slots: a slot is refilled only after the kStages - 1 steps ahead of it are issued
+  g.nwin = (kStages - 2) / g.k + 2;
+  const int pipe = kStages * G::w_floats + (g.nwin + 1) * (G::bm + (g.k - 1) * g.dil) * kAs;
+  const int smem = (pipe > G::bm * G::os ? pipe : G::bm * G::os) * static_cast<int>(sizeof(float));
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem_once<conv_kernel<WM, WN, MT, kTransW, Epi>>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((g.T + G::bm - 1) / G::bm * g.split, (g.C_out + G::bn - 1) / G::bn, B);
+  cfg.blockDim = dim3(G::threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = g.split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv_kernel<WM, WN, MT, kTransW, Epi>, g, epi);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The block tile by the id of ops/cuda/resblock.py::CONV_TILES. Needs C_in and
+// C_out multiples of 4 (a tail of a 32-channel step or of the tile's width is
+// zero-filled; with kTransW, C_in % 32 == 0 and C_out a multiple of the
+// tile's width) and 16-byte aligned rows.
+template <bool kTransW, class Epi>
+cudaError_t launch_tile(int tile, const Gemm& g, const Epi& epi, int B, cudaStream_t stream) {
+  if (g.C_in % 4 || g.C_out % 4 || g.ldx % 4 || (kTransW && g.C_in % kKc))
+    return cudaErrorInvalidValue;
+  switch (tile) {
+    case 0:  // 128 x 64, warps 2 x 2 of 64 x 32
+      return launch<2, 2, 4, kTransW>(g, epi, B, stream);
+    case 1:  // 64 x 64, warps 2 x 2 of 32 x 32
+      return launch<2, 2, 2, kTransW>(g, epi, B, stream);
+    case 2:  // 128 x 32, warps 4 x 1 of 32 x 32
+      return launch<4, 1, 2, kTransW>(g, epi, B, stream);
+    case 3:  // 64 x 32, warps 4 x 1 of 16 x 32
+      return launch<4, 1, 1, kTransW>(g, epi, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace conv

@@ -22,7 +22,7 @@
 // m16 tile against NT n8 tiles: A and B fragments come from conflict-free
 // strides (window rows round8(C_in) + 4, weight rows NT*8 (+8) floats),
 // leaky is applied to A, and both are split into hi/lo in registers.
-// As in conv_kernel (resblock_trio.cu), each (tap, 32-channel) step's
+// As in conv_kernel (conv_gemm.cuh), each (tap, 32-channel) step's
 // products sum into a zeroed partial, small products first, added to the
 // accumulator in fp32. A tile at or past its row's length skips its loads
 // and products and only runs the epilogue.

@@ -5,7 +5,7 @@
 // Replaces vits_tpu/ops/pallas/stage.py::fused_stage (_stage_kernel), which
 // runs the whole stage on one VMEM window with 128-lane time packing. Here a
 // stage is three kinds of launch, driven by vits_tpu_torch/ops/cuda/stage.py:
-// upsample_kernel below, the resblock convs of resblock_trio.cu (conv_kernel
+// upsample_kernel below, the resblock convs of resblock_trio.cu (conv_gemm.cuh's conv_kernel
 // on the tensor cores at C_out = 64, 32 on MMS stages 2-3; narrow_conv_kernel
 // at C_out = 16, 8 on HiFi-GAN V2's), and wave_kernel below for the terminal
 // conv_post. No packing: the channels map onto MMA tiles and threads directly.

@@ -8,7 +8,10 @@ re-dispatch ladder, trimming, per-row seeds, per-row speakers of a
 multi-speaker model (``speaker_id``) and voice conversion
 (:meth:`Synthesizer.convert_voice`). ``EngineConfig.use_pallas_flow`` runs
 the reverse flow of synthesis as kernel 6, as it runs the fused flow kernel in
-the JAX engine; without it the plain flow runs.
+the JAX engine (on weights packed once per parameter set and kept here);
+without it the plain flow runs. With ``EngineConfig.transfer_int16`` both
+``synthesize`` and ``convert_voice`` round the waveform to int16 on the device
+and scale it back on the host, as the JAX engine does.
 
 Every dispatch pads a batch into its token bucket and runs at a static frame
 capacity; ``collect`` reads the predicted frame counts and, when they exceed
@@ -37,9 +40,10 @@ import torch
 
 from vits_tpu_torch.config import EngineConfig, VitsConfig
 from vits_tpu_torch.io import VitsTokenizer, load_ggml, load_hf_pretrained
-from vits_tpu_torch.io.params import from_jax_params
+from vits_tpu_torch.io.params import ParamView, from_jax_params
 from vits_tpu_torch.models.vits import synthesize as synthesize_fn
 from vits_tpu_torch.models.vits import voice_convert
+from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
 
 # EngineConfig fields the port does not honour yet: each must keep its default.
 _UNSUPPORTED_FIELDS = (
@@ -138,6 +142,23 @@ class Synthesizer:
             "wall_seconds": 0.0,
         }
 
+    @property
+    def params(self) -> dict:
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        self._params = params
+        self._packed_flow = None  # packed from the parameters it replaces
+
+    def _flow_pack(self) -> FlowPack | None:
+        """Kernel 6's packed weights, made on the first dispatch that runs it."""
+        if not self.engine.use_pallas_flow or self.device.type != "cuda":
+            return None
+        if self._packed_flow is None:
+            self._packed_flow = pack_flow_weights(ParamView(self._params), self.config)
+        return self._packed_flow
+
     @classmethod
     def load(cls, source, engine_config: Optional[EngineConfig] = None, *,
              device: torch.device | str) -> "Synthesizer":
@@ -189,6 +210,7 @@ class Synthesizer:
             noise_scale_duration=noise_scale_duration,
             speaking_rate=speaking_rate,
             use_pallas_flow=self.engine.use_pallas_flow,
+            flow_pack=self._flow_pack(),
         )
         wave = out.waveform
         if self.engine.transfer_int16:
@@ -359,7 +381,12 @@ class Synthesizer:
             self.params, self.config, torch.as_tensor(spec).to(self.device),
             torch.as_tensor(mask).to(self.device), self._speaker_tensor(src),
             self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale)
-        wave = out.waveform.cpu().numpy()
+        wave = out.waveform
+        if self.engine.transfer_int16:
+            wave = torch.round(torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+        wave = wave.cpu().numpy()
+        if wave.dtype == np.int16:
+            wave = wave.astype(np.float32) / 32767.0
         self.stats["dispatches"] += 1
         self.stats["wall_seconds"] += time.perf_counter() - t0
         results = [wave[i, : specs[i].shape[0] * hop] if trim else wave[i]

@@ -36,7 +36,7 @@ from vits_tpu_torch.models.encoder import text_encoder
 from vits_tpu_torch.models.flow import residual_coupling_block, residual_coupling_forward
 from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
-from vits_tpu_torch.ops.cuda.flow import fused_flow
+from vits_tpu_torch.ops.cuda.flow import FlowPack, fused_flow
 
 PRIOR_NOISE_BLOCK = 64  # frames per per-row prior-noise draw
 
@@ -192,16 +192,18 @@ def latents_from_prior(
     frame_mask3: torch.Tensor,  # (B, F, 1)
     speaker_embeddings: torch.Tensor | None = None,
     use_pallas: bool = False,
+    flow_pack: FlowPack | None = None,
 ) -> torch.Tensor:
     """Sampled prior -> flow latents (reverse residual-coupling stack).
 
-    With ``use_pallas`` the stack runs as kernel 6 (:func:`fused_flow`).
+    With ``use_pallas`` the stack runs as kernel 6 (:func:`fused_flow`), on
+    ``flow_pack`` when the caller keeps the packed weights.
     """
     p = ParamView(params)
     if use_pallas:
         lengths = frame_mask3[..., 0].sum(dim=1).to(torch.int32)
         latents = fused_flow(prior_latents.contiguous(), p, config, lengths=lengths,
-                             speaker_embeddings=speaker_embeddings)
+                             speaker_embeddings=speaker_embeddings, packed=flow_pack)
     else:
         latents = residual_coupling_block(p, config, prior_latents, frame_mask3,
                                           speaker_embeddings)
@@ -210,12 +212,12 @@ def latents_from_prior(
 
 def text_to_latents(params: dict, config: VitsConfig, input_ids: torch.Tensor,
                     input_mask: torch.Tensor, num_frames: int, use_pallas: bool = False,
-                    **prior_kwargs) -> LatentsOutput:
+                    flow_pack: FlowPack | None = None, **prior_kwargs) -> LatentsOutput:
     """Text -> flow latents (prior stage + full-length flow)."""
     prior = text_to_prior(params, config, input_ids, input_mask, num_frames, **prior_kwargs)
     latents = latents_from_prior(params, config, prior.prior_latents,
                                  prior.frame_mask[..., None], prior.speaker_embeddings,
-                                 use_pallas=use_pallas)
+                                 use_pallas=use_pallas, flow_pack=flow_pack)
     return LatentsOutput(latents, prior.frame_mask, prior.total_duration, prior.log_duration,
                          prior.speaker_embeddings)
 
@@ -233,10 +235,12 @@ def synthesize(
     noise_scale_duration: float | None = None,
     speaking_rate: float | None = None,
     use_pallas_flow: bool = False,
+    flow_pack: FlowPack | None = None,
 ) -> SynthesisOutput:
     """Full text -> waveform pipeline (latents stage + vocoder)."""
     lat = text_to_latents(
         params, config, input_ids, input_mask, num_frames, use_pallas=use_pallas_flow,
+        flow_pack=flow_pack,
         generator=generator, noise=noise, speaker_id=speaker_id, noise_scale=noise_scale,
         noise_scale_duration=noise_scale_duration, speaking_rate=speaking_rate,
     )

@@ -53,7 +53,10 @@ _SIGNATURES = {
     "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "vk_flow_coupling": [_P, _P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 10 + [_P],
+    "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "vk_graph_destroy": [_P],
+    "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

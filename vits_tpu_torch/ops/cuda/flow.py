@@ -1,4 +1,4 @@
-"""Kernel 6: the reverse residual-coupling flow, one call per coupling.
+"""Kernel 6: the reverse residual-coupling flow, one host call per flow.
 
 Replaces ``vits_tpu/ops/pallas/flow.py::fused_flow``: the prior latents go
 back through the ``n_flows`` mean-only couplings (flow n-1 first, a channel
@@ -8,24 +8,30 @@ subtracted from the other half; rows at and past each row's length are zero
 after every step. The CUDA kernel is ``vits_tpu_torch/csrc/flow.cu``.
 
 The TPU kernel runs grid ``(B, n_flows)`` with the whole sequence resident in
-VMEM and the couplings in order. Here each coupling is one call (the next
-one reads the half this one wrote) that launches one tiled product per step
-of the coupling (conv_pre, each layer's gate and res/skip, conv_post) over
-all frames of the batch, the step's elementwise work in its epilogue, with
-the WaveNet state in three (B, T, hidden) scratch buffers. The flips are not
-applied to the data: the JAX package folds
-them into packed weights; the kernel reads the canonical weights and walks
-the channels of the read and updated halves backwards on the flipped steps
-(:func:`flow_steps`). The per-(row, coupling, layer) speaker vectors are the
-``cond_layer`` 1x1 convs of the embedding, computed before the launches in
-plain PyTorch (:func:`pack_flow_cond`), as JAX computes them outside its
-``pallas_call``. The plain PyTorch twin is :func:`flow_reference`: the
-module's own math.
+VMEM and the couplings in order. Here the flow is one tensor-core product per
+step of each coupling (conv_pre, each layer's gate and res/skip, conv_post)
+over all frames of the batch, the step's elementwise work in its epilogue,
+with the WaveNet state in three (B, T, hidden) buffers; the launches are
+captured once per (B, T) shape into a CUDA graph (:class:`FlowWorkspace`), so
+a call is one C call. The weights are packed once per parameter set
+(:func:`pack_flow_weights`, the JAX function of that name with the gate's and
+res/skip's column pairs interleaved), the flips folded in as JAX folds them;
+the engine keeps the pack (``Synthesizer``), so a call's Python work does not
+grow with the number of weights. The per-(row, coupling, layer) speaker
+vectors are the ``cond_layer`` 1x1 convs of the embedding: one small kernel
+on the pack's stacked cond weights before the products (:func:`pack_flow_cond`
+computes the same vectors conv by conv, as JAX computes them outside its
+``pallas_call``). The plain PyTorch twin is :func:`flow_reference`: the
+module's own math; :func:`flow_packed_reference` runs the kernel's arithmetic
+on the packed weights.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
+from collections import OrderedDict
 
 import torch
 
@@ -36,12 +42,16 @@ from vits_tpu_torch.ops.conv import conv1d
 from vits_tpu_torch.ops.cuda import (
     check,
     cuda_lengths,
+    device_sm_count,
     library,
     no_autograd,
     on_cuda,
     stream_of,
 )
-from vits_tpu_torch.ops.cuda.resblock import length_mask
+from vits_tpu_torch.ops.cuda.resblock import CONV_TILES, conv_plan, length_mask
+
+# The packed arrays, in the order vk_flow_capture takes their pointers.
+PACK_NAMES = ("w_pre", "b_pre", "w_gate", "b_gate", "w_rs", "b_rs", "w_post", "b_post")
 
 
 def flow_steps(config: VitsConfig) -> list[tuple[int, bool]]:
@@ -85,22 +95,228 @@ def flow_reference(
     return residual_coupling_block(params, config, x, mask, speaker_embeddings) * mask
 
 
-def _coupling_weights(params: ParamView, config: VitsConfig,
-                      i: int) -> list[tuple[str, torch.Tensor, tuple]]:
-    """Coupling i's (name, tensor, kernel's shape), in the kernel's order."""
+def interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., m), (..., m) -> (..., 2m): a's column j at 2j, b's at 2j + 1."""
+    return torch.stack((a, b), dim=-1).flatten(-2)
+
+
+class FlowPack:
+    """The flow's weights in execution order, one contiguous fp32 buffer.
+
+    ``arrays`` maps :data:`PACK_NAMES` (and, for a multi-speaker model,
+    ``w_cond`` (speaker_emb, n*nl*2*hidden) and ``b_cond``) to views of
+    ``buffer``.
+    On a CUDA device each (B, T) shape the kernel runs gets a
+    :class:`FlowWorkspace` (:meth:`workspace`, the most recent
+    :data:`WORKSPACES` kept): persistent buffers and the flow's launches
+    captured over them once.
+    """
+
+    def __init__(self, buffer: torch.Tensor, arrays: dict[str, torch.Tensor]):
+        self.buffer, self.arrays = buffer, arrays
+        self.pointers = (ctypes.c_void_p * (len(PACK_NAMES) + 2))(
+            *(arrays[name].data_ptr() for name in PACK_NAMES),
+            *(arrays[name].data_ptr() if name in arrays else None
+              for name in ("w_cond", "b_cond")))
+        self._workspaces: OrderedDict = OrderedDict()
+
+    def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool) -> "FlowWorkspace":
+        key = (B, T, speakers)
+        ws = self._workspaces.pop(key, None) or FlowWorkspace(self, config, B, T, speakers)
+        self._workspaces[key] = ws
+        while len(self._workspaces) > WORKSPACES:
+            self._workspaces.popitem(last=False)
+        return ws
+
+
+# (B, T, speakers) shapes whose workspace a pack keeps.
+WORKSPACES = 8
+
+
+class FlowWorkspace:
+    """The buffers of one (B, T) flow and its launches captured as a CUDA graph.
+
+    ``vk_flow_capture`` records the cond kernel and the 40 products over these
+    buffers once; a call then copies its input, lengths and embedding in,
+    replays the graph and copies the result out (``vk_flow_run``): five
+    operations on the stream, from one C call. Calls that share a workspace
+    must run on one stream, in order.
+    """
+
+    def __init__(self, packed: FlowPack, config: VitsConfig, B: int, T: int, speakers: bool):
+        half, hidden = config.flow_size // 2, config.hidden_size
+        nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
+                    config.prior_encoder_num_flows)
+        weights = packed.arrays["w_pre"]
+        new = functools.partial(torch.empty, device=weights.device, dtype=torch.float32)
+        self.x = new((B, T, 2 * half))
+        self.lens = torch.empty((B,), dtype=torch.int32, device=weights.device)
+        self.full = torch.full((B,), T, dtype=torch.int32, device=weights.device)
+        self.scratch = new((3, B, T, hidden))  # h, acts, skip
+        self.emb_size = packed.arrays["w_cond"].shape[0] if speakers else 0
+        self.emb = new((B, self.emb_size)) if speakers else None
+        self.cond = new((B, n * nl * 2 * hidden)) if speakers else None
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        lib = library()
+        self.exec = ctypes.c_void_p()
+        check(lib.vk_flow_capture(
+            self.x.data_ptr(), self.lens.data_ptr(), ptr(self.emb), ptr(self.cond),
+            self.emb_size, packed.pointers,
+            flow_plan(B, T, half, hidden, k, device_sm_count(weights.device)),
+            *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n,
+            ctypes.byref(self.exec)), "flow kernels (capture)")
+        weakref.finalize(self, lib.vk_graph_destroy, self.exec.value)
+
+
+def pack_flow_weights(params: ParamView, config: VitsConfig) -> FlowPack:
+    """Stack the flow's weights in execution order with the flips folded in.
+
+    As ``vits_tpu/ops/pallas/flow.py::pack_flow_weights``: step s runs
+    coupling n-1-s; on its flipped steps (s even) conv_pre's rows and
+    conv_post's columns and bias are reversed, so the step reads the second
+    half and updates the first with no permutation. The gate's (tanh, sigmoid)
+    and res/skip's (res, skip) column halves are interleaved (:func:`interleave`:
+    JAX's ``wt[..., j]`` is ``w_gate[..., 2j]``, ``ws[..., j]`` is
+    ``w_gate[..., 2j + 1]``; ``wres``/``wskip`` likewise in ``w_rs``), the
+    last layer's res columns zero as in JAX's pack. Shapes: w_pre (n, half,
+    hidden), b_pre (n, hidden), w_gate (n, nl, k, hidden, 2*hidden), b_gate
+    (n, nl, 2*hidden), w_rs (n, nl, hidden, 2*hidden), b_rs (n, nl, 2*hidden),
+    w_post (n, hidden, half), b_post (n, half).
+    """
     half, hidden = config.flow_size // 2, config.hidden_size
     nl, k = config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size
-    f = params.sub(f"flow.flows.{i}")
-    wn = f.sub("wavenet")
-    named = [("conv_pre.weight", f, (1, half, hidden)), ("conv_pre.bias", f, (hidden,)),
-             ("conv_post.weight", f, (1, hidden, half)), ("conv_post.bias", f, (half,))]
-    for l in range(nl):
-        rs = 2 * hidden if l < nl - 1 else hidden
-        named += [(f"in_layers.{l}.weight", wn, (k, hidden, 2 * hidden)),
-                  (f"in_layers.{l}.bias", wn, (2 * hidden,)),
-                  (f"res_skip_layers.{l}.weight", wn, (1, hidden, rs)),
-                  (f"res_skip_layers.{l}.bias", wn, (rs,))]
-    return [(f"flows.{i}.{name}", view[name], shape) for name, view, shape in named]
+    p = params.sub("flow")
+
+    def weight(view: ParamView, name: str, shape: tuple) -> torch.Tensor:
+        t = view[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"flow kernel: {name} {tuple(t.shape)} != {shape}")
+        return t
+
+    stacks: dict[str, list] = {name: [] for name in PACK_NAMES}
+    conds = []
+    for i, flipped in flow_steps(config):
+        f = p.sub(f"flows.{i}")
+        w_pre = weight(f, "conv_pre.weight", (1, half, hidden))[0]
+        w_post = weight(f, "conv_post.weight", (1, hidden, half))[0]
+        b_post = weight(f, "conv_post.bias", (half,))
+        if flipped:
+            w_pre, w_post, b_post = w_pre.flip(0), w_post.flip(1), b_post.flip(0)
+        stacks["w_pre"].append(w_pre)
+        stacks["b_pre"].append(weight(f, "conv_pre.bias", (hidden,)))
+        stacks["w_post"].append(w_post)
+        stacks["b_post"].append(b_post)
+        wn = f.sub("wavenet")
+        gw, gb, rw, rb = [], [], [], []
+        for l in range(nl):
+            w_in = weight(wn, f"in_layers.{l}.weight", (k, hidden, 2 * hidden))
+            b_in = weight(wn, f"in_layers.{l}.bias", (2 * hidden,))
+            gw.append(interleave(w_in[..., :hidden], w_in[..., hidden:]))
+            gb.append(interleave(b_in[:hidden], b_in[hidden:]))
+            rs = 2 * hidden if l < nl - 1 else hidden
+            w_rs = weight(wn, f"res_skip_layers.{l}.weight", (1, hidden, rs))[0]
+            b_rs = weight(wn, f"res_skip_layers.{l}.bias", (rs,))
+            if l < nl - 1:
+                rw.append(interleave(w_rs[:, :hidden], w_rs[:, hidden:]))
+                rb.append(interleave(b_rs[:hidden], b_rs[hidden:]))
+            else:  # all skip
+                rw.append(interleave(torch.zeros_like(w_rs), w_rs))
+                rb.append(interleave(torch.zeros_like(b_rs), b_rs))
+        stacks["w_gate"].append(torch.stack(gw))
+        stacks["b_gate"].append(torch.stack(gb))
+        stacks["w_rs"].append(torch.stack(rw))
+        stacks["b_rs"].append(torch.stack(rb))
+        if "cond_layer.weight" in wn:
+            conds.append((wn["cond_layer.weight"][0], wn["cond_layer.bias"]))
+    stacked = {name: torch.stack(v).float() for name, v in stacks.items()}
+    if conds:
+        stacked["w_cond"] = torch.cat([w for w, _ in conds], dim=1).float()
+        stacked["b_cond"] = torch.cat([b for _, b in conds]).float()
+    # one buffer, each array at a 16-byte aligned offset
+    flat = torch.cat([t.reshape(-1) for t in stacked.values()])
+    arrays, pos = {}, 0
+    for name, t in stacked.items():
+        arrays[name] = flat[pos: pos + t.numel()].view(t.shape)
+        pos += t.numel()
+    for name, t in arrays.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"flow kernel: packed {name} is not 16-byte aligned "
+                             f"(flow_size // 2 and hidden_size must be multiples of 4)")
+    return FlowPack(flat, arrays)
+
+
+def flow_packed_reference(
+    x: torch.Tensor,  # (B, T, flow_size)
+    packed: FlowPack,
+    config: VitsConfig,
+    *,
+    lengths: torch.Tensor | None = None,  # (B,) valid frames
+    cond: torch.Tensor | None = None,  # (B, n_flows, nl, 2*hidden), tanh | sigmoid halves
+) -> torch.Tensor:
+    """Plain PyTorch: the kernel's arithmetic on the packed weights, step by step."""
+    half, hidden = config.flow_size // 2, config.hidden_size
+    nl, k = config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size
+    a = packed.arrays
+    mask = length_mask(lengths, x.shape[1], x.dtype)
+    if mask is None:
+        mask = x.new_ones((*x.shape[:2], 1))
+    state = x
+    for s in range(config.prior_encoder_num_flows):
+        read_off = half if s % 2 == 0 else 0
+        read = state[..., read_off: read_off + half]
+        upd = state[..., half - read_off: 2 * half - read_off]
+        h = (read @ a["w_pre"][s] + a["b_pre"][s]) * mask
+        skip = 0.0
+        for l in range(nl):
+            g = conv1d(h, a["w_gate"][s, l], a["b_gate"][s, l], padding=k // 2)
+            if cond is not None:
+                g = g + interleave(cond[:, s, l, :hidden], cond[:, s, l, hidden:])[:, None]
+            acts = torch.tanh(g[..., 0::2]) * torch.sigmoid(g[..., 1::2]) * mask
+            rs = acts @ a["w_rs"][s, l] + a["b_rs"][s, l]
+            if l < nl - 1:
+                h = (h + rs[..., 0::2]) * mask
+            skip = skip + rs[..., 1::2]
+        upd = (upd - (skip @ a["w_post"][s] + a["b_post"][s])) * mask
+        state = torch.cat((upd, read) if read_off else (read, upd), dim=-1)
+    return state * mask
+
+
+@functools.lru_cache(maxsize=256)
+def flow_plan(B: int, T: int, half: int, hidden: int, k: int, sm_count: int):
+    """(tile, split) of the pre, gate, res/skip and post products, as
+    ``vk_flow_capture`` takes them (tile ids of ``CONV_TILES``).
+
+    Fitted to ``scripts/torch_flow_trio_probe.py`` on an H100 (every tile and
+    split of each product at B=1, 3, 8, 16, replayed from the captured graph):
+    the gate takes the 128 x 64 tile unsplit once that grid covers the SMs,
+    else the 64 x 64 tile with its k * hidden / 32 steps split over 8 blocks
+    (short sequences: a short chain per block); res/skip takes 64 x 64
+    unsplit at 8 waves of tiles, 128 x 64 unsplit at one, else
+    :func:`conv_plan`; pre and post take :func:`conv_plan`
+    with uneven splits (channels off the 32-grid rounded up: the kernel
+    zero-fills the tail).
+    """
+    def up(c):
+        return -(-c // 32) * 32
+
+    def tiles(tile, c_out):
+        bm, bn = CONV_TILES[tile]
+        return -(-T // bm) * -(-c_out // bn) * B
+
+    def planned(c_in, c_out, taps):
+        return list(conv_plan(B, T, up(c_in), up(c_out), taps, sm_count, uneven=True)[:2])
+
+    gate = [0, 1] if tiles(0, 2 * hidden) >= sm_count else [1, 8]
+    if (8 - 1) * -(-k * (hidden // 32) // 8) >= k * (hidden // 32):  # a split-8 block idle
+        gate = planned(hidden, 2 * hidden, k)
+    if tiles(1, 2 * hidden) >= 8 * sm_count:
+        rs = [1, 1]
+    elif tiles(0, 2 * hidden) >= sm_count:
+        rs = [0, 1]
+    else:
+        rs = planned(hidden, 2 * hidden, 1)
+    plan = [*planned(half, hidden, 1), *gate, *rs, *planned(hidden, half, 1)]
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def fused_flow(
@@ -110,6 +326,7 @@ def fused_flow(
     *,
     lengths: torch.Tensor | None = None,  # (B,) valid frames; None = all T
     speaker_embeddings: torch.Tensor | None = None,  # (B, 1, speaker_emb)
+    packed: FlowPack | None = None,  # pack_flow_weights(params, config), kept by the caller
 ) -> torch.Tensor:
     """Prior latents -> flow latents (B, T, flow_size), zero at and past each length.
 
@@ -117,20 +334,17 @@ def fused_flow(
     (fp32, contiguous, no autograd, flow_size // 2 a multiple of 16 and
     hidden_size of 32) or raise, including on what the TPU kernel silently
     gets wrong: a WaveNet dilation rate other than 1 (it reads its k taps
-    contiguously) and an odd number of flows.
+    contiguously) and an odd number of flows. Without ``packed`` the weights
+    are packed, and the launches captured, on the call.
     """
-    steps = flow_steps(config)
-    weights = [_coupling_weights(params, config, i) for i, _ in steps]
-    tensors = [x, *(t for ws in weights for _, t, _ in ws)]
-    if speaker_embeddings is not None:
-        tensors.append(speaker_embeddings)
-    if not on_cuda("fused_flow", *tensors):
+    acts = [x] if speaker_embeddings is None else [x, speaker_embeddings]
+    if not on_cuda("fused_flow", *acts):
         return flow_reference(x, params, config, lengths=lengths,
                               speaker_embeddings=speaker_embeddings)
-    no_autograd("fused_flow", *tensors)
     B, T, C = x.shape
     half, hidden = config.flow_size // 2, config.hidden_size
-    nl, k = config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size
+    nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
+                config.prior_encoder_num_flows)
     if C != config.flow_size:
         raise ValueError(f"flow kernel: input has {C} channels, flow_size is {config.flow_size}")
     if config.wavenet_dilation_rate != 1 and nl > 1:
@@ -139,31 +353,24 @@ def fused_flow(
     if half % 16 or hidden % 32:
         raise ValueError(f"flow kernel needs flow_size // 2 % 16 == 0 and hidden_size % 32 == 0 "
                          f"(got {half}, {hidden})")
-    if len(steps) % 2 or k % 2 == 0:
+    if n % 2 or k % 2 == 0:
         raise ValueError(f"flow kernel needs an even number of flows and an odd kernel size "
-                         f"(got {len(steps)} flows, k={k})")
-    for name, t, shape in (w for ws in weights for w in ws):
-        if tuple(t.shape) != shape or t.data_ptr() % 16:
-            raise ValueError(f"flow kernel: {name} {tuple(t.shape)} != {shape} "
-                             "or not 16-byte aligned")
-    cond = None
-    if speaker_embeddings is not None:
-        cond = pack_flow_cond(params, config, speaker_embeddings)
-    lib = library()
-    stream = stream_of(x)
-    lens = cuda_lengths(lengths, B, T, x.device)
-    out = x.clone()  # the couplings update its halves in place
-    h, acts, skip = (x.new_empty((B, T, hidden)) for _ in range(3))
-    row_stride = len(steps) * nl * 2 * hidden
-    for s, ((_, flipped), ws) in enumerate(zip(steps, weights)):
-        ptrs = (ctypes.c_void_p * len(ws))(*(t.data_ptr() for _, t, _ in ws))
-        cond_ptr = None if cond is None else cond.data_ptr() + 4 * s * nl * 2 * hidden
-        read_off, upd_off = (half, 0) if flipped else (0, half)
-        check(lib.vk_flow_coupling(
-            out.data_ptr(), lens.data_ptr(), cond_ptr, row_stride, ctypes.addressof(ptrs),
-            len(ws), h.data_ptr(), acts.data_ptr(), skip.data_ptr(), B, T, C, half, hidden, nl,
-            k, read_off, upd_off, int(flipped), stream),
-            f"flow coupling kernels (step {s})")
+                         f"(got {n} flows, k={k})")
+    if packed is None:
+        packed = pack_flow_weights(params, config)
+    on_cuda("fused_flow", *acts, packed.buffer)
+    no_autograd("fused_flow", *acts, packed.buffer)
+    ws = packed.workspace(config, B, T, speaker_embeddings is not None)
+    if speaker_embeddings is not None and speaker_embeddings.shape != (B, 1, ws.emb_size):
+        raise ValueError(f"flow kernel: speaker embeddings {tuple(speaker_embeddings.shape)} "
+                         f"!= ({B}, 1, {ws.emb_size})")
+    lens = ws.full if lengths is None else cuda_lengths(lengths, B, T, x.device)
+    out = torch.empty_like(x)
+    check(library().vk_flow_run(
+        ws.exec, ws.x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
+        None if ws.emb is None else ws.emb.data_ptr(),
+        None if speaker_embeddings is None else speaker_embeddings.data_ptr(), B, T, C,
+        ws.emb_size, out.data_ptr(), stream_of(x)), "flow kernels")
     fused_flow.launches += 1
     return out
 

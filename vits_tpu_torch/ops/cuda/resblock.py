@@ -61,16 +61,18 @@ class ConvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def conv_plan(B: int, T: int, C_in: int, C_out: int, k: int, sm_count: int) -> ConvPlan:
+def conv_plan(B: int, T: int, C_in: int, C_out: int, k: int, sm_count: int,
+              uneven: bool = False) -> ConvPlan:
     """Tile and K split of one conv launch.
 
     Channels off the tensor-core path's grid (C_in % 32 or C_out % 32) take
     the narrow path (tile -1: NARROW_ROWS steps x up to NARROW_COLS
     out-channels per block). Otherwise, among the tiles and splits (dividing the
-    k * C_in / 32 steps) whose grid puts two blocks on every SM, the one of
-    least modelled time: waves of one block per SM, each as long as a block's
-    share of the steps plus its fixed cost, scaled by the tile's area over its
-    rate. When no grid is that large, the largest grid.
+    k * C_in / 32 steps; with ``uneven``, any split whose last block still gets
+    steps, each block taking ceil(steps / split)) whose grid puts two blocks on
+    every SM, the one of least modelled time: waves of one block per SM, each
+    as long as a block's share of the steps plus its fixed cost, scaled by the
+    tile's area over its rate. When no grid is that large, the largest grid.
     """
     if C_in % CONV_CHUNK or C_out % 32:
         return ConvPlan(-1, 1, -(-T // NARROW_ROWS) * -(-C_out // NARROW_COLS) * B)
@@ -81,10 +83,11 @@ def conv_plan(B: int, T: int, C_in: int, C_out: int, k: int, sm_count: int) -> C
             continue
         tiles = -(-T // bm) * (C_out // bn) * B
         for split in CONV_SPLITS:
-            if steps % split:
+            share = -(-steps // split)
+            if (steps % split) if not uneven else (split - 1) * share >= steps:
                 continue
             blocks = tiles * split
-            cost = (-(-blocks // sm_count) * (steps / split + CONV_BLOCK_STEPS) * bm * bn
+            cost = (-(-blocks // sm_count) * (share + CONV_BLOCK_STEPS) * bm * bn
                     / CONV_TILE_RATES[tile])
             plans.append((blocks >= 2 * sm_count, -cost, ConvPlan(tile, split, blocks)))
     full = [p for p in plans if p[0]]

@@ -6,22 +6,41 @@ Replaces ``vits_tpu/ops/pallas/trio_grad.py::make_trainable_trio``.
 resblock_trio.cu``, lengths = T: training segments are unmasked) writing each
 pair's pre-activation ``y1_i`` and each later pair's input ``x_i`` into
 buffers of their own; its plain twin is :func:`trio_forward_with_acts_reference`.
-The backward, :func:`trio_backward`, is the exact reverse chain of the JAX package's
-(``trio_grad.py:217-265``) on PyTorch's conv gradients over the saved
-activations, with no recompute of the forward convs -- the JAX package runs
-that chain in XLA, outside any Pallas kernel.
+The backward, :func:`trio_backward`, is the exact reverse chain of the JAX
+package's VJP (``trio_grad.py:217-265``, run there in XLA outside any Pallas
+kernel) over the saved activations, with no recompute of the forward convs:
+per pair two weight-gradient launches and two input-gradient launches of
+``vits_tpu_torch/csrc/trio_grad.cu`` (the conv reading the weights flipped
+in time and transposed, leaky's derivative in its epilogue; the weight
+gradients a 3xTF32 GEMM over the frames, split over a cluster and summed in
+a fixed order, so a repeated backward is bit-identical). Its plain twin,
+which CPU tensors take, is :func:`trio_backward_reference`: PyTorch's conv
+gradients and elementwise ops.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
-from vits_tpu_torch.ops.cuda import cuda_lengths, on_cuda
-from vits_tpu_torch.ops.cuda.resblock import pair_weights, run_pairs
+from vits_tpu_torch.ops.cuda import (
+    check,
+    cuda_lengths,
+    device_sm_count,
+    library,
+    on_cuda,
+    stream_of,
+)
+from vits_tpu_torch.ops.cuda.resblock import conv_plan, pair_weights, run_pairs
+
+# The weight-gradient tile (csrc/trio_grad.cu): C_in x C_out channels per block,
+# and the frames of one step.
+WGRAD_TILE = 64
+WGRAD_FRAMES = 32
 
 
 def _blocks_of(metas: Sequence[tuple[int, tuple[int, ...]]], weights: Sequence[torch.Tensor]):
@@ -98,11 +117,13 @@ def flat_acts(acts) -> list[torch.Tensor]:
     return [a for y1s, xs in acts for a in (*y1s, *xs)]
 
 
-def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
-                  saved: Sequence[torch.Tensor], *, slope: float, need_x: bool = True):
-    """(dx or None, [dw1, db1, dw2, db2] per pair in :func:`pair_weights` order) of
-    mean_j resblock_j(x) for output grad ``g``, from the saved activations
-    (:func:`flat_acts`) with no recompute of the forward convs."""
+def trio_backward_reference(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
+                            saved: Sequence[torch.Tensor], *, slope: float,
+                            need_x: bool = True):
+    """Plain PyTorch: (dx or None, [dw1, db1, dw2, db2] per pair in
+    :func:`pair_weights` order) of mean_j resblock_j(x) for output grad ``g``,
+    from the saved activations (:func:`flat_acts`) with no recompute of the
+    forward convs."""
     inv = 1.0 / len(blocks)
     dx_total, dweights, a_pos = None, [], 0
     for blk in blocks:
@@ -132,6 +153,100 @@ def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
     return dx_total, dweights
 
 
+def flip_transpose(w: torch.Tensor) -> torch.Tensor:
+    """(k, C_in, C_out) -> (k, C_out, C_in), flipped in time: the weights of a
+    conv's input gradient, flipT(w)[tap][o][i] = w[k-1-tap][i][o]. The kernel
+    reads w this way in its tile loader; this is the plain form."""
+    return w.flip(0).transpose(1, 2)
+
+
+def wgrad_split(B: int, T: int, C: int, k: int, sm_count: int) -> int:
+    """Blocks of a cluster sharing one weight-gradient tile's frames: the least
+    split (1, 2, 4, 8) whose grid puts two blocks on every SM, short of one that
+    would leave a block without frames."""
+    tiles = (C // WGRAD_TILE) ** 2 * k
+    steps = -(-B * T // WGRAD_FRAMES)
+    best = 1
+    for split in (2, 4, 8):
+        if tiles * best >= 2 * sm_count or (split - 1) * -(-steps // split) >= steps:
+            break
+        best = split
+    return best
+
+
+class TrioPair(ctypes.Structure):
+    """One pair of the backward as ``csrc/trio_grad.cu::vk_trio_backward`` takes it."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "w1", "w2", "y1", "x_in", "dx_in", "dy1", "dx_out", "dw1", "db1", "dw2", "db2")]
+        + [(name, ctypes.c_int) for name in (
+            "k", "dil", "tile", "split", "wsplit", "need_in", "accumulate")])
+
+
+def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
+                  saved: Sequence[torch.Tensor], *, slope: float, need_x: bool = True):
+    """(dx or None, [dw1, db1, dw2, db2] per pair in :func:`pair_weights` order) of
+    mean_j resblock_j(x) for output grad ``g``, from the saved activations
+    (:func:`flat_acts`).
+
+    CPU tensors take :func:`trio_backward_reference`; CUDA tensors launch the
+    kernels (fp32, contiguous, C a multiple of 64, odd kernel sizes) or raise.
+    """
+    weights = pair_weights(blocks)
+    if not on_cuda("trio_backward", g, x, *weights):
+        return trio_backward_reference(g, x, blocks, saved, slope=slope, need_x=need_x)
+    saved = [a.contiguous() for a in saved]  # the kernel forward's already are
+    on_cuda("trio_backward", x, *saved)
+    B, T, C = x.shape
+    if C % WGRAD_TILE or g.shape != x.shape:
+        raise ValueError(f"trio backward kernel needs C % {WGRAD_TILE} == 0 and g of x's "
+                         f"shape (got x {tuple(x.shape)}, g {tuple(g.shape)})")
+    sms = device_sm_count(x.device)
+    lens = cuda_lengths(None, B, T, x.device)
+    dx_total = torch.empty_like(x) if need_x else None
+    g_inv = g * (1.0 / len(blocks))  # d(mean)/d(block output)
+    # every pair its own dy1 and dx buffers: the second stream's weight
+    # gradients read them while later pairs run
+    buffers = x.new_empty((2 * sum(len(blk["dilations"]) for blk in blocks), B, T, C))
+    buf, step = buffers.data_ptr(), 4 * B * T * C
+    pairs, dweights, a_pos = [], [], 0
+    for j, blk in enumerate(blocks):
+        k, dilations = blk["kernel_size"], blk["dilations"]
+        n = len(dilations)
+        if k % 2 == 0:
+            raise ValueError(f"trio backward kernel needs an odd kernel size, got {k}")
+        for w in (*blk["w1"], *blk["w2"]):
+            if w.shape != (k, C, C):
+                raise ValueError(f"trio backward: weight {tuple(w.shape)} != ({k}, {C}, {C})")
+        y1s, xs = saved[a_pos: a_pos + n], saved[a_pos + n: a_pos + 2 * n - 1]
+        a_pos += 2 * n - 1
+        tile, split, _ = conv_plan(B, T, C, C, k, sms)
+        wsplit = wgrad_split(B, T, C, k, sms)
+        dws = x.new_empty((2 * n, k, C, C)).unbind(0)  # dw1 of each pair, then dw2
+        dbs = x.new_empty((2 * n, C)).unbind(0)
+        dx = g_inv.data_ptr()
+        for i in reversed(range(n)):
+            need_in = i > 0 or need_x
+            # the last pair adds its block's dx into the sum over blocks
+            dx_out = (dx_total.data_ptr() if i == 0 else buf + step) if need_in else None
+            pairs.append(TrioPair(
+                blk["w1"][i].data_ptr(), blk["w2"][i].data_ptr(), y1s[i].data_ptr(),
+                (x if i == 0 else xs[i - 1]).data_ptr(), dx, buf, dx_out, dws[i].data_ptr(),
+                dbs[i].data_ptr(), dws[n + i].data_ptr(), dbs[n + i].data_ptr(), k,
+                dilations[i], tile, split, wsplit, int(need_in), int(i == 0 and j > 0)))
+            buf += 2 * step
+            dx = dx_out
+        dweights += [t for i in range(n) for t in (dws[i], dbs[i], dws[n + i], dbs[n + i])]
+    table = (TrioPair * len(pairs))(*pairs)
+    check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C, slope,
+                                     stream_of(x)), "trio backward kernels")
+    trio_backward.launches += 1
+    return dx_total, dweights
+
+
+trio_backward.launches = 0
+
+
 class _TrainableTrio(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slope, metas, *weights):
@@ -144,8 +259,9 @@ class _TrainableTrio(torch.autograd.Function):
     def backward(ctx, g):
         x, *rest = ctx.saved_tensors
         n_w = sum(4 * len(d) for _, d in ctx.metas)
-        dx, dweights = trio_backward(g, x, _blocks_of(ctx.metas, rest[:n_w]), rest[n_w:],
-                                     slope=ctx.slope, need_x=ctx.needs_input_grad[0])
+        dx, dweights = trio_backward(g.contiguous(), x, _blocks_of(ctx.metas, rest[:n_w]),
+                                     rest[n_w:], slope=ctx.slope,
+                                     need_x=ctx.needs_input_grad[0])
         return (dx, None, None,
                 *(gw if need else None for gw, need in zip(dweights, ctx.needs_input_grad[3:])))
 
