@@ -32,29 +32,39 @@ printing its result line:
    with lengths (320, 137, 0) for T=320, and at B=8, T=640 and B=16,
    T=1280, with the B=1 call's host enqueue ms and its device busy ms under
    ``torch.profiler``, kernel and plain (the kernel on weights packed once, as
-   the engine keeps them); kernel 7 (one resblock) and kernel
-   C at C_out 16 and 8 at the shapes of HiFi-GAN V2's stages for 320 frames;
+   the engine keeps them); kernel 7 (one resblock, one launch: the profiler
+   must see one device operation a call) at the shapes of HiFi-GAN V2's stages
+   0-1 for 320 frames, beside the six-launch route it replaced (B's conv twice
+   per pair, ``run_pairs``) timed in the same call, and once at kernel C's MMS
+   resblock shape (C=64, T=40960, B=1, k=11) as a probe; kernel C at C_out 16
+   and 8 at HiFi-GAN V2's stages 2-3;
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
-   seed 0) on ``cuda``; three single requests, then one batch of three texts with
-   per-row seeds. Audio is finite, in [-1, 1], of positive length; every
-   kernel's launch count rose during those requests; each batch row equals
-   its solo run; a repeated seed gives identical audio; one dispatch on
-   the card agrees with the same dispatch through the plain versions on the
-   CPU, given the same noise; and one request of the second text under
-   ``torch.profiler``: device busy ms, idle share, device ms of the resblock
-   convs (kernels B, C) and of kernel A;
+   seed 0) on ``cuda``; ``Synthesizer.warmup`` (every token bucket at batch 1
+   and 3, per-row seeds, one re-dispatch rung: its seconds), three single
+   requests (the first one's wall ms beside its steady median), then one
+   batch of three texts with per-row seeds. Audio is finite, in [-1, 1], of
+   positive length; every kernel's launch count rose during those requests;
+   each batch row equals its solo run; a repeated seed gives identical audio;
+   the batch through ``batch_buckets=(1, 4)`` dispatches only bucket sizes and
+   its rows equal their solo runs; one dispatch on the card agrees with the
+   same dispatch through the plain versions on the CPU, given the same noise;
+   and one request of the second text under ``torch.profiler``: device busy
+   ms, idle share, device ms of the resblock convs (kernels B, C) and of
+   kernel A;
 5. multi-speaker serving at the published VCTK width (109 speakers, 256-wide
    embeddings, random weights with the posterior encoder, seed 0) with
    ``EngineConfig(use_pallas_flow=True)``: as phase 4 with speakers 0, 17 and
    108 and per-row speakers in the batch, kernels A, B, C and 6 launched,
+   every flow graph the warmup captured kept and reused by the requests,
    speakers 0 and 17 differing on the same text and seed, and the ms per
    request with the flow kernel on and off; then voice conversion of a
    synthesized utterance from speaker 0 to 17 (posterior mean: finite,
    frames x hop long, identical on a second call, card vs CPU);
-6. the narrow vocoder: one request at HiFi-GAN V2's decoder (MMS text side,
-   ``upsample_initial_channel=128``) through kernels 7 and C at C_out 16 and
-   8, and the card-vs-CPU check;
+6. the narrow vocoder: warmup, then one request at HiFi-GAN V2's decoder (MMS
+   text side, ``upsample_initial_channel=128``) through kernels 7 and C at
+   C_out 16 and 8, the card-vs-CPU check, and the request's profile (device
+   busy ms, idle share, device ms of kernels 7 and C) beside its wall ms;
 7. training at full MMS width (random weights with the training modules,
    seed 0; the discriminator at seed 0): the inference kernels refuse
    autograd; a warm-up GAN step, then three on a batch of 512 and 300 tokens
@@ -132,6 +142,12 @@ BATCH_ATOL = 2e-3
 # outside the tensor cores. And HBM.
 PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
+# Profiler sessions: idle seconds at each end, and the runtime calls that each
+# put work on the card (a device event with the call's correlation id).
+PROFILE_PAD_S = 0.005
+DEVICE_WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+# Profiler sessions of this run, and those run again because CUPTI lost a record.
+PROFILER_SESSIONS = {"sessions": 0, "rerun": 0}
 
 SINGLE_TEXTS = (
     "hello world.",
@@ -354,11 +370,6 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
     from vits_tpu_torch.io.params import ParamView
     from vits_tpu_torch.models.hifigan import _stage_resblocks
     from vits_tpu_torch.ops.cuda.flow import flow_reference, fused_flow, pack_flow_weights
-    from vits_tpu_torch.ops.cuda.resblock import (
-        fused_resblock,
-        pair_weights,
-        resblock_reference,
-    )
 
     rng = np.random.default_rng(4)
     frames = 320
@@ -408,18 +419,82 @@ def slice_kernels_vs_plain(vctk, narrow, device) -> dict:
     slope = config.leaky_relu_slope
     for i, T in ((0, 8 * frames), (1, 64 * frames)):
         x, lens = activ(T, decoder[f"upsampler.{i}.weight"].shape[2], T - 37)
-        C = x.shape[-1]
-        for j, blk in enumerate(_stage_resblocks(decoder, config, i)):
-            results["fused_resblock"].append(compare(
-                "fused_resblock", f"C={C} B=2 T={T} k={blk['kernel_size']} len=({T - 37},0)",
-                lambda: fused_resblock(x, blk, slope=slope, lengths=lens),
-                lambda: resblock_reference(x, blk, slope=slope, lengths=lens),
-                work=(resblocks_flops(steps_of(x, lens), C, [blk]),
-                      nbytes(x, x, lens, *pair_weights([blk])))))
+        for blk in _stage_resblocks(decoder, config, i):
+            results["fused_resblock"].append(compare_resblock(
+                x, lens, blk, slope, f"B=2 T={T} len=({T - 37},0)"))
     for i, T_in in ((2, 64 * frames), (3, 128 * frames)):
         results["fused_stage"].append(compare_stage(decoder, config, i, activ(
             T_in, decoder[f"upsampler.{i}.weight"].shape[1], T_in - 37)))
     return results
+
+
+def compare_resblock(x, lens, blk, slope: float, shape: str) -> dict:
+    """Kernel 7 against its plain version, and beside it the six-launch route it
+    replaces (B's conv twice per pair, ``run_pairs``, which stays kernel B's
+    route) timed on the same inputs in the same call; one call must be one
+    device launch."""
+    from vits_tpu_torch.ops.cuda.resblock import (
+        block_plan,
+        fused_resblock,
+        pair_weights,
+        resblock_reference,
+        run_pairs,
+    )
+
+    B, T, C = x.shape
+    k, dilations = blk["kernel_size"], tuple(blk["dilations"])
+    plan = block_plan(B, T, C, k, dilations, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    kernel = lambda: fused_resblock(x, blk, slope=slope, lengths=lens)  # noqa: E731
+    result = compare("fused_resblock", f"C={C} {shape} k={k}", kernel,
+                     lambda: resblock_reference(x, blk, slope=slope, lengths=lens),
+                     work=(resblocks_flops(steps_of(x, lens), C, [blk]),
+                           nbytes(x, x, lens, *pair_weights([blk]))))
+    out = torch.empty_like(x)
+    six = lambda: run_pairs(x, out, [blk], lens, slope)  # noqa: E731
+    ops = host_and_device(kernel)["device_ops"]
+    earlier = {"ms": median_ms(six), "device_ms": host_and_device(six)["device_busy_ms"]}
+    if ops != 1:
+        raise RuntimeError(f"kernel 7 at C={C} {shape}: {ops} device launches a call, not 1")
+    verdict = "at or below" if result["device_ms"] <= earlier["device_ms"] else "ABOVE"
+    print(f"    plan bm={plan.bm} cluster={plan.cluster}; 1 device launch a call; the six-launch "
+          f"route {earlier['ms']:.3f} ms (device {earlier['device_ms']:.4f}): kernel 7 {verdict} "
+          "it", flush=True)
+    result.update(plan={"bm": plan.bm, "cluster": plan.cluster}, device_ops=ops,
+                  six_launch_ms=earlier["ms"], six_launch_device_ms=earlier["device_ms"])
+    return result
+
+
+def block_probe_at_stage_shape(params: dict, config, device) -> dict:
+    """Kernel 7 at kernel C's MMS resblock shape (C=64, T=40960, B=1, k=11: stage 2's
+    third resblock for 320 frames), against the six-launch route. A measurement
+    for the roadmap: kernel C keeps its own route."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, resblock_reference, run_pairs
+
+    rng = np.random.default_rng(5)
+    blk = _stage_resblocks(ParamView(params).sub("decoder"), config, 2)[-1]
+    x = torch.tensor(rng.standard_normal((1, 40960, 64)), dtype=torch.float32, device=device)
+    x[:, 40923:] = 0.0
+    lens = torch.tensor([40923], dtype=torch.int32, device=device)
+    slope = config.leaky_relu_slope
+    got = fused_resblock(x, blk, slope=slope, lengths=lens)
+    want = resblock_reference(x, blk, slope=slope, lengths=lens)
+    err = float((got - want).abs().max()) / (KERNEL_TOL * max(1.0, float(want.abs().max())))
+    out = torch.empty_like(x)
+    probe = {"kernel_device_ms": host_and_device(
+                 lambda: fused_resblock(x, blk, slope=slope, lengths=lens))["device_busy_ms"],
+             "six_launch_device_ms": host_and_device(
+                 lambda: run_pairs(x, out, [blk], lens, slope))["device_busy_ms"],
+             "err_over_tol": err}
+    print(f"  kernel 7 probe at kernel C's MMS resblock shape (C=64 T=40960 B=1 k=11): device "
+          f"{probe['kernel_device_ms']:.4f} ms, the six-launch route "
+          f"{probe['six_launch_device_ms']:.4f} ms, {err:.3g} of tol (C keeps its route)",
+          flush=True)
+    if not err <= 1.0:
+        raise RuntimeError(f"kernel 7 at kernel C's shape: off by {err:.3g} times the tolerance")
+    return probe
 
 
 def training_kernels_vs_plain(params: dict, config, device) -> dict:
@@ -563,28 +638,45 @@ def check_audio(audio: np.ndarray, what: str) -> None:
         raise RuntimeError(f"{what}: audio not finite or outside [-1, 1]")
 
 
+# Synthesizer.warmup before the requests of phases 4-6: every token bucket at batch
+# 1 and 3 (the batch request's rows), per-row seeds (the requests pass seed lists),
+# and the first re-dispatch rung.
+WARMUP = dict(batch_sizes=(1, 3), per_row_seeds=True, overflow_ladder=1)
+
+
+def warm(model, card: str) -> dict:
+    """``model.warmup(**WARMUP)``: its seconds, and kernel 6's workspaces after it."""
+    t0 = time.perf_counter()
+    model.warmup(**WARMUP)
+    seconds = time.perf_counter() - t0
+    pack = model._flow_pack()
+    print(f"  warmup{tuple(WARMUP.values())}: {seconds:.2f} s wall, "
+          f"{model.stats['compiled_shapes']} dispatch shapes"
+          + ("" if pack is None else f", {len(pack._workspaces)} flow graphs captured")
+          + f" ({card})", flush=True)
+    return {"seconds": seconds, "flow_graphs": {} if pack is None else dict(pack._workspaces)}
+
+
 def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=None) -> dict:
-    """Phases 4-5: the requests, with the launch counts of ``wrappers`` over them."""
+    """Phases 4-5: warmup, the requests (the first one's wall ms beside its steady
+    median), with the launch counts of ``wrappers`` over them; batch rows vs solo
+    runs; repeated seeds; and one batch through batch buckets (1, 4)."""
     rate = model.config.sampling_rate
     single_speakers = single_speakers or (None,) * len(SINGLE_TEXTS)
-
-    t0 = time.perf_counter()
-    check_audio(model.synthesize(SINGLE_TEXTS[0], seed=0, speaker_id=single_speakers[0]),
-                "warm-up request")
-    print(f"  warm-up request: {1e3 * (time.perf_counter() - t0):.1f} ms wall "
-          f"(first use of cuDNN/cuBLAS)", flush=True)
+    warmed = warm(model, card)
 
     for fn in wrappers:
         fn.launches = 0
     requests = [([text], [seed], None if spk is None else [spk]) for seed, (text, spk)
                 in enumerate(zip(SINGLE_TEXTS, single_speakers), start=1)]
     requests.append((list(BATCH_TEXTS), list(BATCH_SEEDS), batch_speakers))
-    batch_out = None
+    batch_out, walls = None, []
     for n, (texts, seeds, speakers) in enumerate(requests, start=1):
         tokens = [len(model.tokenizer.encode(t)) for t in texts]
         t0 = time.perf_counter()
         out = model.synthesize_raw(texts, seed=seeds, speaker_id=speakers)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        walls.append(wall_ms)
         for i in range(len(texts)):
             check_audio(out.waveform[i, : out.lengths[i]], f"request {n} row {i}")
         audio_s = float(out.lengths.sum()) / rate
@@ -599,6 +691,8 @@ def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=N
     for name, count in launches.items():
         if count == 0:
             raise RuntimeError(f"kernel {name} was never launched on the main path")
+    first_ms = first_request_after_warmup(model, card, walls[0], single_speakers[0])
+    check_flow_graphs_kept(model, warmed["flow_graphs"])
 
     worst = 0.0
     batch_speakers = batch_speakers or (None,) * len(BATCH_TEXTS)
@@ -622,7 +716,63 @@ def run_slice(model, card: str, wrappers, single_speakers=None, batch_speakers=N
         if not np.array_equal(audio, batch_out.waveform[i, : batch_out.lengths[i]]):
             raise RuntimeError(f"repeated seed {BATCH_SEEDS[i]} gave different audio")
     print("  repeated seeds: identical audio", flush=True)
-    return launches
+    batch_buckets(model, batch_speakers)
+    return {"launches": launches, "warmup_s": warmed["seconds"], "first_request_ms": first_ms}
+
+
+def first_request_after_warmup(model, card: str, first_ms: float, speaker, reps: int = 3):
+    """The first request after warmup again, ``reps`` times: its steady median."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        model.synthesize_raw([SINGLE_TEXTS[0]], seed=[1], speaker_id=None if speaker is None
+                             else [speaker])
+        walls.append(1e3 * (time.perf_counter() - t0))
+    steady = float(np.median(walls))
+    print(f"  first request after warmup: {first_ms:.1f} ms wall; the same request again, "
+          f"median of {reps}: {steady:.1f} ms ({card})", flush=True)
+    return {"first_ms": first_ms, "steady_ms": steady}
+
+
+def check_flow_graphs_kept(model, warmed: dict) -> None:
+    """Every flow graph warmup captured is still the one the pack holds: the
+    requests of warmed shapes captured none anew."""
+    pack = model._flow_pack()
+    if pack is None:
+        return
+    lost = [key for key, ws in warmed.items() if pack._workspaces.get(key) is not ws]
+    if lost:
+        raise RuntimeError(f"flow graphs of warmed shapes captured again: {lost}")
+    new = [key for key in pack._workspaces if key not in warmed]
+    print(f"  flow graphs: all {len(warmed)} warmed ones kept and reused; {len(new)} shapes "
+          f"the warmup did not cover captured during the requests {new}", flush=True)
+
+
+def batch_buckets(model, batch_speakers) -> None:
+    """The batch of three texts through ``batch_buckets=(1, 4)`` (padded to 4 rows):
+    rows equal their solo runs within BATCH_ATOL, and every dispatch shape has a
+    bucket's rows."""
+    engine = model.engine
+    model.engine = dataclasses.replace(engine, batch_buckets=(1, 4))
+    model._dispatch_shapes.clear()
+    try:
+        speakers = None if batch_speakers[0] is None else list(batch_speakers)
+        batch = model.synthesize(list(BATCH_TEXTS), seed=list(BATCH_SEEDS), speaker_id=speakers)
+        worst = 0.0
+        for i, (text, seed) in enumerate(zip(BATCH_TEXTS, BATCH_SEEDS)):
+            solo = model.synthesize(text, seed=[seed], speaker_id=None if speakers is None
+                                    else [speakers[i]])
+            if solo.shape != batch[i].shape:
+                raise RuntimeError(f"batch buckets: row {i} {batch[i].shape}, solo {solo.shape}")
+            worst = max(worst, float(np.abs(batch[i] - solo).max()))
+        rows = {shape[0] for shape in model._dispatch_shapes}
+    finally:
+        model.engine = engine
+    print(f"  batch_buckets=(1, 4): 3 texts dispatched at rows {sorted(rows)}; rows vs solo "
+          f"runs max|diff| {worst:.3e} (atol {BATCH_ATOL})", flush=True)
+    if not worst <= BATCH_ATOL or not rows <= {1, 4}:
+        raise RuntimeError("batch buckets: rows differ from solo runs or a dispatch is "
+                           "outside the buckets")
 
 
 # The launches of one kernel C call, by the first pattern their name contains.
@@ -655,11 +805,11 @@ REQUEST_FAMILIES = (
 )
 
 
-def request_profile(model, card: str, reps: int = 3) -> dict:
+def request_profile(model, card: str, reps: int = 3, families=REQUEST_FAMILIES) -> dict:
     """One request of the second text (87 tokens): the
     steady wall ms (median of ``reps``, host clock to a synchronise), then one
     request under ``torch.profiler``: device busy ms, the idle share of the
-    steady request, and device ms per kernel family."""
+    steady request, and device ms per kernel family of ``families``."""
     def request():
         return model.synthesize_raw([SINGLE_TEXTS[1]], seed=[5])
 
@@ -675,7 +825,7 @@ def request_profile(model, card: str, reps: int = 3) -> dict:
         walls.append(1e3 * (time.perf_counter() - t0))
     steady_ms = float(np.median(walls))
     wall_ms, device, busy_ms = profiled(request)
-    families = by_family(device, REQUEST_FAMILIES)
+    families = by_family(device, families)
     idle = 1.0 - busy_ms / steady_ms
     tokens = len(model.tokenizer.encode(SINGLE_TEXTS[1]))
     print(f"  one {tokens}-token request ({frames} frames at capacity {capacity}): steady "
@@ -920,27 +1070,44 @@ KERNEL_FAMILIES = (
 def profiled(fn, attempts: int = 3) -> tuple[float, list, float]:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock to a
     synchronise), its device events (kernels, memcpy, memset) and the device
-    busy ms (the union of their intervals). A session that records no device
-    event at all (CUPTI now and then returns none on this machine) is run
-    again, up to ``attempts`` times."""
+    busy ms (the union of their intervals).
+
+    CUPTI now and then loses the first device records of a session (at times
+    all of them): a launch on the host's side then has no device event of its
+    correlation id. So the session starts and ends with PROFILE_PAD_S of idle
+    card, and a session that lost a record is run again, up to ``attempts``
+    times; the one with the most device events is kept."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
+    best = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+            time.sleep(PROFILE_PAD_S)
         with tempfile.TemporaryDirectory() as tmp:
             prof.export_chrome_trace(f"{tmp}/trace.json")
             with open(f"{tmp}/trace.json") as f:
                 events = json.load(f)["traceEvents"]
         device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if device:
+        if best is None or len(device) > len(best[1]):
+            best = (wall_ms, device)
+        recorded = {e.get("args", {}).get("correlation") for e in device}
+        lost = [e for e in events if e.get("cat") == "cuda_runtime"
+                and any(word in e.get("name", "") for word in DEVICE_WORK_CALLS)
+                and e.get("args", {}).get("correlation") not in recorded]
+        PROFILER_SESSIONS["sessions"] += 1
+        if device and not lost:
             break
-    else:
+        PROFILER_SESSIONS["rerun"] += 1
+    wall_ms, device = best
+    if not device:
         raise RuntimeError(f"the profiler saw no device activity in {attempts} sessions")
     busy_ms, end = 0.0, -np.inf
     for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
@@ -1164,11 +1331,21 @@ def train_loop(card: str) -> None:
             raise RuntimeError(f"resume to step 6 did not run as expected: {logs}")
 
 
+# Device kernel families of a HiFi-GAN V2 request: kernel 7, kernel C's own kernels and
+# its narrow resblock convs, then the rest as in REQUEST_FAMILIES.
+NARROW_FAMILIES = (
+    ("kernel 7", ("block_kernel",)),
+    ("kernel C", ("upsample_kernel", "narrow_conv_kernel", "wave_kernel", "conv_kernel")),
+    *REQUEST_FAMILIES[2:],
+)
+
+
 def narrow_vocoder(model, card: str, wrappers) -> dict:
-    """Phase 6: one request through HiFi-GAN V2's decoder (kernels 7 and C at 16, 8)."""
+    """Phase 6: one request through HiFi-GAN V2's decoder (kernels 7 and C at 16, 8),
+    after warmup; its profile with kernels 7 and C by family."""
     from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
 
-    check_audio(model.synthesize(SINGLE_TEXTS[0], seed=0), "warm-up request")
+    warm(model, card)
     for fn in (*wrappers, fused_resblock_trio):
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1181,7 +1358,8 @@ def narrow_vocoder(model, card: str, wrappers) -> dict:
     if any(count == 0 for count in launches.values()) or fused_resblock_trio.launches:
         raise RuntimeError("the narrow vocoder did not run kernels 7 and C (and not B)")
     card_vs_cpu(model)
-    return launches
+    return {"launches": launches, "request_ms": wall_ms,
+            "profile": request_profile(model, card, families=NARROW_FAMILIES)}
 
 
 def main() -> None:
@@ -1226,6 +1404,7 @@ def main() -> None:
                  slice_kernels_vs_plain(vctk, narrow, device)):
         for name, shapes in runs.items():
             measured.setdefault(name, []).extend(shapes)
+    stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
     print(f"[4/7] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
@@ -1248,8 +1427,8 @@ def main() -> None:
 
     print(f"[6/7] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
-    paths["narrow"] = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock,
-                                                    fused_stage))
+    narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
+    paths["narrow"] = narrow_run
 
     print(f"[7/7] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
@@ -1262,7 +1441,7 @@ def main() -> None:
     train_loop(card)
 
     train_launches = trained["launches"]
-    serving = {name: sum(path.get(name, 0) for path in paths.values())
+    serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
                for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage",
                             "fused_flow", "fused_resblock")}
     sources = {
@@ -1276,7 +1455,7 @@ def main() -> None:
         "trainable_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
                            "vits_tpu/ops/pallas/trio_grad.py:183"),
         "fused_flow": ("vits_tpu_torch/csrc/flow.cu", "vits_tpu/ops/pallas/flow.py:230"),
-        "fused_resblock": ("vits_tpu_torch/csrc/resblock_trio.cu",
+        "fused_resblock": ("vits_tpu_torch/csrc/resblock_block.cu",
                            "vits_tpu/ops/pallas/resblock.py:629"),
     }
     launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
@@ -1299,7 +1478,7 @@ def main() -> None:
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
-            "launches_by_path": {path: counts.get(name) for path, counts in paths.items()},
+            "launches_by_path": {path: run["launches"].get(name) for path, run in paths.items()},
             # the queue's order: launches x the mean over the timed shapes of (device ms - bound)
             "priority": launches[name] * sum(r["device_ms"] - r["bound_ms"] for r in timed)
             / len(timed),
@@ -1314,9 +1493,15 @@ def main() -> None:
             entry["backward_launches"] = train_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
     report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "mms_request": mms_request,
-                         "card": card}
+                         "warmup": {path: {k: run[k] for k in ("warmup_s", "first_request_ms")}
+                                    for path, run in paths.items() if "warmup_s" in run},
+                         "narrow_request": narrow_run["profile"],
+                         "kernel7_at_stage_shape": stage_probe, "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
+    report["profiler_sessions"] = PROFILER_SESSIONS
+    print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
+          f"record {PROFILER_SESSIONS['rerun']}", flush=True)
     print(card, flush=True)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

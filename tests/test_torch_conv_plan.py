@@ -1,8 +1,10 @@
 """The conv kernel's launch plan, and the exactness of kernel A's early stop.
 
 ``conv_plan`` (``vits_tpu_torch/ops/cuda/resblock.py``) is plain Python: it
-picks the tile and the K split of every conv launch of kernels B, C, 5 and
-7 (``csrc/conv_gemm.cuh``), and ``ops/cuda/flow.py::flow_plan`` those of
+picks the tile and the K split of every conv launch of kernels B, C and 5
+(``csrc/conv_gemm.cuh``; kernel 7 takes it below 8 channels, and
+``chip_smoke.py`` times the six-launch route it replaced beside kernel 7), and
+``ops/cuda/flow.py::flow_plan`` those of
 kernel 6's products. Pinned here at the shapes the main paths give them, on
 an H100's 132 SMs. Kernel A (``csrc/rel_attention.cu``) stops its key
 loop at a row's length; the argument that this is exact is held against the
@@ -19,8 +21,8 @@ from vits_tpu_torch.ops.cuda.resblock import CONV_CHUNK, CONV_TILES, conv_plan
 H100_SMS = 132
 
 # (B, T, C): kernel B's MMS stages 0-1 for 320 frames; kernel C's resblocks
-# (stages 2-3); kernel 5 at a 32-frame segment, batch 4; kernel 7 on HiFi-GAN
-# V2's stages 0-1, batch 2.
+# (stages 2-3); kernel 5 at a 32-frame segment, batch 4; the six-launch route
+# at HiFi-GAN V2's stages 0-1, batch 2 (kernel 7's shapes).
 MAIN_PATH_SHAPES = {
     "B serving C=256": (1, 2560, 256),
     "B serving C=128": (1, 20480, 128),

@@ -240,21 +240,68 @@ def test_flow_kernel_matches_plain_on_card(cuda_device, vctk_flow, speaker):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 7, 11])
 @pytest.mark.parametrize("C", [8, 16, 32, 64])
-def test_resblock_kernel_matches_plain_on_card(cuda_device, C):
-    """Kernel 7 (one resblock) at the narrow stage widths, with a length-0 row."""
-    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, resblock_reference
+def test_resblock_kernel_matches_plain_on_card(cuda_device, C, k):
+    """Kernel 7 (one resblock) at the narrow stage widths and k = 3, 7, 11, with a
+    length-0 row, T = 300 a multiple of no time tile (block_plan's are multiples
+    of 16) and a length ending mid-tile."""
+    from vits_tpu_torch.ops.cuda.resblock import (
+        block_plan,
+        fused_resblock,
+        resblock_reference,
+    )
 
-    rng = np.random.default_rng(C)
+    rng = np.random.default_rng(C * 100 + k)
     lengths = [300, 0, 123]
+    assert 300 % block_plan(3, 300, C, k, (1, 3, 5), torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count).bm
     x = torch.tensor(_masked(rng, 3, 300, C, lengths), device=cuda_device)
-    block = _to(_blocks(rng, C, ks=(11,), scale=0.1),
+    block = _to(_blocks(rng, C, ks=(k,), scale=0.1),
                 lambda a: torch.tensor(a, device=cuda_device))[0]
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
     before = fused_resblock.launches
     got = fused_resblock(x, block, slope=SLOPE, lengths=lens)
     assert fused_resblock.launches == before + 1
+    assert float(got[1].abs().max()) == 0.0 and float(got[2, 123:].abs().max()) == 0.0
     _assert_close(got.cpu(), resblock_reference(x, block, slope=SLOPE, lengths=lens).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 64])
+def test_resblock_kernel_is_one_launch_and_repeats_bit_identical_on_card(cuda_device, C):
+    """Kernel 7 at HiFi-GAN V2's stage 0 width: one call is one device launch (the
+    profiler's kernel events), a second call gives the same bits, the
+    accumulate path, (into + resblock(x)) * scale, matches the plain version,
+    and so does a call without lengths (every row T long)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, resblock_reference
+
+    rng = np.random.default_rng(C)
+    lengths = [1000, 437]
+    x = torch.tensor(_masked(rng, 2, 1000, C, lengths), device=cuda_device)
+    block = _to(_blocks(rng, C, ks=(11,), scale=0.1),
+                lambda a: torch.tensor(a, device=cuda_device))[0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    first = fused_resblock(x, block, slope=SLOPE, lengths=lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = fused_resblock(x, block, slope=SLOPE, lengths=lens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert torch.equal(first, again)
+    want = resblock_reference(x, block, slope=SLOPE, lengths=lens)
+    into = torch.tensor(_masked(rng, 2, 1000, C, lengths), device=cuda_device)
+    expected = (into + want) * (1 / 3)
+    got = fused_resblock(x, block, slope=SLOPE, lengths=lens, into=into, scale=1 / 3)
+    assert got is into
+    _assert_close(got.cpu(), expected.cpu())
+    full = torch.tensor(rng.standard_normal((2, 1000, C)), dtype=torch.float32,
+                        device=cuda_device)
+    _assert_close(fused_resblock(full, block, slope=SLOPE).cpu(),
+                  resblock_reference(full, block, slope=SLOPE).cpu())
 
 
 @pytest.mark.cuda
@@ -538,3 +585,40 @@ def test_trio_backward_kernel_matches_plain_on_card(cuda_device, need_x):
         assert rel <= 1e-5, rel
     for a, b in zip(dw + ([dx] if need_x else []), dw2 + ([dx2] if need_x else [])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_warmup_keeps_every_warmed_flow_graph_on_card(cuda_device, monkeypatch):
+    """Synthesizer.warmup over 10 flow shapes (batch 1 and 2 at the 5 frame
+    capacities of 4 buckets x 2 rungs), more than a pack keeps unwarmed: a request
+    of the first warmed shape then captures no new FlowWorkspace, and every
+    warmed workspace is still the same."""
+    from vits_tpu_torch.config import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.synthesizer import Synthesizer
+    from vits_tpu_torch.io import VitsTokenizer, random_params
+    from vits_tpu_torch.ops.cuda import flow as flow_module
+
+    config = dataclasses.replace(VitsConfig(), hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                                 flow_size=32, upsample_initial_channel=64)
+    vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
+                              unk_token="z")
+    model = Synthesizer(config, tokenizer, random_params(config, seed=1, keep_training=False),
+                        EngineConfig(use_pallas_flow=True, adaptive_capacity=False),
+                        device=cuda_device)
+    model.warmup(batch_sizes=(1, 2), overflow_ladder=1)
+    pack = model._flow_pack()
+    warmed = dict(pack._workspaces)
+    assert len(warmed) == 10 > flow_module.WORKSPACES
+    created = []
+
+    class Counted(flow_module.FlowWorkspace):
+        def __init__(self, *args):
+            created.append(args[2:])
+            super().__init__(*args)
+
+    monkeypatch.setattr(flow_module, "FlowWorkspace", Counted)
+    out = model.synthesize_raw(["hello"], seed=[0])
+    assert out.waveform.shape[1] // config.total_upsample == model._frame_capacity(64)
+    assert created == []
+    assert all(pack._workspaces[key] is ws for key, ws in warmed.items())

@@ -1,9 +1,12 @@
 """The port's engine, loaded through ``vits_tpu_torch.load_model`` on the CPU.
 
 Noise contract, batching parity (a padded row equals its solo run), seed
-determinism, the overflow re-dispatch ladder, and the EngineConfig fields the
-port does not honour yet. Waveforms cross to the host as int16 PCM, so two
-runs that agree in fp32 may differ by one int16 step (1/32767).
+determinism, the overflow re-dispatch ladder, warmup, batch buckets,
+long-form synthesis, and the EngineConfig fields the port does not honour
+yet. Waveforms cross to the host as int16 PCM, so two runs that agree in fp32
+may differ by one int16 step (1/32767): rows of batches of different sizes
+are held within INT16_STEP (the plain convs' summation order follows the
+batch size), rows of the same dispatch bit for bit.
 """
 
 import numpy as np
@@ -12,7 +15,10 @@ import torch
 
 import vits_tpu_torch
 from vits_tpu.config import EngineConfig
+from vits_tpu.engine.longform import split_sentences as jax_split_sentences
+from vits_tpu_torch.engine.longform import split_sentences, synthesize_long
 from vits_tpu_torch.models import vits
+from vits_tpu_torch.ops.cuda import flow as flow_module
 
 torch.set_num_threads(2)
 
@@ -103,8 +109,141 @@ def test_adaptive_capacity_align_stays_on_rungs():
 
 @pytest.mark.parametrize("field,value", [
     ("compute_dtype", "bfloat16"), ("use_pallas_attention", True), ("pallas_precision", "high"),
-    ("batch_buckets", (1, 4)), ("aot_bundle_dir", "bundle"), ("use_pallas_vocoder", False),
+    ("pallas_value_dtype", "bfloat16"), ("aot_bundle_dir", "bundle"),
+    ("use_pallas_vocoder", False),
 ])
 def test_engine_rejects_unported_fields(field, value):
     with pytest.raises(NotImplementedError, match=field):
         vits_tpu_torch.load_model(GGML, EngineConfig(**{field: value}), device="cpu")
+
+
+def test_warmup_records_each_batch_bucket_and_rung():
+    """warmup dispatches every (batch, token bucket, capacity x 2^rung) once, with
+    the seed layout asked for, and nothing else; a request of a warmed shape
+    adds no shape."""
+    eng = EngineConfig(token_buckets=(32, 64), frames_per_token=4.0, adaptive_capacity=False)
+    model = vits_tpu_torch.load_model(GGML, eng, device="cpu")
+    model.warmup(batch_sizes=(1, 3), overflow_ladder=1)
+    model.warmup(batch_sizes=(2,), token_buckets=(32,), per_row_seeds=True)
+    want = {(bs, tb, eng.frame_bucket(tb) * 2 ** rung, (), False)
+            for bs in (1, 3) for tb in (32, 64) for rung in (0, 1)}
+    want.add((2, 32, eng.frame_bucket(32), (2,), False))
+    assert model._dispatch_shapes == want
+    assert model.stats["compiled_shapes"] == len(want) == model.stats["dispatches"]
+    model.synthesize("hello", seed=1)
+    assert model._dispatch_shapes == want
+
+
+# No adaptive capacity: a dispatch's shape then depends on its texts alone, not
+# on what the module's earlier tests sent.
+@pytest.fixture(scope="module")
+def bucketed():
+    eng = EngineConfig(token_buckets=(32, 64), frames_per_token=4.0, batch_buckets=(1, 2, 4),
+                       adaptive_capacity=False)
+    return vits_tpu_torch.load_model(GGML, eng, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def unbucketed():
+    eng = EngineConfig(token_buckets=(32, 64), frames_per_token=4.0, adaptive_capacity=False)
+    return vits_tpu_torch.load_model(GGML, eng, device="cpu")
+
+
+def test_batch_buckets_rows_match_unbucketed(bucketed, unbucketed):
+    """Per-row seeds: rows of a batch padded 3 -> 4 equal the unpadded batch's."""
+    texts = ["hello", "sad dame", "well cheese"]
+    a = unbucketed.synthesize(texts, seed=[1, 2, 3])
+    b = bucketed.synthesize(texts, seed=[1, 2, 3])
+    assert len(a) == len(b) == 3
+    for x, y in zip(a, b):
+        assert x.shape == y.shape
+        np.testing.assert_allclose(x, y, atol=INT16_STEP, rtol=0)
+
+
+def test_batch_buckets_dispatch_only_bucket_sizes(bucketed):
+    texts = ["hello", "sad dame", "well cheese", "be well"]
+    for n in (2, 3, 4):
+        bucketed.synthesize(texts[:n], seed=list(range(n)))
+    batch_dims = {shape[0] for shape in bucketed._dispatch_shapes}
+    assert batch_dims <= {1, 2, 4} and 3 not in batch_dims
+
+
+def test_batch_buckets_scalar_seed_pad_invariant(bucketed):
+    """A scalar seed on a multi-row bucketed batch becomes per-row generators
+    (row_seed): each row's audio does not depend on how many rows rode along."""
+    c2 = bucketed.synthesize(["hello", "sad dame"], seed=7)
+    c3 = bucketed.synthesize(["hello", "sad dame", "well"], seed=7)
+    for a, b in zip(c2, c3):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=INT16_STEP, rtol=0)
+    other = bucketed.synthesize(["hello", "sad dame"], seed=8)
+    assert not np.array_equal(c2[0], other[0])
+
+
+def test_batch_buckets_single_text_unchanged(bucketed, unbucketed):
+    """Bucket 1 exists: a single text keeps the scalar-seed stream, bit for bit."""
+    np.testing.assert_array_equal(unbucketed.synthesize("hello sad dame", seed=5),
+                                  bucketed.synthesize("hello sad dame", seed=5))
+
+
+def test_pad_to_batch_drops_its_pad_rows(bucketed, unbucketed):
+    """pad_to_batch pads the dispatch with empty rows that carry no audio; the
+    same 4-row dispatch through a batch bucket gives the same bits, and
+    synthesize returns only the texts' rows."""
+    texts = ["hello", "sad dame", "well cheese"]
+    raw = unbucketed.synthesize_raw(texts, seed=[4, 5, 6], pad_to_batch=4)
+    assert raw.waveform.shape[0] == 4 and not raw.waveform[3].any()
+    assert (4, 32, 128, (4,), False) in unbucketed._dispatch_shapes
+    np.testing.assert_array_equal(
+        bucketed.synthesize_raw(texts, seed=[4, 5, 6]).waveform, raw.waveform)
+    got = bucketed.synthesize(texts, seed=[4, 5, 6])
+    assert len(got) == 3
+    for i, audio in enumerate(got):
+        np.testing.assert_array_equal(audio, raw.waveform[i, : raw.lengths[i]])
+
+
+def test_split_sentences_matches_the_jax_package():
+    texts = ["Hello there. How are you today? I am fine; thanks!   ",
+             "a" * 100 + ", " + "b" * 100 + ", " + "c" * 100, "   ", "no stop at all"]
+    for text in texts:
+        for max_chars in (300, 120):
+            assert split_sentences(text, max_chars) == jax_split_sentences(text, max_chars)
+    assert split_sentences(texts[0]) == ["Hello there.", "How are you today?", "I am fine;",
+                                         "thanks!"]
+
+
+def test_synthesize_long_concatenates(unbucketed):
+    """Sentences as one batch (one generator for the batch: a scalar seed), each
+    trimmed, joined by gap_ms of silence."""
+    audio = synthesize_long(unbucketed, "hello sad dame. my sweet valley shell.", seed=0,
+                            gap_ms=50)
+    parts = unbucketed.synthesize(["hello sad dame.", "my sweet valley shell."], seed=0)
+    gap = int(unbucketed.config.sampling_rate * 0.05)
+    assert audio.ndim == 1 and len(audio) == len(parts[0]) + gap + len(parts[1])
+    np.testing.assert_array_equal(audio[: len(parts[0])], parts[0])
+    assert not audio[len(parts[0]): len(parts[0]) + gap].any()
+    assert len(synthesize_long(unbucketed, "   ")) == 0
+
+
+def test_flow_pack_keeps_warmed_workspaces(monkeypatch):
+    """FlowPack.keeping: the 16 shapes made under it stay, however many others
+    come after; the others stay bounded by WORKSPACES, oldest out first."""
+    made = []
+
+    class Stub:
+        def __init__(self, pack, config, B, T, speakers):
+            made.append((B, T, speakers))
+
+    monkeypatch.setattr(flow_module, "FlowWorkspace", Stub)
+    pack = flow_module.FlowPack(torch.zeros(4), {name: torch.zeros(1)
+                                                 for name in flow_module.PACK_NAMES})
+    warmed = [(b, t, False) for b in (1, 2) for t in range(8, 72, 8)]
+    with pack.keeping():
+        kept = {key: pack.workspace(None, *key) for key in warmed}
+    others = [(3, t, True) for t in range(8, 8 * (flow_module.WORKSPACES + 5), 8)]
+    for key in others:
+        pack.workspace(None, *key)
+    assert all(pack.workspace(None, *key) is ws for key, ws in kept.items())
+    assert made == warmed + others
+    assert len(pack._workspaces) == len(warmed) + flow_module.WORKSPACES
+    assert set(pack._workspaces) - set(warmed) == set(others[-flow_module.WORKSPACES:])

@@ -1,5 +1,5 @@
-"""The arithmetic that kernels C and 4 (``csrc/stage.cu``, ``narrow_gemm.cuh``,
-``rel_attention_bwd.cu``) rest on, held on the CPU.
+"""The arithmetic that kernels C, 4 and 7 (``csrc/stage.cu``, ``narrow_gemm.cuh``,
+``rel_attention_bwd.cu``, ``resblock_block.cu``) rest on, held on the CPU.
 
 - The upsampler kernel is polyphase: each phase of a stride-s ConvTranspose1d
   is a plain Conv1d over the input steps (``ops/cuda/stage.py``). Its plain
@@ -10,8 +10,13 @@
   length-0 row. ``rel_attention_bwd_reference`` shows both exact: p and ds are
   exactly 0 there, so keys past the length that hold anything at all leave the
   gradients as they were (rtol 1e-6: only the summation order may move).
+- Kernel 7 computes a resblock tile by tile from one halo window, shrinking
+  it conv by conv and masking in global coordinates. Its plain form,
+  ``resblock_tiled``, is held against ``resblock_reference`` (tolerance 1e-5
+  x max(1, max|ref|): the same convs over a window instead of the whole row).
 - The pure-Python plan functions (``upsample_phases``, the narrow path of
-  ``conv_plan``) are pinned at the shapes the main paths give them.
+  ``conv_plan``, ``block_plan``) are pinned at the shapes the main paths give
+  them.
 """
 
 import numpy as np
@@ -24,7 +29,17 @@ from vits_tpu_torch.ops.cuda.attention_grad import (
     rel_attention_bwd_reference,
     rel_attention_bwd_terms,
 )
-from vits_tpu_torch.ops.cuda.resblock import NARROW_COLS, NARROW_ROWS, conv_plan
+from vits_tpu_torch.ops.cuda.resblock import (
+    BLOCK_CHANNELS,
+    MAX_SMEM_BYTES,
+    NARROW_COLS,
+    NARROW_ROWS,
+    block_plan,
+    block_smem,
+    conv_plan,
+    resblock_reference,
+    resblock_tiled,
+)
 from vits_tpu_torch.ops.cuda.stage import polyphase_upsample, upsample_phases
 
 H100_SMS = 132
@@ -75,6 +90,44 @@ def test_conv_plan_counts_the_narrow_blocks(B, T, C_in, C_out):
     plan = conv_plan(B, T, C_in, C_out, 11, H100_SMS)
     assert plan.tile == -1 and plan.split == 1
     assert plan.blocks == -(-T // NARROW_ROWS) * -(-C_out // NARROW_COLS) * B
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", BLOCK_CHANNELS)
+def test_resblock_tiled_equals_reference(C, k):
+    """Kernel 7's tiling: 32-step tiles of T = 100 with lengths 0, 37 (mid-tile)
+    and 64 (on a tile boundary); the length-0 row and every step past a length
+    exactly 0."""
+    rng = np.random.default_rng(C * 100 + k)
+    B, T, bm, lengths = 3, 100, 32, (0, 37, 64)
+    x = rng.standard_normal((B, T, C)) * (np.arange(T)[None, :] < np.asarray(lengths)[:, None])[
+        ..., None]
+    x = torch.tensor(x, dtype=torch.float32)
+    block = dict(kernel_size=k, dilations=(1, 3, 5), **{
+        name: torch.tensor(rng.standard_normal(shape) * 0.1, dtype=torch.float32)
+        for name, shape in (("w1", (3, k, C, C)), ("b1", (3, C)), ("w2", (3, k, C, C)),
+                            ("b2", (3, C)))})
+    lens = torch.tensor(lengths)
+    want = resblock_reference(x, block, slope=SLOPE, lengths=lens)
+    got = resblock_tiled(x, block, slope=SLOPE, lengths=lens, bm=bm)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-5)
+    for b, n in enumerate(lengths):
+        assert torch.count_nonzero(got[b, n:]) == 0
+
+
+# (B, T, C): kernel 7 at chip_smoke.py phase 3's shapes (HiFi-GAN V2's stages 0-1
+# for 320 frames, batch 2), one 576-frame request's, and kernel C's MMS resblock shape.
+BLOCK_SHAPES = [(2, 2560, 64), (2, 20480, 32), (1, 4608, 64), (1, 36864, 32), (1, 40960, 64)]
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("B,T,C", BLOCK_SHAPES)
+def test_block_plan_covers_every_tile_and_fits(B, T, C, k):
+    plan = block_plan(B, T, C, k, (1, 3, 5), H100_SMS)
+    assert plan.bm % 16 == 0 and C % plan.cluster == 0 and C // plan.cluster >= 8
+    assert plan.blocks == B * -(-T // plan.bm) * plan.cluster  # the grid covers every tile
+    assert plan.smem == block_smem(plan.bm, C, k, (1, 3, 5), plan.cluster) <= MAX_SMEM_BYTES
 
 
 def _attention_case(lengths, L=48, H=2, d=8, w=4, seed=0):

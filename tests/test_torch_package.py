@@ -2,8 +2,8 @@
 
 ``vits_tpu_torch`` imports torch and nothing of jax or of ``vits_tpu``: the
 host modules it shares with the JAX package (config, checkpoint io, random
-weights, tokenizer, wav, the training watchdog and synthetic corpus) are its
-own copies, held here against their originals.
+weights, tokenizer, wav, the training watchdog and synthetic corpus,
+long-form synthesis) are its own copies, held here against their originals.
 """
 
 import ast
@@ -153,3 +153,23 @@ def test_export_round_trip_through_both_packages():
         assert tokenizer2.vocab == tokenizer.vocab and params2.keys() == params.keys()
         for name, value in params.items():
             np.testing.assert_array_equal(params2[name], value)
+
+
+def _code_without_docstrings(path: Path) -> str:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+def test_longform_copy_matches_original():
+    """engine/longform.py imports only re and numpy: the port's copy is the
+    original's code, docstrings aside."""
+    ours = Path(REPO, "vits_tpu_torch", "engine", "longform.py")
+    theirs = Path(REPO, "vits_tpu", "engine", "longform.py")
+    assert _code_without_docstrings(ours) == _code_without_docstrings(theirs)
+    assert set(_imported_modules(ours)) == {"__future__", "re", "typing", "numpy"}

@@ -2,27 +2,38 @@
 
 Counterpart of ``vits_tpu/engine/synthesizer.py``, reduced to the main path:
 ``load``/``__init__``, ``synthesize``, ``synthesize_raw``, ``submit`` /
-``collect``, token buckets, the frame capacity of
-``EngineConfig.frame_bucket`` with its adaptive raise and decay, the overflow
-re-dispatch ladder, trimming, per-row seeds, per-row speakers of a
-multi-speaker model (``speaker_id``) and voice conversion
-(:meth:`Synthesizer.convert_voice`). ``EngineConfig.use_pallas_flow`` runs
+``collect``, token buckets, batch buckets (``EngineConfig.batch_buckets``,
+``pad_to_batch``), the frame capacity of ``EngineConfig.frame_bucket`` with
+its adaptive raise and decay, the overflow re-dispatch ladder, trimming,
+per-row seeds, per-row speakers of a multi-speaker model (``speaker_id``),
+voice conversion (:meth:`Synthesizer.convert_voice`) and
+:meth:`Synthesizer.warmup`. ``EngineConfig.use_pallas_flow`` runs
 the reverse flow of synthesis as kernel 6, as it runs the fused flow kernel in
 the JAX engine (on weights packed once per parameter set and kept here);
 without it the plain flow runs. With ``EngineConfig.transfer_int16`` both
 ``synthesize`` and ``convert_voice`` round the waveform to int16 on the device
 and scale it back on the host, as the JAX engine does.
 
-Every dispatch pads a batch into its token bucket and runs at a static frame
-capacity; ``collect`` reads the predicted frame counts and, when they exceed
-the capacity, runs the batch again at double capacity. ``submit`` enqueues
-the whole dispatch on the device and returns; ``collect`` copies to the host.
+Every dispatch pads a batch into its token bucket (and, with batch buckets,
+its rows into the next batch bucket: pad rows are masked and dropped) and
+runs at a static frame capacity; ``collect`` reads the predicted frame counts
+and, when they exceed the capacity, runs the batch again at double capacity.
+``submit`` enqueues the whole dispatch on the device and returns; ``collect``
+copies to the host. ``stats["compiled_shapes"]`` counts the distinct
+dispatch shapes (rows, token bucket, frames, seed layout, speakers), as the
+JAX engine counts its compiled programs; :meth:`Synthesizer.warmup` runs each
+shape a server expects once, so that the kernel library is built, cuDNN has
+picked its algorithms and kernel 6's graphs are captured before the first
+request.
 
 Noise: ``seed=int`` draws the whole batch from one ``torch.Generator``
 (HF-style); ``seed=[...]`` gives each row its own
 ``torch.Generator(device).manual_seed(seed_i)``, so a row's audio does not
-depend on the rest of its batch. The port shares no random stream with the
-JAX package.
+depend on the rest of its batch. With batch buckets a scalar seed on a
+dispatch of more than one row becomes per-row generators seeded
+:func:`row_seed` ``(seed, r)``, so a row's audio does not depend on its
+bucket (the JAX engine folds the row into the key). The port shares no
+random stream with the JAX package.
 
 Precision: fp32 everywhere. TF32 is switched off for cuDNN convolutions and
 cuBLAS matmuls when an engine is made on a CUDA device (``_fp32_backends``):
@@ -31,6 +42,7 @@ TF32 convs can flip ``ceil(exp(log_duration))`` frame counts.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import NamedTuple, Optional, Sequence
@@ -47,7 +59,7 @@ from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
 
 # EngineConfig fields the port does not honour yet: each must keep its default.
 _UNSUPPORTED_FIELDS = (
-    "compute_dtype", "batch_buckets", "use_pallas_vocoder", "pallas_precision",
+    "compute_dtype", "use_pallas_vocoder", "pallas_precision",
     "pallas_value_dtype", "pallas_weight_format", "use_pallas_attention",
     "matmul_precision", "compilation_cache_dir", "aot_bundle_dir",
 )
@@ -87,6 +99,12 @@ class PendingSynthesis(NamedTuple):
     seed: int | tuple[int, ...]
     speaker: np.ndarray | None
     controls: tuple
+
+
+def row_seed(seed: int, row: int) -> int:
+    """Seed of row ``row``'s generator when one seed serves several rows: a
+    64-bit word of numpy's ``SeedSequence([seed, row])``, distinct per row."""
+    return int(np.random.SeedSequence([seed, row]).generate_state(1, np.uint64)[0])
 
 
 def _next_bucket(buckets: Sequence[int], value: int) -> int:
@@ -135,9 +153,13 @@ class Synthesizer:
         # (EngineConfig.adaptive_capacity*), as in the JAX engine.
         self._frames_per_token = float(self.engine.frames_per_token)
         self._rate_window: deque = deque(maxlen=max(1, self.engine.adaptive_capacity_window))
+        # Distinct dispatch shapes (rows, token bucket, frames, seed layout,
+        # speakers): the JAX engine's compiled programs.
+        self._dispatch_shapes: set = set()
         self.stats = {
             "dispatches": 0,
             "redispatches": 0,
+            "compiled_shapes": 0,
             "audio_seconds": 0.0,
             "wall_seconds": 0.0,
         }
@@ -215,6 +237,9 @@ class Synthesizer:
         wave = out.waveform
         if self.engine.transfer_int16:
             wave = torch.round(torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+        self._dispatch_shapes.add(
+            (ids.shape[0], ids.shape[1], num_frames, np.shape(seed), speaker is not None))
+        self.stats["compiled_shapes"] = len(self._dispatch_shapes)
         self.stats["dispatches"] += 1
         self.stats["wall_seconds"] += time.perf_counter() - t0
         return (wave, out.lengths, out.frame_lengths, out.log_duration)
@@ -263,24 +288,41 @@ class Synthesizer:
         *,
         seed: int | Sequence[int] = 0,
         speaker_id: Optional[int | Sequence[int]] = None,
+        pad_to_batch: Optional[int] = None,
         noise_scale: Optional[float] = None,
         noise_scale_duration: Optional[float] = None,
         speaking_rate: Optional[float] = None,
     ) -> PendingSynthesis:
-        """Enqueue one dispatch on the device; pair with :meth:`collect`."""
+        """Enqueue one dispatch on the device; pair with :meth:`collect`.
+
+        ``pad_to_batch`` (else, with ``EngineConfig.batch_buckets``, the next
+        batch bucket) pads the dispatch to that many rows: the pad rows are
+        empty (masked) and :meth:`synthesize` drops them.
+        """
         if isinstance(texts, str):
             texts = [texts]
         encoded = [self.tokenizer.encode(t) for t in texts]
         max_len = max((len(e) for e in encoded), default=1) or 1
         t_bucket = _next_bucket(self.engine.token_buckets, max_len)
         ids, mask = self.tokenizer.pad(encoded, pad_to=t_bucket)
+        if pad_to_batch is None and self.engine.batch_buckets:
+            pad_to_batch = _next_bucket(self.engine.batch_buckets, ids.shape[0])
+        if pad_to_batch is not None and ids.shape[0] < pad_to_batch:
+            pad_rows = pad_to_batch - ids.shape[0]
+            ids = np.pad(ids, ((0, pad_rows), (0, 0)))
+            mask = np.pad(mask, ((0, pad_rows), (0, 0)))
+        rows = ids.shape[0]
         if isinstance(seed, (int, np.integer)):
             seed_spec = int(seed)
+            if self.engine.batch_buckets and rows > 1:
+                # independent of the bucket: per-row generators (the JAX engine's fold_in)
+                seed_spec = tuple(row_seed(seed_spec, r) for r in range(rows))
         else:
             seed_spec = tuple(int(s) for s in seed)
             if len(seed_spec) != len(texts):
                 raise ValueError(
                     f"seed list length {len(seed_spec)} != number of texts ({len(texts)})")
+            seed_spec += (0,) * (rows - len(texts))  # pad rows ride seed 0
         speaker = _speaker_rows(speaker_id, ids.shape[0], len(texts), "speaker_id")
         controls = self._controls(noise_scale, noise_scale_duration, speaking_rate)
         num_frames = self._frame_capacity(t_bucket)
@@ -317,14 +359,17 @@ class Synthesizer:
         seed: int | Sequence[int] = 0,
         speaker_id: Optional[int | Sequence[int]] = None,
         max_redispatch: int = 3,
+        pad_to_batch: Optional[int] = None,
         noise_scale: Optional[float] = None,
         noise_scale_duration: Optional[float] = None,
         speaking_rate: Optional[float] = None,
     ) -> EngineOutput:
-        """Untrimmed batched output (host numpy) plus per-row lengths."""
+        """Untrimmed batched output (host numpy) plus per-row lengths; rows past
+        the texts are padding (``pad_to_batch``, batch buckets)."""
         pending = self.submit(
-            texts, seed=seed, speaker_id=speaker_id, noise_scale=noise_scale,
-            noise_scale_duration=noise_scale_duration, speaking_rate=speaking_rate,
+            texts, seed=seed, speaker_id=speaker_id, pad_to_batch=pad_to_batch,
+            noise_scale=noise_scale, noise_scale_duration=noise_scale_duration,
+            speaking_rate=speaking_rate,
         )
         return self.collect(pending, max_redispatch=max_redispatch)
 
@@ -373,9 +418,8 @@ class Synthesizer:
             mask[i, : s.shape[0]] = 1.0
         src = _speaker_rows(source_speaker, batch, batch, "source_speaker")
         tgt = _speaker_rows(target_speaker, batch, batch, "target_speaker")
-        generators = [torch.Generator(self.device).manual_seed(
-            int(np.random.SeedSequence([seed, r]).generate_state(1, np.uint64)[0]))
-            for r in range(batch)]
+        generators = [torch.Generator(self.device).manual_seed(row_seed(seed, r))
+                      for r in range(batch)]
         t0 = time.perf_counter()
         out = voice_convert(
             self.params, self.config, torch.as_tensor(spec).to(self.device),
@@ -392,6 +436,38 @@ class Synthesizer:
         results = [wave[i, : specs[i].shape[0] * hop] if trim else wave[i]
                    for i in range(batch)]
         return results[0] if single else results
+
+    def warmup(self, batch_sizes=(1,), token_buckets=None, per_row_seeds=False,
+               overflow_ladder: int = 0) -> None:
+        """Run each dispatch shape a server expects once, before its first request.
+
+        As the JAX engine's ``warmup``: every (batch size, token bucket) at the
+        current frame capacity and, with ``overflow_ladder=N``, at the first N
+        rungs of the re-dispatch ladder (capacity doubled N times), with one
+        per-row generator a row when ``per_row_seeds`` (the layout of
+        ``seed=[...]``, which a server passes) and one generator otherwise.
+        The first dispatch builds the kernel library; each shape lets cuDNN
+        pick its algorithms and, with ``use_pallas_flow``, captures kernel 6's
+        graph, which the flow pack keeps for good (``FlowPack.keeping``). A
+        multi-speaker model dispatches speaker 0 on every row, the shapes of
+        requests that name a speaker.
+        """
+        pack = self._flow_pack()
+        keeping = pack.keeping() if pack is not None else contextlib.nullcontext()
+        with keeping:
+            for bs in batch_sizes:
+                speaker = np.zeros((bs,), np.int64) if self.config.num_speakers > 1 else None
+                seed = (0,) * bs if per_row_seeds else 0
+                for tb in token_buckets or self.engine.token_buckets:
+                    ids = np.zeros((bs, tb), np.int32)
+                    mask = np.zeros((bs, tb), np.float32)
+                    mask[:, 0] = 1.0
+                    capacity = self._frame_capacity(tb)
+                    for rung in range(overflow_ladder + 1):
+                        self._dispatch(ids, mask, capacity * 2 ** rung, seed, speaker,
+                                       self._controls(None, None, None))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ #
     # Frame capacity: the JAX engine's adaptive ratio, on host numbers only.

@@ -10,8 +10,9 @@ routing (its ``use_pallas`` path):
   ConvTranspose1d -> mask in plain PyTorch and its resblocks as kernel B;
 * a narrow stage that fails that check (C_out dividing 128: HiFi-GAN V2's
   stages 0-1 at C 64, 32; the multi-speaker test model's at C 16, 8) runs its
-  upsampler in plain PyTorch and each resblock as kernel 7, summed and divided
-  by the number of blocks;
+  upsampler in plain PyTorch and each resblock as kernel 7, the sum over the
+  blocks and the division by their number in the kernel's epilogue
+  (``into``/``scale``);
 * any other stage takes the plain per-block path.
 
 ``global_conditioning`` (B, 1, speaker_emb) is 1x1-convolved by
@@ -143,17 +144,20 @@ def hifigan(
                                         lengths=_lengths(mask))
             continue
 
-        narrow = not trainable and 128 % c_out == 0
-        if narrow:
-            h, blocks, lengths = h.contiguous(), _stage_resblocks(p, config, i), _lengths(mask)
+        if not trainable and 128 % c_out == 0:  # narrow: kernel 7 per block, summed in place
+            h, lengths, res_state = h.contiguous(), _lengths(mask), None
+            for j, block in enumerate(_stage_resblocks(p, config, i)):
+                res_state = fused_resblock(
+                    h, block, slope=slope, lengths=lengths, into=res_state,
+                    scale=1.0 / num_kernels if j == num_kernels - 1 else 1.0)
+            h = res_state
+            continue
+
         res_state = None
         for j in range(num_kernels):
-            if narrow:
-                block_out = fused_resblock(h, blocks[j], slope=slope, lengths=lengths)
-            else:
-                block_out = _resblock(
-                    p.sub(f"resblocks.{i * num_kernels + j}"), h, mask,
-                    config.resblock_kernel_sizes[j], config.resblock_dilation_sizes[j], slope)
+            block_out = _resblock(
+                p.sub(f"resblocks.{i * num_kernels + j}"), h, mask,
+                config.resblock_kernel_sizes[j], config.resblock_dilation_sizes[j], slope)
             res_state = block_out if res_state is None else res_state + block_out
         h = res_state / num_kernels
 

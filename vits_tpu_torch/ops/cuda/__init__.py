@@ -57,6 +57,7 @@ _SIGNATURES = {
     "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _P],
     "vk_graph_destroy": [_P],
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _P],
+    "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

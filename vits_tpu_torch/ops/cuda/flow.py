@@ -28,6 +28,7 @@ on the packed weights.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import weakref
@@ -107,9 +108,10 @@ class FlowPack:
     ``w_cond`` (speaker_emb, n*nl*2*hidden) and ``b_cond``) to views of
     ``buffer``.
     On a CUDA device each (B, T) shape the kernel runs gets a
-    :class:`FlowWorkspace` (:meth:`workspace`, the most recent
-    :data:`WORKSPACES` kept): persistent buffers and the flow's launches
-    captured over them once.
+    :class:`FlowWorkspace` (:meth:`workspace`): persistent buffers and the
+    flow's launches captured over them once. The pack keeps every workspace
+    made or used under :meth:`keeping` (``Synthesizer.warmup``'s shapes) and
+    the most recent :data:`WORKSPACES` others.
     """
 
     def __init__(self, buffer: torch.Tensor, arrays: dict[str, torch.Tensor]):
@@ -119,17 +121,30 @@ class FlowPack:
             *(arrays[name].data_ptr() if name in arrays else None
               for name in ("w_cond", "b_cond")))
         self._workspaces: OrderedDict = OrderedDict()
+        self._kept: set = set()
+        self._keeping = False
+
+    @contextlib.contextmanager
+    def keeping(self):
+        """Keep every workspace that the calls inside make or use, for good."""
+        self._keeping = True
+        try:
+            yield self
+        finally:
+            self._keeping = False
 
     def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool) -> "FlowWorkspace":
         key = (B, T, speakers)
         ws = self._workspaces.pop(key, None) or FlowWorkspace(self, config, B, T, speakers)
         self._workspaces[key] = ws
-        while len(self._workspaces) > WORKSPACES:
-            self._workspaces.popitem(last=False)
+        if self._keeping:
+            self._kept.add(key)
+        while len(self._workspaces) > WORKSPACES + len(self._kept):
+            del self._workspaces[next(k for k in self._workspaces if k not in self._kept)]
         return ws
 
 
-# (B, T, speakers) shapes whose workspace a pack keeps.
+# (B, T, speakers) shapes a pack keeps besides those made under FlowPack.keeping.
 WORKSPACES = 8
 
 

@@ -2,16 +2,24 @@
 
 Kernel B replaces ``vits_tpu/ops/pallas/resblock.py::fused_resblock_trio``:
 the mean over a wide stage's resblocks, each a chain of masked (dilated conv,
-conv) pairs. Kernel 7 replaces ``fused_resblock`` of the same file: ONE
-resblock, which the JAX package runs on the narrow stages (C = 8 .. 64) that
-fail the stage kernel's check; the caller sums the blocks and divides. Both
-are the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``, launched twice per
-pair (18 launches for a trio, 6 for one block); the last pair of each resblock
-folds its output into the mean in place. The conv takes every channel count
-the JAX kernels take: a tensor-core path (3xTF32 MMA) for C % 32 == 0 and a
-narrow one (3xTF32 on n8 tiles, ``csrc/narrow_gemm.cuh``) for other C;
-:func:`conv_plan` picks the path, the tile and the split of each launch. The 128-lane time packing of the narrow TPU
-kernel is not carried over. The plain PyTorch twins are
+conv) pairs. It is the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``,
+launched twice per pair by :func:`run_pairs` (18 launches for a trio); the
+last pair of each resblock folds its output into the mean in place. The conv
+takes every channel count the JAX kernels take: a tensor-core path (3xTF32
+MMA) for C % 32 == 0 and a narrow one (3xTF32 on n8 tiles,
+``csrc/narrow_gemm.cuh``) for other C; :func:`conv_plan` picks the path, the
+tile and the split of each launch.
+
+Kernel 7 replaces ``fused_resblock`` of the same file: ONE resblock, which
+the JAX package runs on the narrow stages that fail the stage kernel's check
+(HiFi-GAN V2's C = 64 and 32; the caller sums the blocks and divides). At C
+in :data:`BLOCK_CHANNELS` it is one launch of ``csrc/resblock_block.cu``:
+each block loads one x window with the halo of every pair and runs all six
+convs in shared memory, the out-channels split over a thread-block cluster;
+:func:`block_plan` picks the time tile and the cluster.
+:func:`resblock_tiled` is that algorithm in plain PyTorch. Other widths (C =
+1, 2, 4) take B's conv, six launches. The 128-lane time packing of the
+narrow TPU kernel is not carried over. The plain PyTorch twins are
 :func:`resblock_trio_reference` and :func:`resblock_reference`.
 
 A block is ``{kernel_size, dilations, w1, b1, w2, b2}`` with ``w1[i]``,
@@ -21,6 +29,7 @@ biases -- a stacked (pairs, ...) tensor or a per-pair list.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Sequence
 
@@ -52,6 +61,29 @@ CONV_BLOCK_STEPS = 2
 # in n8 MMA tiles of at most NARROW_COLS.
 NARROW_ROWS = 64
 NARROW_COLS = 64
+# Kernel 7's one-launch resblock (csrc/resblock_block.cu): the widths it takes,
+# its most pairs, its warps, the window rows past bm + 2H that a partial m16
+# tile may read, and the shared memory one block may use (227 KB).
+BLOCK_CHANNELS = (8, 16, 32, 64)
+BLOCK_MAX_PAIRS = 4
+BLOCK_WARPS = 16
+BLOCK_MARGIN = 16
+MAX_SMEM_BYTES = 232448
+BLOCK_TILES = tuple(range(32, 1024 + 1, 16))  # the time tiles block_plan weighs
+BLOCK_CLUSTERS = (1, 2, 4, 8)
+# block_plan's cost model, fitted (non-negative least squares, median error
+# 15%) to scripts/torch_block_probe.py's sweep on an H100 of every tile and
+# cluster at kernel 7's shapes: ns a block, ns a conv's cluster barrier, ns a
+# warp round of one conv per tap x input channel (its A fragments) and per
+# tap x input channel x n8 tile of a unit (weights and MMAs), ns per float a
+# block stores into its peers' windows; and the share of sm_count / cluster
+# clusters of 4 or 8 that run at once (a GPC's SMs are no multiple of them).
+BLOCK_FIXED_NS = 5862.0
+BLOCK_SYNC_NS = 259.0
+BLOCK_TAP_NS = 5.955
+BLOCK_TILE_NS = 6.152
+BLOCK_PUSH_NS = 0.0272
+BLOCK_CLUSTER_FILL = 0.91
 
 
 class ConvPlan(NamedTuple):
@@ -230,25 +262,182 @@ def resblock_reference(
     return resblock_trio_reference(x, [block], slope=slope, lengths=lengths)
 
 
+def total_halo(k: int, dilations: Sequence[int]) -> int:
+    """Input steps a resblock's output step reads on each side: every conv's reach."""
+    return sum(d * (k - 1) // 2 + (k - 1) // 2 for d in dilations)
+
+
+def block_smem(bm: int, C: int, k: int, dilations: Sequence[int], cluster: int) -> int:
+    """Shared memory of one block of kernel 7: the x and leaky(y1) windows of
+    bm + 2H + BLOCK_MARGIN rows of C + 4 floats, and two buffers of one
+    conv's (k, C, C / cluster) weight columns."""
+    window = bm + 2 * total_halo(k, dilations) + BLOCK_MARGIN
+    return 4 * (2 * window * (C + 4) + 2 * k * C * (C // cluster))
+
+
+class BlockPlan(NamedTuple):
+    bm: int  # output time steps of a block
+    cluster: int  # blocks splitting the out-channels of every conv
+    smem: int  # shared memory of a block, bytes
+    blocks: int  # grid size, counting every block of a cluster
+
+
+def block_ns(C: int, k: int, dilations: Sequence[int], bm: int, cluster: int) -> float:
+    """Modelled ns of one block of kernel 7: its fixed cost and, per conv, the
+    warp rounds its units take (a unit: one m16 tile of the conv's rows x up
+    to four n8 tiles of the block's columns; BLOCK_WARPS warps), the barrier
+    and the outputs it stores into its cluster peers."""
+    nt = C // cluster // 8
+    ntw = min(nt, 4)
+    window = bm + 2 * total_halo(k, dilations)
+    ns, edge = BLOCK_FIXED_NS, 0
+    for d in dilations:
+        for reach in (d * (k - 1) // 2, (k - 1) // 2):
+            edge += reach
+            rows = window - 2 * edge
+            units = -(-rows // 16) * (nt // ntw)
+            ns += -(-units // BLOCK_WARPS) * k * C * (BLOCK_TAP_NS + BLOCK_TILE_NS * ntw)
+            if cluster > 1:
+                ns += BLOCK_SYNC_NS + BLOCK_PUSH_NS * rows * C * (cluster - 1)
+    return ns
+
+
+def block_cost(B: int, T: int, C: int, k: int, dilations: Sequence[int], sm_count: int,
+               bm: int, cluster: int) -> float:
+    """Modelled ns of kernel 7 with tile bm and this cluster, in waves of the
+    clusters that run at once (one block an SM). The plan cannot see the
+    lengths, and a tile past its row's length costs nothing: it weighs a batch
+    whose rows are all full and one whose first row alone is, equally."""
+    at_once = sm_count // cluster
+    if cluster >= 4:
+        at_once = int(sm_count * BLOCK_CLUSTER_FILL / cluster)
+    tiles = -(-T // bm)
+    waves = -(-B * tiles // at_once) + -(-tiles // at_once)
+    return waves * block_ns(C, k, dilations, bm, cluster) / 2
+
+
+@functools.lru_cache(maxsize=1024)
+def block_plan(B: int, T: int, C: int, k: int, dilations: tuple[int, ...],
+               sm_count: int) -> BlockPlan:
+    """Time tile and cluster of one kernel 7 launch: among the tiles of
+    BLOCK_TILES and the clusters of BLOCK_CLUSTERS (C / cluster >= 8 columns
+    a block) whose shared memory fits, the least :func:`block_cost`."""
+    best = None
+    for cluster in BLOCK_CLUSTERS:
+        if C % cluster or C // cluster < 8:
+            continue
+        for bm in BLOCK_TILES:
+            smem = block_smem(bm, C, k, dilations, cluster)
+            if smem > MAX_SMEM_BYTES:
+                break  # larger tiles only take more
+            cost = block_cost(B, T, C, k, dilations, sm_count, bm, cluster)
+            if best is None or cost < best[0]:
+                best = (cost, BlockPlan(bm, cluster, smem, B * -(-T // bm) * cluster))
+    if best is None:
+        raise ValueError(f"resblock kernel: no tile fits C={C}, k={k}, dilations={dilations}")
+    return best[1]
+
+
+def resblock_tiled(
+    x: torch.Tensor,  # (B, T, C)
+    block: dict,
+    *,
+    slope: float,
+    lengths: torch.Tensor | None = None,
+    bm: int,
+) -> torch.Tensor:
+    """Plain PyTorch: one resblock the way kernel 7 computes it, tile by tile.
+
+    Each tile of bm output steps reads one window of x, [t0 - H, t0 + bm + H)
+    (zero outside [0, T)), and runs every pair on it: conv1 over the window
+    shrunk by d*(k-1)/2 on each side, zero outside [0, len) in global
+    coordinates, conv2 shrunk by (k-1)/2, the residual from the same steps of
+    x, the mask again; the window's centre is the tile's output.
+    """
+    B, T, C = x.shape
+    k, dilations = block["kernel_size"], block["dilations"]
+    H = total_halo(k, dilations)
+    lens = torch.full((B,), T) if lengths is None else lengths.to(torch.long).cpu()
+    padded = torch.nn.functional.pad(x, (0, 0, H, H + bm))
+    out = torch.zeros_like(x)
+    for t0 in range(0, T, bm):
+        h = padded[:, t0: t0 + bm + 2 * H]
+        steps = torch.arange(t0 - H, t0 + bm + H, device=x.device)
+        valid = ((steps[None, :] >= 0) & (steps[None, :] < lens[:, None].to(x.device)))
+        valid = valid.to(x.dtype)[..., None]
+        edge = 0
+        for i, d in enumerate(dilations):
+            reach = d * (k - 1) // 2
+            y = conv1d(leaky_relu(h, slope), block["w1"][i], block["b1"][i], dilation=d)
+            edge += reach
+            y = y * valid[:, edge: valid.shape[1] - edge]
+            y = conv1d(leaky_relu(y, slope), block["w2"][i], block["b2"][i])
+            edge += (k - 1) // 2
+            h = (h[:, reach + (k - 1) // 2: h.shape[1] - reach - (k - 1) // 2] + y)
+            h = h * valid[:, edge: valid.shape[1] - edge]
+        n = min(bm, T - t0)
+        out[:, t0: t0 + n] = h[:, :n]
+    return out
+
+
 def fused_resblock(
     x: torch.Tensor,  # (B, T, C)
     block: dict,
     *,
     slope: float,
     lengths: torch.Tensor | None = None,  # (B,) valid steps; None = all T
+    into: torch.Tensor | None = None,
+    scale: float = 1.0,
 ) -> torch.Tensor:
     """One masked resblock, ``{kernel_size, dilations, w1, b1, w2, b2}``.
 
-    CPU tensors take :func:`resblock_reference`; CUDA tensors launch the conv
-    kernel twice per pair (fp32, contiguous, no autograd) or raise.
+    CPU tensors take :func:`resblock_reference`; CUDA tensors (fp32,
+    contiguous, no autograd) launch kernel 7 once at C in
+    :data:`BLOCK_CHANNELS` (at most BLOCK_MAX_PAIRS pairs, a slope in [0, 1]),
+    B's conv twice per pair at other C, or raise. With ``into`` (B, T, C), a tensor other
+    than ``x``, the result is ``(into + resblock(x)) * scale`` written into
+    ``into``: a stage's sum over its resblocks and the division by their
+    number in the kernel's epilogue; else ``resblock(x) * scale``.
     """
     weights = pair_weights([block])
-    if not on_cuda("fused_resblock", x, *weights):
-        return resblock_reference(x, block, slope=slope, lengths=lengths)
-    no_autograd("fused_resblock", x, *weights)
-    B, T, _ = x.shape
-    out = torch.empty_like(x)
-    run_pairs(x, out, [block], cuda_lengths(lengths, B, T, x.device), slope)
+    extra = () if into is None else (into,)
+    if not on_cuda("fused_resblock", x, *weights, *extra):
+        out = resblock_reference(x, block, slope=slope, lengths=lengths)
+        if into is not None:
+            out = into.add_(out)
+        return out if scale == 1.0 else out.mul_(scale)
+    no_autograd("fused_resblock", x, *weights, *extra)
+    B, T, C = x.shape
+    k, dilations = block["kernel_size"], tuple(block["dilations"])
+    if into is not None and (into.shape != x.shape or into.data_ptr() == x.data_ptr()):
+        raise ValueError(f"fused_resblock: into {tuple(into.shape)} must be a (B, T, C) "
+                         "tensor other than x")
+    if C not in BLOCK_CHANNELS:  # C = 1, 2, 4: B's conv
+        out = torch.empty_like(x)
+        run_pairs(x, out, [block], cuda_lengths(lengths, B, T, x.device), slope)
+        if into is not None:
+            out = into.add_(out)
+        fused_resblock.launches += 1
+        return out if scale == 1.0 else out.mul_(scale)
+    if len(dilations) > BLOCK_MAX_PAIRS or k % 2 == 0 or not 0.0 <= slope <= 1.0:
+        raise ValueError(f"resblock kernel takes an odd kernel size, at most "
+                         f"{BLOCK_MAX_PAIRS} pairs and a leaky slope in [0, 1], got k={k}, "
+                         f"dilations={dilations}, slope={slope}")
+    for w in weights[0::2]:
+        if w.shape != (k, C, C):
+            raise ValueError(f"resblock kernel weight {tuple(w.shape)} != ({k}, {C}, {C})")
+    for bias in weights[1::2]:
+        if bias.shape != (C,):
+            raise ValueError(f"resblock kernel bias {tuple(bias.shape)} != ({C},)")
+    plan = block_plan(B, T, C, k, dilations, device_sm_count(x.device))
+    out = torch.empty_like(x) if into is None else into
+    lens = None if lengths is None else cuda_lengths(lengths, B, T, x.device)
+    pointers = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
+    check(library().vk_resblock_block(
+        x.data_ptr(), out.data_ptr(), None if lens is None else lens.data_ptr(), pointers,
+        (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
+        plan.bm, plan.cluster, int(into is not None), scale, stream_of(x)),
+        "resblock kernel")
     fused_resblock.launches += 1
     return out
 
