@@ -80,13 +80,35 @@ printing its result line:
    multiple of the CPU's own noise floor: the largest movement when every
    weight is perturbed by 1e-7, over three perturbations); and ``train()``
    on a synthetic micro-corpus for 4 steps with checkpoints, resumed to
-   step 6.
+   step 6;
+8. streaming and HTTP serving (``engine/streaming.py``, ``engine/mux.py``,
+   ``engine/server.py``), full widths, random weights, seed 0, after warmup:
+   (a) at MMS-TTS width with ``EngineConfig(transfer_int16=False,
+   adaptive_capacity=False)``, the 211-token text streamed (its 640-frame
+   capacity overflows at random weights, so the speculative first window is
+   discarded and the prior runs again at 1280 frames): TTFA, stream ms,
+   windows, audio s per wall s, kernels A, B, C launched; the stream within
+   STREAM_ATOL of the one-shot decode and zero margins far outside it; one
+   window under ``torch.profiler`` (device busy ms, idle share) and against
+   the CPU plain path on the same prior slice; (b) at VCTK width with the
+   flow kernel, warmed as the server's ``main`` warms it, four concurrent
+   streams (speakers 0, 17, 108, 5) through ``MultiplexedStreamingDecoder(
+   max_batch=8)``: each within STREAM_ATOL of its solo stream, fewer
+   dispatches than windows, kernel 6 launched, no flow graph captured after
+   warmup, and kernel 6 from 4 threads x 25 calls bit-identical to
+   single-thread calls; (c) ``serve(model, max_batch=8, streamer=mux)``
+   in-process under 10 s of closed-loop load over loopback (4 /synthesize
+   clients, 2 /stream clients, per-request seeds and speakers): no client
+   error, no 429, queue depth 0, ``/metrics`` counting what the clients
+   saw, latency p95 and stream TTFA p99 under 2 s (percentiles printed);
+   then one /convert from speaker 0 to 17 within one int16 step of
+   ``convert_voice``.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``plain_device_ms``/``bound_ms``: the sums over the kernel's timed shapes;
 ``launches``: the count over the paths that run the kernel, the serving
-paths for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
+paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
 apart as ``backward_launches``; ``library_ms`` is null:
 no single PyTorch call computes any of these functions), and last ``{"ok": true, "device": {...}}``.
 """
@@ -94,6 +116,7 @@ no single PyTorch call computes any of these functions), and last ``{"ok": true,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import subprocess
@@ -158,6 +181,9 @@ SINGLE_TEXTS = (
 BATCH_TEXTS = ("good morning.", "how are you today?", "see you soon, my friend.")
 BATCH_SEEDS = (11, 22, 33)
 VOCAB = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+# The published VCTK VITS (jaywalnut310/vits configs/vctk_base.json): every other
+# width as MMS-TTS's.
+VCTK = dict(num_speakers=109, speaker_embedding_size=256, sampling_rate=22050)
 SINGLE_SPEAKERS = (0, 17, 108)
 BATCH_SPEAKERS = (5, 17, 0)
 
@@ -615,20 +641,27 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
     return results
 
 
+@functools.lru_cache(maxsize=None)
+def checkpoint(config, keep_training: bool) -> bytes:
+    """The .ggml bytes of a model with random weights (seed 0), made once per config."""
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+
+    params = random_params(config, seed=0, keep_training=keep_training)
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)},
+                              pad_token="k", unk_token="z")
+    buf = io.BytesIO()
+    export_to_ggml(buf, config, tokenizer, params, fp16_convs=False)
+    return buf.getvalue()
+
+
 def make_model(device, config=None, engine_config=None, keep_training: bool = False):
     """A model with random weights (seed 0), loaded as a user would: MMS-TTS at full
     width unless ``config`` says otherwise."""
     import vits_tpu_torch
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
 
-    config = config or VitsConfig()
-    params = random_params(config, seed=0, keep_training=keep_training)
-    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)},
-                              pad_token="k", unk_token="z")
-    checkpoint = io.BytesIO()
-    export_to_ggml(checkpoint, config, tokenizer, params, fp16_convs=False)
-    return vits_tpu_torch.load_model(checkpoint.getvalue(), engine_config, device=device)
+    return vits_tpu_torch.load_model(checkpoint(config or VitsConfig(), keep_training),
+                                     engine_config, device=device)
 
 
 def check_audio(audio: np.ndarray, what: str) -> None:
@@ -1362,12 +1395,553 @@ def narrow_vocoder(model, card: str, wrappers) -> dict:
             "profile": request_profile(model, card, families=NARROW_FAMILIES)}
 
 
+# Phase 8: streaming, the window multiplexer and the HTTP server.
+# Stream vs one-shot decode on the card, and a mux stream vs its solo stream:
+# the kernels pick tiles and K splits per (B, T) (conv_plan, block_plan,
+# flow_plan) and cuDNN its algorithms per shape, so a 184-frame window and a
+# 1280-frame utterance (or a window at batch 4 and at batch 1) sum in different
+# orders -- the class of difference of the card against the CPU plain path, and
+# held to that check's waveform bound. A window decoded without its margins is
+# off at its edges by orders of magnitude more.
+STREAM_ATOL = WAVE_ATOL
+ZERO_MARGIN_FACTOR = 10  # zero margins must miss the one-shot decode by 10 x STREAM_ATOL
+# Phase 8b: four concurrent streams through the mux, (text, seed and speaker).
+MUX_STREAMS = ((SINGLE_TEXTS[1], 0), (SINGLE_TEXTS[2], 17), (BATCH_TEXTS[2], 108),
+               (SINGLE_TEXTS[0], 5))
+# Phase 8c: closed-loop clients over loopback for LOAD_S seconds, each request with
+# its own seed and speaker, on texts of the token buckets the server warms (64, 128).
+LOAD_S = 10.0
+SYNTH_CLIENTS, STREAM_CLIENTS = 4, 2
+LOAD_TEXTS = (SINGLE_TEXTS[0], SINGLE_TEXTS[1], *BATCH_TEXTS)
+# The tripwires of tests/test_serving_load.py:70-71 (latency p95), TTFA held at p99.
+LATENCY_P95_S = TTFA_P99_S = 2.0
+INT16_STEP = 1.5 / 32767  # one int16 PCM step, and the truncation of the WAV writer
+# Phase 8c's served audio run again alone: this many requests and streams, spread
+# evenly over the load.
+REPLAY_SYNTH, REPLAY_STREAMS = 48, 16
+
+
+def decode_window(params, config, latents, mask3, emb=None, use_pallas=False,
+                  pack=None) -> dict:
+    """One window through the flow and the vocoder, as a stream decodes it:
+    its flow latents and waveform on the host."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import hifigan
+    from vits_tpu_torch.models.vits import latents_from_prior
+
+    with torch.inference_mode():
+        lat = latents_from_prior(params, config, latents, mask3, emb, use_pallas=use_pallas,
+                                 flow_pack=pack)
+        wave = hifigan(ParamView(params), config, lat, mask3, emb)
+    return {"latents": lat.cpu().numpy(), "waveform": wave.cpu().numpy()}
+
+
+def stream_mms(device, card: str, wrappers) -> dict:
+    """Phase 8a: the 211-token text streamed at MMS-TTS width after warmup (its
+    speculative first window discarded: random weights overflow the 640-frame
+    capacity), against the one-shot decode and against zero margins; one window
+    under the profiler and against the CPU plain path."""
+    from vits_tpu_torch import EngineConfig
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+    from vits_tpu_torch.engine.synthesizer import _next_bucket
+
+    # adaptive_capacity=False: the prior's noise is drawn at the frame capacity, and
+    # the stream keeps the static frame_bucket; so must the one-shot request.
+    model = make_model(device, engine_config=EngineConfig(transfer_int16=False,
+                                                          adaptive_capacity=False))
+    warm(model, card)
+    streamer = StreamingDecoder(model)
+    t0 = time.perf_counter()
+    streamer.warmup(overflow_ladder=1)
+    print(f"  StreamingDecoder.warmup(every token bucket, one rung): "
+          f"{time.perf_counter() - t0:.2f} s, shapes {sorted(streamer._dispatch_shapes)}",
+          flush=True)
+
+    text, seed, rate = SINGLE_TEXTS[2], 7, model.config.sampling_rate
+    for fn in wrappers:
+        fn.launches = 0
+    chunks, ttfa_ms = [], None
+    t0 = time.perf_counter()
+    for pcm in streamer.stream(text, seed=seed):
+        if ttfa_ms is None:
+            ttfa_ms = 1e3 * (time.perf_counter() - t0)
+        chunks.append(pcm)
+    stream_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    streamed = np.concatenate(chunks)
+    check_audio(streamed, "stream")
+    audio_s = len(streamed) / rate
+    tokens = len(model.tokenizer.encode(text))
+    print(f"  stream of {tokens} tokens: TTFA {ttfa_ms:.1f} ms, whole stream {stream_ms:.1f} ms, "
+          f"{len(chunks)} windows, audio {audio_s:.3f} s, {audio_s / (stream_ms / 1e3):.1f} "
+          f"audio s / wall s, launches {launches} ({card})", flush=True)
+    if any(count == 0 for count in launches.values()):
+        raise RuntimeError(f"the stream did not launch every kernel: {launches}")
+
+    out = model.synthesize_raw(text, seed=seed)
+    oneshot = out.waveform[0, : out.lengths[0]]
+    capacity = out.waveform.shape[1] // model.config.total_upsample
+    zero = StreamingDecoder(model, margin_frames=0, flow_margin_frames=0)
+    loose = zero.synthesize_streaming(text, seed=seed)
+    if streamed.shape != oneshot.shape or loose.shape != oneshot.shape:
+        raise RuntimeError(f"stream {streamed.shape} / zero margins {loose.shape} vs one-shot "
+                           f"{oneshot.shape}")
+    diff = float(np.abs(streamed - oneshot).max())
+    zero_diff = float(np.abs(loose - oneshot).max())
+    print(f"  stream vs one-shot ({out.frame_lengths[0]} frames at capacity {capacity}, "
+          f"{model.stats['redispatches']} re-dispatches so far): max|diff| {diff:.3e} "
+          f"(STREAM_ATOL {STREAM_ATOL}); zero margins {zero_diff:.3e} (must pass "
+          f"{ZERO_MARGIN_FACTOR} x STREAM_ATOL)", flush=True)
+    if not diff <= STREAM_ATOL:
+        raise RuntimeError(f"stream differs from the one-shot decode by {diff}")
+    if not zero_diff > ZERO_MARGIN_FACTOR * STREAM_ATOL:
+        raise RuntimeError(f"zero margins differ from the one-shot decode by only {zero_diff}")
+
+    encoded = model.tokenizer.encode(text)
+    ids, mask = model.tokenizer.pad([encoded], pad_to=_next_bucket(
+        model.engine.token_buckets, len(encoded)))
+    prior = streamer._prior(ids, mask, capacity, seed, None, model._controls(None, None, None))
+    window = streamer.chunk_frames + 2 * streamer.total_margin
+    lo = 4 * streamer.chunk_frames - streamer.total_margin  # the fifth chunk's window
+
+    def one_window():
+        return streamer._resolve(streamer._dispatch_window(prior.latents, prior.mask3, None,
+                                                           lo, window))
+
+    one_window()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_window()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    steady_ms = float(np.median(walls))
+    wall_ms, events, busy_ms = profiled(one_window)
+    families = by_family(events, REQUEST_FAMILIES)
+    idle = 1.0 - busy_ms / steady_ms
+    print(f"  one {window}-frame window (frames {lo}-{lo + window}): steady {steady_ms:.2f} ms "
+          f"wall (median of 5), {wall_ms:.2f} ms under the profiler, {len(events)} device "
+          f"operations, device busy {busy_ms:.3f} ms, idle share {idle:.3f} ({card})",
+          flush=True)
+    for family, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {family:30s} {ms:8.3f} ms  {n:5d} launches", flush=True)
+    latents, mask3 = prior.latents[:, lo: lo + window], prior.mask3[:, lo: lo + window]
+    cpu_params = {k: v.cpu() for k, v in model.params.items()}
+    check_close(f"one {window}-frame stream window",
+                decode_window(model.params, model.config, latents, mask3),
+                decode_window(cpu_params, model.config, latents.cpu(), mask3.cpu()))
+    return {"launches": launches, "tokens": tokens, "ttfa_ms": ttfa_ms, "stream_ms": stream_ms,
+            "windows": len(chunks), "audio_s": audio_s, "capacity": capacity,
+            "stream_vs_oneshot": diff, "zero_margins_vs_oneshot": zero_diff,
+            "window": {"frames": window, "steady_ms": steady_ms, "walls_ms": walls,
+                       "device_busy_ms": busy_ms, "idle_share": idle,
+                       "device_ops": len(events),
+                       "families_ms": {k: v[0] for k, v in families.items()}}}
+
+
+def flow_from_threads(model, T: int, card: str, threads: int = 4, calls: int = 25) -> None:
+    """Kernel 6 from ``threads`` threads at once, ``calls`` calls each, on the warmed
+    (1, T, speakers) workspace, each thread with its own input, lengths and speaker:
+    every output bit-identical to its single-thread output."""
+    import threading
+
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+
+    config, pack, p = model.config, model._flow_pack(), ParamView(model.params)
+    rng = np.random.default_rng(5)
+    inputs = []
+    for i in range(threads):
+        x = torch.tensor(rng.standard_normal((1, T, config.flow_size)), dtype=torch.float32,
+                         device=model.device)
+        lens = torch.tensor([T - 11 * i], dtype=torch.int32, device=model.device)
+        emb = model.params["embed_speaker.weight"][[MUX_STREAMS[i][1]]][:, None].contiguous()
+        inputs.append((x, lens, emb))
+
+    def call(x, lens, emb):
+        return fused_flow(x, p, config, lengths=lens, speaker_embeddings=emb, packed=pack)
+
+    want = [call(*args) for args in inputs]
+    torch.cuda.synchronize()
+    outs, errors = [[] for _ in inputs], []
+
+    def run(i):
+        try:
+            for _ in range(calls):
+                outs[i].append(call(*inputs[i]))
+        except Exception as exc:  # surfaced below
+            errors.append(repr(exc))
+
+    workers = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    torch.cuda.synchronize()
+    if errors or any(w.is_alive() for w in workers):
+        raise RuntimeError(f"kernel 6 from threads: {errors or 'a thread hung'}")
+    mismatched = sum(not torch.equal(out, want[i]) for i, o in enumerate(outs) for out in o)
+    print(f"  kernel 6 from {threads} threads x {calls} calls on (1, {T}, speakers): "
+          f"{mismatched} of {threads * calls} outputs differ from the single-thread ones "
+          f"({card})", flush=True)
+    if mismatched or sum(len(o) for o in outs) != threads * calls:
+        raise RuntimeError("kernel 6 is not safe for concurrent callers")
+
+
+def stream_prior(streamer, text: str, seed: int, speaker: int):
+    """The prior a stream of ``text`` decodes (its capacity doubled past the
+    predicted length, as ``StreamingDecoder.stream`` does) and its valid frames."""
+    from vits_tpu_torch.engine.synthesizer import _next_bucket
+
+    model = streamer.synth
+    encoded = model.tokenizer.encode(text)
+    bucket = _next_bucket(model.engine.token_buckets, len(encoded))
+    ids, mask = model.tokenizer.pad([encoded], pad_to=bucket)
+    frames, controls = model.engine.frame_bucket(bucket), model._controls(None, None, None)
+    while True:
+        prior = streamer._prior(ids, mask, frames, seed, np.asarray([speaker], np.int64),
+                                controls)
+        predicted = int(prior.total_duration.cpu()[0])
+        if predicted <= frames:
+            return prior, predicted
+        while frames < predicted:
+            frames *= 2
+
+
+def windows_vs_plain(model, streamer, wrappers) -> None:
+    """The windows the mux decodes, through kernels 6, B and C on the card against
+    the plain versions on the CPU: at B=1 (a middle window of the 211-token text,
+    speaker 17) and at the mux's B=8 (the first and the last window of each of
+    MUX_STREAMS' streams and the 211-token text's middle one; a short utterance
+    mask-padded to the window and the batch filled with row 0, as the mux pads
+    them), each row with its own speaker."""
+    window = streamer.chunk_frames + 2 * streamer.total_margin
+    rows, middle = [], None
+    for text, spk in MUX_STREAMS:
+        prior, valid = stream_prior(streamer, text, spk, spk)
+        frames = prior.latents.shape[1]
+        if frames <= window:
+            pad = (0, 0, 0, window - frames)
+            rows.append((torch.nn.functional.pad(prior.latents, pad),
+                         torch.nn.functional.pad(prior.mask3, pad), prior.speaker_embeddings))
+            continue
+        offsets = [0, min(max(valid - window // 2, 0), frames - window)]
+        if text == SINGLE_TEXTS[2]:
+            offsets.insert(1, min(valid // 2, frames - window))
+        for lo in offsets:
+            rows.append((prior.latents[:, lo: lo + window], prior.mask3[:, lo: lo + window],
+                         prior.speaker_embeddings))
+            if len(offsets) == 3 and lo == offsets[1]:
+                middle = rows[-1]
+    rows = (rows + [rows[0]] * 8)[:8]
+    cpu_params = {k: v.cpu() for k, v in model.params.items()}
+    before = {fn.__name__: fn.launches for fn in wrappers}
+    for what, picked in (("1 window, speaker 17", [middle]),
+                         (f"{len(rows)} windows, speakers {[s for _, s in MUX_STREAMS]}", rows)):
+        lat, mask3, emb = (torch.cat([r[i] for r in picked]).contiguous() for i in range(3))
+        check_close(f"{what}, {window} frames, kernel 6",
+                    decode_window(model.params, model.config, lat, mask3, emb,
+                                  use_pallas=True, pack=model._flow_pack()),
+                    decode_window(cpu_params, model.config, lat.cpu(), mask3.cpu(), emb.cpu()))
+    ran = {name: fn.launches - before[name] for name, fn in
+           ((fn.__name__, fn) for fn in wrappers)}
+    if any(n < 2 for n in ran.values()):
+        raise RuntimeError(f"the window checks did not launch every kernel twice: {ran}")
+
+
+def mux_vctk(device, card: str, wrappers) -> dict:
+    """Phase 8b: the VCTK-width model warmed as the server's ``main`` warms it
+    (``--max-batch 8 --warm-overflow 1 --stream-mux 8``, every token bucket for the
+    streams), four concurrent streams through the mux against their solo streams,
+    no flow graph captured after warmup, the mux's windows against the plain
+    versions, and kernel 6 from four threads."""
+    import threading
+
+    from vits_tpu_torch import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.mux import MultiplexedStreamingDecoder
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+
+    model = make_model(device, VitsConfig(**VCTK), EngineConfig(
+        use_pallas_flow=True, batch_buckets=(1, 2, 4, 8), adaptive_capacity_align=True),
+        keep_training=True)
+    t0 = time.perf_counter()
+    model.warmup(batch_sizes=(1,), token_buckets=model.engine.token_buckets[:2],
+                 per_row_seeds=True, overflow_ladder=1)
+    solo = StreamingDecoder(model)
+    solo.warmup(overflow_ladder=1)
+    mux = MultiplexedStreamingDecoder(model, max_batch=8)
+    mux.warmup(overflow_ladder=1)
+    pack = model._flow_pack()
+    warmed = {} if pack is None else dict(pack._workspaces)
+    print(f"  engine, solo and mux warmups: {time.perf_counter() - t0:.2f} s, "
+          f"{len(warmed)} flow graphs ({card})", flush=True)
+
+    for fn in wrappers:
+        fn.launches = 0
+    results, ttfa, errors = [None] * len(MUX_STREAMS), [None] * len(MUX_STREAMS), []
+
+    def run(i):
+        text, spk = MUX_STREAMS[i]
+        try:
+            chunks, t0 = [], time.perf_counter()
+            for pcm in mux.stream(text, seed=spk, speaker_id=spk):
+                if not chunks:
+                    ttfa[i] = 1e3 * (time.perf_counter() - t0)
+                chunks.append(pcm)
+            results[i] = np.concatenate(chunks)
+        except Exception as exc:  # surfaced below
+            errors.append(repr(exc))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(MUX_STREAMS))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    stats = dict(mux.stats)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"mux streams failed: {errors or 'a stream hung'}")
+    audio_s = sum(len(r) for r in results) / model.config.sampling_rate
+    print(f"  {len(MUX_STREAMS)} concurrent streams (speakers {[s for _, s in MUX_STREAMS]}): "
+          f"{wall_ms:.1f} ms wall, {audio_s:.3f} s of audio, TTFA "
+          f"{[round(t, 1) for t in ttfa]} ms, mux stats {stats}, launches {launches} ({card})",
+          flush=True)
+    if not (stats["dispatches"] < stats["windows"] and stats["max_rows"] >= 2):
+        raise RuntimeError(f"the mux did not batch windows: {stats}")
+    if any(count == 0 for count in launches.values()):
+        raise RuntimeError(f"the mux streams did not launch every kernel: {launches}")
+    worst = 0.0
+    for (text, spk), got in zip(MUX_STREAMS, results):
+        check_audio(got, f"mux stream, speaker {spk}")
+        want = solo.synthesize_streaming(text, seed=spk, speaker_id=spk)
+        if got.shape != want.shape:
+            raise RuntimeError(f"mux stream {got.shape} vs solo stream {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"  mux streams vs solo streams: max|diff| {worst:.3e} (STREAM_ATOL {STREAM_ATOL})",
+          flush=True)
+    if not worst <= STREAM_ATOL:
+        raise RuntimeError(f"mux streams differ from solo streams by {worst}")
+    new = [] if pack is None else [key for key, ws in pack._workspaces.items()
+                                   if warmed.get(key) is not ws]
+    print(f"  flow graphs captured after warmup: {new}", flush=True)
+    if new:
+        raise RuntimeError(f"flow graphs captured after warmup: {new}")
+    windows_vs_plain(model, solo, wrappers[1:])
+    flow_from_threads(model, mux._window, card)
+    return {"launches": launches, "model": model, "mux": mux, "solo": solo, "wall_ms": wall_ms,
+            "ttfa_ms": ttfa, "stats": stats, "mux_vs_solo": worst}
+
+
+def percentiles(values) -> dict:
+    p50, p95, p99 = np.percentile(np.asarray(values), [50, 95, 99])
+    return {"p50": float(p50), "p95": float(p95), "p99": float(p99), "n": len(values)}
+
+
+def replay(model, solo, served) -> dict:
+    """A sample of the audio the HTTP load served, spread over the load, against
+    the same requests run again: /synthesize against ``model.synthesize`` (per-row
+    seeds, as the batching worker passes them) within BATCH_ATOL and /stream
+    against a solo ``StreamingDecoder`` within STREAM_ATOL, each plus the WAV
+    writer's one int16 step. A row's noise is drawn at its batch's token bucket,
+    and the worker may have batched a 64-bucket text with a 128-bucket one: such a
+    request is run alone and beside LOAD_TEXTS' longest text, and held to the
+    closer of the two."""
+    from vits_tpu_torch.engine.synthesizer import _next_bucket
+    from vits_tpu_torch.utils.wav import read_wav
+
+    def bucket(text):
+        return _next_bucket(model.engine.token_buckets, len(model.tokenizer.encode(text)))
+
+    longest = max(LOAD_TEXTS, key=bucket)
+    worst = {}
+    for stream, limit, atol in ((False, REPLAY_SYNTH, BATCH_ATOL), (True, REPLAY_STREAMS,
+                                                                   STREAM_ATOL)):
+        kind = [s for s in served if s[0] == stream]
+        picked = kind[:: max(1, len(kind) // limit)][:limit]
+        worst[stream], beside = 0.0, 0
+        for _, payload, body in picked:
+            text, seed, spk = payload["text"], payload["seed"], payload["speaker_id"]
+            if stream:  # the streaming header's sizes are unknown: the PCM follows it
+                got = np.frombuffer(body[44:], dtype="<i2").astype(np.float32) / 32767.0
+                wants = [solo.synthesize_streaming(text, seed=seed, speaker_id=spk)]
+            else:
+                got = read_wav(body)[0]
+                wants = [model.synthesize([text], seed=[seed], speaker_id=[spk])[0]]
+                if bucket(text) < bucket(longest):
+                    wants.append(model.synthesize([text, longest], seed=[seed, 0],
+                                                  speaker_id=[spk, 0])[0])
+            diffs = [float(np.abs(got - want).max()) for want in wants
+                     if want.shape == got.shape]
+            if not diffs:
+                raise RuntimeError(f"served {'stream' if stream else 'request'} {payload}: "
+                                   f"{got.shape} samples, run again {[w.shape for w in wants]}")
+            beside += diffs.index(min(diffs)) > 0 or len(diffs) < len(wants)
+            worst[stream] = max(worst[stream], min(diffs))
+        print(f"  {len(picked)} of {len(kind)} served {'streams' if stream else 'requests'} "
+              f"run again{'' if stream else f' ({beside} beside the longest text)'}: "
+              f"max|diff| {worst[stream]:.3e} (atol {atol} + one int16 step)", flush=True)
+        if not worst[stream] <= atol + INT16_STEP:
+            raise RuntimeError("served audio differs from the same request run again")
+    return {"synth_vs_again": worst[False], "stream_vs_again": worst[True]}
+
+
+def http_load(model, mux, solo, card: str, wrappers) -> dict:
+    """Phase 8c: ``serve(model, max_batch=8, streamer=mux)`` in-process, closed-loop
+    /synthesize and /stream clients for LOAD_S seconds, a sample of what they were
+    served against the same requests run alone; then one /convert."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from vits_tpu_torch.engine.server import serve
+    from vits_tpu_torch.utils.wav import read_wav, write_wav
+
+    server, worker = serve(model, port=0, max_batch=8, streamer=mux)
+    # Handler threads, the batching worker and the mux's worker run CUDA work:
+    # all are joined before the phase returns (server_close joins non-daemon
+    # handlers), so none is alive when the interpreter shuts down.
+    server.daemon_threads = False
+    serving = threading.Thread(target=server.serve_forever)
+    serving.start()
+    hostport = f"127.0.0.1:{server.server_address[1]}"
+    try:
+        for fn in wrappers:
+            fn.launches = 0
+        latency, ttfa, errors, counts = [], [], [], {"synth": 0, "stream": 0}
+        served = []  # (stream, payload, body) of every answered request
+        lock = threading.Lock()
+        stop_at = time.perf_counter() + LOAD_S
+
+        def client(i):
+            stream, n = i >= SYNTH_CLIENTS, 0
+            while time.perf_counter() < stop_at:
+                payload = {"text": LOAD_TEXTS[(i + n) % len(LOAD_TEXTS)], "seed": 1000 * i + n,
+                           "speaker_id": (37 * i + 11 * n) % model.config.num_speakers}
+                n += 1
+                try:
+                    conn = http.client.HTTPConnection(hostport, timeout=60)
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/stream" if stream else "/synthesize",
+                                 body=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    if stream:  # the 44-byte WAV header is the first chunk; then PCM
+                        body = resp.read(44) + resp.read(1)
+                        first = time.perf_counter() - t0
+                        body += resp.read()
+                    else:
+                        body = resp.read()
+                    seconds = time.perf_counter() - t0
+                    conn.close()
+                    if resp.status != 200 or body[:4] != b"RIFF" or len(body) <= 44:
+                        raise RuntimeError(f"HTTP {resp.status}, {len(body)} bytes")
+                except Exception as exc:  # counted: the pin is zero
+                    with lock:
+                        errors.append(f"client {i}: {exc!r}")
+                    continue
+                with lock:
+                    served.append((stream, payload, body))
+                    if stream:
+                        ttfa.append(first)
+                        counts["stream"] += 1
+                    else:
+                        latency.append(seconds)
+                        counts["synth"] += 1
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(SYNTH_CLIENTS + STREAM_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=LOAD_S + 120)
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        if any(c.is_alive() for c in clients):
+            raise RuntimeError("an HTTP client hung")
+        for _ in range(50):  # a handler counts its stream just after the last chunk
+            with urllib.request.urlopen(f"http://{hostport}/metrics", timeout=30) as resp:
+                metrics = dict(line.split(" ", 1) for line in resp.read().decode().splitlines()
+                               if line and not line.startswith("#") and "{" not in line)
+            if float(metrics["vits_streams_total"]) >= counts["stream"]:
+                break
+            time.sleep(0.02)
+        lat_p, ttfa_p = percentiles(latency or [np.inf]), percentiles(ttfa or [np.inf])
+        print(f"  HTTP load, {SYNTH_CLIENTS} /synthesize + {STREAM_CLIENTS} /stream clients for "
+              f"{LOAD_S:g} s: {counts} completed, {len(errors)} errors, /metrics requests "
+              f"{metrics['vits_requests_total']} batches {metrics['vits_batches_total']} "
+              f"streams {metrics['vits_streams_total']} rejected "
+              f"{metrics['vits_rejected_total']} queue {metrics['vits_queue_depth']}; launches "
+              f"{launches} ({card})", flush=True)
+        print("  latency ms p50/p95/p99 " + "/".join(f"{1e3 * lat_p[k]:.1f}" for k in
+                                                     ("p50", "p95", "p99"))
+              + ", stream TTFA ms p50/p95/p99 " + "/".join(f"{1e3 * ttfa_p[k]:.1f}" for k in
+                                                           ("p50", "p95", "p99"))
+              + f" ({card})", flush=True)
+        if errors:
+            raise RuntimeError(f"HTTP client errors: {errors[:5]}")
+        if (float(metrics["vits_rejected_total"]) or float(metrics["vits_queue_depth"])
+                or float(metrics["vits_requests_total"]) != counts["synth"]
+                or float(metrics["vits_streams_total"]) != counts["stream"]
+                or not counts["synth"] or not counts["stream"]):
+            raise RuntimeError(f"/metrics disagrees with the clients: {metrics} vs {counts}")
+        if not (lat_p["p95"] < LATENCY_P95_S and ttfa_p["p99"] < TTFA_P99_S):
+            raise RuntimeError(f"latency p95 {lat_p['p95']} s or TTFA p99 {ttfa_p['p99']} s "
+                               f"past {LATENCY_P95_S} s")
+        if any(count == 0 for count in launches.values()):
+            raise RuntimeError(f"the HTTP load did not launch every kernel: {launches}")
+        replayed = replay(model, solo, served)
+
+        rate = model.config.sampling_rate
+        buf = io.BytesIO()
+        write_wav(buf, model.synthesize(SINGLE_TEXTS[1], seed=3, speaker_id=0), rate)
+        req = urllib.request.Request(f"http://{hostport}/convert?source_speaker=0&"
+                                     "target_speaker=17", data=buf.getvalue(),
+                                     headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            got, got_rate = read_wav(resp.read())
+        want = model.convert_voice(read_wav(buf.getvalue())[0], source_speaker=0,
+                                   target_speaker=17)
+        diff = float(np.abs(got - want).max()) if got.shape == want.shape else np.inf
+        print(f"  /convert 0 -> 17: {len(got)} samples at {got_rate} Hz, vs convert_voice "
+              f"max|diff| {diff:.3e} (one int16 step {INT16_STEP:.3e})", flush=True)
+        if got_rate != rate or not diff <= INT16_STEP:
+            raise RuntimeError("/convert differs from convert_voice")
+    finally:
+        worker.stop()
+        worker._thread.join(timeout=30)
+        server.shutdown()
+        serving.join(timeout=30)
+        server.server_close()
+        mux.stop()
+    return {"launches": launches, "requests": counts, "latency_s": lat_p, "ttfa_s": ttfa_p,
+            "replayed": replayed,
+            "metrics": {k: float(v) for k, v in metrics.items()
+                        if k.startswith("vits_") and k.endswith(("_total", "_depth"))}}
+
+
+def serving_layer(device, card: str, wrappers) -> dict:
+    """Phase 8: streaming (8a), the mux (8b) and the HTTP server (8c); each path's
+    launch counts are set to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    print(f"  [8a] streaming at MMS-TTS width ({card}):", flush=True)
+    stream = stream_mms(device, card, wrappers[:3])
+    print(f"  [8b] the mux at VCTK width, use_pallas_flow=True, max_batch=8 ({card}):",
+          flush=True)
+    mux = mux_vctk(device, card, wrappers)
+    print(f"  [8c] the HTTP server at VCTK width, in-process ({card}):", flush=True)
+    http = http_load(mux.pop("model"), mux.pop("mux"), mux.pop("solo"), card, wrappers)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 8: {seconds:.1f} s ({card})", flush=True)
+    return {"stream": stream, "mux": mux, "server": http, "seconds": seconds}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     device = torch.device("cuda")
     card = card_line()
-    print("[1/7] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/8] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -1381,23 +1955,22 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/8] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
     model = make_model(device)
     # the published VCTK VITS (jaywalnut310/vits configs/vctk_base.json), random weights
     # with the posterior encoder for voice conversion
-    vctk = make_model(device, VitsConfig(num_speakers=109, speaker_embedding_size=256,
-                                         sampling_rate=22050),
-                      EngineConfig(use_pallas_flow=True), keep_training=True)
+    vctk = make_model(device, VitsConfig(**VCTK), EngineConfig(use_pallas_flow=True),
+                      keep_training=True)
     # MMS-TTS's text side with HiFi-GAN V2's decoder (jik876/hifi-gan config_v2.json)
     narrow = make_model(device, VitsConfig(upsample_initial_channel=128))
     print(f"      models (MMS, VCTK, HiFi-GAN V2 decoder) built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/7] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/8] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -1406,13 +1979,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/7] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/8] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/7] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/8] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -1425,12 +1998,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/7] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/8] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/7] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/8] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -1439,6 +2012,12 @@ def main() -> None:
     train_card_vs_cpu(config, trained["gen"], trained["batch"])
     del trained["gen"], trained["batch"]
     train_loop(card)
+
+    print(f"[8/8] streaming and HTTP serving ({card}):", flush=True)
+    serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
+                                                     fused_stage, fused_flow))
+    for path in ("stream", "mux", "server"):
+        paths[path] = serving_layer_run[path]
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -1497,6 +2076,11 @@ def main() -> None:
                                     for path, run in paths.items() if "warmup_s" in run},
                          "narrow_request": narrow_run["profile"],
                          "kernel7_at_stage_shape": stage_probe, "card": card}
+    report["streaming"] = {
+        "stream": serving_layer_run["stream"],
+        "mux": {k: v for k, v in serving_layer_run["mux"].items() if k != "launches"},
+        "server": {k: v for k, v in serving_layer_run["server"].items() if k != "launches"},
+        "seconds": serving_layer_run["seconds"], "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
     report["profiler_sessions"] = PROFILER_SESSIONS

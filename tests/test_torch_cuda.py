@@ -622,3 +622,156 @@ def test_warmup_keeps_every_warmed_flow_graph_on_card(cuda_device, monkeypatch):
     assert out.waveform.shape[1] // config.total_upsample == model._frame_capacity(64)
     assert created == []
     assert all(pack._workspaces[key] is ws for key, ws in warmed.items())
+
+
+@pytest.mark.cuda
+def test_flow_kernel_from_four_threads_bit_identical_on_card(cuda_device, vctk_flow):
+    """Kernel 6 called from 4 threads at once, 25 calls each, on one (1, 184,
+    speakers) workspace (a stream window's shape), each thread with its own
+    input, lengths and speaker: every output equals that input's
+    single-thread output bit for bit (the same captured graph). Without the
+    workspace's lock the threads' copies into the shared buffers interleave."""
+    import threading
+
+    from vits_tpu_torch.io.params import ParamView, from_jax_params
+    from vits_tpu_torch.ops.cuda.flow import fused_flow, pack_flow_weights
+
+    config, params = vctk_flow
+    p = ParamView(from_jax_params(params, cuda_device))
+    packed = pack_flow_weights(p, config)
+    rng = np.random.default_rng(13)
+    T = 184
+    inputs = []
+    for i in range(4):
+        x = torch.tensor(_masked(rng, 1, T, config.flow_size, [T - 9 * i]), device=cuda_device)
+        emb = torch.tensor(rng.standard_normal((1, 1, config.speaker_embedding_size)) * 0.3,
+                           dtype=torch.float32, device=cuda_device)
+        lens = torch.tensor([T - 9 * i], dtype=torch.int32, device=cuda_device)
+        inputs.append((x, emb, lens))
+
+    def call(x, emb, lens):
+        return fused_flow(x, p, config, lengths=lens, speaker_embeddings=emb, packed=packed)
+
+    want = [call(*args) for args in inputs]
+    torch.cuda.synchronize()
+    results = [[] for _ in inputs]
+    errors = []
+
+    def run(i):
+        try:
+            for _ in range(25):
+                results[i].append(call(*inputs[i]))
+        except Exception as exc:  # surfaced below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(packed._workspaces) == 1
+    for i, outs in enumerate(results):
+        assert len(outs) == 25
+        assert all(torch.equal(out, want[i]) for out in outs), i
+
+
+# Stream vs one-shot (and mux vs solo) on the card: the kernels pick tiles and
+# K splits per (B, T), so a window and the whole utterance sum in different
+# orders; chip_smoke.py's STREAM_ATOL, with its reason there.
+STREAM_ATOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def small_stream_engine():
+    """A narrow multi-speaker model on the card with the flow kernel, the static
+    frame capacity and float transfer (stream == one-shot at one capacity)."""
+    from vits_tpu_torch.config import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.synthesizer import Synthesizer
+    from vits_tpu_torch.io import VitsTokenizer, random_params
+
+    if not torch.cuda.is_available():  # a module fixture is set up before cuda_device skips
+        pytest.skip("needs an NVIDIA GPU and nvcc (vits_tpu_torch CUDA kernels)")
+    config = dataclasses.replace(VitsConfig(), hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                                 flow_size=32, upsample_initial_channel=64, num_speakers=4,
+                                 speaker_embedding_size=16)
+    vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
+                              unk_token="z")
+    return Synthesizer(config, tokenizer, random_params(config, seed=2, keep_training=False),
+                       EngineConfig(use_pallas_flow=True, adaptive_capacity=False,
+                                    transfer_int16=False), device="cuda")
+
+
+STREAM_TEXT = "the quick brown fox jumps over the lazy dog, twice over."
+
+
+@pytest.mark.cuda
+def test_stream_matches_oneshot_and_warmup_keeps_flow_graphs_on_card(
+        cuda_device, small_stream_engine, monkeypatch):
+    """After StreamingDecoder.warmup a stream captures no new FlowWorkspace and
+    equals the one-shot decode within STREAM_ATOL; zero margins do not."""
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+    from vits_tpu_torch.ops.cuda import flow as flow_module
+
+    model = small_stream_engine
+    stream = StreamingDecoder(model)
+    stream.warmup(token_buckets=(64, 128), overflow_ladder=2)
+    created = []
+
+    class Counted(flow_module.FlowWorkspace):
+        def __init__(self, *args):
+            created.append(args[2:])
+            super().__init__(*args)
+
+    monkeypatch.setattr(flow_module, "FlowWorkspace", Counted)
+    streamed = stream.synthesize_streaming(STREAM_TEXT, seed=4, speaker_id=2)
+    assert created == []
+    monkeypatch.undo()
+    oneshot = model.synthesize(STREAM_TEXT, seed=4, speaker_id=2)
+    assert streamed.shape == oneshot.shape
+    assert float(np.abs(streamed - oneshot).max()) <= STREAM_ATOL
+    zero = StreamingDecoder(model, margin_frames=0, flow_margin_frames=0)
+    loose = zero.synthesize_streaming(STREAM_TEXT, seed=4, speaker_id=2)
+    assert float(np.abs(loose - oneshot).max()) > 10 * STREAM_ATOL
+
+
+@pytest.mark.cuda
+def test_mux_streams_match_solo_streams_on_card(cuda_device, small_stream_engine):
+    """Three concurrent streams through the mux (batched windows, kernel 6 at
+    batch 2-4) each within STREAM_ATOL of its solo stream; windows coalesced."""
+    import threading
+
+    from vits_tpu_torch.engine.mux import MultiplexedStreamingDecoder
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+
+    model = small_stream_engine
+    texts = [STREAM_TEXT, "hello world.", "see you soon, my friend, see you soon."]
+    speakers = [0, 3, None]
+    solo = StreamingDecoder(model)
+    want = [solo.synthesize_streaming(t, seed=i, speaker_id=s)
+            for i, (t, s) in enumerate(zip(texts, speakers))]
+    mux = MultiplexedStreamingDecoder(model, max_batch=4, batch_window_ms=50.0)
+    results, errors = [None] * 3, []
+
+    def run(i):
+        try:
+            results[i] = mux.synthesize_streaming(texts[i], seed=i, speaker_id=speakers[i])
+        except Exception as exc:  # surfaced below
+            errors.append(repr(exc))
+
+    try:
+        mux.warmup(token_buckets=(64,))
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        mux.stop()
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for got, expected in zip(results, want):
+        assert got.shape == expected.shape
+        assert float(np.abs(got - expected).max()) <= STREAM_ATOL
+    assert mux.stats["dispatches"] < mux.stats["windows"], mux.stats

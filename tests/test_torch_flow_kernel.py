@@ -268,3 +268,80 @@ def test_narrow_stage_plain_matches_jax(C_in, C_out, final):
             jax_fused_stage(*args, **jkw)
     else:
         _assert_close(got, jax_fused_stage(*args, **jkw), 1e-5)
+
+
+def test_flow_pack_workspaces_from_many_threads(small_params, monkeypatch):
+    """FlowPack.workspace from 8 threads at once, as a server's handler threads
+    and its batching worker call it: no thread fails, the workspaces made under
+    ``keeping`` stay the same objects, and the pack holds at most WORKSPACES
+    others. (FlowWorkspace itself needs the card; a stand-in records its key.)"""
+    import random
+    import sys
+    import threading
+
+    from vits_tpu_torch.ops.cuda import flow as flow_module
+
+    class StandIn:
+        def __init__(self, packed, config, B, T, speakers):
+            self.key = (B, T, speakers)
+
+    monkeypatch.setattr(flow_module, "FlowWorkspace", StandIn)
+    config = _small_config(num_speakers=4, speaker_embedding_size=8)
+    pack = torch_pack_flow_weights(ParamView(from_jax_params(small_params, "cpu")), config)
+    with pack.keeping():
+        kept = {(1, 16 * i, False): pack.workspace(config, 1, 16 * i, False) for i in (1, 2)}
+    errors = []
+
+    def hammer(i):
+        rng = random.Random(i)
+        try:
+            for _ in range(400):
+                key = (rng.randint(1, 3), 16 * rng.randint(1, 8), rng.random() < 0.5)
+                assert pack.workspace(config, *key).key == key
+        except Exception as exc:  # surfaced below
+            errors.append(repr(exc))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert all(pack._workspaces[key] is ws for key, ws in kept.items())
+    assert len(pack._workspaces) <= flow_module.WORKSPACES + len(kept)
+
+
+def test_launch_counts_from_many_threads():
+    """count_launch from 8 threads at once, as the server's worker, mux and
+    handlers bump one wrapper's count: no increment is lost."""
+    import sys
+    import threading
+
+    from vits_tpu_torch.ops.cuda import count_launch
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def bump():
+        for _ in range(2000):
+            count_launch(wrapper)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=bump) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert wrapper.launches == 8 * 2000

@@ -3,7 +3,8 @@
 ``vits_tpu_torch`` imports torch and nothing of jax or of ``vits_tpu``: the
 host modules it shares with the JAX package (config, checkpoint io, random
 weights, tokenizer, wav, the training watchdog and synthetic corpus,
-long-form synthesis) are its own copies, held here against their originals.
+long-form synthesis, the HTTP server above its ``main``) are its own copies,
+held here against their originals.
 """
 
 import ast
@@ -63,9 +64,13 @@ def test_port_never_imports_jax():
         "import vits_tpu_torch\n"
         "from vits_tpu_torch.ops.cuda import attention, flow, resblock, stage\n"
         "from vits_tpu_torch.train import loop\n"
+        "from vits_tpu_torch import cli\n"
+        "from vits_tpu_torch.engine import mux, server, streaming\n"
         f"m = vits_tpu_torch.load_model({GGML!r}, device='cpu')\n"
         "audio = m.synthesize('hello world')\n"
         "assert audio.size > 0\n"
+        "streamed = streaming.StreamingDecoder(m, chunk_frames=16).synthesize_streaming('hello')\n"
+        "assert streamed.size > 0\n"
         "print('ok')\n"
     )
     env = dict(os.environ, OMP_NUM_THREADS="2")
@@ -173,3 +178,34 @@ def test_longform_copy_matches_original():
     theirs = Path(REPO, "vits_tpu", "engine", "longform.py")
     assert _code_without_docstrings(ours) == _code_without_docstrings(theirs)
     assert set(_imported_modules(ours)) == {"__future__", "re", "typing", "numpy"}
+
+
+def _definitions_without_docstrings(path: Path, rename: tuple[str, str] | None = None) -> list:
+    """The module's top-level statements but ``main``, its docstring and the
+    ``__main__`` block, each as an AST dump without docstrings; ``rename``
+    rewrites the package prefix of every ``from ... import``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+        if rename and isinstance(node, ast.ImportFrom) and node.module.startswith(rename[0]):
+            node.module = rename[1] + node.module[len(rename[0]):]
+    return [ast.dump(node) for node in tree.body
+            if not (isinstance(node, ast.FunctionDef) and node.name == "main")
+            and not isinstance(node, ast.If)]
+
+
+def test_server_copy_matches_original_above_main():
+    """engine/server.py above ``main`` imports the standard library, numpy and
+    the wav helpers: the port's copy is the original's code, docstrings aside,
+    with the package's name in its imports."""
+    ours = Path(REPO, "vits_tpu_torch", "engine", "server.py")
+    theirs = Path(REPO, "vits_tpu", "engine", "server.py")
+    want = _definitions_without_docstrings(theirs, ("vits_tpu.", "vits_tpu_torch."))
+    assert _definitions_without_docstrings(ours) == want and len(want) > 8
+    ported = {m for m in _imported_modules(ours) if m.startswith("vits_tpu_torch")}
+    assert ported == {"vits_tpu_torch", "vits_tpu_torch.config", "vits_tpu_torch.utils.wav",
+                      "vits_tpu_torch.engine.streaming", "vits_tpu_torch.engine.mux"}

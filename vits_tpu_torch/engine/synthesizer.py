@@ -29,7 +29,8 @@ request.
 Noise: ``seed=int`` draws the whole batch from one ``torch.Generator``
 (HF-style); ``seed=[...]`` gives each row its own
 ``torch.Generator(device).manual_seed(seed_i)``, so a row's audio does not
-depend on the rest of its batch. With batch buckets a scalar seed on a
+depend on the rest of its batch (a seed past 32 bits is mixed down first,
+:func:`generator_seed`). With batch buckets a scalar seed on a
 dispatch of more than one row becomes per-row generators seeded
 :func:`row_seed` ``(seed, r)``, so a row's audio does not depend on its
 bucket (the JAX engine folds the row into the key). The port shares no
@@ -107,6 +108,16 @@ def row_seed(seed: int, row: int) -> int:
     return int(np.random.SeedSequence([seed, row]).generate_state(1, np.uint64)[0])
 
 
+def generator_seed(seed: int) -> int:
+    """The seed a ``torch.Generator`` gets for ``seed``: itself in [0, 2**32),
+    else a 32-bit word of numpy's ``SeedSequence(seed mod 2**64)``. The CPU
+    generator keeps only the low 32 bits of its seed, so without the mix seeds
+    differing only above bit 31 (5 and 2**33 + 5) would draw the same noise."""
+    if 0 <= seed < 2**32:
+        return seed
+    return int(np.random.SeedSequence(seed % 2**64).generate_state(1, np.uint32)[0])
+
+
 def _next_bucket(buckets: Sequence[int], value: int) -> int:
     for b in buckets:
         if value <= b:
@@ -181,6 +192,11 @@ class Synthesizer:
             self._packed_flow = pack_flow_weights(ParamView(self._params), self.config)
         return self._packed_flow
 
+    def _keeping_flow_graphs(self):
+        """``FlowPack.keeping()`` of kernel 6's pack (warmups): a no-op without one."""
+        pack = self._flow_pack()
+        return pack.keeping() if pack is not None else contextlib.nullcontext()
+
     @classmethod
     def load(cls, source, engine_config: Optional[EngineConfig] = None, *,
              device: torch.device | str) -> "Synthesizer":
@@ -205,8 +221,11 @@ class Synthesizer:
 
     def _generators(self, seed: int | tuple[int, ...]):
         if isinstance(seed, tuple):
-            return [torch.Generator(self.device).manual_seed(s) for s in seed]
-        return torch.Generator(self.device).manual_seed(seed)
+            return [self._generator(s) for s in seed]
+        return self._generator(seed)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(generator_seed(seed))
 
     def _speaker_tensor(self, speaker: np.ndarray | None) -> torch.Tensor | None:
         if speaker is None:
@@ -418,8 +437,7 @@ class Synthesizer:
             mask[i, : s.shape[0]] = 1.0
         src = _speaker_rows(source_speaker, batch, batch, "source_speaker")
         tgt = _speaker_rows(target_speaker, batch, batch, "target_speaker")
-        generators = [torch.Generator(self.device).manual_seed(row_seed(seed, r))
-                      for r in range(batch)]
+        generators = [self._generator(row_seed(seed, r)) for r in range(batch)]
         t0 = time.perf_counter()
         out = voice_convert(
             self.params, self.config, torch.as_tensor(spec).to(self.device),
@@ -452,9 +470,7 @@ class Synthesizer:
         multi-speaker model dispatches speaker 0 on every row, the shapes of
         requests that name a speaker.
         """
-        pack = self._flow_pack()
-        keeping = pack.keeping() if pack is not None else contextlib.nullcontext()
-        with keeping:
+        with self._keeping_flow_graphs():
             for bs in batch_sizes:
                 speaker = np.zeros((bs,), np.int64) if self.config.num_speakers > 1 else None
                 seed = (0,) * bs if per_row_seeds else 0

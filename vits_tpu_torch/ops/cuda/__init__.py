@@ -13,7 +13,8 @@ Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
 version for a tensor on the CPU and launches the kernel for a tensor on a
 CUDA device, raising on anything the kernel does not take -- there is no
 fallback and no switch. Each wrapper carries a plain-integer ``launches``
-count, bumped only where it launches. The inference kernels write into fresh
+count, bumped (:func:`count_launch`, under a lock: the server's threads
+launch the same wrapper at once) only where it launches. The inference kernels write into fresh
 buffers that autograd cannot see, so their CUDA branches raise under
 autograd (:func:`no_autograd`); training goes through the autograd Functions
 of ``attention_grad.py`` and ``trio_grad.py``.
@@ -140,6 +141,15 @@ def library() -> ctypes.CDLL:
             lib.vk_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``; a bare ``+= 1`` from several threads can drop one."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(status: int, what: str) -> None:

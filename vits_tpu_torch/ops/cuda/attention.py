@@ -21,6 +21,7 @@ from vits_tpu_torch.ops.attention import (
 )
 from vits_tpu_torch.ops.cuda import (
     check,
+    count_launch,
     cuda_lengths,
     library,
     no_autograd,
@@ -109,9 +110,9 @@ def flash_rel_attention(
         lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
         B, H, L, d, window, stream_of(q)),
         "rel_attention kernel")
-    flash_rel_attention.launches += 1
+    count_launch(flash_rel_attention)
     if return_lse:
-        flash_rel_attention.lse_launches += 1
+        count_launch(flash_rel_attention, "lse_launches")
         return out, lse
     return out
 

@@ -20,7 +20,14 @@ from vits_tpu_torch.ops.attention import (
     get_relative_embeddings,
     relative_position_to_absolute_position,
 )
-from vits_tpu_torch.ops.cuda import check, cuda_lengths, library, on_cuda, stream_of
+from vits_tpu_torch.ops.cuda import (
+    check,
+    count_launch,
+    cuda_lengths,
+    library,
+    on_cuda,
+    stream_of,
+)
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_scores
 
 _TILE = 16  # queries per dq block, one rel-table partial each (rel_attention_bwd.cu)
@@ -105,7 +112,7 @@ def rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths)
         lens.data_ptr(), lse.data_ptr(), drow.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drk_part.data_ptr(), drv_part.data_ptr(),
         B, H, L, d, window, stream_of(q)), "rel_attention backward kernel")
-    rel_attention_bwd.launches += 1
+    count_launch(rel_attention_bwd)
     return dq, dk, dv, drk_part.sum(dim=(0, 1, 2)), drv_part.sum(dim=(0, 1, 2))
 
 

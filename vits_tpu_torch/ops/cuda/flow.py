@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 import weakref
 from collections import OrderedDict
 
@@ -42,6 +43,7 @@ from vits_tpu_torch.models.flow import residual_coupling_block
 from vits_tpu_torch.ops.conv import conv1d
 from vits_tpu_torch.ops.cuda import (
     check,
+    count_launch,
     cuda_lengths,
     device_sm_count,
     library,
@@ -111,7 +113,8 @@ class FlowPack:
     :class:`FlowWorkspace` (:meth:`workspace`): persistent buffers and the
     flow's launches captured over them once. The pack keeps every workspace
     made or used under :meth:`keeping` (``Synthesizer.warmup``'s shapes) and
-    the most recent :data:`WORKSPACES` others.
+    the most recent :data:`WORKSPACES` others. The workspace dict is guarded by
+    a lock: a server calls the flow from several threads.
     """
 
     def __init__(self, buffer: torch.Tensor, arrays: dict[str, torch.Tensor]):
@@ -123,6 +126,7 @@ class FlowPack:
         self._workspaces: OrderedDict = OrderedDict()
         self._kept: set = set()
         self._keeping = False
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def keeping(self):
@@ -135,12 +139,13 @@ class FlowPack:
 
     def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool) -> "FlowWorkspace":
         key = (B, T, speakers)
-        ws = self._workspaces.pop(key, None) or FlowWorkspace(self, config, B, T, speakers)
-        self._workspaces[key] = ws
-        if self._keeping:
-            self._kept.add(key)
-        while len(self._workspaces) > WORKSPACES + len(self._kept):
-            del self._workspaces[next(k for k in self._workspaces if k not in self._kept)]
+        with self._lock:
+            ws = self._workspaces.pop(key, None) or FlowWorkspace(self, config, B, T, speakers)
+            self._workspaces[key] = ws
+            if self._keeping:
+                self._kept.add(key)
+            while len(self._workspaces) > WORKSPACES + len(self._kept):
+                del self._workspaces[next(k for k in self._workspaces if k not in self._kept)]
         return ws
 
 
@@ -155,7 +160,9 @@ class FlowWorkspace:
     buffers once; a call then copies its input, lengths and embedding in,
     replays the graph and copies the result out (``vk_flow_run``): five
     operations on the stream, from one C call. Calls that share a workspace
-    must run on one stream, in order.
+    must run on one stream; :attr:`lock` is held across each call's enqueue
+    (:func:`fused_flow`), so the five operations of two threads' calls do not
+    interleave on it.
     """
 
     def __init__(self, packed: FlowPack, config: VitsConfig, B: int, T: int, speakers: bool):
@@ -171,6 +178,7 @@ class FlowWorkspace:
         self.emb_size = packed.arrays["w_cond"].shape[0] if speakers else 0
         self.emb = new((B, self.emb_size)) if speakers else None
         self.cond = new((B, n * nl * 2 * hidden)) if speakers else None
+        self.lock = threading.Lock()
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = library()
         self.exec = ctypes.c_void_p()
@@ -381,12 +389,13 @@ def fused_flow(
                          f"!= ({B}, 1, {ws.emb_size})")
     lens = ws.full if lengths is None else cuda_lengths(lengths, B, T, x.device)
     out = torch.empty_like(x)
-    check(library().vk_flow_run(
-        ws.exec, ws.x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
-        None if ws.emb is None else ws.emb.data_ptr(),
-        None if speaker_embeddings is None else speaker_embeddings.data_ptr(), B, T, C,
-        ws.emb_size, out.data_ptr(), stream_of(x)), "flow kernels")
-    fused_flow.launches += 1
+    with ws.lock:
+        check(library().vk_flow_run(
+            ws.exec, ws.x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
+            None if ws.emb is None else ws.emb.data_ptr(),
+            None if speaker_embeddings is None else speaker_embeddings.data_ptr(), B, T, C,
+            ws.emb_size, out.data_ptr(), stream_of(x)), "flow kernels")
+    count_launch(fused_flow)
     return out
 
 

@@ -38,6 +38,7 @@ import torch
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
 from vits_tpu_torch.ops.cuda import (
     check,
+    count_launch,
     cuda_lengths,
     device_sm_count,
     library,
@@ -244,7 +245,7 @@ def fused_resblock_trio(
     B, T, _ = x.shape
     out = torch.empty_like(x)
     run_pairs(x, out, blocks, cuda_lengths(lengths, B, T, x.device), slope)
-    fused_resblock_trio.launches += 1
+    count_launch(fused_resblock_trio)
     return out
 
 
@@ -417,7 +418,7 @@ def fused_resblock(
         run_pairs(x, out, [block], cuda_lengths(lengths, B, T, x.device), slope)
         if into is not None:
             out = into.add_(out)
-        fused_resblock.launches += 1
+        count_launch(fused_resblock)
         return out if scale == 1.0 else out.mul_(scale)
     if len(dilations) > BLOCK_MAX_PAIRS or k % 2 == 0 or not 0.0 <= slope <= 1.0:
         raise ValueError(f"resblock kernel takes an odd kernel size, at most "
@@ -438,7 +439,7 @@ def fused_resblock(
         (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
         plan.bm, plan.cluster, int(into is not None), scale, stream_of(x)),
         "resblock kernel")
-    fused_resblock.launches += 1
+    count_launch(fused_resblock)
     return out
 
 

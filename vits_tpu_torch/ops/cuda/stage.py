@@ -32,6 +32,7 @@ import torch
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
 from vits_tpu_torch.ops.cuda import (
     check,
+    count_launch,
     cuda_lengths,
     library,
     no_autograd,
@@ -180,7 +181,7 @@ def fused_stage(
     h = torch.empty_like(up)
     run_pairs(up, h, resblocks, lens * stride, slope)
     if final_conv is None:
-        fused_stage.launches += 1
+        count_launch(fused_stage)
         return h
     w_post, pad = final_conv
     k_post = w_post.shape[0]
@@ -190,7 +191,7 @@ def fused_stage(
     check(lib.vk_wave(
         h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out,
         C_out, k_post, pad, stride, FINAL_SLOPE, stream), "stage conv_post kernel")
-    fused_stage.launches += 1
+    count_launch(fused_stage)
     return wave
 
 

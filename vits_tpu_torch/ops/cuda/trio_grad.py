@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
 from vits_tpu_torch.ops.cuda import (
     check,
+    count_launch,
     cuda_lengths,
     device_sm_count,
     library,
@@ -88,7 +89,7 @@ def trio_forward_with_acts(x: torch.Tensor, blocks: Sequence[dict], *, slope: fl
              [torch.empty_like(x) for _ in blk["dilations"][1:]]) for blk in blocks]
     out = torch.empty_like(x)
     run_pairs(x, out, blocks, cuda_lengths(None, B, T, x.device), slope, acts=acts)
-    trio_forward_with_acts.launches += 1
+    count_launch(trio_forward_with_acts)
     return out, acts
 
 
@@ -240,7 +241,7 @@ def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
     table = (TrioPair * len(pairs))(*pairs)
     check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C, slope,
                                      stream_of(x)), "trio backward kernels")
-    trio_backward.launches += 1
+    count_launch(trio_backward)
     return dx_total, dweights
 
 
