@@ -102,7 +102,20 @@ printing its result line:
    error, no 429, queue depth 0, ``/metrics`` counting what the clients
    saw, latency p95 and stream TTFA p99 under 2 s (percentiles printed);
    then one /convert from speaker 0 to 17 within one int16 step of
-   ``convert_voice``.
+   ``convert_voice``;
+9. the precision tiers (``vits_tpu_torch/ops/tiers.py``; phases 4-8 pin the
+   exact tier, ``exact_engine``, since their bounds assume fp32): each of A,
+   B, C, 7 and 6 at "fast", "high" and "highest", and B and C with bf16 and
+   int8 packs, against the plain twin at the same tier on the card at phase
+   3's shapes (bounds 0.03 / 1e-4 / KERNEL_TOL; the bound at the tier's peak:
+   bf16 for "fast", a third of it for "high", 3xTF32 for "highest", bytes at
+   the formats' widths); the 87-token MMS request at each fidelity tier
+   (``EngineConfig.fidelity_kwargs``: fast, glue32, high, exact) and at fast
+   on the same weights quantized: its frames, steady wall ms, device busy ms,
+   idle share and launches, and its flow and vocoder at the exact tier's
+   durations with mel-L1 against exact; a fast-tier stream against its
+   one-shot decode (mel-L1); the CLI's ``main`` with its defaults
+   (``--device cuda --fidelity fast``).
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -110,7 +123,9 @@ Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``launches``: the count over the paths that run the kernel, the serving
 paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
 apart as ``backward_launches``; ``library_ms`` is null:
-no single PyTorch call computes any of these functions), and last ``{"ok": true, "device": {...}}``.
+no single PyTorch call computes any of these functions; ``tiers``: phase 9's
+sums per tier and weight format, ``tier_launches`` its requests' launches per
+fidelity tier), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -236,26 +251,29 @@ def attention_flops(lengths, heads: int, d: int, window: int, backward: bool = F
 
 
 def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None,
-            timed: bool = True, work: tuple[int, int] | None = None) -> dict:
+            timed: bool = True, work: tuple[int, int] | None = None, tol: float = KERNEL_TOL,
+            peak: float = None) -> dict:
     """Kernel vs plain on the same inputs (a tensor or a tuple of tensors each);
     raises past the tolerance, per tensor: max |diff| <= KERNEL_TOL x
     max(1, max|plain|), or with ``grad_rtol`` relative L2 error <= grad_rtol.
     ``work`` = (FLOPs, bytes) of the call gives its bound: the larger of the
-    FLOPs at PEAK_FP32_ACCURATE_FLOPS and the bytes (each input read once, each
-    output written once) at PEAK_HBM_BYTES. Timed calls also get their device
+    FLOPs at ``peak`` (default PEAK_FP32_ACCURATE_FLOPS) and the bytes (each
+    input read once, each output written once) at PEAK_HBM_BYTES; ``tol``
+    replaces KERNEL_TOL (a precision tier's bound). Timed calls also get their device
     ms, kernel and plain: the profiler's busy time per call (``host_and_device``),
     what the kernels themselves take; the CUDA-event ms of a call of tens of us
     is mostly the host's launch path."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, (tuple, list)) else [(got, want)]
+    pairs = [(g.float(), w.float()) for g, w in pairs]
     err = worst = 0.0
     for i, (g, w) in enumerate(pairs):
         if not bool(torch.isfinite(g).all()):
             raise RuntimeError(f"{name} {shape}: non-finite output {i}")
         e = float((g - w).abs().max())
         if grad_rtol is None:
-            ratio = e / (KERNEL_TOL * max(1.0, float(w.abs().max())))
+            ratio = e / (tol * max(1.0, float(w.abs().max())))
         else:
             ratio = float(torch.linalg.vector_norm(g - w)
                           / torch.linalg.vector_norm(w).clamp_min(1e-30)) / grad_rtol
@@ -276,7 +294,7 @@ def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None
               "plain_ms": plain_ms, "device_ms": device_ms, "plain_device_ms": plain_device_ms,
               "library_ms": None}
     if timed and work is not None:
-        ops_ms, bytes_ms = (1e3 * work[0] / PEAK_FP32_ACCURATE_FLOPS,
+        ops_ms, bytes_ms = (1e3 * work[0] / (peak or PEAK_FP32_ACCURATE_FLOPS),
                             1e3 * work[1] / PEAK_HBM_BYTES)
         result.update(flops=work[0], bytes=work[1], ops_ms=ops_ms, bytes_ms=bytes_ms,
                       bound_ms=max(ops_ms, bytes_ms),
@@ -652,6 +670,17 @@ def checkpoint(config, keep_training: bool) -> bytes:
     buf = io.BytesIO()
     export_to_ggml(buf, config, tokenizer, params, fp16_convs=False)
     return buf.getvalue()
+
+
+def exact_engine(**kw):
+    """An EngineConfig at the exact tier (``fidelity_kwargs("exact")``): the
+    phases whose bounds assume fp32 -- card vs the CPU's fp32 plain path (equal
+    frame counts, latents within LATENT_RTOL), batch rows vs solo runs,
+    STREAM_ATOL, the mux's and the HTTP load's re-runs -- pin it; the default
+    on the card is the fast tier (phase 9)."""
+    from vits_tpu_torch import EngineConfig
+
+    return EngineConfig(**kw, **EngineConfig.fidelity_kwargs("exact"))
 
 
 def make_model(device, config=None, engine_config=None, keep_training: bool = False):
@@ -1447,7 +1476,7 @@ def stream_mms(device, card: str, wrappers) -> dict:
 
     # adaptive_capacity=False: the prior's noise is drawn at the frame capacity, and
     # the stream keeps the static frame_bucket; so must the one-shot request.
-    model = make_model(device, engine_config=EngineConfig(transfer_int16=False,
+    model = make_model(device, engine_config=exact_engine(transfer_int16=False,
                                                           adaptive_capacity=False))
     warm(model, card)
     streamer = StreamingDecoder(model)
@@ -1661,7 +1690,7 @@ def mux_vctk(device, card: str, wrappers) -> dict:
     from vits_tpu_torch.engine.mux import MultiplexedStreamingDecoder
     from vits_tpu_torch.engine.streaming import StreamingDecoder
 
-    model = make_model(device, VitsConfig(**VCTK), EngineConfig(
+    model = make_model(device, VitsConfig(**VCTK), exact_engine(
         use_pallas_flow=True, batch_buckets=(1, 2, 4, 8), adaptive_capacity_align=True),
         keep_training=True)
     t0 = time.perf_counter()
@@ -1936,12 +1965,375 @@ def serving_layer(device, card: str, wrappers) -> dict:
     return {"stream": stream, "mux": mux, "server": http, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 9: the precision tiers (vits_tpu_torch/ops/tiers.py) on the card.
+# --------------------------------------------------------------------------- #
+
+# Kernel vs plain twin at a tier, max |diff| <= bound x max(1, max|plain|): the
+# bounds of tests/test_torch_precision.py (the JAX package's own: 0.03 with bf16
+# values, 1e-4 for bf16x3, fp32's KERNEL_TOL).
+TIER_TOL = {"fast": 0.03, "high": 1e-4, "highest": KERNEL_TOL}
+# The least time at a tier: bf16 dense tensor-core peak for "fast", a third of it
+# for "high" (three bf16 passes), 3xTF32 for "highest" (NVIDIA H100 SXM data sheet).
+PEAK_BF16_FLOPS = 989e12
+TIER_PEAK = {"fast": PEAK_BF16_FLOPS, "high": PEAK_BF16_FLOPS / 3,
+             "highest": PEAK_FP32_ACCURATE_FLOPS}
+# (tier, vocoder weight format) of kernels B and C: the engine's fast tier on a
+# checkpoint (bf16 packs) and on a quantized one (int8), high and exact (fp32), and
+# int8 weights at fp32 values.
+VOCODER_TIER_CASES = (("fast", "bfloat16"), ("fast", "int8"), ("high", "float32"),
+                      ("highest", "float32"), ("highest", "int8"))
+FIDELITY_TIERS = ("fast", "glue32", "high", "exact")
+# A fast-tier stream against its own one-shot decode, by mel-L1 (as
+# tests/test_torch_precision.py holds the fast engine, there under 0.15): at bf16 a
+# rounding that flips between a window's summation order and the utterance's is
+# amplified by the random weights' saturating vocoder (fast against exact differ
+# by max|diff| ~0.6 at mel-L1 ~0.02 on one decode), so max|diff| is printed only.
+FAST_STREAM_MEL_L1 = 0.1
+
+
+def kernel_tier(name: str):
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    return resolve_tier(None if name == "fast" else name,
+                        "bfloat16" if name == "fast" else None)
+
+
+def tier_blocks(decoder, config, i: int, fmt: str, packs: dict) -> list[dict]:
+    """Stage i's resblocks in a weight format: the engine's packs, or the fp32 parameters."""
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+
+    return packs[fmt][i]["blocks"] if fmt != "float32" else _stage_resblocks(decoder, config, i)
+
+
+def tier_kernels_vs_plain(model, vctk, narrow, device) -> dict:
+    """Each of A, B, C, 7 and 6 at fast, high and highest, and B and C with int8
+    (and bf16) weights, against the plain twin at the same tier on the card, at
+    phase 3's shapes (320 frames); bound at the tier's peak, bytes at the
+    formats' widths. Returns {kernel: {tier label: [results]}}."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks, precompute_vocoder_packs
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
+    from vits_tpu_torch.ops.cuda.flow import flow_packed_reference, fused_flow, pack_flow_weights
+    from vits_tpu_torch.ops.cuda.resblock import (
+        fused_resblock,
+        fused_resblock_trio,
+        pair_scales,
+        pair_weights,
+        resblock_reference,
+        resblock_trio_reference,
+    )
+    from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    rng = np.random.default_rng(9)
+    config, decoder = model.config, ParamView(model.params).sub("decoder")
+    slope, frames = config.leaky_relu_slope, 320
+    packs = {fmt: precompute_vocoder_packs(ParamView(model.params), config, fmt)
+             for fmt in ("bfloat16", "int8")}
+    out = {name: {} for name in ("fused_resblock_trio", "fused_stage", "flash_rel_attention",
+                                 "fused_resblock", "fused_flow")}
+
+    def activ(T, C, length, dtype=torch.float32, B=1):
+        x = torch.tensor(rng.standard_normal((B, T, C)), dtype=torch.float32, device=device)
+        x[:, length:] = 0.0
+        return x.to(dtype), torch.tensor([length] * B, dtype=torch.int32, device=device)
+
+    def record(kernel, label, result):
+        out[kernel].setdefault(label, []).append(result)
+
+    for name, fmt in VOCODER_TIER_CASES:
+        tier, label = kernel_tier(name), f"{name} {fmt}"
+        for i, T in ((0, 8 * frames), (1, 64 * frames)):  # B: MMS stages 0 and 1
+            C = decoder[f"upsampler.{i}.weight"].shape[2]
+            x, lens = activ(T, C, T - 37, tier.value_dtype)
+            blocks = tier_blocks(decoder, config, i, fmt, packs)
+            record("fused_resblock_trio", label, compare(
+                "fused_resblock_trio", f"{label} C={C} T={T}",
+                lambda: fused_resblock_trio(x, blocks, slope=slope, lengths=lens, tier=tier),
+                lambda: resblock_trio_reference(x, blocks, slope=slope, lengths=lens, tier=tier),
+                work=(resblocks_flops(steps_of(x, lens), C, blocks),
+                      nbytes(x, x, lens, *pair_weights(blocks), *pair_scales(blocks))),
+                tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+        for i, T_in in ((2, 64 * frames), (3, 128 * frames)):  # C: MMS stages 2 and 3
+            up_w = decoder[f"upsampler.{i}.weight"]
+            (k_up, c_in, c_out), rate = up_w.shape, config.upsample_rates[i]
+            final = i == len(config.upsample_rates) - 1
+            pack = packs[fmt][i] if fmt != "float32" else {}
+            x, lens = activ(T_in, c_in, T_in - 37, tier.value_dtype)
+            blocks = tier_blocks(decoder, config, i, fmt, packs)
+            w_post = decoder["conv_post.weight"]
+            kw = dict(stride=rate, up_padding=(config.upsample_kernel_sizes[i] - rate) // 2,
+                      slope=slope, lengths=lens, tier=tier, up_scale=pack.get("su"),
+                      chain=not final,
+                      final_conv=pack.get("post", (w_post, 3)) if final else None)
+            args = (x, pack.get("up_w", up_w), decoder[f"upsampler.{i}.bias"], blocks)
+            steps = steps_of(x, lens)
+            flops = conv_flops(steps, k_up, c_in, c_out) + resblocks_flops(steps * rate, c_out,
+                                                                           blocks)
+            weights = [args[1], args[2], *pair_weights(blocks), *pair_scales(blocks)]
+            if final:
+                flops += conv_flops(steps * rate, w_post.shape[0], c_out, 1)
+                weights.append(kw["final_conv"][0])
+            out_bytes = (4 if final else x.element_size() * c_out) * x.shape[1] * rate
+            record("fused_stage", label, compare(
+                "fused_stage", f"{label} {c_in}->{c_out} T_in={T_in}"
+                + (" +conv_post" if final else ""),
+                lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw),
+                work=(flops, nbytes(x, lens, *weights) + out_bytes),
+                tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+
+    layer = ParamView(model.params).sub("text_encoder.encoder.layers.0.attention")
+    heads, d, w = config.num_attention_heads, config.head_dim, config.window_size
+    L = 512
+    q, k, v = (torch.tensor(rng.standard_normal((2, heads, L, d)) * 0.5, dtype=torch.float32,
+                            device=device) for _ in range(3))
+    rel = (layer["emb_rel_k"][0], layer["emb_rel_v"][0])
+    alens = torch.tensor([L - 5, 0], dtype=torch.int32, device=device)
+    vconfig, vp = vctk.config, ParamView(vctk.params)
+    packed = pack_flow_weights(vp, vconfig)
+    half, hidden = vconfig.flow_size // 2, vconfig.hidden_size
+    nl, kw_, n = (vconfig.prior_encoder_num_wavenet_layers, vconfig.wavenet_kernel_size,
+                  vconfig.prior_encoder_num_flows)
+    per_frame = 2 * (half * hidden + nl * kw_ * hidden * 2 * hidden
+                     + (nl - 1) * hidden * 2 * hidden + hidden * hidden + hidden * half)
+    fx = torch.tensor(rng.standard_normal((1, frames, vconfig.flow_size)), dtype=torch.float32,
+                      device=device)
+    flens = torch.tensor([frames], dtype=torch.int32, device=device)
+    ndecoder = ParamView(narrow.params).sub("decoder")
+    nblk = _stage_resblocks(ndecoder, narrow.config, 0)[-1]  # C=64, k=11
+    nx, nlens = activ(8 * frames, 64, 8 * frames - 37, B=2)
+    nlens[1] = 0
+    nx[1] = 0.0
+    for name in ("fast", "high", "highest"):
+        tier = resolve_tier(None if name == "fast" else name)
+        record("flash_rel_attention", name, compare(
+            "flash_rel_attention", f"{name} B=2 L={L} len=({L - 5},0)",
+            lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=alens, tier=tier),
+            lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=alens, tier=tier),
+            work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, q, *rel, alens)),
+            tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+        record("fused_flow", name, compare(
+            "fused_flow", f"{name} B=1 T={frames} (VCTK width)",
+            lambda: fused_flow(fx, vp, vconfig, lengths=flens, packed=packed, tier=tier),
+            lambda: flow_packed_reference(fx, packed, vconfig, lengths=flens, tier=tier),
+            work=(n * per_frame * frames, nbytes(fx, fx, flens, packed.buffer)),
+            tol=max(TIER_TOL[name], 1e-4), peak=TIER_PEAK[name]))
+        vtier = kernel_tier(name)  # the vocoder's: bf16 values at "fast"
+        record("fused_resblock", name, compare(
+            "fused_resblock", f"{name} C=64 B=2 T={8 * frames} k=11 (HiFi-GAN V2 stage 0)",
+            lambda: fused_resblock(nx, nblk, slope=slope, lengths=nlens, tier=vtier),
+            lambda: resblock_reference(nx, nblk, slope=slope, lengths=nlens, tier=vtier),
+            work=(resblocks_flops(steps_of(nx, nlens), 64, [nblk]),
+                  nbytes(nx, nx, nlens, *pair_weights([nblk]))),
+            tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+    return out
+
+
+def mel_l1(a: np.ndarray, b: np.ndarray, rate: int) -> float:
+    """Mean |log-mel(a) - log-mel(b)| over the common length (the JAX package's
+    ``utils/mel.py::mel_l1``, 80 mels, n_fft 1024, hop 256)."""
+    from vits_tpu_torch.utils.mel import log_mel_spectrogram
+
+    n = min(a.shape[-1], b.shape[-1])
+    ma = log_mel_spectrogram(torch.tensor(a[..., :n]), sample_rate=rate)
+    mb = log_mel_spectrogram(torch.tensor(b[..., :n]), sample_rate=rate)
+    return float((ma - mb).abs().mean())
+
+
+def tier_requests(device, card: str, wrappers) -> dict:
+    """The 87-token MMS request at each fidelity tier (EngineConfig.fidelity_kwargs),
+    and at "fast" on the same weights quantized (io/quantize.py): each engine's
+    own request (frames, steady wall ms, device busy ms, idle share, the kernels'
+    launches over its requests) and, at the exact tier's durations (one prior,
+    drawn once at "exact"), the flow and vocoder at the tier: mel-L1 against
+    "exact". Then a fast-tier stream against its own one-shot decode."""
+    import vits_tpu_torch
+    from vits_tpu_torch import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.io.quantize import quantize_params
+    from vits_tpu_torch.models.hifigan import hifigan
+    from vits_tpu_torch.models.vits import NoiseOverride, latents_from_prior, text_to_prior
+
+    config = VitsConfig()
+    params = random_params(config, seed=0, keep_training=False)
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)}, pad_token="k",
+                              unk_token="z")
+    blobs = {}
+    for label, p in (("float", params), ("int8", quantize_params(params))):
+        buf = io.BytesIO()
+        export_to_ggml(buf, config, tokenizer, p, fp16_convs=False)
+        blobs[label] = buf.getvalue()
+    cases = [(tier, "float") for tier in FIDELITY_TIERS] + [("fast", "int8")]
+    models = {case: vits_tpu_torch.load_model(
+        blobs[case[1]], EngineConfig(**EngineConfig.fidelity_kwargs(case[0])), device=device)
+        for case in cases}
+    text = SINGLE_TEXTS[1]
+    ids, mask = tokenizer.pad([tokenizer.encode(text)], pad_to=128)
+    ids_t = torch.tensor(ids, dtype=torch.long, device=device)
+    mask_t = torch.tensor(mask, dtype=torch.float32, device=device)
+    rng = np.random.default_rng(2)
+    num_frames = 1024  # room for the 87 tokens' frames at random weights
+    noise = NoiseOverride(
+        torch.tensor(rng.standard_normal((1, 128, 2)), dtype=torch.float32, device=device),
+        torch.tensor(rng.standard_normal((1, num_frames, config.flow_size)), dtype=torch.float32,
+                     device=device))
+    exact = models[("exact", "float")]
+    with torch.inference_mode():
+        prior = text_to_prior(exact.params, config, ids_t, mask_t, num_frames, noise=noise,
+                              attention_tier=exact.tiers.attention)
+    frames = min(int(prior.total_duration[0]), num_frames)
+    mask3 = prior.frame_mask[..., None]
+
+    def decode(model):
+        with torch.inference_mode():
+            lat = latents_from_prior(model.params, config, prior.prior_latents, mask3,
+                                     use_pallas=model.engine.use_pallas_flow,
+                                     flow_pack=model._flow_pack(), tier=model.tiers.flow)
+            wave = hifigan(ParamView(model.params), config, lat, mask3, tiers=model.tiers,
+                           packs=model._vocoder_packs())
+        return wave[0, : frames * config.total_upsample].cpu().numpy()
+
+    reference = decode(exact)
+    results = {}
+    for case in cases:
+        model, label = models[case], f"{case[0]}" + (" int8" if case[1] == "int8" else "")
+        model.synthesize_raw([text], seed=[5])  # cuDNN's algorithms, the packs
+        for fn in wrappers:
+            fn.launches = 0
+        profile = request_profile(model, card)
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
+            if launches[name] == 0:
+                raise RuntimeError(f"{label}: kernel {name} was never launched")
+        wave = decode(model)
+        check_audio(wave, f"{label} at the exact tier's durations")
+        mel = mel_l1(wave[None], reference[None], config.sampling_rate)
+        results[label] = {**profile, "launches": launches, "mel_l1_vs_exact": mel,
+                          "max_abs_vs_exact": float(np.abs(wave - reference).max()),
+                          "weight_format": model._weight_format}
+        print(f"  {label:10s}: {profile['frames']} frames, steady {profile['steady_ms']:.1f} ms "
+              f"wall, device busy {profile['device_busy_ms']:.2f} ms, idle "
+              f"{profile['idle_share']:.3f}; at exact's {frames} frames mel-L1 vs exact "
+              f"{mel:.3e}, max|diff| {results[label]['max_abs_vs_exact']:.3e}; launches "
+              f"{launches} ({card})", flush=True)
+    if results["exact"]["mel_l1_vs_exact"] != 0.0:
+        raise RuntimeError("the exact tier's decode is not deterministic")
+    for label in ("fast", "high"):
+        if not results[label]["mel_l1_vs_exact"] > 0.0:
+            raise RuntimeError(f"the {label} tier computed what exact computes")
+
+    fast = vits_tpu_torch.load_model(blobs["float"], EngineConfig(
+        transfer_int16=False, adaptive_capacity=False), device=device)
+    streamer = StreamingDecoder(fast)
+    streamer.warmup(token_buckets=fast.engine.token_buckets[:2])
+    for fn in wrappers:
+        fn.launches = 0
+    streamed = streamer.synthesize_streaming(text, seed=4)
+    stream_launches = {fn.__name__: fn.launches for fn in wrappers}
+    oneshot = fast.synthesize(text, seed=4)
+    if streamed.shape != oneshot.shape:
+        raise RuntimeError(f"fast-tier stream of {streamed.shape}, one-shot {oneshot.shape}")
+    err = float(np.abs(streamed - oneshot).max())
+    mel = mel_l1(streamed[None], oneshot[None], config.sampling_rate)
+    print(f"  fast-tier stream vs its one-shot decode: {streamed.shape[0]} samples, mel-L1 "
+          f"{mel:.3e} (bound {FAST_STREAM_MEL_L1}), max|diff| {err:.3e}; launches "
+          f"{stream_launches} ({card})", flush=True)
+    if not mel <= FAST_STREAM_MEL_L1:
+        raise RuntimeError(f"fast-tier stream differs from its one-shot decode: mel-L1 {mel}")
+    results["fast_stream"] = {"mel_l1": mel, "max_abs": err, "launches": stream_launches}
+    return results
+
+
+def default_cli_run(card: str, wrappers) -> dict:
+    """``python -m vits_tpu_torch.cli``'s main with its defaults (``--device cuda``,
+    ``--fidelity fast``) on an MMS checkpoint (random weights, seed 0), in this
+    process: it writes a WAV through kernels A, B and C."""
+    import tempfile
+
+    from vits_tpu_torch import VitsConfig, cli
+    from vits_tpu_torch.utils.wav import read_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model_path, wav = Path(tmp) / "mms.ggml", Path(tmp) / "out.wav"
+        model_path.write_bytes(checkpoint(VitsConfig(), keep_training=False))
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        code = cli.main(["--model", str(model_path), "--text", SINGLE_TEXTS[0],
+                         "--out", str(wav)])
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        if code != 0 or not wav.exists():
+            raise RuntimeError(f"the CLI's default run exited {code}")
+        audio, rate = read_wav(str(wav))
+    check_audio(audio, "the CLI's default run")
+    print(f"  CLI defaults (--device cuda --fidelity fast): {audio.shape[0] / rate:.2f} s of "
+          f"audio in {seconds:.2f} s (load and build included); launches {launches} ({card})",
+          flush=True)
+    if not all(launches[name] > 0 for name in ("flash_rel_attention", "fused_resblock_trio",
+                                               "fused_stage")):
+        raise RuntimeError(f"the CLI's default run missed a kernel: {launches}")
+    return {"launches": launches, "seconds": seconds}
+
+
+TIERS_FLAG = "--tiers-phase"  # the child's argument
+TIERS_RESULT = "tiers-phase result: "  # the prefix of the child's result line
+
+
+def tiers_phase(device) -> dict:
+    """Phase 9's work (the child of :func:`run_tiers_child`)."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+
+    card = card_line()
+    kernels.library()
+    wrappers = (flash_rel_attention, fused_resblock_trio, fused_stage, fused_flow,
+                fused_resblock)
+    model = make_model(device, engine_config=exact_engine())
+    vctk = make_model(device, VitsConfig(**VCTK), exact_engine(use_pallas_flow=True))
+    narrow = make_model(device, VitsConfig(upsample_initial_channel=128), exact_engine())
+    measured = tier_kernels_vs_plain(model, vctk, narrow, device)
+    del model, vctk, narrow
+    return {"kernels": measured, "requests": tier_requests(device, card, wrappers),
+            "cli": default_cli_run(card, wrappers), "profiler_sessions": PROFILER_SESSIONS}
+
+
+def run_tiers_child() -> tuple[dict, dict, dict]:
+    """Phase 9 in a child process: after phases 3-8 in one process,
+    torch.profiler once lost every device record of the fast tier's kernel A
+    sessions, three times over (a fresh process profiles them). The child's
+    lines are printed here; it fails the run if it fails."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), TIERS_FLAG],
+                          capture_output=True, text=True, timeout=900, check=False)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(TIERS_RESULT):
+            result = json.loads(line[len(TIERS_RESULT):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or result is None:
+        raise RuntimeError(f"phase 9 failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    for key in PROFILER_SESSIONS:
+        PROFILER_SESSIONS[key] += result["profiler_sessions"][key]
+    return result["kernels"], result["requests"], result["cli"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     device = torch.device("cuda")
+    if sys.argv[1:] == [TIERS_FLAG]:
+        print(TIERS_RESULT + json.dumps(tiers_phase(device)), flush=True)
+        return
     card = card_line()
-    print("[1/8] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/9] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -1955,22 +2347,22 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/8] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/9] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
-    model = make_model(device)
+    model = make_model(device, engine_config=exact_engine())
     # the published VCTK VITS (jaywalnut310/vits configs/vctk_base.json), random weights
     # with the posterior encoder for voice conversion
-    vctk = make_model(device, VitsConfig(**VCTK), EngineConfig(use_pallas_flow=True),
+    vctk = make_model(device, VitsConfig(**VCTK), exact_engine(use_pallas_flow=True),
                       keep_training=True)
     # MMS-TTS's text side with HiFi-GAN V2's decoder (jik876/hifi-gan config_v2.json)
-    narrow = make_model(device, VitsConfig(upsample_initial_channel=128))
+    narrow = make_model(device, VitsConfig(upsample_initial_channel=128), exact_engine())
     print(f"      models (MMS, VCTK, HiFi-GAN V2 decoder) built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/8] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/9] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -1979,13 +2371,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/8] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/9] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/8] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/9] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -1998,12 +2390,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/8] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/9] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/8] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/9] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -2013,11 +2405,14 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/8] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/9] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
+
+    print(f"[9/9] the precision tiers, in a process of its own ({card}):", flush=True)
+    tier_measured, tiers_run, cli_run = run_tiers_child()
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -2062,6 +2457,17 @@ def main() -> None:
             "priority": launches[name] * sum(r["device_ms"] - r["bound_ms"] for r in timed)
             / len(timed),
             "shapes": runs,
+            # phase 9: each tier's sums over its shapes, and the launches of each
+            # fidelity tier's requests
+            "tiers": {label: {
+                key: sum(r[key] for r in tier_runs) for key in
+                ("device_ms", "ms", "plain_ms", "plain_device_ms", "bound_ms")} | {
+                "max_abs_err": max(r["max_abs_err"] for r in tier_runs),
+                "bound_by": "operations" if sum(r["ops_ms"] for r in tier_runs)
+                >= sum(r["bytes_ms"] for r in tier_runs) else "bytes"}
+                for label, tier_runs in tier_measured.get(name, {}).items()},
+            "tier_launches": {label: run["launches"].get(name) for label, run in
+                              {**tiers_run, "cli_default": cli_run}.items()},
         })
         print(f"  {name:24s} launches {launches[name]:4d} x mean (device ms - bound ms) = "
               f"{report['kernels'][-1]['priority']:.2f}", flush=True)
@@ -2081,6 +2487,9 @@ def main() -> None:
         "mux": {k: v for k, v in serving_layer_run["mux"].items() if k != "launches"},
         "server": {k: v for k, v in serving_layer_run["server"].items() if k != "launches"},
         "seconds": serving_layer_run["seconds"], "card": card}
+    report["tiers"] = {label: {k: v for k, v in run.items() if k not in ("launches", "walls_ms")}
+                       for label, run in tiers_run.items()} | {"cli_default_s": cli_run["seconds"],
+                                                                "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
     report["profiler_sessions"] = PROFILER_SESSIONS

@@ -92,7 +92,7 @@ def main() -> None:
                         kernels.check(lib.vk_conv(
                             x.data_ptr(), out.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
                             lens.data_ptr(), B, T, C, C, k, dil, pad, SLOPE, 0, 1.0, tile, split,
-                            stream), "conv")
+                            0, 0, None, 0, None, stream), "conv")
 
                     call()
                     torch.cuda.synchronize()

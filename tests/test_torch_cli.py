@@ -91,7 +91,6 @@ def test_cli_convert(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ("--dtype", "bfloat16"), ("--sp", "2"), ("--compilation-cache", "cache"),
-    ("--fidelity", "fast"), ("--fidelity", "glue32"), ("--fidelity", "high"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -99,6 +98,49 @@ def test_cli_refuses_unported_flags(tmp_path, flags, capsys):
     assert exc.value.code != 0
     assert "ROADMAP.md" in capsys.readouterr().err
     assert not (tmp_path / "out.wav").exists()
+
+
+class _Loaded(Exception):
+    """Raised by a stand-in load_model: carries the EngineConfig main built."""
+
+
+@pytest.fixture()
+def engine_of_main(monkeypatch):
+    """Run a main up to its load_model call and return the EngineConfig it passed."""
+    def fake(source, engine_config=None, device=None):
+        raise _Loaded(engine_config)
+
+    monkeypatch.setattr(vits_tpu_torch, "load_model", fake)
+
+    def run(main, *argv):
+        with pytest.raises(_Loaded) as caught:
+            main(["--model", GGML, "--device", "cpu", *argv])
+        return caught.value.args[0]
+
+    return run
+
+
+@pytest.mark.parametrize("tier", ["fast", "glue32", "high", "exact"])
+def test_cli_and_server_take_every_fidelity_tier(tier, engine_of_main):
+    """``--fidelity`` takes the JAX CLI's and server's four tiers, through
+    ``EngineConfig.fidelity_kwargs``; without it both run ``fast``."""
+    want = EngineConfig.fidelity_kwargs(tier)
+    for main, extra in ((cli.main, ("--text", "hi")), (server.main, ("--port", "0"))):
+        eng = engine_of_main(main, *extra, "--fidelity", tier)
+        assert {f: getattr(eng, f) for f in want} == want
+        default = engine_of_main(main, *extra)
+        assert (default.pallas_precision, default.pallas_value_dtype,
+                default.pallas_weight_format, default.matmul_precision) == (None,) * 4
+
+
+def test_cli_fidelity_tiers_synthesize_on_cpu(tmp_path):
+    """Every tier synthesizes through the CLI on the CPU (there the engine's
+    defaults compute fp32, so each tier's audio is the default's)."""
+    want = _run(tmp_path, "--text", TEXT)[1]
+    for tier in ("glue32", "high", "exact"):
+        code, audio = _run(tmp_path, "--text", TEXT, "--fidelity", tier)
+        assert code == 0
+        np.testing.assert_array_equal(audio, want)
 
 
 def test_cli_and_server_default_to_cuda(tmp_path, capsys):
@@ -115,7 +157,6 @@ def test_cli_and_server_default_to_cuda(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ("--dp", "2"), ("--aot-bundle", "bundle"), ("--compilation-cache", "cache"),
-    ("--fidelity", "fast"), ("--fidelity", "glue32"), ("--fidelity", "high"),
 ])
 def test_server_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -339,8 +339,10 @@ def test_multispeaker_batch_rows_equal_solo_runs_on_card(cuda_device):
     vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
     tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
                               unk_token="z")
+    # the exact tier: the 2e-3 bound assumes fp32 (a batch's plans sum in other orders)
     model = Synthesizer(config, tokenizer, random_params(config, seed=1, keep_training=False),
-                        EngineConfig(use_pallas_flow=True), device=cuda_device)
+                        EngineConfig(use_pallas_flow=True, **EngineConfig.fidelity_kwargs("exact")),
+                        device=cuda_device)
     counts = {fn: fn.launches for fn in (fused_flow, fused_resblock, fused_stage)}
     texts, seeds, speakers = ["hello there", "good day to you all", "hi"], [1, 2, 3], [0, 3, 1]
     batch = model.synthesize_raw(texts, seed=seeds, speaker_id=speakers)
@@ -491,8 +493,8 @@ def test_upsampler_unequal_phases_on_card(cuda_device):
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
     y = torch.empty((3, 600, 16), dtype=torch.float32, device=cuda_device)
     assert library().vk_upsample(x.data_ptr(), y.data_ptr(), up_w.data_ptr(), up_b.data_ptr(),
-                                 lens.data_ptr(), 3, 150, 64, 16, 6, 4, 1, SLOPE,
-                                 stream_of(x)) == 0
+                                 lens.data_ptr(), 3, 150, 64, 16, 6, 4, 1, SLOPE, 0, 0, None,
+                                 0, stream_of(x)) == 0
     want = polyphase_upsample(x.cpu(), up_w.cpu(), up_b.cpu(), stride=4, padding=1, slope=SLOPE,
                               lengths=lens.cpu())
     _assert_close(y.cpu(), want)
@@ -699,9 +701,11 @@ def small_stream_engine():
     vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
     tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
                               unk_token="z")
+    # the exact tier: STREAM_ATOL assumes fp32
     return Synthesizer(config, tokenizer, random_params(config, seed=2, keep_training=False),
                        EngineConfig(use_pallas_flow=True, adaptive_capacity=False,
-                                    transfer_int16=False), device="cuda")
+                                    transfer_int16=False, **EngineConfig.fidelity_kwargs("exact")),
+                       device="cuda")
 
 
 STREAM_TEXT = "the quick brown fox jumps over the lazy dog, twice over."
@@ -775,3 +779,196 @@ def test_mux_streams_match_solo_streams_on_card(cuda_device, small_stream_engine
         assert got.shape == expected.shape
         assert float(np.abs(got - expected).max()) <= STREAM_ATOL
     assert mux.stats["dispatches"] < mux.stats["windows"], mux.stats
+
+
+# --------------------------------------------------------------------------- #
+# The precision tiers (vits_tpu_torch/ops/tiers.py) on the card: each kernel at
+# each tier against its plain twin at the same tier, on the card. Bounds
+# relative to max(1, |output|): 0.03 at "fast" (the bf16 bound of
+# tests/test_torch_precision.py: bf16 operands; the twin rounds at the same
+# points, the kernel sums in another order, so a rounding may flip); at
+# "high" twice that file's 1e-4 -- kernel and twin each hold bf16x3's error
+# against fp32 within it, and an fp32 difference between them moves a split
+# (the stage at 64->32 with conv_post reached 1.3e-4); at "highest" (also
+# with int8 weights and fp32 values) chip_smoke.py's KERNEL_TOL, 5e-5: fp32
+# sums in another order over up to 126 taps x C inputs, then conv_post and
+# tanh (that stage reached 1.2e-5).
+# --------------------------------------------------------------------------- #
+
+TIER_BOUNDS = {"fast": 0.03, "high": 2e-4, "highest": 5e-5}
+# (tier, vocoder weight format) pairs the engine runs kernels B and C at
+VOCODER_TIER_CASES = [("fast", "bfloat16"), ("fast", "int8"), ("high", "float32"),
+                      ("highest", "float32"), ("highest", "int8")]
+
+
+def _tier(name):
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    return resolve_tier(None if name == "fast" else name, "bfloat16" if name == "fast" else None)
+
+
+def _tier_blocks(blocks, fmt, device):
+    """Resblock weights in a pack format (models/hifigan.py::precompute_vocoder_packs)."""
+    from vits_tpu_torch.models.hifigan import quantize_out_channels
+
+    out = []
+    for blk in _to(blocks, lambda a: torch.tensor(a, device=device)):
+        for w, s in (("w1", "s1"), ("w2", "s2")):
+            if fmt == "int8":
+                blk[w], blk[s] = quantize_out_channels(blk[w], (1, 2))
+            elif fmt == "bfloat16":
+                blk[w] = blk[w].to(torch.bfloat16)
+        out.append(blk)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fmt", VOCODER_TIER_CASES)
+def test_trio_kernel_tiers_match_plain_on_card(cuda_device, name, fmt):
+    """Kernel B at each tier and weight format (C=128, a row ending mid-tile)."""
+    rng = np.random.default_rng(3)
+    lengths = [1000, 437]
+    tier = _tier(name)
+    x = torch.tensor(_masked(rng, 2, 1000, 128, lengths), device=cuda_device)
+    x = x.to(tier.value_dtype)
+    blocks = _tier_blocks(_blocks(rng, 128), fmt, cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fused_resblock_trio.launches
+    got = fused_resblock_trio(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+    assert fused_resblock_trio.launches == before + 1 and got.dtype == x.dtype
+    want = resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+    assert float(got[1, 437:].abs().max()) == 0.0
+    _assert_close(got.float().cpu(), want.float().cpu(), atol=TIER_BOUNDS[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_in,C_out,final", [(128, 64, False), (64, 32, True), (32, 16, False),
+                                              (16, 8, True)])
+@pytest.mark.parametrize("name,fmt", VOCODER_TIER_CASES)
+def test_stage_kernel_tiers_match_plain_on_card(cuda_device, name, fmt, C_in, C_out, final):
+    """Kernel C at each tier and weight format: MMS's tail (B's conv for the
+    resblocks) and HiFi-GAN V2's (the narrow conv), with and without conv_post."""
+    from vits_tpu_torch.models.hifigan import quantize_out_channels
+
+    rng = np.random.default_rng(C_out)
+    lengths = [300, 77]
+    tier = _tier(name)
+    x = torch.tensor(_masked(rng, 2, 300, C_in, lengths), device=cuda_device)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    up_w, up_b = dev(rng.standard_normal((4, C_in, C_out)) * 0.1), dev(rng.standard_normal(C_out) * 0.1)
+    w_post = dev(rng.standard_normal((7, C_out, 1)) * 0.3)
+    up_scale = post_scale = None
+    if fmt == "int8":
+        up_w, up_scale = quantize_out_channels(up_w, (0, 1))
+        w_post, post_scale = quantize_out_channels(w_post, (0, 1))
+    elif fmt == "bfloat16":
+        up_w, w_post = up_w.to(torch.bfloat16), w_post.to(torch.bfloat16)
+    kw = dict(stride=2, up_padding=1, slope=SLOPE, tier=tier, up_scale=up_scale,
+              lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              final_conv=(w_post, 3, post_scale) if final else None, chain=not final)
+    blocks = _tier_blocks(_blocks(rng, C_out, scale=0.1), fmt, cuda_device)
+    x = x.to(tier.value_dtype)
+    before = fused_stage.launches
+    got = fused_stage(x, up_w, up_b, blocks, **kw)
+    assert fused_stage.launches == before + 1
+    assert got.dtype == (torch.float32 if final else tier.value_dtype)
+    want = stage_reference(x, up_w, up_b, blocks, **kw)
+    _assert_close(got.float().cpu(), want.float().cpu(), atol=TIER_BOUNDS[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+def test_resblock_kernel_tiers_match_plain_on_card(cuda_device, name, C):
+    """Kernel 7 at each tier (fp32 in and out; with bf16 values its window and
+    each pair's output rounded to bf16)."""
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, resblock_reference
+
+    rng = np.random.default_rng(C)
+    lengths = [1000, 437]
+    tier = _tier(name)
+    x = torch.tensor(_masked(rng, 2, 1000, C, lengths), device=cuda_device)
+    block = _to(_blocks(rng, C, ks=(11,), scale=0.1),
+                lambda a: torch.tensor(a, device=cuda_device))[0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fused_resblock.launches
+    got = fused_resblock(x, block, slope=SLOPE, lengths=lens, tier=tier)
+    assert fused_resblock.launches == before + 1
+    want = resblock_reference(x, block, slope=SLOPE, lengths=lens, tier=tier)
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+def test_flow_kernel_tiers_match_plain_on_card(cuda_device, vctk_flow, name):
+    """Kernel 6 at each tier (fp32 values, every product's operands rounded),
+    a graph captured per tier on one pack; "fast" differs from "highest"."""
+    from vits_tpu_torch.io.params import ParamView, from_jax_params
+    from vits_tpu_torch.ops.cuda.flow import flow_packed_reference, fused_flow, pack_flow_weights
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    config, params = vctk_flow
+    p = ParamView(from_jax_params(params, cuda_device))
+    packed = pack_flow_weights(p, config)
+    rng = np.random.default_rng(9)
+    lengths = [150, 61]
+    x = torch.tensor(_masked(rng, 2, 150, config.flow_size, lengths), device=cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    tier = resolve_tier(None if name == "fast" else name)
+    got = fused_flow(x, p, config, lengths=lens, packed=packed, tier=tier)
+    exact = fused_flow(x, p, config, lengths=lens, packed=packed)
+    assert len(packed._workspaces) == (1 if name == "highest" else 2)
+    want = flow_packed_reference(x, packed, config, lengths=lens, tier=tier)
+    _assert_close(got.cpu(), want.cpu(), atol=max(TIER_BOUNDS[name], 1e-4))
+    if name == "fast":
+        assert float((got - exact).abs().max()) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+def test_attention_kernel_tiers_match_plain_on_card(cuda_device, name):
+    """Kernel A at each tier, B=2, L=512, one row 301 long."""
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    rng = np.random.default_rng(4)
+    B, H, L, d, w = 2, 2, 512, 96, 4
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    q, k, v = (dev(rng.standard_normal((B, H, L, d)) * 0.5) for _ in range(3))
+    rel_k, rel_v = (dev(rng.standard_normal((2 * w + 1, d)) * 0.5) for _ in range(2))
+    lens = torch.tensor([512, 301], dtype=torch.int32, device=cuda_device)
+    tier = resolve_tier(None if name == "fast" else name)
+    got = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens, tier=tier)
+    want = rel_attention_reference(q, k, v, rel_k, rel_v, window=w, lengths=lens, tier=tier)
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_engine_default_is_the_fast_tier_on_card(cuda_device, quantized):
+    """EngineConfig() on the card runs the fast tier: bf16 values, bf16 packs
+    (int8 for a quantized checkpoint) of kernels B and C, through A, B and C."""
+    from vits_tpu_torch.config import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.synthesizer import Synthesizer
+    from vits_tpu_torch.io import VitsTokenizer, random_params
+    from vits_tpu_torch.io.quantize import quantize_params
+    from vits_tpu_torch.ops.tiers import FAST
+
+    config = dataclasses.replace(VitsConfig(), hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                                 flow_size=32, upsample_initial_channel=256,
+                                 upsample_rates=(2, 2, 2), upsample_kernel_sizes=(4, 4, 4))
+    vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
+                              unk_token="z")
+    params = random_params(config, seed=1, keep_training=False)
+    if quantized:
+        params = quantize_params(params)
+    model = Synthesizer(config, tokenizer, params, EngineConfig(), device=cuda_device)
+    assert model.tiers.stage(0).mode == FAST and model.tiers.attention.mode == FAST
+    counts = {fn: fn.launches for fn in (fused_resblock_trio, fused_stage, flash_rel_attention)}
+    audio = model.synthesize("hello there, how are you", seed=0)
+    assert np.isfinite(audio).all() and audio.size > 0
+    assert all(fn.launches > n for fn, n in counts.items())
+    fmt = torch.int8 if quantized else torch.bfloat16
+    packs = model._vocoder_packs()
+    assert packs[0]["blocks"][0]["w1"].dtype == fmt and packs[1]["up_w"].dtype == fmt
+

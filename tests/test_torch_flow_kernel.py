@@ -44,6 +44,7 @@ from vits_tpu_torch.ops.cuda.flow import (
 from vits_tpu_torch.ops.cuda.flow import pack_flow_weights as torch_pack_flow_weights
 from vits_tpu_torch.ops.cuda.resblock import fused_resblock
 from vits_tpu_torch.ops.cuda.stage import fused_stage
+from vits_tpu_torch.ops.tiers import EXACT
 
 torch.set_num_threads(2)
 
@@ -282,7 +283,7 @@ def test_flow_pack_workspaces_from_many_threads(small_params, monkeypatch):
     from vits_tpu_torch.ops.cuda import flow as flow_module
 
     class StandIn:
-        def __init__(self, packed, config, B, T, speakers):
+        def __init__(self, packed, config, B, T, speakers, mode):
             self.key = (B, T, speakers)
 
     monkeypatch.setattr(flow_module, "FlowWorkspace", StandIn)
@@ -313,7 +314,7 @@ def test_flow_pack_workspaces_from_many_threads(small_params, monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors[:3]
-    assert all(pack._workspaces[key] is ws for key, ws in kept.items())
+    assert all(pack._workspaces[(*key, EXACT)] is ws for key, ws in kept.items())
     assert len(pack._workspaces) <= flow_module.WORKSPACES + len(kept)
 
 

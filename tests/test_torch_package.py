@@ -46,15 +46,6 @@ def test_from_jax_params_round_trip():
         np.testing.assert_array_equal(t.numpy(), value)
 
 
-def test_from_jax_params_rejects_int8():
-    params = {
-        "decoder.conv_pre.weight": np.ones((7, 4, 8), np.int8),
-        "decoder.conv_pre.weight.scale": np.ones((8,), np.float32),
-    }
-    with pytest.raises(NotImplementedError, match="int8"):
-        from_jax_params(params, "cpu")
-
-
 def test_port_never_imports_jax():
     """Import the port and synthesize on the CPU with jax and vits_tpu made unimportable."""
     code = (
@@ -66,6 +57,8 @@ def test_port_never_imports_jax():
         "from vits_tpu_torch.train import loop\n"
         "from vits_tpu_torch import cli\n"
         "from vits_tpu_torch.engine import mux, server, streaming\n"
+        "from vits_tpu_torch.io import quantize\n"
+        "from vits_tpu_torch.ops import precision, tiers\n"
         f"m = vits_tpu_torch.load_model({GGML!r}, device='cpu')\n"
         "audio = m.synthesize('hello world')\n"
         "assert audio.size > 0\n"
@@ -160,8 +153,8 @@ def test_export_round_trip_through_both_packages():
             np.testing.assert_array_equal(params2[name], value)
 
 
-def _code_without_docstrings(path: Path) -> str:
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _code_without_docstrings(path: Path, tree: ast.Module | None = None) -> str:
+    tree = tree or ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -169,6 +162,26 @@ def _code_without_docstrings(path: Path) -> str:
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:]
     return ast.dump(tree)
+
+
+def test_precision_copy_matches_original():
+    """ops/precision.py imports nothing of JAX: the port's copy is verbatim."""
+    ours = Path(REPO, "vits_tpu_torch", "ops", "precision.py")
+    theirs = Path(REPO, "vits_tpu", "ops", "precision.py")
+    assert ours.read_text() == theirs.read_text()
+    assert set(_imported_modules(ours)) == {"__future__", "typing"}
+
+
+def test_quantize_copy_matches_original():
+    """io/quantize.py: the port's copy is the original's code, docstrings aside,
+    without its unused ``import jax.numpy as jnp``."""
+    ours = Path(REPO, "vits_tpu_torch", "io", "quantize.py")
+    theirs = Path(REPO, "vits_tpu", "io", "quantize.py")
+    tree = ast.parse(theirs.read_text(), filename=str(theirs))
+    tree.body = [node for node in tree.body if not (
+        isinstance(node, ast.Import) and all(a.name.startswith("jax") for a in node.names))]
+    assert _code_without_docstrings(ours) == _code_without_docstrings(theirs, tree)
+    assert set(_imported_modules(ours)) == {"__future__", "os", "typing", "numpy"}
 
 
 def test_longform_copy_matches_original():

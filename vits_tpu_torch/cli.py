@@ -37,13 +37,14 @@ def main(argv=None) -> int:
     parser.add_argument("--speaking-rate", type=float, default=None,
                         help=">1 = faster speech, <1 = slower")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                        help="the port computes float32 only; bfloat16 waits for the "
-                             "precision tiers (ROADMAP.md queue 2)")
+                        help="compute dtype: bfloat16 (EngineConfig.compute_dtype) is not "
+                             "ported (ROADMAP.md)")
     parser.add_argument("--fidelity", choices=["fast", "glue32", "high", "exact"],
-                        default="exact",
-                        help="precision tier: the port computes fp32 only (3xTF32 "
-                             "kernels, TF32 off elsewhere), which is 'exact'; the other "
-                             "tiers wait for the precision tiers (ROADMAP.md queue 2)")
+                        default="fast",
+                        help="precision tier (EngineConfig.fidelity_kwargs): fast = bf16 "
+                             "kernel multiplies (the default, as in the JAX CLI), glue32 = "
+                             "the same on the card (the port's glue is fp32 at every tier), "
+                             "high = bf16x3 kernels, exact = fp32 (3xTF32) kernels")
     parser.add_argument("--bench", type=int, default=0, metavar="N",
                         help="after synthesis, time N repeat runs")
     parser.add_argument("--stream", action="store_true",
@@ -59,11 +60,8 @@ def main(argv=None) -> int:
     if not args.text and not args.convert:
         parser.error("provide --text (synthesis) or --convert (voice conversion)")
     if args.dtype != "float32":
-        parser.error(f"--dtype {args.dtype}: the port computes float32 only; bfloat16 waits "
-                     "for the precision tiers (ROADMAP.md queue 2)")
-    if args.fidelity != "exact":
-        parser.error(f"--fidelity {args.fidelity}: the port computes fp32 only ('exact'); "
-                     "the other tiers wait for the precision tiers (ROADMAP.md queue 2)")
+        parser.error(f"--dtype {args.dtype}: compute_dtype='bfloat16' is not ported (the "
+                     "kernels' bf16 tiers are --fidelity; ROADMAP.md, bf16 training)")
     if args.sp > 1:
         parser.error("--sp: multi-GPU decode is not ported (ROADMAP.md queue 1, multi-GPU)")
     if args.compilation_cache is not None:
@@ -74,13 +72,16 @@ def main(argv=None) -> int:
     import torch
 
     import vits_tpu_torch
+    from vits_tpu_torch.config import EngineConfig
     from vits_tpu_torch.utils.wav import write_wav
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print(f"error: --device {args.device}, but no CUDA device is visible "
               "(--device cpu runs on the CPU)", file=sys.stderr)
         return 1
-    model = vits_tpu_torch.load_model(args.model, device=args.device)
+    model = vits_tpu_torch.load_model(
+        args.model, EngineConfig(**EngineConfig.fidelity_kwargs(args.fidelity)),
+        device=args.device)
     controls = dict(
         noise_scale=args.noise_scale,
         noise_scale_duration=args.noise_scale_duration,

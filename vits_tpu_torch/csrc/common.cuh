@@ -5,6 +5,7 @@
 // allocates nothing, and returns cudaGetLastError() right after its launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define VK_EXPORT extern "C" __attribute__((visibility("default")))
@@ -44,11 +45,81 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The precision tiers of the products (vits_tpu_torch/ops/tiers.py, the JAX
+// package's kernel precision: ops/pallas/__init__.py::resolve_precision and
+// kernel_dot). kExact: fp32 products (3xTF32 on the tensor cores, fp32 FFMA
+// elsewhere), the "highest" tier. kFast: both operands rounded to bf16, the
+// products exact and summed in fp32, as one bf16 MXU pass ("fast", None).
+// kHigh: bf16x3, each operand split hi = bf16(x), lo = bf16(x - hi), and
+// hi*hi + hi*lo + lo*hi summed in fp32 ("high").
+enum TierMode { kExact = 0, kFast = 1, kHigh = 2 };
+
+// Weight formats of the vocoder packs: fp32, bf16, or int8 with one fp32 scale
+// per out-channel applied to the sum (vits_tpu/models/hifigan.py:109-118).
+enum WeightFormat { kW32 = 0, kW16 = 1, kW8 = 2 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A weight of any format as a float (bf16 and int8 values are exact in fp32).
+__device__ __forceinline__ float wvalue(float w) { return w; }
+__device__ __forceinline__ float wvalue(__nv_bfloat16 w) { return __bfloat162float(w); }
+__device__ __forceinline__ float wvalue(signed char w) { return static_cast<float>(w); }
+
+// c + a * b in a tier's arithmetic on the FFMA units (kernel A, conv_post).
+template <int M>
+__device__ __forceinline__ float fma_tier(float a, float b, float c) {
+  if constexpr (M == kExact) {
+    return fmaf(a, b, c);
+  } else if constexpr (M == kFast) {
+    return fmaf(bf16_round(a), bf16_round(b), c);
+  } else {
+    const float ah = bf16_round(a), bh = bf16_round(b);
+    const float al = bf16_round(a - ah), bl = bf16_round(b - bh);
+    return fmaf(al, bh, fmaf(ah, bl, fmaf(ah, bh, c)));
+  }
+}
+
+// Two floats as one register of two bf16 (x in the low half), rounded to nearest.
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// c += a * b on the tensor cores, one m16n8k16 bf16 product with fp32 sums.
+// Fragments (g = lane / 4, t = lane % 4), two bf16 a register, the lower k in
+// the low half: a0..a3 = A[g][2t, 2t+1], A[g+8][2t, 2t+1], A[g][2t+8, 2t+9],
+// A[g+8][2t+8, 2t+9]; b0, b1 = B[2t, 2t+1][g], B[2t+8, 2t+9][g]; c as mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 3xTF32, the fp32 tier on the tensor cores: hi = tf32(x), lo = tf32(x - hi)
 // (x - hi is exact in fp32); lo*hi + hi*lo + hi*hi summed in fp32.
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// One operand's split for a tier on the TF32 tensor cores (the narrow tile,
+// kernel 7): kExact split_tf32's hi and lo; kFast hi = bf16(x), which tf32
+// holds exactly, and lo = 0 (its passes are skipped); kHigh hi = bf16(x) and
+// lo = bf16(x - hi). A tf32 MMA of bf16 values multiplies them exactly and
+// sums in fp32: the bf16 MMA's arithmetic.
+template <int M>
+__device__ __forceinline__ void split_tier(float x, unsigned& hi, unsigned& lo) {
+  if constexpr (M == kExact) {
+    split_tf32(x, hi, lo);
+  } else {
+    const float h = bf16_round(x);
+    hi = __float_as_uint(h);
+    lo = M == kHigh ? __float_as_uint(bf16_round(x - h)) : 0u;
+  }
 }
 
 // c += a * b on the tensor cores, one m16n8k8 TF32 product with fp32 sums.

@@ -57,6 +57,18 @@
 // - Channel counts off the 32-channel grid (the flow's 16-wide halves of a
 //   narrow model) zero-fill the tail of the last K step and of the last column
 //   tile in the loaders; the epilogue skips columns past C_out.
+//
+// Precision tiers (common.cuh TierMode, the kernel's kMode): kExact is the
+// 3xTF32 above. kFast and kHigh (the serving tiers "fast" and "high") run
+// mma.sync.m16n8k16 bf16 with fp32 accumulators: when a chunk's window lands
+// the block applies leaky and rounds it to bf16 once (kHigh: and the rest,
+// bf16(x - hi)), into bf16 windows of 32 + 8 values a row (conflict-free
+// ldmatrix), and the weights are rounded (split) in registers as they become
+// B fragments. kFast is one pass a k16 slice; kHigh three, small first. The
+// window and the weights are staged as they come (fp32 x; fp32, bf16 or int8
+// weights, the WT of the launch: an int8 tile is 1 byte an entry in shared
+// memory, and becomes bf16 exactly, |q| <= 127, in registers). Each step's
+// products still sum into a zeroed partial.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -72,16 +84,19 @@ constexpr int kAs = kKc + 4;  // window row stride (floats): rows 4 banks apart
 constexpr int kStages = 3;    // weight tiles in flight
 constexpr int kMaxSplit = 8;  // portable cluster size
 
+constexpr int kAh = kKc + 8;  // bf16 window row stride (values): rows 20 words apart
+
 // A WM x WN grid of warps, each owning a (16*MT time steps) x (32 out-channels) tile.
-template <int WM, int WN, int MT, bool kTransW>
+template <int WM, int WN, int MT, bool kTransW, class WT = float>
 struct Tile {
   static constexpr int threads = 32 * WM * WN;
   static constexpr int wm = 16 * MT;  // warp tile rows
   static constexpr int bm = WM * wm;  // block tile rows (time steps)
   static constexpr int bn = WN * 32;  // block tile out-channels
-  // weight stage: kKc rows of bn (+ 8) floats, or with kTransW bn rows of kKc (+ 4)
-  static constexpr int ws = kTransW ? kKc + 4 : bn + 8;
-  static constexpr int w_floats = kTransW ? bn * ws : kKc * ws;
+  // weight stage: kKc rows of bn (+ pad) WT values, the rows 16-byte multiples
+  // (pad 8 floats, 8 bf16, 16 int8), or with kTransW (fp32) bn rows of kKc (+ 4)
+  static constexpr int ws = kTransW ? kKc + 4 : bn + (sizeof(WT) == 1 ? 16 : 8);
+  static constexpr int w_floats = (kTransW ? bn * ws : kKc * ws) * (int)sizeof(WT) / 4;
   static constexpr int os = bn + 8;  // staged output row stride
 };
 
@@ -91,16 +106,19 @@ struct Tile {
 struct Gemm {
   const float* x;
   int ldx;
-  const float* w;
+  const void* w;  // WT values
   const int* lengths;
   int T, C_in, C_out, k, dil, pad;
   float slope;
   int split, nwin;
 };
 
-// The resblock epilogue: y (+ bias), zero at p >= len; else times leaky'(aux)
-// (1 at aux >= 0, aux_slope below) when aux is set, plus residual when set;
-// with accumulate added to out; then times scale. All (B, T, C) fp32.
+// The resblock epilogue: y (times the int8 weights' per-out-channel wscale)
+// (+ bias), zero at p >= len; else times leaky'(aux) (1 at aux >= 0,
+// aux_slope below) when aux is set, plus residual when set; rounded to bf16
+// with round (the bf16 value carry of a pair's output); with accumulate added
+// to out; then times scale, into out or, with out16, as bf16 into out16 (out
+// then only gives accumulate's running sum). All (B, T, C), fp32 unless said.
 struct ResEpi {
   float* out;
   const float* bias;
@@ -109,9 +127,16 @@ struct ResEpi {
   float aux_slope;
   int T, C, accumulate;
   float scale;
+  const float* wscale = nullptr;
+  int round = 0;
+  __nv_bfloat16* out16 = nullptr;
 
   __device__ __forceinline__ void operator()(int b, int p, int co, float4 y, bool valid) const {
     const size_t off = ((size_t)b * T + p) * C + co;
+    if (wscale) {
+      const float4 sv = *reinterpret_cast<const float4*>(wscale + co);
+      y = make_float4(y.x * sv.x, y.y * sv.y, y.z * sv.z, y.w * sv.w);
+    }
     if (bias) {
       const float4 bv = *reinterpret_cast<const float4*>(bias + co);
       y = make_float4(y.x + bv.x, y.y + bv.y, y.z + bv.z, y.w + bv.w);
@@ -129,25 +154,38 @@ struct ResEpi {
         y = make_float4(r4.x + y.x, r4.y + y.y, r4.z + y.z, r4.w + y.w);
       }
     }
+    if (round) y = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z), bf16_round(y.w));
     float4* o = reinterpret_cast<float4*>(out + off);
     if (accumulate) {
       const float4 prev = *o;
       y = make_float4(prev.x + y.x, prev.y + y.y, prev.z + y.z, prev.w + y.w);
     }
-    *o = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+    y = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+    if (out16) {
+      __nv_bfloat162* o16 = reinterpret_cast<__nv_bfloat162*>(out16 + off);
+      o16[0] = __floats2bfloat162_rn(y.x, y.y);
+      o16[1] = __floats2bfloat162_rn(y.z, y.w);
+    } else {
+      *o = y;
+    }
   }
 };
 
-template <int WM, int WN, int MT, bool kTransW, class Epi>
+template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class Epi>
 __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const Epi epi) {
-  using G = Tile<WM, WN, MT, kTransW>;
+  using G = Tile<WM, WN, MT, kTransW, WT>;
+  static_assert(!kTransW || (kMode == kExact && sizeof(WT) == 4), "kTransW is fp32 3xTF32");
+  constexpr bool kBf16 = kMode != kExact;
   extern __shared__ __align__(16) float smem[];
   const int k = g.k, dil = g.dil, T = g.T, C_in = g.C_in, C_out = g.C_out, split = g.split;
   const int nwin = g.nwin;
-  float* ws = smem;                            // kStages weight tiles
+  WT* ws = reinterpret_cast<WT*>(smem);        // kStages weight tiles
   float* wins = smem + kStages * G::w_floats;  // nwin windows of win x kAs
   const int win = G::bm + (k - 1) * dil;
-  float* wlo = wins + nwin * win * kAs;        // lo halves of the current window
+  float* wlo = wins + nwin * win * kAs;        // kExact: lo halves of the current window
+  // bf16 tiers: the current window's leaky values rounded to bf16 (kHigh: and the rest)
+  __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(wlo);
+  __nv_bfloat16* a16lo = a16 + win * kAh;
   const int rank = blockIdx.x % split;         // the cluster rank: clusters are (split, 1, 1)
   const int t0 = blockIdx.x / split * G::bm;
   const int co0 = blockIdx.y * G::bn;
@@ -168,20 +206,22 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
 
   auto issue = [&](int i) {  // the copies of local step i
     const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
-    float* dst = ws + i % kStages * G::w_floats;
+    WT* dst = ws + i % kStages * (G::w_floats * 4 / (int)sizeof(WT));
     if constexpr (kTransW) {  // row c: out-channel co0 + c's 32 input channels of this chunk
-      const float* src = g.w + ((size_t)(k - 1 - tap) * C_out + co0) * C_in + chunk * kKc;
+      const float* src = static_cast<const float*>(g.w) +
+                         ((size_t)(k - 1 - tap) * C_out + co0) * C_in + chunk * kKc;
       for (int idx = tid; idx < G::bn * (kKc / 4); idx += G::threads) {
         const int c = idx / (kKc / 4), r4 = idx - c * (kKc / 4);
         cp_async16(dst + c * G::ws + r4 * 4, src + (size_t)c * C_in + r4 * 4);
       }
     } else {
-      const float* src = g.w + ((size_t)tap * C_in + chunk * kKc) * C_out + co0;
-      for (int idx = tid; idx < kKc * G::bn / 4; idx += G::threads) {
-        const int r = idx / (G::bn / 4), c4 = idx - r * (G::bn / 4);
+      constexpr int V = 16 / sizeof(WT);  // values a 16-byte copy carries
+      const WT* src = static_cast<const WT*>(g.w) + ((size_t)tap * C_in + chunk * kKc) * C_out + co0;
+      for (int idx = tid; idx < kKc * G::bn / V; idx += G::threads) {
+        const int r = idx / (G::bn / V), cv = idx - r * (G::bn / V);
         // zero rows past C_in and columns past C_out (a K or N tail)
-        const bool in = chunk * kKc + r < C_in && co0 + c4 * 4 < C_out;
-        cp_async16_zfill(dst + r * G::ws + c4 * 4, in ? src + (size_t)r * C_out + c4 * 4 : g.w,
+        const bool in = chunk * kKc + r < C_in && co0 + cv * V < C_out;
+        cp_async16_zfill(dst + r * G::ws + cv * V, in ? src + (size_t)r * C_out + cv * V : g.w,
                          in ? 16 : 0);
       }
     }
@@ -218,34 +258,35 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
     cp_async_commit();
     const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
     float* whi = wins + (chunk - chunk0) % nwin * win * kAs;
-    if (tap == 0 || i == 0) {  // a new chunk: leaky, then hi (in place) and lo, once for k taps
+    if (tap == 0 || i == 0) {  // a new chunk: leaky, then the tier's split, once for k taps
       for (int idx = tid; idx < win * kKc; idx += G::threads) {
         const int r = idx / kKc, c = idx - r * kKc;
-        unsigned hi, lo;
-        split_tf32(vk_leaky(whi[r * kAs + c], g.slope), hi, lo);
-        whi[r * kAs + c] = __uint_as_float(hi);
-        wlo[r * kAs + c] = __uint_as_float(lo);
+        const float v = vk_leaky(whi[r * kAs + c], g.slope);
+        if constexpr (kBf16) {
+          const __nv_bfloat16 h = __float2bfloat16_rn(v);
+          a16[r * kAh + c] = h;
+          if constexpr (kMode == kHigh) a16lo[r * kAh + c] = __float2bfloat16_rn(v - __bfloat162float(h));
+        } else {  // hi in place, lo beside it
+          unsigned hi, lo;
+          split_tf32(v, hi, lo);
+          whi[r * kAs + c] = __uint_as_float(hi);
+          wlo[r * kAs + c] = __uint_as_float(lo);
+        }
       }
       __syncthreads();
     }
-    // this lane's ldmatrix row: row lane % 8 of block lane / 8 of the fragment
-    const int a_off =
-        (wm0 + tap * dil + (lane >> 3 & 1) * 8 + (lane & 7)) * kAs + (lane >> 4) * 4;
-    const float* a_hi = whi + a_off;
-    const float* a_lo = wlo + a_off;
-    const float* wst = ws + i % kStages * G::w_floats;
-    // B[kk][n] of the warp's n8 tile nt, for this lane's n = gr
+    const WT* wst = ws + i % kStages * (G::w_floats * 4 / (int)sizeof(WT));
+    // B[kk][n] of the warp's n8 tile nt, for this lane's n = gr, as a float
     auto bw = [&](int kk, int nt) {
       if constexpr (kTransW)
-        return wst[(wn0 + nt * 8 + gr) * G::ws + kk + t];
+        return wvalue(wst[(wn0 + nt * 8 + gr) * G::ws + kk + t]);
       else
-        return wst[(kk + t) * G::ws + wn0 + nt * 8 + gr];
+        return wvalue(wst[(kk + t) * G::ws + wn0 + nt * 8 + gr]);
     };
     // The tensor cores truncate each sum to the accumulator's precision, a bias
-    // that grows with every MMA into one accumulator: the step's four k8
-    // slices sum into a zeroed partial, each pair's four small products before
-    // its two large ones, and the partial is added to acc in fp32 (round to
-    // nearest).
+    // that grows with every MMA into one accumulator: the step's products sum
+    // into a zeroed partial, small products first, and the partial is added to
+    // acc in fp32 (round to nearest).
     float part[MT][4][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -253,32 +294,71 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+    if constexpr (kBf16) {
+      // this lane's ldmatrix row: row lane % 8 of block lane / 8 (rows 0-7 / 8-15, k 0-7 / 8-15)
+      const int a_off = (wm0 + tap * dil + (lane >> 3 & 1) * 8 + (lane & 7)) * kAh + (lane >> 4) * 8;
 #pragma unroll
-    for (int kp = 0; kp < kKc; kp += 16) {  // a pair of k8 slices
-      unsigned bh[2][4][2], bl[2][4][2];
+      for (int kp = 0; kp < kKc; kp += 16) {  // one k16 slice
+        unsigned bh[4][2], bl[4][2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          split_tf32(bw(kp + 8 * h, nt), bh[h][nt][0], bl[h][nt][0]);
-          split_tf32(bw(kp + 8 * h + 4, nt), bh[h][nt][1], bl[h][nt][1]);
-        }
-      // one pass: 4 * MT independent MMAs of slice h, A (hi or lo) from shared memory
-      auto pass = [&](const float* a_s, int h, const unsigned (&bb)[2][4][2]) {
+          for (int h = 0; h < 2; ++h) {  // b0: rows kp + 2t, + 1; b1: rows kp + 8 + 2t, + 1
+            const WT* wp = wst + (kp + 8 * h + 2 * t) * G::ws + wn0 + nt * 8 + gr;
+            const float w0 = wvalue(wp[0]), w1 = wvalue(wp[G::ws]);
+            const float h0 = bf16_round(w0), h1 = bf16_round(w1);
+            bh[nt][h] = pack_bf16(h0, h1);
+            if constexpr (kMode == kHigh) bl[nt][h] = pack_bf16(w0 - h0, w1 - h1);
+          }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          unsigned a[4];
-          ldmatrix_x4(a, a_s + mt * 16 * kAs + kp + 8 * h);
+          unsigned ahi[4];
+          ldmatrix_x4(ahi, a16 + a_off + mt * 16 * kAh + kp);
+          if constexpr (kMode == kHigh) {
+            unsigned alo[4];
+            ldmatrix_x4(alo, a16lo + a_off + mt * 16 * kAh + kp);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], a, bb[h][nt][0], bb[h][nt][1]);
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], alo, bh[nt][0], bh[nt][1]);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], ahi, bl[nt][0], bl[nt][1]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], ahi, bh[nt][0], bh[nt][1]);
         }
-      };
-      pass(a_lo, 0, bh);
-      pass(a_hi, 0, bl);
-      pass(a_lo, 1, bh);
-      pass(a_hi, 1, bl);
-      pass(a_hi, 0, bh);
-      pass(a_hi, 1, bh);
+      }
+    } else {
+      // this lane's ldmatrix row: row lane % 8 of block lane / 8 of the fragment
+      const int a_off =
+          (wm0 + tap * dil + (lane >> 3 & 1) * 8 + (lane & 7)) * kAs + (lane >> 4) * 4;
+      const float* a_hi = whi + a_off;
+      const float* a_lo = wlo + a_off;
+#pragma unroll
+      for (int kp = 0; kp < kKc; kp += 16) {  // a pair of k8 slices
+        unsigned bh[2][4][2], bl[2][4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            split_tf32(bw(kp + 8 * h, nt), bh[h][nt][0], bl[h][nt][0]);
+            split_tf32(bw(kp + 8 * h + 4, nt), bh[h][nt][1], bl[h][nt][1]);
+          }
+        // one pass: 4 * MT independent MMAs of slice h, A (hi or lo) from shared memory
+        auto pass = [&](const float* a_s, int h, const unsigned (&bb)[2][4][2]) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            unsigned a[4];
+            ldmatrix_x4(a, a_s + mt * 16 * kAs + kp + 8 * h);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], a, bb[h][nt][0], bb[h][nt][1]);
+          }
+        };
+        pass(a_lo, 0, bh);
+        pass(a_hi, 0, bl);
+        pass(a_lo, 1, bh);
+        pass(a_hi, 1, bl);
+        pass(a_hi, 0, bh);
+        pass(a_hi, 1, bh);
+      }
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -323,9 +403,9 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
   if (split > 1) cluster.sync();  // the peers' shared memory outlives every remote read
 }
 
-template <int WM, int WN, int MT, bool kTransW, class Epi>
+template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class Epi>
 cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
-  using G = Tile<WM, WN, MT, kTransW>;
+  using G = Tile<WM, WN, MT, kTransW, WT>;
   const int steps = (g.C_in + kKc - 1) / kKc * g.k;
   const int per = g.split > 0 ? (steps + g.split - 1) / g.split : 0;
   if ((kTransW && g.C_out % G::bn) || g.split < 1 || g.split > kMaxSplit || G::bm % g.split ||
@@ -333,10 +413,14 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   // window slots: a slot is refilled only after the kStages - 1 steps ahead of it are issued
   g.nwin = (kStages - 2) / g.k + 2;
-  const int pipe = kStages * G::w_floats + (g.nwin + 1) * (G::bm + (g.k - 1) * g.dil) * kAs;
+  const int win = G::bm + (g.k - 1) * g.dil;
+  // beside the raw windows: kExact the lo window (fp32), the bf16 tiers the
+  // rounded window (kHigh: two), each win x kAh bf16
+  const int split_floats = kMode == kExact ? win * kAs : (kMode == kHigh ? 2 : 1) * win * kAh / 2;
+  const int pipe = kStages * G::w_floats + g.nwin * win * kAs + split_floats;
   const int smem = (pipe > G::bm * G::os ? pipe : G::bm * G::os) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem_once<conv_kernel<WM, WN, MT, kTransW, Epi>>(smem);
+  cudaError_t err = vk_set_smem_once<conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((g.T + G::bm - 1) / G::bm * g.split, (g.C_out + G::bn - 1) / G::bn, B);
@@ -350,7 +434,7 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, conv_kernel<WM, WN, MT, kTransW, Epi>, g, epi);
+  err = cudaLaunchKernelEx(&cfg, conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi>, g, epi);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -358,20 +442,38 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
 // The block tile by the id of ops/cuda/resblock.py::CONV_TILES. Needs C_in and
 // C_out multiples of 4 (a tail of a 32-channel step or of the tile's width is
 // zero-filled; with kTransW, C_in % 32 == 0 and C_out a multiple of the
-// tile's width) and 16-byte aligned rows.
-template <bool kTransW, class Epi>
+// tile's width), C_out a multiple of 8 for bf16 weights and of 16 for int8
+// (whole 16-byte copies), and 16-byte aligned rows.
+template <bool kTransW, int kMode, class WT, class Epi>
 cudaError_t launch_tile(int tile, const Gemm& g, const Epi& epi, int B, cudaStream_t stream) {
-  if (g.C_in % 4 || g.C_out % 4 || g.ldx % 4 || (kTransW && g.C_in % kKc))
+  if (g.C_in % 4 || g.C_out % 4 || g.ldx % 4 || (kTransW && g.C_in % kKc) ||
+      g.C_out % (16 / static_cast<int>(sizeof(WT))))
     return cudaErrorInvalidValue;
   switch (tile) {
     case 0:  // 128 x 64, warps 2 x 2 of 64 x 32
-      return launch<2, 2, 4, kTransW>(g, epi, B, stream);
+      return launch<2, 2, 4, kTransW, kMode, WT>(g, epi, B, stream);
     case 1:  // 64 x 64, warps 2 x 2 of 32 x 32
-      return launch<2, 2, 2, kTransW>(g, epi, B, stream);
+      return launch<2, 2, 2, kTransW, kMode, WT>(g, epi, B, stream);
     case 2:  // 128 x 32, warps 4 x 1 of 32 x 32
-      return launch<4, 1, 2, kTransW>(g, epi, B, stream);
+      return launch<4, 1, 2, kTransW, kMode, WT>(g, epi, B, stream);
     case 3:  // 64 x 32, warps 4 x 1 of 16 x 32
-      return launch<4, 1, 1, kTransW>(g, epi, B, stream);
+      return launch<4, 1, 1, kTransW, kMode, WT>(g, epi, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// launch_tile at a tier given at run time (TierMode), fp32 weights.
+template <class Epi>
+cudaError_t launch_tile_mode(int mode, int tile, const Gemm& g, const Epi& epi, int B,
+                             cudaStream_t stream) {
+  switch (mode) {
+    case kExact:
+      return launch_tile<false, kExact, float>(tile, g, epi, B, stream);
+    case kFast:
+      return launch_tile<false, kFast, float>(tile, g, epi, B, stream);
+    case kHigh:
+      return launch_tile<false, kHigh, float>(tile, g, epi, B, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -44,7 +44,9 @@
 // is left at B=1 is each launch's own latency (~12 us on the same card for a
 // few K steps, a cluster reduction and an epilogue); programmatic dependent
 // launch between the products, and a launch fusing the gate with res/skip,
-// were measured no faster (PERF.md) and are not used.
+// were measured no faster (PERF.md) and are not used. At the serving tiers
+// the products take the conv's bf16 paths (kFast, kHigh; conv_gemm.cuh), the
+// elementwise work of the epilogues staying fp32 as in the JAX kernel.
 #include <math.h>
 
 #include "common.cuh"
@@ -131,7 +133,7 @@ __global__ void __launch_bounds__(256)
 cudaError_t run_flow(float* x, const int* lengths, const float* cond,
                      const float* const* packed, const int* plan, float* h, float* acts,
                      float* skip, int B, int T, int half, int hidden, int nl, int k, int n,
-                     cudaStream_t s) {
+                     int mode, cudaStream_t s) {
   const int C = 2 * half, h2 = 2 * hidden;
   const float *w_pre = packed[0], *b_pre = packed[1], *w_gate = packed[2], *b_gate = packed[3];
   const float *w_rs = packed[4], *b_rs = packed[5], *w_post = packed[6], *b_post = packed[7];
@@ -145,27 +147,27 @@ cudaError_t run_flow(float* x, const int* lengths, const float* cond,
     const int read_off = step % 2 == 0 ? half : 0, upd_off = half - read_off;
     FlowEpi<kPre> pre{h, hidden, b_pre + (size_t)step * hidden};
     pre.T = T, pre.hidden = hidden;
-    err = conv::launch_tile<false>(
-        plan[0], gemm(x + read_off, C, w_pre + (size_t)step * half * hidden, half, hidden, 1, 0),
+    err = conv::launch_tile_mode(
+        mode, plan[0], gemm(x + read_off, C, w_pre + (size_t)step * half * hidden, half, hidden, 1, 0),
         pre, B, s);
     for (int l = 0; l < nl && err == cudaSuccess; ++l) {
       const size_t sl = (size_t)step * nl + l;
       FlowEpi<kGate> gate{acts, hidden, b_gate + sl * h2, cond ? cond + sl * h2 : nullptr,
                           n * nl * h2};
       gate.T = T, gate.hidden = hidden;
-      err = conv::launch_tile<false>(
-          plan[2], gemm(h, hidden, w_gate + sl * k * hidden * h2, hidden, h2, k, 1), gate, B, s);
+      err = conv::launch_tile_mode(
+          mode, plan[2], gemm(h, hidden, w_gate + sl * k * hidden * h2, hidden, h2, k, 1), gate, B, s);
       if (err != cudaSuccess) break;
       FlowEpi<kRes> res{h, hidden, b_rs + sl * h2, nullptr, 0, skip, l == 0, l < nl - 1};
       res.T = T, res.hidden = hidden;
-      err = conv::launch_tile<false>(
-          plan[4], gemm(acts, hidden, w_rs + sl * hidden * h2, hidden, h2, 1, 2), res, B, s);
+      err = conv::launch_tile_mode(
+          mode, plan[4], gemm(acts, hidden, w_rs + sl * hidden * h2, hidden, h2, 1, 2), res, B, s);
     }
     if (err != cudaSuccess) break;
     FlowEpi<kPost> post{x + upd_off, C, b_post + (size_t)step * half};
     post.T = T, post.hidden = hidden;
-    err = conv::launch_tile<false>(
-        plan[6], gemm(skip, hidden, w_post + (size_t)step * hidden * half, hidden, half, 1, 3),
+    err = conv::launch_tile_mode(
+        mode, plan[6], gemm(skip, hidden, w_post + (size_t)step * hidden * half, hidden, half, 1, 3),
         post, B, s);
   }
   return err;
@@ -186,14 +188,17 @@ cudaError_t run_flow(float* x, const int* lengths, const float* cond,
 // b_cond (n*nl*2*hidden) (null without speakers). emb (nullable): (B, E);
 // cond: (B, n, nl, 2*hidden). plan: host array of (tile, split) for the pre,
 // gate, res/skip and post products (ops/cuda/flow.py::flow_plan). h, acts,
-// skip: (B, T, hidden) scratch. half % 16 == 0, hidden % 32 == 0, k odd,
+// skip: (B, T, hidden) scratch. mode: the products' tier (TierMode; the JAX
+// kernel's reduce_precision(pallas_precision)), baked into the graph.
+// half % 16 == 0, hidden % 32 == 0, k odd,
 // 16-byte aligned tensors. The graph keeps every pointer: the caller keeps
 // the buffers for its life and frees it with vk_graph_destroy.
 VK_EXPORT int vk_flow_capture(float* x, const int* lengths, const float* emb, float* cond, int E,
                               const float* const* packed, const int* plan, float* h,
                               float* acts, float* skip, int B, int T, int half, int hidden,
-                              int nl, int k, int n, void** exec) {
+                              int nl, int k, int n, int mode, void** exec) {
   if (nl < 1 || n < 1 || k < 1 || k % 2 == 0 || T < 1 || B < 1 || half % 16 || hidden % 32 ||
+      mode < kExact || mode > kHigh ||
       (emb && (!cond || E < 1 || !packed[8] || !packed[9])))
     return cudaErrorInvalidValue;
   cudaStream_t cs;
@@ -208,7 +213,7 @@ VK_EXPORT int vk_flow_capture(float* x, const int* lengths, const float* emb, fl
     }
     if (err == cudaSuccess)
       err = run_flow(x, lengths, emb ? cond : nullptr, packed, plan, h, acts, skip, B, T, half,
-                     hidden, nl, k, n, cs);
+                     hidden, nl, k, n, mode, cs);
     cudaGraph_t graph = nullptr;
     const cudaError_t end = cudaStreamEndCapture(cs, &graph);
     if (err == cudaSuccess) err = end;

@@ -26,6 +26,15 @@
 // products sum into a zeroed partial, small products first, added to the
 // accumulator in fp32. A tile at or past its row's length skips its loads
 // and products and only runs the epilogue.
+//
+// Precision tiers (the template's M, common.cuh TierMode): the operands are
+// split by split_tier, so kFast multiplies bf16-rounded operands once and
+// kHigh runs the bf16x3 split's three passes, on the same TF32 MMAs (a tf32
+// MMA of bf16 values is exact products summed in fp32). bf16 and int8
+// weights (wfmt) are read at 2 and 1 bytes an entry and converted to fp32 as
+// they are staged (plain loads, not cp.async); int8 sums are scaled by
+// wscale per out-channel before the bias. With round the output is rounded to
+// bf16 (the bf16 value carry) before accumulate and scale.
 #pragma once
 
 #include "common.cuh"
@@ -39,7 +48,7 @@ constexpr int kCols = 64;         // out-channels per block: up to eight n8 tile
 struct Conv {
   const float* x;         // (B, T_x, C_in)
   float* out;             // (B, os * T, C_out)
-  const float* w;         // (taps, C_in, C_out)
+  const void* w;          // (taps, C_in, C_out) in the format wfmt (WeightFormat)
   const float* bias;      // (C_out,)
   const float* residual;  // like out, or null
   const int* lengths;     // (B,) valid rows t
@@ -49,6 +58,10 @@ struct Conv {
   int accumulate;
   float scale;
   int vec_x, vec_w;  // 16-byte loads of x (C_in % 4 == 0) and w (C_out % 4 == 0)
+  int wfmt = kW32;
+  const float* wscale = nullptr;  // int8: (C_out,) per-out-channel scale
+  int round = 0;
+  __nv_bfloat16* out16 = nullptr;  // with it the result goes there as bf16 (out: accumulate's)
 };
 
 inline __host__ __device__ int k_pad(int C_in) { return (C_in + 7) / 8 * 8; }
@@ -61,7 +74,7 @@ inline __host__ __device__ int smem_floats(int nt, int n, int dil, int C_in) {
 
 // Rows [t0, t0 + kBM) and columns [co0, co0 + 8*NT) of batch row b, with n
 // taps at input offset -pad, weights from tap wt0, output rows os*t + oo.
-template <int NT>
+template <int NT, int M>
 __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int t0, int co0,
                                           int n, int pad, int wt0, int oo) {
   constexpr int cols = 8 * NT;
@@ -76,24 +89,38 @@ __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int
   // edges), then the epilogue's operands, so that the block waits for one
   // round trip to memory before its products, not one per loop iteration.
   if (live) {
-    if (c.vec_w) {
+    if (c.wfmt != kW32) {  // bf16 or int8: load, convert, store
+      for (int idx = tid; idx < n * Kp * cols; idx += blockDim.x) {
+        const int row = idx / cols, col = idx - row * cols;
+        const int tap = row / Kp, ci = row - tap * Kp, co = co0 + col;
+        float v = 0.f;
+        if (ci < c.C_in && co < c.C_out) {
+          const size_t at = ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co;
+          v = c.wfmt == kW16 ? wvalue(static_cast<const __nv_bfloat16*>(c.w)[at])
+                             : wvalue(static_cast<const signed char*>(c.w)[at]);
+        }
+        ws[row * WS + col] = v;
+      }
+    } else if (c.vec_w) {
+      const float* w = static_cast<const float*>(c.w);
       for (int idx = tid; idx < n * Kp * (cols / 4); idx += blockDim.x) {
         const int row = idx / (cols / 4), c4 = idx - row * (cols / 4);  // row = tap*Kp + ci
         const int tap = row / Kp, ci = row - tap * Kp, co = co0 + 4 * c4;
         const bool in = ci < c.C_in && co < c.C_out;
         cp_async16_zfill(ws + row * WS + 4 * c4,
-                         in ? c.w + ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co
-                            : c.w,
+                         in ? w + ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co
+                            : w,
                          in ? 16 : 0);
       }
     } else {
+      const float* w = static_cast<const float*>(c.w);
       for (int idx = tid; idx < n * Kp * cols; idx += blockDim.x) {
         const int row = idx / cols, col = idx - row * cols;
         const int tap = row / Kp, ci = row - tap * Kp, co = co0 + col;
         const bool in = ci < c.C_in && co < c.C_out;
         cp_async4_zfill(ws + row * WS + col,
-                        in ? c.w + ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co
-                           : c.w,
+                        in ? w + ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co
+                           : w,
                         in ? 4 : 0);
       }
     }
@@ -123,13 +150,14 @@ __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int
   float* ob = c.out + (size_t)b * rows_out * c.C_out;
   const float* rb = c.residual ? c.residual + (size_t)b * rows_out * c.C_out : nullptr;
   // this lane's outputs: rows t0 + m0 + g (+8), columns co0 + nt*8 + 2*tq (+1)
-  float bias[NT][2], res[2][NT][2], prev[2][NT][2];
+  float bias[NT][2], wsc[NT][2], res[2][NT][2], prev[2][NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int co = co0 + nt * 8 + 2 * tq + e;
       bias[nt][e] = co < c.C_out ? c.bias[co] : 0.f;
+      wsc[nt][e] = c.wscale && co < c.C_out ? c.wscale[co] : 1.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = t0 + m0 + g + 8 * h;
@@ -160,17 +188,19 @@ __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int
           for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
         for (int k8 = kc; k8 < kend; k8 += 8) {
           unsigned ah[4], al[4];  // leaky here: the window holds raw x
-          split_tf32(vk_leaky(xa[k8], c.slope), ah[0], al[0]);
-          split_tf32(vk_leaky(xa[8 * XS + k8], c.slope), ah[1], al[1]);
-          split_tf32(vk_leaky(xa[k8 + 4], c.slope), ah[2], al[2]);
-          split_tf32(vk_leaky(xa[8 * XS + k8 + 4], c.slope), ah[3], al[3]);
+          split_tier<M>(vk_leaky(xa[k8], c.slope), ah[0], al[0]);
+          split_tier<M>(vk_leaky(xa[8 * XS + k8], c.slope), ah[1], al[1]);
+          split_tier<M>(vk_leaky(xa[k8 + 4], c.slope), ah[2], al[2]);
+          split_tier<M>(vk_leaky(xa[8 * XS + k8 + 4], c.slope), ah[3], al[3]);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             unsigned bh0, bl0, bh1, bl1;
-            split_tf32(wb[k8 * WS + nt * 8], bh0, bl0);
-            split_tf32(wb[(k8 + 4) * WS + nt * 8], bh1, bl1);
-            mma_tf32(part[nt], al, bh0, bh1);
-            mma_tf32(part[nt], ah, bl0, bl1);
+            split_tier<M>(wb[k8 * WS + nt * 8], bh0, bl0);
+            split_tier<M>(wb[(k8 + 4) * WS + nt * 8], bh1, bl1);
+            if constexpr (M != kFast) {
+              mma_tf32(part[nt], al, bh0, bh1);
+              mma_tf32(part[nt], ah, bl0, bl1);
+            }
             mma_tf32(part[nt], ah, bh0, bh1);
           }
         }
@@ -193,8 +223,13 @@ __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int
       for (int e = 0; e < 2; ++e) {
         const int co = co0 + nt * 8 + 2 * tq + e;
         if (co >= c.C_out) continue;
-        const float y = t < len ? acc[nt][2 * h + e] + bias[nt][e] + res[h][nt][e] : 0.f;
-        ob[row + co] = (prev[h][nt][e] + y) * c.scale;
+        float y = t < len ? acc[nt][2 * h + e] * wsc[nt][e] + bias[nt][e] + res[h][nt][e] : 0.f;
+        if (c.round) y = bf16_round(y);
+        y = (prev[h][nt][e] + y) * c.scale;
+        if (c.out16)
+          c.out16[(size_t)b * rows_out * c.C_out + row + co] = __float2bfloat16_rn(y);
+        else
+          ob[row + co] = y;
       }
   }
 }

@@ -36,6 +36,11 @@
 // - The rel_v term needs the final weights of the 2w+1 keys around each
 //   query: after the merge the block recomputes those few scores (one warp
 //   per (query, r), lanes over d) and weights them with the merged m and l.
+// - Precision tiers (the template's M, common.cuh TierMode): every product
+//   of the JAX kernel's dots (q.rel_k, q.k, p.v and the window weights'
+//   rel_v term) is an fma_tier<M>: fp32 at kExact, both operands rounded to
+//   bf16 at kFast (Mosaic's DEFAULT on fp32 operands), the bf16x3 split at
+//   kHigh. The softmax and the merge stay fp32.
 #include <math.h>
 
 #include "common.cuh"
@@ -67,7 +72,7 @@ inline __host__ __device__ int fixed_floats(int d) {
 }
 
 // NC = ceil(d / 32): the float4 column groups a lane owns in p.v.
-template <int NC>
+template <int NC, int M>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ rel_k,
@@ -116,7 +121,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   for (int task = warp; task < kTQ * nr; task += nw) {
     const int qi = task / nr, r = task - qi * nr;
     float s = 0.f;
-    for (int c = lane; c < d; c += 32) s = fmaf(qs[qi * dp + c], rel_k[r * d + c], s);
+    for (int c = lane; c < d; c += 32) s = fma_tier<M>(qs[qi * dp + c], rel_k[r * d + c], s);
     s = warp_sum(s);
     if (lane == 0) rl[qi * kMaxR + r] = s;
   }
@@ -180,14 +185,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float4 qv = *reinterpret_cast<const float4*>(qs + (qg * 4 + u) * dp + 4 * c4);
-        s[u][0] = fmaf(qv.x, k0.x, s[u][0]);
-        s[u][0] = fmaf(qv.y, k0.y, s[u][0]);
-        s[u][0] = fmaf(qv.z, k0.z, s[u][0]);
-        s[u][0] = fmaf(qv.w, k0.w, s[u][0]);
-        s[u][1] = fmaf(qv.x, k1.x, s[u][1]);
-        s[u][1] = fmaf(qv.y, k1.y, s[u][1]);
-        s[u][1] = fmaf(qv.z, k1.z, s[u][1]);
-        s[u][1] = fmaf(qv.w, k1.w, s[u][1]);
+        s[u][0] = fma_tier<M>(qv.x, k0.x, s[u][0]);
+        s[u][0] = fma_tier<M>(qv.y, k0.y, s[u][0]);
+        s[u][0] = fma_tier<M>(qv.z, k0.z, s[u][0]);
+        s[u][0] = fma_tier<M>(qv.w, k0.w, s[u][0]);
+        s[u][1] = fma_tier<M>(qv.x, k1.x, s[u][1]);
+        s[u][1] = fma_tier<M>(qv.y, k1.y, s[u][1]);
+        s[u][1] = fma_tier<M>(qv.z, k1.z, s[u][1]);
+        s[u][1] = fma_tier<M>(qv.w, k1.w, s[u][1]);
       }
     }
     // relative logits, key mask, and the online softmax of each query row
@@ -233,10 +238,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         const float4 vv = *reinterpret_cast<const float4*>(vs + jj * dv + 4 * kg + 32 * n);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          acc[u][4 * n + 0] = fmaf(p[u], vv.x, acc[u][4 * n + 0]);
-          acc[u][4 * n + 1] = fmaf(p[u], vv.y, acc[u][4 * n + 1]);
-          acc[u][4 * n + 2] = fmaf(p[u], vv.z, acc[u][4 * n + 2]);
-          acc[u][4 * n + 3] = fmaf(p[u], vv.w, acc[u][4 * n + 3]);
+          acc[u][4 * n + 0] = fma_tier<M>(p[u], vv.x, acc[u][4 * n + 0]);
+          acc[u][4 * n + 1] = fma_tier<M>(p[u], vv.y, acc[u][4 * n + 1]);
+          acc[u][4 * n + 2] = fma_tier<M>(p[u], vv.z, acc[u][4 * n + 2]);
+          acc[u][4 * n + 3] = fma_tier<M>(p[u], vv.w, acc[u][4 * n + 3]);
         }
       }
     }
@@ -280,7 +285,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float p = 0.f;
     if (i < L && j >= 0 && j < L) {
       float x = 0.f;
-      for (int c = lane; c < d; c += 32) x = fmaf(qs[qi * dp + c], kh[(size_t)j * d + c], x);
+      for (int c = lane; c < d; c += 32) x = fma_tier<M>(qs[qi * dp + c], kh[(size_t)j * d + c], x);
       x = warp_sum(x) + rl[qi * kMaxR + r];
       if (j >= len) x += kNeg;
       p = expf(x - mt[qi]) / lt[qi];
@@ -295,12 +300,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float o = 0.f;
     for (int wi = 0; wi < nw; ++wi)
       o = fmaf(kv[wi * 2 * stage + qi * dv + c], sc[wi * kTQ + qi], o);
-    for (int r = 0; r < nr; ++r) o = fmaf(pw[qi * kMaxR + r], rel_v[r * d + c], o);
+    for (int r = 0; r < nr; ++r) o = fma_tier<M>(pw[qi * kMaxR + r], rel_v[r * d + c], o);
     oh[(size_t)i * d + c] = o;
   }
 }
 
-template <int NC>
+template <int NC, int M>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* rel_k,
                    const float* rel_v, const int* lengths, float* out, float* lse, int B, int H,
                    int L, int d, int w, cudaStream_t stream) {
@@ -310,33 +315,50 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   nw = nw < kMaxWarps ? nw : kMaxWarps;
   if (nw < 1) return cudaErrorInvalidValue;
   const int smem = (fixed + nw * per_warp) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_kernel<NC>, smem);
+  cudaError_t err = vk_set_smem(rel_attention_kernel<NC, M>, smem);
   if (err != cudaSuccess) return err;
   const int vec = d % 4 == 0 && reinterpret_cast<size_t>(k) % 16 == 0 &&
                   reinterpret_cast<size_t>(v) % 16 == 0;
   const dim3 grid((L + kTQ - 1) / kTQ, H, B);
-  rel_attention_kernel<NC><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths, out,
+  rel_attention_kernel<NC, M><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths, out,
                                                             lse, H, L, d, w, vec);
   return cudaGetLastError();
 }
 
+template <int M>
+cudaError_t launch_mode(const float* q, const float* k, const float* v, const float* rel_k,
+                        const float* rel_v, const int* lengths, float* out, float* lse, int B,
+                        int H, int L, int d, int w, cudaStream_t s) {
+  switch ((d + 31) / 32) {
+    case 1:
+      return launch<1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 2:
+      return launch<2, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 3:
+      return launch<3, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    default:
+      return launch<4, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+  }
+}
+
 }  // namespace
 
+// mode: the tier of the products (TierMode).
 VK_EXPORT int vk_rel_attention(const float* q, const float* k, const float* v,
                                const float* rel_k, const float* rel_v, const int* lengths,
                                float* out, float* lse, int B, int H, int L, int d, int w,
-                               void* stream) {
+                               int mode, void* stream) {
   const int nr = 2 * w + 1;
   if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
-    case 1:
-      return launch<1>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
-    case 2:
-      return launch<2>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
-    case 3:
-      return launch<3>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+  switch (mode) {
+    case kExact:
+      return launch_mode<kExact>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case kFast:
+      return launch_mode<kFast>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case kHigh:
+      return launch_mode<kHigh>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     default:
-      return launch<4>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return cudaErrorInvalidValue;
   }
 }

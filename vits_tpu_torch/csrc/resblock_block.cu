@@ -54,6 +54,13 @@
 // - With accumulate the last conv adds its result to out, then everything is
 //   multiplied by scale: the caller's sum over a stage's resblocks and its
 //   division folded into the epilogue.
+// - Precision tiers (the template's M, common.cuh TierMode): kExact is the
+//   3xTF32 above; kFast rounds both operands to bf16 and runs only the hi*hi
+//   pass, kHigh splits both into bf16 hi and lo (split_tier) and runs all
+//   three, on the same TF32 MMAs (exact products of bf16 values, fp32 sums).
+//   With round (the bf16 value dtype) the x window is rounded to bf16 once it
+//   lands and each pair's output before it is stored, where the JAX kernel
+//   casts to its value dtype.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -71,8 +78,9 @@ struct Block {
   const float* x;       // (B, T, C)
   float* out;           // (B, T, C)
   const int* lengths;   // (B,) valid rows, or null: every row T long
-  int T, bm, halo, k, pairs, accumulate;
+  int T, bm, halo, k, pairs, accumulate, round;
   float slope, scale;
+  float xslope;  // conv1's leaky of the x window: with round a bf16 constant, as in JAX
   int dil[kMaxPairs];
   const float* w[2 * kMaxPairs];     // conv c: w1 of pair c / 2 (c even), w2 (c odd); (k, C, C)
   const float* bias[2 * kMaxPairs];  // (C,)
@@ -88,6 +96,14 @@ __device__ __forceinline__ void split_rna(float x, unsigned& hi, unsigned& lo) {
   hi = rna_tf32(x);
   lo = rna_tf32(x - __uint_as_float(hi));
 }
+// An operand's split at tier M: split_rna for kExact, else split_tier.
+template <int M>
+__device__ __forceinline__ void split_m(float x, unsigned& hi, unsigned& lo) {
+  if constexpr (M == kExact)
+    split_rna(x, hi, lo);
+  else
+    split_tier<M>(x, hi, lo);
+}
 
 // Column of element (row, col) in a weight row of N floats: the 8-column
 // blocks are XOR-swizzled by the row, so that lanes (g, t) reading rows
@@ -99,13 +115,13 @@ __device__ __forceinline__ int wcol(int row, int col) {
   else return col;
 }
 
-// One conv of the block: output rows [s, s + M) of the window, from src rows
+// One conv of the block: output rows [s, s + rows) of the window, from src rows
 // [s - reach, s + M + reach) at dilation d, all k taps, into the epilogue.
 // Its units, one m16 tile x NTW n8 tiles each, go round the warps.
-template <int C, int N, bool kLeaky>
+template <int C, int N, bool kLeaky, int M>
 __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& cluster, float* X,
                                           float* Y, const float* src, const float* wt,
-                                          const float* bias, int s, int M, int reach, int d,
+                                          const float* bias, int s, int rows, int reach, int d,
                                           int stage, bool last, int t0, int b, int len, int co0) {
   constexpr int XS = C + 4;
   constexpr int CS = C / N;
@@ -117,7 +133,7 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
   const int gr = lane >> 2, tq = lane & 3;
   // this lane's ldmatrix row: row lane % 8 of block lane / 8 (rows 0-7 / 8-15, words 0-3 / 4-7)
   const int lrow = (lane >> 3 & 1) * 8 + (lane & 7), lcol = (lane >> 4) * 4;
-  const int units = (M + 15) / 16 * NG;
+  const int units = (rows + 15) / 16 * NG;
   for (int u = warp; u < units; u += kWarps) {
     const int n0 = u % NG * NTW * 8;  // first local column
     const int r0 = s + u / NG * 16;   // first row
@@ -143,22 +159,24 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
 #pragma unroll
           for (int nt = 0; nt < NTW; ++nt) {
             const int col = n0 + nt * 8 + gr;
-            split_rna(wtap[(kk + tq) * N + wcol<N>(kk + tq, col)], bh[nt][0], bl[nt][0]);
-            split_rna(wtap[(kk + tq + 4) * N + wcol<N>(kk + tq + 4, col)], bh[nt][1],
-                      bl[nt][1]);
+            split_m<M>(wtap[(kk + tq) * N + wcol<N>(kk + tq, col)], bh[nt][0], bl[nt][0]);
+            split_m<M>(wtap[(kk + tq + 4) * N + wcol<N>(kk + tq + 4, col)], bh[nt][1],
+                       bl[nt][1]);
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             // leaky(v) = max(v, v * slope) for a slope in [0, 1] (vk_resblock_block checks)
             const float v = __uint_as_float(raw[e]);
-            split_rna(kLeaky ? fmaxf(v, v * a.slope) : v, ah[e], al[e]);
+            split_m<M>(kLeaky ? fmaxf(v, v * a.xslope) : v, ah[e], al[e]);
           }
-          // each accumulator takes lo*hi, hi*lo, hi*hi in turn; the passes run
-          // over the n8 tiles, so that no MMA waits on the one before it
+          // each accumulator takes lo*hi, hi*lo, hi*hi in turn (kFast: hi*hi);
+          // the passes run over the n8 tiles, so that no MMA waits on the one before it
+          if constexpr (M != kFast) {
 #pragma unroll
-          for (int nt = 0; nt < NTW; ++nt) mma_tf32(part[nt], al, bh[nt][0], bh[nt][1]);
+            for (int nt = 0; nt < NTW; ++nt) mma_tf32(part[nt], al, bh[nt][0], bh[nt][1]);
 #pragma unroll
-          for (int nt = 0; nt < NTW; ++nt) mma_tf32(part[nt], ah, bl[nt][0], bl[nt][1]);
+            for (int nt = 0; nt < NTW; ++nt) mma_tf32(part[nt], ah, bl[nt][0], bl[nt][1]);
+          }
 #pragma unroll
           for (int nt = 0; nt < NTW; ++nt) mma_tf32(part[nt], ah, bh[nt][0], bh[nt][1]);
         }
@@ -173,7 +191,7 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + gr + 8 * h;
-      if (r >= s + M) continue;
+      if (r >= s + rows) continue;
       const int p = t0 - H + r;  // global time step
       const bool valid = p >= 0 && p < len;
 #pragma unroll
@@ -188,6 +206,7 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
         } else {  // conv2: the residual from the same rows of x, masked
           const float2 xr = *reinterpret_cast<const float2*>(at);
           y = valid ? make_float2(xr.x + y.x, xr.y + y.y) : make_float2(0.f, 0.f);
+          if (a.round) y = make_float2(bf16_round(y.x), bf16_round(y.y));
         }
         if (last) {  // r in [H, H + bm): output step p in [t0, t0 + bm)
           if (p < T) {
@@ -210,7 +229,7 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
   }
 }
 
-template <int C, int N>
+template <int C, int N, int M>
 __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
   constexpr int XS = C + 4;
   constexpr int CS = C / N;  // cluster size: blocks sharing the out-channels
@@ -265,10 +284,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
 
   int o = 0;  // rows of the window consumed from each edge so far
   for (int c = 0; c < convs; ++c) {
-    if (c == 0)
+    if (c == 0) {
       cp_async_wait<1>();
-    else
+      if (a.round) {  // the bf16 value dtype: x as the JAX kernel casts it
+        __syncthreads();
+        for (int idx = tid; idx < W * C; idx += kThreads) {
+          float* v = X + idx / C * XS + idx % C;
+          *v = bf16_round(*v);
+        }
+      }
+    } else {
       cp_async_wait<0>();
+    }
     // conv c's weights and input landed for every thread of the cluster, and
     // conv c - 1 finished reading what conv c overwrites
     if constexpr (CS > 1)
@@ -281,24 +308,24 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
     const int d = stage ? 1 : a.dil[c >> 1];
     const int reach = d * (k - 1) / 2;
     const int s = o + reach;
-    const int M = W - 2 * s;
+    const int rows = W - 2 * s;
     o = s;
     const float* wt = wbuf + (c & 1) * wfl;
     if (stage == 0)
-      conv_pass<C, N, true>(a, cluster, X, Y, X, wt, a.bias[c], s, M, reach, d, 0,
-                            c == convs - 1, t0, b, len, co0);
+      conv_pass<C, N, true, M>(a, cluster, X, Y, X, wt, a.bias[c], s, rows, reach, d, 0,
+                               c == convs - 1, t0, b, len, co0);
     else
-      conv_pass<C, N, false>(a, cluster, X, Y, Y, wt, a.bias[c], s, M, reach, d, 1,
-                             c == convs - 1, t0, b, len, co0);
+      conv_pass<C, N, false, M>(a, cluster, X, Y, Y, wt, a.bias[c], s, rows, reach, d, 1,
+                                c == convs - 1, t0, b, len, co0);
   }
 }
 
-template <int C, int N>
-cudaError_t launch(const Block& a, int B, cudaStream_t stream) {
+template <int C, int N, int M>
+cudaError_t launch_mode(const Block& a, int B, cudaStream_t stream) {
   const size_t window = a.bm + 2 * a.halo + kMargin;
   const size_t smem = (2 * window * (C + 4) + 2 * (size_t)a.k * C * N) * sizeof(float);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem_once<block_kernel<C, N>>(smem);
+  cudaError_t err = vk_set_smem_once<block_kernel<C, N, M>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.T + a.bm - 1) / a.bm * (C / N), B, 1);
@@ -312,9 +339,23 @@ cudaError_t launch(const Block& a, int B, cudaStream_t stream) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, block_kernel<C, N>, a);
+  err = cudaLaunchKernelEx(&cfg, block_kernel<C, N, M>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int C, int N>
+cudaError_t launch(const Block& a, int mode, int B, cudaStream_t stream) {
+  switch (mode) {
+    case kExact:
+      return launch_mode<C, N, kExact>(a, B, stream);
+    case kFast:
+      return launch_mode<C, N, kFast>(a, B, stream);
+    case kHigh:
+      return launch_mode<C, N, kHigh>(a, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -325,11 +366,13 @@ cudaError_t launch(const Block& a, int B, cudaStream_t stream) {
 // (w1, b1, w2, b2 of each pair; w (k, C, C) as the JAX loader lays it out, b
 // (C,)), 16-byte aligned; dilations: pairs ints; lengths (B,) int32 or null
 // (every row T long). bm (a multiple of 16) and cluster (dividing C, C /
-// cluster >= 8) come from ops/cuda/resblock.py::block_plan. One launch.
+// cluster >= 8) come from ops/cuda/resblock.py::block_plan; mode is the tier
+// (TierMode) and round the bf16 value carry. One launch.
 VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
                                 const float* const* weights, const int* dilations, int pairs,
                                 int B, int T, int C, int k, float slope, int bm, int cluster,
-                                int accumulate, float scale, void* stream) {
+                                int accumulate, float scale, int mode, int round,
+                                void* stream) {
   if (pairs < 1 || pairs > kMaxPairs || k < 1 || k % 2 == 0 || B < 1 || T < 1 || bm < 16 ||
       bm % 16 || cluster < 1 || C % cluster || C / cluster < 8 || !(slope >= 0.f && slope <= 1.f))
     return cudaErrorInvalidValue;
@@ -344,7 +387,9 @@ VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
   a.k = k;
   a.pairs = pairs;
   a.accumulate = accumulate;
+  a.round = round;
   a.slope = slope;
+  a.xslope = round ? __bfloat162float(__float2bfloat16_rn(slope)) : slope;
   a.scale = scale;
   a.halo = 0;
   for (int i = 0; i < pairs; ++i) {
@@ -362,25 +407,25 @@ VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
   const int N = C / cluster;
   switch (C * 100 + N) {
     case 808:
-      return launch<8, 8>(a, B, s);
+      return launch<8, 8>(a, mode, B, s);
     case 1616:
-      return launch<16, 16>(a, B, s);
+      return launch<16, 16>(a, mode, B, s);
     case 1608:
-      return launch<16, 8>(a, B, s);
+      return launch<16, 8>(a, mode, B, s);
     case 3232:
-      return launch<32, 32>(a, B, s);
+      return launch<32, 32>(a, mode, B, s);
     case 3216:
-      return launch<32, 16>(a, B, s);
+      return launch<32, 16>(a, mode, B, s);
     case 3208:
-      return launch<32, 8>(a, B, s);
+      return launch<32, 8>(a, mode, B, s);
     case 6464:
-      return launch<64, 64>(a, B, s);
+      return launch<64, 64>(a, mode, B, s);
     case 6432:
-      return launch<64, 32>(a, B, s);
+      return launch<64, 32>(a, mode, B, s);
     case 6416:
-      return launch<64, 16>(a, B, s);
+      return launch<64, 16>(a, mode, B, s);
     case 6408:
-      return launch<64, 8>(a, B, s);
+      return launch<64, 8>(a, mode, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -31,44 +31,55 @@
 
 namespace {
 
-template <int NT>
+template <int NT, int M>
 __global__ void __launch_bounds__(narrow::kWarps * 32) narrow_conv_kernel(const narrow::Conv c,
                                                                           int k, int pad) {
   extern __shared__ __align__(16) float smem[];
-  narrow::conv_tile<NT>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM,
-                        blockIdx.y * narrow::kCols, k, pad, 0, 0);
+  narrow::conv_tile<NT, M>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM,
+                           blockIdx.y * narrow::kCols, k, pad, 0, 0);
 }
 
-template <int NT>
+template <int NT, int M>
 cudaError_t launch_narrow(const narrow::Conv& c, int B, int k, int pad, cudaStream_t stream) {
   const int smem = narrow::smem_floats(NT, k, c.dil, c.C_in) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(narrow_conv_kernel<NT>, smem);
+  cudaError_t err = vk_set_smem(narrow_conv_kernel<NT, M>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((c.T + narrow::kBM - 1) / narrow::kBM,
                   (c.C_out + narrow::kCols - 1) / narrow::kCols, B);
-  narrow_conv_kernel<NT><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, pad);
+  narrow_conv_kernel<NT, M><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, pad);
   return cudaGetLastError();
 }
 
-cudaError_t launch_narrow_conv(const float* x, float* out, const float* w, const float* bias,
-                               const float* residual, const int* lengths, int B, int T,
-                               int C_in, int C_out, int k, int dil, int pad, float slope,
-                               int accumulate, float scale, cudaStream_t stream) {
-  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
-  const narrow::Conv c{x, out, w, bias, residual, lengths, T, T, C_in, C_out, dil, 1, 1,
-                       slope, accumulate, scale, C_in % 4 == 0 && aligned(x),
-                       C_out % 4 == 0 && aligned(w)};
-  switch (narrow::tiles_for(C_out)) {
+template <int M>
+cudaError_t launch_narrow_tiles(const narrow::Conv& c, int B, int k, int pad,
+                                cudaStream_t stream) {
+  switch (narrow::tiles_for(c.C_out)) {
     case 1:
-      return launch_narrow<1>(c, B, k, pad, stream);
+      return launch_narrow<1, M>(c, B, k, pad, stream);
     case 2:
-      return launch_narrow<2>(c, B, k, pad, stream);
+      return launch_narrow<2, M>(c, B, k, pad, stream);
     case 4:
-      return launch_narrow<4>(c, B, k, pad, stream);
+      return launch_narrow<4, M>(c, B, k, pad, stream);
     default:
-      return launch_narrow<8>(c, B, k, pad, stream);
+      return launch_narrow<8, M>(c, B, k, pad, stream);
   }
+}
+
+// The resblock conv at a tier (mode), its weights in one format (wfmt), for
+// the tensor-core path: the (tier, format) pairs the engine runs. fp32
+// weights at every tier, int8 at kExact (fp32 values over quantized weights)
+// and kFast, bf16 at kFast.
+cudaError_t launch_conv(int mode, int wfmt, int tile, const conv::Gemm& g,
+                        const conv::ResEpi& epi, int B, cudaStream_t s) {
+  using conv::launch_tile;
+  if (wfmt == kW32) return conv::launch_tile_mode(mode, tile, g, epi, B, s);
+  if (wfmt == kW8 && mode == kExact)
+    return launch_tile<false, kExact, signed char>(tile, g, epi, B, s);
+  if (wfmt == kW8 && mode == kFast) return launch_tile<false, kFast, signed char>(tile, g, epi, B, s);
+  if (wfmt == kW16 && mode == kFast)
+    return launch_tile<false, kFast, __nv_bfloat16>(tile, g, epi, B, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -77,31 +88,54 @@ VK_EXPORT const char* vk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out[b, p] = mask_p(conv(leaky(x))[p] + bias [+ residual[b, p]]) for p < T, where
-// conv is torch's Conv1d with this dilation and left padding (right padding the
-// same), mask_p zeroes p >= lengths[b], and with accumulate the result is added
-// to out; the sum is then multiplied by scale. x (B, T, C_in), w (k, C_in,
-// C_out) as the JAX loader lays it out, out/residual (B, T, C_out), all fp32
-// and contiguous. tile and split come from ops/cuda/resblock.py::conv_plan:
-// tile -1 is the direct path (any channel count); tiles 0-3 are the tensor-core
+// out[b, p] = mask_p(conv(leaky(x))[p] (* wscale) + bias [+ residual[b, p]]) for
+// p < T, where conv is torch's Conv1d with this dilation and left padding (right
+// padding the same), mask_p zeroes p >= lengths[b]; with round the value is
+// rounded to bf16; with accumulate it is added to out; the sum is then
+// multiplied by scale, into out, or with out16 (bf16, (B, T, C_out)) into out16.
+// x (B, T, C_in), w (k, C_in, C_out) as the JAX loader lays it out in the
+// format wfmt (WeightFormat: fp32, bf16, int8 with wscale (C_out,) fp32),
+// out/residual (B, T, C_out) fp32 and contiguous; mode is the tier
+// (TierMode). tile and split come from ops/cuda/resblock.py::conv_plan: tile
+// -1 is the narrow path (any channel count); tiles 0-3 are the tensor-core
 // path (C_in % 32 == 0, C_out a multiple of the tile's width, 16-byte aligned
 // tensors), and split (1, 2, 4 or 8, dividing the k * C_in / 32 steps) is the
 // cluster that shares the K steps of one output tile.
-VK_EXPORT int vk_conv(const float* x, float* out, const float* w, const float* bias,
+VK_EXPORT int vk_conv(const float* x, float* out, const void* w, const float* bias,
                       const float* residual, const int* lengths, int B, int T, int C_in,
                       int C_out, int k, int dil, int pad, float slope, int accumulate,
-                      float scale, int tile, int split, void* stream) {
-  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1 || B < 1) return cudaErrorInvalidValue;
+                      float scale, int tile, int split, int mode, int wfmt, const float* wscale,
+                      int round, void* out16, void* stream) {
+  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1 || B < 1 || mode < kExact ||
+      mode > kHigh || wfmt < kW32 || wfmt > kW8 || (wfmt == kW8) != (wscale != nullptr))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile < 0) {
-    return launch_narrow_conv(x, out, w, bias, residual, lengths, B, T, C_in, C_out, k, dil,
-                              pad, slope, accumulate, scale, s);
+    auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+    narrow::Conv c{x, out, w, bias, residual, lengths, T, T, C_in, C_out, dil, 1, 1,
+                   slope, accumulate, scale, C_in % 4 == 0 && aligned(x),
+                   C_out % 4 == 0 && aligned(w)};
+    c.wfmt = wfmt;
+    c.wscale = wscale;
+    c.round = round;
+    c.out16 = static_cast<__nv_bfloat16*>(out16);
+    switch (mode) {
+      case kExact:
+        return launch_narrow_tiles<kExact>(c, B, k, pad, s);
+      case kFast:
+        return launch_narrow_tiles<kFast>(c, B, k, pad, s);
+      default:
+        return launch_narrow_tiles<kHigh>(c, B, k, pad, s);
+    }
   }
   auto misaligned = [](const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 != 0; };
   if (misaligned(x) || misaligned(out) || misaligned(w) || misaligned(bias) ||
-      misaligned(residual))
+      misaligned(residual) || misaligned(wscale) || misaligned(out16))
     return cudaErrorMisalignedAddress;
   const conv::Gemm g{x, C_in, w, lengths, T, C_in, C_out, k, dil, pad, slope, split, 0};
-  const conv::ResEpi epi{out, bias, residual, nullptr, 1.f, T, C_out, accumulate, scale};
-  return conv::launch_tile<false>(tile, g, epi, B, s);
+  conv::ResEpi epi{out, bias, residual, nullptr, 1.f, T, C_out, accumulate, scale};
+  epi.wscale = wscale;
+  epi.round = round;
+  epi.out16 = static_cast<__nv_bfloat16*>(out16);
+  return launch_conv(mode, wfmt, tile, g, epi, B, s);
 }

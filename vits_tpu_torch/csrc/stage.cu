@@ -33,6 +33,11 @@
 // reads its 4 + k - 1 rows of a channel as float4 (conflict-free) and reuses
 // each for all k taps. A block whose samples all lie past the length writes
 // zeros without loading anything; a thread past the length writes zeros.
+//
+// Precision tiers: the upsampler takes the narrow tile's (M, weight format,
+// int8 scale on the sum, and with round the bf16 value carry of its output);
+// wave_kernel multiplies in fma_tier<M>'s arithmetic, its bf16 or int8
+// weights converted as they are staged, an int8 sum times its one scale.
 #include <math.h>
 
 #include "narrow_gemm.cuh"
@@ -56,7 +61,7 @@ __host__ __device__ inline Phase phase_of(int phi, int k, int s, int pad) {
   return {j, (k - j + s - 1) / s, (pe - phi - j) / s};
 }
 
-template <int NT>
+template <int NT, int M>
 __global__ void __launch_bounds__(narrow::kWarps * 32)
     upsample_kernel(const narrow::Conv c, int k, int stride, int pad) {
   extern __shared__ __align__(16) float smem[];
@@ -64,16 +69,19 @@ __global__ void __launch_bounds__(narrow::kWarps * 32)
   const int phi = blockIdx.y / chunks;
   const int co0 = (blockIdx.y - phi * chunks) * narrow::kCols;
   const Phase ph = phase_of(phi, k, stride, pad);
-  narrow::conv_tile<NT>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM, co0, ph.n, ph.o, ph.j,
-                        phi);
+  narrow::conv_tile<NT, M>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM, co0, ph.n, ph.o,
+                           ph.j, phi);
 }
 
-// wave[t] = tanh(sum_j sum_c leaky(h[t + j - pad][c], slope) * w[j][c]) for
-// t < lengths[b] * len_scale, else 0. w is conv_post's (k, C, 1) kernel, no bias.
+// wave[t] = tanh(sum_j sum_c leaky(h[t + j - pad][c], slope) * w[j][c] (* wscale))
+// for t < lengths[b] * len_scale, else 0. w is conv_post's (k, C, 1) kernel in
+// the format wfmt, no bias; wscale its one int8 scale (null otherwise).
+template <int M>
 __global__ void __launch_bounds__(kWaveThreads)
     wave_kernel(const float* __restrict__ h, float* __restrict__ wave,
-                const float* __restrict__ w, const int* __restrict__ lengths, int T, int C,
-                int k, int pad, int len_scale, float slope, int vec) {
+                const void* __restrict__ w, const int* __restrict__ lengths, int T, int C,
+                int k, int pad, int len_scale, float slope, int vec, int wfmt,
+                const float* __restrict__ wscale) {
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;                   // C x kWaveRows: row r <-> position t0 - pad + r
   float* ws = smem + C * kWaveRows;   // k x C
@@ -108,7 +116,10 @@ __global__ void __launch_bounds__(kWaveThreads)
       hs[c * kWaveRows + r] = p >= 0 && p < T ? vk_leaky(__ldg(hb + (size_t)p * C + c), slope) : 0.f;
     }
   }
-  for (int idx = tid; idx < k * C; idx += kWaveThreads) ws[idx] = w[idx];
+  for (int idx = tid; idx < k * C; idx += kWaveThreads)
+    ws[idx] = wfmt == kW16 ? wvalue(static_cast<const __nv_bfloat16*>(w)[idx])
+              : wfmt == kW8 ? wvalue(static_cast<const signed char*>(w)[idx])
+                            : static_cast<const float*>(w)[idx];
   __syncthreads();
 
   float acc[kWaveSamples] = {0.f, 0.f, 0.f, 0.f};
@@ -132,16 +143,17 @@ __global__ void __launch_bounds__(kWaveThreads)
         if (j < k) {
           const float wj = ws[j * C + c];
 #pragma unroll
-          for (int u = 0; u < kWaveSamples; ++u) acc[u] = fmaf(x[u + j], wj, acc[u]);
+          for (int u = 0; u < kWaveSamples; ++u) acc[u] = fma_tier<M>(x[u + j], wj, acc[u]);
         }
       }
     }
   }
+  const float sq = wscale ? *wscale : 1.f;
   for (int u = 0; u < kWaveSamples; ++u)
-    if (ts + u < T) wb[ts + u] = ts + u < valid ? tanhf(acc[u]) : 0.f;
+    if (ts + u < T) wb[ts + u] = ts + u < valid ? tanhf(acc[u] * sq) : 0.f;
 }
 
-template <int NT>
+template <int NT, int M>
 cudaError_t launch_upsample(const narrow::Conv& c, int B, int k, int stride, int pad,
                             cudaStream_t stream) {
   int taps = 0;
@@ -151,51 +163,95 @@ cudaError_t launch_upsample(const narrow::Conv& c, int B, int k, int stride, int
   }
   const int smem = narrow::smem_floats(NT, taps, 1, c.C_in) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(upsample_kernel<NT>, smem);
+  cudaError_t err = vk_set_smem(upsample_kernel<NT, M>, smem);
   if (err != cudaSuccess) return err;
   const int chunks = (c.C_out + narrow::kCols - 1) / narrow::kCols;
   const dim3 grid((c.T + narrow::kBM - 1) / narrow::kBM, stride * chunks, B);
-  upsample_kernel<NT><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, stride, pad);
+  upsample_kernel<NT, M><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, stride, pad);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_upsample_tiles(const narrow::Conv& c, int B, int k, int stride, int pad,
+                                  cudaStream_t s) {
+  switch (narrow::tiles_for(c.C_out)) {
+    case 1:
+      return launch_upsample<1, M>(c, B, k, stride, pad, s);
+    case 2:
+      return launch_upsample<2, M>(c, B, k, stride, pad, s);
+    case 4:
+      return launch_upsample<4, M>(c, B, k, stride, pad, s);
+    default:
+      return launch_upsample<8, M>(c, B, k, stride, pad, s);
+  }
+}
+
+template <int M>
+cudaError_t launch_wave(const float* h, float* wave, const void* w, const int* lengths, int B,
+                        int T, int C, int k, int pad, int len_scale, float slope, int wfmt,
+                        const float* wscale, cudaStream_t stream) {
+  const int smem = (C * kWaveRows + k * C) * static_cast<int>(sizeof(float));
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem(wave_kernel<M>, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = C % 4 == 0 && reinterpret_cast<size_t>(h) % 16 == 0;
+  const dim3 grid((T + kWaveTile - 1) / kWaveTile, B);
+  wave_kernel<M><<<grid, kWaveThreads, smem, stream>>>(h, wave, w, lengths, T, C, k, pad,
+                                                         len_scale, slope, vec, wfmt, wscale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y (B, T_in*stride, C_out) = ConvTranspose1d(leaky(x), w) + bias, zero at
-// output rows >= lengths[b]*stride, for x (B, T_in, C_in) and the loader's
-// spatially reversed w (k, C_in, C_out), all fp32 and contiguous.
-VK_EXPORT int vk_upsample(const float* x, float* y, const float* w, const float* bias,
+// y (B, T_in*stride, C_out) = ConvTranspose1d(leaky(x), w) (* wscale) + bias,
+// zero at output rows >= lengths[b]*stride, with round rounded to bf16, for x
+// (B, T_in, C_in) and the loader's spatially reversed w (k, C_in, C_out) in
+// the format wfmt (wscale: int8's (C_out,) scales), all contiguous, at the
+// tier mode.
+VK_EXPORT int vk_upsample(const float* x, float* y, const void* w, const float* bias,
                           const int* lengths, int B, int T_in, int C_in, int C_out, int k,
-                          int stride, int pad, float slope, void* stream) {
-  if (C_in < 1 || C_out < 1 || stride < 1 || k < 1 || pad < 0 || T_in < 1 || B < 1)
+                          int stride, int pad, float slope, int mode, int wfmt,
+                          const float* wscale, int round, void* stream) {
+  if (C_in < 1 || C_out < 1 || stride < 1 || k < 1 || pad < 0 || T_in < 1 || B < 1 ||
+      mode < kExact || mode > kHigh || wfmt < kW32 || wfmt > kW8 ||
+      (wfmt == kW8) != (wscale != nullptr))
     return cudaErrorInvalidValue;
   auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
-  const narrow::Conv c{x, y, w, bias, nullptr, lengths, T_in, T_in, C_in, C_out,
-                       1, stride, stride, slope, 0, 1.f,
-                       C_in % 4 == 0 && aligned(x), C_out % 4 == 0 && aligned(w)};
+  narrow::Conv c{x, y, w, bias, nullptr, lengths, T_in, T_in, C_in, C_out,
+                 1, stride, stride, slope, 0, 1.f,
+                 C_in % 4 == 0 && aligned(x), C_out % 4 == 0 && aligned(w)};
+  c.wfmt = wfmt;
+  c.wscale = wscale;
+  c.round = round;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (narrow::tiles_for(C_out)) {
-    case 1:
-      return launch_upsample<1>(c, B, k, stride, pad, s);
-    case 2:
-      return launch_upsample<2>(c, B, k, stride, pad, s);
-    case 4:
-      return launch_upsample<4>(c, B, k, stride, pad, s);
+  switch (mode) {
+    case kExact:
+      return launch_upsample_tiles<kExact>(c, B, k, stride, pad, s);
+    case kFast:
+      return launch_upsample_tiles<kFast>(c, B, k, stride, pad, s);
     default:
-      return launch_upsample<8>(c, B, k, stride, pad, s);
+      return launch_upsample_tiles<kHigh>(c, B, k, stride, pad, s);
   }
 }
 
-VK_EXPORT int vk_wave(const float* h, float* wave, const float* w, const int* lengths, int B,
-                      int T, int C, int k, int pad, int len_scale, float slope, void* stream) {
-  if (C < 1 || k < 1 || k > kMaxPostTaps || T < 1 || B < 1) return cudaErrorInvalidValue;
-  const int smem = (C * kWaveRows + k * C) * static_cast<int>(sizeof(float));
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem(wave_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int vec = C % 4 == 0 && reinterpret_cast<size_t>(h) % 16 == 0;
-  const dim3 grid((T + kWaveTile - 1) / kWaveTile, B);
-  wave_kernel<<<grid, kWaveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      h, wave, w, lengths, T, C, k, pad, len_scale, slope, vec);
-  return cudaGetLastError();
+VK_EXPORT int vk_wave(const float* h, float* wave, const void* w, const int* lengths, int B,
+                      int T, int C, int k, int pad, int len_scale, float slope, int mode,
+                      int wfmt, const float* wscale, void* stream) {
+  if (C < 1 || k < 1 || k > kMaxPostTaps || T < 1 || B < 1 || wfmt < kW32 || wfmt > kW8 ||
+      (wfmt == kW8) != (wscale != nullptr))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kExact:
+      return launch_wave<kExact>(h, wave, w, lengths, B, T, C, k, pad, len_scale, slope, wfmt,
+                                 wscale, s);
+    case kFast:
+      return launch_wave<kFast>(h, wave, w, lengths, B, T, C, k, pad, len_scale, slope, wfmt,
+                                wscale, s);
+    case kHigh:
+      return launch_wave<kHigh>(h, wave, w, lengths, B, T, C, k, pad, len_scale, slope, wfmt,
+                                wscale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

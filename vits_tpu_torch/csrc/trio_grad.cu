@@ -288,7 +288,7 @@ VK_EXPORT int vk_trio_backward(const TrioPair* pairs, int n, const int* lengths,
                    const float* residual, int k, int dil, int accumulate, int tile, int split) {
     const conv::Gemm g{dy, C, w, lengths, T, C, C, k, dil, dil * (k - 1) / 2, 1.f, split, 0};
     const conv::ResEpi epi{out, nullptr, residual, aux, slope, T, C, accumulate, 1.f};
-    return conv::launch_tile<true>(tile, g, epi, B, s);
+    return conv::launch_tile<true, kExact, float>(tile, g, epi, B, s);
   };
   for (int i = 0; i < n && err == cudaSuccess; ++i) {
     const TrioPair& p = pairs[i];

@@ -562,11 +562,12 @@ def main(argv=None) -> int:
                     help="AOT program bundle: not ported (ROADMAP.md, "
                          "'Not ported')")
     ap.add_argument("--fidelity", choices=["fast", "glue32", "high", "exact"],
-                    default="exact",
-                    help="precision tier: the port computes fp32 only "
-                         "(3xTF32 kernels, TF32 off elsewhere), which is "
-                         "'exact'; the other tiers wait for the precision "
-                         "tiers (ROADMAP.md queue 2)")
+                    default="fast",
+                    help="precision tier (EngineConfig.fidelity_kwargs): fast = "
+                         "bf16 kernel multiplies (the default, as in the JAX "
+                         "server), glue32 = the same on the card (the port's "
+                         "glue is fp32 at every tier), high = bf16x3 kernels, "
+                         "exact = fp32 (3xTF32) kernels")
     args = ap.parse_args(argv)
     if args.dp > 1:
         ap.error("--dp: multi-GPU serving is not ported (ROADMAP.md queue 1, multi-GPU)")
@@ -574,9 +575,6 @@ def main(argv=None) -> int:
         ap.error("--aot-bundle: AOT bundles are not ported (ROADMAP.md, 'Not ported')")
     if args.compilation_cache is not None:
         ap.error("--compilation-cache: XLA's cache is not ported (ROADMAP.md, 'Not ported')")
-    if args.fidelity != "exact":
-        ap.error(f"--fidelity {args.fidelity}: the port computes fp32 only ('exact'); the "
-                 "other tiers wait for the precision tiers (ROADMAP.md queue 2)")
 
     import torch
 
@@ -598,7 +596,8 @@ def main(argv=None) -> int:
     buckets.append(args.max_batch)
     eng = EngineConfig(batch_buckets=tuple(dict.fromkeys(buckets)),
                        adaptive_capacity_align=(
-                           args.warm_overflow > 0 and not args.no_capacity_align))
+                           args.warm_overflow > 0 and not args.no_capacity_align),
+                       **EngineConfig.fidelity_kwargs(args.fidelity))
     model = vits_tpu_torch.load_model(args.model, eng, device=args.device)
     # per_row_seeds: the worker always passes seed LISTS (per-row
     # generators), the layout its requests dispatch with.

@@ -111,6 +111,7 @@ class StreamingDecoder:
             noise_scale=noise_scale,
             noise_scale_duration=noise_scale_duration,
             speaking_rate=speaking_rate,
+            attention_tier=synth.tiers.attention,
         )
         self._dispatch_shapes.add(("prior", ids.shape[1], num_frames, speaker is not None))
         return _Prior(prior.prior_latents, prior.frame_mask[..., None],
@@ -123,9 +124,10 @@ class StreamingDecoder:
         synth = self.synth
         flow_latents = latents_from_prior(
             synth.params, synth.config, latents, mask3, speaker_embeddings,
-            use_pallas=synth.engine.use_pallas_flow, flow_pack=synth._flow_pack())
+            use_pallas=synth.engine.use_pallas_flow, flow_pack=synth._flow_pack(),
+            tier=synth.tiers.flow)
         wave = hifigan(ParamView(synth.params), synth.config, flow_latents, mask3,
-                       speaker_embeddings)
+                       speaker_embeddings, tiers=synth.tiers, packs=synth._vocoder_packs())
         self._dispatch_shapes.add(("window", *latents.shape[:2],
                                    speaker_embeddings is not None))
         return wave

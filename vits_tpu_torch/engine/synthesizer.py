@@ -36,9 +36,22 @@ dispatch of more than one row becomes per-row generators seeded
 bucket (the JAX engine folds the row into the key). The port shares no
 random stream with the JAX package.
 
-Precision: fp32 everywhere. TF32 is switched off for cuDNN convolutions and
-cuBLAS matmuls when an engine is made on a CUDA device (``_fp32_backends``):
-TF32 convs can flip ``ceil(exp(log_duration))`` frame counts.
+Precision tiers, resolved as the JAX engine resolves them
+(``vits_tpu/engine/synthesizer.py:134-165``; :func:`resolve_tiers`): on a
+CUDA device the kernels are the JAX engine's Pallas path, so
+``EngineConfig()`` runs the ``fast`` tier (bf16 vocoder values; bf16 vocoder
+weights, int8 for a quantized checkpoint); ``EngineConfig.fidelity_kwargs``'s
+``glue32``, ``high`` and ``exact`` and per-stage ``pallas_precision`` specs
+run as in JAX. On the CPU the defaults compute fp32, as the JAX engine does
+there; ``use_pallas_vocoder=True`` / ``use_pallas_attention=True`` make the
+plain twins apply the tier. The vocoder packs (bf16 or int8 weights of
+kernels B and C) are made once per engine. The glue (``matmul_precision``)
+stays fp32 at every tier: TF32 is switched off for cuDNN convolutions and
+cuBLAS matmuls when an engine is made on a CUDA device (``_fp32_backends``;
+PyTorch's switches are process-wide, and TF32 convs can flip
+``ceil(exp(log_duration))`` frame counts), so ``glue32`` is ``fast`` on the
+card. Int8 checkpoints are dequantized once at load outside the packs (the
+values the JAX ``ParamView`` reads).
 """
 
 from __future__ import annotations
@@ -53,25 +66,54 @@ import torch
 
 from vits_tpu_torch.config import EngineConfig, VitsConfig
 from vits_tpu_torch.io import VitsTokenizer, load_ggml, load_hf_pretrained
-from vits_tpu_torch.io.params import ParamView, from_jax_params
+from vits_tpu_torch.io.params import ParamView, dequantize_tensors, from_jax_params
+from vits_tpu_torch.models.hifigan import precompute_vocoder_packs
 from vits_tpu_torch.models.vits import synthesize as synthesize_fn
 from vits_tpu_torch.models.vits import voice_convert
 from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
+from vits_tpu_torch.ops.tiers import Tiers
 
-# EngineConfig fields the port does not honour yet: each must keep its default.
-_UNSUPPORTED_FIELDS = (
-    "compute_dtype", "use_pallas_vocoder", "pallas_precision",
-    "pallas_value_dtype", "pallas_weight_format", "use_pallas_attention",
-    "matmul_precision", "compilation_cache_dir", "aot_bundle_dir",
-)
+# EngineConfig fields the port does not honour yet: each must keep its default
+# (compute_dtype="bfloat16" turns the JAX kernels off; the port has no such
+# switch, and the kernels cannot be turned off on the card).
+_UNSUPPORTED_FIELDS = ("compute_dtype", "compilation_cache_dir", "aot_bundle_dir")
+_NO_KERNEL_OFF = ("use_pallas_vocoder", "use_pallas_attention")
 
 
 def _check_engine_config(engine: EngineConfig) -> None:
     default = EngineConfig()
     changed = [f for f in _UNSUPPORTED_FIELDS if getattr(engine, f) != getattr(default, f)]
+    changed += [f for f in _NO_KERNEL_OFF if getattr(engine, f) is False]
     if changed:
         raise NotImplementedError(
-            f"EngineConfig fields not ported to vits_tpu_torch yet: {', '.join(changed)}")
+            f"EngineConfig fields not ported to vits_tpu_torch yet: {', '.join(changed)} "
+            "(ROADMAP.md)")
+
+
+def resolve_tiers(engine: EngineConfig, device: torch.device,
+                  quantized: bool) -> tuple[Tiers, str | None]:
+    """The kernels' tiers and the vocoder packs' weight format (None: no
+    vocoder kernels' tier), as the JAX engine resolves ``use_pallas_*``,
+    ``pallas_precision``, ``pallas_value_dtype`` and ``pallas_weight_format``:
+    the kernels are on on a CUDA device (auto) or when asked for; the value
+    dtype is bf16 unless the tier is "high" or "highest"; the weight format
+    int8 for a quantized checkpoint, else the value dtype. On the CPU the flow
+    (``use_pallas_flow``) takes the tier only beside an explicit
+    ``use_pallas_vocoder`` or ``use_pallas_attention``: the JAX engine's CPU
+    flow kernel computes fp32 operands in full fp32."""
+    on_card = device.type == "cuda"
+    vocoder = on_card if engine.use_pallas_vocoder is None else engine.use_pallas_vocoder
+    attention = on_card if engine.use_pallas_attention is None else engine.use_pallas_attention
+    flow = engine.use_pallas_flow and (on_card or bool(engine.use_pallas_vocoder)
+                                       or bool(engine.use_pallas_attention))
+    value_dtype = weight_format = None
+    if vocoder:
+        value_dtype = engine.pallas_value_dtype or (
+            "float32" if engine.pallas_precision in ("high", "highest") else "bfloat16")
+        weight_format = engine.pallas_weight_format or ("int8" if quantized else value_dtype)
+    tiers = Tiers.of(engine.pallas_precision, value_dtype, vocoder=vocoder,
+                     attention=attention, flow=flow)
+    return tiers, weight_format
 
 
 def _fp32_backends(device: torch.device) -> None:
@@ -152,14 +194,17 @@ class Synthesizer:
         *,
         device: torch.device | str,
     ):
-        """``params``: canonical-layout numpy parameters (``vits_tpu_torch.io``)."""
+        """``params``: canonical-layout numpy parameters (``vits_tpu_torch.io``),
+        fp32 or int8-quantized (``io/quantize.py``)."""
         self.config = config
         self.tokenizer = tokenizer
         self.engine = engine_config or EngineConfig()
         _check_engine_config(self.engine)
         self.device = torch.device(device)
         _fp32_backends(self.device)
-        self.params = from_jax_params(params, self.device)
+        quantized = any(k.startswith("decoder.") and k.endswith(".scale") for k in params)
+        self.tiers, self._weight_format = resolve_tiers(self.engine, self.device, quantized)
+        self.params = dequantize_tensors(from_jax_params(params, self.device))
         # Working frames/token ratio, raised on overflow and decayed back
         # (EngineConfig.adaptive_capacity*), as in the JAX engine.
         self._frames_per_token = float(self.engine.frames_per_token)
@@ -182,7 +227,17 @@ class Synthesizer:
     @params.setter
     def params(self, params: dict) -> None:
         self._params = params
-        self._packed_flow = None  # packed from the parameters it replaces
+        self._packed_flow = None  # packed from the parameters they replace
+        self._packed_vocoder = None
+
+    def _vocoder_packs(self) -> dict:
+        """The bf16 or int8 weights of kernels B and C, made on first use."""
+        if self._packed_vocoder is None:
+            self._packed_vocoder = (
+                precompute_vocoder_packs(ParamView(self._params), self.config,
+                                         self._weight_format)
+                if self._weight_format else {})
+        return self._packed_vocoder
 
     def _flow_pack(self) -> FlowPack | None:
         """Kernel 6's packed weights, made on the first dispatch that runs it."""
@@ -252,6 +307,8 @@ class Synthesizer:
             speaking_rate=speaking_rate,
             use_pallas_flow=self.engine.use_pallas_flow,
             flow_pack=self._flow_pack(),
+            tiers=self.tiers,
+            vocoder_packs=self._vocoder_packs(),
         )
         wave = out.waveform
         if self.engine.transfer_int16:
@@ -442,7 +499,8 @@ class Synthesizer:
         out = voice_convert(
             self.params, self.config, torch.as_tensor(spec).to(self.device),
             torch.as_tensor(mask).to(self.device), self._speaker_tensor(src),
-            self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale)
+            self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale,
+            tiers=self.tiers, vocoder_packs=self._vocoder_packs())
         wave = out.waveform
         if self.engine.transfer_int16:
             wave = torch.round(torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)

@@ -82,21 +82,39 @@ def convert_state_dict(
 
 
 def from_jax_params(params: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    """Canonical-layout numpy parameters -> fp32 tensors on ``device``.
+    """Canonical-layout numpy parameters -> tensors on ``device``.
 
-    Int8-quantized checkpoints (``.scale`` siblings, ``vits_tpu/io/quantize.py``)
-    are not ported yet and raise ``NotImplementedError``.
+    Floating parameters become fp32. Int8-quantized weights
+    (``vits_tpu_torch/io/quantize.py``) stay int8, beside their fp32 ``.scale``
+    rows: :class:`ParamView` dequantizes them on access, as the JAX
+    ``ParamView`` does, and :func:`dequantize_tensors` once for an engine.
     """
     device = torch.device(device)
-    quantized = sorted(k for k, v in params.items() if np.asarray(v).dtype == np.int8)
-    if quantized:
-        raise NotImplementedError(
-            f"int8-quantized parameters are not ported yet ({len(quantized)} tensors, "
-            f"e.g. {quantized[0]!r})")
     out = {}
     for name, value in params.items():
-        out[name] = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
+        arr = np.asarray(value)
+        if arr.dtype == np.int8:
+            if name + ".scale" not in params:
+                raise ValueError(f"int8 parameter {name!r} has no {name + '.scale'!r} row")
+            out[name] = torch.tensor(arr, device=device)
+        else:
+            out[name] = torch.tensor(np.asarray(arr, dtype=np.float32), device=device)
     return out
+
+
+def dequantize(value: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """An int8 weight times its per-out-channel scale, in the scale's dtype
+    (``vits_tpu/io/params.py:106-125``)."""
+    return value.to(scale.dtype) * scale.reshape((1,) * (value.ndim - 1) + (-1,))
+
+
+def dequantize_tensors(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every int8 weight dequantized (:func:`dequantize`) and its ``.scale``
+    row dropped: the values :class:`ParamView` gives, computed once."""
+    quantized = {name for name, value in params.items() if value.dtype == torch.int8}
+    return {name: dequantize(value, params[name + ".scale"]) if name in quantized else value
+            for name, value in params.items()
+            if not (name.endswith(".scale") and name[: -len(".scale")] in quantized)}
 
 
 def to_jax_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -109,7 +127,8 @@ def to_jax_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 class ParamView:
-    """Prefix-scoped read access to the flat parameter dict."""
+    """Prefix-scoped read access to the flat parameter dict; an int8 weight
+    with a ``.scale`` sibling reads dequantized (:func:`dequantize`)."""
 
     __slots__ = ("_params", "_prefix")
 
@@ -123,9 +142,12 @@ class ParamView:
     def __getitem__(self, name: str) -> torch.Tensor:
         key = self._prefix + name
         try:
-            return self._params[key]
+            value = self._params[key]
         except KeyError:
             raise KeyError(f"parameter not found: {key}") from None
+        if value.dtype == torch.int8 and key + ".scale" in self._params:
+            return dequantize(value, self._params[key + ".scale"])
+        return value
 
     def __contains__(self, name: str) -> bool:
         return (self._prefix + name) in self._params

@@ -22,6 +22,7 @@ from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, layer_norm
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
 from vits_tpu_torch.ops.cuda.attention_grad import trainable_rel_attention
+from vits_tpu_torch.ops.tiers import EXACT_TIER, Tier
 
 FLASH_TRAIN_TOKENS = 512  # training token length from which attention takes kernels A + 4
 
@@ -33,8 +34,10 @@ class EncoderOutput(NamedTuple):
 
 
 def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
-               config: VitsConfig, trainable: bool = False) -> torch.Tensor:
-    """Multi-head self-attention with relative position bias; x: (B, T, H)."""
+               config: VitsConfig, trainable: bool = False,
+               tier: Tier = EXACT_TIER) -> torch.Tensor:
+    """Multi-head self-attention with relative position bias; x: (B, T, H).
+    Kernel A runs at ``tier`` (inference only: training stays fp32)."""
     if not config.window_size:
         raise NotImplementedError("attention without a relative window is not ported")
     bsz, tgt_len, embed_dim = x.shape
@@ -46,8 +49,9 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     query = (x @ p["q_proj.weight"] + p["q_proj.bias"]) * head_dim**-0.5
     key = x @ p["k_proj.weight"] + p["k_proj.bias"]
     value = x @ p["v_proj.weight"] + p["v_proj.bias"]
+    kw = {}
     if not trainable:
-        attend = flash_rel_attention
+        attend, kw = flash_rel_attention, {"tier": tier}
     elif tgt_len >= FLASH_TRAIN_TOKENS:
         attend = trainable_rel_attention
     else:
@@ -55,7 +59,7 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     attn = attend(
         shape4(query), shape4(key), shape4(value),
         p["emb_rel_k"][0], p["emb_rel_v"][0],
-        window=config.window_size, lengths=lengths,
+        window=config.window_size, lengths=lengths, **kw,
     )
     attn = attn.transpose(1, 2).reshape(bsz, tgt_len, embed_dim)
     return attn @ p["out_proj.weight"] + p["out_proj.bias"]
@@ -78,9 +82,9 @@ def _feed_forward(p: ParamView, x: torch.Tensor, padding_mask: torch.Tensor,
 
 def encoder_layer(layer: ParamView, hidden: torch.Tensor, lengths: torch.Tensor,
                   padding_mask: torch.Tensor, config: VitsConfig,
-                  trainable: bool = False) -> torch.Tensor:
+                  trainable: bool = False, tier: Tier = EXACT_TIER) -> torch.Tensor:
     """One transformer layer: rel-pos attention + conv-FFN, post-layernorms."""
-    attn_out = _attention(layer.sub("attention"), hidden, lengths, config, trainable)
+    attn_out = _attention(layer.sub("attention"), hidden, lengths, config, trainable, tier)
     hidden = layer_norm(hidden + attn_out, layer["layer_norm.weight"],
                         layer["layer_norm.bias"], config.layer_norm_eps)
     ffn_out = _feed_forward(layer.sub("feed_forward"), hidden, padding_mask, config)
@@ -94,6 +98,7 @@ def text_encoder(
     input_ids: torch.Tensor,  # (B, T) int
     padding_mask: torch.Tensor,  # (B, T, 1) float, a prefix mask
     trainable: bool = False,
+    tier: Tier = EXACT_TIER,  # kernel A's (the JAX reduce_precision(pallas_precision))
 ) -> EncoderOutput:
     p = params.sub("text_encoder")
     hidden = p["embed_tokens.weight"][input_ids] * math.sqrt(config.hidden_size)
@@ -103,7 +108,7 @@ def text_encoder(
     enc = p.sub("encoder")
     for i in range(config.num_hidden_layers):
         hidden = encoder_layer(enc.sub(f"layers.{i}"), hidden, lengths, padding_mask, config,
-                               trainable)
+                               trainable, tier)
 
     hidden = hidden * padding_mask
     stats = conv1d(hidden, p["project.weight"], p["project.bias"]) * padding_mask

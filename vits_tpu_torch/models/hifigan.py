@@ -26,6 +26,17 @@ With ``trainable=True`` (the training step decodes unmasked segments) the
 routing is the JAX package's training one (``hifigan.py:356-367``): wide
 stages run kernel 5 (``ops/cuda/trio_grad.py``), differentiable; every other
 stage takes the plain path. Kernels B and C are not reached under autograd.
+
+Precision tiers (``tiers``, ``ops/tiers.py``) as the JAX ``pallas_precision``
+(one tier, or one per stage: ``stage_precision``) and ``pallas_value_dtype``.
+With bf16 values the activation is carried in bf16 from ``conv_pre`` on, as
+the JAX vocoder carries it (``hifigan.py:221-231``): the wide stages'
+upsampler runs in bf16 on the packs' bf16 weights (a plain bf16
+ConvTranspose1d), kernels B and C take and give bf16; kernel 7 and the other
+plain steps compute in fp32, as the JAX ones do once an fp32 weight has
+promoted the carry. ``packs`` (:func:`precompute_vocoder_packs`, made once
+per engine) hold the bf16 or int8 weights of kernels B and C; without them
+the kernels read the fp32 parameters.
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
 from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
 from vits_tpu_torch.ops.cuda.stage import FINAL_SLOPE, fused_stage
 from vits_tpu_torch.ops.cuda.trio_grad import trainable_trio
+from vits_tpu_torch.ops.tiers import EXACT_TIERS, Tiers
+
+PACK_WEIGHT_FORMATS = ("float32", "bfloat16", "int8")
 
 
 def _resblock(p: ParamView, x: torch.Tensor, mask: torch.Tensor | None,
@@ -80,6 +94,83 @@ def _stage_fusable(c_in: int, c_out: int, rate: int) -> bool:
     return 128 % c_in == 0 and 128 % c_out == 0 and (128 // c_out) == rate * (128 // c_in)
 
 
+def quantize_out_channels(w: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor,
+                                                                           torch.Tensor]:
+    """fp32 weights -> int8 + fp32 scales, one per index of the dims not in
+    ``dims`` (a conv's out-channel, and a stack's pair): the JAX packs' scheme
+    (``hifigan.py::_quantize_conv_stack``, ``stage.py::_quantize_group``) and
+    arithmetic."""
+    absmax = w.abs().amax(dim=dims, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale.reshape([n for d, n in enumerate(w.shape) if d not in dims])
+
+
+def _pack_blocks(blocks: list[dict], weight_format: str) -> list[dict]:
+    """A stage's resblocks with stacked (pairs, k, C, C) weights in the format:
+    int8 with (pairs, C) scales per (pair, out-channel), the JAX trio's and
+    stage's sum-groups."""
+    packed = []
+    for blk in blocks:
+        out = {"kernel_size": blk["kernel_size"], "dilations": blk["dilations"],
+               "b1": torch.stack(blk["b1"]), "b2": torch.stack(blk["b2"])}
+        for w, s in (("w1", "s1"), ("w2", "s2")):
+            stack = torch.stack(blk[w])
+            if weight_format == "int8":
+                out[w], out[s] = quantize_out_channels(stack, (1, 2))
+            else:
+                out[w] = stack.to(torch.bfloat16)
+        packed.append(out)
+    return packed
+
+
+def precompute_vocoder_packs(params: ParamView, config: VitsConfig,
+                             weight_format: str) -> dict[int, dict]:
+    """Load-time weights of kernels B and C in a weight format, per stage.
+
+    The port's ``precompute_vocoder_packs`` (``vits_tpu/models/hifigan.py:121-192``):
+    for "bfloat16" and "int8" each stage-kernel stage gets its upsampler
+    (``up_w``, with int8 its ``su`` scales), its resblocks (stacked, ``s1``/
+    ``s2`` scales) and on the last stage conv_post (``post``: weight, padding,
+    scale or None); each wide stage its resblocks and a bf16 copy of its
+    upsampler (``up_w``, ``up_b``) for the bf16 carry. The raw (k, in, out)
+    layout, quantized per out-channel as JAX quantizes its packed layout:
+    the same int8 values and scales. Int8 checkpoints are read dequantized
+    (:class:`ParamView`), as in JAX. "float32" needs no pack: the kernels read
+    the parameters. Returns ``{stage: {...}}``.
+    """
+    if weight_format not in PACK_WEIGHT_FORMATS:
+        raise ValueError(f"unknown weight_format {weight_format!r}")
+    if weight_format == "float32":
+        return {}
+    p = params.sub("decoder")
+    packs: dict[int, dict] = {}
+    n_stages = len(config.upsample_rates)
+    for i, rate in enumerate(config.upsample_rates):
+        up_w, up_b = p[f"upsampler.{i}.weight"], p[f"upsampler.{i}.bias"]
+        c_in, c_out = up_w.shape[1], up_w.shape[2]
+        blocks = _pack_blocks(_stage_resblocks(p, config, i), weight_format)
+        if _stage_fusable(c_in, c_out, rate):
+            pack = {"blocks": blocks, "up_b": up_b}
+            if weight_format == "int8":
+                pack["up_w"], pack["su"] = quantize_out_channels(up_w, (0, 1))
+            else:
+                pack["up_w"] = up_w.to(torch.bfloat16)
+            if i == n_stages - 1:
+                w_post = p["conv_post.weight"]
+                pad = (w_post.shape[0] - 1) // 2
+                if weight_format == "int8":  # one out-channel: one scale
+                    q, scale = quantize_out_channels(w_post, (0, 1))
+                    pack["post"] = (q, pad, scale)
+                else:
+                    pack["post"] = (w_post.to(torch.bfloat16), pad, None)
+            packs[i] = pack
+        elif c_out % 128 == 0:
+            packs[i] = {"blocks": blocks, "up_w": up_w.to(torch.bfloat16),
+                        "up_b": up_b.to(torch.bfloat16)}
+    return packs
+
+
 def _lengths(mask: torch.Tensor | None) -> torch.Tensor | None:
     return None if mask is None else mask[..., 0].sum(dim=1).to(torch.int32)
 
@@ -91,11 +182,14 @@ def hifigan(
     frame_mask: torch.Tensor | None = None,  # (B, T, 1)
     global_conditioning: torch.Tensor | None = None,  # (B, 1, speaker_emb)
     trainable: bool = False,
+    tiers: Tiers = EXACT_TIERS,
+    packs: dict | None = None,
 ) -> torch.Tensor:
-    """Latents -> waveform (B, T * prod(upsample_rates))."""
+    """Latents -> waveform (B, T * prod(upsample_rates)), fp32."""
     if trainable and frame_mask is not None:
         raise ValueError("trainable decoding takes unmasked segments (frame_mask=None)")
     p = params.sub("decoder")
+    packs = packs or {}
     num_kernels = len(config.resblock_kernel_sizes)
     slope = config.leaky_relu_slope
 
@@ -105,6 +199,8 @@ def hifigan(
     mask = frame_mask
     if mask is not None:
         h = h * mask
+    if not trainable and tiers.value_dtype == torch.bfloat16:
+        h = h.to(torch.bfloat16)  # the bf16 carry
 
     n_stages = len(config.upsample_rates)
     for i, rate in enumerate(config.upsample_rates):
@@ -112,16 +208,22 @@ def hifigan(
         up_w, up_b = p[f"upsampler.{i}.weight"], p[f"upsampler.{i}.bias"]
         c_in, c_out = up_w.shape[1], up_w.shape[2]
         up_padding = (kernel_size - rate) // 2
+        tier = tiers.stage(i)
+        pack = packs.get(i, {})
 
         if not trainable and _stage_fusable(c_in, c_out, rate):
             final_conv = None
             if i == n_stages - 1:
                 w_post = p["conv_post.weight"]
-                final_conv = (w_post, (w_post.shape[0] - 1) // 2)
+                final_conv = pack.get("post", (w_post, (w_post.shape[0] - 1) // 2))
+            chain = i < n_stages - 1 and _stage_fusable(
+                c_out, p[f"upsampler.{i + 1}.weight"].shape[2], config.upsample_rates[i + 1])
             h = fused_stage(
-                h.contiguous(), up_w, up_b, _stage_resblocks(p, config, i),
+                h.to(tier.value_dtype).contiguous(), pack.get("up_w", up_w), up_b,
+                pack.get("blocks") or _stage_resblocks(p, config, i),
                 stride=rate, up_padding=up_padding, slope=slope,
-                lengths=_lengths(mask), final_conv=final_conv,
+                lengths=_lengths(mask), final_conv=final_conv, tier=tier,
+                up_scale=pack.get("su"), chain=chain,
             )
             if final_conv is not None:
                 return h  # tanh'd, masked waveform (B, T)
@@ -129,27 +231,32 @@ def hifigan(
                 mask = torch.repeat_interleave(mask, rate, dim=1)
             continue
 
-        h = conv_transpose1d(leaky_relu(h, slope), up_w, up_b, stride=rate,
-                             padding=up_padding)
+        if "up_w" in pack and h.dtype == torch.bfloat16:  # the bf16 carry's upsampler
+            up_w, up_b = pack["up_w"], pack["up_b"]
+        h = leaky_relu(h, slope)
+        if h.dtype != up_w.dtype:  # an fp32 weight promotes the carry, as in JAX
+            h = h.float()
+        h = conv_transpose1d(h, up_w, up_b, stride=rate, padding=up_padding)
         if mask is not None:
             mask = torch.repeat_interleave(mask, rate, dim=1)
-            h = h * mask
+            h = h * mask.to(h.dtype)
 
         if c_out % 128 == 0:
-            blocks = _stage_resblocks(p, config, i)
             if trainable:
-                h = trainable_trio(h.contiguous(), blocks, slope=slope)
+                h = trainable_trio(h.contiguous(), _stage_resblocks(p, config, i), slope=slope)
             else:
-                h = fused_resblock_trio(h.contiguous(), blocks, slope=slope,
-                                        lengths=_lengths(mask))
+                h = fused_resblock_trio(h.to(tier.value_dtype).contiguous(),
+                                        pack.get("blocks") or _stage_resblocks(p, config, i),
+                                        slope=slope, lengths=_lengths(mask), tier=tier)
             continue
 
+        h = h.float()
         if not trainable and 128 % c_out == 0:  # narrow: kernel 7 per block, summed in place
             h, lengths, res_state = h.contiguous(), _lengths(mask), None
             for j, block in enumerate(_stage_resblocks(p, config, i)):
                 res_state = fused_resblock(
                     h, block, slope=slope, lengths=lengths, into=res_state,
-                    scale=1.0 / num_kernels if j == num_kernels - 1 else 1.0)
+                    scale=1.0 / num_kernels if j == num_kernels - 1 else 1.0, tier=tier)
             h = res_state
             continue
 
@@ -161,7 +268,7 @@ def hifigan(
             res_state = block_out if res_state is None else res_state + block_out
         h = res_state / num_kernels
 
-    h = conv1d(leaky_relu(h, FINAL_SLOPE), p["conv_post.weight"], None, padding=3)
+    h = conv1d(leaky_relu(h.float(), FINAL_SLOPE), p["conv_post.weight"], None, padding=3)
     waveform = torch.tanh(h)
     if mask is not None:
         waveform = waveform * mask

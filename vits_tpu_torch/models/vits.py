@@ -9,7 +9,10 @@ its embedding conditions the duration predictor, the flow and the vocoder.
 ``use_pallas_flow`` runs the reverse flow as kernel 6 (``ops/cuda/flow.py``),
 as the JAX option of that name runs its fused flow kernel; without it the
 plain flow runs. :func:`voice_convert` re-synthesises a spectrogram in
-another speaker's voice.
+another speaker's voice. ``tiers`` (``ops/tiers.py``) carries the JAX
+``pallas_precision`` / ``pallas_value_dtype`` to kernels A and 6 (one tier:
+``reduce_precision``) and to the vocoder (per stage), and ``vocoder_packs``
+its bf16 or int8 weights; the default is fp32 everywhere.
 
 Noise enters explicitly: a ``torch.Generator`` (one for the batch, or one per
 row) or recorded draws in a :class:`NoiseOverride`, the hook the parity tests
@@ -37,6 +40,7 @@ from vits_tpu_torch.models.flow import residual_coupling_block, residual_couplin
 from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.cuda.flow import FlowPack, fused_flow
+from vits_tpu_torch.ops.tiers import EXACT_TIER, EXACT_TIERS, Tier, Tiers
 
 PRIOR_NOISE_BLOCK = 64  # frames per per-row prior-noise draw
 
@@ -139,6 +143,7 @@ def text_to_prior(
     noise_scale: float | None = None,
     noise_scale_duration: float | None = None,
     speaking_rate: float | None = None,
+    attention_tier: Tier = EXACT_TIER,
 ) -> PriorOutput:
     """Text -> sampled prior latents (encoder, SDP, alignment, prior draw)."""
     p = ParamView(params)
@@ -156,7 +161,7 @@ def text_to_prior(
                            input_mask.device)
 
     speaker_embeddings = embed_speaker(p, config, speaker_id)
-    enc = text_encoder(p, config, input_ids, padding_mask)
+    enc = text_encoder(p, config, input_ids, padding_mask, tier=attention_tier)
     if config.use_stochastic_duration_prediction:
         log_duration = stochastic_duration_predictor_reverse(
             p, config, enc.last_hidden_state, padding_mask, noise.duration,
@@ -193,17 +198,18 @@ def latents_from_prior(
     speaker_embeddings: torch.Tensor | None = None,
     use_pallas: bool = False,
     flow_pack: FlowPack | None = None,
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
     """Sampled prior -> flow latents (reverse residual-coupling stack).
 
-    With ``use_pallas`` the stack runs as kernel 6 (:func:`fused_flow`), on
-    ``flow_pack`` when the caller keeps the packed weights.
+    With ``use_pallas`` the stack runs as kernel 6 (:func:`fused_flow`) at
+    ``tier``, on ``flow_pack`` when the caller keeps the packed weights.
     """
     p = ParamView(params)
     if use_pallas:
         lengths = frame_mask3[..., 0].sum(dim=1).to(torch.int32)
         latents = fused_flow(prior_latents.contiguous(), p, config, lengths=lengths,
-                             speaker_embeddings=speaker_embeddings, packed=flow_pack)
+                             speaker_embeddings=speaker_embeddings, packed=flow_pack, tier=tier)
     else:
         latents = residual_coupling_block(p, config, prior_latents, frame_mask3,
                                           speaker_embeddings)
@@ -212,12 +218,14 @@ def latents_from_prior(
 
 def text_to_latents(params: dict, config: VitsConfig, input_ids: torch.Tensor,
                     input_mask: torch.Tensor, num_frames: int, use_pallas: bool = False,
-                    flow_pack: FlowPack | None = None, **prior_kwargs) -> LatentsOutput:
+                    flow_pack: FlowPack | None = None, tiers: Tiers = EXACT_TIERS,
+                    **prior_kwargs) -> LatentsOutput:
     """Text -> flow latents (prior stage + full-length flow)."""
-    prior = text_to_prior(params, config, input_ids, input_mask, num_frames, **prior_kwargs)
+    prior = text_to_prior(params, config, input_ids, input_mask, num_frames,
+                          attention_tier=tiers.attention, **prior_kwargs)
     latents = latents_from_prior(params, config, prior.prior_latents,
                                  prior.frame_mask[..., None], prior.speaker_embeddings,
-                                 use_pallas=use_pallas, flow_pack=flow_pack)
+                                 use_pallas=use_pallas, flow_pack=flow_pack, tier=tiers.flow)
     return LatentsOutput(latents, prior.frame_mask, prior.total_duration, prior.log_duration,
                          prior.speaker_embeddings)
 
@@ -236,16 +244,18 @@ def synthesize(
     speaking_rate: float | None = None,
     use_pallas_flow: bool = False,
     flow_pack: FlowPack | None = None,
+    tiers: Tiers = EXACT_TIERS,
+    vocoder_packs: dict | None = None,
 ) -> SynthesisOutput:
     """Full text -> waveform pipeline (latents stage + vocoder)."""
     lat = text_to_latents(
         params, config, input_ids, input_mask, num_frames, use_pallas=use_pallas_flow,
-        flow_pack=flow_pack,
+        flow_pack=flow_pack, tiers=tiers,
         generator=generator, noise=noise, speaker_id=speaker_id, noise_scale=noise_scale,
         noise_scale_duration=noise_scale_duration, speaking_rate=speaking_rate,
     )
     waveform = hifigan(ParamView(params), config, lat.latents, lat.frame_mask[..., None],
-                       lat.speaker_embeddings)
+                       lat.speaker_embeddings, tiers=tiers, packs=vocoder_packs)
     frame_lengths = torch.clamp(lat.total_duration, max=float(num_frames)).to(torch.int32)
     return SynthesisOutput(
         waveform=waveform,
@@ -266,6 +276,8 @@ def voice_convert(
     generator: Generators | None = None,
     noise: torch.Tensor | None = None,  # (B, F, flow_size) standard normal
     noise_scale: float = 1.0,
+    tiers: Tiers = EXACT_TIERS,
+    vocoder_packs: dict | None = None,
 ) -> VoiceConversionOutput:
     """Source audio's spectrogram -> the same speech in the target speaker's voice.
 
@@ -297,5 +309,5 @@ def voice_convert(
                                         noise * noise_scale, g_src)
     z_p, _ = residual_coupling_forward(p, config, z, frame_mask3, g_src)
     latents = latents_from_prior(params, config, z_p, frame_mask3, g_tgt)
-    waveform = hifigan(p, config, latents, frame_mask3, g_tgt)
+    waveform = hifigan(p, config, latents, frame_mask3, g_tgt, tiers=tiers, packs=vocoder_packs)
     return VoiceConversionOutput(waveform, latents, post_mean)

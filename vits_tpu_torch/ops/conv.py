@@ -79,4 +79,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """On a bf16 tensor the slope is a bf16 constant, as JAX multiplies a bf16
+    array by a weakly typed Python float."""
+    if x.dtype == torch.bfloat16:
+        slope = float(torch.tensor(slope, dtype=torch.bfloat16))
     return torch.where(x >= 0, x, x * slope)

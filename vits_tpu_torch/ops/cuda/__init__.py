@@ -49,16 +49,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the exported functions (all return a cudaError_t as int).
 _SIGNATURES = {
-    "vk_rel_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vk_rel_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vk_rel_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
-    "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
-    "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
+                _I, _I, _P, _I, _P, _P],
+    "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P],
+    "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+    "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _P],
     "vk_graph_destroy": [_P],
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _P],
-    "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _P],
+    "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
+                          _P],
 }
 
 _lock = threading.Lock()
@@ -174,7 +176,8 @@ def on_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> bool:
     """True when every tensor is on one CUDA device; False when all are on the CPU.
 
     Raises for a mix of devices, a device that is neither, a non-contiguous
-    tensor, or a dtype other than ``dtype`` on CUDA.
+    tensor, or a dtype other than ``dtype`` on CUDA (``dtype=None``: any; the
+    caller checks the weight formats of a tier).
     """
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -187,7 +190,7 @@ def on_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> bool:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
-        if t.dtype != dtype:
+        if dtype is not None and t.dtype != dtype:
             raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     return True
 

@@ -7,7 +7,10 @@ the key loop stops at a row's length; finite additive key mask); its plain
 PyTorch twin is :func:`rel_attention_reference`, the encoder module's
 einsum-and-shuffle math.
 With ``return_lse`` both also return each query row's logsumexp, the residual
-of the backward (``ops/cuda/attention_grad.py``).
+of the backward (``ops/cuda/attention_grad.py``). Both take a precision tier
+(``ops/tiers.py``: the JAX kernel's ``precision``), which rounds the operands of
+every product -- q.k, q.rel_k, the probabilities against v and rel_v -- as
+the tier rounds them; the values and the softmax stay fp32.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from vits_tpu_torch.ops.attention import (
     get_relative_embeddings,
     relative_position_to_absolute_position,
 )
+from vits_tpu_torch.ops.tiers import EXACT_TIER, Tier, tier_product
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -30,14 +34,27 @@ from vits_tpu_torch.ops.cuda import (
 )
 
 
+def _rel_product(a: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bqd,rd->bqr", a, rel)
+
+
+def _rel_weighted(a: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bqr,rd->bqd", a, rel)
+
+
+def _scores_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(a, b.transpose(1, 2))
+
+
 def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor,
-                         window: int) -> torch.Tensor:
+                         window: int, tier: Tier = EXACT_TIER) -> torch.Tensor:
     """(B*H, L, L) scores q.k plus the windowed rel-key logits, before any mask."""
     B, H, L, d = q.shape
     qf, kf = q.reshape(B * H, L, d), k.reshape(B * H, L, d)
     key_rel = get_relative_embeddings(rel_k[None], L, window)
-    rel_logits = torch.einsum("bqd,rd->bqr", qf, key_rel[0])
-    return torch.bmm(qf, kf.transpose(1, 2)) + relative_position_to_absolute_position(rel_logits)
+    rel_logits = tier_product(_rel_product, qf, key_rel[0], tier)
+    return (tier_product(_scores_product, qf, kf, tier)
+            + relative_position_to_absolute_position(rel_logits))
 
 
 def rel_attention_reference(
@@ -50,25 +67,27 @@ def rel_attention_reference(
     window: int,
     lengths: torch.Tensor | None = None,  # (B,) valid keys per row
     return_lse: bool = False,
+    tier: Tier = EXACT_TIER,
 ):
-    """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel values.
+    """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel
+    values, every product at ``tier``.
 
     With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) the logsumexp of
     each query row's masked scores.
     """
     B, H, L, d = q.shape
     vf = v.reshape(B * H, L, d)
-    weights = rel_attention_scores(q, k, rel_k, window)
+    weights = rel_attention_scores(q, k, rel_k, window, tier)
     if lengths is not None:
         keep = (torch.arange(L, device=q.device)[None, :] < lengths[:, None]).to(q.dtype)
         bias = (1.0 - keep[:, None, None, :]) * torch.finfo(q.dtype).min
         weights = (weights.reshape(B, H, L, L) + bias).reshape(B * H, L, L)
     lse = torch.logsumexp(weights, dim=-1) if return_lse else None
     weights = torch.softmax(weights, dim=-1)
-    out = torch.bmm(weights, vf)
+    out = tier_product(torch.bmm, weights, vf, tier)
     value_rel = get_relative_embeddings(rel_v[None], L, window)
     rel_weights = absolute_position_to_relative_position(weights)
-    out = (out + torch.einsum("bqr,rd->bqd", rel_weights, value_rel[0])).reshape(B, H, L, d)
+    out = (out + tier_product(_rel_weighted, rel_weights, value_rel[0], tier)).reshape(B, H, L, d)
     return (out, lse.reshape(B, H, L)) if return_lse else out
 
 
@@ -82,17 +101,20 @@ def flash_rel_attention(
     window: int,
     lengths: torch.Tensor | None = None,
     return_lse: bool = False,
+    tier: Tier = EXACT_TIER,
 ):
-    """(B, H, L, d) attention output before the out-projection.
+    """(B, H, L, d) attention output before the out-projection, at ``tier``.
 
     With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) fp32. CPU
     tensors take :func:`rel_attention_reference`; CUDA tensors launch the
     kernel (fp32, contiguous, d <= 128, 2*window+1 <= 32, no autograd) or
     raise.
     """
+    if tier.bf16_values:
+        raise ValueError("rel_attention: its values are fp32 (the JAX kernel has no value dtype)")
     if not on_cuda("flash_rel_attention", q, k, v, rel_k, rel_v):
         return rel_attention_reference(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
-                                       return_lse=return_lse)
+                                       return_lse=return_lse, tier=tier)
     no_autograd("flash_rel_attention", q, k, v, rel_k, rel_v)
     B, H, L, d = q.shape
     nr = 2 * window + 1
@@ -108,7 +130,7 @@ def flash_rel_attention(
     check(library().vk_rel_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
         lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, H, L, d, window, stream_of(q)),
+        B, H, L, d, window, tier.mode, stream_of(q)),
         "rel_attention kernel")
     count_launch(flash_rel_attention)
     if return_lse:

@@ -23,7 +23,10 @@ on the pack's stacked cond weights before the products (:func:`pack_flow_cond`
 computes the same vectors conv by conv, as JAX computes them outside its
 ``pallas_call``). The plain PyTorch twin is :func:`flow_reference`: the
 module's own math; :func:`flow_packed_reference` runs the kernel's arithmetic
-on the packed weights.
+on the packed weights, at a precision tier (``ops/tiers.py``: the JAX kernel's
+``precision``, every product's operands rounded as the tier rounds them; the
+values stay fp32). The captured graph bakes its tier in: a pack keeps one
+workspace per (B, T, speakers, tier).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.models.flow import residual_coupling_block
 from vits_tpu_torch.ops.conv import conv1d
+from vits_tpu_torch.ops.tiers import EXACT, EXACT_TIER, Tier, tier_conv1d, tier_matmul
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -137,10 +141,12 @@ class FlowPack:
         finally:
             self._keeping = False
 
-    def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool) -> "FlowWorkspace":
-        key = (B, T, speakers)
+    def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool,
+                  mode: int = EXACT) -> "FlowWorkspace":
+        key = (B, T, speakers, mode)
         with self._lock:
-            ws = self._workspaces.pop(key, None) or FlowWorkspace(self, config, B, T, speakers)
+            ws = (self._workspaces.pop(key, None)
+                  or FlowWorkspace(self, config, B, T, speakers, mode))
             self._workspaces[key] = ws
             if self._keeping:
                 self._kept.add(key)
@@ -149,7 +155,7 @@ class FlowPack:
         return ws
 
 
-# (B, T, speakers) shapes a pack keeps besides those made under FlowPack.keeping.
+# (B, T, speakers, tier) workspaces a pack keeps besides those made under FlowPack.keeping.
 WORKSPACES = 8
 
 
@@ -165,7 +171,8 @@ class FlowWorkspace:
     interleave on it.
     """
 
-    def __init__(self, packed: FlowPack, config: VitsConfig, B: int, T: int, speakers: bool):
+    def __init__(self, packed: FlowPack, config: VitsConfig, B: int, T: int, speakers: bool,
+                 mode: int = EXACT):
         half, hidden = config.flow_size // 2, config.hidden_size
         nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
                     config.prior_encoder_num_flows)
@@ -186,7 +193,7 @@ class FlowWorkspace:
             self.x.data_ptr(), self.lens.data_ptr(), ptr(self.emb), ptr(self.cond),
             self.emb_size, packed.pointers,
             flow_plan(B, T, half, hidden, k, device_sm_count(weights.device)),
-            *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n,
+            *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n, mode,
             ctypes.byref(self.exec)), "flow kernels (capture)")
         weakref.finalize(self, lib.vk_graph_destroy, self.exec.value)
 
@@ -275,8 +282,10 @@ def flow_packed_reference(
     *,
     lengths: torch.Tensor | None = None,  # (B,) valid frames
     cond: torch.Tensor | None = None,  # (B, n_flows, nl, 2*hidden), tanh | sigmoid halves
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """Plain PyTorch: the kernel's arithmetic on the packed weights, step by step."""
+    """Plain PyTorch: the kernel's arithmetic on the packed weights, step by
+    step, every product at ``tier``."""
     half, hidden = config.flow_size // 2, config.hidden_size
     nl, k = config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size
     a = packed.arrays
@@ -288,18 +297,18 @@ def flow_packed_reference(
         read_off = half if s % 2 == 0 else 0
         read = state[..., read_off: read_off + half]
         upd = state[..., half - read_off: 2 * half - read_off]
-        h = (read @ a["w_pre"][s] + a["b_pre"][s]) * mask
+        h = (tier_matmul(read, a["w_pre"][s], tier) + a["b_pre"][s]) * mask
         skip = 0.0
         for l in range(nl):
-            g = conv1d(h, a["w_gate"][s, l], a["b_gate"][s, l], padding=k // 2)
+            g = tier_conv1d(h, a["w_gate"][s, l], a["b_gate"][s, l], tier, padding=k // 2)
             if cond is not None:
                 g = g + interleave(cond[:, s, l, :hidden], cond[:, s, l, hidden:])[:, None]
             acts = torch.tanh(g[..., 0::2]) * torch.sigmoid(g[..., 1::2]) * mask
-            rs = acts @ a["w_rs"][s, l] + a["b_rs"][s, l]
+            rs = tier_matmul(acts, a["w_rs"][s, l], tier) + a["b_rs"][s, l]
             if l < nl - 1:
                 h = (h + rs[..., 0::2]) * mask
             skip = skip + rs[..., 1::2]
-        upd = (upd - (skip @ a["w_post"][s] + a["b_post"][s])) * mask
+        upd = (upd - (tier_matmul(skip, a["w_post"][s], tier) + a["b_post"][s])) * mask
         state = torch.cat((upd, read) if read_off else (read, upd), dim=-1)
     return state * mask
 
@@ -350,10 +359,12 @@ def fused_flow(
     lengths: torch.Tensor | None = None,  # (B,) valid frames; None = all T
     speaker_embeddings: torch.Tensor | None = None,  # (B, 1, speaker_emb)
     packed: FlowPack | None = None,  # pack_flow_weights(params, config), kept by the caller
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
     """Prior latents -> flow latents (B, T, flow_size), zero at and past each length.
 
-    CPU tensors take :func:`flow_reference`; CUDA tensors launch the kernels
+    CPU tensors take :func:`flow_reference` at the exact tier and
+    :func:`flow_packed_reference` at the others; CUDA tensors launch the kernels
     (fp32, contiguous, no autograd, flow_size // 2 a multiple of 16 and
     hidden_size of 32) or raise, including on what the TPU kernel silently
     gets wrong: a WaveNet dilation rate other than 1 (it reads its k taps
@@ -361,9 +372,16 @@ def fused_flow(
     are packed, and the launches captured, on the call.
     """
     acts = [x] if speaker_embeddings is None else [x, speaker_embeddings]
+    if tier.bf16_values:
+        raise ValueError("flow kernel: its values are fp32 (the JAX kernel has no value dtype)")
     if not on_cuda("fused_flow", *acts):
-        return flow_reference(x, params, config, lengths=lengths,
-                              speaker_embeddings=speaker_embeddings)
+        if tier.mode == EXACT:
+            return flow_reference(x, params, config, lengths=lengths,
+                                  speaker_embeddings=speaker_embeddings)
+        cond = (None if speaker_embeddings is None
+                else pack_flow_cond(params, config, speaker_embeddings))
+        return flow_packed_reference(x, packed or pack_flow_weights(params, config), config,
+                                     lengths=lengths, cond=cond, tier=tier)
     B, T, C = x.shape
     half, hidden = config.flow_size // 2, config.hidden_size
     nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
@@ -383,7 +401,7 @@ def fused_flow(
         packed = pack_flow_weights(params, config)
     on_cuda("fused_flow", *acts, packed.buffer)
     no_autograd("fused_flow", *acts, packed.buffer)
-    ws = packed.workspace(config, B, T, speaker_embeddings is not None)
+    ws = packed.workspace(config, B, T, speaker_embeddings is not None, tier.mode)
     if speaker_embeddings is not None and speaker_embeddings.shape != (B, 1, ws.emb_size):
         raise ValueError(f"flow kernel: speaker embeddings {tuple(speaker_embeddings.shape)} "
                          f"!= ({B}, 1, {ws.emb_size})")

@@ -24,7 +24,17 @@ narrow TPU kernel is not carried over. The plain PyTorch twins are
 
 A block is ``{kernel_size, dilations, w1, b1, w2, b2}`` with ``w1[i]``,
 ``w2[i]`` the pair's (k, C, C) kernels and ``b1[i]``, ``b2[i]`` its (C,)
-biases -- a stacked (pairs, ...) tensor or a per-pair list.
+biases -- a stacked (pairs, ...) tensor or a per-pair list. The kernels
+fp32, bf16, or int8 with ``s1[i]``, ``s2[i]``: the (C,) per-out-channel
+scales each conv's sum is multiplied by before its bias (the vocoder packs of
+``models/hifigan.py::precompute_vocoder_packs``).
+
+Precision tiers (``ops/tiers.py``): every wrapper takes a ``tier``; the
+plain twins emulate it (bf16-rounded operands, the bf16x3 split, the value
+carry rounded to bf16 where the JAX kernels cast to their value dtype), and
+the kernels compute it (``csrc/common.cuh`` TierMode). With bf16 values
+kernel B takes and returns bf16 activations (the vocoder's carry between
+kernels); the kernels stage them as fp32.
 """
 
 from __future__ import annotations
@@ -36,6 +46,17 @@ from typing import NamedTuple, Sequence
 import torch
 
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
+from vits_tpu_torch.ops.tiers import (
+    EXACT,
+    EXACT_TIER,
+    FAST,
+    HIGH,
+    Tier,
+    carry,
+    carry_slope,
+    tier_conv1d,
+    weight_format,
+)
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -137,31 +158,48 @@ def length_mask(lengths: torch.Tensor | None, T: int, dtype) -> torch.Tensor | N
     return (steps[None, :] < lengths[:, None]).to(dtype)[..., None]
 
 
+def _pair_scale(blk: dict, name: str, i: int) -> torch.Tensor | None:
+    return blk[name][i] if name in blk else None
+
+
+def _trio_mean(x: torch.Tensor, blocks: Sequence[dict], slope: float,
+               mask: torch.Tensor | None, tier: Tier) -> torch.Tensor:
+    """fp32 mean_j resblock_j(x) at ``tier``: each conv's operands and the
+    pair outputs as the JAX kernels round them (``_trio_kernel``,
+    ``_run_pairs``)."""
+    x = carry(x.float(), tier)
+    x_slope = carry_slope(slope, tier)
+    total = None
+    for blk in blocks:
+        k = blk["kernel_size"]
+        h = x
+        for i, d in enumerate(blk["dilations"]):
+            y = tier_conv1d(leaky_relu(h, x_slope), blk["w1"][i], blk["b1"][i], tier,
+                            _pair_scale(blk, "s1", i), padding=(k * d - d) // 2, dilation=d)
+            if mask is not None:
+                y = y * mask
+            y = tier_conv1d(leaky_relu(y, slope), blk["w2"][i], blk["b2"][i], tier,
+                            _pair_scale(blk, "s2", i), padding=(k - 1) // 2)
+            h = h + y
+            if mask is not None:
+                h = h * mask
+            h = carry(h, tier)
+        total = h if total is None else total + h
+    return total * (1.0 / len(blocks))
+
+
 def resblock_trio_reference(
     x: torch.Tensor,  # (B, T, C); zero at and past each row's length
     blocks: Sequence[dict],
     *,
     slope: float,
     lengths: torch.Tensor | None = None,
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """Plain PyTorch: mean_j resblock_j(x), re-zeroing [len, T) after every conv."""
-    mask = length_mask(lengths, x.shape[1], x.dtype)
-    total = None
-    for blk in blocks:
-        k = blk["kernel_size"]
-        h = x
-        for i, d in enumerate(blk["dilations"]):
-            y = conv1d(leaky_relu(h, slope), blk["w1"][i], blk["b1"][i],
-                       padding=(k * d - d) // 2, dilation=d)
-            if mask is not None:
-                y = y * mask
-            y = conv1d(leaky_relu(y, slope), blk["w2"][i], blk["b2"][i],
-                       padding=(k - 1) // 2)
-            h = h + y
-            if mask is not None:
-                h = h * mask
-        total = h if total is None else total + h
-    return total * (1.0 / len(blocks))
+    """Plain PyTorch: mean_j resblock_j(x), re-zeroing [len, T) after every
+    conv, at ``tier``; the result in x's dtype."""
+    mask = length_mask(lengths, x.shape[1], torch.float32)
+    return _trio_mean(x, blocks, slope, mask, tier).to(x.dtype)
 
 
 def pair_weights(blocks: Sequence[dict]) -> list[torch.Tensor]:
@@ -169,25 +207,57 @@ def pair_weights(blocks: Sequence[dict]) -> list[torch.Tensor]:
             for name in ("w1", "b1", "w2", "b2")]
 
 
+def pair_scales(blocks: Sequence[dict]) -> list[torch.Tensor]:
+    """The int8 kernels' (C,) scales, every pair's s1 and s2 (none for fp32, bf16)."""
+    return [blk[name][i] for blk in blocks if "s1" in blk
+            for i in range(len(blk["dilations"])) for name in ("s1", "s2")]
+
+
+# The (tier mode, weight format) pairs B's conv is built for (resblock_trio.cu::launch_conv):
+# fp32 weights at every tier, int8 at the exact tier (fp32 values) and fast, bf16 at fast.
+CONV_FORMATS = {(m, 0) for m in (EXACT, FAST, HIGH)} | {(EXACT, 2), (FAST, 2), (FAST, 1)}
+
+
+def check_weights(name: str, blocks: Sequence[dict], tier: Tier) -> int:
+    """The blocks' one weight format (ops/tiers.py::weight_format); raises on a
+    mix, on int8 without scales, or on a format the tier's kernels do not take."""
+    formats = {weight_format(w) for w in pair_weights(blocks)[0::2]}
+    if len(formats) != 1:
+        raise ValueError(f"{name}: resblock weights of several formats")
+    fmt = formats.pop()
+    if any(("s1" in blk) != (fmt == 2) for blk in blocks):
+        raise ValueError(f"{name}: int8 weights need their s1/s2 scales, and only they")
+    if (tier.mode, fmt) not in CONV_FORMATS:
+        raise ValueError(f"{name}: the {tier.name} tier's kernels do not take weight format "
+                         f"{fmt} (0 fp32, 1 bf16, 2 int8)")
+    return fmt
+
+
 def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
-              lengths: torch.Tensor, slope: float, acts: Sequence | None = None) -> None:
+              lengths: torch.Tensor, slope: float, acts: Sequence | None = None,
+              tier: Tier = EXACT_TIER, out16: torch.Tensor | None = None) -> None:
     """Launch two conv kernels per pair of every block; ``out`` gets the mean.
 
-    ``x`` is left untouched; y1 and the pair outputs go through three
+    ``x`` (fp32) is left untouched; y1 and the pair outputs go through three
     scratch buffers. Shared by kernel B and the stage kernel (kernel C).
     With ``acts`` -- per block ``(y1s, xs)``, ``pairs`` and ``pairs - 1``
     (B, T, C) buffers -- each pair's y1 and each later pair's input land there
     instead, saved for the backward (kernel 5, ``ops/cuda/trio_grad.py``).
+    At ``tier`` (bf16 values: each pair's output rounded to bf16); with
+    ``out16`` (B, T, C) bf16 the mean is written there, ``out`` holding the
+    running sum over the blocks.
     """
     lib = library()
     B, T, C = x.shape
     stream = stream_of(x)
     sms = device_sm_count(x.device)
-    if x.data_ptr() % 16 or out.data_ptr() % 16:
+    wfmt = check_weights("resblock conv kernel", blocks, tier)
+    if x.data_ptr() % 16 or out.data_ptr() % 16 or (out16 is not None and out16.data_ptr() % 16):
         raise ValueError("resblock conv kernel needs 16-byte aligned activations")
     if acts is None:
         y1 = torch.empty_like(x)
         scratch = (torch.empty_like(x), torch.empty_like(x))
+    x_slope = carry_slope(slope, tier)  # conv1's leaky of the carry; conv2's of y1 is fp32
     n = len(blocks)
     for j, blk in enumerate(blocks):
         k = blk["kernel_size"]
@@ -198,14 +268,15 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
         tile, split, _ = conv_plan(B, T, C, C, k, sms)
         for i, d in enumerate(dilations):
             w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
+            s1, s2 = _pair_scale(blk, "s1", i), _pair_scale(blk, "s2", i)
             for w in (w1, w2):
                 if w.shape != (k, C, C) or w.data_ptr() % 16:
                     raise ValueError(f"resblock conv weight {tuple(w.shape)} != ({k}, {C}, {C})"
                                      " or not 16-byte aligned")
-            for bias in (b1, b2):
-                if bias.shape != (C,) or bias.data_ptr() % 16:
-                    raise ValueError(f"resblock conv bias {tuple(bias.shape)} != ({C},)"
-                                     " or not 16-byte aligned")
+            for vec in (b1, b2) + ((s1, s2) if s1 is not None else ()):
+                if vec.shape != (C,) or vec.data_ptr() % 16 or vec.dtype != torch.float32:
+                    raise ValueError(f"resblock conv bias or scale {tuple(vec.shape)} != ({C},),"
+                                     " not fp32 or not 16-byte aligned")
             last = i == len(dilations) - 1
             if acts is not None:
                 y1 = acts[j][0][i]
@@ -214,16 +285,21 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
                 dst = out if last else scratch[i % 2]
             accumulate = int(last and j > 0)
             scale = 1.0 / n if last and j == n - 1 else 1.0
-            # y1 = mask(dilated conv(leaky(src)) + b1)
+            final16 = out16 if last and j == n - 1 else None
+            # y1 = mask(dilated conv(leaky(src)) (* s1) + b1)
             check(lib.vk_conv(
                 src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
-                lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, slope, 0, 1.0,
-                tile, split, stream), "resblock conv1 kernel")
-            # dst = mask(src + conv(leaky(y1)) + b2), folded into the mean on the last pair
+                lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
+                tile, split, tier.mode, wfmt, None if s1 is None else s1.data_ptr(), 0, None,
+                stream), "resblock conv1 kernel")
+            # dst = carry(mask(src + conv(leaky(y1)) (* s2) + b2)), folded into the mean on the
+            # last pair
             check(lib.vk_conv(
                 y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
                 lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, slope, accumulate, scale,
-                tile, split, stream), "resblock conv2 kernel")
+                tile, split, tier.mode, wfmt, None if s2 is None else s2.data_ptr(),
+                int(tier.bf16_values), None if final16 is None else final16.data_ptr(),
+                stream), "resblock conv2 kernel")
             src = dst
 
 
@@ -233,20 +309,28 @@ def fused_resblock_trio(
     *,
     slope: float,
     lengths: torch.Tensor | None = None,  # (B,) valid steps; None = all T
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """mean_j resblock_j(x) with per-row length masking.
+    """mean_j resblock_j(x) with per-row length masking, at ``tier``.
 
     CPU tensors take :func:`resblock_trio_reference`; CUDA tensors launch the
-    kernel (fp32, contiguous, no autograd) or raise.
+    kernel (x in the tier's value dtype, weights fp32, bf16 or int8 with
+    scales, fp32 biases; contiguous, no autograd) or raise. The result has
+    x's dtype.
     """
-    if not on_cuda("fused_resblock_trio", x, *pair_weights(blocks)):
-        return resblock_trio_reference(x, blocks, slope=slope, lengths=lengths)
-    no_autograd("fused_resblock_trio", x, *pair_weights(blocks))
+    weights = pair_weights(blocks) + pair_scales(blocks)
+    if not on_cuda("fused_resblock_trio", x, *weights, dtype=None):
+        return resblock_trio_reference(x, blocks, slope=slope, lengths=lengths, tier=tier)
+    on_cuda("fused_resblock_trio", x, dtype=tier.value_dtype)
+    no_autograd("fused_resblock_trio", x, *weights)
     B, T, _ = x.shape
-    out = torch.empty_like(x)
-    run_pairs(x, out, blocks, cuda_lengths(lengths, B, T, x.device), slope)
+    xf = x.float()  # the kernel stages fp32 (bf16 values stay bf16-exact)
+    out = torch.empty_like(xf)
+    out16 = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
+    run_pairs(xf.contiguous(), out, blocks, cuda_lengths(lengths, B, T, x.device), slope,
+              tier=tier, out16=out16)
     count_launch(fused_resblock_trio)
-    return out
+    return out if out16 is None else out16
 
 
 fused_resblock_trio.launches = 0
@@ -258,9 +342,10 @@ def resblock_reference(
     *,
     slope: float,
     lengths: torch.Tensor | None = None,
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """Plain PyTorch: one resblock, re-zeroing [len, T) after every conv."""
-    return resblock_trio_reference(x, [block], slope=slope, lengths=lengths)
+    """Plain PyTorch: one resblock, re-zeroing [len, T) after every conv, at ``tier``."""
+    return resblock_trio_reference(x, [block], slope=slope, lengths=lengths, tier=tier)
 
 
 def total_halo(k: int, dilations: Sequence[int]) -> int:
@@ -389,11 +474,14 @@ def fused_resblock(
     lengths: torch.Tensor | None = None,  # (B,) valid steps; None = all T
     into: torch.Tensor | None = None,
     scale: float = 1.0,
+    tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """One masked resblock, ``{kernel_size, dilations, w1, b1, w2, b2}``.
+    """One masked resblock, ``{kernel_size, dilations, w1, b1, w2, b2}``, at ``tier``.
 
-    CPU tensors take :func:`resblock_reference`; CUDA tensors (fp32,
-    contiguous, no autograd) launch kernel 7 once at C in
+    CPU tensors take :func:`resblock_reference`; CUDA tensors (fp32 x and
+    weights -- the JAX package runs this kernel on weights dequantized to
+    fp32 and on the fp32 activations of its narrow stages, casting them to its
+    value dtype inside; contiguous, no autograd) launch kernel 7 once at C in
     :data:`BLOCK_CHANNELS` (at most BLOCK_MAX_PAIRS pairs, a slope in [0, 1]),
     B's conv twice per pair at other C, or raise. With ``into`` (B, T, C), a tensor other
     than ``x``, the result is ``(into + resblock(x)) * scale`` written into
@@ -403,7 +491,7 @@ def fused_resblock(
     weights = pair_weights([block])
     extra = () if into is None else (into,)
     if not on_cuda("fused_resblock", x, *weights, *extra):
-        out = resblock_reference(x, block, slope=slope, lengths=lengths)
+        out = resblock_reference(x, block, slope=slope, lengths=lengths, tier=tier)
         if into is not None:
             out = into.add_(out)
         return out if scale == 1.0 else out.mul_(scale)
@@ -415,7 +503,8 @@ def fused_resblock(
                          "tensor other than x")
     if C not in BLOCK_CHANNELS:  # C = 1, 2, 4: B's conv
         out = torch.empty_like(x)
-        run_pairs(x, out, [block], cuda_lengths(lengths, B, T, x.device), slope)
+        run_pairs(carry(x, tier), out, [block], cuda_lengths(lengths, B, T, x.device), slope,
+                  tier=tier)
         if into is not None:
             out = into.add_(out)
         count_launch(fused_resblock)
@@ -437,8 +526,8 @@ def fused_resblock(
     check(library().vk_resblock_block(
         x.data_ptr(), out.data_ptr(), None if lens is None else lens.data_ptr(), pointers,
         (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
-        plan.bm, plan.cluster, int(into is not None), scale, stream_of(x)),
-        "resblock kernel")
+        plan.bm, plan.cluster, int(into is not None), scale, tier.mode, int(tier.bf16_values),
+        stream_of(x)), "resblock kernel")
     count_launch(fused_resblock)
     return out
 

@@ -21,6 +21,14 @@ loader's reversed kernel, i < n_phi, applied to input row t + i - o_phi:
 so each phase is a plain Conv1d over the input steps (:func:`upsample_phases`
 gives the table, :func:`polyphase_upsample` the plain PyTorch form), and the
 mask v < len * stride is t < len.
+
+Precision tiers (``ops/tiers.py``) as the JAX kernel's ``precision``,
+``value_dtype`` and ``pack_stage_arrays`` weight formats: the upsampler's,
+the resblocks' and conv_post's weights may be bf16 or int8 (``up_scale``,
+the blocks' ``s1``/``s2``, ``final_conv``'s third entry: per-out-channel
+scales, one for conv_post); with bf16 values the input is bf16, the
+upsampler's output and each pair's output are rounded to bf16, and with
+``chain`` (the next stage is a stage kernel too) the output is bf16.
 """
 
 from __future__ import annotations
@@ -29,7 +37,16 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
+from vits_tpu_torch.ops.conv import leaky_relu
+from vits_tpu_torch.ops.tiers import (
+    EXACT_TIER,
+    Tier,
+    carry,
+    carry_slope,
+    tier_conv1d,
+    tier_conv_transpose1d,
+    weight_format,
+)
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -40,9 +57,10 @@ from vits_tpu_torch.ops.cuda import (
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.resblock import (
+    _trio_mean,
     length_mask,
+    pair_scales,
     pair_weights,
-    resblock_trio_reference,
     run_pairs,
 )
 
@@ -100,6 +118,11 @@ def polyphase_upsample(
     return y if mask is None else y * mask
 
 
+def _post(final_conv: tuple) -> tuple:
+    """``final_conv`` as (weight, padding, scale or None)."""
+    return (*final_conv, None) if len(final_conv) == 2 else tuple(final_conv)
+
+
 def stage_reference(
     x: torch.Tensor,  # (B, T_in, C_in), pre-leaky
     up_weight: torch.Tensor,  # (k_up, C_in, C_out), spatially reversed (loader layout)
@@ -110,20 +133,26 @@ def stage_reference(
     up_padding: int,
     slope: float,
     lengths: torch.Tensor | None = None,  # (B,) valid INPUT steps
-    final_conv: tuple | None = None,  # (conv_post weight (k, C_out, 1), padding)
+    final_conv: tuple | None = None,  # (conv_post weight (k, C_out, 1), padding[, scale])
+    tier: Tier = EXACT_TIER,
+    up_scale: torch.Tensor | None = None,
+    chain: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch: the stage's module math."""
-    h = conv_transpose1d(leaky_relu(x, slope), up_weight, up_bias,
-                         stride=stride, padding=up_padding)
+    """Plain PyTorch: the stage's module math at ``tier`` (the JAX kernel's
+    rounding points: the value carry, the operands of every product)."""
+    h = tier_conv_transpose1d(leaky_relu(carry(x.float(), tier), carry_slope(slope, tier)),
+                              up_weight, up_bias,
+                              tier, up_scale, stride=stride, padding=up_padding)
     len_out = None if lengths is None else lengths * stride
-    mask = length_mask(len_out, h.shape[1], h.dtype)
+    mask = length_mask(len_out, h.shape[1], torch.float32)
     if mask is not None:
         h = h * mask
-    h = resblock_trio_reference(h, resblocks, slope=slope, lengths=len_out)
+    h = _trio_mean(h, resblocks, slope, mask, tier)
     if final_conv is None:
-        return h
-    w_post, pad = final_conv
-    wave = torch.tanh(conv1d(leaky_relu(h, FINAL_SLOPE), w_post, None, padding=pad))
+        return h.to(tier.value_dtype) if chain else h
+    w_post, pad, post_scale = _post(final_conv)
+    wave = torch.tanh(tier_conv1d(leaky_relu(h, FINAL_SLOPE), w_post, None, tier, post_scale,
+                                  padding=pad))
     if mask is not None:
         wave = wave * mask
     return wave[..., 0]
@@ -140,22 +169,30 @@ def fused_stage(
     slope: float,
     lengths: torch.Tensor | None = None,
     final_conv: tuple | None = None,
+    tier: Tier = EXACT_TIER,
+    up_scale: torch.Tensor | None = None,
+    chain: bool = False,
 ) -> torch.Tensor:
-    """(B, T_in*stride, C_out) stage output, or the (B, T_in*stride) waveform
-    with ``final_conv``.
+    """(B, T_in*stride, C_out) stage output (fp32; with ``chain`` in the
+    tier's value dtype), or the (B, T_in*stride) fp32 waveform with
+    ``final_conv``, at ``tier``.
 
     CPU tensors take :func:`stage_reference`; CUDA tensors launch the kernels
-    (fp32, contiguous, no autograd, the JAX kernel's channel domain and
+    (x in the tier's value dtype, weights fp32, bf16 or int8 with scales,
+    contiguous, no autograd, the JAX kernel's channel domain and
     k_up - 2*up_padding == stride, so that the stage makes T_in*stride steps)
     or raise.
     """
-    tensors = [x, up_weight, up_bias, *pair_weights(resblocks)]
-    if final_conv is not None:
-        tensors.append(final_conv[0])
-    if not on_cuda("fused_stage", *tensors):
+    post = None if final_conv is None else _post(final_conv)
+    tensors = [x, up_weight, up_bias, *pair_weights(resblocks), *pair_scales(resblocks)]
+    tensors += [t for t in (up_scale,) + (post[0::2] if post else ()) if t is not None]
+    if not on_cuda("fused_stage", *tensors, dtype=None):
         return stage_reference(
             x, up_weight, up_bias, resblocks, stride=stride, up_padding=up_padding,
-            slope=slope, lengths=lengths, final_conv=final_conv)
+            slope=slope, lengths=lengths, final_conv=final_conv, tier=tier, up_scale=up_scale,
+            chain=chain)
+    on_cuda("fused_stage", x, dtype=tier.value_dtype)
+    on_cuda("fused_stage", up_bias, *(t for t in (up_scale, post and post[2]) if t is not None))
     no_autograd("fused_stage", *tensors)
     B, T_in, C_in = x.shape
     k_up, w_in, C_out = up_weight.shape
@@ -169,28 +206,40 @@ def fused_stage(
                          f"128/C_out == stride*128/C_in (got {C_in}->{C_out}, stride {stride})")
     if up_weight.data_ptr() % 16:
         raise ValueError("stage kernel needs a 16-byte aligned upsampler weight")
+    up_fmt = weight_format(up_weight)
+    if (up_fmt == 2) != (up_scale is not None):
+        raise ValueError("stage kernel: an int8 upsampler needs its scales, and only it")
     lib = library()
     stream = stream_of(x)
     lens = cuda_lengths(lengths, B, T_in, x.device)
     T_out = T_in * stride
-    up = torch.empty((B, T_out, C_out), dtype=x.dtype, device=x.device)
+    xf = x.float()  # the kernels stage fp32 (bf16 values stay bf16-exact)
+    up = torch.empty((B, T_out, C_out), dtype=torch.float32, device=x.device)
     check(lib.vk_upsample(
-        x.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(),
-        lens.data_ptr(), B, T_in, C_in, C_out, k_up, stride, up_padding, slope, stream),
+        xf.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(), lens.data_ptr(), B, T_in,
+        C_in, C_out, k_up, stride, up_padding, carry_slope(slope, tier), tier.mode, up_fmt,
+        None if up_scale is None else up_scale.data_ptr(), int(tier.bf16_values), stream),
         "stage upsample kernel")
     h = torch.empty_like(up)
-    run_pairs(up, h, resblocks, lens * stride, slope)
+    h16 = (torch.empty((B, T_out, C_out), dtype=torch.bfloat16, device=x.device)
+           if chain and final_conv is None and tier.bf16_values else None)
+    run_pairs(up, h, resblocks, lens * stride, slope, tier=tier, out16=h16)
     if final_conv is None:
         count_launch(fused_stage)
-        return h
-    w_post, pad = final_conv
+        return h if h16 is None else h16
+    w_post, pad, post_scale = post
     k_post = w_post.shape[0]
     if w_post.shape != (k_post, C_out, 1):
         raise ValueError(f"conv_post weight {tuple(w_post.shape)} != (k, {C_out}, 1)")
-    wave = torch.empty((B, T_out), dtype=x.dtype, device=x.device)
+    post_fmt = weight_format(w_post)
+    if (post_fmt == 2) != (post_scale is not None):
+        raise ValueError("stage kernel: an int8 conv_post needs its scale, and only it")
+    wave = torch.empty((B, T_out), dtype=torch.float32, device=x.device)
     check(lib.vk_wave(
         h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out,
-        C_out, k_post, pad, stride, FINAL_SLOPE, stream), "stage conv_post kernel")
+        C_out, k_post, pad, stride, FINAL_SLOPE, tier.mode, post_fmt,
+        None if post_scale is None else post_scale.data_ptr(), stream),
+        "stage conv_post kernel")
     count_launch(fused_stage)
     return wave
 
