@@ -115,14 +115,39 @@ printing its result line:
    idle share and launches, and its flow and vocoder at the exact tier's
    durations with mel-L1 against exact; a fast-tier stream against its
    one-shot decode (mel-L1); the CLI's ``main`` with its defaults
-   (``--device cuda --fidelity fast``).
+   (``--device cuda --fidelity fast``);
+10. bf16 training (``compute_dtype="bfloat16"``, ``ops/tiers.py::
+   BF16_TRAIN_TIER``) at phase 7's shapes, in a process of its own as phase
+   9 (``--bf16-training-phase``; in the main process the profiler lost kernel
+   A's bf16 records after phases 3-8): (a) kernels A with lse, 4, and 5
+   (forward with acts, backward) on bf16 storage against their plain twins
+   at the same tier (A, 4 within two bf16 ulps; 5 by relative L2 2e-2, and
+   its distance to the twin under 0.75 of an fp32 control's that rounds once
+   at the end), the bound at the bf16 rate (989 TFLOP/s, 2 bytes an
+   entry); (b) three GAN
+   steps at bf16 and at fp32 from the same weights on the same batch and
+   noise: steady ms, device busy ms, idle share, peak memory, master
+   parameters fp32 and moved, every kernel call of the bf16 steps on bf16
+   storage (the C entry points' arguments), and one generator loss's
+   gradients at bf16 against fp32 by cosine (>= 0.97, the CPU tests'
+   bound, over all and for the text encoder, the decoder and the posterior
+   encoder; the flow and the duration predictor follow MAS's durations and
+   are reported, as is each tensor); (c) a speaker-conditioned GAN step at
+   VCTK width (speakers 108
+   and 17), then its generator loss and gradients on the card against the
+   CPU's plain path (phase 7's bounds, ``embed_speaker.weight`` included);
+   (d) ``reuse_forward=False`` against the single forward (losses 1e-5,
+   parameters after one AdamW step rtol 1e-4, atol 1e-6); (e)
+   ``python -m vits_tpu_torch.train.loop --dtype bfloat16`` on the
+   synthetic corpus, 4 steps with checkpoints, resumed to 6.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``plain_device_ms``/``bound_ms``: the sums over the kernel's timed shapes;
 ``launches``: the count over the paths that run the kernel, the serving
 paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
-apart as ``backward_launches``; ``library_ms`` is null:
+apart as ``backward_launches``; phase 10's bf16 kernels as ``*_bf16`` entries with the
+launches of its three bf16 steps; ``library_ms`` is null:
 no single PyTorch call computes any of these functions; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier), and last ``{"ok": true, "device": {...}}``.
@@ -594,6 +619,24 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
             lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens), lengths),
             work=(attention_flops(lengths, heads, d, w, backward=True),
                   nbytes(*args, lens, q, k, v, *rel))))
+
+    def rounding_control(name, got, twin, control):
+        """Kernel-vs-twin against control-vs-twin, relative L2 over all outputs."""
+        def dist(a):
+            return float(sum(float((x.float() - y.float()).norm()) ** 2 for x, y in zip(a, twin))
+                         / sum(float(y.float().norm()) ** 2 for y in twin)) ** 0.5
+        kernel_d, control_d = dist(got), dist(control)
+        print(f"    {name} rounding points: kernel vs twin {kernel_d:.3e}, fp32 control (one "
+              f"rounding) vs twin {control_d:.3e}; share {kernel_d / control_d:.3f} (bound "
+              f"{ROUNDING_SHARE})", flush=True)
+        if not kernel_d <= ROUNDING_SHARE * control_d:
+            raise RuntimeError(f"{name} at bf16: as far from its twin as a kernel that rounds "
+                               f"once ({kernel_d:.3e} against {control_d:.3e})")
+        return {"kernel_vs_twin": kernel_d, "control_vs_twin": control_d}
+
+    def fp32_blocks(blocks):
+        return [{**blk, **{n: [t.float() for t in blk[n]] for n in ("w1", "b1", "w2", "b2")}}
+                for blk in blocks]
 
     decoder = ParamView(params).sub("decoder")
     slope = config.leaky_relu_slope
@@ -2279,12 +2322,446 @@ def default_cli_run(card: str, wrappers) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# Phase 10: bf16 training. Kernels on bf16 storage against their twins at the same
+# tier: A and 4 within two bf16 ulps of max(1, |plain|) (the same fp32 arithmetic on
+# bf16 values, sums in another order: a stored value may land an ulp away), kernel 5
+# by relative L2 error per tensor (its bf16 rounding after every step lets an ulp
+# travel; the CPU tests' bound for its twin against JAX's plain resblocks).
+BF16_KERNEL_TOL = 2.0**-7
+BF16_GRAD_RTOL = 2e-2
+BF16_COSINE = 0.97  # bf16 vs fp32 gradients, tests/test_torch_train_bf16.py (JAX's own bound)
+# Kernel 5 at bf16 rounds where XLA's bf16 graph rounds. Its distance to its bf16 plain twin
+# (relative L2 over all outputs of a call) must stay under this share of the distance of a
+# control that computes the same in fp32 on the bf16 inputs and rounds once at the end:
+# on the CPU a twin with the kernel's rounding points and another summation order reads
+# 0.18-0.33 of the control, a twin that leaves out one rounding point (the bias add) 1.11;
+# the kernel on the H100 reads 0.35-0.52.
+ROUNDING_SHARE = 0.75
+# Modules whose bf16 generator gradients are held to BF16_COSINE one by one. The flow's and
+# the duration predictor's follow MAS's durations, which bf16 prior statistics move (the
+# run prints whether they moved), so those two are printed only.
+COSINE_MODULES = ("text_encoder", "decoder", "posterior_encoder")
+REUSE_LOSS_RTOL, REUSE_PARAM_RTOL, REUSE_PARAM_ATOL = 1e-5, 1e-4, 1e-6  # test_torch_train_speaker
+
+
+def bf16_kernels_vs_plain(params: dict, config, device) -> dict:
+    """Phase 10a: kernels A with lse, 4 and 5 (forward with acts, backward) on bf16
+    storage at phase 7's shapes (B=2, L=512 with lengths (512, 300); the decoded
+    32-frame segment's wide stages), each against its plain twin at the same tier;
+    kernel 5's distance to its twin also against an fp32 control's
+    (ROUNDING_SHARE); the bound at the bf16 rate, 2 bytes an entry."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_plain
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.cuda.resblock import pair_weights
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trio_backward,
+        trio_backward_reference,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+    from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER as tier
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(10)
+    results = {"flash_rel_attention_bf16": [], "trainable_rel_attention_bf16": [],
+               "trainable_trio_bf16": []}
+    layer = ParamView(params).sub("text_encoder.encoder.layers.0.attention")
+    heads, d, w, L = config.num_attention_heads, config.head_dim, config.window_size, 512
+    q, k, v, dout = (torch.tensor(rng.standard_normal((2, heads, L, d)) * 0.5,
+                                  device=device).to(bf) for _ in range(4))
+    rel = (layer["emb_rel_k"][0].to(bf), layer["emb_rel_v"][0].to(bf))
+    lengths = (L, 300)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    shape = f"B=2 H={heads} L={L} d={d} len={lengths} bf16"
+    out, lse = flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True,
+                                   tier=tier)
+    if out.dtype != bf or lse.dtype != torch.float32:
+        raise RuntimeError(f"kernel A at bf16 wrote {out.dtype} / {lse.dtype}")
+    results["flash_rel_attention_bf16"].append(compare(
+        "flash_rel_attention+lse", shape,
+        lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True,
+                                    tier=tier),
+        lambda: rel_attention_plain(q, k, v, *rel, window=w, lengths=lens, return_lse=True,
+                                    tier=tier),
+        work=(attention_flops(lengths, heads, d, w), nbytes(q, k, v, out, lse, *rel, lens)),
+        tol=BF16_KERNEL_TOL, peak=PEAK_BF16_FLOPS))
+    args = (q, k, v, *rel, lse, dout, out)
+
+    def valid(grads):
+        return (*(g[b, :, :n] for g in grads[:3] for b, n in enumerate(lengths)), *grads[3:])
+    grads = rel_attention_bwd(*args, window=w, lengths=lens, tier=tier)
+    if any(g.dtype != bf for g in grads):
+        raise RuntimeError("kernel 4 at bf16 wrote another dtype than bf16")
+    results["trainable_rel_attention_bf16"].append(compare(
+        "rel_attention_bwd", shape + " valid region",
+        lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens, tier=tier)),
+        lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens, tier=tier)),
+        work=(attention_flops(lengths, heads, d, w, backward=True),
+              nbytes(*args, lens, *grads)), tol=BF16_KERNEL_TOL, peak=PEAK_BF16_FLOPS))
+
+    def rounding_control(name, got, twin, control):
+        """Kernel-vs-twin against control-vs-twin, relative L2 over all outputs."""
+        def dist(a):
+            return float(sum(float((x.float() - y.float()).norm()) ** 2 for x, y in zip(a, twin))
+                         / sum(float(y.float().norm()) ** 2 for y in twin)) ** 0.5
+        kernel_d, control_d = dist(got), dist(control)
+        print(f"    {name} rounding points: kernel vs twin {kernel_d:.3e}, fp32 control (one "
+              f"rounding) vs twin {control_d:.3e}; share {kernel_d / control_d:.3f} (bound "
+              f"{ROUNDING_SHARE})", flush=True)
+        if not kernel_d <= ROUNDING_SHARE * control_d:
+            raise RuntimeError(f"{name} at bf16: as far from its twin as a kernel that rounds "
+                               f"once ({kernel_d:.3e} against {control_d:.3e})")
+        return {"kernel_vs_twin": kernel_d, "control_vs_twin": control_d}
+
+    def fp32_blocks(blocks):
+        return [{**blk, **{n: [t.float() for t in blk[n]] for n in ("w1", "b1", "w2", "b2")}}
+                for blk in blocks]
+
+    decoder = ParamView(params).sub("decoder")
+    slope = config.leaky_relu_slope
+    for i, T in ((0, 256), (1, 2048)):
+        blocks = [{**blk, **{n: [t.detach().to(bf) for t in blk[n]]
+                             for n in ("w1", "b1", "w2", "b2")}}
+                  for blk in _stage_resblocks(decoder, config, i)]
+        C = blocks[0]["w1"][0].shape[-1]
+        x, g = (torch.tensor(rng.standard_normal((2, T, C)), device=device).to(bf)
+                for _ in range(2))
+        shape = f"B=2 C={C} T={T} bf16"
+        fwd_flops = resblocks_flops(2 * T, C, blocks)
+        n_acts = sum(2 * len(blk["dilations"]) - 1 for blk in blocks)
+        with torch.no_grad():
+            out, acts = trio_forward_with_acts(x, blocks, slope=slope, tier=tier)
+            if out.dtype != bf or any(a.dtype != bf for a in flat_acts(acts)):
+                raise RuntimeError("kernel 5's forward at bf16 wrote another dtype than bf16")
+            results["trainable_trio_bf16"].append(compare(
+                "trio_forward_with_acts", shape + " out+acts",
+                lambda: (lambda o: (o[0], *flat_acts(o[1])))(
+                    trio_forward_with_acts(x, blocks, slope=slope, tier=tier)),
+                lambda: (lambda o: (o[0], *flat_acts(o[1])))(
+                    trio_forward_with_acts_reference(x, blocks, slope=slope)),
+                grad_rtol=BF16_GRAD_RTOL,
+                work=(fwd_flops, nbytes(x, *pair_weights(blocks)) + nbytes(x) * (1 + n_acts)),
+                peak=PEAK_BF16_FLOPS))
+            o, a = trio_forward_with_acts(x, blocks, slope=slope, tier=tier)
+            o_ref, a_ref = trio_forward_with_acts_reference(x, blocks, slope=slope)
+            o32, a32 = trio_forward_with_acts_reference(x.float(), fp32_blocks(blocks),
+                                                        slope=slope)
+            results["trainable_trio_bf16"][-1]["rounding"] = rounding_control(
+                "trio_forward_with_acts", (o, *flat_acts(a)), (o_ref, *flat_acts(a_ref)),
+                [t.to(bf) for t in (o32, *flat_acts(a32))])
+            saved = flat_acts(a_ref)
+            weights = pair_weights(blocks)
+            results["trainable_trio_bf16"].append(compare(
+                "trio_backward", shape + " bwd vs its plain twin",
+                lambda: (lambda r: (r[0], *r[1]))(
+                    trio_backward(g, x, blocks, saved, slope=slope, tier=tier)),
+                lambda: (lambda r: (r[0], *r[1]))(
+                    trio_backward_reference(g, x, blocks, saved, slope=slope)),
+                grad_rtol=BF16_GRAD_RTOL,
+                work=(2 * fwd_flops, nbytes(x, g, *saved, *weights) + nbytes(x, *weights)),
+                peak=PEAK_BF16_FLOPS))
+            dx, dw = trio_backward(g, x, blocks, saved, slope=slope, tier=tier)
+            dx_ref, dw_ref = trio_backward_reference(g, x, blocks, saved, slope=slope)
+            dx32, dw32 = trio_backward_reference(g.float(), x.float(), fp32_blocks(blocks),
+                                                 [t.float() for t in saved], slope=slope)
+            results["trainable_trio_bf16"][-1]["rounding"] = rounding_control(
+                "trio_backward", (dx, *dw), (dx_ref, *dw_ref),
+                [t.to(bf) for t in (dx32, *dw32)])
+    return results
+
+
+# The training kernels' C entry points, and whether a call's arguments say bf16 storage:
+# A's and 4's bf16 flag, kernel 5's forward conv (vk_conv_bf16; B's fp32 vk_conv is not)
+# and its backward's mode (1: the fast tier on bf16).
+BF16_CALLS = {"vk_rel_attention": lambda a: a[14] == 1,
+              "vk_rel_attention_bwd": lambda a: a[20] == 1,
+              "vk_conv_bf16": lambda a: True, "vk_conv": lambda a: False,
+              "vk_trio_backward": lambda a: a[7] == 1}
+
+
+def record_bf16_calls(seen: list) -> list:
+    """Route the kernel library's training entry points through a recorder that
+    appends (name, bf16 storage?) per call; returns what to restore."""
+    from vits_tpu_torch.ops.cuda import library
+
+    lib = library()
+    restore = []
+    for name, is_bf16 in BF16_CALLS.items():
+        original = getattr(lib, name)
+
+        def call(*args, _name=name, _original=original, _is_bf16=is_bf16):
+            seen.append((_name, bool(_is_bf16(args))))
+            return _original(*args)
+        setattr(lib, name, call)
+        restore.append((lib, name, original))
+    return restore
+
+
+def bf16_vs_fp32_steps(config, device, card: str) -> dict:
+    """Phase 10b: GAN steps at bf16 and at fp32 from the same weights, on the same
+    batch and noise: steady ms, busy ms, idle share and peak memory; master
+    parameters fp32 and moved; the launches of the bf16 steps, each kernel call
+    on bf16 tensors; the gradients of one bf16 generator loss against fp32 by
+    cosine, held over all and per module for COSINE_MODULES, printed for the
+    other modules and per tensor."""
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.io.params import from_jax_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import (
+        draw_noise,
+        generator_forward,
+        gradients,
+        make_gan_train_step,
+    )
+
+    initial = {k: torch.as_tensor(v) for k, v in
+               random_params(config, seed=0, keep_training=True).items()}
+    disc_np = init_discriminator_params(0)
+    batch = training_batch(config, device)
+    noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(7))
+    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward)
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
+        disc = {k: v.requires_grad_() for k, v in
+                from_jax_params(disc_np, device).items()}
+        before = {k: p.detach().clone() for k, p in gen.items()}
+        step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen),
+                                      vits_optimizer(disc), compute_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(batch, noise=noise)  # warm-up
+        torch.cuda.synchronize()
+        seen: list = []
+        restore = record_bf16_calls(seen)
+        for fn in wrappers:
+            fn.launches = 0
+        times = []
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                metrics = step_fn(batch, noise=noise)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            for lib, name, fn in restore:
+                setattr(lib, name, fn)
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        values = {k: float(v) for k, v in metrics._asdict().items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise RuntimeError(f"{dtype} GAN step: non-finite loss {values}")
+        for name, p in {**gen, **disc}.items():
+            if p.dtype != torch.float32 or p.grad is None or p.grad.dtype != torch.float32:
+                raise RuntimeError(f"{dtype} step: master parameter {name} or its grad not fp32")
+        if not all(not torch.equal(p.detach(), before[k]) for k, p in gen.items()):
+            raise RuntimeError(f"{dtype} step: a generator parameter did not move")
+        if dtype == "bfloat16":
+            if not seen or not all(ok for _, ok in seen):
+                bad = sorted({name for name, ok in seen if not ok})
+                raise RuntimeError(f"bf16 steps: kernel calls without bf16 storage: {bad}")
+            print(f"  bf16 steps: all {len(seen)} kernel calls on bf16 storage "
+                  f"({sorted({name for name, _ in seen})})", flush=True)
+            if any(n == 0 for n in launches.values()):
+                raise RuntimeError(f"bf16 steps: a training kernel never launched {launches}")
+        steady = float(np.median(times))
+        wall_ms, device_events, busy_ms = profiled(lambda: step_fn(batch, noise=noise))
+        families = by_family(device_events, KERNEL_FAMILIES)
+        runs[dtype] = {"step_ms": times, "steady_ms": steady, "busy_ms": busy_ms,
+                       "idle_share": 1.0 - busy_ms / steady, "peak_gib": peak_gib,
+                       "launches": launches,
+                       "launches_per_step": {k: v / 3 for k, v in launches.items()},
+                       "families_ms": {k: v[0] for k, v in families.items()},
+                       "losses": values}
+        print(f"  {dtype} GAN step: steady {steady:.1f} ms (steps {[round(t, 1) for t in times]}),"
+              f" device busy {busy_ms:.1f} ms, idle share {1.0 - busy_ms / steady:.3f}, peak "
+              f"{peak_gib:.2f} GiB allocated; launches per step {runs[dtype]['launches_per_step']}"
+              f"; master params fp32 and moved ({card})", flush=True)
+        for family, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+            print(f"    {family:24s} {ms:8.2f} ms  {n:6d} launches", flush=True)
+        del gen, disc, step_fn
+        torch.cuda.empty_cache()
+
+    # gradients of one generator loss at the initial weights, bf16 against fp32: over all,
+    # and per module for COSINE_MODULES (per tensor only reported)
+    grads, outs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
+        out = generator_forward(gen, config, batch, noise, compute_dtype=dtype)
+        grads[dtype] = dict(zip(gen, (g.detach().double() for g in gradients(out.loss, gen))))
+        outs[dtype] = out.durations.detach()
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))  # noqa: E731
+    total = cos(torch.cat([g.flatten() for g in grads["bfloat16"].values()]),
+                torch.cat([g.flatten() for g in grads["float32"].values()]))
+    modules: dict = {}
+    for name in grads["float32"]:
+        modules.setdefault(name.split(".")[0], []).append(name)
+    worst, per_module = [], {}
+    for module, names in modules.items():
+        a, b = (torch.cat([grads[dt][n].flatten() for n in names])
+                for dt in ("bfloat16", "float32"))
+        per_module[module] = cos(a, b)
+        norm = float(b.norm())
+        for n in names:  # tensors whose fp32 gradient is rounding noise (exact 0) aside
+            ref = grads["float32"][n]
+            if float(ref.norm()) > 1e-6 * norm:
+                worst.append((cos(grads["bfloat16"][n].flatten(), ref.flatten()), n))
+    worst.sort()
+    same_durations = bool(torch.equal(outs["bfloat16"], outs["float32"]))
+    print(f"  bf16 vs fp32 gradients: cosine {total:.5f} over all, bound {BF16_COSINE} over all "
+          f"and for {', '.join(COSINE_MODULES)}; per module " + ", ".join(f"{m} {c:.4f}" for m, c in per_module.items())
+          + f"; median tensor {float(np.median([c for c, _ in worst])):.4f}, lowest "
+          f"{[(n, round(c, 4)) for c, n in worst[:3]]}; MAS durations "
+          f"{'equal' if same_durations else 'differ'}", flush=True)
+    off = {m: c for m, c in per_module.items() if m in COSINE_MODULES and not c >= BF16_COSINE}
+    if not total >= BF16_COSINE:
+        off["all"] = total
+    if off:
+        raise RuntimeError(f"bf16 gradients off the fp32 ones past cosine {BF16_COSINE}: {off}")
+    return {**runs, "cosine": total, "cosine_per_module": per_module,
+            "median_tensor_cosine": float(np.median([c for c, _ in worst])),
+            "lowest_tensor_cosines": worst[:5], "same_durations": same_durations, "card": card}
+
+
+def speaker_gan_step(device, card: str) -> None:
+    """Phase 10c: a speaker-conditioned GAN step at VCTK width (109 speakers): losses
+    finite and the kernels launched; then its generator loss and gradients on the
+    card against the CPU's plain path (phase 7's noise-floor bounds), embed_speaker
+    included."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.io.params import from_jax_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import make_gan_train_step
+
+    config = VitsConfig(**VCTK)
+    initial = random_params(config, seed=0, keep_training=True)
+    gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
+    disc = {k: v.requires_grad_() for k, v in
+            from_jax_params(init_discriminator_params(0), device).items()}
+    batch = training_batch(config, device, frame_lengths=(480, 320))
+    batch = batch._replace(speaker_id=torch.tensor([108, 17], device=device))
+    step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen), vits_optimizer(disc))
+    t0 = time.perf_counter()
+    metrics = step_fn(batch, torch.Generator(device=device).manual_seed(3))
+    torch.cuda.synchronize()
+    values = {k: float(v) for k, v in metrics._asdict().items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise RuntimeError(f"speaker GAN step: non-finite loss {values}")
+    emb_grad = gen["embed_speaker.weight"].grad
+    if not (bool((emb_grad[[108, 17]].abs().sum(dim=1) > 0).all())
+            and float(emb_grad[0].abs().sum()) == 0.0):
+        raise RuntimeError("speaker GAN step: embed_speaker's gradient not on the batch's rows")
+    print(f"  speaker GAN step (speakers 108, 17; 512/300 tokens, 480/320 frames): "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms, " + " ".join(
+              f"{k}={v:.4g}" for k, v in values.items()) + f"; embed_speaker rows 108, 17 "
+          f"have gradient, row 0 none ({card})", flush=True)
+    train_card_vs_cpu(config, {k: v.requires_grad_() for k, v in
+                               from_jax_params(initial, device).items()}, batch)
+
+
+def reuse_forward_on_card(config, device) -> None:
+    """Phase 10d: the two-forward GAN step (reuse_forward=False) against the single
+    forward on the card, the CPU test's bounds (losses, and every parameter after
+    one AdamW step); cuDNN pinned to deterministic algorithms for the comparison."""
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.io.params import from_jax_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.train.step import draw_noise, make_gan_train_step
+
+    initial = random_params(config, seed=0, keep_training=True)
+    disc_np = init_discriminator_params(0)
+    batch = training_batch(config, device)
+    noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(9))
+    results = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for reuse in (True, False):
+            gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
+            disc = {k: v.requires_grad_() for k, v in from_jax_params(disc_np, device).items()}
+            step_fn = make_gan_train_step(
+                config, gen, disc, torch.optim.AdamW(list(gen.values()), 2e-4),
+                torch.optim.AdamW(list(disc.values()), 2e-4), reuse_forward=reuse)
+            t0 = time.perf_counter()
+            metrics = step_fn(batch, noise=noise)
+            torch.cuda.synchronize()
+            results.append((metrics, gen, disc, 1e3 * (time.perf_counter() - t0)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m_a, g_a, d_a, ms_a), (m_b, g_b, d_b, ms_b) = results
+    worst_loss = max(abs(float(getattr(m_b, n)) - float(getattr(m_a, n)))
+                     / max(abs(float(getattr(m_a, n))), 1e-30) for n in m_a._fields)
+    worst_param = 0.0
+    for a, b in ((g_a, g_b), (d_a, d_b)):
+        for name in a:
+            diff = (b[name] - a[name]).detach().abs()
+            bound = REUSE_PARAM_ATOL + REUSE_PARAM_RTOL * a[name].detach().abs()
+            worst_param = max(worst_param, float((diff / bound).max()))
+    print(f"  reuse_forward=False vs True: {ms_b:.1f} vs {ms_a:.1f} ms (first steps); worst "
+          f"loss relative difference {worst_loss:.2e} (bound {REUSE_LOSS_RTOL}), worst "
+          f"parameter at {worst_param:.3f} of its bound (rtol {REUSE_PARAM_RTOL}, atol "
+          f"{REUSE_PARAM_ATOL})", flush=True)
+    if not worst_loss <= REUSE_LOSS_RTOL or not worst_param <= 1.0:
+        raise RuntimeError("reuse_forward=False and True differ past the CPU test's bounds")
+
+
+def train_cli_bf16(card: str) -> None:
+    """Phase 10e: ``python -m vits_tpu_torch.train.loop --dtype bfloat16`` (its default
+    device, the card) on the synthetic micro-corpus at MMS width: 4 steps (a
+    checkpoint at the last), then resumed to 6."""
+    import tempfile
+
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
+
+    config = VitsConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, model, out_dir = f"{tmp}/corpus", f"{tmp}/model.ggml", f"{tmp}/run"
+        generate_micro_corpus(corpus, n_utts=16)
+        export_to_ggml(model, config, VitsTokenizer(vocab=corpus_vocab(), pad_token="_",
+                                                    unk_token="?"),
+                       random_params(config, seed=0, keep_training=True), fp16_convs=False)
+        for steps in (4, 6):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "vits_tpu_torch.train.loop", "--corpus", corpus,
+                 "--model", model, "--out", out_dir, "--dtype", "bfloat16", "--steps",
+                 str(steps), "--batch-size", "4"], capture_output=True, text=True,
+                timeout=600, check=False,
+                cwd=str(Path(__file__).resolve().parent))
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                print(f"    {line}", flush=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"train.loop --dtype bfloat16 failed ({proc.returncode}):\n"
+                                   f"{proc.stderr[-3000:]}")
+            print(f"  train.loop --dtype bfloat16 --steps {steps}: "
+                  f"{time.perf_counter() - t0:.1f} s wall ({card})", flush=True)
+        expected = ("resumed from step 4", "restored EMA weights", "checkpointed step 6")
+        if not all(e in lines for e in expected):
+            raise RuntimeError(f"the bf16 loop's resume to step 6 did not run as expected: "
+                               f"{lines}")
+
+
 TIERS_FLAG = "--tiers-phase"  # the child's argument
 TIERS_RESULT = "tiers-phase result: "  # the prefix of the child's result line
 
 
 def tiers_phase(device) -> dict:
-    """Phase 9's work (the child of :func:`run_tiers_child`)."""
+    """Phase 9's work (a child of :func:`run_child`)."""
     from vits_tpu_torch import VitsConfig
     from vits_tpu_torch.ops import cuda as kernels
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
@@ -2305,24 +2782,52 @@ def tiers_phase(device) -> dict:
             "cli": default_cli_run(card, wrappers), "profiler_sessions": PROFILER_SESSIONS}
 
 
-def run_tiers_child() -> tuple[dict, dict, dict]:
-    """Phase 9 in a child process: after phases 3-8 in one process,
-    torch.profiler once lost every device record of the fast tier's kernel A
-    sessions, three times over (a fresh process profiles them). The child's
-    lines are printed here; it fails the run if it fails."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), TIERS_FLAG],
+TRAINING_FLAG = "--bf16-training-phase"
+TRAINING_RESULT = "bf16-training-phase result: "
+
+
+def bf16_training_phase(device) -> dict:
+    """Phase 10's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.io.params import from_jax_params
+    from vits_tpu_torch.ops import cuda as kernels
+
+    card = card_line()
+    kernels.library()
+    config = VitsConfig()
+    t0 = time.perf_counter()
+    measured = bf16_kernels_vs_plain(from_jax_params(random_params(config, seed=0), device),
+                                     config, device)
+    run = bf16_vs_fp32_steps(config, device, card)
+    speaker_gan_step(device, card)
+    reuse_forward_on_card(config, device)
+    train_cli_bf16(card)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": measured, "run": run, "profiler_sessions": PROFILER_SESSIONS}
+
+
+def run_child(flag: str, prefix: str, phase: int) -> dict:
+    """A phase in a child process: after phases 3-8 in one process,
+    torch.profiler loses every device record of kernel A's sessions (phase 9's
+    fast tier, three times over; phase 10's bf16 calls); a fresh process
+    profiles them. The child's lines are printed here; it fails
+    the run if it fails."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                           capture_output=True, text=True, timeout=900, check=False)
     result = None
     for line in proc.stdout.splitlines():
-        if line.startswith(TIERS_RESULT):
-            result = json.loads(line[len(TIERS_RESULT):])
+        if line.startswith(prefix):
+            result = json.loads(line[len(prefix):])
         else:
             print(line, flush=True)
     if proc.returncode != 0 or result is None:
-        raise RuntimeError(f"phase 9 failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"phase {phase} failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
     for key in PROFILER_SESSIONS:
         PROFILER_SESSIONS[key] += result["profiler_sessions"][key]
-    return result["kernels"], result["requests"], result["cli"]
+    return result
 
 
 def main() -> None:
@@ -2332,8 +2837,11 @@ def main() -> None:
     if sys.argv[1:] == [TIERS_FLAG]:
         print(TIERS_RESULT + json.dumps(tiers_phase(device)), flush=True)
         return
+    if sys.argv[1:] == [TRAINING_FLAG]:
+        print(TRAINING_RESULT + json.dumps(bf16_training_phase(device)), flush=True)
+        return
     card = card_line()
-    print("[1/9] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/10] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -2347,7 +2855,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/9] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -2362,7 +2870,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/9] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/10] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -2371,13 +2879,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/9] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/10] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/9] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/10] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -2390,12 +2898,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/9] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/10] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/9] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/10] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -2405,14 +2913,21 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/9] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/10] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/9] the precision tiers, in a process of its own ({card}):", flush=True)
-    tier_measured, tiers_run, cli_run = run_tiers_child()
+    print(f"[9/10] the precision tiers, in a process of its own ({card}):", flush=True)
+    tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
+    tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
+
+    print(f"[10/10] bf16 training at MMS-TTS width, random weights, in a process of its own "
+          f"({card}):", flush=True)
+    training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
+    measured.update(training["kernels"])
+    bf16_run = training["run"]
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -2432,8 +2947,15 @@ def main() -> None:
         "fused_resblock": ("vits_tpu_torch/csrc/resblock_block.cu",
                            "vits_tpu/ops/pallas/resblock.py:629"),
     }
+    # phase 10: the same kernels on bf16 storage, their launches over its three bf16 steps
+    for name in ("flash_rel_attention", "trainable_rel_attention", "trainable_trio"):
+        sources[name + "_bf16"] = sources[name]
+    bf16_launches = bf16_run["bfloat16"]["launches"]
     launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
-                "trainable_trio": train_launches["trio_forward_with_acts"]}
+                "trainable_trio": train_launches["trio_forward_with_acts"],
+                "flash_rel_attention_bf16": bf16_launches["flash_rel_attention"],
+                "trainable_rel_attention_bf16": bf16_launches["rel_attention_bwd"],
+                "trainable_trio_bf16": bf16_launches["trio_forward_with_acts"]}
     report = {"kernels": []}
     for name, runs in measured.items():
         timed = [r for r in runs if r["ms"] is not None]
@@ -2477,6 +2999,9 @@ def main() -> None:
         if entry["name"] == "trainable_trio":  # the forward's launches above; the backward's here
             entry["backward_launches"] = train_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
+        if entry["name"] == "trainable_trio_bf16":
+            entry["backward_launches"] = bf16_launches["trio_backward"]
+            entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
     report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "mms_request": mms_request,
                          "warmup": {path: {k: run[k] for k in ("warmup_s", "first_request_ms")}
                                     for path, run in paths.items() if "warmup_s" in run},
@@ -2492,6 +3017,7 @@ def main() -> None:
                                                                 "card": card}
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
+    report["training_bf16"] = bf16_run
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

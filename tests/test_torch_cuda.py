@@ -972,3 +972,103 @@ def test_engine_default_is_the_fast_tier_on_card(cuda_device, quantized):
     packs = model._vocoder_packs()
     assert packs[0]["blocks"][0]["w1"].dtype == fmt and packs[1]["up_w"].dtype == fmt
 
+
+
+# The bf16 training tier (ops/tiers.py::BF16_TRAIN_TIER) of kernels A with lse, 4 and 5:
+# bf16 storage in and out. The plain twins run the same function in bf16 PyTorch ops
+# on the card (kernel 5) or in fp32 on the bf16 values (A and 4), summing in other
+# orders, so a stored bf16 value may land one ulp away: BF16_ATOL is two bf16 ulps
+# of max(1, |output|) for A and 4, and kernel 5's rounding after every step lets
+# such an ulp travel, held by relative L2 error BF16_RTOL per tensor.
+BF16_ATOL = 2.0**-7
+BF16_RTOL = 2e-2
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_bf16_match_plain_on_card(cuda_device):
+    """Kernels A (with lse) and 4 on bf16 storage at the training shape (L=512,
+    lengths 512 and 300, MMS's head_dim 96): outputs in bf16 (lse fp32), within
+    BF16_ATOL of the plain twins at the same tier; a repeated backward bit-identical;
+    fp32 tensors at the bf16 tier refused."""
+    from vits_tpu_torch.ops.cuda.attention import rel_attention_plain
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER as tier
+
+    rng = np.random.default_rng(21)
+    B, H, L, d, w = 2, 2, 512, 96, 4
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, device=cuda_device).to(torch.bfloat16)
+    q, k, v, dout = (dev(B, H, L, d) for _ in range(4))
+    rel_k, rel_v = dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lengths = [512, 300]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    out, lse = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                   return_lse=True, tier=tier)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want, want_lse = rel_attention_plain(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                         return_lse=True, tier=tier)
+    _assert_close(out.float().cpu(), want.float().cpu(), BF16_ATOL)
+    _assert_close(lse.cpu(), want_lse.cpu())
+    got = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, window=w, lengths=lens,
+                            tier=tier)
+    want = rel_attention_bwd_reference(q, k, v, rel_k, rel_v, lse, dout, out, window=w,
+                                       lengths=lens, tier=tier)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    for g, ref in zip(got[:3], want[:3]):
+        for b, n in enumerate(lengths):
+            _assert_close(g[b, :, :n].float().cpu(), ref[b, :, :n].float().cpu(), BF16_ATOL)
+    for g, ref in zip(got[3:], want[3:]):
+        _assert_close(g.float().cpu(), ref.float().cpu(), BF16_ATOL)
+    again = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, window=w, lengths=lens,
+                              tier=tier)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError):
+        flash_rel_attention(q.float(), k.float(), v.float(), rel_k.float(), rel_v.float(),
+                            window=w, lengths=lens, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [(256, 256), (128, 300)])
+def test_trio_kernels_bf16_match_plain_on_card(cuda_device, C, T):
+    """Kernel 5 on bf16 storage at the training tier: the forward's output and saved
+    activations, then the backward on the twin's activations, against the twins in
+    bf16 PyTorch ops on the card (BF16_RTOL); bf16 outputs; a repeated backward
+    bit-identical; fp32 inputs at the bf16 tier refused."""
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trio_backward,
+        trio_backward_reference,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+    from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER as tier
+
+    rng = np.random.default_rng(22)
+    bf = lambda a: torch.tensor(a, device=cuda_device).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.standard_normal((2, T, C)))
+    g = bf(rng.standard_normal((2, T, C)))
+    blocks = _to(_blocks(rng, C, scale=0.03), bf)
+    with torch.no_grad():
+        out, acts = trio_forward_with_acts(x, blocks, slope=SLOPE, tier=tier)
+        want, want_acts = trio_forward_with_acts_reference(x, blocks, slope=SLOPE)
+        assert out.dtype == torch.bfloat16
+        assert _rel_l2(out, want) <= BF16_RTOL
+        for a, b in zip(flat_acts(acts), flat_acts(want_acts)):
+            assert a.dtype == torch.bfloat16 and _rel_l2(a, b) <= BF16_RTOL
+        saved = flat_acts(want_acts)
+        dx, dw = trio_backward(g, x, blocks, saved, slope=SLOPE, tier=tier)
+        dx2, dw2 = trio_backward(g, x, blocks, saved, slope=SLOPE, tier=tier)
+        want_dx, want_dw = trio_backward_reference(g, x, blocks, saved, slope=SLOPE)
+    for got, ref in [(dx, want_dx), *zip(dw, want_dw)]:
+        assert got.dtype == torch.bfloat16 and _rel_l2(got, ref) <= BF16_RTOL
+    assert all(torch.equal(a, b) for a, b in zip([dx, *dw], [dx2, *dw2]))
+    with pytest.raises(ValueError):
+        trio_forward_with_acts(x.float(), blocks, slope=SLOPE, tier=tier)

@@ -222,3 +222,16 @@ def test_server_copy_matches_original_above_main():
     ported = {m for m in _imported_modules(ours) if m.startswith("vits_tpu_torch")}
     assert ported == {"vits_tpu_torch", "vits_tpu_torch.config", "vits_tpu_torch.utils.wav",
                       "vits_tpu_torch.engine.streaming", "vits_tpu_torch.engine.mux"}
+
+
+def test_native_copy_matches_original():
+    """io/native.py (the C++ runtime's ctypes bindings) imports the standard library
+    and numpy at the top: the port's copy is the original's code, docstrings aside,
+    with the package's name in its imports."""
+    ours = Path(REPO, "vits_tpu_torch", "io", "native.py")
+    theirs = Path(REPO, "vits_tpu", "io", "native.py")
+    want = _definitions_without_docstrings(theirs, ("vits_tpu.", "vits_tpu_torch."))
+    assert _definitions_without_docstrings(ours) == want and len(want) > 8
+    assert set(_imported_modules(ours)) == {
+        "__future__", "ctypes", "os", "typing", "numpy", "vits_tpu_torch.config",
+        "vits_tpu_torch.io.params", "vits_tpu_torch.text.tokenizer"}

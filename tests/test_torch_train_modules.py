@@ -233,7 +233,7 @@ def test_dataset_batches_equal_jax(bundle, tmp_path):
     generate_micro_corpus(str(tmp_path), n_utts=5, words_range=(1, 2))
     tokenizer = VitsTokenizer(vocab=corpus_vocab(), pad_token="_", unk_token="?")
     want = JaxDataset(str(tmp_path), tokenizer, config, max_frames=120, use_native=False)
-    got = VitsDataset(str(tmp_path), tokenizer, config, max_frames=120)
+    got = VitsDataset(str(tmp_path), tokenizer, config, max_frames=120, use_native=False)
     pairs = zip(got.batches(2, np.random.default_rng(3), epochs=1),
                 want.batches(2, np.random.default_rng(3), epochs=1))
     n = 0

@@ -62,6 +62,13 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// A stored value as a float, and a float stored, in fp32 or bf16 storage (the
+// bf16 store rounds to nearest).
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // A weight of any format as a float (bf16 and int8 values are exact in fp32).
 __device__ __forceinline__ float wvalue(float w) { return w; }
 __device__ __forceinline__ float wvalue(__nv_bfloat16 w) { return __bfloat162float(w); }

@@ -69,6 +69,11 @@
 // weights, the WT of the launch: an int8 tile is 1 byte an entry in shared
 // memory, and becomes bf16 exactly, |q| <= 127, in registers). Each step's
 // products still sum into a zeroed partial.
+//
+// bf16 storage (XT, kernel 5 at bf16): x may be a bf16 tensor at the kFast
+// tier; its raw window is then staged as bf16 (rows of 32 + 8 values) and
+// widened when leaky runs. With kTransW the bf16 weights are read as the fp32
+// ones are, 8 a copy.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -94,8 +99,9 @@ struct Tile {
   static constexpr int bm = WM * wm;  // block tile rows (time steps)
   static constexpr int bn = WN * 32;  // block tile out-channels
   // weight stage: kKc rows of bn (+ pad) WT values, the rows 16-byte multiples
-  // (pad 8 floats, 8 bf16, 16 int8), or with kTransW (fp32) bn rows of kKc (+ 4)
-  static constexpr int ws = kTransW ? kKc + 4 : bn + (sizeof(WT) == 1 ? 16 : 8);
+  // (pad 8 floats, 8 bf16, 16 int8), or with kTransW bn rows of kKc (+ 4 fp32, + 8 bf16)
+  static constexpr int ws =
+      kTransW ? kKc + (sizeof(WT) == 2 ? 8 : 4) : bn + (sizeof(WT) == 1 ? 16 : 8);
   static constexpr int w_floats = (kTransW ? bn * ws : kKc * ws) * (int)sizeof(WT) / 4;
   static constexpr int os = bn + 8;  // staged output row stride
 };
@@ -104,7 +110,7 @@ struct Tile {
 // (k, C_in, C_out), or with kTransW the forward weights (k, C_out, C_in) read
 // flipped in time and transposed. slope 1 makes leaky the identity.
 struct Gemm {
-  const float* x;
+  const void* x;  // XT values
   int ldx;
   const void* w;  // WT values
   const int* lengths;
@@ -171,18 +177,56 @@ struct ResEpi {
   }
 };
 
-template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class Epi>
+// The bf16 epilogue of kernel 5 (trio_grad.py at bf16): the steps of XLA's bf16
+// graph of the plain resblocks (vits_tpu/models/hifigan.py:29-57, 425-434), which
+// JAX's bf16 training runs, each rounded to bf16 where XLA rounds it: the conv's
+// sum; + bias; times leaky'(aux) (1 at aux >= 0, else a rounded product with
+// aux_slope); + residual; + out's running sum (accumulate); / divisor. out,
+// residual and aux are bf16 (B, T, C); bias fp32 holding bf16 values.
+struct Bf16Epi {
+  __nv_bfloat16* out;
+  const float* bias;
+  const __nv_bfloat16* residual;
+  const __nv_bfloat16* aux;
+  float aux_slope;
+  int T, C, accumulate;
+  float divisor;
+
+  __device__ __forceinline__ void operator()(int b, int p, int co, float4 y, bool valid) const {
+    const size_t off = ((size_t)b * T + p) * C + co;
+    float v[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = valid ? bf16_round(v[e]) : 0.f;
+      if (valid && bias) x = bf16_round(x + bias[co + e]);
+      if (valid && aux && ldf(aux + off + e) < 0.f) x = bf16_round(x * aux_slope);
+      if (valid && residual) x = bf16_round(ldf(residual + off + e) + x);
+      if (accumulate) x = bf16_round(ldf(out + off + e) + x);
+      if (divisor != 1.f) x = bf16_round(x / divisor);
+      v[e] = x;
+    }
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + off);
+    o[0] = __floats2bfloat162_rn(v[0], v[1]);
+    o[1] = __floats2bfloat162_rn(v[2], v[3]);
+  }
+};
+
+template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class Epi, class XT = float>
 __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const Epi epi) {
   using G = Tile<WM, WN, MT, kTransW, WT>;
-  static_assert(!kTransW || (kMode == kExact && sizeof(WT) == 4), "kTransW is fp32 3xTF32");
+  static_assert(!kTransW || sizeof(WT) != 1, "kTransW reads fp32 or bf16 weights");
+  static_assert(!kTransW || kMode != kExact || sizeof(WT) == 4, "3xTF32 reads fp32 weights");
   constexpr bool kBf16 = kMode != kExact;
+  constexpr bool kX16 = sizeof(XT) == 2;  // bf16 storage of x
+  static_assert(!kX16 || kMode == kFast, "bf16 x is read at the kFast tier");
+  constexpr int kXs = kX16 ? kAh : kAs;   // raw window row stride, XT values
   extern __shared__ __align__(16) float smem[];
   const int k = g.k, dil = g.dil, T = g.T, C_in = g.C_in, C_out = g.C_out, split = g.split;
   const int nwin = g.nwin;
   WT* ws = reinterpret_cast<WT*>(smem);        // kStages weight tiles
-  float* wins = smem + kStages * G::w_floats;  // nwin windows of win x kAs
+  XT* wins = reinterpret_cast<XT*>(smem + kStages * G::w_floats);  // nwin windows of win x kXs
   const int win = G::bm + (k - 1) * dil;
-  float* wlo = wins + nwin * win * kAs;        // kExact: lo halves of the current window
+  float* wlo = reinterpret_cast<float*>(wins + nwin * win * kXs);  // kExact: lo halves
   // bf16 tiers: the current window's leaky values rounded to bf16 (kHigh: and the rest)
   __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(wlo);
   __nv_bfloat16* a16lo = a16 + win * kAh;
@@ -191,7 +235,7 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
   const int co0 = blockIdx.y * G::bn;
   const int b = blockIdx.z;
   const int len = g.lengths[b];
-  const float* xb = g.x + (size_t)b * T * g.ldx;
+  const XT* xb = static_cast<const XT*>(g.x) + (size_t)b * T * g.ldx;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, t = lane & 3;  // fragment row group, thread in group
@@ -208,11 +252,12 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
     const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
     WT* dst = ws + i % kStages * (G::w_floats * 4 / (int)sizeof(WT));
     if constexpr (kTransW) {  // row c: out-channel co0 + c's 32 input channels of this chunk
-      const float* src = static_cast<const float*>(g.w) +
-                         ((size_t)(k - 1 - tap) * C_out + co0) * C_in + chunk * kKc;
-      for (int idx = tid; idx < G::bn * (kKc / 4); idx += G::threads) {
-        const int c = idx / (kKc / 4), r4 = idx - c * (kKc / 4);
-        cp_async16(dst + c * G::ws + r4 * 4, src + (size_t)c * C_in + r4 * 4);
+      constexpr int V = 16 / sizeof(WT);
+      const WT* src = static_cast<const WT*>(g.w) +
+                      ((size_t)(k - 1 - tap) * C_out + co0) * C_in + chunk * kKc;
+      for (int idx = tid; idx < G::bn * (kKc / V); idx += G::threads) {
+        const int c = idx / (kKc / V), rv = idx - c * (kKc / V);
+        cp_async16(dst + c * G::ws + rv * V, src + (size_t)c * C_in + rv * V);
       }
     } else {
       constexpr int V = 16 / sizeof(WT);  // values a 16-byte copy carries
@@ -226,13 +271,14 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
       }
     }
     if (tap == 0 || i == 0) {  // the chunk's raw window: row r <-> position t0 - pad + r
-      float* wdst = wins + (chunk - chunk0) % nwin * win * kAs;
-      const float* xs = xb + chunk * kKc;
-      for (int idx = tid; idx < win * (kKc / 4); idx += G::threads) {
-        const int r = idx / (kKc / 4), c4 = idx - r * (kKc / 4);
+      constexpr int V = 16 / sizeof(XT);  // values a 16-byte copy carries
+      XT* wdst = wins + (chunk - chunk0) % nwin * win * kXs;
+      const XT* xs = xb + chunk * kKc;
+      for (int idx = tid; idx < win * (kKc / V); idx += G::threads) {
+        const int r = idx / (kKc / V), cv = idx - r * (kKc / V);
         const int p = t0 - g.pad + r;
-        const bool in = p >= 0 && p < T && chunk * kKc + c4 * 4 < C_in;
-        cp_async16_zfill(wdst + r * kAs + c4 * 4, in ? xs + (size_t)p * g.ldx + c4 * 4 : xs,
+        const bool in = p >= 0 && p < T && chunk * kKc + cv * V < C_in;
+        cp_async16_zfill(wdst + r * kXs + cv * V, in ? xs + (size_t)p * g.ldx + cv * V : xs,
                          in ? 16 : 0);
       }
     }
@@ -257,11 +303,11 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
     if (i + kStages - 1 < n) issue(i + kStages - 1);
     cp_async_commit();
     const int s = s0 + i, chunk = s / k, tap = s - chunk * k;
-    float* whi = wins + (chunk - chunk0) % nwin * win * kAs;
+    XT* whi = wins + (chunk - chunk0) % nwin * win * kXs;
     if (tap == 0 || i == 0) {  // a new chunk: leaky, then the tier's split, once for k taps
       for (int idx = tid; idx < win * kKc; idx += G::threads) {
         const int r = idx / kKc, c = idx - r * kKc;
-        const float v = vk_leaky(whi[r * kAs + c], g.slope);
+        const float v = vk_leaky(ldf(whi + r * kXs + c), g.slope);
         if constexpr (kBf16) {
           const __nv_bfloat16 h = __float2bfloat16_rn(v);
           a16[r * kAh + c] = h;
@@ -304,8 +350,16 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // b0: rows kp + 2t, + 1; b1: rows kp + 8 + 2t, + 1
-            const WT* wp = wst + (kp + 8 * h + 2 * t) * G::ws + wn0 + nt * 8 + gr;
-            const float w0 = wvalue(wp[0]), w1 = wvalue(wp[G::ws]);
+            float w0, w1;
+            if constexpr (kTransW) {  // k runs along the stage's row
+              const WT* wp = wst + (wn0 + nt * 8 + gr) * G::ws + kp + 8 * h + 2 * t;
+              w0 = wvalue(wp[0]);
+              w1 = wvalue(wp[1]);
+            } else {
+              const WT* wp = wst + (kp + 8 * h + 2 * t) * G::ws + wn0 + nt * 8 + gr;
+              w0 = wvalue(wp[0]);
+              w1 = wvalue(wp[G::ws]);
+            }
             const float h0 = bf16_round(w0), h1 = bf16_round(w1);
             bh[nt][h] = pack_bf16(h0, h1);
             if constexpr (kMode == kHigh) bl[nt][h] = pack_bf16(w0 - h0, w1 - h1);
@@ -403,7 +457,7 @@ __global__ void __launch_bounds__(32 * WM * WN) conv_kernel(const Gemm g, const 
   if (split > 1) cluster.sync();  // the peers' shared memory outlives every remote read
 }
 
-template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class Epi>
+template <int WM, int WN, int MT, bool kTransW, int kMode, class WT, class XT, class Epi>
 cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
   using G = Tile<WM, WN, MT, kTransW, WT>;
   const int steps = (g.C_in + kKc - 1) / kKc * g.k;
@@ -417,10 +471,11 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
   // beside the raw windows: kExact the lo window (fp32), the bf16 tiers the
   // rounded window (kHigh: two), each win x kAh bf16
   const int split_floats = kMode == kExact ? win * kAs : (kMode == kHigh ? 2 : 1) * win * kAh / 2;
-  const int pipe = kStages * G::w_floats + g.nwin * win * kAs + split_floats;
+  const int raw_floats = sizeof(XT) == 2 ? win * kAh / 2 : win * kAs;  // one raw window
+  const int pipe = kStages * G::w_floats + g.nwin * raw_floats + split_floats;
   const int smem = (pipe > G::bm * G::os ? pipe : G::bm * G::os) * static_cast<int>(sizeof(float));
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem_once<conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi>>(smem);
+  cudaError_t err = vk_set_smem_once<conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi, XT>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((g.T + G::bm - 1) / G::bm * g.split, (g.C_out + G::bn - 1) / G::bn, B);
@@ -434,7 +489,7 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi>, g, epi);
+  err = cudaLaunchKernelEx(&cfg, conv_kernel<WM, WN, MT, kTransW, kMode, WT, Epi, XT>, g, epi);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -443,21 +498,23 @@ cudaError_t launch(Gemm g, const Epi& epi, int B, cudaStream_t stream) {
 // C_out multiples of 4 (a tail of a 32-channel step or of the tile's width is
 // zero-filled; with kTransW, C_in % 32 == 0 and C_out a multiple of the
 // tile's width), C_out a multiple of 8 for bf16 weights and of 16 for int8
-// (whole 16-byte copies), and 16-byte aligned rows.
-template <bool kTransW, int kMode, class WT, class Epi>
+// (whole 16-byte copies), and 16-byte aligned rows; bf16 x (XT) C_in and ldx
+// multiples of 8.
+template <bool kTransW, int kMode, class WT, class Epi, class XT = float>
 cudaError_t launch_tile(int tile, const Gemm& g, const Epi& epi, int B, cudaStream_t stream) {
-  if (g.C_in % 4 || g.C_out % 4 || g.ldx % 4 || (kTransW && g.C_in % kKc) ||
-      g.C_out % (16 / static_cast<int>(sizeof(WT))))
+  const int xv = 16 / static_cast<int>(sizeof(XT));
+  if (g.C_in % xv || g.C_out % 4 || g.ldx % xv || (kTransW && g.C_in % kKc) ||
+      (!kTransW && g.C_out % (16 / static_cast<int>(sizeof(WT)))))
     return cudaErrorInvalidValue;
   switch (tile) {
     case 0:  // 128 x 64, warps 2 x 2 of 64 x 32
-      return launch<2, 2, 4, kTransW, kMode, WT>(g, epi, B, stream);
+      return launch<2, 2, 4, kTransW, kMode, WT, XT>(g, epi, B, stream);
     case 1:  // 64 x 64, warps 2 x 2 of 32 x 32
-      return launch<2, 2, 2, kTransW, kMode, WT>(g, epi, B, stream);
+      return launch<2, 2, 2, kTransW, kMode, WT, XT>(g, epi, B, stream);
     case 2:  // 128 x 32, warps 4 x 1 of 32 x 32
-      return launch<4, 1, 2, kTransW, kMode, WT>(g, epi, B, stream);
+      return launch<4, 1, 2, kTransW, kMode, WT, XT>(g, epi, B, stream);
     case 3:  // 64 x 32, warps 4 x 1 of 16 x 32
-      return launch<4, 1, 1, kTransW, kMode, WT>(g, epi, B, stream);
+      return launch<4, 1, 1, kTransW, kMode, WT, XT>(g, epi, B, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -41,6 +41,11 @@
 //   rel_v term) is an fma_tier<M>: fp32 at kExact, both operands rounded to
 //   bf16 at kFast (Mosaic's DEFAULT on fp32 operands), the bf16x3 split at
 //   kHigh. The softmax and the merge stay fp32.
+// - bf16 storage (T, the bf16 training tier): q, k, v and the tables are read
+//   as bf16 and widened to fp32 where they are staged (K and V by plain loads,
+//   8 values a 16-byte load, in place of cp.async), as the JAX kernel upcasts
+//   its blocks (attention.py:38-95); everything after is the fp32 kernel. The
+//   output is written as bf16, lse as fp32.
 #include <math.h>
 
 #include "common.cuh"
@@ -71,13 +76,45 @@ inline __host__ __device__ int fixed_floats(int d) {
          kMaxWarps * kTQ + kTQ * kMaxR;
 }
 
-// NC = ceil(d / 32): the float4 column groups a lane owns in p.v.
-template <int NC, int M>
+// Rows [j0, j0 + kTK) of a bf16 (L, d) head into fp32 rows of stride rs (zero
+// past L), by one warp: 8 values a 16-byte load when vec (d % 8 == 0, aligned).
+__device__ __forceinline__ void load_rows16(float* dst, const __nv_bfloat16* src, int j0, int L,
+                                            int d, int rs, int vec, int lane) {
+  if (vec) {
+    const int d8 = d >> 3;
+    for (int idx = lane; idx < kTK * d8; idx += 32) {
+      const int r = idx / d8, c = (idx - r * d8) * 8;
+      float* o = dst + r * rs + c;
+      if (j0 + r < L) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(j0 + r) * d + c);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          o[2 * e] = f.x;
+          o[2 * e + 1] = f.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = 0.f;
+      }
+    }
+  } else {
+    for (int idx = lane; idx < kTK * d; idx += 32) {
+      const int r = idx / d, c = idx - r * d;
+      dst[r * rs + c] = j0 + r < L ? ldf(src + (size_t)(j0 + r) * d + c) : 0.f;
+    }
+  }
+}
+
+// NC = ceil(d / 32): the float4 column groups a lane owns in p.v. T: the storage
+// of q, k, v, the tables and out (fp32 or bf16).
+template <int NC, int M, class T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ rel_k,
-                         const float* __restrict__ rel_v, const int* __restrict__ lengths,
-                         float* __restrict__ out, float* __restrict__ lse, int H, int L,
+    rel_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ rel_k,
+                         const T* __restrict__ rel_v, const int* __restrict__ lengths,
+                         T* __restrict__ out, float* __restrict__ lse, int H, int L,
                          int d, int w, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int nr = 2 * w + 1;
@@ -98,10 +135,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int q0 = blockIdx.x * kTQ;
   const int b = blockIdx.z;
   const size_t head = ((size_t)b * H + blockIdx.y) * L * d;
-  const float* qh = q + head;
-  const float* kh = k + head;
-  const float* vh = v + head;
-  float* oh = out + head;
+  const T* qh = q + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
+  T* oh = out + head;
   float* lseh = lse ? lse + ((size_t)b * H + blockIdx.y) * L : nullptr;
   const int len = lengths[b];
   const int nk = len > 0 ? min(len, L) : L;  // keys that can weigh anything
@@ -113,7 +150,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   for (int idx = tid; idx < kTQ * dp; idx += blockDim.x) {
     const int r = idx / dp, c = idx - r * dp;
-    qs[idx] = c < d && q0 + r < L ? qh[(size_t)(q0 + r) * d + c] : 0.f;
+    qs[idx] = c < d && q0 + r < L ? ldf(qh + (size_t)(q0 + r) * d + c) : 0.f;
   }
   // padding columns of K and V are never copied: they stay zero
   for (int idx = tid; idx < nw * 2 * stage; idx += blockDim.x) kv[idx] = 0.f;
@@ -121,7 +158,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   for (int task = warp; task < kTQ * nr; task += nw) {
     const int qi = task / nr, r = task - qi * nr;
     float s = 0.f;
-    for (int c = lane; c < d; c += 32) s = fma_tier<M>(qs[qi * dp + c], rel_k[r * d + c], s);
+    for (int c = lane; c < d; c += 32) s = fma_tier<M>(qs[qi * dp + c], ldf(rel_k + r * d + c), s);
     s = warp_sum(s);
     if (lane == 0) rl[qi * kMaxR + r] = s;
   }
@@ -131,7 +168,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float* ks = kvw + slot * stage;
     float* vs = ks + kTK * dp;
     const int j0 = step * kTK;
-    if (vec) {
+    if constexpr (sizeof(T) == 2) {
+      load_rows16(ks, kh, j0, L, d, dp, vec, lane);
+      load_rows16(vs, vh, j0, L, d, dv, vec, lane);
+    } else if (vec) {
       const int d4 = d >> 2;
       for (int idx = lane; idx < kTK * d4; idx += 32) {
         const int r = idx / d4, c = (idx - r * d4) * 4;
@@ -285,7 +325,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float p = 0.f;
     if (i < L && j >= 0 && j < L) {
       float x = 0.f;
-      for (int c = lane; c < d; c += 32) x = fma_tier<M>(qs[qi * dp + c], kh[(size_t)j * d + c], x);
+      for (int c = lane; c < d; c += 32)
+        x = fma_tier<M>(qs[qi * dp + c], ldf(kh + (size_t)j * d + c), x);
       x = warp_sum(x) + rl[qi * kMaxR + r];
       if (j >= len) x += kNeg;
       p = expf(x - mt[qi]) / lt[qi];
@@ -300,35 +341,39 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float o = 0.f;
     for (int wi = 0; wi < nw; ++wi)
       o = fmaf(kv[wi * 2 * stage + qi * dv + c], sc[wi * kTQ + qi], o);
-    for (int r = 0; r < nr; ++r) o = fma_tier<M>(pw[qi * kMaxR + r], rel_v[r * d + c], o);
-    oh[(size_t)i * d + c] = o;
+    for (int r = 0; r < nr; ++r) o = fma_tier<M>(pw[qi * kMaxR + r], ldf(rel_v + r * d + c), o);
+    stf(oh + (size_t)i * d + c, o);
   }
 }
 
-template <int NC, int M>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* rel_k,
-                   const float* rel_v, const int* lengths, float* out, float* lse, int B, int H,
-                   int L, int d, int w, cudaStream_t stream) {
+template <int NC, int M, class T>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* rel_k, const T* rel_v,
+                   const int* lengths, T* out, float* lse, int B, int H, int L, int d, int w,
+                   cudaStream_t stream) {
   const int per_warp = 2 * kTK * (qk_stride(d) + 32 * NC);  // two stages of K and V
   const int fixed = fixed_floats(d);
   int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed) / per_warp;
   nw = nw < kMaxWarps ? nw : kMaxWarps;
   if (nw < 1) return cudaErrorInvalidValue;
   const int smem = (fixed + nw * per_warp) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_kernel<NC, M>, smem);
+  cudaError_t err = vk_set_smem(rel_attention_kernel<NC, M, T>, smem);
   if (err != cudaSuccess) return err;
-  const int vec = d % 4 == 0 && reinterpret_cast<size_t>(k) % 16 == 0 &&
-                  reinterpret_cast<size_t>(v) % 16 == 0;
+  const int vec = d % (16 / static_cast<int>(sizeof(T))) == 0 &&
+                  reinterpret_cast<size_t>(k) % 16 == 0 && reinterpret_cast<size_t>(v) % 16 == 0;
   const dim3 grid((L + kTQ - 1) / kTQ, H, B);
-  rel_attention_kernel<NC, M><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths, out,
-                                                            lse, H, L, d, w, vec);
+  rel_attention_kernel<NC, M, T><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths,
+                                                               out, lse, H, L, d, w, vec);
   return cudaGetLastError();
 }
 
-template <int M>
-cudaError_t launch_mode(const float* q, const float* k, const float* v, const float* rel_k,
-                        const float* rel_v, const int* lengths, float* out, float* lse, int B,
+template <int M, class T>
+cudaError_t launch_mode(const void* q_, const void* k_, const void* v_, const void* rel_k_,
+                        const void* rel_v_, const int* lengths, void* out_, float* lse, int B,
                         int H, int L, int d, int w, cudaStream_t s) {
+  const T *q = static_cast<const T*>(q_), *k = static_cast<const T*>(k_);
+  const T *v = static_cast<const T*>(v_), *rel_k = static_cast<const T*>(rel_k_);
+  const T* rel_v = static_cast<const T*>(rel_v_);
+  T* out = static_cast<T*>(out_);
   switch ((d + 31) / 32) {
     case 1:
       return launch<1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
@@ -343,21 +388,27 @@ cudaError_t launch_mode(const float* q, const float* k, const float* v, const fl
 
 }  // namespace
 
-// mode: the tier of the products (TierMode).
-VK_EXPORT int vk_rel_attention(const float* q, const float* k, const float* v,
-                               const float* rel_k, const float* rel_v, const int* lengths,
-                               float* out, float* lse, int B, int H, int L, int d, int w,
-                               int mode, void* stream) {
+// mode: the tier of the products (TierMode); bf16: q, k, v, the tables and out
+// are bf16 storage (the kFast tier only), else fp32.
+VK_EXPORT int vk_rel_attention(const void* q, const void* k, const void* v, const void* rel_k,
+                               const void* rel_v, const int* lengths, void* out, float* lse,
+                               int B, int H, int L, int d, int w, int mode, int bf16,
+                               void* stream) {
   const int nr = 2 * w + 1;
   if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return mode == kFast ? launch_mode<kFast, __nv_bfloat16>(q, k, v, rel_k, rel_v, lengths, out,
+                                                             lse, B, H, L, d, w, s)
+                         : cudaErrorInvalidValue;
   switch (mode) {
     case kExact:
-      return launch_mode<kExact>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch_mode<kExact, float>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w,
+                                        s);
     case kFast:
-      return launch_mode<kFast>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch_mode<kFast, float>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     case kHigh:
-      return launch_mode<kHigh>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch_mode<kHigh, float>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     default:
       return cudaErrorInvalidValue;
   }

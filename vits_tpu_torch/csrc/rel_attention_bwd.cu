@@ -53,6 +53,16 @@
 // - Each (query, key) pair of the window belongs to one lane of one step, so
 //   the rel-table row sums ds_{i,i+r-w} and p_{i,i+r-w} are single writes
 //   into shared memory, not sums.
+// - Precision tiers (M, common.cuh TierMode), as make_trainable_attention's
+//   precision: every product of the JAX kernel's dots (the five above, the
+//   window logits and the rel-table sums) is an fma_tier<M>; ds, p and every
+//   sum stay fp32. Built for the training tiers: kExact on fp32, kFast on bf16.
+// - bf16 storage (T, the bf16 training tier at kFast): q, k, v, the tables and
+//   dout are read as bf16 and widened where they are staged (plain loads, 8
+//   values a 16-byte load, in place of cp.async); dq, dk, dv are written as
+//   bf16; the rel-table partials, lse and D stay fp32, and the caller sums the
+//   partials in fp32 and casts once to the table's dtype (attention_grad.py:
+//   253-257).
 #include <math.h>
 
 #include "common.cuh"
@@ -88,22 +98,53 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int M>
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+  acc = fma_tier<M>(a.x, b.x, acc);
+  acc = fma_tier<M>(a.y, b.y, acc);
+  acc = fma_tier<M>(a.z, b.z, acc);
+  return fma_tier<M>(a.w, b.w, acc);
 }
 
+template <int M>
 __device__ __forceinline__ void fma4(float* acc, float s, float4 x) {
-  acc[0] = fmaf(s, x.x, acc[0]);
-  acc[1] = fmaf(s, x.y, acc[1]);
-  acc[2] = fmaf(s, x.z, acc[2]);
-  acc[3] = fmaf(s, x.w, acc[3]);
+  acc[0] = fma_tier<M>(s, x.x, acc[0]);
+  acc[1] = fma_tier<M>(s, x.y, acc[1]);
+  acc[2] = fma_tier<M>(s, x.z, acc[2]);
+  acc[3] = fma_tier<M>(s, x.w, acc[3]);
 }
 
-// One warp's asynchronous copy of rows [r0, r0 + kT) of an (L, d) head into
-// dst at row stride rs (zero rows past L; columns past d untouched).
+// One warp's copy of rows [r0, r0 + kT) of an (L, d) head into dst at row
+// stride rs (zero rows past L; columns past d untouched): asynchronous for
+// fp32, plain loads widened to fp32 for bf16 (vec: 8 values a 16-byte load).
+__device__ __forceinline__ void issue_rows(float* dst, const __nv_bfloat16* src, int r0, int L,
+                                           int d, int rs, int vec, int lane) {
+  if (vec) {
+    const int d8 = d >> 3;
+    for (int idx = lane; idx < kT * d8; idx += 32) {
+      const int r = idx / d8, c = (idx - r * d8) * 8;
+      float* o = dst + r * rs + c;
+      if (r0 + r < L) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          o[2 * e] = f.x;
+          o[2 * e + 1] = f.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = 0.f;
+      }
+    }
+  } else {
+    for (int idx = lane; idx < kT * d; idx += 32) {
+      const int r = idx / d, c = idx - r * d;
+      dst[r * rs + c] = r0 + r < L ? ldf(src + (size_t)(r0 + r) * d + c) : 0.f;
+    }
+  }
+}
 __device__ __forceinline__ void issue_rows(float* dst, const float* src, int r0, int L, int d,
                                            int rs, int vec, int lane) {
   if (vec) {
@@ -123,32 +164,38 @@ __device__ __forceinline__ void issue_rows(float* dst, const float* src, int r0,
 }
 
 // Rows [r0, r0 + kT) of an (L, d) head into dst at row stride rs, zero past L and d.
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int L, int d,
+template <class T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int L, int d,
                                           int rs) {
   for (int idx = threadIdx.x; idx < kT * rs; idx += blockDim.x) {
     const int r = idx / rs, c = idx - r * rs;
-    dst[idx] = c < d && r0 + r < L ? src[(size_t)(r0 + r) * d + c] : 0.f;
+    dst[idx] = c < d && r0 + r < L ? ldf(src + (size_t)(r0 + r) * d + c) : 0.f;
   }
 }
 
-__device__ __forceinline__ void zero_rows(float* dst, int r0, int L, int d) {
+template <class T>
+__device__ __forceinline__ void zero_rows(T* dst, int r0, int L, int d) {
   for (int idx = threadIdx.x; idx < kT * d; idx += blockDim.x) {
     if (r0 + idx / d >= L) break;  // idx only grows, and the row with it
-    dst[(size_t)r0 * d + idx] = 0.f;
+    stf(dst + (size_t)r0 * d + idx, 0.f);
   }
 }
 
+// T: the storage of q, k, v, the tables, dout, dq, dk, dv (fp32 or bf16).
+template <class T>
 struct Args {
-  const float *q, *k, *v, *rel_k, *rel_v;
+  const T *q, *k, *v, *rel_k, *rel_v;
   const int* lengths;
-  const float *lse, *drow, *dout;
-  float *dq, *dk, *dv, *drk_part, *drv_part;
+  const float *lse, *drow;
+  const T* dout;
+  T *dq, *dk, *dv;
+  float *drk_part, *drv_part;
   int H, L, d, w, vec;
 };
 
 // dq and the rel-table partials of queries [q0, q0 + kT).
-template <int NC>
-__device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t bh, int nk) {
+template <int NC, int M, class T>
+__device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, size_t bh, int nk) {
   constexpr int RS = row_stride<NC>();
   constexpr int DV = 32 * NC;
   const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
@@ -185,8 +232,8 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
     const int qi = task / nr, r = task - qi * nr;
     float x = 0.f, y = 0.f;
     for (int c = lane; c < d; c += 32) {
-      x = fmaf(qs[qi * RS + c], a.rel_k[r * d + c], x);
-      y = fmaf(dos[qi * RS + c], a.rel_v[r * d + c], y);
+      x = fma_tier<M>(qs[qi * RS + c], ldf(a.rel_k + r * d + c), x);
+      y = fma_tier<M>(dos[qi * RS + c], ldf(a.rel_v + r * d + c), y);
     }
     x = warp_sum(x);
     y = warp_sum(y);
@@ -206,8 +253,8 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
 #pragma unroll
     for (int e = 0; e < 4 * NC; ++e) acc[u][e] = 0.f;
   }
-  const float* kh = a.k + head;
-  const float* vh = a.v + head;
+  const T* kh = a.k + head;
+  const T* vh = a.v + head;
   auto issue = [&](int step, int slot) {
     float* ks = kvw + slot * stage;
     issue_rows(ks, kh, step * kT, L, d, RS, a.vec, lane);
@@ -243,10 +290,10 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
       for (int u = 0; u < 4; ++u) {
         const float4 qv = *reinterpret_cast<const float4*>(qs + (qg * 4 + u) * RS + 4 * c4);
         const float4 ov = *reinterpret_cast<const float4*>(dos + (qg * 4 + u) * RS + 4 * c4);
-        s[u][0] = dot4(qv, k0, s[u][0]);
-        s[u][1] = dot4(qv, k1, s[u][1]);
-        t[u][0] = dot4(ov, v0, t[u][0]);
-        t[u][1] = dot4(ov, v1, t[u][1]);
+        s[u][0] = dot4<M>(qv, k0, s[u][0]);
+        s[u][1] = dot4<M>(qv, k1, s[u][1]);
+        t[u][0] = dot4<M>(ov, v0, t[u][0]);
+        t[u][1] = dot4<M>(ov, v1, t[u][1]);
       }
     }
     // window logits, p (0 past len), ds; the window's ds and p into dsr and pr
@@ -282,7 +329,7 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
       for (int n = 0; n < NC; ++n) {
         const float4 kk = *reinterpret_cast<const float4*>(ks + jj * RS + 4 * kg + 32 * n);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) fma4(&acc[u][4 * n], g[u], kk);
+        for (int u = 0; u < 4; ++u) fma4<M>(&acc[u][4 * n], g[u], kk);
       }
     }
     __syncwarp();  // this stage is consumed before it is refilled
@@ -305,16 +352,16 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
     if (i >= L) break;  // idx only grows, and i with it
     float o = 0.f;
     for (int wi = 0; wi < nw; ++wi) o += region[wi * warp_floats<NC>() + qi * DV + c];
-    for (int r = 0; r < nr; ++r) o = fmaf(dsr[qi * kMaxR + r], a.rel_k[r * d + c], o);
-    a.dq[head + (size_t)i * d + c] = o;
+    for (int r = 0; r < nr; ++r) o = fma_tier<M>(dsr[qi * kMaxR + r], ldf(a.rel_k + r * d + c), o);
+    stf(a.dq + head + (size_t)i * d + c, o);
   }
   // this tile's share of drel_k = sum_i dsr_i q_i and drel_v = sum_i pr_i dout_i
   for (int idx = tid; idx < nr * d; idx += blockDim.x) {
     const int r = idx / d, c = idx - r * d;
     float x = 0.f, y = 0.f;
     for (int qi = 0; qi < kT; ++qi) {
-      x = fmaf(dsr[qi * kMaxR + r], qs[qi * RS + c], x);
-      y = fmaf(pr[qi * kMaxR + r], dos[qi * RS + c], y);
+      x = fma_tier<M>(dsr[qi * kMaxR + r], qs[qi * RS + c], x);
+      y = fma_tier<M>(pr[qi * kMaxR + r], dos[qi * RS + c], y);
     }
     a.drk_part[part + idx] = x;
     a.drv_part[part + idx] = y;
@@ -322,8 +369,8 @@ __device__ void dq_block(const Args& a, float* smem, int tile, int tiles, size_t
 }
 
 // dk and dv of keys [k0, k0 + kT).
-template <int NC>
-__device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int nk) {
+template <int NC, int M, class T>
+__device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, int nk) {
   constexpr int RS = row_stride<NC>();
   constexpr int DV = 32 * NC;
   const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
@@ -348,8 +395,8 @@ __device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int n
   load_tile(ks, a.k + head, k0, L, d, RS);
   load_tile(vs, a.v + head, k0, L, d, RS);
   for (int idx = tid; idx < nw * warp_floats<NC>(); idx += blockDim.x) region[idx] = 0.f;
-  const float* qh = a.q + head;
-  const float* oh = a.dout + head;
+  const T* qh = a.q + head;
+  const T* oh = a.dout + head;
   const int nwin = kT + 2 * w;
   for (int task = warp; task < nwin * nr; task += nw) {
     const int row = task / nr, r = task - row * nr;
@@ -357,8 +404,8 @@ __device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int n
     float x = 0.f, y = 0.f;
     if (i >= 0 && i < L) {
       for (int c = lane; c < d; c += 32) {
-        x = fmaf(qh[(size_t)i * d + c], a.rel_k[r * d + c], x);
-        y = fmaf(oh[(size_t)i * d + c], a.rel_v[r * d + c], y);
+        x = fma_tier<M>(ldf(qh + (size_t)i * d + c), ldf(a.rel_k + r * d + c), x);
+        y = fma_tier<M>(ldf(oh + (size_t)i * d + c), ldf(a.rel_v + r * d + c), y);
       }
     }
     x = warp_sum(x);
@@ -420,10 +467,10 @@ __device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int n
       for (int u = 0; u < 4; ++u) {
         const float4 kv = *reinterpret_cast<const float4*>(ks + (kq * 4 + u) * RS + 4 * c4);
         const float4 vv = *reinterpret_cast<const float4*>(vs + (kq * 4 + u) * RS + 4 * c4);
-        s[u][0] = dot4(kv, q0v, s[u][0]);
-        s[u][1] = dot4(kv, q1v, s[u][1]);
-        t[u][0] = dot4(vv, o0v, t[u][0]);
-        t[u][1] = dot4(vv, o1v, t[u][1]);
+        s[u][0] = dot4<M>(kv, q0v, s[u][0]);
+        s[u][1] = dot4<M>(kv, q1v, s[u][1]);
+        t[u][0] = dot4<M>(vv, o0v, t[u][0]);
+        t[u][1] = dot4<M>(vv, o1v, t[u][1]);
       }
     }
 #pragma unroll
@@ -459,8 +506,8 @@ __device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int n
         const float4 oo = *reinterpret_cast<const float4*>(dos + ii * RS + 4 * qc + 32 * n);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          fma4(&dka[u][4 * n], g[u], qq);
-          fma4(&dva[u][4 * n], h[u], oo);
+          fma4<M>(&dka[u][4 * n], g[u], qq);
+          fma4<M>(&dva[u][4 * n], h[u], oo);
         }
       }
     }
@@ -492,67 +539,93 @@ __device__ void dkv_block(const Args& a, float* smem, int tile, size_t bh, int n
       x += src[0];
       y += src[kT * DV];
     }
-    a.dk[head + (size_t)j * d + c] = x;
-    a.dv[head + (size_t)j * d + c] = y;
+    stf(a.dk + head + (size_t)j * d + c, x);
+    stf(a.dv + head + (size_t)j * d + c, y);
   }
 }
 
 // Block x < tiles: the dkv block of key tile x; else the dq block of query tile x - tiles.
-template <int NC>
-__global__ void __launch_bounds__(kMaxWarps * 32) rel_attention_bwd_kernel(const Args a) {
+template <int NC, int M, class T>
+__global__ void __launch_bounds__(kMaxWarps * 32) rel_attention_bwd_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   const int tiles = gridDim.x / 2;
   const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
   const int len = a.lengths[blockIdx.z];
   const int nk = len < 0 ? 0 : (len < a.L ? len : a.L);  // keys that can weigh anything
   if ((int)blockIdx.x < tiles)
-    dkv_block<NC>(a, smem, blockIdx.x, bh, nk);
+    dkv_block<NC, M, T>(a, smem, blockIdx.x, bh, nk);
   else
-    dq_block<NC>(a, smem, blockIdx.x - tiles, tiles, bh, nk);
+    dq_block<NC, M, T>(a, smem, blockIdx.x - tiles, tiles, bh, nk);
 }
 
-template <int NC>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+template <int NC, int M, class T>
+cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
   int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed_floats<NC>()) /
            warp_floats<NC>();
   nw = nw < kMaxWarps ? nw : kMaxWarps;
   if (nw < 1) return cudaErrorInvalidValue;
   const int smem = (fixed_floats<NC>() + nw * warp_floats<NC>()) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_bwd_kernel<NC>, smem);
+  cudaError_t err = vk_set_smem(rel_attention_bwd_kernel<NC, M, T>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.L + kT - 1) / kT;
-  rel_attention_bwd_kernel<NC><<<dim3(2 * tiles, a.H, B), nw * 32, smem, stream>>>(a);
+  rel_attention_bwd_kernel<NC, M, T><<<dim3(2 * tiles, a.H, B), nw * 32, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int M, class T>
+cudaError_t launch_nc(const Args<T>& a, int B, cudaStream_t s) {
+  switch ((a.d + 31) / 32) {
+    case 1:
+      return launch<1, M, T>(a, B, s);
+    case 2:
+      return launch<2, M, T>(a, B, s);
+    case 3:
+      return launch<3, M, T>(a, B, s);
+    default:
+      return launch<4, M, T>(a, B, s);
+  }
+}
+
+template <class T>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* rel_k,
+                         const void* rel_v, const int* lengths, const float* lse,
+                         const float* drow, const void* dout, void* dq, void* dk, void* dv,
+                         float* drk_part, float* drv_part, int B, int H, int L, int d, int w,
+                         int mode, cudaStream_t s) {
+  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
+  const int vec = d % (16 / static_cast<int>(sizeof(T))) == 0 && aligned(q) && aligned(k) &&
+                  aligned(v) && aligned(dout);
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(rel_k), static_cast<const T*>(rel_v), lengths, lse, drow,
+                  static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+                  static_cast<T*>(dv), drk_part, drv_part, H, L, d, w, vec};
+  // the training tiers: exact on fp32 (fp32 training), fast on bf16 (bf16 training)
+  if constexpr (sizeof(T) == 2)
+    return mode == kFast ? launch_nc<kFast>(a, B, s) : cudaErrorInvalidValue;
+  else
+    return mode == kExact ? launch_nc<kExact>(a, B, s) : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Gradients of rel_attention for (B, H, L, d) fp32 contiguous q (pre-scaled),
-// k, v, dout and the forward's lse, with drow[b, h, i] = dout_i . out_i.
-// Writes dq, dk, dv (B, H, L, d) and, per (b, h, 16-query tile), partial
+// Gradients of rel_attention for (B, H, L, d) contiguous q (pre-scaled), k, v,
+// dout and the forward's lse, with drow[b, h, i] = dout_i . out_i (fp32). Writes
+// dq, dk, dv (B, H, L, d) and, per (b, h, 16-query tile), fp32 partial
 // rel-embedding gradients drk_part, drv_part (B, H, ceil(L/16), 2w+1, d).
-VK_EXPORT int vk_rel_attention_bwd(const float* q, const float* k, const float* v,
-                                   const float* rel_k, const float* rel_v, const int* lengths,
-                                   const float* lse, const float* drow, const float* dout,
-                                   float* dq, float* dk, float* dv, float* drk_part,
-                                   float* drv_part, int B, int H, int L, int d, int w,
-                                   void* stream) {
+// mode: the tier of the products (TierMode); bf16: q, k, v, the tables, dout,
+// dq, dk and dv are bf16 storage (the kFast tier only), else fp32 (kExact only).
+VK_EXPORT int vk_rel_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* rel_k, const void* rel_v, const int* lengths,
+                                   const float* lse, const float* drow, const void* dout,
+                                   void* dq, void* dk, void* dv, float* drk_part,
+                                   float* drv_part, int B, int H, int L, int d, int w, int mode,
+                                   int bf16, void* stream) {
   const int nr = 2 * w + 1;
   if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1 || B < 1 || H < 1)
     return cudaErrorInvalidValue;
-  auto aligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; };
-  const int vec = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout);
-  const Args a{q, k, v, rel_k, rel_v, lengths, lse, drow, dout, dq, dk, dv, drk_part, drv_part,
-               H, L, d, w, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
-    case 1:
-      return launch<1>(a, B, s);
-    case 2:
-      return launch<2>(a, B, s);
-    case 3:
-      return launch<3>(a, B, s);
-    default:
-      return launch<4>(a, B, s);
-  }
+  return bf16 ? launch_typed<__nv_bfloat16>(q, k, v, rel_k, rel_v, lengths, lse, drow, dout, dq,
+                                            dk, dv, drk_part, drv_part, B, H, L, d, w, mode, s)
+              : launch_typed<float>(q, k, v, rel_k, rel_v, lengths, lse, drow, dout, dq, dk, dv,
+                                    drk_part, drv_part, B, H, L, d, w, mode, s);
 }

@@ -139,3 +139,29 @@ VK_EXPORT int vk_conv(const float* x, float* out, const void* w, const float* bi
   epi.out16 = static_cast<__nv_bfloat16*>(out16);
   return launch_conv(mode, wfmt, tile, g, epi, B, s);
 }
+
+// Kernel 5's forward at bf16 (ops/cuda/trio_grad.py at the fast tier with bf16
+// values): out = conv(leaky(x)) + bias (+ residual) (+ out) / divisor, each
+// step rounded to bf16 as XLA's bf16 graph rounds it (conv::Bf16Epi), on B's
+// conv at kFast (bf16 mma.sync, fp32 sums). x, w (k, C_in, C_out), residual and
+// out bf16 (B, T, C) and contiguous, bias fp32 holding bf16 values; lengths
+// (B,) = T (training segments are unmasked); tile and split from conv_plan
+// (the tensor-core tiles only).
+VK_EXPORT int vk_conv_bf16(const void* x, void* out, const void* w, const float* bias,
+                           const void* residual, const int* lengths, int B, int T, int C_in,
+                           int C_out, int k, int dil, int pad, float slope, int accumulate,
+                           float divisor, int tile, int split, void* stream) {
+  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1 || B < 1 || tile < 0 ||
+      divisor == 0.f)
+    return cudaErrorInvalidValue;
+  auto misaligned = [](const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 != 0; };
+  if (misaligned(x) || misaligned(out) || misaligned(w) || misaligned(bias) ||
+      misaligned(residual))
+    return cudaErrorMisalignedAddress;
+  const conv::Gemm g{x, C_in, w, lengths, T, C_in, C_out, k, dil, pad, slope, split, 0};
+  const conv::Bf16Epi epi{static_cast<__nv_bfloat16*>(out), bias,
+                          static_cast<const __nv_bfloat16*>(residual), nullptr, 1.f, T, C_out,
+                          accumulate, divisor};
+  return conv::launch_tile<false, kFast, __nv_bfloat16, conv::Bf16Epi, __nv_bfloat16>(
+      tile, g, epi, B, static_cast<cudaStream_t>(stream));
+}

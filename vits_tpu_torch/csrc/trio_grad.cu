@@ -37,6 +37,16 @@
 // (a fixed order: a repeated backward is bit-identical; no atomics, no
 // workspace). The tap-0, first-C_in-tile blocks also sum dy's columns (per
 // step, then into the running sum) for db, reduced the same way.
+//
+// At bf16 (mode kFast, the bf16 training tier): every tensor is bf16 storage
+// and the steps are those of XLA's bf16 graph (the JAX package's bf16 training
+// runs its plain resblocks): the input gradients are B's conv at kFast (bf16
+// mma.sync, the weights read flipped and transposed as bf16) with the bf16
+// epilogue (conv::Bf16Epi: the conv's sum, leaky's derivative and the residual
+// each rounded to bf16); the weight gradients take bf16 operands (leaky(a)
+// rounded to bf16, as XLA's forward saved it) on the same TF32 MMAs, one pass
+// (a bf16 value is exact in tf32), fp32 sums in the fixed order above, each
+// dW and db rounded to bf16 once at the end.
 #include "common.cuh"
 #include "conv_gemm.cuh"
 
@@ -51,13 +61,22 @@ constexpr int kWStages = 3;    // steps in flight
 constexpr int kWThreads = 128; // 2 x 2 warps of 32 x 32
 constexpr int kOs = kW + 4;    // staged output row stride
 
+__device__ __forceinline__ void store4(float* p, float4 y) { *reinterpret_cast<float4*>(p) = y; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 y) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(p);
+  o[0] = __floats2bfloat162_rn(y.x, y.y);
+  o[1] = __floats2bfloat162_rn(y.z, y.w);
+}
+
+// AT: the storage of a, dy, dw and db (fp32 at kExact, bf16 at kFast); M the tier.
+template <class AT, int M>
 __global__ void __launch_bounds__(kWThreads)
-    wgrad_kernel(const float* __restrict__ a, const float* __restrict__ dy,
-                 float* __restrict__ dw, float* __restrict__ db, int B, int T, int C_in,
-                 int C_out, int dil, int pad, float slope, int split) {
+    wgrad_kernel(const AT* __restrict__ a, const AT* __restrict__ dy, AT* __restrict__ dw,
+                 AT* __restrict__ db, int B, int T, int C_in, int C_out, int dil, int pad,
+                 float slope, int split) {
   extern __shared__ __align__(16) float smem[];
-  float* as = smem;                         // kWStages x kF x kS
-  float* bs = smem + kWStages * kF * kS;    // kWStages x kF x kS
+  AT* as = reinterpret_cast<AT*>(smem);  // kWStages x kF x kS
+  AT* bs = as + kWStages * kF * kS;      // kWStages x kF x kS
   const int rank = blockIdx.x;              // clusters are (split, 1, 1)
   const int ci_tiles = C_in / kW;
   const int ci0 = blockIdx.y % ci_tiles * kW, co0 = blockIdx.y / ci_tiles * kW;
@@ -75,16 +94,17 @@ __global__ void __launch_bounds__(kWThreads)
 
   auto issue = [&](int i) {  // frames f0 .. f0 + 31 of local step i
     const int f0 = (s0 + i) * kF;
-    float* ad = as + i % kWStages * kF * kS;
-    float* bd = bs + i % kWStages * kF * kS;
-    for (int idx = tid; idx < kF * (kW / 4); idx += kWThreads) {
-      const int r = idx / (kW / 4), c4 = idx - r * (kW / 4);
+    constexpr int V = 16 / sizeof(AT);  // values a 16-byte copy carries
+    AT* ad = as + i % kWStages * kF * kS;
+    AT* bd = bs + i % kWStages * kF * kS;
+    for (int idx = tid; idx < kF * (kW / V); idx += kWThreads) {
+      const int r = idx / (kW / V), cv = idx - r * (kW / V);
       const int f = f0 + r;
       const int b = f / T, p = f - b * T + shift;
       const bool fin = f < F, ain = fin && p >= 0 && p < T;
-      cp_async16_zfill(ad + r * kS + c4 * 4,
-                       ain ? a + ((size_t)b * T + p) * C_in + ci0 + c4 * 4 : a, ain ? 16 : 0);
-      cp_async16_zfill(bd + r * kS + c4 * 4, fin ? dy + (size_t)f * C_out + co0 + c4 * 4 : dy,
+      cp_async16_zfill(ad + r * kS + cv * V,
+                       ain ? a + ((size_t)b * T + p) * C_in + ci0 + cv * V : a, ain ? 16 : 0);
+      cp_async16_zfill(bd + r * kS + cv * V, fin ? dy + (size_t)f * C_out + co0 + cv * V : dy,
                        fin ? 16 : 0);
     }
   };
@@ -108,11 +128,11 @@ __global__ void __launch_bounds__(kWThreads)
     __syncthreads();
     if (i + kWStages - 1 < n) issue(i + kWStages - 1);
     cp_async_commit();
-    const float* at = as + i % kWStages * kF * kS;
-    const float* bt = bs + i % kWStages * kF * kS;
+    const AT* at = as + i % kWStages * kF * kS;
+    const AT* bt = bs + i % kWStages * kF * kS;
     if (bias_block && tid < kW) {
       float s = 0.f;
-      for (int r = 0; r < kF; ++r) s += bt[r * kS + tid];
+      for (int r = 0; r < kF; ++r) s += ldf(bt + r * kS + tid);
       dbsum += s;
     }
     float part[2][4][4];
@@ -127,20 +147,21 @@ __global__ void __launch_bounds__(kWThreads)
       unsigned ah[2][2][4], al[2][2][4], bh[2][4][2], bl[2][4][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float* r0 = at + (kp + 8 * h + t) * kS;  // frame kk = t; kk = t + 4 is 4 rows on
+        const AT* r0 = at + (kp + 8 * h + t) * kS;  // frame kk = t; kk = t + 4 is 4 rows on
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const int m = wm0 + mt * 16 + gr;
-          const float v[4] = {r0[m], r0[m + 8], r0[4 * kS + m], r0[4 * kS + m + 8]};
+          const float v[4] = {ldf(r0 + m), ldf(r0 + m + 8), ldf(r0 + 4 * kS + m),
+                              ldf(r0 + 4 * kS + m + 8)};
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            split_tf32(vk_leaky(v[e], slope), ah[h][mt][e], al[h][mt][e]);
+            split_tier<M>(vk_leaky(v[e], slope), ah[h][mt][e], al[h][mt][e]);
         }
-        const float* q0 = bt + (kp + 8 * h + t) * kS + wn0 + gr;
+        const AT* q0 = bt + (kp + 8 * h + t) * kS + wn0 + gr;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          split_tf32(q0[nt * 8], bh[h][nt][0], bl[h][nt][0]);
-          split_tf32(q0[4 * kS + nt * 8], bh[h][nt][1], bl[h][nt][1]);
+          split_tier<M>(ldf(q0 + nt * 8), bh[h][nt][0], bl[h][nt][0]);
+          split_tier<M>(ldf(q0 + 4 * kS + nt * 8), bh[h][nt][1], bl[h][nt][1]);
         }
       }
       auto pass = [&](const unsigned (&aa)[2][2][4], int h, const unsigned (&bb)[2][4][2]) {
@@ -150,10 +171,12 @@ __global__ void __launch_bounds__(kWThreads)
           for (int nt = 0; nt < 4; ++nt)
             mma_tf32(part[mt][nt], aa[h][mt], bb[h][nt][0], bb[h][nt][1]);
       };
-      pass(al, 0, bh);
-      pass(ah, 0, bl);
-      pass(al, 1, bh);
-      pass(ah, 1, bl);
+      if constexpr (M != kFast) {  // kFast: lo = 0
+        pass(al, 0, bh);
+        pass(ah, 0, bl);
+        pass(al, 1, bh);
+        pass(ah, 1, bl);
+      }
       pass(ah, 0, bh);
       pass(ah, 1, bh);
     }
@@ -186,7 +209,7 @@ __global__ void __launch_bounds__(kWThreads)
 
   // rows [r0, r0 + rows) of the tile: the cluster's partials summed in rank order
   const int rows = kW / split, r0 = rank * rows;
-  float* out = dw + ((size_t)tap * C_in + ci0) * C_out + co0;
+  AT* out = dw + ((size_t)tap * C_in + ci0) * C_out + co0;
   for (int idx = tid; idx < rows * (kW / 4); idx += kWThreads) {
     const int r = r0 + idx / (kW / 4), c = idx % (kW / 4) * 4;
     const float* src = tile + r * kOs + c;
@@ -195,19 +218,24 @@ __global__ void __launch_bounds__(kWThreads)
       const float4 o = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, q));
       y = make_float4(y.x + o.x, y.y + o.y, y.z + o.z, y.w + o.w);
     }
-    *reinterpret_cast<float4*>(out + (size_t)r * C_out + c) = y;
+    store4(out + (size_t)r * C_out + c, y);
   }
   if (bias_block && rank == 0 && tid < kW) {
     float s = split > 1 ? *cluster.map_shared_rank(dbs + tid, 0) : dbs[tid];
     for (int q = 1; q < split; ++q) s += *cluster.map_shared_rank(dbs + tid, q);
-    db[co0 + tid] = s;
+    stf(db + co0 + tid, s);
   }
   if (split > 1) cluster.sync();  // the peers' shared memory outlives every remote read
 }
 
-cudaError_t launch_wgrad(const float* a, const float* dy, float* dw, float* db, int B, int T,
+template <class AT, int M>
+cudaError_t launch_wgrad(const void* a_, const void* dy_, void* dw_, void* db_, int B, int T,
                          int C_in, int C_out, int k, int dil, int pad, float slope, int split,
                          cudaStream_t stream) {
+  const AT* a = static_cast<const AT*>(a_);
+  const AT* dy = static_cast<const AT*>(dy_);
+  AT* dw = static_cast<AT*>(dw_);
+  AT* db = static_cast<AT*>(db_);
   if (B < 1 || T < 1 || k < 1 || dil < 1 || C_in % kW || C_out % kW || C_in < kW ||
       C_out < kW || split < 1 || split > conv::kMaxSplit || kW % split)
     return cudaErrorInvalidValue;
@@ -215,10 +243,10 @@ cudaError_t launch_wgrad(const float* a, const float* dy, float* dw, float* db, 
   if ((split - 1) * ((steps + split - 1) / split) >= steps) return cudaErrorInvalidValue;
   auto misaligned = [](const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 != 0; };
   if (misaligned(a) || misaligned(dy) || misaligned(dw)) return cudaErrorMisalignedAddress;
-  const int pipe = 2 * kWStages * kF * kS;
+  const int pipe = 2 * kWStages * kF * kS * static_cast<int>(sizeof(AT)) / 4;
   const int staged = kW * kOs + kW;
   const int smem = (pipe > staged ? pipe : staged) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem_once<wgrad_kernel>(smem);
+  cudaError_t err = vk_set_smem_once<wgrad_kernel<AT, M>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (C_in / kW) * (C_out / kW), k);
@@ -232,8 +260,8 @@ cudaError_t launch_wgrad(const float* a, const float* dy, float* dw, float* db, 
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, wgrad_kernel, a, dy, dw, db, B, T, C_in, C_out, dil, pad,
-                           slope, split);
+  err = cudaLaunchKernelEx(&cfg, wgrad_kernel<AT, M>, a, dy, dw, db, B, T, C_in, C_out, dil,
+                           pad, slope, split);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -267,9 +295,10 @@ cudaError_t side_of_device(Side** out) {
 // the gradient at the pair's output; dy1 and dx_out are buffers of the pair's
 // own (the weight gradients read dx_in and dy1 on the second stream while the
 // next pair runs); need_in 0 skips dx_out (pair 0 when x needs no gradient).
+// Every tensor fp32 at kExact, bf16 at kFast.
 struct TrioPair {
-  const float *w1, *w2, *y1, *x_in, *dx_in;
-  float *dy1, *dx_out, *dw1, *db1, *dw2, *db2;
+  const void *w1, *w2, *y1, *x_in, *dx_in;
+  void *dy1, *dx_out, *dw1, *db1, *dw2, *db2;
   int k, dil, tile, split, wsplit, need_in, accumulate;
 };
 
@@ -278,17 +307,33 @@ struct TrioPair {
 // flipT(w1)) * leaky'(x_in), added to dx_out with accumulate), and the two
 // weight gradients (dW2, db2 from y1 and dx_in; dW1, db1 from x_in and dy1) on
 // a second stream of this library's, each after the input it reads; the
-// stream waits for the second before returning. lengths: (B,) = T.
+// stream waits for the second before returning. lengths: (B,) = T. mode: the
+// tier, kExact (fp32 tensors) or kFast (bf16 tensors, slope the bf16 one).
 VK_EXPORT int vk_trio_backward(const TrioPair* pairs, int n, const int* lengths, int B, int T,
-                               int C, float slope, void* stream) {
+                               int C, float slope, int mode, void* stream) {
+  if (mode != kExact && mode != kFast) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Side* side = nullptr;
   cudaError_t err = side_of_device(&side);
-  auto dgrad = [&](const float* dy, float* out, const float* w, const float* aux,
-                   const float* residual, int k, int dil, int accumulate, int tile, int split) {
+  auto dgrad = [&](const void* dy, void* out, const void* w, const void* aux,
+                   const void* residual, int k, int dil, int accumulate, int tile, int split) {
     const conv::Gemm g{dy, C, w, lengths, T, C, C, k, dil, dil * (k - 1) / 2, 1.f, split, 0};
-    const conv::ResEpi epi{out, nullptr, residual, aux, slope, T, C, accumulate, 1.f};
+    if (mode == kFast) {
+      using bf = __nv_bfloat16;
+      const conv::Bf16Epi epi{static_cast<bf*>(out), nullptr, static_cast<const bf*>(residual),
+                              static_cast<const bf*>(aux), slope, T, C, accumulate, 1.f};
+      return conv::launch_tile<true, kFast, bf, conv::Bf16Epi, bf>(tile, g, epi, B, s);
+    }
+    const conv::ResEpi epi{static_cast<float*>(out), nullptr, static_cast<const float*>(residual),
+                           static_cast<const float*>(aux), slope, T, C, accumulate, 1.f};
     return conv::launch_tile<true, kExact, float>(tile, g, epi, B, s);
+  };
+  auto wgrad = [&](const void* a, const void* dy, void* dw, void* db, int k, int dil, int pad,
+                   int wsplit) {
+    return mode == kFast ? launch_wgrad<__nv_bfloat16, kFast>(a, dy, dw, db, B, T, C, C, k, dil,
+                                                              pad, slope, wsplit, side->stream)
+                         : launch_wgrad<float, kExact>(a, dy, dw, db, B, T, C, C, k, dil, pad,
+                                                       slope, wsplit, side->stream);
   };
   for (int i = 0; i < n && err == cudaSuccess; ++i) {
     const TrioPair& p = pairs[i];
@@ -297,16 +342,14 @@ VK_EXPORT int vk_trio_backward(const TrioPair* pairs, int n, const int* lengths,
     err = cudaEventRecord(side->to_side, s);
     if (err == cudaSuccess) err = cudaStreamWaitEvent(side->stream, side->to_side, 0);
     if (err == cudaSuccess)
-      err = launch_wgrad(p.y1, p.dx_in, p.dw2, p.db2, B, T, C, C, p.k, 1, pad2, slope, p.wsplit,
-                         side->stream);
+      err = wgrad(p.y1, p.dx_in, p.dw2, p.db2, p.k, 1, pad2, p.wsplit);
     if (err == cudaSuccess)
       err = dgrad(p.dx_in, p.dy1, p.w2, p.y1, nullptr, p.k, 1, 0, p.tile, p.split);
     // dW1, db1 on the side stream once dy1 is ready; dx_out on the main stream
     if (err == cudaSuccess) err = cudaEventRecord(side->to_side, s);
     if (err == cudaSuccess) err = cudaStreamWaitEvent(side->stream, side->to_side, 0);
     if (err == cudaSuccess)
-      err = launch_wgrad(p.x_in, p.dy1, p.dw1, p.db1, B, T, C, C, p.k, p.dil, pad1, slope,
-                         p.wsplit, side->stream);
+      err = wgrad(p.x_in, p.dy1, p.dw1, p.db1, p.k, p.dil, pad1, p.wsplit);
     if (err == cudaSuccess && p.need_in)
       err = dgrad(p.dy1, p.dx_out, p.w1, p.x_in, p.dx_in, p.k, p.dil, p.accumulate, p.tile,
                   p.split);

@@ -7,6 +7,11 @@ CPU; the projections and the conv-FFN are plain PyTorch. With
 :data:`FLASH_TRAIN_TOKENS` tokens up through kernel A with lse forward and
 kernel 4 backward (``ops/cuda/attention_grad.py``), below it plain autograd
 attention -- the JAX package's gate (``vits_tpu/train/step.py:182``).
+
+Trainable at bf16 (bf16 training casts the encoder's parameters and masks to
+bf16): kernels A and 4 then take bf16 q, k, v at ``tier`` (the training
+step's ``ops/tiers.py::BF16_TRAIN_TIER``), and the plain path below
+:data:`FLASH_TRAIN_TOKENS` runs the module's bf16 graph, as JAX's does.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn.functional as F
 
 from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
-from vits_tpu_torch.ops.conv import conv1d, layer_norm
+from vits_tpu_torch.ops.conv import conv1d, layer_norm, weak_scalar
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
 from vits_tpu_torch.ops.cuda.attention_grad import trainable_rel_attention
 from vits_tpu_torch.ops.tiers import EXACT_TIER, Tier
@@ -37,7 +42,7 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
                config: VitsConfig, trainable: bool = False,
                tier: Tier = EXACT_TIER) -> torch.Tensor:
     """Multi-head self-attention with relative position bias; x: (B, T, H).
-    Kernel A runs at ``tier`` (inference only: training stays fp32)."""
+    Kernels A (and 4) run at ``tier``; the plain training path ignores it."""
     if not config.window_size:
         raise NotImplementedError("attention without a relative window is not ported")
     bsz, tgt_len, embed_dim = x.shape
@@ -46,14 +51,14 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     def shape4(t):  # (B, T, H) -> (B, heads, T, head_dim)
         return t.reshape(bsz, tgt_len, num_heads, head_dim).transpose(1, 2).contiguous()
 
-    query = (x @ p["q_proj.weight"] + p["q_proj.bias"]) * head_dim**-0.5
+    query = (x @ p["q_proj.weight"] + p["q_proj.bias"]) * weak_scalar(head_dim**-0.5, x)
     key = x @ p["k_proj.weight"] + p["k_proj.bias"]
     value = x @ p["v_proj.weight"] + p["v_proj.bias"]
     kw = {}
     if not trainable:
         attend, kw = flash_rel_attention, {"tier": tier}
     elif tgt_len >= FLASH_TRAIN_TOKENS:
-        attend = trainable_rel_attention
+        attend, kw = trainable_rel_attention, {"tier": tier}
     else:
         attend = rel_attention_reference
     attn = attend(
@@ -101,9 +106,11 @@ def text_encoder(
     tier: Tier = EXACT_TIER,  # kernel A's (the JAX reduce_precision(pallas_precision))
 ) -> EncoderOutput:
     p = params.sub("text_encoder")
-    hidden = p["embed_tokens.weight"][input_ids] * math.sqrt(config.hidden_size)
+    hidden = p["embed_tokens.weight"][input_ids]
+    hidden = hidden * weak_scalar(math.sqrt(config.hidden_size), hidden)
     hidden = hidden * padding_mask
-    lengths = padding_mask[..., 0].sum(dim=1).to(torch.int32)
+    # counted in fp32: a bf16 mask's sum rounds above 256 tokens
+    lengths = padding_mask[..., 0].float().sum(dim=1).to(torch.int32)
 
     enc = p.sub("encoder")
     for i in range(config.num_hidden_layers):

@@ -24,8 +24,12 @@ activation uses torch's default slope (0.01), not ``leaky_relu_slope``.
 
 With ``trainable=True`` (the training step decodes unmasked segments) the
 routing is the JAX package's training one (``hifigan.py:356-367``): wide
-stages run kernel 5 (``ops/cuda/trio_grad.py``), differentiable; every other
-stage takes the plain path. Kernels B and C are not reached under autograd.
+stages run kernel 5 (``ops/cuda/trio_grad.py``) at the stage's tier,
+differentiable; every other stage takes the plain path. Kernels B and C are
+not reached under autograd. With bf16 parameters and latents (bf16 training,
+``tiers`` its ``ops/tiers.py::training_tiers``) the whole decoder runs in bf16
+as JAX's bf16 training runs it, kernel 5 on bf16 storage, and returns a bf16
+waveform.
 
 Precision tiers (``tiers``, ``ops/tiers.py``) as the JAX ``pallas_precision``
 (one tier, or one per stage: ``stage_precision``) and ``pallas_value_dtype``.
@@ -185,7 +189,8 @@ def hifigan(
     tiers: Tiers = EXACT_TIERS,
     packs: dict | None = None,
 ) -> torch.Tensor:
-    """Latents -> waveform (B, T * prod(upsample_rates)), fp32."""
+    """Latents -> waveform (B, T * prod(upsample_rates)), fp32 (trainable: in the
+    parameters' dtype)."""
     if trainable and frame_mask is not None:
         raise ValueError("trainable decoding takes unmasked segments (frame_mask=None)")
     p = params.sub("decoder")
@@ -236,21 +241,27 @@ def hifigan(
         h = leaky_relu(h, slope)
         if h.dtype != up_w.dtype:  # an fp32 weight promotes the carry, as in JAX
             h = h.float()
-        h = conv_transpose1d(h, up_w, up_b, stride=rate, padding=up_padding)
+        # bf16 training: the JAX decoder's per-phase form where it applies, as it rounds
+        phases = (trainable and h.dtype == torch.bfloat16 and kernel_size % rate == 0
+                  and 2 * up_padding == kernel_size - rate)
+        h = conv_transpose1d(h, up_w, up_b, stride=rate, padding=up_padding,
+                             method="phases" if phases else None)
         if mask is not None:
             mask = torch.repeat_interleave(mask, rate, dim=1)
             h = h * mask.to(h.dtype)
 
         if c_out % 128 == 0:
             if trainable:
-                h = trainable_trio(h.contiguous(), _stage_resblocks(p, config, i), slope=slope)
+                h = trainable_trio(h.contiguous(), _stage_resblocks(p, config, i), slope=slope,
+                                   tier=tier)
             else:
                 h = fused_resblock_trio(h.to(tier.value_dtype).contiguous(),
                                         pack.get("blocks") or _stage_resblocks(p, config, i),
                                         slope=slope, lengths=_lengths(mask), tier=tier)
             continue
 
-        h = h.float()
+        if not trainable:
+            h = h.float()
         if not trainable and 128 % c_out == 0:  # narrow: kernel 7 per block, summed in place
             h, lengths, res_state = h.contiguous(), _lengths(mask), None
             for j, block in enumerate(_stage_resblocks(p, config, i)):
@@ -268,7 +279,8 @@ def hifigan(
             res_state = block_out if res_state is None else res_state + block_out
         h = res_state / num_kernels
 
-    h = conv1d(leaky_relu(h.float(), FINAL_SLOPE), p["conv_post.weight"], None, padding=3)
+    h = conv1d(leaky_relu(h if trainable else h.float(), FINAL_SLOPE), p["conv_post.weight"],
+               None, padding=3)
     waveform = torch.tanh(h)
     if mask is not None:
         waveform = waveform * mask

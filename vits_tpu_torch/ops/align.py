@@ -65,6 +65,8 @@ def prior_log_likelihood(
     const = -0.5 * math.log(2 * math.pi)
     inv_var = torch.exp(-2.0 * prior_log_stddev)
     term1 = torch.sum(const - prior_log_stddev - 0.5 * inv_var * prior_means**2, dim=-1)
-    term2 = torch.einsum("bsc,btc->bst", latents, inv_var * prior_means)
-    term3 = torch.einsum("bsc,btc->bst", -0.5 * latents**2, inv_var)
+    # bf16 prior stats (bf16 training): the products in bf16, the matmuls in the
+    # latents' fp32, as JAX promotes them
+    term2 = torch.einsum("bsc,btc->bst", latents, (inv_var * prior_means).to(latents.dtype))
+    term3 = torch.einsum("bsc,btc->bst", -0.5 * latents**2, inv_var.to(latents.dtype))
     return term1[:, None, :] + term2 + term3

@@ -10,7 +10,10 @@ With ``return_lse`` both also return each query row's logsumexp, the residual
 of the backward (``ops/cuda/attention_grad.py``). Both take a precision tier
 (``ops/tiers.py``: the JAX kernel's ``precision``), which rounds the operands of
 every product -- q.k, q.rel_k, the probabilities against v and rel_v -- as
-the tier rounds them; the values and the softmax stay fp32.
+the tier rounds them; the values and the softmax stay fp32. At a tier with
+bf16 values (``ops/tiers.py::BF16_TRAIN_TIER``, bf16 training) q, k, v and
+the tables are bf16 storage, read and computed in fp32 as the JAX kernel
+upcasts them; the output comes back in their dtype, lse in fp32.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from vits_tpu_torch.ops.attention import (
     get_relative_embeddings,
     relative_position_to_absolute_position,
 )
-from vits_tpu_torch.ops.tiers import EXACT_TIER, Tier, tier_product
+from vits_tpu_torch.ops.tiers import EXACT, EXACT_TIER, FAST, Tier, tier_product
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -46,15 +49,32 @@ def _scores_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b.transpose(1, 2))
 
 
+def _product(op, a: torch.Tensor, b: torch.Tensor, tier: Tier) -> torch.Tensor:
+    """``op(a, b)`` at ``tier``; operands of one dtype at the exact tier as they
+    are (bf16 ones: XLA's bf16 einsum, fp32 sums and the result rounded)."""
+    if tier.mode == EXACT and a.dtype == b.dtype:
+        return op(a, b)
+    return tier_product(op, a, b, tier)
+
+
 def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor,
                          window: int, tier: Tier = EXACT_TIER) -> torch.Tensor:
     """(B*H, L, L) scores q.k plus the windowed rel-key logits, before any mask."""
     B, H, L, d = q.shape
     qf, kf = q.reshape(B * H, L, d), k.reshape(B * H, L, d)
     key_rel = get_relative_embeddings(rel_k[None], L, window)
-    rel_logits = tier_product(_rel_product, qf, key_rel[0], tier)
-    return (tier_product(_scores_product, qf, kf, tier)
+    rel_logits = _product(_rel_product, qf, key_rel[0], tier)
+    return (_product(_scores_product, qf, kf, tier)
             + relative_position_to_absolute_position(rel_logits))
+
+
+def _softmax(w: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis; on bf16 in the steps of ``jax.nn.softmax``, each
+    rounded to bf16 (as the JAX module's bf16 training computes it)."""
+    if w.dtype != torch.bfloat16:
+        return torch.softmax(w, dim=-1)
+    e = torch.exp(w - w.amax(dim=-1, keepdim=True).detach())
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def rel_attention_reference(
@@ -70,7 +90,8 @@ def rel_attention_reference(
     tier: Tier = EXACT_TIER,
 ):
     """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel
-    values, every product at ``tier``.
+    values, every product at ``tier``, in the inputs' dtype (on bf16 tensors the
+    JAX module's bf16 graph: the encoder's plain path in bf16 training).
 
     With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) the logsumexp of
     each query row's masked scores.
@@ -83,12 +104,25 @@ def rel_attention_reference(
         bias = (1.0 - keep[:, None, None, :]) * torch.finfo(q.dtype).min
         weights = (weights.reshape(B, H, L, L) + bias).reshape(B * H, L, L)
     lse = torch.logsumexp(weights, dim=-1) if return_lse else None
-    weights = torch.softmax(weights, dim=-1)
-    out = tier_product(torch.bmm, weights, vf, tier)
+    weights = _softmax(weights)
+    out = _product(torch.bmm, weights, vf, tier)
     value_rel = get_relative_embeddings(rel_v[None], L, window)
     rel_weights = absolute_position_to_relative_position(weights)
-    out = (out + tier_product(_rel_weighted, rel_weights, value_rel[0], tier)).reshape(B, H, L, d)
+    out = (out + _product(_rel_weighted, rel_weights, value_rel[0], tier)).reshape(B, H, L, d)
     return (out, lse.reshape(B, H, L)) if return_lse else out
+
+
+def rel_attention_plain(q, k, v, rel_k, rel_v, *, window: int,
+                        lengths: torch.Tensor | None = None, return_lse: bool = False,
+                        tier: Tier = EXACT_TIER):
+    """Kernel A's plain twin: :func:`rel_attention_reference` on the inputs read
+    as fp32, the output in q's dtype (lse fp32)."""
+    out = rel_attention_reference(q.float(), k.float(), v.float(), rel_k.float(), rel_v.float(),
+                                  window=window, lengths=lengths, return_lse=return_lse,
+                                  tier=tier)
+    if return_lse:
+        return out[0].to(q.dtype), out[1]
+    return out.to(q.dtype)
 
 
 def flash_rel_attention(
@@ -105,16 +139,19 @@ def flash_rel_attention(
 ):
     """(B, H, L, d) attention output before the out-projection, at ``tier``.
 
-    With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) fp32. CPU
-    tensors take :func:`rel_attention_reference`; CUDA tensors launch the
-    kernel (fp32, contiguous, d <= 128, 2*window+1 <= 32, no autograd) or
-    raise.
+    With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) fp32. q, k, v
+    and the tables in the tier's value dtype (bf16 only at the fast tier).
+    CPU tensors take :func:`rel_attention_plain`; CUDA tensors launch the
+    kernel (contiguous, d <= 128, 2*window+1 <= 32, no autograd) or raise.
     """
-    if tier.bf16_values:
-        raise ValueError("rel_attention: its values are fp32 (the JAX kernel has no value dtype)")
-    if not on_cuda("flash_rel_attention", q, k, v, rel_k, rel_v):
-        return rel_attention_reference(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
-                                       return_lse=return_lse, tier=tier)
+    dtype = tier.value_dtype
+    if any(t.dtype != dtype for t in (q, k, v, rel_k, rel_v)) or (
+            tier.bf16_values and tier.mode != FAST):
+        raise ValueError(f"rel_attention at the {tier.name} tier takes {dtype} q, k, v and "
+                         "tables (bf16 at the fast tier only)")
+    if not on_cuda("flash_rel_attention", q, k, v, rel_k, rel_v, dtype=dtype):
+        return rel_attention_plain(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
+                                   return_lse=return_lse, tier=tier)
     no_autograd("flash_rel_attention", q, k, v, rel_k, rel_v)
     B, H, L, d = q.shape
     nr = 2 * window + 1
@@ -130,7 +167,7 @@ def flash_rel_attention(
     check(library().vk_rel_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
         lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, H, L, d, window, tier.mode, stream_of(q)),
+        B, H, L, d, window, tier.mode, int(tier.bf16_values), stream_of(q)),
         "rel_attention kernel")
     count_launch(flash_rel_attention)
     if return_lse:

@@ -245,7 +245,10 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
     instead, saved for the backward (kernel 5, ``ops/cuda/trio_grad.py``).
     At ``tier`` (bf16 values: each pair's output rounded to bf16); with
     ``out16`` (B, T, C) bf16 the mean is written there, ``out`` holding the
-    running sum over the blocks.
+    running sum over the blocks. On bf16 ``x`` (kernel 5's forward at the bf16
+    training tier; every buffer bf16) each launch is ``vk_conv_bf16``: XLA's
+    bf16 graph of the pair, both leakys at the bf16 slope, and the last launch
+    divides the sum by the blocks' count.
     """
     lib = library()
     B, T, C = x.shape
@@ -258,6 +261,7 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
         y1 = torch.empty_like(x)
         scratch = (torch.empty_like(x), torch.empty_like(x))
     x_slope = carry_slope(slope, tier)  # conv1's leaky of the carry; conv2's of y1 is fp32
+    bf16 = x.dtype == torch.bfloat16
     n = len(blocks)
     for j, blk in enumerate(blocks):
         k = blk["kernel_size"]
@@ -269,6 +273,8 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
         for i, d in enumerate(dilations):
             w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
             s1, s2 = _pair_scale(blk, "s1", i), _pair_scale(blk, "s2", i)
+            if bf16:  # the epilogue adds the biases as fp32 holding their bf16 values
+                b1, b2 = b1.float(), b2.float()
             for w in (w1, w2):
                 if w.shape != (k, C, C) or w.data_ptr() % 16:
                     raise ValueError(f"resblock conv weight {tuple(w.shape)} != ({k}, {C}, {C})"
@@ -284,6 +290,18 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
             else:
                 dst = out if last else scratch[i % 2]
             accumulate = int(last and j > 0)
+            if bf16:
+                check(lib.vk_conv_bf16(
+                    src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
+                    lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
+                    tile, split, stream), "resblock conv1 kernel (bf16)")
+                check(lib.vk_conv_bf16(
+                    y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
+                    lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, x_slope, accumulate,
+                    float(n) if last and j == n - 1 else 1.0, tile, split, stream),
+                    "resblock conv2 kernel (bf16)")
+                src = dst
+                continue
             scale = 1.0 / n if last and j == n - 1 else 1.0
             final16 = out16 if last and j == n - 1 else None
             # y1 = mask(dilated conv(leaky(src)) (* s1) + b1)

@@ -16,6 +16,20 @@ gradients a 3xTF32 GEMM over the frames, split over a cluster and summed in
 a fixed order, so a repeated backward is bit-identical). Its plain twin,
 which CPU tensors take, is :func:`trio_backward_reference`: PyTorch's conv
 gradients and elementwise ops.
+
+Tiers (``ops/tiers.py``, as ``make_trainable_trio(precision=...)``): the
+exact tier on fp32 tensors (fp32 training), and ``BF16_TRAIN_TIER`` on bf16
+tensors (bf16 training). JAX's bf16 training does not reach its trio kernel
+(``vits_tpu/models/hifigan.py:356-357`` requires fp32): it runs the plain
+resblocks in XLA's bf16 graph, so here kernel 5 computes that graph
+(``hifigan.py:29-57, 425-434``): every tensor bf16 storage, the products
+bf16 with fp32 sums, and a rounding to bf16 wherever XLA rounds -- each conv's
+output, the bias add, leaky's product with the bf16 slope, the residual add,
+the sum over the blocks and its division by their count, and in the backward
+the same steps of the reverse chain (the weight gradients summed in fp32 over
+the frames, rounded once). The forward is B's conv at the fast tier on bf16
+(``run_pairs`` through ``vk_conv_bf16``), the backward the same C call as
+fp32 at ``mode`` fast. The plain twins compute it in bf16 PyTorch ops.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
+from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER, EXACT_TIER, TRAIN_TIERS, Tier, carry_slope
 from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
@@ -57,8 +72,26 @@ def _blocks_of(metas: Sequence[tuple[int, tuple[int, ...]]], weights: Sequence[t
     return blocks
 
 
+def check_tier(name: str, tier: Tier, *tensors: torch.Tensor) -> None:
+    """Raise unless ``tier`` is one of :data:`TRAIN_TIERS` and every tensor has its
+    value dtype (fp32 at the exact tier, bf16 at the bf16 one)."""
+    if tier not in TRAIN_TIERS:
+        raise ValueError(f"{name}: kernel 5 runs the exact tier on fp32 or the fast tier on "
+                         f"bf16 values, not {tier.name}")
+    if any(t.dtype != tier.value_dtype for t in tensors):
+        raise ValueError(f"{name}: the {tier.name} tier takes {tier.value_dtype} tensors, got "
+                         f"{sorted({str(t.dtype) for t in tensors})}")
+
+
+def _mean(total: torch.Tensor, n: int) -> torch.Tensor:
+    """The mean's scaling of a sum over n blocks: XLA's bf16 division, or the fp32
+    kernels' multiply by 1/n."""
+    return total / n if total.dtype == torch.bfloat16 else total * (1.0 / n)
+
+
 def trio_forward_with_acts_reference(x: torch.Tensor, blocks: Sequence[dict], *, slope: float):
-    """Plain PyTorch: (mean of the unmasked resblocks, per block (y1s, xs))."""
+    """Plain PyTorch: (mean of the unmasked resblocks, per block (y1s, xs)), in the
+    dtype of x and the weights (bf16: XLA's bf16 graph)."""
     total, acts = None, []
     for blk in blocks:
         k = blk["kernel_size"]
@@ -73,22 +106,26 @@ def trio_forward_with_acts_reference(x: torch.Tensor, blocks: Sequence[dict], *,
                            padding=(k - 1) // 2)
         acts.append((y1s, xs))
         total = h if total is None else total + h
-    return total * (1.0 / len(blocks)), acts
+    return _mean(total, len(blocks)), acts
 
 
-def trio_forward_with_acts(x: torch.Tensor, blocks: Sequence[dict], *, slope: float):
-    """(mean_j resblock_j(x), per block (y1s, xs)), unmasked.
+def trio_forward_with_acts(x: torch.Tensor, blocks: Sequence[dict], *, slope: float,
+                           tier: Tier = EXACT_TIER):
+    """(mean_j resblock_j(x), per block (y1s, xs)), unmasked, at ``tier`` (one of
+    :data:`TRAIN_TIERS`; x, weights and biases in its value dtype).
 
     CPU tensors take :func:`trio_forward_with_acts_reference`; CUDA tensors
-    launch the kernel (fp32, contiguous, C % 32 == 0, odd kernel sizes) or raise.
+    launch the kernel (contiguous, C % 32 == 0, odd kernel sizes) or raise.
     """
-    if not on_cuda("trio_forward_with_acts", x, *pair_weights(blocks)):
+    weights = pair_weights(blocks)
+    check_tier("trio_forward_with_acts", tier, x, *weights)
+    if not on_cuda("trio_forward_with_acts", x, *weights, dtype=tier.value_dtype):
         return trio_forward_with_acts_reference(x, blocks, slope=slope)
     B, T, _ = x.shape
     acts = [([torch.empty_like(x) for _ in blk["dilations"]],
              [torch.empty_like(x) for _ in blk["dilations"][1:]]) for blk in blocks]
     out = torch.empty_like(x)
-    run_pairs(x, out, blocks, cuda_lengths(None, B, T, x.device), slope, acts=acts)
+    run_pairs(x, out, blocks, cuda_lengths(None, B, T, x.device), slope, acts=acts, tier=tier)
     count_launch(trio_forward_with_acts)
     return out, acts
 
@@ -109,8 +146,12 @@ def _conv_grads(dy, h, w, padding, dilation, need_input):
     return grad_in, grad_w.permute(2, 1, 0)
 
 
-def _leaky_grad(x: torch.Tensor, slope: float) -> torch.Tensor:
-    return torch.where(x >= 0, 1.0, slope)
+def _leaky_vjp(g: torch.Tensor, x: torch.Tensor, slope: float) -> torch.Tensor:
+    """g times leaky's derivative at x (on bf16: the rounded product with the bf16
+    slope, as XLA's VJP of ``where(x >= 0, x, x * slope)``)."""
+    if g.dtype == torch.bfloat16:
+        return torch.where(x >= 0, g, g * carry_slope(slope, BF16_TRAIN_TIER))
+    return g * torch.where(x >= 0, 1.0, slope)
 
 
 def flat_acts(acts) -> list[torch.Tensor]:
@@ -124,8 +165,7 @@ def trio_backward_reference(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[d
     """Plain PyTorch: (dx or None, [dw1, db1, dw2, db2] per pair in
     :func:`pair_weights` order) of mean_j resblock_j(x) for output grad ``g``,
     from the saved activations (:func:`flat_acts`) with no recompute of the
-    forward convs."""
-    inv = 1.0 / len(blocks)
+    forward convs; on bf16 tensors XLA's bf16 VJP, step by step."""
     dx_total, dweights, a_pos = None, [], 0
     for blk in blocks:
         k, dilations = blk["kernel_size"], blk["dilations"]
@@ -133,21 +173,21 @@ def trio_backward_reference(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[d
         y1s, xs = saved[a_pos: a_pos + n], saved[a_pos + n: a_pos + 2 * n - 1]
         a_pos += 2 * n - 1
         block_grads = [None] * (4 * n)
-        dx = g * inv  # d(mean)/d(block output)
+        dx = _mean(g, len(blocks))  # d(mean)/d(block output)
         for i in reversed(range(n)):
             x_in = x if i == 0 else xs[i - 1]
             y1 = y1s[i]
             # x_out = x_in + conv2(leaky(y1)) + b2
             dh2, dw2 = _conv_grads(dx, leaky_relu(y1, slope), blk["w2"][i], (k - 1) // 2, 1,
                                    True)
-            dy1 = dh2 * _leaky_grad(y1, slope)
+            dy1 = _leaky_vjp(dh2, y1, slope)
             # y1 = conv1(leaky(x_in)) + b1
             need_in = i > 0 or need_x
             dh1, dw1 = _conv_grads(dy1, leaky_relu(x_in, slope), blk["w1"][i],
                                    dilations[i] * (k - 1) // 2, dilations[i], need_in)
             block_grads[4 * i: 4 * i + 4] = [dw1, dy1.sum(dim=(0, 1)), dw2, dx.sum(dim=(0, 1))]
             if need_in:
-                dx = dx + dh1 * _leaky_grad(x_in, slope)
+                dx = dx + _leaky_vjp(dh1, x_in, slope)
         dweights += block_grads
         if need_x:
             dx_total = dx if dx_total is None else dx_total + dx
@@ -185,19 +225,22 @@ class TrioPair(ctypes.Structure):
 
 
 def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
-                  saved: Sequence[torch.Tensor], *, slope: float, need_x: bool = True):
+                  saved: Sequence[torch.Tensor], *, slope: float, need_x: bool = True,
+                  tier: Tier = EXACT_TIER):
     """(dx or None, [dw1, db1, dw2, db2] per pair in :func:`pair_weights` order) of
     mean_j resblock_j(x) for output grad ``g``, from the saved activations
-    (:func:`flat_acts`).
+    (:func:`flat_acts`), at ``tier`` (one of :data:`TRAIN_TIERS`; every tensor in
+    its value dtype, and the gradients with it).
 
     CPU tensors take :func:`trio_backward_reference`; CUDA tensors launch the
-    kernels (fp32, contiguous, C a multiple of 64, odd kernel sizes) or raise.
+    kernels (contiguous, C a multiple of 64, odd kernel sizes) or raise.
     """
     weights = pair_weights(blocks)
-    if not on_cuda("trio_backward", g, x, *weights):
+    check_tier("trio_backward", tier, g, x, *weights, *saved)
+    if not on_cuda("trio_backward", g, x, *weights, dtype=tier.value_dtype):
         return trio_backward_reference(g, x, blocks, saved, slope=slope, need_x=need_x)
     saved = [a.contiguous() for a in saved]  # the kernel forward's already are
-    on_cuda("trio_backward", x, *saved)
+    on_cuda("trio_backward", x, *saved, dtype=tier.value_dtype)
     B, T, C = x.shape
     if C % WGRAD_TILE or g.shape != x.shape:
         raise ValueError(f"trio backward kernel needs C % {WGRAD_TILE} == 0 and g of x's "
@@ -205,11 +248,11 @@ def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
     sms = device_sm_count(x.device)
     lens = cuda_lengths(None, B, T, x.device)
     dx_total = torch.empty_like(x) if need_x else None
-    g_inv = g * (1.0 / len(blocks))  # d(mean)/d(block output)
+    g_inv = _mean(g, len(blocks)).contiguous()  # d(mean)/d(block output)
     # every pair its own dy1 and dx buffers: the second stream's weight
     # gradients read them while later pairs run
     buffers = x.new_empty((2 * sum(len(blk["dilations"]) for blk in blocks), B, T, C))
-    buf, step = buffers.data_ptr(), 4 * B * T * C
+    buf, step = buffers.data_ptr(), buffers.element_size() * B * T * C
     pairs, dweights, a_pos = [], [], 0
     for j, blk in enumerate(blocks):
         k, dilations = blk["kernel_size"], blk["dilations"]
@@ -239,8 +282,9 @@ def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
             dx = dx_out
         dweights += [t for i in range(n) for t in (dws[i], dbs[i], dws[n + i], dbs[n + i])]
     table = (TrioPair * len(pairs))(*pairs)
-    check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C, slope,
-                                     stream_of(x)), "trio backward kernels")
+    check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C,
+                                     carry_slope(slope, tier), tier.mode, stream_of(x)),
+          "trio backward kernels")
     count_launch(trio_backward)
     return dx_total, dweights
 
@@ -250,9 +294,9 @@ trio_backward.launches = 0
 
 class _TrainableTrio(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, slope, metas, *weights):
-        out, acts = trio_forward_with_acts(x, _blocks_of(metas, weights), slope=slope)
-        ctx.slope, ctx.metas = slope, metas
+    def forward(ctx, x, slope, metas, tier, *weights):
+        out, acts = trio_forward_with_acts(x, _blocks_of(metas, weights), slope=slope, tier=tier)
+        ctx.slope, ctx.metas, ctx.tier = slope, metas, tier
         ctx.save_for_backward(x, *weights, *flat_acts(acts))
         return out
 
@@ -262,16 +306,18 @@ class _TrainableTrio(torch.autograd.Function):
         n_w = sum(4 * len(d) for _, d in ctx.metas)
         dx, dweights = trio_backward(g.contiguous(), x, _blocks_of(ctx.metas, rest[:n_w]),
                                      rest[n_w:], slope=ctx.slope,
-                                     need_x=ctx.needs_input_grad[0])
-        return (dx, None, None,
-                *(gw if need else None for gw, need in zip(dweights, ctx.needs_input_grad[3:])))
+                                     need_x=ctx.needs_input_grad[0], tier=ctx.tier)
+        return (dx, None, None, None,
+                *(gw if need else None for gw, need in zip(dweights, ctx.needs_input_grad[4:])))
 
 
-def trainable_trio(x: torch.Tensor, blocks: Sequence[dict], *, slope: float) -> torch.Tensor:
-    """mean_j resblock_j(x), unmasked, differentiable in x and every weight.
+def trainable_trio(x: torch.Tensor, blocks: Sequence[dict], *, slope: float,
+                   tier: Tier = EXACT_TIER) -> torch.Tensor:
+    """mean_j resblock_j(x), unmasked, differentiable in x and every weight, at
+    ``tier`` (one of :data:`TRAIN_TIERS`).
 
     ``blocks`` as :func:`vits_tpu_torch.ops.cuda.resblock.fused_resblock_trio`
     takes them (per-pair weight lists).
     """
     metas = tuple((blk["kernel_size"], tuple(blk["dilations"])) for blk in blocks)
-    return _TrainableTrio.apply(x, slope, metas, *pair_weights(blocks))
+    return _TrainableTrio.apply(x, slope, metas, tier, *pair_weights(blocks))

@@ -123,6 +123,21 @@ class Tiers(NamedTuple):
 
 
 EXACT_TIERS = Tiers()
+BF16_TRAIN_TIER = Tier(FAST, True)
+TRAIN_TIERS = (EXACT_TIER, BF16_TRAIN_TIER)  # the tiers the training kernels 4 and 5 are built for
+
+
+def training_tiers(compute_dtype: torch.dtype) -> Tiers:
+    """The tiers of the training kernels (A with lse, 4, 5) for a step's compute
+    dtype: fp32 the exact tier everywhere (what the JAX package computes on the
+    CPU); bf16 the fast tier with bf16 values, as the JAX kernels run at
+    ``precision=None`` on bf16 inputs (:data:`BF16_TRAIN_TIER`: bf16 storage,
+    bf16 products, fp32 sums)."""
+    if compute_dtype == torch.bfloat16:
+        return Tiers(vocoder="fast", value_dtype=torch.bfloat16, attention=BF16_TRAIN_TIER)
+    if compute_dtype == torch.float32:
+        return EXACT_TIERS
+    raise ValueError(f"training compute dtype {compute_dtype}: float32 or bfloat16")
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

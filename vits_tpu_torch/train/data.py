@@ -10,11 +10,14 @@ so it is ported, not imported). An LJSpeech-layout corpus::
 Linear spectrograms use the posterior encoder's STFT (n_fft =
 2*(spectrogram_bins-1), hop = total_upsample, so frames align 1:1 with latent
 frames); batches are shuffled, length-bucketed and padded, with masks, as
-numpy (``train/step.py::batch_to`` moves them to the device). The numpy
-loader only: the JAX package's optional C++ loader is not carried over.
-:class:`Prefetcher` re-raises a producer error in the consumer, where the
-JAX one ends the stream early; ``close()`` stops the thread. (The loop's
-side of the teardown is in ``train/loop.py``.) The synthetic micro-corpus
+numpy (``train/step.py::batch_to`` moves them to the device). The C++
+loader of ``native/`` (``io/native.py``, the port's copy of the JAX
+package's) decodes the WAV and computes the spectrogram when it is built and
+``use_native`` is not False, with ``num_workers`` threads (its calls release
+the GIL); it reads the same data as the numpy path. :class:`Prefetcher`
+re-raises a producer error in the consumer, where the JAX one ends the
+stream early; ``close()`` stops the thread. (The loop's side of the
+teardown is in ``train/loop.py``.) The synthetic micro-corpus
 (``generate_micro_corpus``, ``corpus_vocab``) is the port's copy of
 ``vits_tpu/train/synthetic.py``, re-exported here.
 """
@@ -31,6 +34,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from vits_tpu_torch.config import VitsConfig
+from vits_tpu_torch.io import native
 from vits_tpu_torch.text.tokenizer import VitsTokenizer
 from vits_tpu_torch.train.step import TrainBatch
 from vits_tpu_torch.train.synthetic import corpus_vocab, generate_micro_corpus  # noqa: F401
@@ -71,7 +75,8 @@ def read_metadata(corpus_dir: str) -> list[Utterance]:
 
 class VitsDataset:
     def __init__(self, corpus_dir: str, tokenizer: VitsTokenizer, config: VitsConfig,
-                 max_frames: int = 400, min_frames: int = 8):
+                 max_frames: int = 400, min_frames: int = 8, use_native: Optional[bool] = None,
+                 num_workers: int = 0):
         self.tokenizer = tokenizer
         self.config = config
         self.n_fft = 2 * (config.spectrogram_bins - 1)
@@ -81,22 +86,48 @@ class VitsDataset:
         self.utterances = read_metadata(corpus_dir)
         if not self.utterances:
             raise FileNotFoundError(f"no utterances found under {corpus_dir}")
+        # None: the C++ loader when the built library has it and n_fft is a power
+        # of two (its FFT's constraint)
+        if use_native is None:
+            use_native = native.loader_available() and self.n_fft & (self.n_fft - 1) == 0
+        self.use_native = bool(use_native)
+        self.num_workers = max(0, int(num_workers))
+        self._pool = None
 
     def __len__(self) -> int:
         return len(self.utterances)
 
     def load(self, utt: Utterance):
         """-> (token_ids, spectrogram (S, bins), audio (S*hop,)) or None if rejected."""
-        audio, rate = read_wav(utt.wav_path)
+        if self.use_native:
+            audio, spec, rate = native.load_utterance(utt.wav_path, self.n_fft, self.hop,
+                                                      self.max_frames)
+        else:
+            audio, rate = read_wav(utt.wav_path)
         if rate != self.config.sampling_rate:
             raise ValueError(f"{utt.wav_path}: rate {rate} != config {self.config.sampling_rate}")
         ids = self.tokenizer.encode(utt.text)
         n_frames = min(len(audio) // self.hop, self.max_frames)
         if n_frames < self.min_frames or not ids:
             return None
-        audio = audio[: n_frames * self.hop]
-        spec = linear_spectrogram(audio, self.n_fft, self.hop)[:n_frames]
+        if not self.use_native:
+            audio = audio[: n_frames * self.hop]
+            spec = linear_spectrogram(audio, self.n_fft, self.hop)[:n_frames]
         return np.asarray(ids, np.int32), spec, audio
+
+    def _load_many(self, utts: Sequence[Utterance]) -> list:
+        """A batch's utterances loaded, rejects dropped; on ``num_workers`` threads
+        when it is above 0."""
+        if self.num_workers > 0:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                                thread_name_prefix="vits-data")
+            results = list(self._pool.map(self.load, utts))
+        else:
+            results = [self.load(u) for u in utts]
+        return [r for r in results if r is not None]
 
     def batches(self, batch_size: int, rng: np.random.Generator, epochs: Optional[int] = None,
                 bucket_mult: int = 32) -> Iterator[TrainBatch]:
@@ -109,8 +140,8 @@ class VitsDataset:
                 idxs = sorted(order[start: start + chunk],
                               key=lambda i: os.path.getsize(self.utterances[i].wav_path))
                 for b0 in range(0, len(idxs), batch_size):
-                    items = [r for r in (self.load(self.utterances[i])
-                                         for i in idxs[b0: b0 + batch_size]) if r is not None]
+                    items = self._load_many([self.utterances[i]
+                                             for i in idxs[b0: b0 + batch_size]])
                     if items:
                         yield self._collate(items, bucket_mult)
             epoch += 1

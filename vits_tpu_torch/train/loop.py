@@ -3,18 +3,22 @@
 Counterpart of ``vits_tpu/train/loop.py``::
 
     python -m vits_tpu_torch.train.loop --corpus ./LJSpeech-1.1 \\
-        --model mms-eng.ggml --out ./run1 --steps 100000 --device cuda
+        --model mms-eng.ggml --out ./run1 --steps 100000 [--dtype bfloat16]
 
 Picks up the latest checkpoint in ``out_dir``; writes one every
 ``checkpoint_every`` steps and at the end, with the EMA weights beside the
-raw ones (``train/checkpoint.py``). One device: ``model_parallel > 1``,
-``zero1`` and ``compute_dtype="bfloat16"`` raise ``NotImplementedError``.
+raw ones (``train/checkpoint.py``). ``compute_dtype="bfloat16"`` trains in
+mixed precision (``train/step.py``; master weights and optimizer stay fp32).
+The command line runs on the card (``--device cuda``, the default) unless
+asked for the CPU. One device: ``model_parallel > 1`` and ``zero1`` raise
+``NotImplementedError`` (multi-GPU training is ROADMAP.md queue 1's item 3).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -26,7 +30,12 @@ from vits_tpu_torch.models.discriminator import init_discriminator_params
 from vits_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from vits_tpu_torch.train.data import Prefetcher, VitsDataset
 from vits_tpu_torch.train.schedule import ParamEMA, vits_optimizer
-from vits_tpu_torch.train.step import batch_to, make_gan_train_step, make_train_step
+from vits_tpu_torch.train.step import (
+    batch_to,
+    make_gan_train_step,
+    make_train_step,
+    resolve_compute_dtype,
+)
 from vits_tpu_torch.train.watchdog import Watchdog
 
 
@@ -63,9 +72,9 @@ def train(
     """Train from ``model_source`` (.ggml with the training modules, or an HF dir)
     on ``corpus_dir``; returns the generator parameters."""
     if model_parallel > 1 or zero1:
-        raise NotImplementedError("multi-GPU training (model_parallel, zero1) is not ported yet")
-    if compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r}: the port trains in fp32")
+        raise NotImplementedError("multi-GPU training (model_parallel, zero1) is not ported yet: "
+                                  "ROADMAP.md queue 1, item 3 (multi-GPU)")
+    resolve_compute_dtype(compute_dtype)
     device = torch.device(device)
 
     if model_source.endswith(".ggml"):
@@ -108,10 +117,11 @@ def train(
 
     if adversarial:
         step_fn = make_gan_train_step(config, gen_params, disc_params, gen_opt, disc_opt,
-                                      segment_frames=segment_frames, grad_accum=grad_accum)
+                                      segment_frames=segment_frames, grad_accum=grad_accum,
+                                      compute_dtype=compute_dtype)
     else:
         step_fn = make_train_step(config, gen_params, gen_opt, segment_frames=segment_frames,
-                                  grad_accum=grad_accum)
+                                  grad_accum=grad_accum, compute_dtype=compute_dtype)
     noise_gen = torch.Generator(device=device).manual_seed(seed + start_step)
 
     with contextlib.ExitStack() as teardown:
@@ -153,22 +163,26 @@ def main(argv=None) -> int:
     ap.add_argument("--corpus", required=True)
     ap.add_argument("--model", required=True, help=".ggml (keep_training) or HF name")
     ap.add_argument("--out", required=True)
-    ap.add_argument("--device", required=True, help="torch device, e.g. cuda")
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda; cpu)")
     ap.add_argument("--steps", type=int, default=100_000)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--lr", type=float, default=2e-4)
     ap.add_argument("--no-gan", action="store_true")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per optimizer update")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="model compute dtype (master params stay fp32)")
     args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print(f"error: --device {args.device}, but no CUDA device is visible "
+              "(--device cpu runs on the CPU)", file=sys.stderr)
+        return 1
     os.makedirs(args.out, exist_ok=True)
     train(args.corpus, args.model, args.out, steps=args.steps, batch_size=args.batch_size,
           learning_rate=args.lr, adversarial=not args.no_gan, grad_accum=args.grad_accum,
-          device=args.device)
+          compute_dtype=args.dtype, device=args.device)
     return 0
 
 
 if __name__ == "__main__":
-    import sys
-
     sys.exit(main())

@@ -19,8 +19,10 @@ def kl_divergence(
     logs_p: torch.Tensor,  # (B, S, C) aligned prior log-stddev
     frame_mask: torch.Tensor,  # (B, S)
 ) -> torch.Tensor:
-    """Masked mean KL (the VITS formulation on flow-mapped samples)."""
-    mask = frame_mask[..., None]
+    """Masked mean KL (the VITS formulation on flow-mapped samples), in fp32 (the
+    inputs are read as fp32: a no-op in fp32 training)."""
+    z_p, logs_q, m_p, logs_p = z_p.float(), logs_q.float(), m_p.float(), logs_p.float()
+    mask = frame_mask.float()[..., None]
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (torch.exp(2.0 * logs_q) + (z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
     channels = z_p.shape[-1]
@@ -28,25 +30,26 @@ def kl_divergence(
 
 
 def feature_matching_loss(real_feats: Sequence, fake_feats: Sequence) -> torch.Tensor:
-    """Mean L1 distance between discriminator feature maps, real side stop-grad."""
+    """Mean L1 distance between discriminator feature maps, real side stop-grad;
+    the maps read as fp32."""
     total, count = 0.0, 0
     for rf, ff in zip(real_feats, fake_feats):
         for r, f in zip(rf, ff):
-            total = total + torch.mean(torch.abs(r.detach() - f))
+            total = total + torch.mean(torch.abs(r.detach().float() - f.float()))
             count += 1
     return total / max(count, 1)
 
 
 def generator_adversarial_loss(fake_logits: Sequence[torch.Tensor]) -> torch.Tensor:
     """LSGAN generator loss: mean (1 - D(fake))^2 over all discriminators."""
-    total = sum(torch.mean((1.0 - logits) ** 2) for logits in fake_logits)
+    total = sum(torch.mean((1.0 - logits.float()) ** 2) for logits in fake_logits)
     return total / max(len(fake_logits), 1)
 
 
 def discriminator_loss(real_logits: Sequence[torch.Tensor],
                        fake_logits: Sequence[torch.Tensor]) -> torch.Tensor:
     """LSGAN discriminator loss."""
-    total = sum(torch.mean((1.0 - r) ** 2) + torch.mean(f**2)
+    total = sum(torch.mean((1.0 - r.float()) ** 2) + torch.mean(f.float() ** 2)
                 for r, f in zip(real_logits, fake_logits))
     return total / max(len(real_logits), 1)
 

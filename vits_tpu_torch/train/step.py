@@ -22,6 +22,19 @@ Noise: ``jax.random`` and torch share no stream, so the three draws of a step
 On CUDA the encoder's attention runs kernels A (with lse) and 4 from 512
 tokens up, and the vocoder's wide stages kernel 5; everything else is plain
 PyTorch. The inference kernels B and C are never reached under autograd.
+
+Speakers: a batch with ``speaker_id`` on a multi-speaker model conditions the
+posterior, the flow, the duration predictor and the vocoder on its rows of
+``embed_speaker.weight``, which takes gradient through all four.
+
+Mixed precision (``compute_dtype="bfloat16"``, the JAX package's semantics):
+the text encoder and the decoder (:data:`BF16_SUBTREES`) and the
+discriminator run in bf16 on casts of the fp32 master parameters made inside
+the step, so every ``.grad`` stays fp32; the posterior, the flow and the
+duration predictor stay fp32, and the loss anchors -- the prior likelihood
+before MAS, the KL, the duration NLL, the frame lengths and the log-mel --
+are fp32. The training kernels then run at ``ops/tiers.py::training_tiers``:
+bf16 storage at the fast tier.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from vits_tpu_torch.models.flow import residual_coupling_forward
 from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.align import monotonic_align, prior_log_likelihood
+from vits_tpu_torch.ops.tiers import training_tiers
 from vits_tpu_torch.train.losses import (
     discriminator_loss,
     feature_matching_loss,
@@ -126,11 +140,27 @@ def fp32_backends(*param_dicts: Mapping[str, torch.Tensor]) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port trains in fp32 only (precision "
-            "tiers are queued, ROADMAP.md)")
+# The generator's parameters that run in the compute dtype: the encoder's and the
+# decoder's, where its products are; the posterior encoder, the flow and the
+# duration predictor stay fp32 (log-domain math, vits_tpu/train/step.py:85-97).
+BF16_SUBTREES = ("text_encoder.", "decoder.")
+
+
+def resolve_compute_dtype(compute_dtype) -> torch.dtype:
+    """None, "float32" or torch.float32 -> fp32; "bfloat16" or torch.bfloat16 -> bf16."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return torch.float32
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype={compute_dtype!r}: float32 or bfloat16")
+
+
+def cast_generator_params(params: Mapping[str, torch.Tensor],
+                          dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """The :data:`BF16_SUBTREES` leaves cast to ``dtype`` (a differentiable cast of the
+    master parameters), the others as they are."""
+    return {k: v.to(dtype) if k.startswith(BF16_SUBTREES) and v.is_floating_point() else v
+            for k, v in params.items()}
 
 
 def generator_forward(
@@ -143,10 +173,13 @@ def generator_forward(
     mel_kwargs: Optional[dict] = None,
     compute_dtype=None,
 ) -> GeneratorOutput:
-    """Forward pass with the reconstruction losses (``vits_tpu`` ``generator_forward``)."""
-    _check_compute_dtype(compute_dtype)
-    if config.num_speakers > 1 and batch.speaker_id is not None:
-        raise NotImplementedError("speaker-conditioned training is not ported yet")
+    """Forward pass with the reconstruction losses (``vits_tpu`` ``generator_forward``).
+
+    ``wave_fake`` comes back in the compute dtype, ``wave_real`` in fp32."""
+    cd = resolve_compute_dtype(compute_dtype)
+    tiers = training_tiers(cd)
+    if cd != torch.float32:
+        params = cast_generator_params(params, cd)
     mel_kwargs = dict(mel_kwargs or {})
     mel_kwargs.setdefault("sample_rate", config.sampling_rate)
     p = ParamView(params)
@@ -154,33 +187,42 @@ def generator_forward(
     frame_mask3 = batch.frame_mask[..., None]
     B, S, _ = batch.spectrogram.shape
 
-    # posterior + flow forward
-    z, _, logs_q = posterior_encoder(p, config, batch.spectrogram, frame_mask3, noise.posterior)
-    z_p, _ = residual_coupling_forward(p, config, z, frame_mask3)
+    speakers = None  # (B, 1, speaker_embedding_size), not detached: it trains in every module
+    if config.num_speakers > 1 and batch.speaker_id is not None:
+        speakers = p["embed_speaker.weight"][batch.speaker_id][:, None, :]
 
-    # text prior + MAS alignment (a constant target: no gradient)
-    enc = text_encoder(p, config, batch.input_ids, token_mask3, trainable=True)
-    log_lik = prior_log_likelihood(z_p, enc.prior_means, enc.prior_log_variances)
+    # posterior + flow forward
+    z, _, logs_q = posterior_encoder(p, config, batch.spectrogram, frame_mask3, noise.posterior,
+                                     speakers)
+    z_p, _ = residual_coupling_forward(p, config, z, frame_mask3, speakers)
+
+    # text prior (bf16 masks with bf16 parameters) + MAS alignment (a constant
+    # target: no gradient) on fp32 likelihoods
+    enc = text_encoder(p, config, batch.input_ids, token_mask3.to(cd), trainable=True,
+                       tier=tiers.attention)
+    log_lik = prior_log_likelihood(z_p, enc.prior_means, enc.prior_log_variances).float()
     attn = monotonic_align(log_lik.detach(), batch.frame_mask, batch.token_mask)
     durations = attn.sum(dim=1)
-    m_p = torch.einsum("bst,btc->bsc", attn, enc.prior_means)
-    logs_p = torch.einsum("bst,btc->bsc", attn, enc.prior_log_variances)
+    m_p = torch.einsum("bst,btc->bsc", attn, enc.prior_means.float())
+    logs_p = torch.einsum("bst,btc->bsc", attn, enc.prior_log_variances.float())
     loss_kl = kl_divergence(z_p, logs_q, m_p, logs_p, batch.frame_mask)
 
-    # duration NLL on the stop-grad encoder output
+    # duration NLL (fp32) on the stop-grad encoder output
     dur_nll = stochastic_duration_predictor_nll(
-        p, config, enc.last_hidden_state.detach(), token_mask3, durations[..., None],
-        noise.duration)
+        p, config, enc.last_hidden_state.detach().float(), token_mask3, durations[..., None],
+        noise.duration, speakers)
     loss_dur = dur_nll.sum() / torch.clamp(batch.token_mask.sum(), min=1.0)
 
-    # mel reconstruction on a random decoded segment
+    # mel reconstruction on a random decoded segment (frame lengths and log-mel in fp32)
     frame_lengths = batch.frame_mask.sum(dim=-1).to(torch.int32)
     starts = random_segment_starts(noise.segment_u, frame_lengths, segment_frames)
-    wave_fake = hifigan(p, config, slice_segments(z, starts, segment_frames), trainable=True)
+    wave_fake = hifigan(p, config, slice_segments(z, starts, segment_frames).to(cd), None,
+                        None if speakers is None else speakers.to(cd), trainable=True,
+                        tiers=tiers)
     up = config.total_upsample
     wave_real = slice_segments(batch.audio.reshape(B, S, up), starts,
                                segment_frames).reshape(B, segment_frames * up)
-    loss_mel = torch.mean(torch.abs(log_mel_spectrogram(wave_fake, **mel_kwargs)
+    loss_mel = torch.mean(torch.abs(log_mel_spectrogram(wave_fake.float(), **mel_kwargs)
                                     - log_mel_spectrogram(wave_real, **mel_kwargs)))
 
     total = loss_kl + loss_dur + mel_weight * loss_mel
@@ -242,7 +284,7 @@ def make_train_step(
     update; the step's noise is drawn for the whole batch and split with it.
     Turns TF32 off when the parameters lie on a CUDA device.
     """
-    _check_compute_dtype(compute_dtype)
+    resolve_compute_dtype(compute_dtype)
     fp32_backends(params)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -252,7 +294,7 @@ def make_train_step(
         acc, all_metrics = None, []
         for mb, mn in _microbatches(batch, noise, grad_accum):
             loss, metrics = generator_loss(params, config, mb, mn, segment_frames, mel_weight,
-                                           mel_kwargs)
+                                           mel_kwargs, compute_dtype)
             grads = gradients(loss, params)
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             all_metrics.append(tuple(m.detach() for m in metrics))
@@ -274,36 +316,48 @@ def make_gan_train_step(
     mel_kwargs: Optional[dict] = None,
     grad_accum: int = 1,
     compute_dtype=None,
+    reuse_forward: bool = True,
 ) -> Callable[..., GanTrainMetrics]:
     """Adversarial step ``step(batch, generator=None, noise=None) -> GanTrainMetrics``.
 
     The JAX package's order: one generator forward; the discriminator updated
     on (real, detached fake); the adversarial and feature-matching terms
     through the UPDATED discriminator on the same fake; one backward into the
-    generator only, and its update. With ``grad_accum=N`` each phase runs
-    over N microbatches (discriminator gradients accumulated and applied,
-    then generator gradients through the updated discriminator), the
-    generator forward repeated per phase with the same noise. Turns TF32 off
-    when the parameters lie on a CUDA device.
+    generator only, and its update. ``reuse_forward=False`` is the JAX
+    package's two-forward step (``step_naive``): a forward without gradients
+    for the discriminator's update, then a second one with the same noise for
+    the generator's loss. With ``grad_accum=N`` each phase runs over N
+    microbatches (discriminator gradients accumulated and applied, then
+    generator gradients through the updated discriminator), the generator
+    forward repeated per phase with the same noise. ``compute_dtype``: see
+    the module docstring; the discriminator runs on bf16 casts of its fp32
+    parameters, on bf16 waves. Turns TF32 off when the parameters lie on a
+    CUDA device.
     """
-    _check_compute_dtype(compute_dtype)
+    cd = resolve_compute_dtype(compute_dtype)
     fp32_backends(gen_params, disc_params)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def forward(batch, noise):
         return generator_forward(gen_params, config, batch, noise, segment_frames, mel_weight,
-                                 mel_kwargs)
+                                 mel_kwargs, cd)
+
+    def disc():  # cast at each use: after the update the casts are of the updated weights
+        return disc_params if cd == torch.float32 else {k: v.to(cd)
+                                                        for k, v in disc_params.items()}
 
     def d_loss_of(wave_real, wave_fake):
-        real_logits, _ = discriminate(disc_params, wave_real)
-        fake_logits, _ = discriminate(disc_params, wave_fake.detach())
+        dp = disc()
+        real_logits, _ = discriminate(dp, wave_real.to(cd))
+        fake_logits, _ = discriminate(dp, wave_fake.detach().to(cd))
         return discriminator_loss(real_logits, fake_logits)
 
     def g_loss_of(out: GeneratorOutput):
+        dp = disc()
         with torch.no_grad():
-            _, real_feats = discriminate(disc_params, out.wave_real)
-        fake_logits, fake_feats = discriminate(disc_params, out.wave_fake)
+            _, real_feats = discriminate(dp, out.wave_real.to(cd))
+        fake_logits, fake_feats = discriminate(dp, out.wave_fake.to(cd))
         adv = generator_adversarial_loss(fake_logits)
         fm = feature_matching_loss(real_feats, fake_feats)
         return out.loss + adv + fm_weight * fm, adv, fm
@@ -314,7 +368,7 @@ def make_gan_train_step(
 
     def step(batch: TrainBatch, generator=None, noise: Optional[TrainNoise] = None):
         noise = draw_noise(config, batch, generator) if noise is None else noise
-        if grad_accum == 1:
+        if grad_accum == 1 and reuse_forward:
             out = forward(batch, noise)
             d_loss = d_loss_of(out.wave_real, out.wave_fake)
             _apply(disc_params, disc_optimizer, gradients(d_loss, disc_params))
