@@ -139,7 +139,23 @@ printing its result line:
    (d) ``reuse_forward=False`` against the single forward (losses 1e-5,
    parameters after one AdamW step rtol 1e-4, atol 1e-6); (e)
    ``python -m vits_tpu_torch.train.loop --dtype bfloat16`` on the
-   synthetic corpus, 4 steps with checkpoints, resumed to 6.
+   synthetic corpus, 4 steps with checkpoints, resumed to 6;
+11. bf16 serving (``EngineConfig(compute_dtype="bfloat16")``, ``ops/tiers.py::
+   Tiers.bf16_compute``), in a process of its own as phases 9 and 10
+   (``--bf16-serving-phase``): (a) each kernel's bf16 serving mode against
+   its plain twin on the card at phase 3's shapes -- B (MMS stages 0-1), C
+   (stages 2-3, conv_post on the last) and 7 (HiFi-GAN V2's C=64, k=11) by
+   relative L2 2e-2 (XLA's bf16 graph, rounded after every step), A at each
+   tier and 6 (VCTK width, speaker 17) within two bf16 ulps -- the bound at
+   the bf16 rate; (b) MMS at bf16: warmup, the 87-token request's profile
+   beside the fast tier's (fp32 engine) in the same process, card vs the
+   CPU's plain bf16 path on one NoiseOverride (the text encoder by relative
+   L2, frame counts within 10% in total, the decode of the CPU's prior by
+   mel-L1), a batch of three against solo runs, a stream against its
+   one-shot decode, the flow and vocoder at the exact tier's durations by
+   mel-L1 against exact; VCTK at bf16 with ``use_pallas_flow``: a request of
+   speaker 17 and a conversion 0 -> 17; HiFi-GAN V2's decoder at bf16: a
+   request through kernels 7 and C, profiled.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -147,7 +163,8 @@ Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``launches``: the count over the paths that run the kernel, the serving
 paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
 apart as ``backward_launches``; phase 10's bf16 kernels as ``*_bf16`` entries with the
-launches of its three bf16 steps; ``library_ms`` is null:
+launches of its three bf16 steps, phase 11's bf16 serving modes as ``*_bf16_serve``
+entries with the launches of its request paths; ``library_ms`` is null:
 no single PyTorch call computes any of these functions; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier), and last ``{"ok": true, "device": {...}}``.
@@ -2807,6 +2824,386 @@ def bf16_training_phase(device) -> dict:
     return {"kernels": measured, "run": run, "profiler_sessions": PROFILER_SESSIONS}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: bf16 serving (EngineConfig(compute_dtype="bfloat16"), ops/tiers.py::
+# Tiers.bf16_compute), in a process of its own as phases 9 and 10.
+# --------------------------------------------------------------------------- #
+
+# B, C and 7 compute XLA's bf16 graph, rounding to bf16 after every step; their twins
+# compute it in bf16 PyTorch ops on the card (cuDNN's and cuBLAS's sums in other
+# orders: a rounded step may land an ulp away and travel), held by relative L2 error
+# per output (BF16_GRAD_RTOL); A and 6 stage fp32 on bf16 inputs and round their
+# output once, held within two bf16 ulps of the twin at the same tier.
+SERVE16_KERNELS = ("flash_rel_attention", "fused_resblock_trio", "fused_stage", "fused_flow",
+                   "fused_resblock")
+# A batch row (or a stream) against its solo run (one-shot decode) at bf16: the plain
+# glue's and the kernels' sums run in another order per shape, and bf16 rounding
+# turns that into bf16-level differences; held by mel-L1 as the fast tier's stream.
+BF16_ROW_MEL_L1 = FAST_STREAM_MEL_L1
+# The bf16 duration predictor is chaotic: its spline's root solve in bf16 turns a
+# one-ulp difference of its input into up to ~0.5 of log duration (the JAX package's
+# own jitted and eager bf16 engines differ by 0.35 on the fixture). On the card
+# cuBLAS and cuDNN sum in other orders than the CPU, and 0.02-0.03% of a bf16
+# matmul's or conv's outputs land one ulp away (scripts/torch_bf16_spread.py), so
+# card and CPU, or a batch row and its solo run, predict different frame counts on
+# some texts. Those
+# are held within DURATION_RTOL of each other in total (the JAX package's bound for
+# a precision variant's durations, tests/test_precision_variants.py), the text
+# encoder by relative L2 (BF16_GRAD_RTOL), and the decode on one prior: the card's
+# flow and vocoder on the CPU's prior against the CPU's, by mel-L1.
+DURATION_RTOL = 0.1
+
+
+def serve16_kernels_vs_plain(model, vctk, narrow, device) -> dict:
+    """Phase 11a: each kernel's bf16 serving mode against its plain twin on the card
+    at phase 3's shapes (320 frames; bf16 activations and the engines' bf16
+    parameters): B at MMS stages 0-1, C at 2-3, 7 at HiFi-GAN V2's stage 0 (C=64,
+    k=11), A at L=512 at each tier, 6 at VCTK width (B=1, speaker 17, the fast
+    tier); the bound at the bf16 rate (989 TFLOP/s; A and 6 at their tier's
+    rate), 2 bytes an entry."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_plain
+    from vits_tpu_torch.ops.cuda.flow import (
+        flow_compute16_reference,
+        fused_flow,
+        pack_flow_weights,
+    )
+    from vits_tpu_torch.ops.cuda.resblock import (
+        fused_resblock,
+        fused_resblock_trio,
+        pair_weights,
+        resblock_reference,
+        resblock_trio_reference,
+    )
+    from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference
+    from vits_tpu_torch.ops.tiers import BF16_COMPUTE_TIER as tier
+    from vits_tpu_torch.ops.tiers import Tier, resolve_tier
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(11)
+    config, decoder = model.config, ParamView(model.params).sub("decoder")
+    slope, frames = config.leaky_relu_slope, 320
+    out = {name + "_bf16_serve": [] for name in SERVE16_KERNELS}
+
+    def activ(T, C, length, B=1):
+        x = torch.tensor(rng.standard_normal((B, T, C)), dtype=torch.float32, device=device)
+        x[:, length:] = 0.0
+        return x.to(bf), torch.tensor([length] * B, dtype=torch.int32, device=device)
+
+    for i, T in ((0, 8 * frames), (1, 64 * frames)):  # B: MMS stages 0 and 1
+        C = decoder[f"upsampler.{i}.weight"].shape[2]
+        x, lens = activ(T, C, T - 37)
+        blocks = _stage_resblocks(decoder, config, i)
+        out["fused_resblock_trio_bf16_serve"].append(compare(
+            "fused_resblock_trio", f"bf16 serving C={C} T={T}",
+            lambda: fused_resblock_trio(x, blocks, slope=slope, lengths=lens, tier=tier),
+            lambda: resblock_trio_reference(x, blocks, slope=slope, lengths=lens, tier=tier),
+            grad_rtol=BF16_GRAD_RTOL,
+            work=(resblocks_flops(steps_of(x, lens), C, blocks),
+                  nbytes(x, x, lens, *pair_weights(blocks))), peak=PEAK_BF16_FLOPS))
+    for i, T_in in ((2, 64 * frames), (3, 128 * frames)):  # C: MMS stages 2 and 3
+        up_w, up_b = decoder[f"upsampler.{i}.weight"], decoder[f"upsampler.{i}.bias"]
+        (k_up, c_in, c_out), rate = up_w.shape, config.upsample_rates[i]
+        final = i == len(config.upsample_rates) - 1
+        x, lens = activ(T_in, c_in, T_in - 37)
+        blocks = _stage_resblocks(decoder, config, i)
+        w_post = decoder["conv_post.weight"]
+        kw = dict(stride=rate, up_padding=(config.upsample_kernel_sizes[i] - rate) // 2,
+                  slope=slope, lengths=lens, tier=tier, final_conv=(w_post, 3) if final else None)
+        steps = steps_of(x, lens)
+        flops = conv_flops(steps, k_up, c_in, c_out) + resblocks_flops(steps * rate, c_out,
+                                                                       blocks)
+        weights = [up_w, up_b, *pair_weights(blocks)] + ([w_post] if final else [])
+        if final:
+            flops += conv_flops(steps * rate, w_post.shape[0], c_out, 1)
+        out_bytes = 2 * (1 if final else c_out) * x.shape[1] * rate
+        out["fused_stage_bf16_serve"].append(compare(
+            "fused_stage", f"bf16 serving {c_in}->{c_out} T_in={T_in}"
+            + (" +conv_post" if final else ""),
+            lambda: fused_stage(x, up_w, up_b, blocks, **kw),
+            lambda: stage_reference(x, up_w, up_b, blocks, **kw),
+            grad_rtol=BF16_GRAD_RTOL, work=(flops, nbytes(x, lens, *weights) + out_bytes),
+            peak=PEAK_BF16_FLOPS))
+    ndecoder = ParamView(narrow.params).sub("decoder")
+    nblk = _stage_resblocks(ndecoder, narrow.config, 0)[-1]  # C=64, k=11
+    nx, nlens = activ(8 * frames, 64, 8 * frames - 37, B=2)
+    nlens[1] = 0
+    nx[1] = 0.0
+    out["fused_resblock_bf16_serve"].append(compare(
+        "fused_resblock", f"bf16 serving C=64 B=2 T={8 * frames} k=11 (HiFi-GAN V2 stage 0)",
+        lambda: fused_resblock(nx, nblk, slope=slope, lengths=nlens, tier=tier),
+        lambda: resblock_reference(nx, nblk, slope=slope, lengths=nlens, tier=tier),
+        grad_rtol=BF16_GRAD_RTOL,
+        work=(resblocks_flops(steps_of(nx, nlens), 64, [nblk]),
+              nbytes(nx, nx, nlens, *pair_weights([nblk]))), peak=PEAK_BF16_FLOPS))
+    layer = ParamView(model.params).sub("text_encoder.encoder.layers.0.attention")
+    heads, d, w, L = config.num_attention_heads, config.head_dim, config.window_size, 512
+    q, k, v = (torch.tensor(rng.standard_normal((2, heads, L, d)) * 0.5,
+                            device=device).to(bf) for _ in range(3))
+    rel = (layer["emb_rel_k"][0], layer["emb_rel_v"][0])
+    alens = torch.tensor([L - 5, 0], dtype=torch.int32, device=device)
+    for name in ("fast", "high", "highest"):
+        mode = resolve_tier(None if name == "fast" else name).mode
+        out["flash_rel_attention_bf16_serve"].append(compare(
+            "flash_rel_attention", f"bf16 serving {name} B=2 L={L} len=({L - 5},0)",
+            lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=alens,
+                                        tier=Tier(mode, False, True)),
+            lambda: rel_attention_plain(q, k, v, *rel, window=w, lengths=alens,
+                                        tier=Tier(mode)),
+            work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, q, *rel, alens)),
+            tol=BF16_KERNEL_TOL, peak=TIER_PEAK[name]))
+    vconfig, vp = vctk.config, ParamView(vctk.params)
+    packed = pack_flow_weights(vp, vconfig)
+    half, hidden = vconfig.flow_size // 2, vconfig.hidden_size
+    nl, kw_, n = (vconfig.prior_encoder_num_wavenet_layers, vconfig.wavenet_kernel_size,
+                  vconfig.prior_encoder_num_flows)
+    per_frame = 2 * (half * hidden + nl * kw_ * hidden * 2 * hidden
+                     + (nl - 1) * hidden * 2 * hidden + hidden * hidden + hidden * half)
+    fx = torch.tensor(rng.standard_normal((1, frames, vconfig.flow_size)),
+                      device=device).to(bf)
+    flens = torch.tensor([frames], dtype=torch.int32, device=device)
+    spk = vp["embed_speaker.weight"][17][None, None, :].contiguous()
+    ftier = vctk.tiers.flow
+    out["fused_flow_bf16_serve"].append(compare(
+        "fused_flow", f"bf16 serving fast B=1 T={frames} speaker 17 (VCTK width)",
+        lambda: fused_flow(fx, vp, vconfig, lengths=flens, speaker_embeddings=spk,
+                           packed=packed, tier=ftier),
+        lambda: flow_compute16_reference(fx, packed, vp, vconfig, lengths=flens,
+                                         speaker_embeddings=spk, tier=ftier),
+        work=(n * per_frame * frames, nbytes(fx, fx, flens, spk) + 2 * packed.buffer.numel()),
+        tol=BF16_KERNEL_TOL, peak=TIER_PEAK["fast"]))
+    return out
+
+
+def serve16_requests(device, card: str, wrappers) -> dict:
+    """Phase 11b: the bf16 engines' main path. MMS: warmup, the 87-token request's
+    profile beside the fast tier's (fp32 engine) in this process, every kernel
+    launched; its frame counts on one NoiseOverride equal to the CPU's plain bf16
+    path; a batch of three whose rows match their solo runs; a stream against its
+    one-shot decode; the flow and vocoder at the exact tier's durations, by mel-L1
+    against exact. VCTK with use_pallas_flow: a request of speaker 17 through
+    kernels A, B, C and 6 and a conversion 0 -> 17. HiFi-GAN V2's decoder: a
+    request through kernels 7 and C. Each path's counts set to 0 just before it."""
+    from vits_tpu_torch import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.streaming import StreamingDecoder
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.encoder import text_encoder
+    from vits_tpu_torch.models.hifigan import hifigan
+    from vits_tpu_torch.models.vits import NoiseOverride, latents_from_prior, text_to_prior
+
+    bf = torch.bfloat16
+    engine16 = EngineConfig(compute_dtype="bfloat16")
+    model = make_model(device, engine_config=engine16)
+    fast = make_model(device)  # EngineConfig(): the fast tier, fp32 engine
+    if model.compute_dtype != bf or model._vocoder_packs():
+        raise RuntimeError("the bf16 engine is not bf16 or made vocoder packs")
+    results, launches = {}, {}
+
+    def path(name, fn):
+        for w in wrappers:
+            w.launches = 0
+        value = fn()
+        launches[name] = {w.__name__: w.launches for w in wrappers}
+        print(f"    {name} launches {launches[name]}", flush=True)
+        return value
+
+    results["warmup"] = path("warmup", lambda: warm(model, card)["seconds"])
+    results["fast_request"] = request_profile(fast, card)
+    results["bf16_request"] = path("bf16_request", lambda: request_profile(model, card))
+    for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
+        if launches["bf16_request"][name] == 0:
+            raise RuntimeError(f"the bf16 request never launched {name}")
+    print(f"  87-token request: bf16 busy {results['bf16_request']['device_busy_ms']:.2f} ms, "
+          f"steady {results['bf16_request']['steady_ms']:.1f} ms wall; fast (fp32 engine) busy "
+          f"{results['fast_request']['device_busy_ms']:.2f} ms, steady "
+          f"{results['fast_request']['steady_ms']:.1f} ms ({card})", flush=True)
+
+    # card vs the CPU's plain bf16 path (the same tiers' twins) on one NoiseOverride
+    tok, config = model.tokenizer, model.config
+    ids, mask = tok.pad([tok.encode(SINGLE_TEXTS[1])], pad_to=128)
+    rng = np.random.default_rng(2)
+    num_frames = 1024
+    dur = torch.tensor(rng.standard_normal((1, 128, 2)), dtype=torch.float32).to(bf)
+    prior_noise = torch.tensor(rng.standard_normal((1, num_frames, config.flow_size)),
+                               dtype=torch.float32).to(bf)
+    cpu_params = {k: v.cpu() for k, v in model.params.items()}
+    outs = {}
+    for dev, params in ((device, model.params), ("cpu", cpu_params)):
+        with torch.inference_mode():
+            ids_d = torch.tensor(ids, dtype=torch.long, device=dev)
+            mask_d = torch.tensor(mask, device=dev).to(bf)
+            enc = text_encoder(ParamView(params), config, ids_d, mask_d[..., None],
+                               tier=model.tiers.attention)
+            prior = text_to_prior(params, config, ids_d, mask_d, num_frames,
+                                  noise=NoiseOverride(dur.to(dev), prior_noise.to(dev)),
+                                  attention_tier=model.tiers.attention)
+        outs[str(dev)] = {"hidden": enc.last_hidden_state, "prior": prior}
+    gpu, cpu = outs[str(device)], outs["cpu"]
+    hidden_rel = float((gpu["hidden"].float().cpu() - cpu["hidden"].float()).norm()
+                       / cpu["hidden"].float().norm())
+    frames = [int(min(o["prior"].total_duration[0], num_frames)) for o in (gpu, cpu)]
+    ld_err = float((gpu["prior"].log_duration.float().cpu()
+                    - cpu["prior"].log_duration.float()).abs().max())
+    # the decode on the CPU's prior, card against CPU
+    waves = {}
+    for dev, params in ((device, model.params), ("cpu", cpu_params)):
+        p = cpu["prior"]
+        mask3 = p.frame_mask[..., None].to(dev)
+        with torch.inference_mode():
+            lat = latents_from_prior(params, config, p.prior_latents.to(dev), mask3,
+                                     tier=model.tiers.flow)
+            wave = hifigan(ParamView(params), config, lat, mask3, tiers=model.tiers)
+        waves[str(dev)] = wave[0, : frames[1] * config.total_upsample].float().cpu().numpy()
+    check_audio(waves[str(device)], "bf16 decode of the CPU's prior")
+    wave_mel = mel_l1(waves[str(device)][None], waves["cpu"][None], config.sampling_rate)
+    print(f"  card vs CPU plain bf16 path: text encoder rel L2 {hidden_rel:.3e} (bound "
+          f"{BF16_GRAD_RTOL}), log_duration max|diff| {ld_err:.3e}, frames {frames[0]} / "
+          f"{frames[1]} (bound {DURATION_RTOL} relative); decode of the CPU's prior mel-L1 "
+          f"{wave_mel:.3e} (bound {BF16_ROW_MEL_L1}) ({card})", flush=True)
+    if not hidden_rel <= BF16_GRAD_RTOL:
+        raise RuntimeError(f"bf16: the card's text encoder is off the CPU's by {hidden_rel}")
+    if not abs(frames[0] - frames[1]) <= DURATION_RTOL * frames[1]:
+        raise RuntimeError(f"bf16: card and CPU frame counts {frames} differ past the bound")
+    if not wave_mel <= BF16_ROW_MEL_L1:
+        raise RuntimeError(f"bf16: the card's decode is off the CPU's by mel-L1 {wave_mel}")
+    results["card_vs_cpu"] = {"frames": frames, "frames_equal": frames[0] == frames[1],
+                              "text_encoder_rel_l2": hidden_rel,
+                              "log_duration_max_abs": ld_err, "decode_mel_l1": wave_mel}
+
+    # a batch of three against solo runs
+    def batch():
+        return model.synthesize_raw(list(BATCH_TEXTS), seed=list(BATCH_SEEDS))
+    out = path("bf16_batch", batch)
+    rows = []
+    solo_frames = []
+    for r, (text, seed) in enumerate(zip(BATCH_TEXTS, BATCH_SEEDS)):
+        solo = model.synthesize_raw([text], seed=[seed])
+        a, b = int(out.frame_lengths[r]), int(solo.frame_lengths[0])
+        solo_frames.append(b)
+        if not abs(a - b) <= DURATION_RTOL * b:
+            raise RuntimeError(f"bf16 batch row {r}: {a} frames, solo {b}")
+        m = min(out.lengths[r], solo.lengths[0])
+        check_audio(out.waveform[r, :out.lengths[r]], f"bf16 batch row {r}")
+        if a == b:  # equal durations: the same audio up to bf16 rounding
+            rows.append(mel_l1(out.waveform[r:r + 1, :m], solo.waveform[:, :m],
+                               config.sampling_rate))
+    print(f"  batch of 3 at bf16: frames {out.frame_lengths[:3].tolist()}, solo "
+          f"{solo_frames} (bound {DURATION_RTOL} relative); mel-L1 of the rows with equal "
+          f"frames {[f'{v:.2e}' for v in rows]} (bound {BF16_ROW_MEL_L1})", flush=True)
+    if rows and not max(rows) <= BF16_ROW_MEL_L1:
+        raise RuntimeError(f"bf16 batch rows differ from their solo runs: {rows}")
+    results["batch"] = {"frames": out.frame_lengths[:3].tolist(), "solo_frames": solo_frames,
+                        "rows_mel_l1": rows}
+
+    # a stream against its one-shot decode, at one frame capacity
+    streaming = make_model(device, engine_config=EngineConfig(
+        compute_dtype="bfloat16", transfer_int16=False, adaptive_capacity=False))
+    streamer = StreamingDecoder(streaming)
+    streamer.warmup(token_buckets=streaming.engine.token_buckets[:2])
+    t0 = time.perf_counter()
+    streamed = path("bf16_stream", lambda: streamer.synthesize_streaming(SINGLE_TEXTS[1],
+                                                                         seed=4))
+    stream_s = time.perf_counter() - t0
+    oneshot = streaming.synthesize(SINGLE_TEXTS[1], seed=4)
+    if streamed.shape != oneshot.shape or streamed.dtype != np.float32:
+        raise RuntimeError(f"bf16 stream of {streamed.shape}, one-shot {oneshot.shape}")
+    stream_mel = mel_l1(streamed[None], oneshot[None], config.sampling_rate)
+    print(f"  bf16 stream vs its one-shot decode: {streamed.shape[0]} samples in "
+          f"{stream_s:.2f} s, mel-L1 {stream_mel:.3e} (bound {BF16_ROW_MEL_L1}) ({card})",
+          flush=True)
+    if not stream_mel <= BF16_ROW_MEL_L1:
+        raise RuntimeError(f"bf16 stream differs from its one-shot decode: {stream_mel}")
+    results["stream"] = {"mel_l1": stream_mel, "seconds": stream_s}
+    del streaming, streamer
+
+    # the flow and vocoder at the exact tier's durations: mel-L1 against exact
+    exact = make_model(device, engine_config=exact_engine())
+    noise = NoiseOverride(dur.float().to(device), prior_noise.float().to(device))
+    ids_t = torch.tensor(ids, dtype=torch.long, device=device)
+    with torch.inference_mode():
+        prior = text_to_prior(exact.params, config, ids_t,
+                              torch.tensor(mask, device=device), num_frames, noise=noise,
+                              attention_tier=exact.tiers.attention)
+    frames = min(int(prior.total_duration[0]), num_frames)
+    waves = {}
+    for label, m in (("exact", exact), ("bfloat16", model)):
+        mask3 = prior.frame_mask[..., None].to(m.compute_dtype)
+        with torch.inference_mode():
+            lat = latents_from_prior(m.params, config, prior.prior_latents.to(m.compute_dtype),
+                                     mask3, tier=m.tiers.flow)
+            wave = hifigan(ParamView(m.params), config, lat, mask3, tiers=m.tiers)
+        waves[label] = wave[0, : frames * config.total_upsample].float().cpu().numpy()
+    check_audio(waves["bfloat16"], "bf16 at the exact tier's durations")
+    mel = mel_l1(waves["bfloat16"][None], waves["exact"][None], config.sampling_rate)
+    print(f"  bf16 at exact's {frames} frames: mel-L1 vs exact {mel:.3e} ({card})", flush=True)
+    results["mel_l1_vs_exact"] = mel
+    del exact
+
+    # VCTK with the flow kernel: a request of speaker 17, a conversion 0 -> 17
+    vctk = make_model(device, VitsConfig(**VCTK), EngineConfig(
+        compute_dtype="bfloat16", use_pallas_flow=True), keep_training=True)
+    warm(vctk, card)
+
+    def vctk_path():
+        audio = vctk.synthesize(SINGLE_TEXTS[1], seed=3, speaker_id=17)
+        converted = vctk.convert_voice(audio, source_speaker=0, target_speaker=17)
+        return audio, converted
+    audio, converted = path("bf16_vctk", vctk_path)
+    check_audio(audio, "bf16 VCTK request")
+    check_audio(converted, "bf16 voice conversion")
+    if converted.shape != audio.shape or launches["bf16_vctk"]["fused_flow"] == 0:
+        raise RuntimeError("bf16 VCTK: conversion of another length, or kernel 6 not run")
+    print(f"  VCTK at bf16: speaker 17 {audio.shape[0]} samples, conversion 0 -> 17 "
+          f"{converted.shape[0]} samples ({card})", flush=True)
+    del vctk
+
+    # HiFi-GAN V2's decoder: kernels 7 and C
+    narrow = make_model(device, VitsConfig(upsample_initial_channel=128), engine16)
+    warm(narrow, card)
+    out = path("bf16_narrow", lambda: narrow.synthesize_raw([SINGLE_TEXTS[1]], seed=[4]))
+    check_audio(out.waveform[0, : out.lengths[0]], "bf16 narrow-vocoder request")
+    if launches["bf16_narrow"]["fused_resblock"] == 0 or launches["bf16_narrow"][
+            "fused_stage"] == 0:
+        raise RuntimeError("the bf16 narrow vocoder did not run kernels 7 and C")
+    results["narrow_request"] = request_profile(narrow, card, families=NARROW_FAMILIES)
+    for name in SERVE16_KERNELS:
+        if not sum(counts[name] for p, counts in launches.items() if p != "warmup"):
+            raise RuntimeError(f"bf16 serving never launched {name}")
+    results["launches"] = launches
+    return results
+
+
+SERVE16_FLAG = "--bf16-serving-phase"
+SERVE16_RESULT = "bf16-serving-phase result: "
+
+
+def bf16_serving_phase(device) -> dict:
+    """Phase 11's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch import EngineConfig, VitsConfig
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+
+    card = card_line()
+    kernels.library()
+    t0 = time.perf_counter()
+    wrappers = (flash_rel_attention, fused_resblock_trio, fused_stage, fused_flow,
+                fused_resblock)
+    engine16 = EngineConfig(compute_dtype="bfloat16")
+    model = make_model(device, engine_config=engine16)
+    vctk = make_model(device, VitsConfig(**VCTK), EngineConfig(
+        compute_dtype="bfloat16", use_pallas_flow=True), keep_training=True)
+    narrow = make_model(device, VitsConfig(upsample_initial_channel=128), engine16)
+    measured = serve16_kernels_vs_plain(model, vctk, narrow, device)
+    del model, vctk, narrow
+    requests = serve16_requests(device, card, wrappers)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": measured, "requests": requests, "profiler_sessions": PROFILER_SESSIONS}
+
+
 def run_child(flag: str, prefix: str, phase: int) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
@@ -2840,8 +3237,11 @@ def main() -> None:
     if sys.argv[1:] == [TRAINING_FLAG]:
         print(TRAINING_RESULT + json.dumps(bf16_training_phase(device)), flush=True)
         return
+    if sys.argv[1:] == [SERVE16_FLAG]:
+        print(SERVE16_RESULT + json.dumps(bf16_serving_phase(device)), flush=True)
+        return
     card = card_line()
-    print("[1/10] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/11] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -2855,7 +3255,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/11] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -2870,7 +3270,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/10] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/11] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -2879,13 +3279,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/10] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/11] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/10] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/11] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -2898,12 +3298,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/10] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/11] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/10] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/11] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -2913,21 +3313,27 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/10] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/11] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/10] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/11] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/10] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/11] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
+
+    print(f"[11/11] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+          f"width, random weights, in a process of its own ({card}):", flush=True)
+    serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
+    measured.update(serving16["kernels"])
+    serve16_run = serving16["requests"]
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -2950,12 +3356,19 @@ def main() -> None:
     # phase 10: the same kernels on bf16 storage, their launches over its three bf16 steps
     for name in ("flash_rel_attention", "trainable_rel_attention", "trainable_trio"):
         sources[name + "_bf16"] = sources[name]
+    # phase 11: the serving kernels' bf16 serving mode, their launches over its request
+    # paths (warmup apart)
+    for name in SERVE16_KERNELS:
+        sources[name + "_bf16_serve"] = sources[name]
     bf16_launches = bf16_run["bfloat16"]["launches"]
     launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
                 "trainable_trio": train_launches["trio_forward_with_acts"],
                 "flash_rel_attention_bf16": bf16_launches["flash_rel_attention"],
                 "trainable_rel_attention_bf16": bf16_launches["rel_attention_bwd"],
-                "trainable_trio_bf16": bf16_launches["trio_forward_with_acts"]}
+                "trainable_trio_bf16": bf16_launches["trio_forward_with_acts"],
+                **{name + "_bf16_serve": sum(counts[name] for path, counts in
+                                             serve16_run["launches"].items() if path != "warmup")
+                   for name in SERVE16_KERNELS}}
     report = {"kernels": []}
     for name, runs in measured.items():
         timed = [r for r in runs if r["ms"] is not None]
@@ -3018,6 +3431,8 @@ def main() -> None:
     report["training"] = {"step_ms": trained["step_ms"], "peak_gib": trained["peak_gib"],
                           "profile": trained["profile"], "card": card}
     report["training_bf16"] = bf16_run
+    report["serving_bf16"] = {k: v for k, v in serve16_run.items() if k != "launches"} | {
+        "launches_by_path": serve16_run["launches"], "card": card}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

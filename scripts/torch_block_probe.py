@@ -136,7 +136,7 @@ def main() -> None:
                     def call():
                         kernels.check(lib.vk_resblock_block(
                             x.data_ptr(), out.data_ptr(), lens.data_ptr(), pointers, dil, 3,
-                            B, T, C, k, 0.1, bm, cluster, 0, 1.0, 0, 0, stream),
+                            B, T, C, k, 0.1, bm, cluster, 0, 1.0, 0, 0, 1.0, 0, stream),
                             "resblock kernel")
 
                     call()

@@ -90,7 +90,7 @@ def test_cli_convert(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ("--dtype", "bfloat16"), ("--sp", "2"), ("--compilation-cache", "cache"),
+    ("--sp", "2"), ("--compilation-cache", "cache"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, capsys):
     with pytest.raises(SystemExit) as exc:

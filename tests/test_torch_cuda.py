@@ -494,7 +494,7 @@ def test_upsampler_unequal_phases_on_card(cuda_device):
     y = torch.empty((3, 600, 16), dtype=torch.float32, device=cuda_device)
     assert library().vk_upsample(x.data_ptr(), y.data_ptr(), up_w.data_ptr(), up_b.data_ptr(),
                                  lens.data_ptr(), 3, 150, 64, 16, 6, 4, 1, SLOPE, 0, 0, None,
-                                 0, stream_of(x)) == 0
+                                 0, 0, 0, stream_of(x)) == 0
     want = polyphase_upsample(x.cpu(), up_w.cpu(), up_b.cpu(), stride=4, padding=1, slope=SLOPE,
                               lengths=lens.cpu())
     _assert_close(y.cpu(), want)
@@ -1072,3 +1072,199 @@ def test_trio_kernels_bf16_match_plain_on_card(cuda_device, C, T):
     assert all(torch.equal(a, b) for a, b in zip([dx, *dw], [dx2, *dw2]))
     with pytest.raises(ValueError):
         trio_forward_with_acts(x.float(), blocks, slope=SLOPE, tier=tier)
+
+
+# bf16 serving (ops/tiers.py::Tiers.bf16_compute, EngineConfig(compute_dtype="bfloat16")):
+# kernels B, C and 7 compute XLA's masked bf16 graph of the plain stage, rounding to bf16
+# after every step; kernels A and 6 take and give bf16 at their tier, staging fp32. The
+# plain twins run the same graph in bf16 PyTorch ops on the card (B, C, 7: cuDNN's and
+# cuBLAS's sums in other orders, so a rounded step may land one ulp away and travel:
+# BF16_RTOL relative L2 per tensor) or in fp32 on the bf16 values (A, 6: two bf16 ulps,
+# BF16_ATOL).
+
+
+def _bf16_blocks(rng, C, device, ks=(3, 7, 11), scale=0.05):
+    return _to(_blocks(rng, C, ks=ks, scale=scale),
+               lambda a: torch.tensor(a, device=device).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [(256, 320), (128, 1000)])
+def test_trio_kernel_bf16_serving_matches_plain_on_card(cuda_device, C, T):
+    """Kernel B at bf16 serving: bf16 activations, weights and biases, a row
+    ending mid-tile (zero past it), bf16 out, within BF16_RTOL of XLA's graph."""
+    from vits_tpu_torch.ops.tiers import BF16_COMPUTE_TIER as tier
+
+    rng = np.random.default_rng(31)
+    lengths = [T, T // 2 - 63]
+    x = torch.tensor(_masked(rng, 2, T, C, lengths), device=cuda_device).to(torch.bfloat16)
+    blocks = _bf16_blocks(rng, C, cuda_device, scale=0.03)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fused_resblock_trio.launches
+    got = fused_resblock_trio(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+    assert fused_resblock_trio.launches == before + 1 and got.dtype == torch.bfloat16
+    want = resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+    assert float(got[1, lengths[1]:].float().abs().max()) == 0.0
+    assert _rel_l2(got, want) <= BF16_RTOL
+    with pytest.raises(ValueError):
+        fused_resblock_trio(x.float(), blocks, slope=SLOPE, lengths=lens, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_in,C_out,final", [(128, 64, False), (64, 32, True), (32, 16, False),
+                                              (16, 8, True)])
+def test_stage_kernel_bf16_serving_matches_plain_on_card(cuda_device, C_in, C_out, final):
+    """Kernel C at bf16 serving (per-phase upsampler, the resblocks' bf16 convs on
+    B's tile or the narrow one, the bf16 conv_post): bf16 out, within BF16_RTOL."""
+    from vits_tpu_torch.ops.tiers import BF16_COMPUTE_TIER as tier
+
+    rng = np.random.default_rng(C_out + 1)
+    lengths = [300, 77]
+    x = torch.tensor(_masked(rng, 2, 300, C_in, lengths), device=cuda_device).to(torch.bfloat16)
+    dev = lambda a: torch.tensor(a, device=cuda_device).to(torch.bfloat16)  # noqa: E731
+    up_w, up_b = dev(rng.standard_normal((4, C_in, C_out)) * 0.1), dev(rng.standard_normal(C_out) * 0.1)
+    w_post = dev(rng.standard_normal((7, C_out, 1)) * 0.3)
+    kw = dict(stride=2, up_padding=1, slope=SLOPE, tier=tier,
+              lengths=torch.tensor(lengths, dtype=torch.int32, device=cuda_device),
+              final_conv=(w_post, 3) if final else None)
+    blocks = _bf16_blocks(rng, C_out, cuda_device, scale=0.1)
+    before = fused_stage.launches
+    got = fused_stage(x, up_w, up_b, blocks, **kw)
+    assert fused_stage.launches == before + 1 and got.dtype == torch.bfloat16
+    want = stage_reference(x, up_w, up_b, blocks, **kw)
+    assert got.shape == want.shape and _rel_l2(got, want) <= BF16_RTOL
+    assert float(got[1, 2 * lengths[1]:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 64])
+def test_resblock_kernel_bf16_serving_matches_plain_on_card(cuda_device, C):
+    """Kernel 7 at bf16 serving: a stage's three resblocks summed in place and
+    divided by three (``into``, ``divisor``), as the vocoder calls it."""
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock
+    from vits_tpu_torch.ops.tiers import BF16_COMPUTE_TIER as tier
+
+    rng = np.random.default_rng(C + 2)
+    lengths = [1000, 437]
+    x = torch.tensor(_masked(rng, 2, 1000, C, lengths), device=cuda_device).to(torch.bfloat16)
+    blocks = _bf16_blocks(rng, C, cuda_device, scale=0.1)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+
+    def stage(x):
+        out = None
+        for j, block in enumerate(blocks):
+            out = fused_resblock(x, block, slope=SLOPE, lengths=lens, into=out, tier=tier,
+                                 divisor=3 if j == 2 else 1)
+        return out
+
+    before = fused_resblock.launches
+    got = stage(x)
+    assert fused_resblock.launches == before + 3 and got.dtype == torch.bfloat16
+    want = resblock_trio_reference(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+    assert _rel_l2(got, want) <= BF16_RTOL
+    assert float(got[1, 437:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+def test_flow_kernel_bf16_serving_matches_plain_on_card(cuda_device, vctk_flow, name):
+    """Kernel 6 at bf16 serving with speakers: bf16 in and out, its own graph beside
+    the fp32 one, within BF16_ATOL of the twin (fp32 staging on the bf16 values)."""
+    from vits_tpu_torch.io.params import ParamView, from_jax_params
+    from vits_tpu_torch.ops.cuda.flow import (
+        flow_compute16_reference,
+        fused_flow,
+        pack_flow_weights,
+    )
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    config, params = vctk_flow
+    p = ParamView({k: v.to(torch.bfloat16) for k, v in
+                   from_jax_params(params, cuda_device).items()})
+    packed = pack_flow_weights(p, config)
+    rng = np.random.default_rng(10)
+    lengths = [150, 61]
+    x = torch.tensor(_masked(rng, 2, 150, config.flow_size, lengths),
+                     device=cuda_device).to(torch.bfloat16)
+    spk = torch.tensor(rng.standard_normal((2, 1, 256)), device=cuda_device).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    tier = resolve_tier(None if name == "fast" else name)._replace(bf16_compute=True)
+    got = fused_flow(x, p, config, lengths=lens, speaker_embeddings=spk, packed=packed, tier=tier)
+    assert got.dtype == torch.bfloat16
+    want = flow_compute16_reference(x, packed, p, config, lengths=lens,
+                                    speaker_embeddings=spk, tier=tier)
+    _assert_close(got.float().cpu(), want.float().cpu(), BF16_ATOL)
+    assert float(got[1, 61:].float().abs().max()) == 0.0
+    with pytest.raises(ValueError):
+        fused_flow(x.float(), p, config, lengths=lens, packed=packed, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+def test_attention_kernel_bf16_serving_matches_plain_on_card(cuda_device, name):
+    """Kernel A at bf16 serving at each tier: bf16 q, k, v and tables, no lse,
+    bf16 out within BF16_ATOL of the twin at the same tier."""
+    from vits_tpu_torch.ops.cuda.attention import rel_attention_plain
+    from vits_tpu_torch.ops.tiers import Tier, resolve_tier
+
+    rng = np.random.default_rng(5)
+    B, H, L, d, w = 2, 2, 512, 96, 4
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (dev(B, H, L, d) for _ in range(3))
+    rel_k, rel_v = dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lens = torch.tensor([512, 301], dtype=torch.int32, device=cuda_device)
+    mode = resolve_tier(None if name == "fast" else name).mode
+    before = flash_rel_attention.launches
+    got = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                              tier=Tier(mode, False, True))
+    assert flash_rel_attention.launches == before + 1 and got.dtype == torch.bfloat16
+    want = rel_attention_plain(q, k, v, rel_k, rel_v, window=w, lengths=lens, tier=Tier(mode))
+    _assert_close(got.float().cpu(), want.float().cpu(), BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_engine_bf16_serving_on_card(cuda_device):
+    """EngineConfig(compute_dtype="bfloat16") on the card: bf16 parameters, no packs,
+    kernels A, B, C and 6 launched, finite fp32 PCM; on one NoiseOverride the
+    card's frame count within 10% of the CPU plain path's (the bf16 duration
+    predictor turns the one-ulp differences of cuBLAS's and cuDNN's summation
+    orders into up to ~0.5 of log duration: chip_smoke.py::DURATION_RTOL)."""
+    from vits_tpu_torch.config import EngineConfig, VitsConfig
+    from vits_tpu_torch.engine.synthesizer import Synthesizer
+    from vits_tpu_torch.io import VitsTokenizer, random_params
+    from vits_tpu_torch.models import vits
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+
+    config = dataclasses.replace(VitsConfig(), hidden_size=64, ffn_dim=128, num_hidden_layers=2,
+                                 flow_size=32, upsample_initial_channel=256,
+                                 upsample_rates=(2, 2, 2), upsample_kernel_sizes=(4, 4, 4))
+    vocab = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
+    tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(vocab)}, pad_token="k",
+                              unk_token="z")
+    params = random_params(config, seed=1, keep_training=False)
+    engine = EngineConfig(compute_dtype="bfloat16", use_pallas_flow=True)
+    model = Synthesizer(config, tokenizer, params, engine, device=cuda_device)
+    assert model.compute_dtype == torch.bfloat16 and model._vocoder_packs() == {}
+    assert all(v.dtype == torch.bfloat16 for v in model.params.values())
+    counts = {fn: fn.launches
+              for fn in (fused_resblock_trio, fused_stage, flash_rel_attention, fused_flow)}
+    audio = model.synthesize("hello there, how are you", seed=0)
+    assert audio.dtype == np.float32 and np.isfinite(audio).all() and audio.size > 0
+    assert all(fn.launches > n for fn, n in counts.items())
+    cpu = Synthesizer(config, tokenizer, params, dataclasses.replace(
+        engine, use_pallas_attention=True, use_pallas_vocoder=True), device="cpu")
+    ids, mask = tokenizer.pad([tokenizer.encode("hello there, how are you")], pad_to=64)
+    rng = np.random.default_rng(0)
+    dur = torch.tensor(rng.standard_normal((1, 64, 2))).to(torch.bfloat16)
+    prior = torch.tensor(rng.standard_normal((1, 256, 32))).to(torch.bfloat16)
+    frames = []
+    for m, dev in ((model, cuda_device), (cpu, torch.device("cpu"))):
+        with torch.inference_mode():
+            out = vits.synthesize(
+                m.params, m.config, torch.tensor(ids, dtype=torch.long, device=dev),
+                torch.tensor(mask, device=dev).to(torch.bfloat16), 256,
+                noise=vits.NoiseOverride(dur.to(dev), prior.to(dev)),
+                use_pallas_flow=True, flow_pack=m._flow_pack(), tiers=m.tiers)
+        frames.append(int(out.frame_lengths[0]))
+    assert abs(frames[0] - frames[1]) <= 0.1 * frames[1], frames

@@ -108,7 +108,7 @@ def test_adaptive_capacity_align_stays_on_rungs():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compute_dtype", "bfloat16"), ("use_pallas_attention", False),
+    ("use_pallas_attention", False),
     ("compilation_cache_dir", "cache"), ("aot_bundle_dir", "bundle"),
     ("use_pallas_vocoder", False),
 ])

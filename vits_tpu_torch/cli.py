@@ -37,8 +37,8 @@ def main(argv=None) -> int:
     parser.add_argument("--speaking-rate", type=float, default=None,
                         help=">1 = faster speech, <1 = slower")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                        help="compute dtype: bfloat16 (EngineConfig.compute_dtype) is not "
-                             "ported (ROADMAP.md)")
+                        help="compute dtype (EngineConfig.compute_dtype): bfloat16 serves "
+                             "with bf16 parameters and activations, as the JAX CLI does")
     parser.add_argument("--fidelity", choices=["fast", "glue32", "high", "exact"],
                         default="fast",
                         help="precision tier (EngineConfig.fidelity_kwargs): fast = bf16 "
@@ -59,9 +59,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not args.text and not args.convert:
         parser.error("provide --text (synthesis) or --convert (voice conversion)")
-    if args.dtype != "float32":
-        parser.error(f"--dtype {args.dtype}: compute_dtype='bfloat16' is not ported (the "
-                     "kernels' bf16 tiers are --fidelity; ROADMAP.md, bf16 training)")
     if args.sp > 1:
         parser.error("--sp: multi-GPU decode is not ported (ROADMAP.md queue 1, multi-GPU)")
     if args.compilation_cache is not None:
@@ -80,7 +77,8 @@ def main(argv=None) -> int:
               "(--device cpu runs on the CPU)", file=sys.stderr)
         return 1
     model = vits_tpu_torch.load_model(
-        args.model, EngineConfig(**EngineConfig.fidelity_kwargs(args.fidelity)),
+        args.model, EngineConfig(compute_dtype=args.dtype,
+                                 **EngineConfig.fidelity_kwargs(args.fidelity)),
         device=args.device)
     controls = dict(
         noise_scale=args.noise_scale,

@@ -182,7 +182,10 @@ struct ResEpi {
 // JAX's bf16 training runs, each rounded to bf16 where XLA rounds it: the conv's
 // sum; + bias; times leaky'(aux) (1 at aux >= 0, else a rounded product with
 // aux_slope); + residual; + out's running sum (accumulate); / divisor. out,
-// residual and aux are bf16 (B, T, C); bias fp32 holding bf16 values.
+// residual and aux are bf16 (B, T, C); bias fp32 holding bf16 values, or bf16
+// (bias16: bf16 serving, whose parameters are bf16). The same epilogue serves
+// bf16 serving's kernel B and kernel C's resblocks (the masked graph: rows at
+// and past the length are zero after each conv, before the running sum).
 struct Bf16Epi {
   __nv_bfloat16* out;
   const float* bias;
@@ -191,6 +194,7 @@ struct Bf16Epi {
   float aux_slope;
   int T, C, accumulate;
   float divisor;
+  const __nv_bfloat16* bias16 = nullptr;
 
   __device__ __forceinline__ void operator()(int b, int p, int co, float4 y, bool valid) const {
     const size_t off = ((size_t)b * T + p) * C + co;
@@ -199,6 +203,7 @@ struct Bf16Epi {
     for (int e = 0; e < 4; ++e) {
       float x = valid ? bf16_round(v[e]) : 0.f;
       if (valid && bias) x = bf16_round(x + bias[co + e]);
+      if (valid && bias16) x = bf16_round(x + ldf(bias16 + co + e));
       if (valid && aux && ldf(aux + off + e) < 0.f) x = bf16_round(x * aux_slope);
       if (valid && residual) x = bf16_round(ldf(residual + off + e) + x);
       if (accumulate) x = bf16_round(ldf(out + off + e) + x);

@@ -47,6 +47,12 @@
 // were measured no faster (PERF.md) and are not used. At the serving tiers
 // the products take the conv's bf16 paths (kFast, kHigh; conv_gemm.cuh), the
 // elementwise work of the epilogues staying fp32 as in the JAX kernel.
+// bf16 serving (io16): x, the speaker embedding and the output are bf16, as
+// the JAX kernel's are at compute_dtype="bfloat16". The graph then opens with
+// widen_kernel (bf16 -> the fp32 workspace, exact), the cond vectors are
+// rounded where the JAX package's bf16 cond_layer conv rounds them (the sum,
+// then the bias add), the couplings stage fp32 as before, and narrow_kernel
+// rounds the result to bf16 last.
 #include <math.h>
 
 #include "common.cuh"
@@ -110,7 +116,8 @@ struct FlowEpi {
 // coalesced along j), and the 8 partials are added in order in shared memory.
 __global__ void __launch_bounds__(256)
     cond_kernel(const float* __restrict__ emb, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ cond, int E, int N) {
+                const float* __restrict__ bias, float* __restrict__ cond, int E, int N,
+                int round) {
   __shared__ float part[8][32];
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5, b = blockIdx.y;
   const int j = blockIdx.x * 32 + lane;
@@ -124,8 +131,28 @@ __global__ void __launch_bounds__(256)
   if (q == 0 && j < N) {
     float s = part[0][lane];
     for (int r = 1; r < 8; ++r) s += part[r][lane];
-    cond[(size_t)b * N + j] = s + bias[j];
+    cond[(size_t)b * N + j] = round ? bf16_round(bf16_round(s) + bias[j]) : s + bias[j];
   }
+}
+
+// out[i] = in[i] for n values, bf16 -> fp32 (widen_kernel) or fp32 -> bf16
+// rounded to nearest (narrow_kernel).
+__global__ void widen_kernel(const __nv_bfloat16* __restrict__ in, float* __restrict__ out,
+                             size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = __bfloat162float(in[i]);
+}
+__global__ void narrow_kernel(const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
+                              size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16_rn(in[i]);
+}
+
+inline unsigned elementwise_blocks(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
 }
 
 // The n couplings in place on x (B, T, C = 2*half), in execution order (see
@@ -189,31 +216,50 @@ cudaError_t run_flow(float* x, const int* lengths, const float* cond,
 // cond: (B, n, nl, 2*hidden). plan: host array of (tile, split) for the pre,
 // gate, res/skip and post products (ops/cuda/flow.py::flow_plan). h, acts,
 // skip: (B, T, hidden) scratch. mode: the products' tier (TierMode; the JAX
-// kernel's reduce_precision(pallas_precision)), baked into the graph.
+// kernel's reduce_precision(pallas_precision)), baked into the graph. With
+// x16 (bf16 serving) the graph reads x16 (B, T, C) and emb16 (B, E) bf16 into
+// x and emb first, rounds cond as a bf16 conv, and writes the result back to
+// x16 as bf16 last.
 // half % 16 == 0, hidden % 32 == 0, k odd,
 // 16-byte aligned tensors. The graph keeps every pointer: the caller keeps
 // the buffers for its life and frees it with vk_graph_destroy.
-VK_EXPORT int vk_flow_capture(float* x, const int* lengths, const float* emb, float* cond, int E,
+VK_EXPORT int vk_flow_capture(float* x, const int* lengths, float* emb, float* cond, int E,
                               const float* const* packed, const int* plan, float* h,
                               float* acts, float* skip, int B, int T, int half, int hidden,
-                              int nl, int k, int n, int mode, void** exec) {
+                              int nl, int k, int n, int mode, void* x16, const void* emb16,
+                              void** exec) {
   if (nl < 1 || n < 1 || k < 1 || k % 2 == 0 || T < 1 || B < 1 || half % 16 || hidden % 32 ||
       mode < kExact || mode > kHigh ||
-      (emb && (!cond || E < 1 || !packed[8] || !packed[9])))
+      (emb && (!cond || E < 1 || !packed[8] || !packed[9])) || (x16 && emb && !emb16))
     return cudaErrorInvalidValue;
+  const size_t values = (size_t)B * T * 2 * half;
   cudaStream_t cs;
   cudaError_t err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
   if (err != cudaSuccess) return err;
   err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
   if (err == cudaSuccess) {
-    if (emb) {
+    if (x16) {
+      widen_kernel<<<elementwise_blocks(values), 256, 0, cs>>>(
+          static_cast<const __nv_bfloat16*>(x16), x, values);
+      if (emb)
+        widen_kernel<<<elementwise_blocks((size_t)B * E), 256, 0, cs>>>(
+            static_cast<const __nv_bfloat16*>(emb16), emb, (size_t)B * E);
+      err = cudaGetLastError();
+    }
+    if (emb && err == cudaSuccess) {
       const int N = n * nl * 2 * hidden;
-      cond_kernel<<<dim3((N + 31) / 32, B), 256, 0, cs>>>(emb, packed[8], packed[9], cond, E, N);
+      cond_kernel<<<dim3((N + 31) / 32, B), 256, 0, cs>>>(emb, packed[8], packed[9], cond, E, N,
+                                                          x16 != nullptr);
       err = cudaGetLastError();
     }
     if (err == cudaSuccess)
       err = run_flow(x, lengths, emb ? cond : nullptr, packed, plan, h, acts, skip, B, T, half,
                      hidden, nl, k, n, mode, cs);
+    if (x16 && err == cudaSuccess) {
+      narrow_kernel<<<elementwise_blocks(values), 256, 0, cs>>>(
+          x, static_cast<__nv_bfloat16*>(x16), values);
+      err = cudaGetLastError();
+    }
     cudaGraph_t graph = nullptr;
     const cudaError_t end = cudaStreamEndCapture(cs, &graph);
     if (err == cudaSuccess) err = end;
@@ -227,18 +273,20 @@ VK_EXPORT int vk_flow_capture(float* x, const int* lengths, const float* emb, fl
 
 // One flow call on stream: x (B, T, C) -> the workspace's ws_x, lengths (B,)
 // -> ws_lens, emb (nullable, (B, E)) -> ws_emb; the captured graph; ws_x ->
-// out. Five calls on the stream, whatever the flow's size.
-VK_EXPORT int vk_flow_run(void* exec, float* ws_x, const float* x, int* ws_lens,
-                          const int* lengths, float* ws_emb, const float* emb, int B, int T,
-                          int C, int E, float* out, void* stream) {
+// out. Five calls on the stream, whatever the flow's size. elem is the bytes
+// of one value of x, emb and out: 4 (fp32), or 2 for bf16 serving, with
+// ws_x and ws_emb the graph's x16 and emb16.
+VK_EXPORT int vk_flow_run(void* exec, void* ws_x, const void* x, int* ws_lens,
+                          const int* lengths, void* ws_emb, const void* emb, int B, int T,
+                          int C, int E, void* out, int elem, void* stream) {
+  if (elem != 4 && elem != 2) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = (size_t)B * T * C * sizeof(float);
+  const size_t bytes = (size_t)B * T * C * elem;
   cudaError_t err = cudaMemcpyAsync(ws_x, x, bytes, cudaMemcpyDeviceToDevice, s);
   if (err == cudaSuccess)
     err = cudaMemcpyAsync(ws_lens, lengths, B * sizeof(int), cudaMemcpyDeviceToDevice, s);
   if (err == cudaSuccess && emb)
-    err = cudaMemcpyAsync(ws_emb, emb, (size_t)B * E * sizeof(float), cudaMemcpyDeviceToDevice,
-                          s);
+    err = cudaMemcpyAsync(ws_emb, emb, (size_t)B * E * elem, cudaMemcpyDeviceToDevice, s);
   if (err == cudaSuccess) err = cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec), s);
   if (err == cudaSuccess) err = cudaMemcpyAsync(out, ws_x, bytes, cudaMemcpyDeviceToDevice, s);
   return err;

@@ -35,6 +35,17 @@
 // they are staged (plain loads, not cp.async); int8 sums are scaled by
 // wscale per out-channel before the bias. With round the output is rounded to
 // bf16 (the bf16 value carry) before accumulate and scale.
+//
+// conv_tile16 below is the same tile for bf16 serving (kFast, bf16 weights):
+// x, the residual and the output are bf16 storage, widened as they are staged
+// (plain loads), and the epilogue is XLA's bf16 graph of the step as
+// conv::Bf16Epi computes it: the conv's sum, + bias, + residual, + the running
+// sum (accumulate), / divisor, each rounded to bf16; rows at and past the
+// length are zero before the running sum. With per_tap (the polyphase
+// upsampler, whose JAX form is one matmul a tap) each tap's products are summed
+// and rounded on their own, and the taps are added last to first, each add
+// rounded, as the JAX package's bf16 per-phase transposed conv adds them. It
+// is a function of its own so that conv_tile's fp32 / tier code stays as it was.
 #pragma once
 
 #include "common.cuh"
@@ -230,6 +241,158 @@ __device__ __forceinline__ void conv_tile(const Conv& c, float* smem, int b, int
           c.out16[(size_t)b * rows_out * c.C_out + row + co] = __float2bfloat16_rn(y);
         else
           ob[row + co] = y;
+      }
+  }
+}
+
+// The operands of conv_tile16 (bf16 serving).
+struct Conv16 {
+  const __nv_bfloat16* x;         // (B, T_x, C_in)
+  __nv_bfloat16* out;             // (B, os * T, C_out); with accumulate also its running sum
+  const __nv_bfloat16* w;         // (taps, C_in, C_out)
+  const float* bias;              // (C_out,) fp32 holding bf16 values, or
+  const __nv_bfloat16* bias16;    //   bf16
+  const __nv_bfloat16* residual;  // like out, or null
+  const int* lengths;             // (B,) valid rows t
+  int T_x, T, C_in, C_out;
+  int dil, wts, os;
+  float slope;
+  int accumulate;
+  float divisor;
+  int per_tap;
+};
+
+// conv_tile's rows, columns and taps for Conv16 (kFast arithmetic: both
+// operands bf16, one tf32 MMA pass, fp32 sums).
+template <int NT>
+__device__ __forceinline__ void conv_tile16(const Conv16& c, float* smem, int b, int t0, int co0,
+                                            int n, int pad, int wt0, int oo) {
+  constexpr int cols = 8 * NT;
+  const int Kp = k_pad(c.C_in), XS = x_stride(c.C_in), WS = w_stride(NT);
+  const int win = kBM + (n - 1) * c.dil;
+  float* ws = smem;                // n x Kp x WS
+  float* xs = smem + n * Kp * WS;  // win x XS, row r <-> input row t0 - pad + r
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = c.lengths[b];
+  const bool live = t0 < len;  // the same for every thread of the block
+  if (live) {  // the weights and the x window, widened to fp32 by plain loads
+    for (int idx = tid; idx < n * Kp * cols; idx += blockDim.x) {
+      const int row = idx / cols, col = idx - row * cols;
+      const int tap = row / Kp, ci = row - tap * Kp, co = co0 + col;
+      ws[row * WS + col] =
+          ci < c.C_in && co < c.C_out
+              ? ldf(c.w + ((size_t)(wt0 + c.wts * tap) * c.C_in + ci) * c.C_out + co)
+              : 0.f;
+    }
+    const __nv_bfloat16* xb = c.x + (size_t)b * c.T_x * c.C_in;
+    for (int idx = tid; idx < win * Kp; idx += blockDim.x) {
+      const int r = idx / Kp, ci = idx - r * Kp;
+      const int p = t0 - pad + r;
+      xs[r * XS + ci] =
+          ci < c.C_in && p >= 0 && p < c.T_x ? ldf(xb + (size_t)p * c.C_in + ci) : 0.f;
+    }
+  }
+
+  const int g = lane >> 2, tq = lane & 3;  // fragment row group, thread in group
+  const int m0 = warp * 16;
+  const size_t rows_out = (size_t)c.os * c.T;
+  __nv_bfloat16* ob = c.out + (size_t)b * rows_out * c.C_out;
+  const __nv_bfloat16* rb = c.residual ? c.residual + (size_t)b * rows_out * c.C_out : nullptr;
+  // this lane's outputs: rows t0 + m0 + g (+8), columns co0 + nt*8 + 2*tq (+1)
+  float bias[NT][2], res[2][NT][2], prev[2][NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = co0 + nt * 8 + 2 * tq + e;
+      bias[nt][e] = co >= c.C_out ? 0.f : c.bias16 ? ldf(c.bias16 + co) : c.bias[co];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + m0 + g + 8 * h;
+        const bool out_in = t < c.T && co < c.C_out;
+        const size_t at = ((size_t)c.os * t + oo) * c.C_out + co;
+        res[h][nt][e] = rb && out_in && t < len ? ldf(rb + at) : 0.f;
+        prev[h][nt][e] = c.accumulate && out_in ? ldf(ob + at) : 0.f;
+      }
+    }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  if (live) {
+    __syncthreads();  // the staged weights and window
+    // per_tap: each tap's products alone, rounded, the taps added last to first
+    // (acc = bf16(acc + bf16(tap))); else all taps into one fp32 sum
+    for (int ii = 0; ii < n; ++ii) {
+      const int i = c.per_tap ? n - 1 - ii : ii;
+      const float* xa = xs + (m0 + i * c.dil + g) * XS + tq;
+      const float* wb = ws + i * Kp * WS + tq * WS + g;
+      float tap[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tap[nt][e] = 0.f;
+      for (int kc = 0; kc < Kp; kc += 32) {
+        const int kend = kc + 32 < Kp ? kc + 32 : Kp;
+        float part[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+        for (int k8 = kc; k8 < kend; k8 += 8) {
+          unsigned ah[4], al[4];  // leaky here: the window holds raw x
+          split_tier<kFast>(vk_leaky(xa[k8], c.slope), ah[0], al[0]);
+          split_tier<kFast>(vk_leaky(xa[8 * XS + k8], c.slope), ah[1], al[1]);
+          split_tier<kFast>(vk_leaky(xa[k8 + 4], c.slope), ah[2], al[2]);
+          split_tier<kFast>(vk_leaky(xa[8 * XS + k8 + 4], c.slope), ah[3], al[3]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            unsigned bh0, bl0, bh1, bl1;
+            split_tier<kFast>(wb[k8 * WS + nt * 8], bh0, bl0);
+            split_tier<kFast>(wb[(k8 + 4) * WS + nt * 8], bh1, bl1);
+            mma_tf32(part[nt], ah, bh0, bh1);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tap[nt][e] += part[nt][e];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!c.per_tap) {
+            acc[nt][e] += tap[nt][e];
+          } else {
+            const float v = bf16_round(tap[nt][e]);
+            acc[nt][e] = ii == 0 ? v : bf16_round(acc[nt][e] + v);
+          }
+        }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + m0 + g + 8 * h;
+    if (t >= c.T) continue;
+    const size_t row = ((size_t)c.os * t + oo) * c.C_out;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + nt * 8 + 2 * tq + e;
+        if (co >= c.C_out) continue;
+        float v = 0.f;  // XLA's bf16 graph of the step (conv::Bf16Epi)
+        if (t < len) {
+          v = bf16_round(bf16_round(acc[nt][2 * h + e]) + bias[nt][e]);
+          if (rb) v = bf16_round(res[h][nt][e] + v);
+        }
+        if (c.accumulate) v = bf16_round(prev[h][nt][e] + v);
+        if (c.divisor != 1.f) v = bf16_round(v / c.divisor);
+        ob[row + co] = __float2bfloat16_rn(v);
       }
   }
 }

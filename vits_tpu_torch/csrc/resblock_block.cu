@@ -61,6 +61,14 @@
 //   With round (the bf16 value dtype) the x window is rounded to bf16 once it
 //   lands and each pair's output before it is stored, where the JAX kernel
 //   casts to its value dtype.
+// - bf16 serving (io16, at kFast): the JAX package runs no kernel at
+//   compute_dtype="bfloat16" but XLA's bf16 graph of the plain resblock, and
+//   this launch computes that graph: x, out, the weights and biases are bf16
+//   in memory (widened as they are staged, by plain loads), both leakys take
+//   the bf16 slope, and each conv's sum, + bias, + residual, the running sum
+//   over the stage's resblocks (accumulate) and the division by their number
+//   (divisor) are rounded to bf16 where XLA rounds them; the mask zeroes rows
+//   after each conv as before.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -75,16 +83,34 @@ constexpr int kMaxPairs = 4;
 constexpr int kMargin = 16;  // window rows past bm + 2H that a partial m16 tile may read
 
 struct Block {
-  const float* x;       // (B, T, C)
-  float* out;           // (B, T, C)
+  const void* x;        // (B, T, C), fp32 (bf16 with io16)
+  void* out;            // (B, T, C), fp32 (bf16 with io16)
   const int* lengths;   // (B,) valid rows, or null: every row T long
   int T, bm, halo, k, pairs, accumulate, round;
-  float slope, scale;
-  float xslope;  // conv1's leaky of the x window: with round a bf16 constant, as in JAX
+  float slope, scale, divisor;
+  float xslope;  // conv1's leaky of the x window: with round or io16 a bf16 constant, as in JAX
   int dil[kMaxPairs];
-  const float* w[2 * kMaxPairs];     // conv c: w1 of pair c / 2 (c even), w2 (c odd); (k, C, C)
-  const float* bias[2 * kMaxPairs];  // (C,)
+  const void* w[2 * kMaxPairs];     // conv c: w1 of pair c / 2 (c even), w2 (c odd); (k, C, C)
+  const void* bias[2 * kMaxPairs];  // (C,)
 };
+
+// Two adjacent values of an fp32 or (kIO16) bf16 vector as floats.
+template <bool kIO16>
+__device__ __forceinline__ float2 load2(const void* base, size_t at) {
+  if constexpr (kIO16)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(base) + at));
+  else
+    return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + at);
+}
+template <bool kIO16>
+__device__ __forceinline__ void store2(void* base, size_t at, float2 v) {
+  if constexpr (kIO16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) + at) =
+        __floats2bfloat162_rn(v.x, v.y);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + at) = v;
+}
 
 // split_tf32 (common.cuh) on the bits: hi = x rounded to tf32 (to nearest, ties
 // away from zero: cvt.rna's value for finite x), lo = the rest rounded the
@@ -118,10 +144,10 @@ __device__ __forceinline__ int wcol(int row, int col) {
 // One conv of the block: output rows [s, s + rows) of the window, from src rows
 // [s - reach, s + M + reach) at dilation d, all k taps, into the epilogue.
 // Its units, one m16 tile x NTW n8 tiles each, go round the warps.
-template <int C, int N, bool kLeaky, int M>
+template <int C, int N, bool kLeaky, int M, bool kIO16>
 __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& cluster, float* X,
                                           float* Y, const float* src, const float* wt,
-                                          const float* bias, int s, int rows, int reach, int d,
+                                          const void* bias, int s, int rows, int reach, int d,
                                           int stage, bool last, int t0, int b, int len, int co0) {
   constexpr int XS = C + 4;
   constexpr int CS = C / N;
@@ -197,8 +223,12 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
 #pragma unroll
       for (int nt = 0; nt < NTW; ++nt) {
         const int col = co0 + n0 + nt * 8 + 2 * tq;
-        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
-        float2 y = make_float2(acc[nt][2 * h] + bv.x, acc[nt][2 * h + 1] + bv.y);
+        const float2 bv = load2<kIO16>(bias, col);
+        float2 y = make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+        if constexpr (kIO16)  // the conv's sum, then + bias, each rounded
+          y = make_float2(bf16_round(bf16_round(y.x) + bv.x), bf16_round(bf16_round(y.y) + bv.y));
+        else
+          y = make_float2(y.x + bv.x, y.y + bv.y);
         float* at = (stage == 0 ? Y : X) + r * XS + col;
         if (stage == 0) {  // conv1: the next conv's input, leaky(y1), masked
           y = valid ? make_float2(fmaxf(y.x, y.x * a.slope), fmaxf(y.y, y.y * a.slope))
@@ -206,16 +236,26 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
         } else {  // conv2: the residual from the same rows of x, masked
           const float2 xr = *reinterpret_cast<const float2*>(at);
           y = valid ? make_float2(xr.x + y.x, xr.y + y.y) : make_float2(0.f, 0.f);
-          if (a.round) y = make_float2(bf16_round(y.x), bf16_round(y.y));
+          if (kIO16 || a.round) y = make_float2(bf16_round(y.x), bf16_round(y.y));
         }
         if (last) {  // r in [H, H + bm): output step p in [t0, t0 + bm)
           if (p < T) {
-            float2* o = reinterpret_cast<float2*>(a.out + ((size_t)b * T + p) * C + col);
-            if (a.accumulate) {
-              const float2 prev = *o;
-              y = make_float2(prev.x + y.x, prev.y + y.y);
+            const size_t o = ((size_t)b * T + p) * C + col;
+            if constexpr (kIO16) {  // XLA's bf16 sum over the resblocks and division
+              if (a.accumulate) {
+                const float2 prev = load2<true>(a.out, o);
+                y = make_float2(bf16_round(prev.x + y.x), bf16_round(prev.y + y.y));
+              }
+              if (a.divisor != 1.f)
+                y = make_float2(bf16_round(y.x / a.divisor), bf16_round(y.y / a.divisor));
+              store2<true>(a.out, o, y);
+            } else {
+              if (a.accumulate) {
+                const float2 prev = load2<false>(a.out, o);
+                y = make_float2(prev.x + y.x, prev.y + y.y);
+              }
+              store2<false>(a.out, o, make_float2(y.x * a.scale, y.y * a.scale));
             }
-            *o = make_float2(y.x * a.scale, y.y * a.scale);
           }
         } else if constexpr (CS == 1) {
           *reinterpret_cast<float2*>(at) = y;
@@ -229,7 +269,7 @@ __device__ __forceinline__ void conv_pass(const Block& a, cg::cluster_group& clu
   }
 }
 
-template <int C, int N, int M>
+template <int C, int N, int M, bool kIO16>
 __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
   constexpr int XS = C + 4;
   constexpr int CS = C / N;  // cluster size: blocks sharing the out-channels
@@ -244,13 +284,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
   const int co0 = rank * N;
   const int tid = threadIdx.x;
 
-  if (t0 >= len) {  // no valid row: zeros, or out * scale with accumulate
+  if (t0 >= len) {  // no valid row: zeros, or out * scale (io16: / divisor) with accumulate
     const int rows = min(a.bm, T - t0);
-    float* ob = a.out + ((size_t)b * T + t0) * C + co0;
-    for (int idx = tid; idx < rows * (N / 4); idx += kThreads) {
-      float4* o = reinterpret_cast<float4*>(ob + (size_t)(idx / (N / 4)) * C + idx % (N / 4) * 4);
-      const float4 v = a.accumulate ? *o : make_float4(0.f, 0.f, 0.f, 0.f);
-      *o = make_float4(v.x * a.scale, v.y * a.scale, v.z * a.scale, v.w * a.scale);
+    const size_t o0 = ((size_t)b * T + t0) * C + co0;
+    for (int idx = tid; idx < rows * (N / 2); idx += kThreads) {
+      const size_t o = o0 + (size_t)(idx / (N / 2)) * C + idx % (N / 2) * 2;
+      float2 v = a.accumulate ? load2<kIO16>(a.out, o) : make_float2(0.f, 0.f);
+      if constexpr (kIO16)
+        v = a.divisor != 1.f ? make_float2(bf16_round(v.x / a.divisor), bf16_round(v.y / a.divisor))
+                             : v;
+      else
+        v = make_float2(v.x * a.scale, v.y * a.scale);
+      store2<kIO16>(a.out, o, v);
     }
     return;  // every block of the cluster takes this branch (same tile)
   }
@@ -260,17 +305,36 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
   float* wbuf = Y + (W + kMargin) * XS;     // two buffers of one conv's (k, C, N) weights
   const int wfl = k * C * N;
 
-  const float* xb = a.x + (size_t)b * T * C;
-  for (int idx = tid; idx < W * (C / 4); idx += kThreads) {
-    const int r = idx / (C / 4), c4 = idx % (C / 4);
-    const int p = t0 - H + r;
-    const bool in = p >= 0 && p < T;
-    cp_async16_zfill(X + r * XS + c4 * 4, in ? xb + (size_t)p * C + c4 * 4 : a.x, in ? 16 : 0);
+  if constexpr (kIO16) {  // bf16 x: load, widen, store
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x) + (size_t)b * T * C;
+    for (int idx = tid; idx < W * (C / 2); idx += kThreads) {
+      const int r = idx / (C / 2), c2 = idx % (C / 2) * 2;
+      const int p = t0 - H + r;
+      const float2 v = p >= 0 && p < T ? load2<true>(xb, (size_t)p * C + c2) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(X + r * XS + c2) = v;
+    }
+  } else {
+    const float* xb = static_cast<const float*>(a.x) + (size_t)b * T * C;
+    for (int idx = tid; idx < W * (C / 4); idx += kThreads) {
+      const int r = idx / (C / 4), c4 = idx % (C / 4);
+      const int p = t0 - H + r;
+      const bool in = p >= 0 && p < T;
+      cp_async16_zfill(X + r * XS + c4 * 4, in ? xb + (size_t)p * C + c4 * 4 : a.x, in ? 16 : 0);
+    }
   }
-  // conv c's weight columns [co0, co0 + N) into buffer c % 2
+  // conv c's weight columns [co0, co0 + N) into buffer c % 2 (io16: widened by plain loads)
   auto issue_w = [&](int c) {
-    const float* w = a.w[c] + co0;
     float* dst = wbuf + (c & 1) * wfl;
+    if constexpr (kIO16) {
+      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w[c]) + co0;
+      for (int idx = tid; idx < k * C * (N / 2); idx += kThreads) {
+        const int row = idx / (N / 2), col = idx % (N / 2) * 2;
+        *reinterpret_cast<float2*>(dst + row * N + wcol<N>(row, col)) =
+            load2<true>(w, (size_t)row * C + col);
+      }
+      return;
+    }
+    const float* w = static_cast<const float*>(a.w[c]) + co0;
     for (int idx = tid; idx < k * C * (N / 4); idx += kThreads) {
       const int row = idx / (N / 4), col = idx % (N / 4) * 4;  // row = tap * C + ci
       cp_async16(dst + row * N + wcol<N>(row, col), w + (size_t)row * C + col);
@@ -312,20 +376,20 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(const Block a) {
     o = s;
     const float* wt = wbuf + (c & 1) * wfl;
     if (stage == 0)
-      conv_pass<C, N, true, M>(a, cluster, X, Y, X, wt, a.bias[c], s, rows, reach, d, 0,
+      conv_pass<C, N, true, M, kIO16>(a, cluster, X, Y, X, wt, a.bias[c], s, rows, reach, d, 0,
                                c == convs - 1, t0, b, len, co0);
     else
-      conv_pass<C, N, false, M>(a, cluster, X, Y, Y, wt, a.bias[c], s, rows, reach, d, 1,
+      conv_pass<C, N, false, M, kIO16>(a, cluster, X, Y, Y, wt, a.bias[c], s, rows, reach, d, 1,
                                 c == convs - 1, t0, b, len, co0);
   }
 }
 
-template <int C, int N, int M>
+template <int C, int N, int M, bool kIO16 = false>
 cudaError_t launch_mode(const Block& a, int B, cudaStream_t stream) {
   const size_t window = a.bm + 2 * a.halo + kMargin;
   const size_t smem = (2 * window * (C + 4) + 2 * (size_t)a.k * C * N) * sizeof(float);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = vk_set_smem_once<block_kernel<C, N, M>>(smem);
+  cudaError_t err = vk_set_smem_once<block_kernel<C, N, M, kIO16>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.T + a.bm - 1) / a.bm * (C / N), B, 1);
@@ -339,13 +403,14 @@ cudaError_t launch_mode(const Block& a, int B, cudaStream_t stream) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, block_kernel<C, N, M>, a);
+  err = cudaLaunchKernelEx(&cfg, block_kernel<C, N, M, kIO16>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int C, int N>
-cudaError_t launch(const Block& a, int mode, int B, cudaStream_t stream) {
+cudaError_t launch(const Block& a, int mode, int io16, int B, cudaStream_t stream) {
+  if (io16) return launch_mode<C, N, kFast, true>(a, B, stream);  // bf16 serving: kFast
   switch (mode) {
     case kExact:
       return launch_mode<C, N, kExact>(a, B, stream);
@@ -362,19 +427,24 @@ cudaError_t launch(const Block& a, int mode, int B, cudaStream_t stream) {
 
 // One resblock: out = (accumulate ? out : 0) + resblock(x), times scale, for
 // x and out (B, T, C) fp32 contiguous and 16-byte aligned, C in 8, 16, 32, 64.
+// With io16 (bf16 serving, mode kFast) x, out, the weights and the biases are
+// bf16 and the launch is XLA's bf16 graph of the resblock: out = (accumulate ?
+// out + resblock(x) : resblock(x)) / divisor, every step rounded to bf16.
 // weights: 4 * pairs pointers in ops/cuda/resblock.py::pair_weights' order
 // (w1, b1, w2, b2 of each pair; w (k, C, C) as the JAX loader lays it out, b
 // (C,)), 16-byte aligned; dilations: pairs ints; lengths (B,) int32 or null
 // (every row T long). bm (a multiple of 16) and cluster (dividing C, C /
 // cluster >= 8) come from ops/cuda/resblock.py::block_plan; mode is the tier
 // (TierMode) and round the bf16 value carry. One launch.
-VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
-                                const float* const* weights, const int* dilations, int pairs,
+VK_EXPORT int vk_resblock_block(const void* x, void* out, const int* lengths,
+                                const void* const* weights, const int* dilations, int pairs,
                                 int B, int T, int C, int k, float slope, int bm, int cluster,
                                 int accumulate, float scale, int mode, int round,
-                                void* stream) {
+                                float divisor, int io16, void* stream) {
   if (pairs < 1 || pairs > kMaxPairs || k < 1 || k % 2 == 0 || B < 1 || T < 1 || bm < 16 ||
-      bm % 16 || cluster < 1 || C % cluster || C / cluster < 8 || !(slope >= 0.f && slope <= 1.f))
+      bm % 16 || cluster < 1 || C % cluster || C / cluster < 8 ||
+      !(slope >= 0.f && slope <= 1.f) || divisor == 0.f ||
+      (io16 && (mode != kFast || round || scale != 1.f)) || (!io16 && divisor != 1.f))
     return cudaErrorInvalidValue;
   auto misaligned = [](const void* p) { return reinterpret_cast<size_t>(p) % 16 != 0; };
   if (misaligned(x) || misaligned(out)) return cudaErrorMisalignedAddress;
@@ -388,9 +458,11 @@ VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
   a.pairs = pairs;
   a.accumulate = accumulate;
   a.round = round;
-  a.slope = slope;
-  a.xslope = round ? __bfloat162float(__float2bfloat16_rn(slope)) : slope;
+  const float slope16 = __bfloat162float(__float2bfloat16_rn(slope));
+  a.slope = io16 ? slope16 : slope;
+  a.xslope = round || io16 ? slope16 : slope;
   a.scale = scale;
+  a.divisor = divisor;
   a.halo = 0;
   for (int i = 0; i < pairs; ++i) {
     if (dilations[i] < 1) return cudaErrorInvalidValue;
@@ -407,25 +479,25 @@ VK_EXPORT int vk_resblock_block(const float* x, float* out, const int* lengths,
   const int N = C / cluster;
   switch (C * 100 + N) {
     case 808:
-      return launch<8, 8>(a, mode, B, s);
+      return launch<8, 8>(a, mode, io16, B, s);
     case 1616:
-      return launch<16, 16>(a, mode, B, s);
+      return launch<16, 16>(a, mode, io16, B, s);
     case 1608:
-      return launch<16, 8>(a, mode, B, s);
+      return launch<16, 8>(a, mode, io16, B, s);
     case 3232:
-      return launch<32, 32>(a, mode, B, s);
+      return launch<32, 32>(a, mode, io16, B, s);
     case 3216:
-      return launch<32, 16>(a, mode, B, s);
+      return launch<32, 16>(a, mode, io16, B, s);
     case 3208:
-      return launch<32, 8>(a, mode, B, s);
+      return launch<32, 8>(a, mode, io16, B, s);
     case 6464:
-      return launch<64, 64>(a, mode, B, s);
+      return launch<64, 64>(a, mode, io16, B, s);
     case 6432:
-      return launch<64, 32>(a, mode, B, s);
+      return launch<64, 32>(a, mode, io16, B, s);
     case 6416:
-      return launch<64, 16>(a, mode, B, s);
+      return launch<64, 16>(a, mode, io16, B, s);
     case 6408:
-      return launch<64, 8>(a, mode, B, s);
+      return launch<64, 8>(a, mode, io16, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -66,6 +66,27 @@ cudaError_t launch_narrow_tiles(const narrow::Conv& c, int B, int k, int pad,
   }
 }
 
+// The narrow conv of bf16 serving (narrow_gemm.cuh::conv_tile16).
+template <int NT>
+__global__ void __launch_bounds__(narrow::kWarps * 32)
+    narrow_conv16_kernel(const narrow::Conv16 c, int k, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  narrow::conv_tile16<NT>(c, smem, blockIdx.z, blockIdx.x * narrow::kBM,
+                          blockIdx.y * narrow::kCols, k, pad, 0, 0);
+}
+
+template <int NT>
+cudaError_t launch_narrow16(const narrow::Conv16& c, int B, int k, int pad, cudaStream_t stream) {
+  const int smem = narrow::smem_floats(NT, k, c.dil, c.C_in) * static_cast<int>(sizeof(float));
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = vk_set_smem(narrow_conv16_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((c.T + narrow::kBM - 1) / narrow::kBM,
+                  (c.C_out + narrow::kCols - 1) / narrow::kCols, B);
+  narrow_conv16_kernel<NT><<<grid, narrow::kWarps * 32, smem, stream>>>(c, k, pad);
+  return cudaGetLastError();
+}
+
 // The resblock conv at a tier (mode), its weights in one format (wfmt), for
 // the tensor-core path: the (tier, format) pairs the engine runs. fp32
 // weights at every tier, int8 at kExact (fp32 values over quantized weights)
@@ -140,28 +161,50 @@ VK_EXPORT int vk_conv(const float* x, float* out, const void* w, const float* bi
   return launch_conv(mode, wfmt, tile, g, epi, B, s);
 }
 
-// Kernel 5's forward at bf16 (ops/cuda/trio_grad.py at the fast tier with bf16
-// values): out = conv(leaky(x)) + bias (+ residual) (+ out) / divisor, each
-// step rounded to bf16 as XLA's bf16 graph rounds it (conv::Bf16Epi), on B's
+// XLA's bf16 graph of one resblock conv: kernel 5's forward at bf16
+// (ops/cuda/trio_grad.py at the fast tier with bf16 values) and bf16 serving's
+// kernels B and C (ops/tiers.py::BF16_COMPUTE_TIER). out = mask(conv(leaky(x))
+// + bias (+ residual)) (+ out) / divisor, each step rounded to bf16 as XLA's
+// bf16 graph rounds it (conv::Bf16Epi), mask zeroing t >= lengths[b], on B's
 // conv at kFast (bf16 mma.sync, fp32 sums). x, w (k, C_in, C_out), residual and
-// out bf16 (B, T, C) and contiguous, bias fp32 holding bf16 values; lengths
-// (B,) = T (training segments are unmasked); tile and split from conv_plan
-// (the tensor-core tiles only).
-VK_EXPORT int vk_conv_bf16(const void* x, void* out, const void* w, const float* bias,
+// out bf16 (B, T, C) and contiguous; bias fp32 holding bf16 values, or bf16
+// with bias16; tile and split from conv_plan: tile -1 is the narrow path
+// (narrow_gemm.cuh::conv_tile16, any channel count), the others the
+// tensor-core tiles.
+VK_EXPORT int vk_conv_bf16(const void* x, void* out, const void* w, const void* bias,
                            const void* residual, const int* lengths, int B, int T, int C_in,
                            int C_out, int k, int dil, int pad, float slope, int accumulate,
-                           float divisor, int tile, int split, void* stream) {
-  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1 || B < 1 || tile < 0 ||
-      divisor == 0.f)
+                           float divisor, int tile, int split, int bias16, void* stream) {
+  if (C_in < 1 || C_out < 1 || k < 1 || dil < 1 || T < 1 || B < 1 || divisor == 0.f)
     return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* b16 = bias16 ? static_cast<const __nv_bfloat16*>(bias) : nullptr;
+  const auto* b32 = bias16 ? nullptr : static_cast<const float*>(bias);
+  if (tile < 0) {
+    const narrow::Conv16 c{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+                           static_cast<const __nv_bfloat16*>(w), b32, b16,
+                           static_cast<const __nv_bfloat16*>(residual), lengths, T, T, C_in,
+                           C_out, dil, 1, 1, slope, accumulate, divisor, 0};
+    switch (narrow::tiles_for(C_out)) {
+      case 1:
+        return launch_narrow16<1>(c, B, k, pad, s);
+      case 2:
+        return launch_narrow16<2>(c, B, k, pad, s);
+      case 4:
+        return launch_narrow16<4>(c, B, k, pad, s);
+      default:
+        return launch_narrow16<8>(c, B, k, pad, s);
+    }
+  }
   auto misaligned = [](const void* ptr) { return reinterpret_cast<size_t>(ptr) % 16 != 0; };
   if (misaligned(x) || misaligned(out) || misaligned(w) || misaligned(bias) ||
       misaligned(residual))
     return cudaErrorMisalignedAddress;
   const conv::Gemm g{x, C_in, w, lengths, T, C_in, C_out, k, dil, pad, slope, split, 0};
-  const conv::Bf16Epi epi{static_cast<__nv_bfloat16*>(out), bias,
-                          static_cast<const __nv_bfloat16*>(residual), nullptr, 1.f, T, C_out,
-                          accumulate, divisor};
+  conv::Bf16Epi epi{static_cast<__nv_bfloat16*>(out), b32,
+                    static_cast<const __nv_bfloat16*>(residual), nullptr, 1.f, T, C_out,
+                    accumulate, divisor};
+  epi.bias16 = b16;
   return conv::launch_tile<false, kFast, __nv_bfloat16, conv::Bf16Epi, __nv_bfloat16>(
-      tile, g, epi, B, static_cast<cudaStream_t>(stream));
+      tile, g, epi, B, s);
 }

@@ -222,8 +222,11 @@ class MultiplexedStreamingDecoder(StreamingDecoder):
             spk_variants.append(synth.params["embed_speaker.weight"][:1][:, None, :])
         with synth._keeping_flow_graphs():
             for nb in buckets:
-                lat = torch.zeros((nb, window, config.flow_size), device=synth.device)
-                mask3 = torch.ones((nb, window, 1), device=synth.device)
+                # live traffic's dtypes (a bf16 engine's latents and masks are bf16)
+                lat = torch.zeros((nb, window, config.flow_size), device=synth.device,
+                                  dtype=synth.compute_dtype)
+                mask3 = torch.ones((nb, window, 1), device=synth.device,
+                                   dtype=synth.compute_dtype)
                 for spk1 in spk_variants:
                     spk = None if spk1 is None else spk1.expand(nb, -1, -1).contiguous()
                     self._decode(lat, mask3, spk)

@@ -57,9 +57,10 @@ class _HostCopy(NamedTuple):
     event: Optional[torch.cuda.Event]
 
     def numpy(self) -> np.ndarray:
+        """The waveform on the host, fp32 (a bf16 engine's upcast here, as in JAX)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return self.host.float().numpy()
 
 
 class StreamingDecoder:
@@ -104,7 +105,7 @@ class StreamingDecoder:
         prior = text_to_prior(
             synth.params, synth.config,
             torch.as_tensor(ids, dtype=torch.long).to(synth.device),
-            torch.as_tensor(mask, dtype=torch.float32).to(synth.device),
+            torch.as_tensor(mask, dtype=synth.compute_dtype).to(synth.device),
             num_frames,
             generator=synth._generators(seed),
             speaker_id=synth._speaker_tensor(speaker),

@@ -52,6 +52,15 @@ PyTorch's switches are process-wide, and TF32 convs can flip
 ``ceil(exp(log_duration))`` frame counts), so ``glue32`` is ``fast`` on the
 card. Int8 checkpoints are dequantized once at load outside the packs (the
 values the JAX ``ParamView`` reads).
+
+``EngineConfig.compute_dtype="bfloat16"`` serves at bf16 as the JAX engine
+does: every fp32 parameter is cast to bf16 at load (int8 weights stay int8
+and their scales become bf16, so they dequantize to bf16), the masks and the
+conversion spectrogram go in as bf16, and the host upcasts the bf16 waveform
+and log durations. No vocoder packs are made; the kernels run in their bf16
+serving mode (``ops/tiers.py::Tiers.bf16_compute``): B, C and 7 compute XLA's
+bf16 graph of the plain stages, A and 6 take and give bf16 at the engine's
+tier.
 """
 
 from __future__ import annotations
@@ -74,9 +83,8 @@ from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
 from vits_tpu_torch.ops.tiers import Tiers
 
 # EngineConfig fields the port does not honour yet: each must keep its default
-# (compute_dtype="bfloat16" turns the JAX kernels off; the port has no such
-# switch, and the kernels cannot be turned off on the card).
-_UNSUPPORTED_FIELDS = ("compute_dtype", "compilation_cache_dir", "aot_bundle_dir")
+# (the kernels cannot be turned off on the card).
+_UNSUPPORTED_FIELDS = ("compilation_cache_dir", "aot_bundle_dir")
 _NO_KERNEL_OFF = ("use_pallas_vocoder", "use_pallas_attention")
 
 
@@ -100,12 +108,18 @@ def resolve_tiers(engine: EngineConfig, device: torch.device,
     int8 for a quantized checkpoint, else the value dtype. On the CPU the flow
     (``use_pallas_flow``) takes the tier only beside an explicit
     ``use_pallas_vocoder`` or ``use_pallas_attention``: the JAX engine's CPU
-    flow kernel computes fp32 operands in full fp32."""
+    flow kernel computes fp32 operands in full fp32. At ``compute_dtype=
+    "bfloat16"`` the kernels' bf16 serving mode (:meth:`Tiers.bf16_compute`)
+    and no packs, as the JAX engine makes none at bf16."""
     on_card = device.type == "cuda"
     vocoder = on_card if engine.use_pallas_vocoder is None else engine.use_pallas_vocoder
     attention = on_card if engine.use_pallas_attention is None else engine.use_pallas_attention
     flow = engine.use_pallas_flow and (on_card or bool(engine.use_pallas_vocoder)
                                        or bool(engine.use_pallas_attention))
+    if engine.compute_dtype == "bfloat16":
+        return Tiers.bf16_compute(engine.pallas_precision, attention=attention, flow=flow), None
+    if engine.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype {engine.compute_dtype!r}: float32 or bfloat16")
     value_dtype = weight_format = None
     if vocoder:
         value_dtype = engine.pallas_value_dtype or (
@@ -204,7 +218,12 @@ class Synthesizer:
         _fp32_backends(self.device)
         quantized = any(k.startswith("decoder.") and k.endswith(".scale") for k in params)
         self.tiers, self._weight_format = resolve_tiers(self.engine, self.device, quantized)
-        self.params = dequantize_tensors(from_jax_params(params, self.device))
+        self.compute_dtype = self.tiers.compute_dtype
+        # fp32 tensors (int8 scales too) to the compute dtype, then int8 weights
+        # dequantized into their scales' dtype, as the JAX ParamView reads them
+        self.params = dequantize_tensors({
+            name: value.to(self.compute_dtype) if value.dtype == torch.float32 else value
+            for name, value in from_jax_params(params, self.device).items()})
         # Working frames/token ratio, raised on overflow and decayed back
         # (EngineConfig.adaptive_capacity*), as in the JAX engine.
         self._frames_per_token = float(self.engine.frames_per_token)
@@ -298,7 +317,7 @@ class Synthesizer:
         out = synthesize_fn(
             self.params, self.config,
             torch.as_tensor(ids, dtype=torch.long).to(self.device),
-            torch.as_tensor(mask, dtype=torch.float32).to(self.device),
+            torch.as_tensor(mask, dtype=self.compute_dtype).to(self.device),
             num_frames,
             generator=self._generators(seed),
             speaker_id=self._speaker_tensor(speaker),
@@ -310,9 +329,7 @@ class Synthesizer:
             tiers=self.tiers,
             vocoder_packs=self._vocoder_packs(),
         )
-        wave = out.waveform
-        if self.engine.transfer_int16:
-            wave = torch.round(torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+        wave = self._transfer(out.waveform)
         self._dispatch_shapes.add(
             (ids.shape[0], ids.shape[1], num_frames, np.shape(seed), speaker is not None))
         self.stats["compiled_shapes"] = len(self._dispatch_shapes)
@@ -320,9 +337,22 @@ class Synthesizer:
         self.stats["wall_seconds"] += time.perf_counter() - t0
         return (wave, out.lengths, out.frame_lengths, out.log_duration)
 
+    def _transfer(self, wave: torch.Tensor) -> torch.Tensor:
+        """The waveform as it crosses to the host: with ``transfer_int16`` int16
+        PCM (from the fp32 upcast of a bf16 waveform, as in JAX), else as it is."""
+        if self.engine.transfer_int16:
+            return torch.round(torch.clamp(wave.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+        return wave
+
     @staticmethod
-    def _fetch(device_out: tuple) -> EngineOutput:
-        host = [t.cpu().numpy() for t in device_out]
+    def _host(t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host: bf16 upcast to fp32 there (numpy has no bf16)."""
+        t = t.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    @classmethod
+    def _fetch(cls, device_out: tuple) -> EngineOutput:
+        host = [cls._host(t) for t in device_out]
         wave = host[0]
         if wave.dtype == np.int16:
             wave = wave.astype(np.float32) / 32767.0
@@ -496,15 +526,13 @@ class Synthesizer:
         tgt = _speaker_rows(target_speaker, batch, batch, "target_speaker")
         generators = [self._generator(row_seed(seed, r)) for r in range(batch)]
         t0 = time.perf_counter()
+        cd = self.compute_dtype
         out = voice_convert(
-            self.params, self.config, torch.as_tensor(spec).to(self.device),
-            torch.as_tensor(mask).to(self.device), self._speaker_tensor(src),
+            self.params, self.config, torch.as_tensor(spec).to(self.device, cd),
+            torch.as_tensor(mask).to(self.device, cd), self._speaker_tensor(src),
             self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale,
             tiers=self.tiers, vocoder_packs=self._vocoder_packs())
-        wave = out.waveform
-        if self.engine.transfer_int16:
-            wave = torch.round(torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
-        wave = wave.cpu().numpy()
+        wave = self._host(self._transfer(out.waveform))
         if wave.dtype == np.int16:
             wave = wave.astype(np.float32) / 32767.0
         self.stats["dispatches"] += 1

@@ -4,7 +4,10 @@ deterministic.
 Counterpart of ``vits_tpu/models/duration.py``. Layout (batch, time,
 channels); channel flips are along the last axis. The sampling direction
 serves synthesis; the NLL (:func:`stochastic_duration_predictor_nll`) is the
-training direction, with the flows' log-determinants.
+training direction, with the flows' log-determinants. On bf16 inputs (bf16
+serving) every step runs in bf16 as the JAX package's does; a Python constant
+applied to a bf16 tensor is rounded to bf16 first, as JAX's weak types and
+its explicit casts of the control scalars round it (``ops/conv.py::weak_scalar``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch.nn.functional as F
 
 from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
-from vits_tpu_torch.ops.conv import conv1d, depthwise_conv1d, layer_norm
+from vits_tpu_torch.ops.conv import conv1d, depthwise_conv1d, gelu, layer_norm, weak_scalar
 from vits_tpu_torch.ops.spline import unconstrained_rational_quadratic_spline
 
 
@@ -40,9 +43,9 @@ def dilated_depth_separable_conv(
             padding=(kernel_size * dilation - dilation) // 2,
             dilation=dilation,
         )
-        h = F.gelu(layer_norm(h, p[f"norms_1.{i}.weight"], p[f"norms_1.{i}.bias"]))
+        h = gelu(layer_norm(h, p[f"norms_1.{i}.weight"], p[f"norms_1.{i}.bias"]))
         h = conv1d(h, p[f"convs_pointwise.{i}.weight"], p[f"convs_pointwise.{i}.bias"])
-        h = F.gelu(layer_norm(h, p[f"norms_2.{i}.weight"], p[f"norms_2.{i}.bias"]))
+        h = gelu(layer_norm(h, p[f"norms_2.{i}.weight"], p[f"norms_2.{i}.bias"]))
         inputs = inputs + h
     return inputs * padding_mask
 
@@ -68,7 +71,7 @@ def conv_flow(
     batch, length = first_half.shape[:2]
     # channel split order matches HF's reshape(B, half, 3nb-1, T) on channels-first data
     h = h.reshape(batch, length, half, num_bins * 3 - 1)
-    scale = 1.0 / math.sqrt(config.hidden_size)
+    scale = weak_scalar(1.0 / math.sqrt(config.hidden_size), h)
     second_half, log_abs_det = unconstrained_rational_quadratic_spline(
         second_half,
         h[..., :num_bins] * scale,
@@ -121,7 +124,7 @@ def stochastic_duration_predictor_reverse(
     p = params.sub("duration_predictor")
     h = _conditioned_pre(p, config, inputs, padding_mask, global_conditioning)
 
-    latents = noise * noise_scale
+    latents = noise * weak_scalar(noise_scale, noise)
     for i in [i for i in range(config.duration_predictor_num_flows, -1, -1) if i != 1]:
         latents = torch.flip(latents, dims=(-1,))
         fp = p.sub(f"flows.{i}")

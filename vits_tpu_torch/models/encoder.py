@@ -12,6 +12,11 @@ Trainable at bf16 (bf16 training casts the encoder's parameters and masks to
 bf16): kernels A and 4 then take bf16 q, k, v at ``tier`` (the training
 step's ``ops/tiers.py::BF16_TRAIN_TIER``), and the plain path below
 :data:`FLASH_TRAIN_TOKENS` runs the module's bf16 graph, as JAX's does.
+
+Serving at bf16 (``EngineConfig.compute_dtype="bfloat16"``: bf16 parameters
+and masks) runs kernel A on bf16 q, k, v at ``tier`` (``Tier.bf16_compute``,
+``ops/tiers.py::Tiers.bf16_compute``); with kernel A off (the JAX engine's CPU
+default) the module's bf16 graph, which only a CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -55,7 +60,11 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     key = x @ p["k_proj.weight"] + p["k_proj.bias"]
     value = x @ p["v_proj.weight"] + p["v_proj.bias"]
     kw = {}
-    if not trainable:
+    if not trainable and x.dtype == torch.bfloat16 and not tier.bf16_compute:
+        if x.device.type != "cpu":
+            raise ValueError("bf16 serving runs kernel A: its tier needs bf16_compute")
+        attend = rel_attention_reference  # kernel A off: the module's bf16 graph
+    elif not trainable:
         attend, kw = flash_rel_attention, {"tier": tier}
     elif tgt_len >= FLASH_TRAIN_TOKENS:
         attend, kw = trainable_rel_attention, {"tier": tier}

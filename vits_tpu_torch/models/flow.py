@@ -17,7 +17,7 @@ import torch
 
 from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
-from vits_tpu_torch.ops.conv import conv1d
+from vits_tpu_torch.ops.conv import conv1d, sigmoid
 
 
 def wavenet(
@@ -44,7 +44,7 @@ def wavenet(
         )
         if cond is not None:
             in_act = in_act + cond[..., i * 2 * hidden:(i + 1) * 2 * hidden]
-        acts = torch.tanh(in_act[..., :hidden]) * torch.sigmoid(in_act[..., hidden:])
+        acts = torch.tanh(in_act[..., :hidden]) * sigmoid(in_act[..., hidden:])
         res_skip = conv1d(acts, p[f"res_skip_layers.{i}.weight"],
                           p[f"res_skip_layers.{i}.bias"])
         if i < num_layers - 1:

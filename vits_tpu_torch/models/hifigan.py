@@ -41,6 +41,17 @@ plain steps compute in fp32, as the JAX ones do once an fp32 weight has
 promoted the carry. ``packs`` (:func:`precompute_vocoder_packs`, made once
 per engine) hold the bf16 or int8 weights of kernels B and C; without them
 the kernels read the fp32 parameters.
+
+bf16 serving (``tiers.compute_dtype`` bf16, ``ops/tiers.py::Tiers.bf16_compute``:
+bf16 parameters, latents and mask) is the JAX vocoder at ``compute_dtype=
+"bfloat16"``, which runs no vocoder kernel: XLA's masked bf16 graph of every
+stage (the plain ``_resblock``, the mean's bf16 sum and division, the
+per-phase transposed conv where the geometry allows it, leaky(0.01),
+conv_post, tanh, the mask). Here the stages keep their routing and kernels B,
+C and 7 compute that graph (``ops/tiers.py::BF16_COMPUTE_TIER``: bf16 in and
+out, rounding where XLA's graph rounds); the glue between them (conv_pre,
+cond, the wide stages' upsamplers) runs as bf16 PyTorch ops. The waveform
+comes back bf16, as JAX's does; the engine upcasts it on the host.
 """
 
 from __future__ import annotations
@@ -50,28 +61,12 @@ import torch
 from vits_tpu_torch.config import VitsConfig
 from vits_tpu_torch.io.params import ParamView
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
-from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio
-from vits_tpu_torch.ops.cuda.stage import FINAL_SLOPE, fused_stage
+from vits_tpu_torch.ops.cuda.resblock import fused_resblock, fused_resblock_trio, resblocks_mean
+from vits_tpu_torch.ops.cuda.stage import FINAL_SLOPE, fused_stage, per_tap
 from vits_tpu_torch.ops.cuda.trio_grad import trainable_trio
 from vits_tpu_torch.ops.tiers import EXACT_TIERS, Tiers
 
 PACK_WEIGHT_FORMATS = ("float32", "bfloat16", "int8")
-
-
-def _resblock(p: ParamView, x: torch.Tensor, mask: torch.Tensor | None,
-              kernel_size: int, dilations: tuple[int, ...], slope: float) -> torch.Tensor:
-    """One multi-dilation residual block (HifiGanResidualBlock)."""
-    for i, dilation in enumerate(dilations):
-        h = conv1d(leaky_relu(x, slope), p[f"convs1.{i}.weight"], p[f"convs1.{i}.bias"],
-                   padding=(kernel_size * dilation - dilation) // 2, dilation=dilation)
-        if mask is not None:
-            h = h * mask
-        h = conv1d(leaky_relu(h, slope), p[f"convs2.{i}.weight"], p[f"convs2.{i}.bias"],
-                   padding=(kernel_size - 1) // 2)
-        if mask is not None:
-            h = h * mask
-        x = h + x
-    return x
 
 
 def _stage_resblocks(p: ParamView, config: VitsConfig, i: int) -> list[dict]:
@@ -176,7 +171,8 @@ def precompute_vocoder_packs(params: ParamView, config: VitsConfig,
 
 
 def _lengths(mask: torch.Tensor | None) -> torch.Tensor | None:
-    return None if mask is None else mask[..., 0].sum(dim=1).to(torch.int32)
+    """Valid steps per row, counted in fp32 (a bf16 sum rounds above 256)."""
+    return None if mask is None else mask[..., 0].float().sum(dim=1).to(torch.int32)
 
 
 def hifigan(
@@ -190,13 +186,14 @@ def hifigan(
     packs: dict | None = None,
 ) -> torch.Tensor:
     """Latents -> waveform (B, T * prod(upsample_rates)), fp32 (trainable: in the
-    parameters' dtype)."""
+    parameters' dtype; bf16 serving: bf16)."""
     if trainable and frame_mask is not None:
         raise ValueError("trainable decoding takes unmasked segments (frame_mask=None)")
     p = params.sub("decoder")
     packs = packs or {}
     num_kernels = len(config.resblock_kernel_sizes)
     slope = config.leaky_relu_slope
+    compute16 = not trainable and tiers.compute_dtype == torch.bfloat16  # bf16 serving
 
     h = conv1d(spectrogram, p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
     if global_conditioning is not None:
@@ -204,7 +201,7 @@ def hifigan(
     mask = frame_mask
     if mask is not None:
         h = h * mask
-    if not trainable and tiers.value_dtype == torch.bfloat16:
+    if not trainable and not compute16 and tiers.value_dtype == torch.bfloat16:
         h = h.to(torch.bfloat16)  # the bf16 carry
 
     n_stages = len(config.upsample_rates)
@@ -241,9 +238,10 @@ def hifigan(
         h = leaky_relu(h, slope)
         if h.dtype != up_w.dtype:  # an fp32 weight promotes the carry, as in JAX
             h = h.float()
-        # bf16 training: the JAX decoder's per-phase form where it applies, as it rounds
-        phases = (trainable and h.dtype == torch.bfloat16 and kernel_size % rate == 0
-                  and 2 * up_padding == kernel_size - rate)
+        # bf16 training and serving: the JAX decoder's per-phase form where it
+        # applies, as it rounds
+        phases = ((trainable or compute16) and h.dtype == torch.bfloat16
+                  and per_tap(kernel_size, rate, up_padding))
         h = conv_transpose1d(h, up_w, up_b, stride=rate, padding=up_padding,
                              method="phases" if phases else None)
         if mask is not None:
@@ -260,27 +258,23 @@ def hifigan(
                                         slope=slope, lengths=_lengths(mask), tier=tier)
             continue
 
-        if not trainable:
+        if not trainable and not compute16:
             h = h.float()
         if not trainable and 128 % c_out == 0:  # narrow: kernel 7 per block, summed in place
             h, lengths, res_state = h.contiguous(), _lengths(mask), None
             for j, block in enumerate(_stage_resblocks(p, config, i)):
-                res_state = fused_resblock(
+                last = j == num_kernels - 1
+                res_state = fused_resblock(  # the mean: x (1 / n) in fp32, / n in bf16
                     h, block, slope=slope, lengths=lengths, into=res_state,
-                    scale=1.0 / num_kernels if j == num_kernels - 1 else 1.0, tier=tier)
+                    scale=1.0 / num_kernels if last and not compute16 else 1.0,
+                    divisor=num_kernels if last and compute16 else 1, tier=tier)
             h = res_state
             continue
 
-        res_state = None
-        for j in range(num_kernels):
-            block_out = _resblock(
-                p.sub(f"resblocks.{i * num_kernels + j}"), h, mask,
-                config.resblock_kernel_sizes[j], config.resblock_dilation_sizes[j], slope)
-            res_state = block_out if res_state is None else res_state + block_out
-        h = res_state / num_kernels
+        h = resblocks_mean(h, _stage_resblocks(p, config, i), slope, mask)
 
-    h = conv1d(leaky_relu(h if trainable else h.float(), FINAL_SLOPE), p["conv_post.weight"],
-               None, padding=3)
+    h = conv1d(leaky_relu(h if trainable or compute16 else h.float(), FINAL_SLOPE),
+               p["conv_post.weight"], None, padding=3)
     waveform = torch.tanh(h)
     if mask is not None:
         waveform = waveform * mask

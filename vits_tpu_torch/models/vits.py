@@ -12,7 +12,10 @@ plain flow runs. :func:`voice_convert` re-synthesises a spectrogram in
 another speaker's voice. ``tiers`` (``ops/tiers.py``) carries the JAX
 ``pallas_precision`` / ``pallas_value_dtype`` to kernels A and 6 (one tier:
 ``reduce_precision``) and to the vocoder (per stage), and ``vocoder_packs``
-its bf16 or int8 weights; the default is fp32 everywhere.
+its bf16 or int8 weights; the default is fp32 everywhere. At bf16 (the
+engine's ``compute_dtype="bfloat16"``: bf16 parameters, a bf16 ``input_mask``)
+every stage runs in bf16 as the JAX package's does, the noise rounded to bf16
+and the durations, alignment and frame mask computed in fp32 and cast back.
 
 Noise enters explicitly: a ``torch.Generator`` (one for the batch, or one per
 row) or recorded draws in a :class:`NoiseOverride`, the hook the parity tests
@@ -39,6 +42,7 @@ from vits_tpu_torch.models.encoder import text_encoder
 from vits_tpu_torch.models.flow import residual_coupling_block, residual_coupling_forward
 from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
+from vits_tpu_torch.ops.conv import weak_scalar
 from vits_tpu_torch.ops.cuda.flow import FlowPack, fused_flow
 from vits_tpu_torch.ops.tiers import EXACT_TIER, EXACT_TIERS, Tier, Tiers
 
@@ -95,13 +99,16 @@ def _blocked_randn(gen: torch.Generator, num_frames: int, channels: int,
 
 
 def draw_noise(generator: Generators, batch: int, t_in: int, num_frames: int,
-               flow_size: int, device: torch.device) -> NoiseOverride:
-    """Standard-normal draws from one generator (whole batch) or one per row."""
+               flow_size: int, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> NoiseOverride:
+    """Standard-normal draws from one generator (whole batch) or one per row,
+    drawn in fp32 and rounded to ``dtype`` (the same streams at every dtype)."""
     if isinstance(generator, torch.Generator):
         return NoiseOverride(
-            duration=torch.randn((batch, t_in, 2), generator=generator, device=device),
+            duration=torch.randn((batch, t_in, 2), generator=generator,
+                                 device=device).to(dtype),
             prior=torch.randn((batch, num_frames, flow_size), generator=generator,
-                              device=device),
+                              device=device).to(dtype),
         )
     if len(generator) != batch:
         raise ValueError(f"{len(generator)} generators for {batch} rows")
@@ -109,7 +116,8 @@ def draw_noise(generator: Generators, batch: int, t_in: int, num_frames: int,
     for gen in generator:
         durations.append(torch.randn((t_in, 2), generator=gen, device=device))
         priors.append(_blocked_randn(gen, num_frames, flow_size, device))
-    return NoiseOverride(duration=torch.stack(durations), prior=torch.stack(priors))
+    return NoiseOverride(duration=torch.stack(durations).to(dtype),
+                         prior=torch.stack(priors).to(dtype))
 
 
 def align_durations(
@@ -135,7 +143,7 @@ def text_to_prior(
     params: dict,
     config: VitsConfig,
     input_ids: torch.Tensor,  # (B, T_in) int
-    input_mask: torch.Tensor,  # (B, T_in) float32, 1=token 0=pad (a prefix mask)
+    input_mask: torch.Tensor,  # (B, T_in) 1=token 0=pad (a prefix mask), compute dtype
     num_frames: int,
     generator: Generators | None = None,
     noise: NoiseOverride | None = None,
@@ -158,7 +166,7 @@ def text_to_prior(
         if generator is None:
             raise ValueError("provide either a generator or a NoiseOverride")
         noise = draw_noise(generator, batch, t_in, num_frames, config.flow_size,
-                           input_mask.device)
+                           input_mask.device, input_mask.dtype)
 
     speaker_embeddings = embed_speaker(p, config, speaker_id)
     enc = text_encoder(p, config, input_ids, padding_mask, tier=attention_tier)
@@ -170,14 +178,20 @@ def text_to_prior(
         log_duration = duration_predictor(p, config, enc.last_hidden_state, padding_mask,
                                           speaker_embeddings)
 
+    # durations and alignment in fp32 (bf16 holds no integer above 256), then
+    # cast back to the compute dtype, as in the JAX package
     length_scale = 1.0 / speaking_rate
-    duration = torch.ceil(torch.exp(log_duration) * padding_mask * length_scale)[..., 0]
+    duration = torch.ceil(torch.exp(log_duration.float()) * padding_mask.float()
+                          * length_scale)[..., 0]
     total_duration = torch.clamp(duration.sum(dim=-1), min=1.0)
 
-    attn, frame_mask = align_durations(duration, input_mask, num_frames)
+    dtype = enc.prior_means.dtype
+    attn, frame_mask = align_durations(duration, input_mask.float(), num_frames)
+    attn, frame_mask = attn.to(dtype), frame_mask.to(dtype)
     prior_means = torch.bmm(attn, enc.prior_means)
     prior_log_variances = torch.bmm(attn, enc.prior_log_variances)
-    prior_latents = prior_means + noise.prior * torch.exp(prior_log_variances) * noise_scale
+    prior_latents = (prior_means + noise.prior * torch.exp(prior_log_variances)
+                     * weak_scalar(noise_scale, prior_means))
     return PriorOutput(prior_latents, frame_mask, total_duration, log_duration,
                        speaker_embeddings)
 
@@ -207,7 +221,7 @@ def latents_from_prior(
     """
     p = ParamView(params)
     if use_pallas:
-        lengths = frame_mask3[..., 0].sum(dim=1).to(torch.int32)
+        lengths = frame_mask3[..., 0].float().sum(dim=1).to(torch.int32)
         latents = fused_flow(prior_latents.contiguous(), p, config, lengths=lengths,
                              speaker_embeddings=speaker_embeddings, packed=flow_pack, tier=tier)
     else:
@@ -305,8 +319,9 @@ def voice_convert(
                 raise ValueError(f"{len(generator)} generators for {B} rows")
             noise = torch.stack([_blocked_randn(g, F, config.flow_size, device)
                                  for g in generator])
+        noise = noise.to(spectrogram.dtype)
     z, post_mean, _ = posterior_encoder(p, config, spectrogram, frame_mask3,
-                                        noise * noise_scale, g_src)
+                                        noise * weak_scalar(noise_scale, noise), g_src)
     z_p, _ = residual_coupling_forward(p, config, z, frame_mask3, g_src)
     latents = latents_from_prior(params, config, z_p, frame_mask3, g_tgt)
     waveform = hifigan(p, config, latents, frame_mask3, g_tgt, tiers=tiers, packs=vocoder_packs)

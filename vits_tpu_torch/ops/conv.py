@@ -135,6 +135,40 @@ def weak_scalar(c: float, like: torch.Tensor) -> float:
     return float(torch.tensor(c, dtype=torch.bfloat16)) if like.dtype == torch.bfloat16 else c
 
 
+# Activations on bf16 as eager JAX computes them on bf16 arrays: op by op, each
+# step rounded to bf16 (PyTorch's own bf16 kernels compute in fp32 and round
+# once). On other dtypes PyTorch's.
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis (``jax.nn.softmax``: exp(x - max) / sum)."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True).detach())
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) (``jax.nn.softplus``: max(x, 0) + log1p(exp(-|x|)))."""
+    if x.dtype != torch.bfloat16:
+        return F.softplus(x)
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + e^-x) (``jax.nn.sigmoid``)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU (``jax.nn.gelu(approximate=False)``: 0.5 x erfc(-x / sqrt 2))."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    return (0.5 * x) * torch.erfc(-x * weak_scalar(0.5 ** 0.5, x))
+
+
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     """On a bf16 tensor the slope is a bf16 constant (:func:`weak_scalar`)."""
     return torch.where(x >= 0, x, x * weak_scalar(slope, x))

@@ -53,15 +53,16 @@ _SIGNATURES = {
     "vk_rel_attention_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "vk_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
                 _I, _I, _P, _I, _P, _P],
-    "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P],
-    "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P],
-    "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _P],
+    "vk_upsample": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I, _I,
+                    _P],
+    "vk_wave": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P],
+    "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
+    "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "vk_graph_destroy": [_P],
-    "vk_conv_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P],
+    "vk_conv_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _P],
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _I, _P],
     "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
-                          _P],
+                          _F, _I, _P],
 }
 
 _lock = threading.Lock()

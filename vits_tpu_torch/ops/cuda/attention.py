@@ -13,7 +13,13 @@ every product -- q.k, q.rel_k, the probabilities against v and rel_v -- as
 the tier rounds them; the values and the softmax stay fp32. At a tier with
 bf16 values (``ops/tiers.py::BF16_TRAIN_TIER``, bf16 training) q, k, v and
 the tables are bf16 storage, read and computed in fp32 as the JAX kernel
-upcasts them; the output comes back in their dtype, lse in fp32.
+upcasts them; the output comes back in their dtype, lse in fp32. bf16
+serving (``Tier.bf16_compute``, no lse) takes bf16 q, k, v and tables at any
+tier, as the JAX kernel does at ``compute_dtype="bfloat16"``: at the fast tier
+the kernel reads them as bf16 storage (the route above); at "high" and
+"highest" the wrapper widens them to fp32 (bf16 is exact in fp32) and the
+kernel runs that tier's fp32 path; the output is rounded to bf16 either way,
+where the JAX kernel writes q's dtype.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from vits_tpu_torch.ops.attention import (
     get_relative_embeddings,
     relative_position_to_absolute_position,
 )
+from vits_tpu_torch.ops.conv import softmax
 from vits_tpu_torch.ops.tiers import EXACT, EXACT_TIER, FAST, Tier, tier_product
 from vits_tpu_torch.ops.cuda import (
     check,
@@ -68,15 +75,6 @@ def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor,
             + relative_position_to_absolute_position(rel_logits))
 
 
-def _softmax(w: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis; on bf16 in the steps of ``jax.nn.softmax``, each
-    rounded to bf16 (as the JAX module's bf16 training computes it)."""
-    if w.dtype != torch.bfloat16:
-        return torch.softmax(w, dim=-1)
-    e = torch.exp(w - w.amax(dim=-1, keepdim=True).detach())
-    return e / e.sum(dim=-1, keepdim=True)
-
-
 def rel_attention_reference(
     q: torch.Tensor,  # (B, H, L, d), pre-scaled by 1/sqrt(d)
     k: torch.Tensor,
@@ -104,7 +102,7 @@ def rel_attention_reference(
         bias = (1.0 - keep[:, None, None, :]) * torch.finfo(q.dtype).min
         weights = (weights.reshape(B, H, L, L) + bias).reshape(B * H, L, L)
     lse = torch.logsumexp(weights, dim=-1) if return_lse else None
-    weights = _softmax(weights)
+    weights = softmax(weights)  # on bf16: jax.nn.softmax's steps, as bf16 training runs it
     out = _product(torch.bmm, weights, vf, tier)
     value_rel = get_relative_embeddings(rel_v[None], L, window)
     rel_weights = absolute_position_to_relative_position(weights)
@@ -140,10 +138,23 @@ def flash_rel_attention(
     """(B, H, L, d) attention output before the out-projection, at ``tier``.
 
     With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) fp32. q, k, v
-    and the tables in the tier's value dtype (bf16 only at the fast tier).
-    CPU tensors take :func:`rel_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, d <= 128, 2*window+1 <= 32, no autograd) or raise.
+    and the tables in the tier's value dtype (bf16 values only at the fast
+    tier; bf16 compute at every tier, without lse). CPU tensors take
+    :func:`rel_attention_plain`; CUDA tensors launch the kernel (contiguous,
+    d <= 128, 2*window+1 <= 32, no autograd) or raise.
     """
+    if tier.bf16_compute:
+        if return_lse:
+            raise ValueError("rel_attention: bf16 serving returns no lse")
+        if tier.mode == FAST:  # bf16 storage, as bf16 training reads it
+            return flash_rel_attention(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
+                                       tier=Tier(FAST, True))
+        if any(t.dtype != torch.bfloat16 for t in (q, k, v, rel_k, rel_v)):
+            raise ValueError(f"rel_attention at the {tier.name} tier takes bf16 q, k, v and "
+                             "tables")
+        wide = [t.float() for t in (q, k, v, rel_k, rel_v)]
+        return flash_rel_attention(*wide, window=window, lengths=lengths,
+                                   tier=Tier(tier.mode)).to(torch.bfloat16)
     dtype = tier.value_dtype
     if any(t.dtype != dtype for t in (q, k, v, rel_k, rel_v)) or (
             tier.bf16_values and tier.mode != FAST):

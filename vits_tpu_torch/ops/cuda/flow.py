@@ -26,7 +26,14 @@ module's own math; :func:`flow_packed_reference` runs the kernel's arithmetic
 on the packed weights, at a precision tier (``ops/tiers.py``: the JAX kernel's
 ``precision``, every product's operands rounded as the tier rounds them; the
 values stay fp32). The captured graph bakes its tier in: a pack keeps one
-workspace per (B, T, speakers, tier).
+workspace per (B, T, speakers, tier, dtype).
+
+bf16 serving (``Tier.bf16_compute``): x, the speaker embedding and the output
+are bf16, as the JAX kernel's are at ``compute_dtype="bfloat16"``; the pack
+holds the bf16 parameters as fp32 (JAX's ``pack_flow_weights`` casts them so),
+the graph widens the inputs into its fp32 workspace, rounds the speaker
+vectors where JAX's bf16 ``cond_layer`` conv rounds them, stages fp32 and
+rounds the result to bf16 (:func:`flow_compute16_reference` is the twin).
 """
 
 from __future__ import annotations
@@ -142,11 +149,13 @@ class FlowPack:
             self._keeping = False
 
     def workspace(self, config: VitsConfig, B: int, T: int, speakers: bool,
-                  mode: int = EXACT) -> "FlowWorkspace":
-        key = (B, T, speakers, mode)
+                  mode: int = EXACT, io16: bool = False) -> "FlowWorkspace":
+        key, extra = (B, T, speakers, mode), {}
+        if io16:  # bf16 serving's graphs apart from the fp32 ones
+            key, extra = (*key, True), {"io16": True}
         with self._lock:
             ws = (self._workspaces.pop(key, None)
-                  or FlowWorkspace(self, config, B, T, speakers, mode))
+                  or FlowWorkspace(self, config, B, T, speakers, mode, **extra))
             self._workspaces[key] = ws
             if self._keeping:
                 self._kept.add(key)
@@ -155,7 +164,8 @@ class FlowPack:
         return ws
 
 
-# (B, T, speakers, tier) workspaces a pack keeps besides those made under FlowPack.keeping.
+# (B, T, speakers, tier, dtype) workspaces a pack keeps besides those made under
+# FlowPack.keeping.
 WORKSPACES = 8
 
 
@@ -168,11 +178,13 @@ class FlowWorkspace:
     operations on the stream, from one C call. Calls that share a workspace
     must run on one stream; :attr:`lock` is held across each call's enqueue
     (:func:`fused_flow`), so the five operations of two threads' calls do not
-    interleave on it.
+    interleave on it. With ``io16`` (bf16 serving) a call's input, embedding
+    and output pass through the bf16 buffers ``x16`` and ``emb16``, which the
+    graph widens and narrows.
     """
 
     def __init__(self, packed: FlowPack, config: VitsConfig, B: int, T: int, speakers: bool,
-                 mode: int = EXACT):
+                 mode: int = EXACT, io16: bool = False):
         half, hidden = config.flow_size // 2, config.hidden_size
         nl, k, n = (config.prior_encoder_num_wavenet_layers, config.wavenet_kernel_size,
                     config.prior_encoder_num_flows)
@@ -185,6 +197,9 @@ class FlowWorkspace:
         self.emb_size = packed.arrays["w_cond"].shape[0] if speakers else 0
         self.emb = new((B, self.emb_size)) if speakers else None
         self.cond = new((B, n * nl * 2 * hidden)) if speakers else None
+        new16 = functools.partial(torch.empty, device=weights.device, dtype=torch.bfloat16)
+        self.x16 = new16((B, T, 2 * half)) if io16 else None
+        self.emb16 = new16((B, self.emb_size)) if io16 and speakers else None
         self.lock = threading.Lock()
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = library()
@@ -194,7 +209,7 @@ class FlowWorkspace:
             self.emb_size, packed.pointers,
             flow_plan(B, T, half, hidden, k, device_sm_count(weights.device)),
             *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n, mode,
-            ctypes.byref(self.exec)), "flow kernels (capture)")
+            ptr(self.x16), ptr(self.emb16), ctypes.byref(self.exec)), "flow kernels (capture)")
         weakref.finalize(self, lib.vk_graph_destroy, self.exec.value)
 
 
@@ -313,6 +328,26 @@ def flow_packed_reference(
     return state * mask
 
 
+def flow_compute16_reference(
+    x: torch.Tensor,  # (B, T, flow_size) bf16
+    packed: FlowPack,
+    params: ParamView,
+    config: VitsConfig,
+    *,
+    lengths: torch.Tensor | None = None,
+    speaker_embeddings: torch.Tensor | None = None,  # (B, 1, speaker_emb) bf16
+    tier: Tier = EXACT_TIER,
+) -> torch.Tensor:
+    """Plain PyTorch: kernel 6 at bf16 serving, as the JAX kernel runs on bf16
+    inputs: the speaker vectors from the bf16 ``cond_layer`` convs, x staged
+    fp32 through :func:`flow_packed_reference` at ``tier``'s mode, the result
+    rounded to bf16."""
+    cond = (None if speaker_embeddings is None
+            else pack_flow_cond(params, config, speaker_embeddings).float())
+    return flow_packed_reference(x.float(), packed, config, lengths=lengths, cond=cond,
+                                 tier=Tier(tier.mode)).to(torch.bfloat16)
+
+
 @functools.lru_cache(maxsize=256)
 def flow_plan(B: int, T: int, half: int, hidden: int, k: int, sm_count: int):
     """(tile, split) of the pre, gate, res/skip and post products, as
@@ -364,17 +399,26 @@ def fused_flow(
     """Prior latents -> flow latents (B, T, flow_size), zero at and past each length.
 
     CPU tensors take :func:`flow_reference` at the exact tier and
-    :func:`flow_packed_reference` at the others; CUDA tensors launch the kernels
-    (fp32, contiguous, no autograd, flow_size // 2 a multiple of 16 and
-    hidden_size of 32) or raise, including on what the TPU kernel silently
-    gets wrong: a WaveNet dilation rate other than 1 (it reads its k taps
-    contiguously) and an odd number of flows. Without ``packed`` the weights
-    are packed, and the launches captured, on the call.
+    :func:`flow_packed_reference` at the others (:func:`flow_compute16_reference`
+    at bf16 serving); CUDA tensors launch the kernels (fp32, or bf16 with
+    ``tier.bf16_compute``; contiguous, no autograd, flow_size // 2 a multiple
+    of 16 and hidden_size of 32) or raise, including on what the TPU kernel
+    silently gets wrong: a WaveNet dilation rate other than 1 (it reads its k
+    taps contiguously) and an odd number of flows. Without ``packed`` the
+    weights are packed, and the launches captured, on the call.
     """
     acts = [x] if speaker_embeddings is None else [x, speaker_embeddings]
-    if tier.bf16_values:
+    if tier.bf16_values and not tier.bf16_compute:
         raise ValueError("flow kernel: its values are fp32 (the JAX kernel has no value dtype)")
-    if not on_cuda("fused_flow", *acts):
+    io16 = tier.bf16_compute
+    dtype = torch.bfloat16 if io16 else torch.float32
+    if any(t.dtype != dtype for t in acts):
+        raise ValueError(f"flow kernel at the {tier.name} tier takes {dtype} inputs")
+    if not on_cuda("fused_flow", *acts, dtype=dtype):
+        if io16:
+            return flow_compute16_reference(
+                x, packed or pack_flow_weights(params, config), params, config,
+                lengths=lengths, speaker_embeddings=speaker_embeddings, tier=tier)
         if tier.mode == EXACT:
             return flow_reference(x, params, config, lengths=lengths,
                                   speaker_embeddings=speaker_embeddings)
@@ -399,20 +443,21 @@ def fused_flow(
                          f"(got {n} flows, k={k})")
     if packed is None:
         packed = pack_flow_weights(params, config)
-    on_cuda("fused_flow", *acts, packed.buffer)
+    on_cuda("fused_flow", packed.buffer)
     no_autograd("fused_flow", *acts, packed.buffer)
-    ws = packed.workspace(config, B, T, speaker_embeddings is not None, tier.mode)
+    ws = packed.workspace(config, B, T, speaker_embeddings is not None, tier.mode, io16)
     if speaker_embeddings is not None and speaker_embeddings.shape != (B, 1, ws.emb_size):
         raise ValueError(f"flow kernel: speaker embeddings {tuple(speaker_embeddings.shape)} "
                          f"!= ({B}, 1, {ws.emb_size})")
     lens = ws.full if lengths is None else cuda_lengths(lengths, B, T, x.device)
     out = torch.empty_like(x)
+    ws_x, ws_emb = (ws.x16, ws.emb16) if io16 else (ws.x, ws.emb)
     with ws.lock:
         check(library().vk_flow_run(
-            ws.exec, ws.x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
-            None if ws.emb is None else ws.emb.data_ptr(),
+            ws.exec, ws_x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
+            None if ws_emb is None else ws_emb.data_ptr(),
             None if speaker_embeddings is None else speaker_embeddings.data_ptr(), B, T, C,
-            ws.emb_size, out.data_ptr(), stream_of(x)), "flow kernels")
+            ws.emb_size, out.data_ptr(), x.element_size(), stream_of(x)), "flow kernels")
     count_launch(fused_flow)
     return out
 

@@ -35,6 +35,14 @@ carry rounded to bf16 where the JAX kernels cast to their value dtype), and
 the kernels compute it (``csrc/common.cuh`` TierMode). With bf16 values
 kernel B takes and returns bf16 activations (the vocoder's carry between
 kernels); the kernels stage them as fp32.
+
+bf16 serving (``Tier.bf16_compute``, ``ops/tiers.py::BF16_COMPUTE_TIER``): the
+JAX package runs no resblock kernel at ``compute_dtype="bfloat16"``, but XLA's
+masked bf16 graph of the plain resblocks (``vits_tpu/models/hifigan.py:29-57``,
+the mean ``:425-433``), and B and 7 compute that graph on bf16 activations,
+weights and biases, rounding to bf16 after each step (B: ``vk_conv_bf16``,
+kernel 5's bf16 forward with the mask; 7: ``vk_resblock_block`` with io16).
+Their twin is :func:`resblocks_mean_bf16`, the graph in bf16 PyTorch ops.
 """
 
 from __future__ import annotations
@@ -188,6 +196,42 @@ def _trio_mean(x: torch.Tensor, blocks: Sequence[dict], slope: float,
     return total * (1.0 / len(blocks))
 
 
+def resblocks_mean(x: torch.Tensor, blocks: Sequence[dict], slope: float,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+    """The JAX vocoder's plain masked resblocks (``hifigan.py:29-57``) and their
+    mean (the sum in order, then the division), in the dtype of x and the
+    blocks: on bf16 XLA's bf16 graph, each op rounded, the slopes bf16
+    constants."""
+    total = None
+    for blk in blocks:
+        k, h = blk["kernel_size"], x
+        for i, d in enumerate(blk["dilations"]):
+            y = conv1d(leaky_relu(h, slope), blk["w1"][i], blk["b1"][i],
+                       padding=(k * d - d) // 2, dilation=d)
+            if mask is not None:
+                y = y * mask
+            y = conv1d(leaky_relu(y, slope), blk["w2"][i], blk["b2"][i], padding=(k - 1) // 2)
+            if mask is not None:
+                y = y * mask
+            h = y + h
+        total = h if total is None else total + h
+    return total / len(blocks)
+
+
+def resblocks_mean_bf16(x: torch.Tensor, blocks: Sequence[dict], slope: float,
+                        mask: torch.Tensor | None) -> torch.Tensor:
+    """:func:`resblocks_mean` at bf16 (the blocks' tensors cast to bf16): the
+    twin of B, C's resblocks and 7 at bf16 serving."""
+    b16 = [{k: [t.to(torch.bfloat16) for t in v] if k in ("w1", "b1", "w2", "b2") else v
+            for k, v in blk.items()} for blk in blocks]
+    return resblocks_mean(x, b16, slope, mask)
+
+
+def _check_bf16(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: bf16 serving takes bf16 activations, not {x.dtype}")
+
+
 def resblock_trio_reference(
     x: torch.Tensor,  # (B, T, C); zero at and past each row's length
     blocks: Sequence[dict],
@@ -197,7 +241,12 @@ def resblock_trio_reference(
     tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
     """Plain PyTorch: mean_j resblock_j(x), re-zeroing [len, T) after every
-    conv, at ``tier``; the result in x's dtype."""
+    conv, at ``tier``; the result in x's dtype. bf16 serving:
+    :func:`resblocks_mean_bf16`."""
+    if tier.bf16_compute:
+        _check_bf16("resblock_trio_reference", x)
+        return resblocks_mean_bf16(x, blocks, slope,
+                                   length_mask(lengths, x.shape[1], torch.bfloat16))
     mask = length_mask(lengths, x.shape[1], torch.float32)
     return _trio_mean(x, blocks, slope, mask, tier).to(x.dtype)
 
@@ -246,9 +295,11 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
     At ``tier`` (bf16 values: each pair's output rounded to bf16); with
     ``out16`` (B, T, C) bf16 the mean is written there, ``out`` holding the
     running sum over the blocks. On bf16 ``x`` (kernel 5's forward at the bf16
-    training tier; every buffer bf16) each launch is ``vk_conv_bf16``: XLA's
-    bf16 graph of the pair, both leakys at the bf16 slope, and the last launch
-    divides the sum by the blocks' count.
+    training tier, and bf16 serving's B and C; every buffer bf16) each launch is
+    ``vk_conv_bf16``: XLA's bf16 graph of the pair, masked, both leakys at the
+    bf16 slope, and the last launch divides the sum by the blocks' count; the
+    biases fp32 or bf16 (read as they are), any channel count (the narrow path
+    below 32).
     """
     lib = library()
     B, T, C = x.shape
@@ -273,16 +324,15 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
         for i, d in enumerate(dilations):
             w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
             s1, s2 = _pair_scale(blk, "s1", i), _pair_scale(blk, "s2", i)
-            if bf16:  # the epilogue adds the biases as fp32 holding their bf16 values
-                b1, b2 = b1.float(), b2.float()
             for w in (w1, w2):
                 if w.shape != (k, C, C) or w.data_ptr() % 16:
                     raise ValueError(f"resblock conv weight {tuple(w.shape)} != ({k}, {C}, {C})"
                                      " or not 16-byte aligned")
+            bias_dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
             for vec in (b1, b2) + ((s1, s2) if s1 is not None else ()):
-                if vec.shape != (C,) or vec.data_ptr() % 16 or vec.dtype != torch.float32:
+                if vec.shape != (C,) or vec.data_ptr() % 16 or vec.dtype not in bias_dtypes:
                     raise ValueError(f"resblock conv bias or scale {tuple(vec.shape)} != ({C},),"
-                                     " not fp32 or not 16-byte aligned")
+                                     " of another dtype or not 16-byte aligned")
             last = i == len(dilations) - 1
             if acts is not None:
                 y1 = acts[j][0][i]
@@ -294,12 +344,13 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
                 check(lib.vk_conv_bf16(
                     src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
                     lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
-                    tile, split, stream), "resblock conv1 kernel (bf16)")
+                    tile, split, int(b1.dtype == torch.bfloat16), stream),
+                    "resblock conv1 kernel (bf16)")
                 check(lib.vk_conv_bf16(
                     y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
                     lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, x_slope, accumulate,
-                    float(n) if last and j == n - 1 else 1.0, tile, split, stream),
-                    "resblock conv2 kernel (bf16)")
+                    float(n) if last and j == n - 1 else 1.0, tile, split,
+                    int(b2.dtype == torch.bfloat16), stream), "resblock conv2 kernel (bf16)")
                 src = dst
                 continue
             scale = 1.0 / n if last and j == n - 1 else 1.0
@@ -333,15 +384,22 @@ def fused_resblock_trio(
 
     CPU tensors take :func:`resblock_trio_reference`; CUDA tensors launch the
     kernel (x in the tier's value dtype, weights fp32, bf16 or int8 with
-    scales, fp32 biases; contiguous, no autograd) or raise. The result has
-    x's dtype.
+    scales, fp32 biases; bf16 serving: bf16 x, weights and biases; contiguous,
+    no autograd) or raise. The result has x's dtype.
     """
     weights = pair_weights(blocks) + pair_scales(blocks)
+    if tier.bf16_compute:
+        _check_bf16("fused_resblock_trio", x)
     if not on_cuda("fused_resblock_trio", x, *weights, dtype=None):
         return resblock_trio_reference(x, blocks, slope=slope, lengths=lengths, tier=tier)
     on_cuda("fused_resblock_trio", x, dtype=tier.value_dtype)
     no_autograd("fused_resblock_trio", x, *weights)
     B, T, _ = x.shape
+    if tier.bf16_compute:  # XLA's bf16 graph, every buffer bf16
+        out = torch.empty_like(x)
+        run_pairs(x, out, blocks, cuda_lengths(lengths, B, T, x.device), slope, tier=tier)
+        count_launch(fused_resblock_trio)
+        return out
     xf = x.float()  # the kernel stages fp32 (bf16 values stay bf16-exact)
     out = torch.empty_like(xf)
     out16 = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
@@ -362,7 +420,8 @@ def resblock_reference(
     lengths: torch.Tensor | None = None,
     tier: Tier = EXACT_TIER,
 ) -> torch.Tensor:
-    """Plain PyTorch: one resblock, re-zeroing [len, T) after every conv, at ``tier``."""
+    """Plain PyTorch: one resblock, re-zeroing [len, T) after every conv, at
+    ``tier`` (bf16 serving: :func:`resblocks_mean_bf16` of one block)."""
     return resblock_trio_reference(x, [block], slope=slope, lengths=lengths, tier=tier)
 
 
@@ -493,6 +552,7 @@ def fused_resblock(
     into: torch.Tensor | None = None,
     scale: float = 1.0,
     tier: Tier = EXACT_TIER,
+    divisor: float = 1.0,
 ) -> torch.Tensor:
     """One masked resblock, ``{kernel_size, dilations, w1, b1, w2, b2}``, at ``tier``.
 
@@ -505,14 +565,29 @@ def fused_resblock(
     than ``x``, the result is ``(into + resblock(x)) * scale`` written into
     ``into``: a stage's sum over its resblocks and the division by their
     number in the kernel's epilogue; else ``resblock(x) * scale``.
+
+    bf16 serving (``tier.bf16_compute``): x, ``into``, the weights and biases
+    bf16, the launch XLA's bf16 graph of the resblock; the mean's last step is
+    ``divisor`` (``(into + resblock(x)) / divisor`` in bf16, as XLA divides)
+    instead of ``scale``, which is then 1.
     """
     weights = pair_weights([block])
     extra = () if into is None else (into,)
-    if not on_cuda("fused_resblock", x, *weights, *extra):
+    compute16 = tier.bf16_compute
+    if compute16:
+        _check_bf16("fused_resblock", x)
+        if scale != 1.0:
+            raise ValueError("fused_resblock: bf16 serving divides (divisor), scale must be 1")
+    elif divisor != 1.0:
+        raise ValueError("fused_resblock: a divisor is bf16 serving's (tier.bf16_compute)")
+    if not on_cuda("fused_resblock", x, *weights, *extra, dtype=None):
         out = resblock_reference(x, block, slope=slope, lengths=lengths, tier=tier)
         if into is not None:
             out = into.add_(out)
+        if divisor != 1.0:
+            out = out.div_(divisor)
         return out if scale == 1.0 else out.mul_(scale)
+    on_cuda("fused_resblock", x, *weights, *extra, dtype=x.dtype if compute16 else torch.float32)
     no_autograd("fused_resblock", x, *weights, *extra)
     B, T, C = x.shape
     k, dilations = block["kernel_size"], tuple(block["dilations"])
@@ -521,10 +596,12 @@ def fused_resblock(
                          "tensor other than x")
     if C not in BLOCK_CHANNELS:  # C = 1, 2, 4: B's conv
         out = torch.empty_like(x)
-        run_pairs(carry(x, tier), out, [block], cuda_lengths(lengths, B, T, x.device), slope,
-                  tier=tier)
+        run_pairs(x if compute16 else carry(x, tier), out, [block],
+                  cuda_lengths(lengths, B, T, x.device), slope, tier=tier)
         if into is not None:
             out = into.add_(out)
+        if divisor != 1.0:
+            out = out.div_(divisor)
         count_launch(fused_resblock)
         return out if scale == 1.0 else out.mul_(scale)
     if len(dilations) > BLOCK_MAX_PAIRS or k % 2 == 0 or not 0.0 <= slope <= 1.0:
@@ -544,7 +621,8 @@ def fused_resblock(
     check(library().vk_resblock_block(
         x.data_ptr(), out.data_ptr(), None if lens is None else lens.data_ptr(), pointers,
         (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
-        plan.bm, plan.cluster, int(into is not None), scale, tier.mode, int(tier.bf16_values),
+        plan.bm, plan.cluster, int(into is not None), scale, tier.mode,
+        int(tier.bf16_values and not compute16), float(divisor), int(compute16),
         stream_of(x)), "resblock kernel")
     count_launch(fused_resblock)
     return out

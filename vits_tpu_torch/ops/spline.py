@@ -3,7 +3,11 @@
 Counterpart of ``vits_tpu/ops/spline.py``: the spline is evaluated at every
 position on clamped inputs and the identity branch outside
 [-tail_bound, tail_bound] is selected with ``torch.where`` (static shapes, no
-compaction). Both directions return ``(outputs, log_abs_det)``.
+compaction). Both directions return ``(outputs, log_abs_det)``. On bf16
+tensors (bf16 serving) every op runs in bf16, as the JAX spline's do at
+``compute_dtype="bfloat16"``: the bins, the cumulative sums, the bin search
+and the root solve; each Python constant is rounded to bf16 first, as JAX
+applies a weakly typed scalar (``ops/conv.py::weak_scalar``).
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from vits_tpu_torch.ops.conv import softmax, softplus, weak_scalar
 
 
 def unconstrained_rational_quadratic_spline(
@@ -50,6 +56,17 @@ def unconstrained_rational_quadratic_spline(
     return outputs, log_abs_det
 
 
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the last axis; on bf16 each partial sum rounded to
+    bf16 in order, as JAX's bf16 cumsum adds (PyTorch's sums in fp32)."""
+    if x.dtype != torch.bfloat16:
+        return torch.cumsum(x, dim=-1)
+    sums = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        sums.append(sums[-1] + x[..., i])
+    return torch.stack(sums, dim=-1)
+
+
 def rational_quadratic_spline(
     inputs: torch.Tensor,
     unnormalized_widths: torch.Tensor,
@@ -71,9 +88,10 @@ def rational_quadratic_spline(
         raise ValueError(f"min_bin_height {min_bin_height} too large for {num_bins} bins")
 
     def _cumulative(unnormalized, min_bin):
-        fracs = torch.softmax(unnormalized, dim=-1)
-        fracs = min_bin + (1 - min_bin * num_bins) * fracs
-        cum = F.pad(torch.cumsum(fracs, dim=-1), (1, 0))
+        fracs = softmax(unnormalized)
+        fracs = (weak_scalar(min_bin, fracs)
+                 + weak_scalar(1 - min_bin * num_bins, fracs) * fracs)
+        cum = F.pad(_cumsum(fracs), (1, 0))
         cum = (upper_bound - lower_bound) * cum + lower_bound
         cum[..., 0] = lower_bound
         cum[..., -1] = upper_bound
@@ -81,10 +99,11 @@ def rational_quadratic_spline(
 
     cumwidths, widths = _cumulative(unnormalized_widths, min_bin_width)
     cumheights, heights = _cumulative(unnormalized_heights, min_bin_height)
-    derivatives = min_derivative + F.softplus(unnormalized_derivatives)
+    derivatives = (weak_scalar(min_derivative, unnormalized_derivatives)
+                   + softplus(unnormalized_derivatives))
 
     bin_locations = (cumheights if reverse else cumwidths).clone()
-    bin_locations[..., -1] += 1e-6
+    bin_locations[..., -1] += weak_scalar(1e-6, bin_locations)
     bin_idx = torch.sum(inputs[..., None] >= bin_locations, dim=-1) - 1
     bin_idx = torch.clamp(bin_idx, 0, num_bins - 1)[..., None]
 

@@ -23,6 +23,14 @@ exact and its sums fp32: :func:`resolve_tier` maps bf16 values to FAST
 whatever the precision, and the kernel then also rounds its value carry to
 bf16 where the JAX kernel casts to its value dtype (``Tier.bf16_values``).
 
+bf16 serving (``EngineConfig.compute_dtype="bfloat16"``, :meth:`Tiers.bf16_compute`)
+is a mode of its own, never inferred from a tensor's dtype (the ``fast`` tier also
+hands the vocoder kernels a bf16 carry): ``Tier.bf16_compute``. The vocoder
+kernels B, C and 7 then compute XLA's bf16 graph of the plain stage, which the
+JAX package runs at bf16 (:data:`BF16_COMPUTE_TIER`: bf16 in and out, a rounding
+to bf16 after every op); kernels A and 6 take and give bf16 at their tier,
+staging fp32 as the JAX kernels do.
+
 The plain helpers (:func:`round_bf16`, :func:`tier_product`) emulate a tier
 on tensors; the kernels' plain twins use them, on the CPU and as the card's
 reference.
@@ -42,18 +50,22 @@ MODE_NAMES = {EXACT: "highest", FAST: "fast", HIGH: "high"}
 
 
 class Tier(NamedTuple):
-    """One kernel call's arithmetic: the tier's mode and the value carry."""
+    """One kernel call's arithmetic: the tier's mode, the value carry, and the
+    bf16 serving mode (bf16 in and out; B, C and 7: XLA's bf16 graph)."""
 
     mode: int = EXACT
     bf16_values: bool = False
+    bf16_compute: bool = False
 
     @property
     def name(self) -> str:
+        if self.bf16_compute:
+            return MODE_NAMES[self.mode] + " (bf16 compute)"
         return MODE_NAMES[self.mode] + (" (bf16 values)" if self.bf16_values else "")
 
     @property
     def value_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.bf16_values else torch.float32
+        return torch.bfloat16 if self.bf16_values or self.bf16_compute else torch.float32
 
 
 EXACT_TIER = Tier()
@@ -103,9 +115,12 @@ class Tiers(NamedTuple):
     value_dtype: torch.dtype = torch.float32
     attention: Tier = EXACT_TIER
     flow: Tier = EXACT_TIER
+    compute_dtype: torch.dtype = torch.float32
 
     def stage(self, i: int) -> Tier:
         """Vocoder stage i's tier."""
+        if self.compute_dtype == torch.bfloat16:
+            return BF16_COMPUTE_TIER
         return resolve_tier(stage_precision(self.vocoder, i), self.value_dtype)
 
     @classmethod
@@ -122,8 +137,28 @@ class Tiers(NamedTuple):
         )
 
 
+    @classmethod
+    def bf16_compute(cls, precision: str | None, *, attention: bool = True,
+                     flow: bool = True) -> "Tiers":
+        """bf16 serving, as the JAX engine runs ``compute_dtype="bfloat16"``: its
+        vocoder kernels are off (no value dtype, a bf16 carry), so every stage
+        is XLA's bf16 graph (:data:`BF16_COMPUTE_TIER` whatever ``precision``:
+        each product is of bf16 values); kernel A (``attention``) and kernel 6
+        take bf16 at the tier of ``precision`` (collapsed), as the JAX kernels
+        take bf16 inputs. With ``attention`` off the encoder runs the module's
+        bf16 graph (the JAX CPU engine's default); kernel 6 runs only under
+        ``use_pallas_flow``, at the exact tier when ``flow`` is off."""
+        single = resolve_tier(reduce_precision(precision))
+        return cls(
+            vocoder=precision, value_dtype=torch.bfloat16,
+            attention=single._replace(bf16_compute=True) if attention else EXACT_TIER,
+            flow=(single if flow else EXACT_TIER)._replace(bf16_compute=True),
+            compute_dtype=torch.bfloat16)
+
+
 EXACT_TIERS = Tiers()
 BF16_TRAIN_TIER = Tier(FAST, True)
+BF16_COMPUTE_TIER = Tier(FAST, True, True)  # bf16 serving's vocoder kernels
 TRAIN_TIERS = (EXACT_TIER, BF16_TRAIN_TIER)  # the tiers the training kernels 4 and 5 are built for
 
 
