@@ -155,7 +155,25 @@ printing its result line:
    one-shot decode, the flow and vocoder at the exact tier's durations by
    mel-L1 against exact; VCTK at bf16 with ``use_pallas_flow``: a request of
    speaker 17 and a conversion 0 -> 17; HiFi-GAN V2's decoder at bf16: a
-   request through kernels 7 and C, profiled.
+   request through kernels 7 and C, profiled;
+12. data-parallel training (``vits_tpu_torch/parallel``, ``train/step.py``'s
+   ``data_parallel``, ZeRO-1), in a process of its own as phases 9-11
+   (``--data-parallel-phase``), at MMS width with random weights: (a) a
+   one-rank NCCL group (``parallel/distributed.py::initialize``): the
+   data-parallel GAN step at phase 7's batch against the plain one-process
+   step from the same weights and noise (losses, clipped gradients and the
+   parameters after AdamW within DP_SPREAD_FACTOR x the plain step's own
+   run-to-run spread over three runs; bit-equal where it repeats itself),
+   kernels A with lse, 4 and 5 launched by it, the steady step ms of both and
+   the gradient all-reduce alone per network, and ``train(zero1=True)`` for 4
+   steps with a resume to 6; (b) two gloo ranks sharing the card (NCCL refuses
+   two ranks on one GPU; each a grandchild, ``--data-parallel-rank``) at B=4,
+   two rows a rank, against the one-process B=4 step: equal MAS durations,
+   both ranks' metrics and gradients bit-identical, losses within
+   DP_LOSS_RTOL relative (or 10x their noise floor where larger), gradients
+   within phase 7's noise-floor bounds (the floor of the one-process step on
+   the card); ZeRO-1 on and off after two steps within the replicated run's
+   spread; the steady step ms and gloo's all-reduce ms through the host.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -167,7 +185,9 @@ launches of its three bf16 steps, phase 11's bf16 serving modes as ``*_bf16_serv
 entries with the launches of its request paths; ``library_ms`` is null:
 no single PyTorch call computes any of these functions; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
-fidelity tier), and last ``{"ok": true, "device": {...}}``.
+fidelity tier; ``data_parallel_launches``: phase 12's counts for A with lse, 4
+and 5, its world-1 step and 12b's rank 0), and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1322,6 +1342,58 @@ def profile_step(step_fn, batch, noise_gen, steady_ms: float, card: str) -> dict
             "families_ms": {k: v[0] for k, v in families.items()}}
 
 
+def hold_gradients(names, got, want, floors, label: str) -> None:
+    """Hold gradients ``got`` against ``want`` (lists of tensors in ``names``' order)
+    by relative L2 error, per module and per tensor, within a multiple of the
+    noise floor ``floors``: the gradients of ``want``'s computation with every
+    weight moved by 1e-7, FLOOR_SAMPLES times.
+
+    Per module (all its tensors) within 10x the module's floor, and per tensor
+    within TENSOR_FLOOR_FACTOR x the larger of its own and its module's floor (a
+    tensor's floor is a noisy estimate, and the worst of ~700 tensors reached
+    6.6x a one-sample floor on an H100; a wrong or missing tensor is off by ~1,
+    far past that bound). A tensor whose own floor passes NOISY_GRAD is
+    rounding noise (the attention key biases: their exact gradient is 0, softmax
+    being shift-invariant), and is held in its module's units against the
+    module's bound."""
+    def rel(a, b, scale):
+        return float(torch.linalg.vector_norm(a - b)) / scale
+
+    groups: dict[str, list] = {}
+    for i, name in enumerate(names):
+        groups.setdefault(name.split(".")[0], []).append(
+            (name, got[i], want[i], [grads[i] for grads in floors]))
+    for module, items in groups.items():
+        g, c = (torch.cat([t[i].flatten() for t in items]) for i in (1, 2))
+        norm = float(torch.linalg.vector_norm(c))
+        err = rel(g, c, norm)
+        floor = max(rel(torch.cat([t[3][j].flatten() for t in items]), c, norm)
+                    for j in range(len(floors)))
+        bound = 10 * floor + 1e-6
+        worst, worst_name, noisy = 0.0, items[0][0], []
+        for name, tg, tc, tps in items:
+            scale = float(torch.linalg.vector_norm(tc)) or norm
+            t_floor = max(rel(tp, tc, scale) for tp in tps)
+            if t_floor > NOISY_GRAD:
+                noisy.append(name)
+                t_err, t_bound = rel(tg, tc, norm), bound
+            else:
+                t_err = rel(tg, tc, scale)
+                t_bound = TENSOR_FLOOR_FACTOR * max(t_floor, floor) + 1e-6
+            if not t_err <= t_bound:
+                raise RuntimeError(f"{label}: gradients of {name} differ: relative L2 "
+                                   f"{t_err:.3e} > {t_bound:.3e}")
+            if t_err / t_bound > worst:
+                worst, worst_name = t_err / t_bound, name
+        print(f"  gradients of {module} ({len(items)} tensors): {label} relative L2 "
+              f"{err:.3e}, max|diff| {float((g - c).abs().max()):.3e} of max "
+              f"{float(c.abs().max()):.3e} (noise floor {floor:.3e}, bound {bound:.3e}); "
+              f"worst tensor {worst_name} at {worst:.3f} of its bound; rounding noise: "
+              f"{noisy or 'none'}", flush=True)
+        if not err <= bound:
+            raise RuntimeError(f"{label}: gradients of {module} differ past the bound")
+
+
 def train_card_vs_cpu(config, gen: dict, batch) -> None:
     """Phase 5b: one generator_loss and its gradients on the card vs the plain CPU path.
 
@@ -1369,57 +1441,14 @@ def train_card_vs_cpu(config, gen: dict, batch) -> None:
               f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
         if not abs(g - c) <= bound:
             raise RuntimeError(f"card and CPU {name} differ past the bound")
-    # Relative L2 error of the card's gradients against the CPU's, beside the
-    # same measure of the CPU's noise floor: per module (all its tensors) within
-    # 10x the module's floor, and per tensor within TENSOR_FLOOR_FACTOR x the
-    # larger of its own and its module's floor (a tensor's floor is a noisy
-    # estimate, and the worst of ~700 tensors reached 6.6x a one-sample floor on
-    # an H100; a wrong or missing tensor is off by ~1, far past that bound).
-    # A tensor whose own floor passes NOISY_GRAD is rounding noise (the
-    # attention key biases: their exact gradient is 0, softmax being shift-
-    # invariant), and is held in its module's units against the module's bound.
-    def rel(a, b, scale):
-        return float(torch.linalg.vector_norm(a - b)) / scale
-
-    groups: dict[str, list] = {}
-    for i, name in enumerate(gen):
-        groups.setdefault(name.split(".")[0], []).append(
-            (name, card_g[i], cpu_g[i], [grads[i] for _, grads in perts]))
-    for module, items in groups.items():
-        g, c = (torch.cat([t[i].flatten() for t in items]) for i in (1, 2))
-        norm = float(torch.linalg.vector_norm(c))
-        err = rel(g, c, norm)
-        floor = max(rel(torch.cat([t[3][j].flatten() for t in items]), c, norm)
-                    for j in range(FLOOR_SAMPLES))
-        bound = 10 * floor + 1e-6
-        worst, worst_name, noisy = 0.0, items[0][0], []
-        for name, tg, tc, tps in items:
-            scale = float(torch.linalg.vector_norm(tc)) or norm
-            t_floor = max(rel(tp, tc, scale) for tp in tps)
-            if t_floor > NOISY_GRAD:
-                noisy.append(name)
-                t_err, t_bound = rel(tg, tc, norm), bound
-            else:
-                t_err = rel(tg, tc, scale)
-                t_bound = TENSOR_FLOOR_FACTOR * max(t_floor, floor) + 1e-6
-            if not t_err <= t_bound:
-                raise RuntimeError(f"card and CPU gradients of {name} differ: relative L2 "
-                                   f"{t_err:.3e} > {t_bound:.3e}")
-            if t_err / t_bound > worst:
-                worst, worst_name = t_err / t_bound, name
-        print(f"  gradients of {module} ({len(items)} tensors): card vs CPU relative L2 "
-              f"{err:.3e}, max|diff| {float((g - c).abs().max()):.3e} of max "
-              f"{float(c.abs().max()):.3e} (noise floor {floor:.3e}, bound {bound:.3e}); "
-              f"worst tensor {worst_name} at {worst:.3f} of its bound; rounding noise on the "
-              f"CPU: {noisy or 'none'}", flush=True)
-        if not err <= bound:
-            raise RuntimeError(f"card and CPU gradients of {module} differ past the bound")
+    hold_gradients(list(gen), card_g, cpu_g, [grads for _, grads in perts], "card vs CPU")
     print(f"  card vs CPU: equal MAS durations ({int(cpu_out.durations.sum())} frames), "
           "losses and gradients within bounds", flush=True)
 
 
-def train_loop(card: str) -> None:
-    """Phase 5c: ``train()`` on a synthetic micro-corpus, checkpoints, then a resume."""
+def train_loop(card: str, zero1: bool = False) -> None:
+    """Phase 5c: ``train()`` on a synthetic micro-corpus, checkpoints, then a resume
+    (phase 12a: with ``zero1``, over a one-rank NCCL group)."""
     import tempfile
 
     from vits_tpu_torch import VitsConfig
@@ -1439,7 +1468,7 @@ def train_loop(card: str) -> None:
             logs, rates = [], []
             t0 = time.perf_counter()
             gen = train(corpus, model, out_dir, steps=steps, batch_size=4, checkpoint_every=2,
-                        log_every=1, log=logs.append, device="cuda",
+                        log_every=1, log=logs.append, device="cuda", zero1=zero1,
                         metrics_hook=lambda step, values, rate: rates.append(rate))
             torch.cuda.synchronize()
             for line in logs:
@@ -3204,6 +3233,399 @@ def bf16_serving_phase(device) -> dict:
     return {"kernels": measured, "requests": requests, "profiler_sessions": PROFILER_SESSIONS}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: data-parallel training (vits_tpu_torch/parallel; train/step.py's
+# data_parallel; ZeRO-1 in train/schedule.py), in a process of its own.
+# --------------------------------------------------------------------------- #
+
+DP_FLAG = "--data-parallel-phase"
+DP_RESULT = "data-parallel-phase result: "
+DP_RANK_FLAG = "--data-parallel-rank"  # a rank of 12b: the flag, its rank, the port, a directory
+# 12b: phase 7's shapes at four rows, two a rank, padded to 512 tokens (kernels A with lse
+# and 4) and 1280 frames; unequal lengths, so the global normalizers matter
+DP_TOKENS = (512, 300, 448, 256)
+DP_FRAMES = (1280, 800, 1100, 640)
+# 12b's losses: within this relative bound of the one-process step's, or within 10x
+# their noise floor where that is larger (phase 7's loss bound: the largest movement of
+# the one-process loss when every weight moves by 1e-7). At random MMS weights the
+# adversarial term through the AdamW-updated discriminator moved 1.2e-5 relative.
+DP_LOSS_RTOL = 1e-5
+# 12a and ZeRO-1 on/off: a step's results against the plain step's, within this multiple
+# of the plain step's own run-to-run spread over three runs (on the H100 two runs of one
+# GAN step differ in the last bits, its losses included: some reductions sum in a
+# run-dependent order; bit-equal where the plain step repeats itself bit for bit)
+DP_SPREAD_FACTOR = 4
+TRAINING_KERNELS = ("flash_rel_attention_lse", "rel_attention_bwd", "trio_forward_with_acts",
+                    "trio_backward")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def training_launches() -> dict:
+    """The launch counts of the training kernels (A with lse, 4, 5's forward and backward)."""
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
+
+    return {"flash_rel_attention_lse": flash_rel_attention.lse_launches,
+            "rel_attention_bwd": rel_attention_bwd.launches,
+            "trio_forward_with_acts": trio_forward_with_acts.launches,
+            "trio_backward": trio_backward.launches}
+
+
+def zero_training_launches() -> None:
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
+
+    for fn in (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward):
+        fn.launches = 0
+    flash_rel_attention.lse_launches = 0
+
+
+def leaves_on(arrays: dict, device) -> dict:
+    return {k: torch.tensor(v, device=device, requires_grad=True) for k, v in arrays.items()}
+
+
+def gan_step_once(config, gen_np, disc_np, batch, noise, device, data_parallel=None,
+                  zero1=False, steps: int = 1):
+    """``steps`` GAN steps from fresh copies of the parameters, each on ``batch``
+    and ``noise``, with the AdamW recipe (``train/schedule.py``; ``zero1`` under
+    data parallelism). Returns the last step's metrics, and the (clipped)
+    gradients and the parameters after it."""
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import make_gan_train_step
+
+    gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
+    shard = data_parallel if zero1 else None
+    opts = vits_optimizer(gen, zero1=shard), vits_optimizer(disc, zero1=shard)
+    step_fn = make_gan_train_step(config, gen, disc, *opts, data_parallel=data_parallel)
+    for _ in range(steps):
+        metrics = step_fn(batch, noise=noise)
+    params = list(gen.values()) + list(disc.values())
+    return (torch.stack(list(metrics)).detach(), [p.grad.detach().clone() for p in params],
+            [p.detach().clone() for p in params])
+
+
+def max_diff(a, b) -> float:
+    if torch.is_tensor(a):
+        return float((a - b).abs().max())
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def within_spread(what: str, got, runs) -> dict:
+    """``got`` against ``runs[0]`` within DP_SPREAD_FACTOR x the spread of ``runs``
+    (the same computation run again: the largest max|diff| of any two)."""
+    err = max_diff(got, runs[0])
+    spread = max(max_diff(a, b) for i, a in enumerate(runs) for b in runs[i + 1:])
+    print(f"    {what}: max|diff| {err:.3e}, the plain step against itself {spread:.3e}"
+          f"{' (bit-equal)' if err == 0 else ''}", flush=True)
+    if not err <= DP_SPREAD_FACTOR * spread:
+        raise RuntimeError(f"{what}: max|diff| {err:.3e} > {DP_SPREAD_FACTOR} x the plain "
+                           f"step's own spread {spread:.3e}")
+    return {"max_abs_diff": err, "spread": spread}
+
+
+def timed_steps(step_fns: dict, batch, noise, rounds: int = 3) -> dict:
+    """Steady wall ms per step of each step function, in turns (a, b, b, a, ...)
+    after one warm-up each, host clock to a synchronise."""
+    times = {name: [] for name in step_fns}
+    for fn in step_fns.values():
+        fn(batch, noise=noise)
+    torch.cuda.synchronize()
+    order = list(step_fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            step_fns[name](batch, noise=noise)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def all_reduce_ms(gen: dict, disc: dict, reps: int = 5) -> dict:
+    """Wall ms of one all_reduce_ (one collective over a flat fp32 buffer) of the
+    generator's and of the discriminator's gradients, alone."""
+    from vits_tpu_torch.parallel.mesh import all_reduce_
+
+    out = {}
+    for name, params in (("generator", gen), ("discriminator", disc)):
+        grads = [p.grad for p in params.values()]
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_(grads)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = {"ms": float(np.median(times[1:])), "mib": 4 * sum(
+            g.numel() for g in grads) / 2**20}
+    return out
+
+
+def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
+    """Phase 12a: a one-rank NCCL group; the data-parallel GAN step at phase 7's batch
+    against the plain one-process step; step ms; the gradient all-reduce alone;
+    ``train(zero1=True)`` with a resume."""
+    from vits_tpu_torch.parallel.distributed import initialize
+    from vits_tpu_torch.parallel.mesh import data_axis
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import draw_noise, make_gan_train_step
+
+    initialize(f"localhost:{free_port()}", 1, 0, device=device)
+    try:
+        dp = data_axis()
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        if torch.distributed.get_backend() != backend or dp != (1, 0):
+            raise RuntimeError(f"expected a one-rank {backend} group, got "
+                               f"{torch.distributed.get_backend()} {dp}")
+        batch = training_batch(config, device)
+        noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(1))
+        gan_step_once(config, gen_np, disc_np, batch, noise, device)  # warm-up
+        zero_training_launches()
+        got = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp)
+        launches = training_launches()
+        print(f"  data-parallel GAN step at world 1 (NCCL), B=2, 512 tokens, 1280 frames: "
+              f"launches {launches}", flush=True)
+        for name, n in launches.items():
+            if not n:
+                raise RuntimeError(f"kernel {name} was not launched by the data-parallel step")
+        plain = [gan_step_once(config, gen_np, disc_np, batch, noise, device)
+                 for _ in range(3)]
+        print("  against the plain one-process step from the same parameters and noise (run "
+              "three times):", flush=True)
+        held = {what: within_spread(what, got[i], [run[i] for run in plain])
+                for i, what in enumerate(("losses", "gradients", "parameters after AdamW"))}
+
+        gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
+        gen1, disc1 = leaves_on(gen_np, device), leaves_on(disc_np, device)
+        fns = {"one process": make_gan_train_step(config, gen1, disc1, vits_optimizer(gen1),
+                                                  vits_optimizer(disc1)),
+               "world 1": make_gan_train_step(config, gen, disc, vits_optimizer(gen),
+                                              vits_optimizer(disc), data_parallel=dp)}
+        step_ms = timed_steps(fns, batch, noise)
+        reduce_ms = all_reduce_ms(gen, disc)
+        del fns, gen, disc, gen1, disc1
+        print(f"  steady GAN step: one process {step_ms['one process']:.1f} ms, world 1 over "
+              f"NCCL {step_ms['world 1']:.1f} ms; gradient all-reduce alone: generator "
+              f"{reduce_ms['generator']['ms']:.2f} ms ({reduce_ms['generator']['mib']:.0f} MiB), "
+              f"discriminator {reduce_ms['discriminator']['ms']:.2f} ms "
+              f"({reduce_ms['discriminator']['mib']:.0f} MiB) ({card})", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_loop(card, zero1=True)
+        loop_s = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"launches": launches, "held": held, "step_ms": step_ms, "all_reduce": reduce_ms,
+            "train_zero1_s": loop_s}
+
+
+def dp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
+    """Phase 12b: two gloo ranks on the one card (NCCL refuses two ranks on one
+    GPU) against the one-process B=4 step: equal MAS durations, losses within
+    DP_LOSS_RTOL, gradients within phase 7's noise-floor bounds (the floor of the
+    one-process step on the card); ZeRO-1 on and off; step ms and gloo's
+    all-reduce ms."""
+    import tempfile
+
+    from vits_tpu_torch.train.step import draw_noise, generator_forward
+
+    batch = training_batch(config, device, DP_TOKENS, DP_FRAMES)
+    noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(2))
+    with torch.no_grad():
+        durations = generator_forward(leaves_on(gen_np, device), config, batch,
+                                      noise).durations.cpu()
+    want_metrics, want, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device)
+    want = [g.cpu() for g in want]
+    rng = np.random.default_rng(3)
+    floors, floor_metrics = [], []
+    for _ in range(FLOOR_SAMPLES):  # every weight moved by 1e-7, relative
+        moved = [{k: (v * (1 + 1e-7 * rng.standard_normal(v.shape))).astype(np.float32)
+                  for k, v in arrays.items()} for arrays in (gen_np, disc_np)]
+        metrics, grads, _ = gan_step_once(config, *moved, batch, noise, device)
+        floors.append([g.cpu() for g in grads])
+        floor_metrics.append(metrics.tolist())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(f"{tmp}/setup.json").write_text(json.dumps(
+            {"config": dataclasses.asdict(config), "device": str(device)}))
+        np.savez(f"{tmp}/inputs.npz", **{f"gen.{k}": v for k, v in gen_np.items()},
+                 **{f"disc.{k}": v for k, v in disc_np.items()},
+                 **{f"batch.{k}": v.cpu().numpy() for k, v in batch._asdict().items()
+                    if v is not None},
+                 **{f"noise.{k}": v.cpu().numpy() for k, v in noise._asdict().items()})
+        port = free_port()
+        logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DP_RANK_FLAG,
+                                   str(r), str(port), tmp], stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            for log in logs:
+                log.close()
+        for r, p in enumerate(procs):
+            with open(f"{tmp}/rank{r}.log") as f:
+                text = f.read()
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 12b rank {r} failed (exit {p.returncode}):\n"
+                                   f"{text[-4000:]}")
+        reports = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(2)]
+        with np.load(f"{tmp}/grads0.npz") as f:
+            got = [torch.from_numpy(f[str(i)]) for i in range(len(want))]
+    a, b = reports
+    print(f"  two gloo ranks on one card: steady GAN step {a['step_ms']:.1f} ms (B=4, two rows "
+          f"a rank), gradient all-reduce through the host: generator "
+          f"{a['all_reduce']['generator']['ms']:.2f} ms, discriminator "
+          f"{a['all_reduce']['discriminator']['ms']:.2f} ms ({card})", flush=True)
+    print(f"  ZeRO-1 on vs off, 2 AdamW steps: parameters max|diff| "
+          f"{max(r['zero1']['max_abs_diff'] for r in reports):.3e} (the replicated run, three "
+          f"times, against itself {max(r['zero1']['spread'] for r in reports):.3e}); rank "
+          f"moments {[round(r['zero1']['moment_share'], 3) for r in reports]} of the "
+          f"optimizer state; launches of rank 0's step {a['launches']}", flush=True)
+    for r, rep in enumerate(reports):
+        if rep["durations"] != durations[rep["rows"]].tolist():
+            raise RuntimeError(f"rank {r}: MAS durations differ from the one-process step's")
+        if rep["zero1"]["max_abs_diff"] > DP_SPREAD_FACTOR * rep["zero1"]["spread"]:
+            raise RuntimeError(f"ZeRO-1 on and off: parameters differ by "
+                               f"{rep['zero1']['max_abs_diff']:.3e}, past {DP_SPREAD_FACTOR} x "
+                               f"the replicated run's own spread {rep['zero1']['spread']:.3e}")
+    if a["metrics"] != b["metrics"] or a["grad_digest"] != b["grad_digest"]:
+        raise RuntimeError("the two ranks hold different metrics or gradients")
+    for i, (name, g, w) in enumerate(zip(GAN_FIELDS, a["metrics"], want_metrics.tolist())):
+        floor = max(abs(m[i] - w) for m in floor_metrics)
+        bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
+        print(f"    {name}: two ranks {g:.7g}, one process {w:.7g}, |diff| {abs(g - w):.3e} "
+              f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
+        if not abs(g - w) <= bound:
+            raise RuntimeError(f"two ranks and one process: {name} differs past {bound:.3e}")
+    print(f"  two gloo ranks on one card vs the one-process B=4 step: equal MAS durations "
+          f"({int(durations.sum())} frames), equal metrics and gradients on both ranks, "
+          f"losses within {DP_LOSS_RTOL} relative or 10x their noise floor", flush=True)
+    hold_gradients(list(gen_np) + list(disc_np), got, want, floors, "two ranks vs one process")
+    return {"ranks": reports, "launches": a["launches"]}
+
+
+# the kernels entries of the JSON line that phase 12's path launches, and their counters
+DP_KERNEL_ENTRIES = {"flash_rel_attention": ("flash_rel_attention_lse",),
+                     "trainable_rel_attention": ("rel_attention_bwd",),
+                     "trainable_trio": ("trio_forward_with_acts", "trio_backward")}
+GAN_FIELDS = ("gen_loss", "disc_loss", "kl", "duration", "mel", "adversarial",
+              "feature_matching")
+
+
+def tuples(value):
+    """A JSON value with its lists as tuples (a VitsConfig field read back)."""
+    return tuple(map(tuples, value)) if isinstance(value, list) else value
+
+
+def dp_rank(rank: int, port: int, tmp: str) -> None:
+    """A rank of phase 12b (a child of :func:`dp_two_ranks`): its MAS durations, one
+    GAN step (metrics and gradients to ``tmp``), step and all-reduce ms, and
+    ZeRO-1 on and off."""
+    import hashlib
+
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.parallel.distributed import initialize
+    from vits_tpu_torch.parallel.mesh import data_axis, rank_rows, zero1_owners
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import (
+        RowShare, TrainBatch, TrainNoise, generator_forward, make_gan_train_step)
+
+    setup = json.loads(Path(f"{tmp}/setup.json").read_text())
+    device = torch.device(setup["device"])
+    initialize(f"localhost:{port}", 2, rank, device=device, backend="gloo")
+    try:
+        config = VitsConfig(**{k: tuples(v) for k, v in setup["config"].items()})
+        with np.load(f"{tmp}/inputs.npz") as f:
+            arrays = {k: f[k] for k in f.files}
+        part = {prefix: {k[len(prefix) + 1:]: v for k, v in arrays.items()
+                         if k.startswith(prefix + ".")} for prefix in ("gen", "disc", "batch",
+                                                                      "noise")}
+        gen_np, disc_np = part["gen"], part["disc"]
+        batch = TrainBatch(*(None if k not in part["batch"] else
+                             torch.tensor(part["batch"][k], device=device)
+                             for k in TrainBatch._fields))
+        noise = TrainNoise(*(torch.tensor(part["noise"][k], device=device)
+                             for k in TrainNoise._fields))
+        dp = data_axis()
+        rows = rank_rows(batch.input_ids.shape[0], 2, rank)
+        idx = torch.as_tensor(rows, device=device)
+        with torch.no_grad():
+            durations = generator_forward(
+                leaves_on(gen_np, device), config, TrainBatch(*(None if t is None else t[idx]
+                                                                for t in batch)),
+                TrainNoise(*(t[idx] for t in noise)),
+                share=RowShare(batch.frame_mask.sum(), batch.token_mask.sum(), 0.5)).durations
+        zero_training_launches()
+        metrics, grads, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp)
+        launches = training_launches()
+        digest = hashlib.sha256()
+        for g in grads:
+            digest.update(g.cpu().numpy().tobytes())
+        if rank == 0:
+            np.savez(f"{tmp}/grads0.npz", **{str(i): g.cpu().numpy() for i, g in
+                                             enumerate(grads)})
+        del grads
+
+        gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
+        step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen),
+                                      vits_optimizer(disc), data_parallel=dp)
+        step_ms = timed_steps({"two ranks": step_fn}, batch, noise)["two ranks"]
+        reduce_ms = all_reduce_ms(gen, disc)
+        del step_fn, gen, disc
+        torch.cuda.empty_cache()
+        # ZeRO-1 on and off: two AdamW steps each; the replicated run twice for its spread
+        _, _, on = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, zero1=True,
+                                 steps=2)
+        off = [gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, steps=2)[2]
+               for _ in range(3)]
+        numels = [v.size for v in {**gen_np, **disc_np}.values()]
+        owned = sum(n for n, owner in zip(numels, zero1_owners(numels, 2)) if owner == rank)
+        report = {"rows": rows.tolist(), "durations": durations.cpu().tolist(),
+                  "metrics": metrics.tolist(), "grad_digest": digest.hexdigest(),
+                  "launches": launches, "step_ms": step_ms, "all_reduce": reduce_ms,
+                  "zero1": {"max_abs_diff": max_diff(on, off[0]),
+                            "spread": max(max_diff(x, y) for i, x in enumerate(off)
+                                          for y in off[i + 1:]),
+                            "moment_share": owned / sum(numels)}}
+        Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(device) -> dict:
+    """Phase 12's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops import cuda as kernels
+
+    card = card_line()
+    kernels.library()
+    t0 = time.perf_counter()
+    config = VitsConfig()
+    gen_np = random_params(config, seed=0, keep_training=True)
+    disc_np = init_discriminator_params(0)
+    world_one = dp_world_one(config, gen_np, disc_np, device, card)
+    two_ranks = dp_two_ranks(config, gen_np, disc_np, device, card)
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"world_one": world_one, "two_ranks": two_ranks, "card": card,
+            "profiler_sessions": PROFILER_SESSIONS}
+
+
 def run_child(flag: str, prefix: str, phase: int) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
@@ -3240,8 +3662,14 @@ def main() -> None:
     if sys.argv[1:] == [SERVE16_FLAG]:
         print(SERVE16_RESULT + json.dumps(bf16_serving_phase(device)), flush=True)
         return
+    if sys.argv[1:] == [DP_FLAG]:
+        print(DP_RESULT + json.dumps(data_parallel_phase(device)), flush=True)
+        return
+    if sys.argv[1:2] == [DP_RANK_FLAG]:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     card = card_line()
-    print("[1/11] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/12] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -3255,7 +3683,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/11] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/12] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -3270,7 +3698,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/11] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/12] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -3279,13 +3707,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/11] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/12] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/11] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/12] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -3298,12 +3726,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/11] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/12] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/11] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/12] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -3313,27 +3741,31 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/11] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/12] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/11] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/12] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/11] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/12] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
-    print(f"[11/11] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+    print(f"[11/12] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
     serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
+
+    print(f"[12/12] data-parallel training at MMS-TTS width, random weights, in a process of "
+          f"its own ({card}):", flush=True)
+    data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -3412,6 +3844,11 @@ def main() -> None:
         if entry["name"] == "trainable_trio":  # the forward's launches above; the backward's here
             entry["backward_launches"] = train_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
+        if entry["name"] in DP_KERNEL_ENTRIES:  # phase 12's path: world 1 (NCCL), 12b's rank 0
+            counts = DP_KERNEL_ENTRIES[entry["name"]]
+            entry["data_parallel_launches"] = {
+                "world_one": {c: data_parallel["world_one"]["launches"][c] for c in counts},
+                "two_ranks_rank0": {c: data_parallel["two_ranks"]["launches"][c] for c in counts}}
         if entry["name"] == "trainable_trio_bf16":
             entry["backward_launches"] = bf16_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
@@ -3433,6 +3870,10 @@ def main() -> None:
     report["training_bf16"] = bf16_run
     report["serving_bf16"] = {k: v for k, v in serve16_run.items() if k != "launches"} | {
         "launches_by_path": serve16_run["launches"], "card": card}
+    report["data_parallel"] = {
+        "world_one": {k: v for k, v in data_parallel["world_one"].items() if k != "launches"},
+        "two_ranks": [{k: v for k, v in r.items() if k not in ("durations", "rows")}
+                      for r in data_parallel["two_ranks"]["ranks"]], "card": card}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

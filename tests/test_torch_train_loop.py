@@ -4,8 +4,9 @@
 on the synthetic micro-corpus, checkpoints, and resumes from the checkpoint
 (on the CPU, ``--device cpu``: its plain twins); its defaults are the card
 (``--device cuda``) and fp32, and without a visible card it exits non-zero
-with a message, as the port's other entry points do. Multi-GPU options
-still raise, naming the roadmap item.
+with a message, as the port's other entry points do. ``model_parallel > 1``
+still raises, naming the roadmap item, from ``train`` and from the command
+line's ``--model-parallel`` (``zero1`` trains: tests/test_torch_train_dp*.py).
 """
 
 import os
@@ -63,8 +64,15 @@ def test_main_defaults_to_the_card(corpus_and_model, tmp_path, capsys, monkeypat
     assert not os.path.exists(tmp_path / "x")
 
 
-@pytest.mark.parametrize("kwargs", [{"model_parallel": 2}, {"zero1": True}])
+@pytest.mark.parametrize("kwargs", [{"model_parallel": 2}])
 def test_multi_gpu_options_raise(corpus_and_model, tmp_path, kwargs):
     corpus, model = corpus_and_model
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1.3"):
         loop.train(corpus, model, str(tmp_path / "y"), steps=1, device="cpu", **kwargs)
+
+
+def test_main_model_parallel_raises(corpus_and_model, tmp_path):
+    corpus, model = corpus_and_model
+    with pytest.raises(NotImplementedError, match="queue 1, item 1.3"):
+        loop.main(["--corpus", corpus, "--model", model, "--out", str(tmp_path / "y"),
+                   "--device", "cpu", "--steps", "1", "--model-parallel", "2"])

@@ -5,7 +5,9 @@ Counterpart of ``vits_tpu/train/checkpoint.py``. ``step_<N>/`` holds
 the JAX parameter names in the canonical layout -- the files the JAX package
 writes, readable by its loaders and by ``export_to_ggml`` -- plus the
 optimizer states (``gen_opt.npz``, ``disc_opt.npz``: Adam moments by
-parameter name and the update count, see ``train/schedule.py``).
+parameter name and the update count, ``VitsOptimizer.state_arrays()`` in
+``train/schedule.py``; under ZeRO-1 that is a collective every rank calls,
+so the caller gathers the states and only the primary process writes).
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import numpy as np
 import torch
 
 from vits_tpu_torch.io.params import to_jax_params
-from vits_tpu_torch.train.schedule import VitsOptimizer
 
 
 def _save(path: str, arrays: Mapping[str, np.ndarray]) -> None:
@@ -34,9 +35,9 @@ def save_checkpoint(
     directory: str,
     step: int,
     gen_params: Mapping[str, torch.Tensor],
-    gen_opt: Optional[VitsOptimizer] = None,
+    gen_opt: Optional[Mapping[str, np.ndarray]] = None,  # the optimizers' state_arrays()
     disc_params: Optional[Mapping[str, torch.Tensor]] = None,
-    disc_opt: Optional[VitsOptimizer] = None,
+    disc_opt: Optional[Mapping[str, np.ndarray]] = None,
     ema_params: Optional[Mapping[str, torch.Tensor]] = None,
     metadata: Optional[dict] = None,
     keep: int = 3,
@@ -46,11 +47,11 @@ def save_checkpoint(
     os.makedirs(ckpt_dir, exist_ok=True)
     files = {"gen_params": to_jax_params(gen_params)}
     if gen_opt is not None:
-        files["gen_opt"] = gen_opt.state_arrays()
+        files["gen_opt"] = gen_opt
     if disc_params is not None:
         files["disc_params"] = to_jax_params(disc_params)
     if disc_opt is not None:
-        files["disc_opt"] = disc_opt.state_arrays()
+        files["disc_opt"] = disc_opt
     if ema_params is not None:
         files["gen_params_ema"] = to_jax_params(ema_params)
     for name, arrays in files.items():

@@ -10,8 +10,20 @@ Picks up the latest checkpoint in ``out_dir``; writes one every
 raw ones (``train/checkpoint.py``). ``compute_dtype="bfloat16"`` trains in
 mixed precision (``train/step.py``; master weights and optimizer stay fp32).
 The command line runs on the card (``--device cuda``, the default) unless
-asked for the CPU. One device: ``model_parallel > 1`` and ``zero1`` raise
-``NotImplementedError`` (multi-GPU training is ROADMAP.md queue 1's item 3).
+asked for the CPU.
+
+Data parallel over processes, one per card (NCCL) or per CPU process (gloo),
+after ``parallel/distributed.py::initialize``; the command line initializes
+when torchrun's ``WORLD_SIZE`` is set::
+
+    torchrun --nproc-per-node 8 -m vits_tpu_torch.train.loop --corpus ... [--zero1]
+
+Every rank reads the same batch stream, pads each batch to a multiple of the
+world (``parallel/mesh.py::pad_rows``) and computes its rows of it
+(``train/step.py``); ``zero1`` splits the Adam moments over the ranks
+(``train/schedule.py``). Only the primary process logs and writes
+checkpoints. ``model_parallel > 1`` raises ``NotImplementedError``
+(tensor and pipeline parallelism are ROADMAP.md queue 1, item 1.3).
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ import torch
 from vits_tpu_torch.io import loader
 from vits_tpu_torch.io.params import from_jax_params
 from vits_tpu_torch.models.discriminator import init_discriminator_params
+from vits_tpu_torch.parallel import distributed
+from vits_tpu_torch.parallel.mesh import data_axis, pad_rows
 from vits_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from vits_tpu_torch.train.data import Prefetcher, VitsDataset
 from vits_tpu_torch.train.schedule import ParamEMA, vits_optimizer
@@ -70,12 +84,19 @@ def train(
     device,
 ) -> dict[str, torch.Tensor]:
     """Train from ``model_source`` (.ggml with the training modules, or an HF dir)
-    on ``corpus_dir``; returns the generator parameters."""
-    if model_parallel > 1 or zero1:
-        raise NotImplementedError("multi-GPU training (model_parallel, zero1) is not ported yet: "
-                                  "ROADMAP.md queue 1, item 3 (multi-GPU)")
+    on ``corpus_dir``; returns the generator parameters.
+
+    Data parallel over the initialized process group, if any (module
+    docstring): each rank then trains on ``distributed.local_device(device)``."""
+    if model_parallel > 1:
+        raise NotImplementedError("model_parallel > 1 (tensor and pipeline parallelism) is not "
+                                  "ported yet: ROADMAP.md queue 1, item 1.3")
     resolve_compute_dtype(compute_dtype)
-    device = torch.device(device)
+    dp = data_axis()
+    world = 1 if dp is None else dp.world
+    device = torch.device(device) if world == 1 else distributed.local_device(device)
+    primary = distributed.is_primary()
+    say = log if primary else (lambda *_: None)  # the training log: the primary's only
 
     if model_source.endswith(".ggml"):
         config, tokenizer, params_np = loader.load_ggml(model_source)
@@ -87,15 +108,17 @@ def train(
                          "posterior flows); export with keep_training=True")
 
     dataset = VitsDataset(corpus_dir, tokenizer, config)
-    log(f"dataset: {len(dataset)} utterances")
+    say(f"dataset: {len(dataset)} utterances")
     gen_params = {k: v.requires_grad_() for k, v in from_jax_params(params_np, device).items()}
     disc_params = {k: v.requires_grad_() for k, v in
                    from_jax_params(init_discriminator_params(seed), device).items()}
     steps_per_epoch = max(len(dataset) // batch_size, 1)
-    gen_opt = vits_optimizer(gen_params, learning_rate, steps_per_epoch=steps_per_epoch)
+    shard = dp if zero1 else None
+    gen_opt = vits_optimizer(gen_params, learning_rate, steps_per_epoch=steps_per_epoch,
+                             zero1=shard)
     disc_opt = vits_optimizer(
         disc_params, disc_learning_rate if disc_learning_rate is not None else learning_rate,
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch, zero1=shard)
     ema = ParamEMA()
     ema_params = ema.init(gen_params)
 
@@ -111,17 +134,18 @@ def train(
             disc_opt.load_state_arrays(restored["disc_opt"])
         if restored["gen_params_ema"] is not None:
             _load_into(ema_params, restored["gen_params_ema"])
-            log("restored EMA weights")
+            say("restored EMA weights")
         start_step = restored["step"]
-        log(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
 
     if adversarial:
         step_fn = make_gan_train_step(config, gen_params, disc_params, gen_opt, disc_opt,
                                       segment_frames=segment_frames, grad_accum=grad_accum,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype, data_parallel=dp)
     else:
         step_fn = make_train_step(config, gen_params, gen_opt, segment_frames=segment_frames,
-                                  grad_accum=grad_accum, compute_dtype=compute_dtype)
+                                  grad_accum=grad_accum, compute_dtype=compute_dtype,
+                                  data_parallel=dp)
     noise_gen = torch.Generator(device=device).manual_seed(seed + start_step)
 
     with contextlib.ExitStack() as teardown:
@@ -129,16 +153,18 @@ def train(
         teardown.callback(batches.close)
         # registered last, so it stops first: it force-exits the process on a
         # heartbeat gap, and checkpoint writes during an unwind must not race it
-        watchdog = Watchdog(out_dir, stall_seconds=stall_seconds, process_index=0,
-                            abort=stall_abort, log=log)
+        watchdog = Watchdog(out_dir, stall_seconds=stall_seconds,
+                            process_index=distributed.process_index(), abort=stall_abort,
+                            log=log)
         teardown.callback(watchdog.stop)
         t0 = time.perf_counter()
         for step_idx, batch in zip(range(start_step + 1, steps + 1), batches):
             watchdog.beat(step_idx)
-            metrics = step_fn(batch_to(batch, device), noise_gen)
+            metrics = step_fn(batch_to(pad_rows(batch, world, segment_frames), device),
+                              noise_gen)
             ema.update(ema_params, gen_params, step_idx - 1)
 
-            if step_idx % log_every == 0:
+            if step_idx % log_every == 0 and primary:
                 values = {k: float(v) for k, v in metrics._asdict().items()}
                 rate = log_every / (time.perf_counter() - t0)
                 t0 = time.perf_counter()
@@ -148,11 +174,19 @@ def train(
                     metrics_hook(step_idx, values, rate)
 
             if step_idx % checkpoint_every == 0 or step_idx == steps:
-                save_checkpoint(
-                    out_dir, step_idx, gen_params, gen_opt,
-                    disc_params if adversarial else None, disc_opt if adversarial else None,
-                    ema_params, metadata={"batch_size": batch_size, "lr": learning_rate})
-                log(f"checkpointed step {step_idx}")
+                # every rank gathers the optimizer states (a collective under
+                # ZeRO-1); one writer: concurrent writers would corrupt the directory
+                if primary or zero1:
+                    gen_state = gen_opt.state_arrays()
+                    disc_state = disc_opt.state_arrays() if adversarial else None
+                if primary:
+                    save_checkpoint(
+                        out_dir, step_idx, gen_params, gen_state,
+                        disc_params if adversarial else None, disc_state, ema_params,
+                        metadata={"batch_size": batch_size, "lr": learning_rate})
+                    log(f"checkpointed step {step_idx}")
+                if dp is not None:
+                    torch.distributed.barrier()
     return gen_params
 
 
@@ -172,15 +206,27 @@ def main(argv=None) -> int:
                     help="microbatches per optimizer update")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="model compute dtype (master params stay fp32)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="split the optimizer moments over the data-parallel ranks (ZeRO-1)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel degree (only 1: not ported)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print(f"error: --device {args.device}, but no CUDA device is visible "
               "(--device cpu runs on the CPU)", file=sys.stderr)
         return 1
     os.makedirs(args.out, exist_ok=True)
-    train(args.corpus, args.model, args.out, steps=args.steps, batch_size=args.batch_size,
-          learning_rate=args.lr, adversarial=not args.no_gan, grad_accum=args.grad_accum,
-          compute_dtype=args.dtype, device=args.device)
+    launched = "WORLD_SIZE" in os.environ  # torchrun's, or set by hand per process
+    if launched:
+        distributed.initialize(device=args.device)
+    try:
+        train(args.corpus, args.model, args.out, steps=args.steps, batch_size=args.batch_size,
+              learning_rate=args.lr, adversarial=not args.no_gan, grad_accum=args.grad_accum,
+              compute_dtype=args.dtype, zero1=args.zero1, model_parallel=args.model_parallel,
+              device=args.device)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
     return 0
 
 

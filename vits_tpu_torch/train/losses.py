@@ -18,15 +18,19 @@ def kl_divergence(
     m_p: torch.Tensor,  # (B, S, C) aligned prior means
     logs_p: torch.Tensor,  # (B, S, C) aligned prior log-stddev
     frame_mask: torch.Tensor,  # (B, S)
+    mask_sum: torch.Tensor | None = None,  # () the normalizer's mask sum (None: frame_mask's)
 ) -> torch.Tensor:
     """Masked mean KL (the VITS formulation on flow-mapped samples), in fp32 (the
-    inputs are read as fp32: a no-op in fp32 training)."""
+    inputs are read as fp32: a no-op in fp32 training). ``mask_sum``: the global
+    batch's frame count, when these rows are a rank's part of it."""
     z_p, logs_q, m_p, logs_p = z_p.float(), logs_q.float(), m_p.float(), logs_p.float()
     mask = frame_mask.float()[..., None]
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (torch.exp(2.0 * logs_q) + (z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
     channels = z_p.shape[-1]
-    return torch.sum(kl * mask) / torch.clamp(torch.sum(mask) * channels, min=1.0) * channels
+    if mask_sum is None:
+        mask_sum = torch.sum(mask)
+    return torch.sum(kl * mask) / torch.clamp(mask_sum * channels, min=1.0) * channels
 
 
 def feature_matching_loss(real_feats: Sequence, fake_feats: Sequence) -> torch.Tensor:

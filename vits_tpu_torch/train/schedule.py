@@ -6,6 +6,20 @@ adds 1e-6), then ``adamw(b1=0.8, b2=0.99, eps=1e-9, weight_decay=1e-4)``
 (torch's AdamW default decay is 1e-2) at the per-step rate
 ``base_lr * (gamma ** (1 / steps_per_epoch)) ** count``, count 0 on the first
 update. The EMA warms its decay up as ``min(decay, (1 + t) / (10 + t))``.
+
+ZeRO-1 (``zero1=`` a ``parallel/mesh.py::DataParallel``): each parameter
+tensor has one owner rank (``zero1_owners``, balanced by size), and a rank's
+AdamW holds moments only for the tensors it owns, about 1/world of the
+optimizer state. Every rank clips on the whole (already summed) gradient,
+steps its own tensors and broadcasts them, one coalesced broadcast per owner
+per step; the update is the replicated optimizer's, bit for bit. JAX splits
+each moment along a dimension instead (``vits_tpu/parallel/mesh.py::
+opt_state_shardings``); ownership by tensor needs only ``broadcast``, which
+gloo has for CUDA tensors too. ``torch.distributed.optim.
+ZeroRedundancyOptimizer`` does the same split, but its state gathers through
+pickled objects indexed by parameter position; this keeps the checkpoint's
+by-name moments, so a state saved under ZeRO-1 loads without it and the other
+way round.
 """
 
 from __future__ import annotations
@@ -15,24 +29,40 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from vits_tpu_torch.parallel.mesh import DataParallel, broadcast_, zero1_owners
+
 
 class VitsOptimizer:
     """The VITS AdamW recipe over a flat dict of parameters (updated in place).
 
     ``step()`` reads each parameter's ``.grad``, as ``torch.optim`` does.
+    ``zero1``: this rank's place on the data axis; it keeps the moments of the
+    tensors it owns (module docstring).
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
                  steps_per_epoch: int = 1000, clip_norm: float | None = 500.0,
-                 gamma_per_epoch: float = 0.999875):
+                 gamma_per_epoch: float = 0.999875, zero1: DataParallel | None = None):
         self.names = list(params)
         self.params = list(params.values())
         self.base_lr = base_lr
         self.per_step = gamma_per_epoch ** (1.0 / steps_per_epoch)
         self.clip_norm = clip_norm
         self.count = 0  # completed updates
-        self.adamw = torch.optim.AdamW(self.params, lr=base_lr, betas=(0.8, 0.99), eps=1e-9,
+        self.zero1 = zero1
+        # each tensor's owner rank; None: every rank steps every tensor
+        self.owners = (None if zero1 is None
+                       else zero1_owners([p.numel() for p in self.params], zero1.world))
+        self.adamw = torch.optim.AdamW([p for i, p in enumerate(self.params) if self.owns(i)],
+                                       lr=base_lr, betas=(0.8, 0.99), eps=1e-9,
                                        weight_decay=1e-4)
+
+    def owns(self, i: int) -> bool:
+        """Whether this rank keeps the moments of (and steps) parameter ``i``."""
+        return self.owners is None or self.owners[i] == self.zero1.rank
+
+    def _owned_by(self, rank: int) -> list[int]:
+        return [i for i, owner in enumerate(self.owners) if owner == rank]
 
     def learning_rate(self) -> float:
         return self.base_lr * self.per_step ** self.count
@@ -50,24 +80,41 @@ class VitsOptimizer:
             group["lr"] = self.learning_rate()
         self.adamw.step()
         self.count += 1
+        if self.owners is not None:
+            for rank in range(self.zero1.world):
+                broadcast_([self.params[i] for i in self._owned_by(rank)], rank)
 
     def state_arrays(self) -> dict[str, np.ndarray]:
-        """Adam moments by parameter name, and the update count, as numpy."""
+        """Adam moments by parameter name, and the update count, as numpy.
+
+        Under ZeRO-1 a collective: every rank calls it, each owner broadcasts
+        its moments, and every rank returns all of them."""
         out = {"count": np.asarray(self.count, np.int64)}
-        for name, p in zip(self.names, self.params):
-            state = self.adamw.state.get(p)
+        moments = {}
+        for i, p in enumerate(self.params):
+            state = self.adamw.state.get(p) if self.owns(i) else None
             if state:
-                out[f"{name}.exp_avg"] = state["exp_avg"].detach().cpu().numpy()
-                out[f"{name}.exp_avg_sq"] = state["exp_avg_sq"].detach().cpu().numpy()
+                moments[i] = (state["exp_avg"], state["exp_avg_sq"])
+        if self.owners is not None and self.count:
+            for rank in range(self.zero1.world):
+                owned = self._owned_by(rank)
+                for i in owned:
+                    moments.setdefault(i, (torch.empty_like(self.params[i]),
+                                           torch.empty_like(self.params[i])))
+                broadcast_([m for i in owned for m in moments[i]], rank)
+        for i, (exp_avg, exp_avg_sq) in sorted(moments.items()):
+            out[f"{self.names[i]}.exp_avg"] = exp_avg.detach().cpu().numpy()
+            out[f"{self.names[i]}.exp_avg_sq"] = exp_avg_sq.detach().cpu().numpy()
         return out
 
     def load_state_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
-        """Inverse of :meth:`state_arrays`; raises if a parameter is missing."""
+        """Inverse of :meth:`state_arrays` (under ZeRO-1 each rank keeps the
+        moments it owns); raises if a parameter is missing."""
         self.count = int(arrays["count"])
-        for name, p in zip(self.names, self.params):
+        for i, (name, p) in enumerate(zip(self.names, self.params)):
             if self.count and f"{name}.exp_avg" not in arrays:
                 raise ValueError(f"optimizer state lacks parameter {name!r}")
-            if f"{name}.exp_avg" in arrays:
+            if f"{name}.exp_avg" in arrays and self.owns(i):
                 self.adamw.state[p] = {
                     "step": torch.tensor(float(self.count)),
                     "exp_avg": torch.tensor(arrays[f"{name}.exp_avg"], device=p.device),
@@ -76,8 +123,9 @@ class VitsOptimizer:
 
 
 def vits_optimizer(params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
-                   steps_per_epoch: int = 1000, clip_norm: float | None = 500.0) -> VitsOptimizer:
-    return VitsOptimizer(params, base_lr, steps_per_epoch, clip_norm)
+                   steps_per_epoch: int = 1000, clip_norm: float | None = 500.0,
+                   zero1: DataParallel | None = None) -> VitsOptimizer:
+    return VitsOptimizer(params, base_lr, steps_per_epoch, clip_norm, zero1=zero1)
 
 
 class ParamEMA:

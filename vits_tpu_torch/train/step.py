@@ -35,6 +35,20 @@ duration predictor stay fp32, and the loss anchors -- the prior likelihood
 before MAS, the KL, the duration NLL, the frame lengths and the log-mel --
 are fp32. The training kernels then run at ``ops/tiers.py::training_tiers``:
 bf16 storage at the fast tier.
+
+Data parallelism (``data_parallel=``, a ``parallel/mesh.py::DataParallel``):
+every rank is handed the same global batch and draws (or is handed) the same
+global noise, then keeps its rows of both (``rank_rows``). Its losses are its
+part of the global batch's: the KL and the duration NLL divide its sums by the
+global batch's mask sums (computed from the global batch on every rank, so
+no collective), and the means (mel L1, discriminator, adversarial, feature
+matching) are scaled by its share of the rows. The gradients are summed over
+the ranks before each optimizer update, so the global-norm clip and the
+update see the global batch's gradient, identical on every rank; the metrics
+are summed too, so every rank returns the global values. With ``grad_accum``
+each microbatch's normalizers are that microbatch's global sums. JAX's
+GSPMD step computes the whole batch's loss on a 'data' mesh; this is the same
+function, summed in another order.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.align import monotonic_align, prior_log_likelihood
 from vits_tpu_torch.ops.tiers import training_tiers
+from vits_tpu_torch.parallel.mesh import DataParallel, all_reduce_, rank_rows
 from vits_tpu_torch.train.losses import (
     discriminator_loss,
     feature_matching_loss,
@@ -99,6 +114,14 @@ class GanTrainMetrics(NamedTuple):
     mel: torch.Tensor
     adversarial: torch.Tensor
     feature_matching: torch.Tensor
+
+
+class RowShare(NamedTuple):
+    """A rank's part of one global (micro)batch under data parallelism."""
+
+    frames: torch.Tensor  # () the global frame mask's sum: the KL's normalizer
+    tokens: torch.Tensor  # () the global token mask's sum: the duration NLL's
+    rows: float  # the rank's rows over the global rows: the weight of its mean losses
 
 
 class GeneratorOutput(NamedTuple):
@@ -172,10 +195,13 @@ def generator_forward(
     mel_weight: float = 45.0,
     mel_kwargs: Optional[dict] = None,
     compute_dtype=None,
+    share: Optional[RowShare] = None,
 ) -> GeneratorOutput:
     """Forward pass with the reconstruction losses (``vits_tpu`` ``generator_forward``).
 
-    ``wave_fake`` comes back in the compute dtype, ``wave_real`` in fp32."""
+    ``wave_fake`` comes back in the compute dtype, ``wave_real`` in fp32.
+    ``share``: ``batch`` is a rank's rows of a global batch, and the losses are
+    its part of the global batch's (module docstring)."""
     cd = resolve_compute_dtype(compute_dtype)
     tiers = training_tiers(cd)
     if cd != torch.float32:
@@ -205,13 +231,15 @@ def generator_forward(
     durations = attn.sum(dim=1)
     m_p = torch.einsum("bst,btc->bsc", attn, enc.prior_means.float())
     logs_p = torch.einsum("bst,btc->bsc", attn, enc.prior_log_variances.float())
-    loss_kl = kl_divergence(z_p, logs_q, m_p, logs_p, batch.frame_mask)
+    loss_kl = kl_divergence(z_p, logs_q, m_p, logs_p, batch.frame_mask,
+                            None if share is None else share.frames)
 
     # duration NLL (fp32) on the stop-grad encoder output
     dur_nll = stochastic_duration_predictor_nll(
         p, config, enc.last_hidden_state.detach().float(), token_mask3, durations[..., None],
         noise.duration, speakers)
-    loss_dur = dur_nll.sum() / torch.clamp(batch.token_mask.sum(), min=1.0)
+    tokens = batch.token_mask.sum() if share is None else share.tokens
+    loss_dur = dur_nll.sum() / torch.clamp(tokens, min=1.0)
 
     # mel reconstruction on a random decoded segment (frame lengths and log-mel in fp32)
     frame_lengths = batch.frame_mask.sum(dim=-1).to(torch.int32)
@@ -224,6 +252,8 @@ def generator_forward(
                                segment_frames).reshape(B, segment_frames * up)
     loss_mel = torch.mean(torch.abs(log_mel_spectrogram(wave_fake.float(), **mel_kwargs)
                                     - log_mel_spectrogram(wave_real, **mel_kwargs)))
+    if share is not None:
+        loss_mel = loss_mel * share.rows
 
     total = loss_kl + loss_dur + mel_weight * loss_mel
     metrics = TrainMetrics(loss=total, kl=loss_kl, duration=loss_dur, mel=loss_mel)
@@ -231,10 +261,10 @@ def generator_forward(
 
 
 def generator_loss(params, config, batch, noise, segment_frames=32, mel_weight=45.0,
-                   mel_kwargs=None, compute_dtype=None):
+                   mel_kwargs=None, compute_dtype=None, share=None):
     """(total reconstruction loss, TrainMetrics)."""
     out = generator_forward(params, config, batch, noise, segment_frames, mel_weight,
-                            mel_kwargs, compute_dtype)
+                            mel_kwargs, compute_dtype, share)
     return out.loss, out.metrics
 
 
@@ -245,26 +275,48 @@ def gradients(loss: torch.Tensor, params: Mapping[str, torch.Tensor]) -> list[to
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
-def _apply(params: Mapping[str, torch.Tensor], optimizer, grads) -> None:
+def _apply(params: Mapping[str, torch.Tensor], optimizer, grads,
+           data_parallel: Optional[DataParallel] = None) -> None:
+    """Hand ``grads`` (summed over the ranks first) to ``optimizer`` and step it."""
+    if data_parallel is not None:
+        all_reduce_(grads)
     for p, g in zip(params.values(), grads):
         p.grad = g
     optimizer.step()
 
 
-def _microbatches(batch: TrainBatch, noise: TrainNoise, n: int):
+def _microbatches(batch: TrainBatch, noise: TrainNoise, n: int,
+                  data_parallel: Optional[DataParallel] = None):
+    """[(batch rows, noise rows, RowShare or None)] of each of ``n`` microbatches:
+    the whole microbatch's, or the rank's rows of it under ``data_parallel``."""
     B = batch.input_ids.shape[0]
-    if B % n:
-        raise ValueError(f"batch size {B} not divisible by grad_accum={n}")
+    world, rank = (1, 0) if data_parallel is None else data_parallel
+    held = rank_rows(B, world, rank, n)  # raises where the rows do not divide
     m = B // n
+    per = m // world
+    out = []
+    for i in range(n):
+        # a view of microbatch i where this rank holds all of it
+        mine = slice(i * m, (i + 1) * m) if world == 1 else torch.as_tensor(
+            held[i * per:(i + 1) * per], device=batch.input_ids.device)
 
-    def rows(t, i):
-        return None if t is None else t[i * m:(i + 1) * m]
-    return [(TrainBatch(*(rows(t, i) for t in batch)), TrainNoise(*(rows(t, i) for t in noise)))
-            for i in range(n)]
+        def rows(t):
+            return None if t is None else t[mine]
+        share = None if data_parallel is None else RowShare(
+            batch.frame_mask[i * m:(i + 1) * m].sum(), batch.token_mask[i * m:(i + 1) * m].sum(),
+            per / m)
+        out.append((TrainBatch(*map(rows, batch)), TrainNoise(*map(rows, noise)), share))
+    return out
 
 
-def _mean_metrics(cls, items):
-    return cls(*(torch.stack([torch.as_tensor(x) for x in xs]).mean() for xs in zip(*items)))
+def _mean_metrics(cls, items, data_parallel: Optional[DataParallel] = None):
+    """The mean of each metric over the microbatches; under ``data_parallel`` summed
+    over the ranks (each rank's is its part of the global value)."""
+    values = torch.stack([torch.stack([torch.as_tensor(x) for x in xs]).mean()
+                          for xs in zip(*items)])
+    if data_parallel is not None:
+        all_reduce_([values])
+    return cls(*values.unbind())
 
 
 def make_train_step(
@@ -276,13 +328,16 @@ def make_train_step(
     mel_kwargs: Optional[dict] = None,
     grad_accum: int = 1,
     compute_dtype=None,
+    data_parallel: Optional[DataParallel] = None,
 ) -> Callable[..., TrainMetrics]:
     """Generator-only step ``step(batch, generator=None, noise=None) -> TrainMetrics``.
 
     Updates ``params`` in place through ``optimizer``. ``grad_accum=N`` splits
     the batch into N microbatches and averages their gradients before one
     update; the step's noise is drawn for the whole batch and split with it.
-    Turns TF32 off when the parameters lie on a CUDA device.
+    ``data_parallel``: ``batch`` is the global batch and this rank computes its
+    rows (module docstring). Turns TF32 off when the parameters lie on a CUDA
+    device.
     """
     resolve_compute_dtype(compute_dtype)
     fp32_backends(params)
@@ -292,14 +347,15 @@ def make_train_step(
     def step(batch: TrainBatch, generator=None, noise: Optional[TrainNoise] = None):
         noise = draw_noise(config, batch, generator) if noise is None else noise
         acc, all_metrics = None, []
-        for mb, mn in _microbatches(batch, noise, grad_accum):
+        for mb, mn, share in _microbatches(batch, noise, grad_accum, data_parallel):
             loss, metrics = generator_loss(params, config, mb, mn, segment_frames, mel_weight,
-                                           mel_kwargs, compute_dtype)
+                                           mel_kwargs, compute_dtype, share)
             grads = gradients(loss, params)
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             all_metrics.append(tuple(m.detach() for m in metrics))
-        _apply(params, optimizer, [a / grad_accum for a in acc] if grad_accum > 1 else acc)
-        return _mean_metrics(TrainMetrics, all_metrics)
+        _apply(params, optimizer, [a / grad_accum for a in acc] if grad_accum > 1 else acc,
+               data_parallel)
+        return _mean_metrics(TrainMetrics, all_metrics, data_parallel)
 
     return step
 
@@ -317,6 +373,7 @@ def make_gan_train_step(
     grad_accum: int = 1,
     compute_dtype=None,
     reuse_forward: bool = True,
+    data_parallel: Optional[DataParallel] = None,
 ) -> Callable[..., GanTrainMetrics]:
     """Adversarial step ``step(batch, generator=None, noise=None) -> GanTrainMetrics``.
 
@@ -331,7 +388,10 @@ def make_gan_train_step(
     generator gradients through the updated discriminator), the generator
     forward repeated per phase with the same noise. ``compute_dtype``: see
     the module docstring; the discriminator runs on bf16 casts of its fp32
-    parameters, on bf16 waves. Turns TF32 off when the parameters lie on a
+    parameters, on bf16 waves. ``data_parallel``: ``batch`` is the global batch
+    and this rank computes its rows (module docstring); the discriminator's
+    gradients are summed over the ranks before its update, the generator's
+    after the adversarial terms. Turns TF32 off when the parameters lie on a
     CUDA device.
     """
     cd = resolve_compute_dtype(compute_dtype)
@@ -339,27 +399,32 @@ def make_gan_train_step(
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
-    def forward(batch, noise):
+    dp = data_parallel
+
+    def forward(batch, noise, share):
         return generator_forward(gen_params, config, batch, noise, segment_frames, mel_weight,
-                                 mel_kwargs, cd)
+                                 mel_kwargs, cd, share)
+
+    def weighted(loss, share):  # a mean loss: the rank's part of the global batch's
+        return loss if share is None else loss * share.rows
 
     def disc():  # cast at each use: after the update the casts are of the updated weights
         return disc_params if cd == torch.float32 else {k: v.to(cd)
                                                         for k, v in disc_params.items()}
 
-    def d_loss_of(wave_real, wave_fake):
-        dp = disc()
-        real_logits, _ = discriminate(dp, wave_real.to(cd))
-        fake_logits, _ = discriminate(dp, wave_fake.detach().to(cd))
-        return discriminator_loss(real_logits, fake_logits)
+    def d_loss_of(wave_real, wave_fake, share):
+        params = disc()
+        real_logits, _ = discriminate(params, wave_real.to(cd))
+        fake_logits, _ = discriminate(params, wave_fake.detach().to(cd))
+        return weighted(discriminator_loss(real_logits, fake_logits), share)
 
-    def g_loss_of(out: GeneratorOutput):
-        dp = disc()
+    def g_loss_of(out: GeneratorOutput, share):
+        params = disc()
         with torch.no_grad():
-            _, real_feats = discriminate(dp, out.wave_real.to(cd))
-        fake_logits, fake_feats = discriminate(dp, out.wave_fake.to(cd))
-        adv = generator_adversarial_loss(fake_logits)
-        fm = feature_matching_loss(real_feats, fake_feats)
+            _, real_feats = discriminate(params, out.wave_real.to(cd))
+        fake_logits, fake_feats = discriminate(params, out.wave_fake.to(cd))
+        adv = weighted(generator_adversarial_loss(fake_logits), share)
+        fm = weighted(feature_matching_loss(real_feats, fake_feats), share)
         return out.loss + adv + fm_weight * fm, adv, fm
 
     def metrics_of(g_loss, d_loss, out, adv, fm):
@@ -368,32 +433,34 @@ def make_gan_train_step(
 
     def step(batch: TrainBatch, generator=None, noise: Optional[TrainNoise] = None):
         noise = draw_noise(config, batch, generator) if noise is None else noise
+        micro = _microbatches(batch, noise, grad_accum, dp)
         if grad_accum == 1 and reuse_forward:
-            out = forward(batch, noise)
-            d_loss = d_loss_of(out.wave_real, out.wave_fake)
-            _apply(disc_params, disc_optimizer, gradients(d_loss, disc_params))
-            g_loss, adv, fm = g_loss_of(out)
-            _apply(gen_params, gen_optimizer, gradients(g_loss, gen_params))
-            return GanTrainMetrics(*metrics_of(g_loss, d_loss, out, adv, fm))
+            (mb, mn, share), = micro
+            out = forward(mb, mn, share)
+            d_loss = d_loss_of(out.wave_real, out.wave_fake, share)
+            _apply(disc_params, disc_optimizer, gradients(d_loss, disc_params), dp)
+            g_loss, adv, fm = g_loss_of(out, share)
+            _apply(gen_params, gen_optimizer, gradients(g_loss, gen_params), dp)
+            return _mean_metrics(GanTrainMetrics, [metrics_of(g_loss, d_loss, out, adv, fm)],
+                                 dp)
 
-        micro = _microbatches(batch, noise, grad_accum)
         d_acc, d_losses = None, []
-        for mb, mn in micro:
+        for mb, mn, share in micro:
             with torch.no_grad():
-                out = forward(mb, mn)
-            d_loss = d_loss_of(out.wave_real, out.wave_fake)
+                out = forward(mb, mn, share)
+            d_loss = d_loss_of(out.wave_real, out.wave_fake, share)
             grads = gradients(d_loss, disc_params)
             d_acc = grads if d_acc is None else [a + g for a, g in zip(d_acc, grads)]
             d_losses.append(d_loss.detach())
-        _apply(disc_params, disc_optimizer, [a / grad_accum for a in d_acc])
+        _apply(disc_params, disc_optimizer, [a / grad_accum for a in d_acc], dp)
         g_acc, items = None, []
-        for (mb, mn), d_loss in zip(micro, d_losses):
-            out = forward(mb, mn)
-            g_loss, adv, fm = g_loss_of(out)
+        for (mb, mn, share), d_loss in zip(micro, d_losses):
+            out = forward(mb, mn, share)
+            g_loss, adv, fm = g_loss_of(out, share)
             grads = gradients(g_loss, gen_params)
             g_acc = grads if g_acc is None else [a + g for a, g in zip(g_acc, grads)]
             items.append(metrics_of(g_loss, d_loss, out, adv, fm))
-        _apply(gen_params, gen_optimizer, [a / grad_accum for a in g_acc])
-        return _mean_metrics(GanTrainMetrics, items)
+        _apply(gen_params, gen_optimizer, [a / grad_accum for a in g_acc], dp)
+        return _mean_metrics(GanTrainMetrics, items, dp)
 
     return step
