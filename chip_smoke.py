@@ -97,7 +97,7 @@ printing its result line:
    dispatches than windows, kernel 6 launched, no flow graph captured after
    warmup, and kernel 6 from 4 threads x 25 calls bit-identical to
    single-thread calls; (c) ``serve(model, max_batch=8, streamer=mux)``
-   in-process under 10 s of closed-loop load over loopback (4 /synthesize
+   in-process under 5 s of closed-loop load over loopback (4 /synthesize
    clients, 2 /stream clients, per-request seeds and speakers): no client
    error, no 429, queue depth 0, ``/metrics`` counting what the clients
    saw, latency p95 and stream TTFA p99 under 2 s (percentiles printed);
@@ -163,7 +163,8 @@ printing its result line:
    data-parallel GAN step at phase 7's batch against the plain one-process
    step from the same weights and noise (losses, clipped gradients and the
    parameters after AdamW within DP_SPREAD_FACTOR x the plain step's own
-   run-to-run spread over three runs; bit-equal where it repeats itself),
+   run-to-run spread over three runs, cuDNN pinned to deterministic
+   algorithms for the comparison; bit-equal where it repeats itself),
    kernels A with lse, 4 and 5 launched by it, the steady step ms of both and
    the gradient all-reduce alone per network, and ``train(zero1=True)`` for 4
    steps with a resume to 6; (b) two gloo ranks sharing the card (NCCL refuses
@@ -173,7 +174,27 @@ printing its result line:
    DP_LOSS_RTOL relative (or 10x their noise floor where larger), gradients
    within phase 7's noise-floor bounds (the floor of the one-process step on
    the card); ZeRO-1 on and off after two steps within the replicated run's
-   spread; the steady step ms and gloo's all-reduce ms through the host.
+   spread; the steady step ms and gloo's all-reduce ms through the host;
+13. multi-device serving (``parallel/mesh.py::make_mesh``, ``Synthesizer(mesh=)``,
+   ``engine/sp.py``), in a process of its own (``--multi-device-phase``), over
+   ``make_mesh(devices=[cuda:0, cuda:0])``: two replicas that share the card,
+   each with its own weights, packs and host thread: (a) MMS-TTS at full width
+   at the exact tier, five texts of 23-211 tokens at per-row seeds on the mesh
+   against the single engine at the same padded rows (equal frames, BATCH_ATOL),
+   kernels A, B and C launched on each replica (booked where each wrapper
+   counts its launch, :func:`replica_book`); (b) VCTK width with kernel 6:
+   the batch of three with its speaker list tail-filled over the padded rows, and ``convert_voice`` 0 -> 17, against the
+   single engine; (c) ``ShardedDecoder`` with 2 and 3 shards on the 211-token
+   text and on the 87-token one at ``speaking_rate=0.5`` (it overflows the
+   ladder) against the one-shot decode within STREAM_ATOL; (d) ``serve(...)``
+   in-process on the mesh engine, MESH_CLIENTS /synthesize clients for
+   MESH_LOAD_S s: requests, errors, 429s, latency percentiles (p95 under 2 s);
+   (e) a batch of eight 87-token requests on the single engine and on the mesh,
+   and the 211-token text one-shot and over ``ShardedDecoder(2)``: wall ms,
+   device busy ms, idle share (two replicas on one card: what the threads cost
+   or buy, not a multi-card figure); (f) where more than one card is visible,
+   (a) over distinct cards with device 0 current, else a line saying it did
+   not run.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -186,8 +207,9 @@ entries with the launches of its request paths; ``library_ms`` is null:
 no single PyTorch call computes any of these functions; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier; ``data_parallel_launches``: phase 12's counts for A with lse, 4
-and 5, its world-1 step and 12b's rank 0), and last ``{"ok": true, "device":
-{...}}``.
+and 5, its world-1 step and 12b's rank 0; ``multi_device_launches``: phase 13's
+calls of A, B, C and 6 by path, replica and device; ``multi_device``: phase 13's
+numbers), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -198,6 +220,7 @@ import io
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1528,7 +1551,7 @@ MUX_STREAMS = ((SINGLE_TEXTS[1], 0), (SINGLE_TEXTS[2], 17), (BATCH_TEXTS[2], 108
                (SINGLE_TEXTS[0], 5))
 # Phase 8c: closed-loop clients over loopback for LOAD_S seconds, each request with
 # its own seed and speaker, on texts of the token buckets the server warms (64, 128).
-LOAD_S = 10.0
+LOAD_S = 5.0
 SYNTH_CLIENTS, STREAM_CLIENTS = 4, 2
 LOAD_TEXTS = (SINGLE_TEXTS[0], SINGLE_TEXTS[1], *BATCH_TEXTS)
 # The tripwires of tests/test_serving_load.py:70-71 (latency p95), TTFA held at p99.
@@ -1536,7 +1559,7 @@ LATENCY_P95_S = TTFA_P99_S = 2.0
 INT16_STEP = 1.5 / 32767  # one int16 PCM step, and the truncation of the WAV writer
 # Phase 8c's served audio run again alone: this many requests and streams, spread
 # evenly over the load.
-REPLAY_SYNTH, REPLAY_STREAMS = 48, 16
+REPLAY_SYNTH, REPLAY_STREAMS = 24, 8
 
 
 def decode_window(params, config, latents, mask3, emb=None, use_pallas=False,
@@ -3387,21 +3410,38 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
                                f"{torch.distributed.get_backend()} {dp}")
         batch = training_batch(config, device)
         noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(1))
-        gan_step_once(config, gen_np, disc_np, batch, noise, device)  # warm-up
-        zero_training_launches()
-        got = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp)
-        launches = training_launches()
+        # cuDNN pinned to deterministic algorithms for the comparison, as phase 10d
+        # pins it: with cuDNN's free choice three plain steps can repeat themselves
+        # bit for bit while a fourth lands one ulp away (a generator loss of ~130
+        # moved 1.526e-5), and a spread of 0 then fails a step equal to the plain one
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            gan_step_once(config, gen_np, disc_np, batch, noise, device)  # warm-up
+            zero_training_launches()
+            got = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp)
+            launches = training_launches()
+            plain = [gan_step_once(config, gen_np, disc_np, batch, noise, device)
+                     for _ in range(3)]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         print(f"  data-parallel GAN step at world 1 (NCCL), B=2, 512 tokens, 1280 frames: "
               f"launches {launches}", flush=True)
         for name, n in launches.items():
             if not n:
                 raise RuntimeError(f"kernel {name} was not launched by the data-parallel step")
-        plain = [gan_step_once(config, gen_np, disc_np, batch, noise, device)
-                 for _ in range(3)]
         print("  against the plain one-process step from the same parameters and noise (run "
               "three times):", flush=True)
         held = {what: within_spread(what, got[i], [run[i] for run in plain])
                 for i, what in enumerate(("losses", "gradients", "parameters after AdamW"))}
+        # the same pair under cuDNN's free choice (the main path's setting), shown
+        # beside the pinned check: a divergence outside the pinned algorithms
+        free = (gan_step_once(config, gen_np, disc_np, batch, noise, device, dp),
+                gan_step_once(config, gen_np, disc_np, batch, noise, device))
+        unpinned = {what: max_diff(free[0][i], free[1][i])
+                    for i, what in enumerate(("losses", "gradients", "parameters after AdamW"))}
+        print("  unpinned cuDNN, one world-1 step against one plain step: max|diff| "
+              + ", ".join(f"{what} {d:.3e}" for what, d in unpinned.items()), flush=True)
 
         gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
         gen1, disc1 = leaves_on(gen_np, device), leaves_on(disc_np, device)
@@ -3423,8 +3463,8 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
         loop_s = time.perf_counter() - t0
     finally:
         torch.distributed.destroy_process_group()
-    return {"launches": launches, "held": held, "step_ms": step_ms, "all_reduce": reduce_ms,
-            "train_zero1_s": loop_s}
+    return {"launches": launches, "held": held, "unpinned_max_abs_diff": unpinned,
+            "step_ms": step_ms, "all_reduce": reduce_ms, "train_zero1_s": loop_s}
 
 
 def dp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
@@ -3626,6 +3666,336 @@ def data_parallel_phase(device) -> dict:
             "profiler_sessions": PROFILER_SESSIONS}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 13: multi-device serving (Synthesizer(mesh=), engine/sp.py, serve() on a
+# mesh engine), in a process of its own, over replicas that share the card.
+# --------------------------------------------------------------------------- #
+
+MULTI_FLAG = "--multi-device-phase"
+MULTI_RESULT = "multi-device-phase result: "
+# 13a: five texts of 23-211 tokens at per-row seeds: a data=2 mesh pads them to six rows
+MESH_TEXTS = (SINGLE_TEXTS[0], BATCH_TEXTS[1], BATCH_TEXTS[2], SINGLE_TEXTS[1], SINGLE_TEXTS[2])
+MESH_SEEDS = (41, 42, 43, 44, 45)
+# 13d: closed-loop /synthesize clients over loopback on the mesh engine
+MESH_LOAD_S, MESH_CLIENTS = 5.0, 4
+# 13e: a batch of eight 87-token requests
+TIMED_ROWS = 8
+def reset_counts(wrappers) -> None:
+    """Each wrapper's ``launches`` to 0 and its per-replica book emptied."""
+    for fn in wrappers:
+        fn.launches = 0
+        fn.replica_launches = {}
+
+
+def replica_book(wrappers, kernels, replicas: int, what: str) -> dict:
+    """The launches each wrapper booked to each replica since :func:`reset_counts`
+    (``ops/cuda::booked_to``: a mesh's replica books, on its own thread, where the
+    wrapper counts its launch), by "kernel | replica i | device". Fails unless every
+    kernel of ``kernels`` launched on each of ``replicas`` replicas."""
+    by = {f"{fn.__name__} | {label}": n for fn in wrappers
+          for label, n in sorted(fn.replica_launches.items())}
+    missing = [(k, i) for k in kernels for i in range(replicas)
+               if not any(key.startswith(f"{k} | replica {i} |") for key in by)]
+    print(f"  {what}: launches by kernel, replica and device {by}", flush=True)
+    if missing:
+        raise RuntimeError(f"{what}: kernels not launched on a replica: {missing}")
+    return by
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def steady_and_busy(fn, reps: int = 3) -> dict:
+    """``fn`` once to warm it, its steady wall ms (median of ``reps``, host clock
+    to a synchronise of every card), and one call under ``torch.profiler``: the
+    device busy ms and the idle share of the steady wall."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    steady = float(np.median(walls))
+    _, device, busy = profiled(fn)
+    return {"wall_ms": steady, "walls_ms": walls, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / steady, "device_ops": len(device)}
+
+
+def rows_vs(got, want, rows: int, what: str) -> float:
+    """Equal frame lengths, and the largest |diff| of the valid samples, row by row."""
+    if not np.array_equal(got.frame_lengths[:rows], want.frame_lengths[:rows]):
+        raise RuntimeError(f"{what}: frames {got.frame_lengths[:rows].tolist()} against "
+                           f"{want.frame_lengths[:rows].tolist()}")
+    worst = 0.0
+    for i in range(rows):
+        n = want.lengths[i]
+        check_audio(got.waveform[i, :n], f"{what} row {i}")
+        worst = max(worst, float(np.abs(got.waveform[i, :n] - want.waveform[i, :n]).max()))
+    return worst
+
+
+def mesh_mms(device, mesh, card: str, wrappers, label: str) -> dict:
+    """13a (and 13f): MMS-TTS at full width on ``mesh``, the five texts at per-row
+    seeds against the single engine at the same padded rows."""
+    import vits_tpu_torch
+    from vits_tpu_torch import VitsConfig
+
+    single = make_model(device, engine_config=exact_engine())
+    model = vits_tpu_torch.load_model(checkpoint(VitsConfig(), False), exact_engine(), mesh=mesh)
+    rows = -(-len(MESH_TEXTS) // mesh.shape["data"]) * mesh.shape["data"]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    got = model.synthesize_raw(list(MESH_TEXTS), seed=list(MESH_SEEDS))
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    by = replica_book(wrappers, ("flash_rel_attention", "fused_resblock_trio", "fused_stage"),
+                      mesh.shape["data"], f"{label} the mesh's dispatch")
+    want = single.synthesize_raw(list(MESH_TEXTS), seed=list(MESH_SEEDS), pad_to_batch=rows)
+    worst = rows_vs(got, want, len(MESH_TEXTS), f"{label} mesh vs single")
+    tokens = [len(model.tokenizer.encode(t)) for t in MESH_TEXTS]
+    print(f"  {label} {mesh}: {len(MESH_TEXTS)} texts of {tokens} tokens on {rows} rows, "
+          f"frames {got.frame_lengths[:len(MESH_TEXTS)].tolist()} (equal to the single "
+          f"engine's at pad_to_batch={rows}), waveforms max|diff| {worst:.3e} "
+          f"(atol {BATCH_ATOL}), first dispatch {wall_ms:.1f} ms, launches {launches}, "
+          f"stats {model.stats} ({card})", flush=True)
+    if not worst <= BATCH_ATOL:
+        raise RuntimeError(f"{label}: the mesh's rows differ from the single engine's")
+    return {"model": model, "single": single, "max_abs_diff": worst, "launches": launches,
+            "per_replica": by, "first_ms": wall_ms}
+
+
+def mesh_vctk(device, mesh, card: str, wrappers) -> dict:
+    """13b: VCTK width with kernel 6 on the mesh: the batch of three with its
+    speaker list (the mesh pads it to four rows), and a conversion 0 -> 17, each
+    against the single engine."""
+    import vits_tpu_torch
+    from vits_tpu_torch import VitsConfig
+
+    config, engine = VitsConfig(**VCTK), exact_engine(use_pallas_flow=True)
+    single = make_model(device, config, engine, keep_training=True)
+    model = vits_tpu_torch.load_model(checkpoint(config, True), engine, mesh=mesh)
+    rows = -(-len(BATCH_TEXTS) // mesh.shape["data"]) * mesh.shape["data"]
+    audio = single.synthesize(SINGLE_TEXTS[1], seed=3, speaker_id=0)  # the conversion's input
+    reset_counts(wrappers)  # from here on only the mesh engine runs, until the counts are read
+    pending = model.submit(list(BATCH_TEXTS), seed=list(BATCH_SEEDS),
+                           speaker_id=list(BATCH_SPEAKERS))
+    if pending.speaker.tolist() != [*BATCH_SPEAKERS] + [0] * (rows - len(BATCH_SPEAKERS)):
+        raise RuntimeError(f"13b: speakers {pending.speaker.tolist()} not tail-filled")
+    got = model.collect(pending)
+    converted = model.convert_voice(audio, source_speaker=0, target_speaker=17)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    by = replica_book(wrappers, ("flash_rel_attention", "fused_resblock_trio", "fused_stage",
+                                 "fused_flow"), mesh.shape["data"], "13b VCTK on the mesh")
+    want = single.synthesize_raw(list(BATCH_TEXTS), seed=list(BATCH_SEEDS),
+                                 speaker_id=list(BATCH_SPEAKERS), pad_to_batch=rows)
+    worst = rows_vs(got, want, len(BATCH_TEXTS), "13b mesh vs single")
+    solo = single.convert_voice(audio, source_speaker=0, target_speaker=17)
+    check_audio(converted, "13b conversion")
+    conv = float(np.abs(converted - solo).max()) if converted.shape == solo.shape else np.inf
+    print(f"  13b VCTK, use_pallas_flow=True: 3 texts, speakers {list(BATCH_SPEAKERS)} tail-"
+          f"filled over {rows} rows, frames {got.frame_lengths[:3].tolist()} (equal), max|diff| "
+          f"{worst:.3e}; convert_voice 0 -> 17 ({len(converted)} samples) max|diff| {conv:.3e} "
+          f"(atol {BATCH_ATOL}); launches {launches} ({card})", flush=True)
+    if not (worst <= BATCH_ATOL and conv <= BATCH_ATOL):
+        raise RuntimeError("13b: the mesh differs from the single engine")
+    return {"max_abs_diff": worst, "convert_max_abs_diff": conv, "launches": launches,
+            "per_replica": by}
+
+
+def sharded_decode(device, card: str, wrappers) -> dict:
+    """13c: ``ShardedDecoder`` with 2 and 3 shards on replicas sharing the card,
+    the 211-token text (its 640-frame capacity overflows to 1280 at random
+    weights) and the 87-token one at ``speaking_rate=0.5`` against the one-shot
+    decode, within STREAM_ATOL. Each decoder's first call builds its window shapes."""
+    from vits_tpu_torch.engine.sp import ShardedDecoder
+    from vits_tpu_torch.parallel.mesh import make_mesh
+
+    one = make_model(device, engine_config=exact_engine(transfer_int16=False,
+                                                        adaptive_capacity=False))
+    cases = ((SINGLE_TEXTS[2], 7, {}), (SINGLE_TEXTS[1], 8, {"speaking_rate": 0.5}))
+    refs = []  # (the one-shot decode, its re-dispatches)
+    for text, seed, kw in cases:
+        before = one.stats["redispatches"]
+        ref = one.synthesize(text, seed=seed, **kw)
+        refs.append((ref, one.stats["redispatches"] - before))
+    results, decoders = {}, {}
+    for n in (2, 3):
+        sp = decoders[n] = ShardedDecoder(one, mesh=make_mesh(devices=[device] * n))
+        reset_counts(wrappers)
+        got = [sp.synthesize(text, seed=seed, **kw) for text, seed, kw in cases]
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        by = replica_book(wrappers, ("fused_resblock_trio", "fused_stage"), n,
+                          f"13c {n} shards")
+        diffs = []
+        for (text, _, kw), g, (ref, redispatches) in zip(cases, got, refs):
+            check_audio(g, f"13c {n} shards")
+            diffs.append(float(np.abs(g - ref).max()) if g.shape == ref.shape else np.inf)
+            print(f"  13c ShardedDecoder({n}): {len(one.tokenizer.encode(text))} tokens {kw}, "
+                  f"{len(g)} samples (one-shot {len(ref)}, {redispatches} re-dispatch), "
+                  f"max|diff| {diffs[-1]:.3e} (atol {STREAM_ATOL})", flush=True)
+        print(f"  13c launches {launches} ({card})", flush=True)
+        if not max(diffs) <= STREAM_ATOL or refs[1][1] == 0:
+            raise RuntimeError(f"13c: {n} shards differ from the one-shot decode, or the "
+                               "speaking_rate=0.5 text did not overflow")
+        results[n] = {"max_abs_diff": diffs, "launches": launches, "per_replica": by}
+    return {"one": one, "decoders": decoders, "results": results}
+
+
+def mesh_http(model, card: str, wrappers) -> dict:
+    """13d: ``serve(model, max_batch=8)`` in-process on the mesh engine (warmed as
+    the server's ``main`` warms it), MESH_CLIENTS closed-loop /synthesize clients
+    for MESH_LOAD_S seconds: requests, errors, 429s and the latency percentiles."""
+    import http.client
+    import threading
+
+    from vits_tpu_torch.engine.server import serve
+
+    model.warmup(batch_sizes=(1,), token_buckets=model.engine.token_buckets[:2],
+                 per_row_seeds=True)
+    server, worker = serve(model, port=0, max_batch=8, streaming=False)
+    server.daemon_threads = False
+    serving = threading.Thread(target=server.serve_forever)
+    serving.start()
+    hostport = f"127.0.0.1:{server.server_address[1]}"
+    latency, errors, statuses = [], [], {}
+    lock = threading.Lock()
+    try:
+        reset_counts(wrappers)
+        stop_at = time.perf_counter() + MESH_LOAD_S
+
+        def client(i):
+            n = 0
+            while time.perf_counter() < stop_at:
+                payload = {"text": LOAD_TEXTS[(i + n) % len(LOAD_TEXTS)], "seed": 1000 * i + n}
+                n += 1
+                try:
+                    conn = http.client.HTTPConnection(hostport, timeout=60)
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/synthesize", body=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    body = resp.read()
+                    seconds = time.perf_counter() - t0
+                    conn.close()
+                except Exception as exc:  # counted: the pin is zero
+                    with lock:
+                        errors.append(f"client {i}: {exc!r}")
+                    continue
+                with lock:
+                    statuses[resp.status] = statuses.get(resp.status, 0) + 1
+                    if resp.status == 200 and body[:4] == b"RIFF" and len(body) > 44:
+                        latency.append(seconds)
+                    elif resp.status != 429:
+                        errors.append(f"client {i}: HTTP {resp.status}, {len(body)} bytes")
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(MESH_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=MESH_LOAD_S + 120)
+        if any(c.is_alive() for c in clients):
+            raise RuntimeError("13d: an HTTP client hung")
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        by = replica_book(wrappers, ("flash_rel_attention", "fused_resblock_trio",
+                                     "fused_stage"), model.mesh.shape["data"], "13d HTTP load")
+        lat = percentiles(latency or [np.inf])
+        with worker.stats_lock:
+            stats = dict(worker.stats)
+        print(f"  13d HTTP load on the mesh engine, {MESH_CLIENTS} /synthesize clients for "
+              f"{MESH_LOAD_S:g} s: {len(latency)} requests, {len(errors)} errors, "
+              f"{statuses.get(429, 0)} 429s, {stats['batches']} batches; latency ms "
+              f"p50/p95/p99 " + "/".join(f"{1e3 * lat[k]:.1f}" for k in ("p50", "p95", "p99"))
+              + f"; launches {launches} ({card})", flush=True)
+        if errors or statuses.get(429) or not latency or not lat["p95"] < LATENCY_P95_S:
+            raise RuntimeError(f"13d: errors {errors[:5]}, statuses {statuses}, p95 "
+                               f"{lat['p95']} s")
+    finally:
+        worker.stop()
+        worker._thread.join(timeout=30)
+        server.shutdown()
+        serving.join(timeout=30)
+        server.server_close()
+    return {"requests": len(latency), "errors": len(errors), "rejected": statuses.get(429, 0),
+            "batches": stats["batches"], "latency_s": lat, "launches": launches,
+            "per_replica": by}
+
+
+def mesh_timings(mms: dict, sp: dict, card: str) -> dict:
+    """13e: a batch of TIMED_ROWS 87-token requests on the single engine and on
+    the two-replica mesh, and the 211-token text one-shot against
+    ``ShardedDecoder(2)``: wall ms, device busy ms, idle share. Both replicas
+    share one card: this is what the threads and the shared card cost or buy,
+    not a multi-card figure."""
+    texts, seeds = [SINGLE_TEXTS[1]] * TIMED_ROWS, list(range(TIMED_ROWS))
+    one, sp2 = sp["one"], sp["decoders"][2]
+    runs = {
+        "batch8_single": lambda: mms["single"].synthesize_raw(texts, seed=seeds),
+        "batch8_mesh2": lambda: mms["model"].synthesize_raw(texts, seed=seeds),
+        "text211_oneshot": lambda: one.synthesize(SINGLE_TEXTS[2], seed=7),
+        "text211_sharded2": lambda: sp2.synthesize(SINGLE_TEXTS[2], seed=7),
+    }
+    out = {}
+    for name, fn in runs.items():
+        out[name] = steady_and_busy(fn)
+        r = out[name]
+        print(f"  13e {name:17s}: wall {r['wall_ms']:.1f} ms (median of 3: "
+              f"{[round(w, 1) for w in r['walls_ms']]}), device busy {r['device_busy_ms']:.2f} "
+              f"ms, idle share {r['idle_share']:.3f}, {r['device_ops']} device operations "
+              f"({card})", flush=True)
+    return out
+
+
+def multi_device_phase(device) -> dict:
+    """Phase 13's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.flow import fused_flow
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+    from vits_tpu_torch.parallel.mesh import make_mesh
+
+    card = card_line()
+    kernels.library()
+    t0 = time.perf_counter()
+    wrappers = (flash_rel_attention, fused_resblock_trio, fused_stage, fused_flow)
+    shared = make_mesh(devices=[device, device])
+    print(f"  [13a] MMS-TTS at full width on {shared}, exact tier ({card}):", flush=True)
+    mms = mesh_mms(device, shared, card, wrappers[:3], "13a")
+    print(f"  [13b] VCTK width with kernel 6 on {shared} ({card}):", flush=True)
+    vctk = mesh_vctk(device, shared, card, wrappers)
+    print(f"  [13c] ShardedDecoder over 2 and 3 replicas on the card ({card}):", flush=True)
+    sp = sharded_decode(device, card, wrappers[:3])
+    print(f"  [13d] serve() on the two-replica mesh engine ({card}):", flush=True)
+    served = mesh_http(mms["model"], card, wrappers[:3])
+    print(f"  [13e] timings, two replicas sharing one card ({card}):", flush=True)
+    timings = mesh_timings(mms, sp, card)
+    distinct = None
+    if torch.cuda.device_count() > 1:
+        torch.cuda.set_device(0)
+        print(f"  [13f] 13a over distinct cards, device 0 current ({card}):", flush=True)
+        cards = make_mesh(devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+        run = mesh_mms(device, cards, card, wrappers[:3], "13f")
+        distinct = {k: run[k] for k in ("max_abs_diff", "launches", "per_replica", "first_ms")}
+    else:
+        print(f"  [13f] one card present ({torch.cuda.device_count()} x "
+              f"{torch.cuda.get_device_name(0)}): 13f (distinct cards) did not run", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 13: {seconds:.1f} s", flush=True)
+    return {
+        "mesh_mms": {k: mms[k] for k in ("max_abs_diff", "launches", "per_replica", "first_ms")},
+        "mesh_vctk": vctk,
+        "sharded": {str(n): r for n, r in sp["results"].items()},
+        "http": served, "timings": timings, "distinct_cards": distinct, "seconds": seconds,
+        "card": card, "profiler_sessions": PROFILER_SESSIONS}
+
+
+MULTI_KERNELS = ("flash_rel_attention", "fused_resblock_trio", "fused_stage", "fused_flow")
+
+
 def run_child(flag: str, prefix: str, phase: int) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
@@ -3668,8 +4038,11 @@ def main() -> None:
     if sys.argv[1:2] == [DP_RANK_FLAG]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if sys.argv[1:] == [MULTI_FLAG]:
+        print(MULTI_RESULT + json.dumps(multi_device_phase(device)), flush=True)
+        return
     card = card_line()
-    print("[1/12] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/13] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -3683,7 +4056,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/12] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/13] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -3698,7 +4071,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/12] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/13] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -3707,13 +4080,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/12] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/13] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/12] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/13] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -3726,12 +4099,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/12] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/13] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/12] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/13] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -3741,31 +4114,35 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/12] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/13] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/12] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/13] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/12] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/13] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
-    print(f"[11/12] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+    print(f"[11/13] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
     serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
 
-    print(f"[12/12] data-parallel training at MMS-TTS width, random weights, in a process of "
+    print(f"[12/13] data-parallel training at MMS-TTS width, random weights, in a process of "
           f"its own ({card}):", flush=True)
     data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
+
+    print(f"[13/13] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
+          f"replicas sharing the card, in a process of its own ({card}):", flush=True)
+    multi = run_child(MULTI_FLAG, MULTI_RESULT, 13)
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -3849,6 +4226,14 @@ def main() -> None:
             entry["data_parallel_launches"] = {
                 "world_one": {c: data_parallel["world_one"]["launches"][c] for c in counts},
                 "two_ranks_rank0": {c: data_parallel["two_ranks"]["launches"][c] for c in counts}}
+        if entry["name"] in MULTI_KERNELS:  # phase 13's paths, by kernel, replica and device
+            entry["multi_device_launches"] = {
+                path: {key: n for key, n in run["per_replica"].items()
+                       if key.startswith(entry["name"] + " |")}
+                for path, run in (("13a_mesh", multi["mesh_mms"]), ("13b_vctk", multi["mesh_vctk"]),
+                                  ("13c_sharded2", multi["sharded"]["2"]),
+                                  ("13c_sharded3", multi["sharded"]["3"]),
+                                  ("13d_http", multi["http"]))}
         if entry["name"] == "trainable_trio_bf16":
             entry["backward_launches"] = bf16_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
@@ -3874,6 +4259,9 @@ def main() -> None:
         "world_one": {k: v for k, v in data_parallel["world_one"].items() if k != "launches"},
         "two_ranks": [{k: v for k, v in r.items() if k not in ("durations", "rows")}
                       for r in data_parallel["two_ranks"]["ranks"]], "card": card}
+    report["multi_device"] = {k: multi[k] for k in ("mesh_mms", "mesh_vctk", "sharded", "http",
+                                                     "timings", "distinct_cards", "seconds",
+                                                     "card")}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

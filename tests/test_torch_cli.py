@@ -90,7 +90,7 @@ def test_cli_convert(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ("--sp", "2"), ("--compilation-cache", "cache"),
+    ("--compilation-cache", "cache"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -156,7 +156,7 @@ def test_cli_and_server_default_to_cuda(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ("--dp", "2"), ("--aot-bundle", "bundle"), ("--compilation-cache", "cache"),
+    ("--aot-bundle", "bundle"), ("--compilation-cache", "cache"),
 ])
 def test_server_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -57,7 +57,7 @@ def test_port_never_imports_jax():
         "from vits_tpu_torch.train import loop\n"
         "from vits_tpu_torch.parallel import distributed, mesh\n"
         "from vits_tpu_torch import cli\n"
-        "from vits_tpu_torch.engine import mux, server, streaming\n"
+        "from vits_tpu_torch.engine import mux, server, sp, streaming\n"
         "from vits_tpu_torch.io import quantize\n"
         "from vits_tpu_torch.ops import precision, tiers\n"
         f"m = vits_tpu_torch.load_model({GGML!r}, device='cpu')\n"
@@ -223,7 +223,8 @@ def test_server_copy_matches_original_above_main():
     assert _definitions_without_docstrings(ours) == want and len(want) > 8
     ported = {m for m in _imported_modules(ours) if m.startswith("vits_tpu_torch")}
     assert ported == {"vits_tpu_torch", "vits_tpu_torch.config", "vits_tpu_torch.utils.wav",
-                      "vits_tpu_torch.engine.streaming", "vits_tpu_torch.engine.mux"}
+                      "vits_tpu_torch.engine.streaming", "vits_tpu_torch.engine.mux",
+                      "vits_tpu_torch.parallel.mesh"}
 
 
 def test_native_copy_matches_original():

@@ -50,8 +50,9 @@ def main(argv=None) -> int:
     parser.add_argument("--stream", action="store_true",
                         help="chunked streaming decode (prints the TTFA)")
     parser.add_argument("--sp", type=int, default=0, metavar="N",
-                        help="time-sharded decode over N devices: not ported "
-                             "(ROADMAP.md queue 1, multi-GPU)")
+                        help="time-sharded decode of each --text over N replicas "
+                             "(engine/sp.py): --device cuda takes cards 0..N-1 (exits "
+                             "where fewer are visible), --device cpu N CPU replicas")
     parser.add_argument("--long", action="store_true", dest="longform",
                         help="split long text at sentences, batch, and stitch")
     parser.add_argument("--compilation-cache", default=None, metavar="DIR",
@@ -59,8 +60,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not args.text and not args.convert:
         parser.error("provide --text (synthesis) or --convert (voice conversion)")
-    if args.sp > 1:
-        parser.error("--sp: multi-GPU decode is not ported (ROADMAP.md queue 1, multi-GPU)")
     if args.compilation_cache is not None:
         parser.error("--compilation-cache: XLA's cache is not ported (ROADMAP.md, "
                      "'Not ported')")
@@ -76,10 +75,23 @@ def main(argv=None) -> int:
         print(f"error: --device {args.device}, but no CUDA device is visible "
               "(--device cpu runs on the CPU)", file=sys.stderr)
         return 1
+    placement = {"device": args.device}
+    if args.sp > 1:
+        from vits_tpu_torch.parallel.mesh import make_mesh, replica_devices
+
+        try:
+            mesh = make_mesh(devices=replica_devices(args.device, args.sp))
+        except ValueError as exc:
+            print(f"error: --sp {args.sp}: {exc}", file=sys.stderr)
+            return 1
+        if not (args.convert or args.stream or args.longform):
+            # the sharded decode's replicas are the mesh engine's (--convert,
+            # --stream and --long take the single engine, as without --sp)
+            placement = {"mesh": mesh}
     model = vits_tpu_torch.load_model(
         args.model, EngineConfig(compute_dtype=args.dtype,
                                  **EngineConfig.fidelity_kwargs(args.fidelity)),
-        device=args.device)
+        **placement)
     controls = dict(
         noise_scale=args.noise_scale,
         noise_scale_duration=args.noise_scale_duration,
@@ -119,6 +131,12 @@ def main(argv=None) -> int:
 
         waves = [synthesize_long(model, " ".join(args.text), seed=args.seed,
                                  speaker_id=args.speaker_id, **controls)]
+    elif model.mesh is not None:
+        from vits_tpu_torch.engine.sp import ShardedDecoder
+
+        sp = ShardedDecoder(model)
+        waves = [sp.synthesize(t, seed=args.seed, speaker_id=args.speaker_id,
+                               **controls) for t in args.text]
     else:
         waves = model.synthesize(list(args.text), seed=args.seed,
                                  speaker_id=args.speaker_id, **controls)

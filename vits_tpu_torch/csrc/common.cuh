@@ -152,17 +152,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
                : "r"(s));
 }
 
-// Number of SMs of the current device (read once).
-inline int vk_sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 // Raise a kernel's dynamic shared-memory ceiling when it asks for more than
 // the 48 KB default; returns the CUDA status.
 template <typename Kernel>

@@ -543,8 +543,10 @@ def main(argv=None) -> int:
                          "window dispatches of up to B rows "
                          "(engine/mux.py; 0 = solo dispatch per stream)")
     ap.add_argument("--dp", type=int, default=0, metavar="N",
-                    help="data-parallel serving over N devices: not ported "
-                         "(ROADMAP.md queue 1, multi-GPU)")
+                    help="serve data-parallel over N replicas (0 = one device): "
+                         "--device cuda takes cards 0..N-1 (exits where fewer "
+                         "are visible), --device cpu N CPU replicas; each batch "
+                         "dispatch shards its rows over them")
     ap.add_argument("--compilation-cache", default=None, metavar="DIR",
                     help="XLA compilation cache: not ported (ROADMAP.md, "
                          "'Not ported')")
@@ -569,8 +571,6 @@ def main(argv=None) -> int:
                          "glue is fp32 at every tier), high = bf16x3 kernels, "
                          "exact = fp32 (3xTF32) kernels")
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        ap.error("--dp: multi-GPU serving is not ported (ROADMAP.md queue 1, multi-GPU)")
     if args.aot_bundle is not None:
         ap.error("--aot-bundle: AOT bundles are not ported (ROADMAP.md, 'Not ported')")
     if args.compilation_cache is not None:
@@ -584,6 +584,14 @@ def main(argv=None) -> int:
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"vits_tpu_torch.engine.server: --device {args.device}, but no "
                          "CUDA device is visible (--device cpu serves on the CPU)")
+    place = {"device": args.device}
+    if args.dp > 1:
+        from vits_tpu_torch.parallel.mesh import make_mesh, replica_devices
+
+        try:
+            place = {"mesh": make_mesh(devices=replica_devices(args.device, args.dp))}
+        except ValueError as exc:
+            raise SystemExit(f"vits_tpu_torch.engine.server: --dp {args.dp}: {exc}") from exc
     # Batch buckets (powers of two up to max_batch): the worker's collected
     # batch size varies with traffic; buckets bound the shapes that warmup
     # covers and that capture flow graphs.  Server requests always ride
@@ -598,7 +606,7 @@ def main(argv=None) -> int:
                        adaptive_capacity_align=(
                            args.warm_overflow > 0 and not args.no_capacity_align),
                        **EngineConfig.fidelity_kwargs(args.fidelity))
-    model = vits_tpu_torch.load_model(args.model, eng, device=args.device)
+    model = vits_tpu_torch.load_model(args.model, eng, **place)
     # per_row_seeds: the worker always passes seed LISTS (per-row
     # generators), the layout its requests dispatch with.
     model.warmup(batch_sizes=(1,), token_buckets=model.engine.token_buckets[:2],
@@ -620,7 +628,7 @@ def main(argv=None) -> int:
         streamer=streamer,
     )
     print(f"vits_tpu_torch serving on http://{args.host}:{server.server_address[1]} "
-          f"({model.device})", flush=True)
+          f"({model.device if model.mesh is None else model.mesh})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -38,9 +38,6 @@ import numpy as np
 import torch
 
 from vits_tpu_torch.engine.synthesizer import _next_bucket
-from vits_tpu_torch.io.params import ParamView
-from vits_tpu_torch.models.hifigan import hifigan
-from vits_tpu_torch.models.vits import latents_from_prior, text_to_prior
 
 
 class _Prior(NamedTuple):
@@ -100,20 +97,8 @@ class StreamingDecoder:
     @torch.inference_mode()
     def _prior(self, ids: np.ndarray, mask: np.ndarray, num_frames: int, seed: int,
                speaker: np.ndarray | None, controls: tuple) -> _Prior:
-        synth = self.synth
-        noise_scale, noise_scale_duration, speaking_rate = controls
-        prior = text_to_prior(
-            synth.params, synth.config,
-            torch.as_tensor(ids, dtype=torch.long).to(synth.device),
-            torch.as_tensor(mask, dtype=synth.compute_dtype).to(synth.device),
-            num_frames,
-            generator=synth._generators(seed),
-            speaker_id=synth._speaker_tensor(speaker),
-            noise_scale=noise_scale,
-            noise_scale_duration=noise_scale_duration,
-            speaking_rate=speaking_rate,
-            attention_tier=synth.tiers.attention,
-        )
+        prior = self.synth._prior_on(self.synth.replicas[0], ids, mask, num_frames, seed,
+                                     speaker, controls)
         self._dispatch_shapes.add(("prior", ids.shape[1], num_frames, speaker is not None))
         return _Prior(prior.prior_latents, prior.frame_mask[..., None],
                       prior.speaker_embeddings, prior.total_duration)
@@ -122,13 +107,8 @@ class StreamingDecoder:
     def _decode(self, latents: torch.Tensor, mask3: torch.Tensor,
                 speaker_embeddings: torch.Tensor | None) -> torch.Tensor:
         """Flow + vocoder over (B, W) frames -> (B, W * total_upsample) waveform."""
-        synth = self.synth
-        flow_latents = latents_from_prior(
-            synth.params, synth.config, latents, mask3, speaker_embeddings,
-            use_pallas=synth.engine.use_pallas_flow, flow_pack=synth._flow_pack(),
-            tier=synth.tiers.flow)
-        wave = hifigan(ParamView(synth.params), synth.config, flow_latents, mask3,
-                       speaker_embeddings, tiers=synth.tiers, packs=synth._vocoder_packs())
+        wave = self.synth._decode_on(self.synth.replicas[0], latents, mask3,
+                                     speaker_embeddings)
         self._dispatch_shapes.add(("window", *latents.shape[:2],
                                    speaker_embeddings is not None))
         return wave
@@ -172,9 +152,9 @@ class StreamingDecoder:
         if t.device.type != "cuda":
             return _HostCopy(t, None)
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+        host.copy_(t, non_blocking=True)  # on the current stream of t's device
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(t.device))
         return _HostCopy(host, event)
 
     @torch.inference_mode()

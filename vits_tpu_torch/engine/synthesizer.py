@@ -61,11 +61,26 @@ and log durations. No vocoder packs are made; the kernels run in their bf16
 serving mode (``ops/tiers.py::Tiers.bf16_compute``): B, C and 7 compute XLA's
 bf16 graph of the plain stages, A and 6 take and give bf16 at the engine's
 tier.
+
+A mesh engine (``Synthesizer(mesh=make_mesh(...))``, ``parallel/mesh.py``)
+serves over the mesh's data axis, as the JAX engine's ``shard_map`` does
+(``vits_tpu/engine/synthesizer.py:267-297``): one :class:`Replica` per mesh
+entry, each with its own parameters, vocoder packs, kernel 6 pack and
+generators on its device, placed from the same numpy parameters. A dispatch
+pads its rows to a multiple of the data axis, splits them into that many
+contiguous shards (``PartitionSpec("data")``'s order) and runs each shard's
+whole per-row program on its replica, on a host thread of its own
+(:class:`ReplicaSet`); no shard waits on another. A scalar seed always
+becomes per-row generators on a mesh. Replica 0 is the engine's own
+``device`` and ``params``: the streamer and the mux run there, as JAX pins
+its streamer to the mesh's first device.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import functools
 import time
 from collections import deque
 from typing import NamedTuple, Optional, Sequence
@@ -76,11 +91,14 @@ import torch
 from vits_tpu_torch.config import EngineConfig, VitsConfig
 from vits_tpu_torch.io import VitsTokenizer, load_ggml, load_hf_pretrained
 from vits_tpu_torch.io.params import ParamView, dequantize_tensors, from_jax_params
-from vits_tpu_torch.models.hifigan import precompute_vocoder_packs
+from vits_tpu_torch.models.hifigan import hifigan, precompute_vocoder_packs
+from vits_tpu_torch.models.vits import PriorOutput, latents_from_prior, text_to_prior
 from vits_tpu_torch.models.vits import synthesize as synthesize_fn
 from vits_tpu_torch.models.vits import voice_convert
+from vits_tpu_torch.ops.cuda import booked_to
 from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
 from vits_tpu_torch.ops.tiers import Tiers
+from vits_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 # EngineConfig fields the port does not honour yet: each must keep its default
 # (the kernels cannot be turned off on the card).
@@ -149,7 +167,7 @@ class EngineOutput(NamedTuple):
 class PendingSynthesis(NamedTuple):
     """A dispatch enqueued on the device; :meth:`Synthesizer.collect` fetches it."""
 
-    device_out: tuple
+    device_out: tuple  # per shard: (wave, lengths, frame_lengths, log_duration) on its replica
     ids: np.ndarray
     mask: np.ndarray
     num_frames: int
@@ -198,6 +216,99 @@ def _speaker_rows(value, rows: int, given: int, name: str) -> np.ndarray | None:
     return out
 
 
+class Replica:
+    """One copy of the engine's weights on one device (a mesh entry): the
+    parameters, the bf16 / int8 weights of kernels B and C and kernel 6's
+    packed weights with its workspaces and graphs, each pack made on first
+    use."""
+
+    def __init__(self, device: torch.device, params: dict, config: VitsConfig,
+                 weight_format: str | None, flow_kernel: bool):
+        self.device = device
+        self.params = params
+        self._config, self._weight_format = config, weight_format
+        self._flow_kernel = flow_kernel and device.type == "cuda"
+        self._packed_vocoder: dict | None = None
+        self._packed_flow: FlowPack | None = None
+
+    def placed(self, device: torch.device) -> "Replica":
+        """A replica of the same weights on ``device``, with packs of its own."""
+        return Replica(device, {name: value.to(device, copy=True)
+                                for name, value in self.params.items()},
+                       self._config, self._weight_format, self._flow_kernel)
+
+    def vocoder_packs(self) -> dict:
+        """The bf16 or int8 weights of kernels B and C, made on first use."""
+        if self._packed_vocoder is None:
+            self._packed_vocoder = (
+                precompute_vocoder_packs(ParamView(self.params), self._config,
+                                         self._weight_format)
+                if self._weight_format else {})
+        return self._packed_vocoder
+
+    def flow_pack(self) -> FlowPack | None:
+        """Kernel 6's packed weights, made on the first dispatch that runs it."""
+        if not self._flow_kernel:
+            return None
+        if self._packed_flow is None:
+            self._packed_flow = pack_flow_weights(ParamView(self.params), self._config)
+        return self._packed_flow
+
+    def generators(self, seed: int | tuple[int, ...]):
+        """One generator for the whole batch (an int), or one per row (a tuple)."""
+        if isinstance(seed, tuple):
+            return [self.generators(s) for s in seed]
+        return torch.Generator(self.device).manual_seed(generator_seed(seed))
+
+
+def _on_replica(fn, replica: Replica, index: int, job: tuple):
+    # inference mode, the current CUDA device and the launch book are per host thread
+    device = (torch.cuda.device(replica.device) if replica.device.type == "cuda"
+              else contextlib.nullcontext())
+    with torch.inference_mode(), device, booked_to(f"replica {index} | {replica.device}"):
+        return fn(replica, *job)
+
+
+class ReplicaSet:
+    """The replicas of a mesh's data axis, and a host thread for each but the
+    first: :meth:`run` runs one job on every replica at once."""
+
+    def __init__(self, replicas: Sequence[Replica]):
+        self.replicas = tuple(replicas)
+        self._pool = (concurrent.futures.ThreadPoolExecutor(
+            len(self.replicas) - 1, thread_name_prefix="vits-replica")
+            if len(self.replicas) > 1 else None)
+
+    def __len__(self) -> int:
+        return len(self.replicas)
+
+    def __getitem__(self, i: int) -> Replica:
+        return self.replicas[i]
+
+    def __iter__(self):
+        return iter(self.replicas)
+
+    def call(self, index: int, fn, *job):
+        """``fn(replica, *job)`` on replica ``index``, on the calling thread, under
+        inference mode with the replica's device current and its kernel launches
+        booked to it (``ops/cuda::booked_to``)."""
+        return _on_replica(fn, self.replicas[index], index, job)
+
+    def run(self, fn, jobs: Sequence[tuple]) -> list:
+        """:meth:`call` of ``fn`` for each replica and its job, the first on the
+        calling thread and each other on its own thread; the results in replica
+        order. Each replica enqueues its whole job without waiting for another."""
+        if len(jobs) != len(self.replicas):
+            raise ValueError(f"{len(jobs)} jobs for {len(self.replicas)} replicas")
+        futures = [self._pool.submit(self.call, i, fn, *job)
+                   for i, job in enumerate(jobs[1:], start=1)]
+        try:
+            first = self.call(0, fn, *jobs[0])
+        finally:
+            concurrent.futures.wait(futures)
+        return [first, *(f.result() for f in futures)]
+
+
 class Synthesizer:
     def __init__(
         self,
@@ -206,24 +317,43 @@ class Synthesizer:
         params: dict,
         engine_config: Optional[EngineConfig] = None,
         *,
-        device: torch.device | str,
+        device: torch.device | str | None = None,
+        mesh: Mesh | None = None,
     ):
         """``params``: canonical-layout numpy parameters (``vits_tpu_torch.io``),
-        fp32 or int8-quantized (``io/quantize.py``)."""
+        fp32 or int8-quantized (``io/quantize.py``). ``device`` or ``mesh``
+        (one replica per entry of its 'data' axis), not both."""
         self.config = config
         self.tokenizer = tokenizer
         self.engine = engine_config or EngineConfig()
         _check_engine_config(self.engine)
-        self.device = torch.device(device)
+        if (device is None) == (mesh is None):
+            raise ValueError("pass either device= or mesh=, not both")
+        self.mesh = mesh
+        if mesh is not None:
+            if DATA_AXIS not in mesh.axis_names:
+                raise ValueError(f"mesh needs a '{DATA_AXIS}' axis: {mesh}")
+            devices = [torch.device(d) for d in mesh.devices.reshape(-1)]
+        else:
+            devices = [torch.device(device)]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"mesh of CUDA and CPU devices: {mesh}")
+        self.device = devices[0]
         _fp32_backends(self.device)
         quantized = any(k.startswith("decoder.") and k.endswith(".scale") for k in params)
         self.tiers, self._weight_format = resolve_tiers(self.engine, self.device, quantized)
         self.compute_dtype = self.tiers.compute_dtype
-        # fp32 tensors (int8 scales too) to the compute dtype, then int8 weights
-        # dequantized into their scales' dtype, as the JAX ParamView reads them
-        self.params = dequantize_tensors({
-            name: value.to(self.compute_dtype) if value.dtype == torch.float32 else value
-            for name, value in from_jax_params(params, self.device).items()})
+
+        def place(device: torch.device) -> dict:
+            # fp32 tensors (int8 scales too) to the compute dtype, then int8 weights
+            # dequantized into their scales' dtype, as the JAX ParamView reads them
+            return dequantize_tensors({
+                name: value.to(self.compute_dtype) if value.dtype == torch.float32 else value
+                for name, value in from_jax_params(params, device).items()})
+
+        self.replicas = ReplicaSet(
+            Replica(d, place(d), config, self._weight_format, self.engine.use_pallas_flow)
+            for d in devices)
         # Working frames/token ratio, raised on overflow and decayed back
         # (EngineConfig.adaptive_capacity*), as in the JAX engine.
         self._frames_per_token = float(self.engine.frames_per_token)
@@ -241,39 +371,34 @@ class Synthesizer:
 
     @property
     def params(self) -> dict:
-        return self._params
-
-    @params.setter
-    def params(self, params: dict) -> None:
-        self._params = params
-        self._packed_flow = None  # packed from the parameters they replace
-        self._packed_vocoder = None
+        """Replica 0's parameters (the engine's ``device``)."""
+        return self.replicas[0].params
 
     def _vocoder_packs(self) -> dict:
-        """The bf16 or int8 weights of kernels B and C, made on first use."""
-        if self._packed_vocoder is None:
-            self._packed_vocoder = (
-                precompute_vocoder_packs(ParamView(self._params), self.config,
-                                         self._weight_format)
-                if self._weight_format else {})
-        return self._packed_vocoder
+        """Replica 0's bf16 or int8 weights of kernels B and C."""
+        return self.replicas[0].vocoder_packs()
 
     def _flow_pack(self) -> FlowPack | None:
-        """Kernel 6's packed weights, made on the first dispatch that runs it."""
-        if not self.engine.use_pallas_flow or self.device.type != "cuda":
-            return None
-        if self._packed_flow is None:
-            self._packed_flow = pack_flow_weights(ParamView(self._params), self.config)
-        return self._packed_flow
+        """Replica 0's kernel 6 pack (None where the flow kernel does not run)."""
+        return self.replicas[0].flow_pack()
 
-    def _keeping_flow_graphs(self):
-        """``FlowPack.keeping()`` of kernel 6's pack (warmups): a no-op without one."""
-        pack = self._flow_pack()
-        return pack.keeping() if pack is not None else contextlib.nullcontext()
+    def _keeping_flow_graphs(self) -> contextlib.ExitStack:
+        """``FlowPack.keeping()`` of every replica's kernel 6 pack (warmups)."""
+        stack = contextlib.ExitStack()
+        for replica in self.replicas:
+            pack = replica.flow_pack()
+            if pack is not None:
+                stack.enter_context(pack.keeping())
+        return stack
+
+    def _synchronize(self) -> None:
+        for device in {r.device for r in self.replicas if r.device.type == "cuda"}:
+            torch.cuda.synchronize(device)
 
     @classmethod
     def load(cls, source, engine_config: Optional[EngineConfig] = None, *,
-             device: torch.device | str) -> "Synthesizer":
+             device: torch.device | str | None = None,
+             mesh: Mesh | None = None) -> "Synthesizer":
         """Load from a .ggml path/bytes or an HF directory."""
         if isinstance(source, (bytes, bytearray)):
             config, tokenizer, params = load_ggml(bytes(source))
@@ -281,7 +406,7 @@ class Synthesizer:
             config, tokenizer, params = load_ggml(source)
         else:
             config, tokenizer, params = load_hf_pretrained(source)
-        return cls(config, tokenizer, params, engine_config, device=device)
+        return cls(config, tokenizer, params, engine_config, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------ #
     def _controls(self, noise_scale, noise_scale_duration, speaking_rate) -> tuple:
@@ -294,48 +419,97 @@ class Synthesizer:
         )
 
     def _generators(self, seed: int | tuple[int, ...]):
-        if isinstance(seed, tuple):
-            return [self._generator(s) for s in seed]
-        return self._generator(seed)
+        """Replica 0's generators for ``seed`` (the streamer's)."""
+        return self.replicas[0].generators(seed)
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(self.device).manual_seed(generator_seed(seed))
-
-    def _speaker_tensor(self, speaker: np.ndarray | None) -> torch.Tensor | None:
-        if speaker is None:
-            return None
-        if speaker.min() < 0 or speaker.max() >= self.config.num_speakers:
+    def _check_speakers(self, speaker: np.ndarray | None) -> None:
+        if speaker is not None and (speaker.min() < 0
+                                    or speaker.max() >= self.config.num_speakers):
             raise ValueError(f"speaker ids {speaker.tolist()} outside "
                              f"[0, {self.config.num_speakers})")
-        return torch.as_tensor(speaker, dtype=torch.long).to(self.device)
 
-    @torch.inference_mode()
+    def _speaker_tensor(self, speaker: np.ndarray | None,
+                        device: torch.device | None = None) -> torch.Tensor | None:
+        if speaker is None:
+            return None
+        self._check_speakers(speaker)
+        return torch.as_tensor(speaker, dtype=torch.long).to(device or self.device)
+
+    def _shards(self, rows: int) -> list[slice]:
+        """The rows of each replica: ``rows / data`` contiguous rows apiece."""
+        n = len(self.replicas)
+        if rows % n:
+            raise ValueError(f"{rows} rows do not tile the mesh's data axis ({n})")
+        per = rows // n
+        return [slice(i * per, (i + 1) * per) for i in range(n)]
+
     def _dispatch(self, ids: np.ndarray, mask: np.ndarray, num_frames: int, seed,
                   speaker: np.ndarray | None, controls: tuple) -> tuple:
         t0 = time.perf_counter()
-        noise_scale, noise_scale_duration, speaking_rate = controls
-        out = synthesize_fn(
-            self.params, self.config,
-            torch.as_tensor(ids, dtype=torch.long).to(self.device),
-            torch.as_tensor(mask, dtype=self.compute_dtype).to(self.device),
-            num_frames,
-            generator=self._generators(seed),
-            speaker_id=self._speaker_tensor(speaker),
-            noise_scale=noise_scale,
-            noise_scale_duration=noise_scale_duration,
-            speaking_rate=speaking_rate,
-            use_pallas_flow=self.engine.use_pallas_flow,
-            flow_pack=self._flow_pack(),
-            tiers=self.tiers,
-            vocoder_packs=self._vocoder_packs(),
-        )
-        wave = self._transfer(out.waveform)
+        if len(self.replicas) > 1 and not isinstance(seed, tuple):
+            raise ValueError("a mesh dispatch needs per-row seeds")
+        self._check_speakers(speaker)  # on this thread, before any shard runs
+        jobs = [(ids[s], mask[s], seed[s] if isinstance(seed, tuple) else seed,
+                 None if speaker is None else speaker[s]) for s in self._shards(ids.shape[0])]
+        device_out = tuple(self.replicas.run(
+            functools.partial(self._run_shard, num_frames=num_frames, controls=controls), jobs))
         self._dispatch_shapes.add(
             (ids.shape[0], ids.shape[1], num_frames, np.shape(seed), speaker is not None))
         self.stats["compiled_shapes"] = len(self._dispatch_shapes)
         self.stats["dispatches"] += 1
         self.stats["wall_seconds"] += time.perf_counter() - t0
-        return (wave, out.lengths, out.frame_lengths, out.log_duration)
+        return device_out
+
+    def _run_shard(self, replica: Replica, ids: np.ndarray, mask: np.ndarray, seed,
+                   speaker: np.ndarray | None, *, num_frames: int, controls: tuple) -> tuple:
+        """One shard's whole per-row program on its replica."""
+        noise_scale, noise_scale_duration, speaking_rate = controls
+        out = synthesize_fn(
+            replica.params, self.config,
+            torch.as_tensor(ids, dtype=torch.long).to(replica.device),
+            torch.as_tensor(mask, dtype=self.compute_dtype).to(replica.device),
+            num_frames,
+            generator=replica.generators(seed),
+            speaker_id=self._speaker_tensor(speaker, replica.device),
+            noise_scale=noise_scale,
+            noise_scale_duration=noise_scale_duration,
+            speaking_rate=speaking_rate,
+            use_pallas_flow=self.engine.use_pallas_flow,
+            flow_pack=replica.flow_pack(),
+            tiers=self.tiers,
+            vocoder_packs=replica.vocoder_packs(),
+        )
+        return (self._transfer(out.waveform), out.lengths, out.frame_lengths, out.log_duration)
+
+    def _prior_on(self, replica: Replica, ids: np.ndarray, mask: np.ndarray,
+                  num_frames: int, seed, speaker: np.ndarray | None,
+                  controls: tuple) -> PriorOutput:
+        """The prior of padded token rows on ``replica`` (the streamer's and the
+        time-sharded decode's first half)."""
+        noise_scale, noise_scale_duration, speaking_rate = controls
+        return text_to_prior(
+            replica.params, self.config,
+            torch.as_tensor(ids, dtype=torch.long).to(replica.device),
+            torch.as_tensor(mask, dtype=self.compute_dtype).to(replica.device),
+            num_frames,
+            generator=replica.generators(seed),
+            speaker_id=self._speaker_tensor(speaker, replica.device),
+            noise_scale=noise_scale,
+            noise_scale_duration=noise_scale_duration,
+            speaking_rate=speaking_rate,
+            attention_tier=self.tiers.attention,
+        )
+
+    def _decode_on(self, replica: Replica, latents: torch.Tensor, mask3: torch.Tensor,
+                   speaker_embeddings: torch.Tensor | None) -> torch.Tensor:
+        """Flow + vocoder over (B, W) prior frames on ``replica`` -> (B, W *
+        total_upsample) waveform (the second half)."""
+        flow_latents = latents_from_prior(
+            replica.params, self.config, latents, mask3, speaker_embeddings,
+            use_pallas=self.engine.use_pallas_flow, flow_pack=replica.flow_pack(),
+            tier=self.tiers.flow)
+        return hifigan(ParamView(replica.params), self.config, flow_latents, mask3,
+                       speaker_embeddings, tiers=self.tiers, packs=replica.vocoder_packs())
 
     def _transfer(self, wave: torch.Tensor) -> torch.Tensor:
         """The waveform as it crosses to the host: with ``transfer_int16`` int16
@@ -352,7 +526,9 @@ class Synthesizer:
 
     @classmethod
     def _fetch(cls, device_out: tuple) -> EngineOutput:
-        host = [cls._host(t) for t in device_out]
+        """The shards' outputs on the host, in row order."""
+        host = [np.concatenate([cls._host(shard[i]) for shard in device_out])
+                for i in range(4)]
         wave = host[0]
         if wave.dtype == np.int16:
             wave = wave.astype(np.float32) / 32767.0
@@ -417,11 +593,16 @@ class Synthesizer:
             pad_rows = pad_to_batch - ids.shape[0]
             ids = np.pad(ids, ((0, pad_rows), (0, 0)))
             mask = np.pad(mask, ((0, pad_rows), (0, 0)))
+        if self.mesh is not None:  # the rows tile the data axis; pad rows are masked
+            short = -ids.shape[0] % len(self.replicas)
+            ids = np.pad(ids, ((0, short), (0, 0)))
+            mask = np.pad(mask, ((0, short), (0, 0)))
         rows = ids.shape[0]
         if isinstance(seed, (int, np.integer)):
             seed_spec = int(seed)
-            if self.engine.batch_buckets and rows > 1:
-                # independent of the bucket: per-row generators (the JAX engine's fold_in)
+            if self.mesh is not None or (self.engine.batch_buckets and rows > 1):
+                # independent of the bucket and of the shards: per-row generators
+                # (the JAX engine's fold_in)
                 seed_spec = tuple(row_seed(seed_spec, r) for r in range(rows))
         else:
             seed_spec = tuple(int(s) for s in seed)
@@ -451,7 +632,7 @@ class Synthesizer:
                 self.stats["redispatches"] += 1
                 device_out = self._dispatch(pending.ids, pending.mask, num_frames,
                                             pending.seed, pending.speaker, pending.controls)
-                predicted = int(device_out[2].max().item())
+                predicted = max(int(shard[2].max().item()) for shard in device_out)
                 if predicted <= num_frames or attempt == max_redispatch - 1:
                     out = self._fetch(device_out)
                     break
@@ -479,7 +660,6 @@ class Synthesizer:
         )
         return self.collect(pending, max_redispatch=max_redispatch)
 
-    @torch.inference_mode()
     def convert_voice(
         self,
         audio: np.ndarray | Sequence[np.ndarray],
@@ -498,7 +678,8 @@ class Synthesizer:
         align 1:1 with latent frames, and padded to the smallest frame bucket
         that holds the longest input. ``noise_scale=0`` converts the posterior
         mean: deterministic. Otherwise row r draws its noise from its own
-        ``torch.Generator`` seeded from (seed, r).
+        ``torch.Generator`` seeded from (seed, r). On a mesh engine the rows
+        (padded to the data axis) shard over the replicas as a dispatch's do.
         """
         from vits_tpu_torch.train.data import linear_spectrogram
 
@@ -515,24 +696,25 @@ class Synthesizer:
             n_frames = len(a) // hop
             specs.append(linear_spectrogram(a[: n_frames * hop], n_fft, hop)[:n_frames])
         batch = len(specs)
+        rows = batch + (-batch % len(self.replicas) if self.mesh is not None else 0)
         capacity = _next_bucket([self._frame_capacity(tb) for tb in self.engine.token_buckets],
                                 max(s.shape[0] for s in specs))
-        spec = np.zeros((batch, capacity, self.config.spectrogram_bins), np.float32)
-        mask = np.zeros((batch, capacity), np.float32)
+        spec = np.zeros((rows, capacity, self.config.spectrogram_bins), np.float32)
+        mask = np.zeros((rows, capacity), np.float32)
         for i, s in enumerate(specs):
             spec[i, : s.shape[0]] = s
             mask[i, : s.shape[0]] = 1.0
-        src = _speaker_rows(source_speaker, batch, batch, "source_speaker")
-        tgt = _speaker_rows(target_speaker, batch, batch, "target_speaker")
-        generators = [self._generator(row_seed(seed, r)) for r in range(batch)]
+        src = _speaker_rows(source_speaker, rows, batch, "source_speaker")
+        tgt = _speaker_rows(target_speaker, rows, batch, "target_speaker")
+        for speaker in (src, tgt):
+            self._check_speakers(speaker)
+        seeds = tuple(row_seed(seed, r) for r in range(rows))
         t0 = time.perf_counter()
-        cd = self.compute_dtype
-        out = voice_convert(
-            self.params, self.config, torch.as_tensor(spec).to(self.device, cd),
-            torch.as_tensor(mask).to(self.device, cd), self._speaker_tensor(src),
-            self._speaker_tensor(tgt), generator=generators, noise_scale=noise_scale,
-            tiers=self.tiers, vocoder_packs=self._vocoder_packs())
-        wave = self._host(self._transfer(out.waveform))
+        jobs = [(spec[s], mask[s], seeds[s], None if src is None else src[s],
+                 None if tgt is None else tgt[s]) for s in self._shards(rows)]
+        shards = self.replicas.run(
+            functools.partial(self._convert_shard, noise_scale=noise_scale), jobs)
+        wave = np.concatenate([self._host(w) for w in shards])
         if wave.dtype == np.int16:
             wave = wave.astype(np.float32) / 32767.0
         self.stats["dispatches"] += 1
@@ -540,6 +722,18 @@ class Synthesizer:
         results = [wave[i, : specs[i].shape[0] * hop] if trim else wave[i]
                    for i in range(batch)]
         return results[0] if single else results
+
+    def _convert_shard(self, replica: Replica, spec: np.ndarray, mask: np.ndarray,
+                       seeds: tuple, src: np.ndarray | None, tgt: np.ndarray | None, *,
+                       noise_scale: float) -> torch.Tensor:
+        """One shard of a conversion on its replica: the waveform as it crosses."""
+        cd = self.compute_dtype
+        out = voice_convert(
+            replica.params, self.config, torch.as_tensor(spec).to(replica.device, cd),
+            torch.as_tensor(mask).to(replica.device, cd), self._speaker_tensor(src, replica.device),
+            self._speaker_tensor(tgt, replica.device), generator=replica.generators(seeds),
+            noise_scale=noise_scale, tiers=self.tiers, vocoder_packs=replica.vocoder_packs())
+        return self._transfer(out.waveform)
 
     def warmup(self, batch_sizes=(1,), token_buckets=None, per_row_seeds=False,
                overflow_ladder: int = 0) -> None:
@@ -554,12 +748,16 @@ class Synthesizer:
         pick its algorithms and, with ``use_pallas_flow``, captures kernel 6's
         graph, which the flow pack keeps for good (``FlowPack.keeping``). A
         multi-speaker model dispatches speaker 0 on every row, the shapes of
-        requests that name a speaker.
+        requests that name a speaker. On a mesh engine each batch size rounds
+        up to the data axis and seeds are per row, as a mesh dispatch's are:
+        every replica runs its shard's shapes.
         """
+        n = len(self.replicas) if self.mesh is not None else 1
         with self._keeping_flow_graphs():
             for bs in batch_sizes:
+                bs = -(-bs // n) * n
                 speaker = np.zeros((bs,), np.int64) if self.config.num_speakers > 1 else None
-                seed = (0,) * bs if per_row_seeds else 0
+                seed = (0,) * bs if per_row_seeds or self.mesh is not None else 0
                 for tb in token_buckets or self.engine.token_buckets:
                     ids = np.zeros((bs, tb), np.int32)
                     mask = np.zeros((bs, tb), np.float32)
@@ -568,8 +766,7 @@ class Synthesizer:
                     for rung in range(overflow_ladder + 1):
                         self._dispatch(ids, mask, capacity * 2 ** rung, seed, speaker,
                                        self._controls(None, None, None))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
 
     # ------------------------------------------------------------------ #
     # Frame capacity: the JAX engine's adaptive ratio, on host numbers only.

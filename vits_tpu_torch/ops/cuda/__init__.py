@@ -12,16 +12,20 @@ Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
 ``flow.py``, ``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
 version for a tensor on the CPU and launches the kernel for a tensor on a
 CUDA device, raising on anything the kernel does not take -- there is no
-fallback and no switch. Each wrapper carries a plain-integer ``launches``
+fallback and no switch. Every launch runs with its tensors' device current
+(:func:`on_device`). Each wrapper carries a plain-integer ``launches``
 count, bumped (:func:`count_launch`, under a lock: the server's threads
-launch the same wrapper at once) only where it launches. The inference kernels write into fresh
-buffers that autograd cannot see, so their CUDA branches raise under
-autograd (:func:`no_autograd`); training goes through the autograd Functions
-of ``attention_grad.py`` and ``trio_grad.py``.
+launch the same wrapper at once) only where it launches; a mesh engine's
+replica books its launches under its own label too (:func:`booked_to`).
+The inference kernels write into fresh buffers that autograd cannot see, so
+their CUDA branches raise under autograd (:func:`no_autograd`); training
+goes through the autograd Functions of ``attention_grad.py`` and
+``trio_grad.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -148,12 +152,30 @@ def library() -> ctypes.CDLL:
 
 
 _COUNT_LOCK = threading.Lock()
+_BOOK = threading.local()
+
+
+@contextlib.contextmanager
+def booked_to(label: str):
+    """Book the launches this thread makes inside also under ``label`` (a mesh
+    engine's replica and device) in each wrapper's ``replica_launches``."""
+    outer = getattr(_BOOK, "label", None)
+    _BOOK.label = label
+    try:
+        yield
+    finally:
+        _BOOK.label = outer
 
 
 def count_launch(wrapper, attr: str = "launches") -> None:
-    """Add one to ``wrapper.<attr>``; a bare ``+= 1`` from several threads can drop one."""
+    """Add one to ``wrapper.<attr>`` (a bare ``+= 1`` from several threads can
+    drop one) and, inside :func:`booked_to`, to ``wrapper.replica_launches``."""
+    label = getattr(_BOOK, "label", None)
     with _COUNT_LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        if label is not None and attr == "launches":
+            book = wrapper.__dict__.setdefault("replica_launches", {})
+            book[label] = book.get(label, 0) + 1
 
 
 def check(status: int, what: str) -> None:
@@ -172,6 +194,19 @@ def device_sm_count(device: torch.device) -> int:
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor) -> torch.cuda.device:
+    """Make ``t``'s CUDA device current for the library calls inside.
+
+    The C library keys its per-device state on ``cudaGetDevice``: the raised
+    shared-memory ceilings (``common.cuh::vk_set_smem_once``), kernel 5's
+    second stream and kernel 6's capture stream. Every host thread starts at
+    device 0, so without this a tensor on ``cuda:1`` would be launched with
+    device 0's state. Every call into :func:`library` but ``vk_error_string``
+    runs inside it (``tests/test_torch_device_guard.py``).
+    """
+    return torch.cuda.device(t.device)
 
 
 def on_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float32) -> bool:

@@ -40,6 +40,7 @@ from vits_tpu_torch.ops.cuda import (
     library,
     no_autograd,
     on_cuda,
+    on_device,
     stream_of,
 )
 
@@ -175,11 +176,12 @@ def flash_rel_attention(
     lens = cuda_lengths(lengths, B, L, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None
-    check(library().vk_rel_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, H, L, d, window, tier.mode, int(tier.bf16_values), stream_of(q)),
-        "rel_attention kernel")
+    with on_device(q):
+        check(library().vk_rel_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            B, H, L, d, window, tier.mode, int(tier.bf16_values), stream_of(q)),
+            "rel_attention kernel")
     count_launch(flash_rel_attention)
     if return_lse:
         count_launch(flash_rel_attention, "lse_launches")

@@ -35,6 +35,7 @@ from vits_tpu_torch.ops.cuda import (
     cuda_lengths,
     library,
     on_cuda,
+    on_device,
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_scores
@@ -150,12 +151,13 @@ def rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths,
     tiles = -(-L // _TILE)
     drk_part = torch.empty((B, H, tiles, nr, d), dtype=torch.float32, device=q.device)
     drv_part = torch.empty_like(drk_part)
-    check(library().vk_rel_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
-        lens.data_ptr(), lse.data_ptr(), drow.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drk_part.data_ptr(), drv_part.data_ptr(),
-        B, H, L, d, window, tier.mode, int(tier.bf16_values), stream_of(q)),
-        "rel_attention backward kernel")
+    with on_device(q):
+        check(library().vk_rel_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_k.data_ptr(), rel_v.data_ptr(),
+            lens.data_ptr(), lse.data_ptr(), drow.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drk_part.data_ptr(), drv_part.data_ptr(),
+            B, H, L, d, window, tier.mode, int(tier.bf16_values), stream_of(q)),
+            "rel_attention backward kernel")
     count_launch(rel_attention_bwd)
     return (dq, dk, dv, drk_part.sum(dim=(0, 1, 2)).to(rel_k.dtype),
             drv_part.sum(dim=(0, 1, 2)).to(rel_v.dtype))

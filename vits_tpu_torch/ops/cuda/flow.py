@@ -60,6 +60,7 @@ from vits_tpu_torch.ops.cuda import (
     library,
     no_autograd,
     on_cuda,
+    on_device,
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.resblock import CONV_TILES, conv_plan, length_mask
@@ -204,12 +205,13 @@ class FlowWorkspace:
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         lib = library()
         self.exec = ctypes.c_void_p()
-        check(lib.vk_flow_capture(
-            self.x.data_ptr(), self.lens.data_ptr(), ptr(self.emb), ptr(self.cond),
-            self.emb_size, packed.pointers,
-            flow_plan(B, T, half, hidden, k, device_sm_count(weights.device)),
-            *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n, mode,
-            ptr(self.x16), ptr(self.emb16), ctypes.byref(self.exec)), "flow kernels (capture)")
+        with on_device(weights):
+            check(lib.vk_flow_capture(
+                self.x.data_ptr(), self.lens.data_ptr(), ptr(self.emb), ptr(self.cond),
+                self.emb_size, packed.pointers,
+                flow_plan(B, T, half, hidden, k, device_sm_count(weights.device)),
+                *(t.data_ptr() for t in self.scratch), B, T, half, hidden, nl, k, n, mode,
+                ptr(self.x16), ptr(self.emb16), ctypes.byref(self.exec)), "flow kernels (capture)")
         weakref.finalize(self, lib.vk_graph_destroy, self.exec.value)
 
 
@@ -452,7 +454,7 @@ def fused_flow(
     lens = ws.full if lengths is None else cuda_lengths(lengths, B, T, x.device)
     out = torch.empty_like(x)
     ws_x, ws_emb = (ws.x16, ws.emb16) if io16 else (ws.x, ws.emb)
-    with ws.lock:
+    with ws.lock, on_device(x):
         check(library().vk_flow_run(
             ws.exec, ws_x.data_ptr(), x.data_ptr(), ws.lens.data_ptr(), lens.data_ptr(),
             None if ws_emb is None else ws_emb.data_ptr(),

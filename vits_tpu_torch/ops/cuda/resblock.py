@@ -73,6 +73,7 @@ from vits_tpu_torch.ops.cuda import (
     library,
     no_autograd,
     on_cuda,
+    on_device,
     stream_of,
 )
 
@@ -314,62 +315,63 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
     x_slope = carry_slope(slope, tier)  # conv1's leaky of the carry; conv2's of y1 is fp32
     bf16 = x.dtype == torch.bfloat16
     n = len(blocks)
-    for j, blk in enumerate(blocks):
-        k = blk["kernel_size"]
-        if k % 2 == 0:
-            raise ValueError(f"resblock conv kernel needs an odd kernel size, got {k}")
-        src = x
-        dilations = tuple(blk["dilations"])
-        tile, split, _ = conv_plan(B, T, C, C, k, sms)
-        for i, d in enumerate(dilations):
-            w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
-            s1, s2 = _pair_scale(blk, "s1", i), _pair_scale(blk, "s2", i)
-            for w in (w1, w2):
-                if w.shape != (k, C, C) or w.data_ptr() % 16:
-                    raise ValueError(f"resblock conv weight {tuple(w.shape)} != ({k}, {C}, {C})"
-                                     " or not 16-byte aligned")
-            bias_dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
-            for vec in (b1, b2) + ((s1, s2) if s1 is not None else ()):
-                if vec.shape != (C,) or vec.data_ptr() % 16 or vec.dtype not in bias_dtypes:
-                    raise ValueError(f"resblock conv bias or scale {tuple(vec.shape)} != ({C},),"
-                                     " of another dtype or not 16-byte aligned")
-            last = i == len(dilations) - 1
-            if acts is not None:
-                y1 = acts[j][0][i]
-                dst = out if last else acts[j][1][i]
-            else:
-                dst = out if last else scratch[i % 2]
-            accumulate = int(last and j > 0)
-            if bf16:
-                check(lib.vk_conv_bf16(
+    with on_device(x):
+        for j, blk in enumerate(blocks):
+            k = blk["kernel_size"]
+            if k % 2 == 0:
+                raise ValueError(f"resblock conv kernel needs an odd kernel size, got {k}")
+            src = x
+            dilations = tuple(blk["dilations"])
+            tile, split, _ = conv_plan(B, T, C, C, k, sms)
+            for i, d in enumerate(dilations):
+                w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
+                s1, s2 = _pair_scale(blk, "s1", i), _pair_scale(blk, "s2", i)
+                for w in (w1, w2):
+                    if w.shape != (k, C, C) or w.data_ptr() % 16:
+                        raise ValueError(f"resblock conv weight {tuple(w.shape)} != ({k}, {C}, {C})"
+                                         " or not 16-byte aligned")
+                bias_dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+                for vec in (b1, b2) + ((s1, s2) if s1 is not None else ()):
+                    if vec.shape != (C,) or vec.data_ptr() % 16 or vec.dtype not in bias_dtypes:
+                        raise ValueError(f"resblock conv bias or scale {tuple(vec.shape)} != "
+                                         f"({C},), of another dtype or not 16-byte aligned")
+                last = i == len(dilations) - 1
+                if acts is not None:
+                    y1 = acts[j][0][i]
+                    dst = out if last else acts[j][1][i]
+                else:
+                    dst = out if last else scratch[i % 2]
+                accumulate = int(last and j > 0)
+                if bf16:
+                    check(lib.vk_conv_bf16(
+                        src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
+                        lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
+                        tile, split, int(b1.dtype == torch.bfloat16), stream),
+                        "resblock conv1 kernel (bf16)")
+                    check(lib.vk_conv_bf16(
+                        y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
+                        lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, x_slope, accumulate,
+                        float(n) if last and j == n - 1 else 1.0, tile, split,
+                        int(b2.dtype == torch.bfloat16), stream), "resblock conv2 kernel (bf16)")
+                    src = dst
+                    continue
+                scale = 1.0 / n if last and j == n - 1 else 1.0
+                final16 = out16 if last and j == n - 1 else None
+                # y1 = mask(dilated conv(leaky(src)) (* s1) + b1)
+                check(lib.vk_conv(
                     src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
                     lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
-                    tile, split, int(b1.dtype == torch.bfloat16), stream),
-                    "resblock conv1 kernel (bf16)")
-                check(lib.vk_conv_bf16(
+                    tile, split, tier.mode, wfmt, None if s1 is None else s1.data_ptr(), 0, None,
+                    stream), "resblock conv1 kernel")
+                # dst = carry(mask(src + conv(leaky(y1)) (* s2) + b2)), folded into the mean on the
+                # last pair
+                check(lib.vk_conv(
                     y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
-                    lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, x_slope, accumulate,
-                    float(n) if last and j == n - 1 else 1.0, tile, split,
-                    int(b2.dtype == torch.bfloat16), stream), "resblock conv2 kernel (bf16)")
+                    lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, slope, accumulate, scale,
+                    tile, split, tier.mode, wfmt, None if s2 is None else s2.data_ptr(),
+                    int(tier.bf16_values), None if final16 is None else final16.data_ptr(),
+                    stream), "resblock conv2 kernel")
                 src = dst
-                continue
-            scale = 1.0 / n if last and j == n - 1 else 1.0
-            final16 = out16 if last and j == n - 1 else None
-            # y1 = mask(dilated conv(leaky(src)) (* s1) + b1)
-            check(lib.vk_conv(
-                src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
-                lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
-                tile, split, tier.mode, wfmt, None if s1 is None else s1.data_ptr(), 0, None,
-                stream), "resblock conv1 kernel")
-            # dst = carry(mask(src + conv(leaky(y1)) (* s2) + b2)), folded into the mean on the
-            # last pair
-            check(lib.vk_conv(
-                y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
-                lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, slope, accumulate, scale,
-                tile, split, tier.mode, wfmt, None if s2 is None else s2.data_ptr(),
-                int(tier.bf16_values), None if final16 is None else final16.data_ptr(),
-                stream), "resblock conv2 kernel")
-            src = dst
 
 
 def fused_resblock_trio(
@@ -618,12 +620,13 @@ def fused_resblock(
     out = torch.empty_like(x) if into is None else into
     lens = None if lengths is None else cuda_lengths(lengths, B, T, x.device)
     pointers = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
-    check(library().vk_resblock_block(
-        x.data_ptr(), out.data_ptr(), None if lens is None else lens.data_ptr(), pointers,
-        (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
-        plan.bm, plan.cluster, int(into is not None), scale, tier.mode,
-        int(tier.bf16_values and not compute16), float(divisor), int(compute16),
-        stream_of(x)), "resblock kernel")
+    with on_device(x):
+        check(library().vk_resblock_block(
+            x.data_ptr(), out.data_ptr(), None if lens is None else lens.data_ptr(), pointers,
+            (ctypes.c_int * len(dilations))(*dilations), len(dilations), B, T, C, k, slope,
+            plan.bm, plan.cluster, int(into is not None), scale, tier.mode,
+            int(tier.bf16_values and not compute16), float(divisor), int(compute16),
+            stream_of(x)), "resblock kernel")
     count_launch(fused_resblock)
     return out
 

@@ -62,6 +62,7 @@ from vits_tpu_torch.ops.cuda import (
     library,
     no_autograd,
     on_cuda,
+    on_device,
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.resblock import (
@@ -275,11 +276,13 @@ def fused_stage(
                                    up_padding=up_padding, slope=slope, tier=tier)
     xf = x.float()  # the kernels stage fp32 (bf16 values stay bf16-exact)
     up = torch.empty((B, T_out, C_out), dtype=torch.float32, device=x.device)
-    check(lib.vk_upsample(
-        xf.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(), lens.data_ptr(), B, T_in,
-        C_in, C_out, k_up, stride, up_padding, carry_slope(slope, tier), tier.mode, up_fmt,
-        None if up_scale is None else up_scale.data_ptr(), int(tier.bf16_values), 0, 0, stream),
-        "stage upsample kernel")
+    with on_device(x):
+        check(lib.vk_upsample(
+            xf.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(),
+            lens.data_ptr(), B, T_in, C_in, C_out, k_up, stride, up_padding,
+            carry_slope(slope, tier), tier.mode, up_fmt,
+            None if up_scale is None else up_scale.data_ptr(), int(tier.bf16_values), 0, 0, stream),
+            "stage upsample kernel")
     h = torch.empty_like(up)
     h16 = (torch.empty((B, T_out, C_out), dtype=torch.bfloat16, device=x.device)
            if chain and final_conv is None and tier.bf16_values else None)
@@ -295,11 +298,12 @@ def fused_stage(
     if (post_fmt == 2) != (post_scale is not None):
         raise ValueError("stage kernel: an int8 conv_post needs its scale, and only it")
     wave = torch.empty((B, T_out), dtype=torch.float32, device=x.device)
-    check(lib.vk_wave(
-        h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out,
-        C_out, k_post, pad, stride, FINAL_SLOPE, tier.mode, post_fmt,
-        None if post_scale is None else post_scale.data_ptr(), 0, stream),
-        "stage conv_post kernel")
+    with on_device(x):
+        check(lib.vk_wave(
+            h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out,
+            C_out, k_post, pad, stride, FINAL_SLOPE, tier.mode, post_fmt,
+            None if post_scale is None else post_scale.data_ptr(), 0, stream),
+            "stage conv_post kernel")
     count_launch(fused_stage)
     return wave
 
@@ -317,11 +321,12 @@ def _stage_bf16_kernels(x, up_weight, up_bias, resblocks, lens, post, *, stride,
     lib = library()
     stream = stream_of(x)
     up = torch.empty((B, T_out, C_out), dtype=torch.bfloat16, device=x.device)
-    check(lib.vk_upsample(
-        x.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(), lens.data_ptr(),
-        B, T_in, C_in, C_out, k_up, stride, up_padding, carry_slope(slope, tier), tier.mode, 1,
-        None, 0, 1, int(per_tap(k_up, stride, up_padding)), stream),
-        "stage upsample kernel (bf16)")
+    with on_device(x):
+        check(lib.vk_upsample(
+            x.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(), lens.data_ptr(),
+            B, T_in, C_in, C_out, k_up, stride, up_padding, carry_slope(slope, tier), tier.mode, 1,
+            None, 0, 1, int(per_tap(k_up, stride, up_padding)), stream),
+            "stage upsample kernel (bf16)")
     h = torch.empty_like(up)
     run_pairs(up, h, resblocks, lens * stride, slope, tier=tier)
     if post is None:
@@ -332,10 +337,11 @@ def _stage_bf16_kernels(x, up_weight, up_bias, resblocks, lens, post, *, stride,
     if w_post.shape != (k_post, C_out, 1):
         raise ValueError(f"conv_post weight {tuple(w_post.shape)} != (k, {C_out}, 1)")
     wave = torch.empty((B, T_out), dtype=torch.bfloat16, device=x.device)
-    check(lib.vk_wave(
-        h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out, C_out,
-        k_post, pad, stride, carry_slope(FINAL_SLOPE, tier), tier.mode, 1, None, 1, stream),
-        "stage conv_post kernel (bf16)")
+    with on_device(x):
+        check(lib.vk_wave(
+            h.data_ptr(), wave.data_ptr(), w_post.data_ptr(), lens.data_ptr(), B, T_out, C_out,
+            k_post, pad, stride, carry_slope(FINAL_SLOPE, tier), tier.mode, 1, None, 1, stream),
+            "stage conv_post kernel (bf16)")
     count_launch(fused_stage)
     return wave
 

@@ -49,6 +49,7 @@ from vits_tpu_torch.ops.cuda import (
     device_sm_count,
     library,
     on_cuda,
+    on_device,
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.resblock import conv_plan, pair_weights, run_pairs
@@ -282,9 +283,10 @@ def trio_backward(g: torch.Tensor, x: torch.Tensor, blocks: Sequence[dict],
             dx = dx_out
         dweights += [t for i in range(n) for t in (dws[i], dbs[i], dws[n + i], dbs[n + i])]
     table = (TrioPair * len(pairs))(*pairs)
-    check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C,
-                                     carry_slope(slope, tier), tier.mode, stream_of(x)),
-          "trio backward kernels")
+    with on_device(x):
+        check(library().vk_trio_backward(table, len(pairs), lens.data_ptr(), B, T, C,
+                                         carry_slope(slope, tier), tier.mode, stream_of(x)),
+              "trio backward kernels")
     count_launch(trio_backward)
     return dx_total, dweights
 

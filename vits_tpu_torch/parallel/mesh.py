@@ -1,15 +1,25 @@
-"""The data axis of multi-process training: batch rows, collectives, ZeRO-1 owners.
+"""The data axis: a mesh of replicas for serving, and the rows, collectives and
+ZeRO-1 owners of multi-process training.
 
-Counterpart of the data axis of ``vits_tpu/parallel/mesh.py``. JAX shards a
-global batch over a 'data' mesh axis and GSPMD inserts the collectives; here
-every process (rank) holds the whole global batch, keeps its rows
-(:func:`rank_rows`) and sums its gradients with the others'
+Counterpart of the data axis of ``vits_tpu/parallel/mesh.py``.
+
+Serving (:func:`make_mesh`): a :class:`Mesh` lays devices out on the
+('data', 'model') axes, as JAX's ``make_mesh`` does. A mesh engine
+(``Synthesizer(mesh=)``) keeps one replica of the weights on each entry of the
+data axis and runs each replica's share of a batch there; the time-sharded
+decode (``engine/sp.py``) runs one window on each. A device may repeat: each
+entry is a replica, as each of JAX's virtual CPU devices is one.
+
+Training: JAX shards a global batch over a 'data' mesh axis and GSPMD inserts
+the collectives; here every process (rank) holds the whole global batch, keeps
+its rows (:func:`rank_rows`) and sums its gradients with the others'
 (:func:`all_reduce_`) before one identical optimizer update on every rank.
 The collectives are ``all_reduce`` and ``broadcast`` only, so the same code
 runs over NCCL and over gloo, which has neither ``all_gather`` nor
 ``reduce_scatter`` for CUDA tensors.
 
-Not ported: the 'model' axis (tensor-parallel parameter rules,
+Not ported: the 'model' axis (``make_mesh(model=2)`` raises
+``NotImplementedError``; tensor-parallel parameter rules,
 ``shard_params(model_parallel=True)``) and the 'slice' axis.
 """
 
@@ -20,6 +30,77 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+class Mesh:
+    """Devices laid out on named axes: ``devices`` is an array of
+    ``torch.device`` of shape ``tuple(shape.values())``."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = (DATA_AXIS, MODEL_AXIS)):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"devices of shape {self.devices.shape} for axes {self.axis_names}")
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
+
+
+def _mesh_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` that exists: a CUDA device by its index."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        index = 0 if device.index is None else device.index
+        if index >= count:
+            raise ValueError(f"mesh device {device}: {count} CUDA device(s) visible")
+        return torch.device("cuda", index)
+    if device.type != "cpu":
+        raise ValueError(f"mesh device {device}: cuda or cpu")
+    return device
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ('data', 'model') mesh over ``devices`` (default: every visible CUDA
+    device), as JAX's ``make_mesh``; ``data`` defaults to ``len(devices) //
+    model``. A device may repeat (``[cuda:0] * 2``, ``[cpu] * 4``): each entry
+    is a replica. Raises where ``data * model`` is not the number of devices
+    or a device does not exist; ``model > 1`` (tensor parallelism) is not
+    ported."""
+    if model != 1:
+        raise NotImplementedError("the 'model' (tensor-parallel) mesh axis is not ported "
+                                  "(ROADMAP.md queue 1)")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise ValueError("make_mesh: no CUDA device is visible (pass devices=)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [_mesh_device(d) for d in devices]
+    n = len(devices)
+    if data is None:
+        data = n // model
+    if data < 1 or data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} devices")
+    arr = np.empty((n,), dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(data, model))
+
+
+def replica_devices(device, n: int) -> list[torch.device]:
+    """The devices of an ``n``-replica data axis from a ``--device`` flag: ``cuda``
+    (``cuda:k``) takes ``n`` cards from 0 (from k), ``cpu`` ``n`` CPU replicas.
+    Raises ``ValueError`` where fewer cards are visible: never fewer replicas,
+    never another device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [device] * n
+    first = device.index or 0
+    return [_mesh_device(torch.device(device.type, first + i)) for i in range(n)]
 
 
 class DataParallel(NamedTuple):
