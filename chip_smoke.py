@@ -194,7 +194,27 @@ printing its result line:
    device busy ms, idle share (two replicas on one card: what the threads cost
    or buy, not a multi-card figure); (f) where more than one card is visible,
    (a) over distinct cards with device 0 current, else a line saying it did
-   not run.
+   not run;
+14. model-parallel training (``parallel/pipeline.py``, the model axis of
+   ``parallel/mesh.py`` and ``parallel/tensor.py``), in a process of its own
+   (``--model-parallel-phase``), at MMS width with random weights, B=4 at 512
+   tokens (one row 300) over 1280 frames, cuDNN pinned to deterministic
+   algorithms: kernels A with lse and 4 at a pipeline microbatch (B=2, both
+   heads) and at one rank's head (B=4, H=1), and 5 at the decoded-segment
+   shapes of B=4, against their plain twins; (a) ``pipeline_text_encoder`` on
+   ``make_pipe_mesh(2 | 3, devices=[cuda:0] * n)`` at microbatches 2 and 4,
+   remat off and on, against ``text_encoder`` (outputs ENCODER_RTOL, the stage
+   blocks' gradients PP_GRAD_RTOL), A and 4 booked to every stage (backward
+   included); ``make_pp_train_step`` against ``make_train_step`` from the same
+   weights and noise (losses within DP_LOSS_RTOL or 10x their noise floor,
+   gradients within phase 7's noise-floor bounds), each stage's block,
+   gradient and moments on its device, steady ms of both; (b) two gloo ranks
+   sharing the card as ``data=1 x model=2`` (``--model-parallel-rank``
+   grandchildren) against the one-process B=4 GAN step (the same bounds, the
+   ranks' slices reassembled), one head a rank, A, 4 and 5 launched on each,
+   each rank's bytes of parameters and moments, its steady step ms and the
+   time inside gloo's all-reduces; (c) pp x dp on ``make_pipe_mesh(2, data=2,
+   devices=[cuda:0] * 4)`` against ``text_encoder``.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -209,7 +229,10 @@ sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier; ``data_parallel_launches``: phase 12's counts for A with lse, 4
 and 5, its world-1 step and 12b's rank 0; ``multi_device_launches``: phase 13's
 calls of A, B, C and 6 by path, replica and device; ``multi_device``: phase 13's
-numbers), and last ``{"ok": true, "device": {...}}``.
+numbers; phase 14's kernel shapes as ``*_mp`` entries with the launches of 14a's
+pipelined steps and 14b's rank 0, ``model_parallel_launches`` by path and
+``stage_launches`` by stage; ``model_parallel``: phase 14's numbers), and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3405,7 +3428,7 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
     try:
         dp = data_axis()
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-        if torch.distributed.get_backend() != backend or dp != (1, 0):
+        if torch.distributed.get_backend() != backend or (dp.world, dp.rank) != (1, 0):
             raise RuntimeError(f"expected a one-rank {backend} group, got "
                                f"{torch.distributed.get_backend()} {dp}")
         batch = training_batch(config, device)
@@ -3996,6 +4019,526 @@ def multi_device_phase(device) -> dict:
 MULTI_KERNELS = ("flash_rel_attention", "fused_resblock_trio", "fused_stage", "fused_flow")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: model-parallel training (parallel/pipeline.py, the model axis), in a
+# process of its own; the pipeline's stages and the tensor-parallel ranks share
+# the card.
+# --------------------------------------------------------------------------- #
+
+MP_FLAG = "--model-parallel-phase"
+MP_RESULT = "model-parallel-phase result: "
+MP_RANK_FLAG = "--model-parallel-rank"  # a rank of 14b: the flag, its rank, the port, a directory
+# four rows padded to 512 tokens (kernels A with lse and 4), one of 300, over 1280 frames
+MP_TOKENS = (512, 300, 512, 512)
+MP_FRAMES = (1280, 800, 1280, 1100)
+# 14a: (stages, microbatches, remat) of the pipelined encoder; the steps run the first
+# and the last
+PP_CASES = ((2, 2, False), (2, 4, True), (3, 2, True), (3, 4, False))
+# the pipelined encoder against the plain one on the card: outputs max|diff| within
+# ENCODER_RTOL x max(1, max|plain|) (the port's encoder bound), its stage blocks'
+# gradients (of a whole-batch abs-sum) within PP_GRAD_RTOL relative L2 (fp32 sums of
+# microbatches in another order; JAX's own test holds them at 1e-3 elementwise)
+ENCODER_RTOL = 1e-5
+PP_GRAD_RTOL = 1e-4
+
+
+def stage_books(wrappers, mesh) -> dict:
+    """Each wrapper's launches booked to each stage of the pipeline ``mesh``
+    (``parallel/pipeline.py`` books a stage's launches, backward included, under
+    ``stage s | device``); raises where a stage launched one of them no time."""
+    books = {}
+    stages = mesh.devices.reshape(mesh.shape["pipe"], -1)
+    for fn in wrappers:
+        for s in range(len(stages)):
+            n = getattr(fn, "replica_launches", {}).get(f"stage {s} | {stages[s, 0]}", 0)
+            if not n:
+                raise RuntimeError(f"{fn.__name__} was not launched in pipeline stage {s}")
+            books[f"{fn.__name__} | stage {s}"] = n
+    return books
+
+
+def clear_books(wrappers) -> None:
+    for fn in wrappers:
+        fn.replica_launches = {}
+
+
+def max_rel(got, want) -> float:
+    """max|diff| over max(1, max|want|), the worst over pairs of tensors."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def mp_kernels_vs_plain(params: dict, config, device) -> dict:
+    """Phase 14's kernel shapes against the plain twins: A with lse and 4 on a
+    pipeline microbatch (B=2, both heads, lengths (512, 300)) and on one
+    tensor-parallel rank's head (B=4, H=1, MP_TOKENS); 5 on the gathered
+    weights at the decoded-segment shapes of B=4 (its forward with acts, and
+    its backward alone on the plain forward's activations)."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.hifigan import _stage_resblocks
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.cuda.resblock import pair_weights
+    from vits_tpu_torch.ops.cuda.trio_grad import (
+        flat_acts,
+        trio_backward,
+        trio_backward_reference,
+        trio_forward_with_acts,
+        trio_forward_with_acts_reference,
+    )
+
+    rng = np.random.default_rng(14)
+    params = {k: v.detach() for k, v in params.items()}  # the kernels without autograd
+    results = {"flash_rel_attention_mp": [], "trainable_rel_attention_mp": [],
+               "trainable_trio_mp": []}
+    layer = ParamView(params).sub("text_encoder.encoder.layers.0.attention")
+    d, w, L = config.head_dim, config.window_size, 512
+    rel = (layer["emb_rel_k"][0], layer["emb_rel_v"][0])
+    for what, heads, lengths in (("pipeline microbatch", config.num_attention_heads,
+                                  (512, 300)),
+                                 ("one rank's head", 1, MP_TOKENS)):
+        B = len(lengths)
+        q, k, v, dout = (torch.tensor(rng.standard_normal((B, heads, L, d)) * 0.5,
+                                      dtype=torch.float32, device=device) for _ in range(4))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        shape = f"B={B} H={heads} L={L} d={d} {what}"
+        out, lse = flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True)
+        results["flash_rel_attention_mp"].append(compare(
+            "flash_rel_attention+lse", shape,
+            lambda: flash_rel_attention(q, k, v, *rel, window=w, lengths=lens, return_lse=True),
+            lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens,
+                                            return_lse=True),
+            work=(attention_flops(lengths, heads, d, w), nbytes(q, k, v, out, lse, *rel, lens))))
+        args = (q, k, v, *rel, lse, dout, out)
+        results["trainable_rel_attention_mp"].append(compare(
+            "rel_attention_bwd", shape,
+            lambda: rel_attention_bwd(*args, window=w, lengths=lens),
+            lambda: rel_attention_bwd_reference(*args, window=w, lengths=lens),
+            work=(attention_flops(lengths, heads, d, w, backward=True),
+                  nbytes(*args, lens, q, k, v, *rel))))
+    decoder = ParamView(params).sub("decoder")
+    slope = config.leaky_relu_slope
+    for i, T in ((0, 256), (1, 2048)):
+        blocks = _stage_resblocks(decoder, config, i)
+        C = blocks[0]["w1"][0].shape[-1]
+        x, g = (torch.tensor(rng.standard_normal((4, T, C)), dtype=torch.float32, device=device)
+                for _ in range(2))
+        shape = f"B=4 C={C} T={T} gathered weights"
+        fwd_flops = resblocks_flops(steps_of(x, None), C, blocks)
+        n_acts = sum(2 * len(blk["dilations"]) - 1 for blk in blocks)
+        weights = pair_weights(blocks)
+        with torch.no_grad():
+            results["trainable_trio_mp"].append(compare(
+                "trio_forward_with_acts", shape + " out+acts",
+                lambda: (lambda o: (o[0], *flat_acts(o[1])))(
+                    trio_forward_with_acts(x, blocks, slope=slope)),
+                lambda: (lambda o: (o[0], *flat_acts(o[1])))(
+                    trio_forward_with_acts_reference(x, blocks, slope=slope)),
+                work=(fwd_flops, nbytes(x, *weights) + nbytes(x) * (1 + n_acts))))
+            acts = flat_acts(trio_forward_with_acts_reference(x, blocks, slope=slope)[1])
+            results["trainable_trio_mp"].append(compare(
+                "trio_backward", shape + " bwd alone",
+                lambda: (lambda r: (r[0], *r[1]))(trio_backward(g, x, blocks, acts, slope=slope)),
+                lambda: (lambda r: (r[0], *r[1]))(trio_backward_reference(g, x, blocks, acts,
+                                                                          slope=slope)),
+                grad_rtol=GRAD_RTOL,
+                work=(2 * fwd_flops, nbytes(x, g, *acts, *weights) + nbytes(x, *weights))))
+    return results
+
+
+def pp_encoder(config, params: dict, batch, device, card: str) -> dict:
+    """14a/14c, the encoder: the pipelined encoder at each of PP_CASES (and pp x dp
+    on a ('pipe', 'data') mesh of 2 x 2) against ``text_encoder`` on the same card,
+    outputs and the stage blocks' gradients; kernels A and 4 booked to every
+    stage."""
+    from vits_tpu_torch.io.params import ParamView
+    from vits_tpu_torch.models.encoder import text_encoder
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.parallel.pipeline import (
+        layer_suffixes,
+        make_pipe_mesh,
+        pipeline_text_encoder,
+        stack_pipeline_params,
+    )
+
+    wrappers = (flash_rel_attention, rel_attention_bwd)
+    mask3 = batch.token_mask[..., None]
+    plain = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    ref = text_encoder(ParamView(plain), config, batch.input_ids, mask3, trainable=True)
+    ref.last_hidden_state.abs().sum().backward()
+    out = {}
+    for stages, data, M, remat in [(s, 1, m, r) for s, m, r in PP_CASES] + [(2, 2, 2, False)]:
+        mesh = make_pipe_mesh(stages, data=data, devices=[device] * (stages * data))
+        pp = {k: v.requires_grad_() for k, v in stack_pipeline_params(
+            {k: v.detach() for k, v in params.items()}, config, stages, mesh=mesh).items()}
+        want = stack_pipeline_params({k: p.grad for k, p in plain.items() if p.grad is not None},
+                                     config, stages)
+        clear_books(wrappers)
+        got = pipeline_text_encoder(pp, config, batch.input_ids, mask3, mesh, microbatches=M,
+                                    remat=remat)
+        got.last_hidden_state.abs().sum().backward()
+        torch.cuda.synchronize()
+        books = stage_books(wrappers, mesh)
+        err = max_rel([t.detach() for t in got], [t.detach() for t in ref])
+        names = [k for k in want if k.startswith("text_encoder.encoder.pipeline.")]
+        g = torch.cat([pp[k].grad.flatten() for k in names])
+        c = torch.cat([want[k].flatten() for k in names])
+        grad_err = float(torch.linalg.vector_norm(g - c) / torch.linalg.vector_norm(c))
+        label = f"pipe={stages}" + (f" x data={data}" if data > 1 else "") + f", M={M}" + (
+            ", remat" if remat else "")
+        print(f"    {label}: outputs max|diff| {err:.3e} of max(1, |plain|) (bound "
+              f"{ENCODER_RTOL}); stage blocks' gradients relative L2 {grad_err:.3e} (bound "
+              f"{PP_GRAD_RTOL}); {len(layer_suffixes(params))} tensors a layer; launches "
+              f"{books}", flush=True)
+        if not err <= ENCODER_RTOL or not grad_err <= PP_GRAD_RTOL:
+            raise RuntimeError(f"pipelined encoder {label}: differs from text_encoder")
+        out[label] = {"max_rel_err": err, "grad_rel_l2": grad_err, "launches": books}
+    return out
+
+
+def pp_step(config, gen_np: dict, batch, device, card: str) -> dict:
+    """14a, the step: ``make_pp_train_step`` at PP_CASES' first and last against
+    ``make_train_step`` from the same weights and noise: losses within
+    DP_LOSS_RTOL or 10x their noise floor, the (clipped) gradients within phase
+    7's noise-floor bounds, restacked; kernels A, 4 and 5 launched (A and 4 in
+    every stage); steady ms of both; each stage block, its gradient and moments
+    on its stage's device."""
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+    from vits_tpu_torch.parallel.pipeline import (
+        make_pipe_mesh,
+        make_pp_train_step,
+        stack_pipeline_params,
+    )
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import draw_noise, make_train_step
+
+    noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(4))
+
+    def plain_step(arrays):
+        gen = leaves_on(arrays, device)
+        metrics = make_train_step(config, gen, vits_optimizer(gen))(batch, noise=noise)
+        return torch.stack(list(metrics)).detach(), {k: p.grad for k, p in gen.items()}
+
+    want_metrics, want = plain_step(gen_np)
+    rng = np.random.default_rng(5)
+    floors, floor_metrics = [], []
+    for _ in range(FLOOR_SAMPLES):  # every weight moved by 1e-7, relative
+        metrics, grads = plain_step({k: (v * (1 + 1e-7 * rng.standard_normal(v.shape)))
+                                    .astype(np.float32) for k, v in gen_np.items()})
+        floors.append(grads)
+        floor_metrics.append(metrics.tolist())
+    out = {}
+    for stages, M, remat in (PP_CASES[0], PP_CASES[-1]):
+        mesh = make_pipe_mesh(stages, devices=[device] * stages)
+        pp = {k: v.requires_grad_() for k, v in stack_pipeline_params(
+            leaves_on(gen_np, device), config, stages, mesh=mesh).items()}
+        opt = vits_optimizer(pp)
+        fn = make_pp_train_step(config, pp, opt, mesh, microbatches=M, remat=remat)
+        zero_training_launches()
+        clear_books((flash_rel_attention, rel_attention_bwd))
+        metrics = torch.stack(list(fn(batch, noise=noise))).detach()
+        torch.cuda.synchronize()
+        launches = training_launches()
+        books = stage_books((flash_rel_attention, rel_attention_bwd), mesh)
+        for name, n in launches.items():
+            if not n:
+                raise RuntimeError(f"kernel {name} was not launched by the pipelined step")
+        label = f"pipe={stages}, M={M}" + (", remat" if remat else "")
+        print(f"  [14a] make_pp_train_step {label} against make_train_step, same weights and "
+              f"noise: launches {launches}, by stage {books}", flush=True)
+        for i, (name, g, w) in enumerate(zip(("loss", "kl", "duration", "mel"),
+                                             metrics.tolist(), want_metrics.tolist())):
+            floor = max(abs(m[i] - w) for m in floor_metrics)
+            bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
+            print(f"    {name}: pipelined {g:.7g}, plain {w:.7g}, |diff| {abs(g - w):.3e} "
+                  f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
+            if not abs(g - w) <= bound:
+                raise RuntimeError(f"pipelined step: {name} differs past {bound:.3e}")
+        stacked = [stack_pipeline_params(grads, config, stages)
+                   for grads in (want, *floors)]
+        names = list(pp)
+        hold_gradients(names, [pp[k].grad for k in names], [stacked[0][k] for k in names],
+                       [[s[k] for k in names] for s in stacked[1:]], f"pipelined ({label})")
+        for s in range(stages):
+            block = pp[f"text_encoder.encoder.pipeline.{s}.attention.q_proj.weight"]
+            state = opt.adamw.state[block]
+            if not block.device == block.grad.device == state["exp_avg"].device == \
+                    mesh.devices[s]:
+                raise RuntimeError(f"stage {s}'s block, gradient or moments off its device")
+        gen = leaves_on(gen_np, device)
+        step_ms = timed_steps({"plain": make_train_step(config, gen, vits_optimizer(gen)),
+                               "pipelined": fn}, batch, noise)
+        print(f"    steady generator step: plain {step_ms['plain']:.1f} ms, pipelined "
+              f"{step_ms['pipelined']:.1f} ms (stages in turn on one card) ({card})",
+              flush=True)
+        out[label] = {"launches": launches, "stage_launches": books, "step_ms": step_ms,
+                      "metrics": metrics.tolist(), "plain_metrics": want_metrics.tolist()}
+        del fn, pp, opt, gen
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
+    """Phase 14b: two gloo ranks sharing the card as ``data=1 x model=2`` (each a
+    grandchild, ``--model-parallel-rank``) against the one-process GAN step at B=4:
+    losses within DP_LOSS_RTOL or 10x their noise floor, the clipped gradients,
+    the ranks' slices reassembled, within phase 7's noise-floor bounds; A and 4
+    on one head a rank, 5 on the gathered weights; each rank's bytes of
+    parameters and moments; step ms split into compute and gloo."""
+    import tempfile
+
+    from vits_tpu_torch.parallel.mesh import shard_index, split_plan
+    from vits_tpu_torch.train.step import draw_noise
+
+    batch = training_batch(config, device, MP_TOKENS, MP_FRAMES)
+    noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(6))
+    want_metrics, want, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device)
+    want = [g.cpu() for g in want]
+    rng = np.random.default_rng(7)
+    floors, floor_metrics = [], []
+    for _ in range(FLOOR_SAMPLES):
+        moved = [{k: (v * (1 + 1e-7 * rng.standard_normal(v.shape))).astype(np.float32)
+                  for k, v in arrays.items()} for arrays in (gen_np, disc_np)]
+        metrics, grads, _ = gan_step_once(config, *moved, batch, noise, device)
+        floors.append([g.cpu() for g in grads])
+        floor_metrics.append(metrics.tolist())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(f"{tmp}/setup.json").write_text(json.dumps(
+            {"config": dataclasses.asdict(config), "device": str(device)}))
+        np.savez(f"{tmp}/inputs.npz", **{f"gen.{k}": v for k, v in gen_np.items()},
+                 **{f"disc.{k}": v for k, v in disc_np.items()},
+                 **{f"batch.{k}": v.cpu().numpy() for k, v in batch._asdict().items()
+                    if v is not None},
+                 **{f"noise.{k}": v.cpu().numpy() for k, v in noise._asdict().items()})
+        port = free_port()
+        logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), MP_RANK_FLAG,
+                                   str(r), str(port), tmp], stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            for log in logs:
+                log.close()
+        for r, p in enumerate(procs):
+            text = Path(f"{tmp}/rank{r}.log").read_text()
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 14b rank {r} failed (exit {p.returncode}):\n"
+                                   f"{text[-4000:]}")
+        reports = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(2)]
+        slices = []
+        for r in range(2):
+            with np.load(f"{tmp}/grads{r}.npz") as f:
+                slices.append({k: f[k] for k in f.files})
+    plan = split_plan(gen_np, 2)
+    names = list(gen_np) + list(disc_np)
+    got = []
+    for name in names:
+        if name not in plan:
+            got.append(torch.from_numpy(slices[0][name]))
+            continue
+        split, shape = plan[name], gen_np[name].shape
+        whole = np.zeros(shape, np.float32)
+        for r in range(2):
+            index = [slice(None)] * len(shape)
+            index[split.dim] = shard_index(split, shape[split.dim], 2, r)
+            whole[tuple(index)] = slices[r][name]
+        got.append(torch.from_numpy(whole))
+    a, b = reports
+    if a["metrics"] != b["metrics"] or a["replicated_digest"] != b["replicated_digest"]:
+        raise RuntimeError(f"the two model ranks hold different metrics ({a['metrics']} and "
+                           f"{b['metrics']}) or replicated gradients")
+    for r, rep in enumerate(reports):
+        if rep["local_heads"] != 1:
+            raise RuntimeError(f"rank {r} computes {rep['local_heads']} heads, not one")
+        for name, n in rep["launches"].items():
+            if not n:
+                raise RuntimeError(f"rank {r} did not launch kernel {name}")
+    for i, (name, g, w) in enumerate(zip(GAN_FIELDS, a["metrics"], want_metrics.tolist())):
+        floor = max(abs(m[i] - w) for m in floor_metrics)
+        bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
+        print(f"    {name}: two model ranks {g:.7g}, one process {w:.7g}, |diff| "
+              f"{abs(g - w):.3e} (noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
+        if not abs(g - w) <= bound:
+            raise RuntimeError(f"model ranks and one process: {name} differs past {bound:.3e}")
+    hold_gradients(names, got, want, floors, "two model ranks vs one process")
+    whole_bytes = 4 * sum(v.size for v in gen_np.values())
+    for r, rep in enumerate(reports):
+        print(f"  rank {r}: one head of {config.num_attention_heads}, launches {rep['launches']};"
+              f" generator parameters {rep['param_bytes'] / 2**20:.1f} MiB, moments "
+              f"{rep['moment_bytes'] / 2**20:.1f} MiB (one process {whole_bytes / 2**20:.1f} / "
+              f"{2 * whole_bytes / 2**20:.1f} MiB); steady GAN step {rep['step_ms']:.1f} ms: "
+              f"gloo {rep['gloo_ms']:.1f} ms in {rep['collectives']} all-reduces, compute "
+              f"{rep['step_ms'] - rep['gloo_ms']:.1f} ms ({card})", flush=True)
+    gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import make_gan_train_step
+
+    one_ms = timed_steps({"one process": make_gan_train_step(
+        config, gen, disc, vits_optimizer(gen), vits_optimizer(disc))}, batch, noise)
+    print(f"  one process, the same B=4 GAN step: {one_ms['one process']:.1f} ms ({card})",
+          flush=True)
+    return {"ranks": reports, "one_process_step_ms": one_ms["one process"],
+            "one_process_param_bytes": whole_bytes, "launches": a["launches"]}
+
+
+def mp_rank(rank: int, port: int, tmp: str) -> None:
+    """A rank of phase 14b (a child of :func:`mp_two_ranks`): one GAN step on its
+    slices (clipped gradients to ``tmp``), its launches, bytes, and steady step
+    ms with the time inside gloo's all-reduces."""
+    import hashlib
+
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.parallel import mesh as mesh_module
+    from vits_tpu_torch.parallel.distributed import initialize
+    from vits_tpu_torch.parallel.mesh import model_axis, shard_params
+    from vits_tpu_torch.parallel.tensor import tensor_parallel
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import TrainBatch, TrainNoise, make_gan_train_step
+
+    setup = json.loads(Path(f"{tmp}/setup.json").read_text())
+    device = torch.device(setup["device"])
+    # the replicated layers run on both ranks: deterministic algorithms keep their
+    # gradients bit-identical, as the parent pins cuDNN for the comparison
+    torch.backends.cudnn.deterministic = True
+    initialize(f"localhost:{port}", 2, rank, device=device, backend="gloo")
+    try:
+        config = VitsConfig(**{k: tuples(v) for k, v in setup["config"].items()})
+        with np.load(f"{tmp}/inputs.npz") as f:
+            arrays = {k: f[k] for k in f.files}
+        part = {prefix: {k[len(prefix) + 1:]: v for k, v in arrays.items()
+                         if k.startswith(prefix + ".")} for prefix in ("gen", "disc", "batch",
+                                                                      "noise")}
+        gen_np, disc_np = part["gen"], part["disc"]
+        batch = TrainBatch(*(None if k not in part["batch"] else
+                             torch.tensor(part["batch"][k], device=device)
+                             for k in TrainBatch._fields))
+        noise = TrainNoise(*(torch.tensor(part["noise"][k], device=device)
+                             for k in TrainNoise._fields))
+        mp = model_axis(2)
+        # data=1 x model=2: no data axis to sum over (gloo would copy every gradient
+        # through the host to sum it over one rank)
+        dp = None
+        tp = tensor_parallel(gen_np, mp)
+
+        def step_fn():
+            gen = leaves_on(shard_params(gen_np, mp), device)
+            disc = leaves_on(disc_np, device)
+            opts = vits_optimizer(gen, model_parallel=tp), vits_optimizer(disc)
+            return gen, disc, opts[0], make_gan_train_step(config, gen, disc, *opts,
+                                                           data_parallel=dp, model_parallel=tp)
+
+        gen, disc, opt, fn = step_fn()
+        zero_training_launches()
+        metrics = fn(batch, noise=noise)
+        torch.cuda.synchronize()
+        launches = training_launches()
+        np.savez(f"{tmp}/grads{rank}.npz", **{k: p.grad.cpu().numpy()
+                                             for k, p in {**gen, **disc}.items()})
+        digest = hashlib.sha256()
+        for k, p in {**gen, **disc}.items():
+            if k not in tp.plan:
+                digest.update(p.grad.cpu().numpy().tobytes())
+        param_bytes = 4 * sum(p.numel() for p in gen.values())
+        moment_bytes = 4 * sum(s["exp_avg"].numel() + s["exp_avg_sq"].numel()
+                               for s in opt.adamw.state.values())
+        # the time inside gloo's all-reduces (synchronised on each side) of a steady step
+        gloo = {"ms": 0.0, "calls": 0}
+        all_reduce = mesh_module.dist.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = all_reduce(*args, **kwargs)
+            torch.cuda.synchronize()
+            gloo["ms"] += 1e3 * (time.perf_counter() - t0)
+            gloo["calls"] += 1
+            return result
+
+        mesh_module.dist.all_reduce = timed_all_reduce
+        try:
+            times, glooms = [], []
+            for i in range(4):
+                gloo.update(ms=0.0, calls=0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(batch, noise=noise)
+                torch.cuda.synchronize()
+                if i:  # the first is a warm-up
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    glooms.append(gloo["ms"])
+        finally:
+            mesh_module.dist.all_reduce = all_reduce
+        report = {"metrics": [float(v) for v in metrics], "launches": launches,
+                  "replicated_digest": digest.hexdigest(),
+                  "local_heads": gen["text_encoder.encoder.layers.0.attention.q_proj.weight"]
+                  .shape[1] // config.head_dim,
+                  "param_bytes": param_bytes, "moment_bytes": moment_bytes,
+                  "step_ms": float(np.median(times)), "gloo_ms": float(np.median(glooms)),
+                  "collectives": gloo["calls"]}
+        Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def model_parallel_phase(device) -> dict:
+    """Phase 14's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.train.step import fp32_backends
+
+    card = card_line()
+    kernels.library()
+    t0 = time.perf_counter()
+    config = VitsConfig()
+    gen_np = random_params(config, seed=0, keep_training=True)
+    disc_np = init_discriminator_params(0)
+    params = leaves_on(gen_np, device)
+    fp32_backends(params)  # the plain twins and the steps in fp32, as the training path
+    print(f"  [14] kernels A with lse, 4 and 5 at phase 14's shapes against their plain "
+          f"twins ({card}):", flush=True)
+    measured = mp_kernels_vs_plain(params, config, device)
+    batch = training_batch(config, device, MP_TOKENS, MP_FRAMES)
+    # cuDNN pinned to deterministic algorithms for the comparisons, as 10d and 12a pin it
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        print(f"  [14a, 14c] the pipelined encoder on stages sharing the card, B=4 at 512 "
+              f"tokens, against text_encoder ({card}):", flush=True)
+        encoder = pp_encoder(config, params, batch, device, card)
+        del params
+        pipelined = pp_step(config, gen_np, batch, device, card)
+        print(f"  [14b] tensor parallel: two gloo ranks sharing the card, data=1 x model=2, "
+              f"B=4 ({card}):", flush=True)
+        two_ranks = mp_two_ranks(config, gen_np, disc_np, device, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = time.perf_counter() - t0
+    print(f"  phase 14: {seconds:.1f} s", flush=True)
+    return {"kernels": measured, "encoder": encoder, "pipelined": pipelined,
+            "two_ranks": two_ranks, "seconds": seconds, "card": card,
+            "profiler_sessions": PROFILER_SESSIONS}
+
+
+# the kernels entries of the JSON line that phase 14's paths launch, and their counters
+MP_KERNEL_ENTRIES = {"flash_rel_attention_mp": ("flash_rel_attention_lse",),
+                     "trainable_rel_attention_mp": ("rel_attention_bwd",),
+                     "trainable_trio_mp": ("trio_forward_with_acts", "trio_backward")}
+
+
 def run_child(flag: str, prefix: str, phase: int) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
@@ -4041,8 +4584,14 @@ def main() -> None:
     if sys.argv[1:] == [MULTI_FLAG]:
         print(MULTI_RESULT + json.dumps(multi_device_phase(device)), flush=True)
         return
+    if sys.argv[1:] == [MP_FLAG]:
+        print(MP_RESULT + json.dumps(model_parallel_phase(device)), flush=True)
+        return
+    if sys.argv[1:2] == [MP_RANK_FLAG]:
+        mp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     card = card_line()
-    print("[1/13] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/14] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -4056,7 +4605,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/13] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/14] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -4071,7 +4620,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/13] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/14] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -4080,13 +4629,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/13] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/14] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/13] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/14] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -4099,12 +4648,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/13] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/14] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/13] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/14] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -4114,35 +4663,41 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/13] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/14] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/13] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/14] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/13] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/14] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
-    print(f"[11/13] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+    print(f"[11/14] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
     serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
 
-    print(f"[12/13] data-parallel training at MMS-TTS width, random weights, in a process of "
+    print(f"[12/14] data-parallel training at MMS-TTS width, random weights, in a process of "
           f"its own ({card}):", flush=True)
     data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
 
-    print(f"[13/13] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
+    print(f"[13/14] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
           f"replicas sharing the card, in a process of its own ({card}):", flush=True)
     multi = run_child(MULTI_FLAG, MULTI_RESULT, 13)
+
+    print(f"[14/14] model-parallel training: the GPipe encoder over stages and two "
+          f"tensor-parallel ranks sharing the card, in a process of its own ({card}):",
+          flush=True)
+    model_parallel = run_child(MP_FLAG, MP_RESULT, 14)
+    measured.update(model_parallel["kernels"])
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -4169,6 +4724,13 @@ def main() -> None:
     # paths (warmup apart)
     for name in SERVE16_KERNELS:
         sources[name + "_bf16_serve"] = sources[name]
+    # phase 14: A with lse and 4 at a pipeline microbatch and one rank's head, 5 on the
+    # gathered weights; their launches over 14a's pipelined steps and 14b's rank 0
+    for name in MP_KERNEL_ENTRIES:
+        sources[name] = sources[name[:-len("_mp")]]
+    mp_paths = {f"14a_pp_step {label}": run["launches"]
+                for label, run in model_parallel["pipelined"].items()}
+    mp_paths["14b_rank0"] = model_parallel["two_ranks"]["launches"]
     bf16_launches = bf16_run["bfloat16"]["launches"]
     launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
                 "trainable_trio": train_launches["trio_forward_with_acts"],
@@ -4177,7 +4739,9 @@ def main() -> None:
                 "trainable_trio_bf16": bf16_launches["trio_forward_with_acts"],
                 **{name + "_bf16_serve": sum(counts[name] for path, counts in
                                              serve16_run["launches"].items() if path != "warmup")
-                   for name in SERVE16_KERNELS}}
+                   for name in SERVE16_KERNELS},
+                **{name: sum(counts[counters[0]] for counts in mp_paths.values())
+                   for name, counters in MP_KERNEL_ENTRIES.items()}}
     report = {"kernels": []}
     for name, runs in measured.items():
         timed = [r for r in runs if r["ms"] is not None]
@@ -4237,6 +4801,20 @@ def main() -> None:
         if entry["name"] == "trainable_trio_bf16":
             entry["backward_launches"] = bf16_launches["trio_backward"]
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
+        if entry["name"] in MP_KERNEL_ENTRIES:  # phase 14's paths, by path and counter
+            counters = MP_KERNEL_ENTRIES[entry["name"]]
+            entry["model_parallel_launches"] = {
+                path: {c: counts[c] for c in counters} for path, counts in mp_paths.items()}
+            wrapper = {"flash_rel_attention_mp": "flash_rel_attention",
+                       "trainable_rel_attention_mp": "rel_attention_bwd"}.get(entry["name"])
+            if wrapper is not None:  # A's and 4's launches booked to each pipeline stage
+                entry["stage_launches"] = {
+                    label: {k: n for k, n in run["stage_launches"].items()
+                            if k.startswith(wrapper + " |")}
+                    for label, run in model_parallel["pipelined"].items()}
+        if entry["name"] == "trainable_trio_mp":
+            entry["backward_launches"] = sum(c["trio_backward"] for c in mp_paths.values())
+            entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
     report["serving"] = {"flow_kernel_on_off_ms": flow_ms, "mms_request": mms_request,
                          "warmup": {path: {k: run[k] for k in ("warmup_s", "first_request_ms")}
                                     for path, run in paths.items() if "warmup_s" in run},
@@ -4262,6 +4840,9 @@ def main() -> None:
     report["multi_device"] = {k: multi[k] for k in ("mesh_mms", "mesh_vctk", "sharded", "http",
                                                      "timings", "distinct_cards", "seconds",
                                                      "card")}
+    report["model_parallel"] = {k: model_parallel[k] for k in ("encoder", "pipelined",
+                                                              "seconds", "card")} | {
+        "two_ranks": {k: v for k, v in model_parallel["two_ranks"].items() if k != "launches"}}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

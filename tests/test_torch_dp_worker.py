@@ -316,7 +316,79 @@ def elastic_scenario(rank: int, world: int, out: str, total_steps: str, checkpoi
                   f)
 
 
-SCENARIOS = {"steps": steps_scenario, "writer": writer_scenario, "elastic": elastic_scenario}
+def tensor_parallel_scenario(rank: int, world: int, out: str, model: str) -> None:
+    """``world / model`` data ranks x ``model`` model ranks on the inputs of
+    ``out/inputs.npz``: one GAN step (G at lr 0, D by -g) on the rank's slices
+    (their gradients to ``tp-arrays-<rank>.npz``), the clip's global norm of
+    that step's gradients, what the rank holds of the split tensors and their
+    moments, three AdamW generator steps on step-keyed inputs (with a data
+    axis, with and without ZeRO-1) with a checkpoint of step 2 (gathered whole,
+    written by rank 0), and digests of the replicated tensors."""
+    from vits_tpu_torch.parallel.mesh import data_axis, gather_params, model_axis, shard_params
+    from vits_tpu_torch.parallel.tensor import tensor_parallel
+    from vits_tpu_torch.train.checkpoint import save_checkpoint
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import TrainBatch, TrainNoise, make_train_step
+
+    model = int(model)
+    dp, mp = data_axis(model), model_axis(model)
+    config, gen_np, disc_np = fixture_params()
+    tp = tensor_parallel(gen_np, mp)
+    with np.load(os.path.join(out, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    batch = TrainBatch(*(torch.tensor(inputs[f"batch.{k}"]) if f"batch.{k}" in inputs else None
+                         for k in TrainBatch._fields))
+    noise = TrainNoise(*(torch.tensor(inputs[f"noise.{k}"]) for k in TrainNoise._fields))
+    report: dict = {"rank": rank, "data": dp.rank, "model": mp.rank}
+    split = sorted(tp.plan)
+    replicated = [k for k in gen_np if k not in tp.plan]
+
+    gen, disc = leaves(shard_params(gen_np, mp)), leaves(disc_np)
+    metrics = _gan(config, gen, disc, _sgd(gen, 0.0), _sgd(disc, 1.0), dp,
+                   model_parallel=tp)(batch, noise=noise)
+    report["metrics"] = [float(v) for v in metrics]
+    report["grad_norm"] = float(vits_optimizer(gen, model_parallel=tp).grad_norm())
+    report["replicated_grad_digest"] = digest([gen[k].grad for k in replicated]
+                                              + [p.grad for p in disc.values()])
+    report["split_grad_digest"] = digest([gen[k].grad for k in split])
+    report["held"] = {k: [list(gen[k].shape), list(gen_np[k].shape)] for k in split}
+    arrays = {f"g.{k}": gen[k].grad.numpy() for k in split}
+    if rank == 0:
+        arrays.update({f"g.{k}": gen[k].grad.numpy() for k in replicated})
+        arrays.update({f"d.{k}": p.grad.numpy() for k, p in disc.items()})
+    if dp.rank == 0:
+        np.savez(os.path.join(out, f"tp-arrays-{rank}.npz"), **arrays)
+
+    # with a data axis, ZeRO-1 too (the moments split over the data group); the last
+    # run checkpoints step 2
+    for zero1 in (False, True) if dp.world > 1 else (False,):
+        gen = leaves(shard_params(gen_np, mp))
+        opt = vits_optimizer(gen, zero1=dp if zero1 else None, model_parallel=tp)
+        step = make_train_step(config, gen, opt, SEGMENT, mel_kwargs=MEL_KWARGS,
+                               data_parallel=dp, model_parallel=tp)
+        losses = []
+        for s in (1, 2, 3):
+            step_batch, step_noise = step_inputs(config, s)
+            losses.append(float(step(step_batch, noise=step_noise).loss))
+            if s == 2 and (zero1 or dp.world == 1):
+                state, whole = opt.state_arrays(), gather_params(gen, tp.plan, mp)
+                if rank == 0:
+                    save_checkpoint(os.path.join(out, "tp_run"), 2, whole, state)
+                dist.barrier()
+        report[f"zero1_{zero1}_losses"] = losses
+        report[f"zero1_{zero1}_param_digest"] = digest(gen.values())
+        if not zero1:
+            moments = {n: sum(t.numel() for t in opt.adamw.state[p].values() if t.ndim)
+                       for n, p in zip(opt.names, opt.params)}
+            report["losses"] = losses
+            report["moments"] = {k: moments[k] for k in split}
+            report["replicated_param_digest"] = digest([gen[k] for k in replicated])
+    with open(os.path.join(out, f"tp-report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+SCENARIOS = {"steps": steps_scenario, "writer": writer_scenario, "elastic": elastic_scenario,
+             "tensor_parallel": tensor_parallel_scenario}
 
 
 def main(argv) -> int:

@@ -99,6 +99,20 @@ def test_dp_batch_matches_single_device_per_row(single, meshes, n):
     np.testing.assert_allclose(ref.waveform, got.waveform, atol=ROW_ATOL, rtol=0)
 
 
+def test_model_axis_mesh_replicates_over_model(tiny_bundle, meshes):
+    """``make_mesh(model=2)`` of four entries serves as the data=2 mesh does: one
+    replica per data entry, on the first device of its row (JAX's engine
+    replicates over 'model'), the same rows bit for bit."""
+    config, params = tiny_bundle
+    tp = Synthesizer(config, _tokenizer(), params, _engine(),
+                     mesh=make_mesh(model=2, devices=[CPU] * 4))
+    assert len(tp.replicas) == 2 and all(r.device == CPU for r in tp.replicas)
+    want = meshes(2).synthesize_raw(TEXTS, seed=SEEDS, pad_to_batch=8)
+    got = tp.synthesize_raw(TEXTS, seed=SEEDS, pad_to_batch=8)
+    np.testing.assert_array_equal(got.frame_lengths, want.frame_lengths)
+    np.testing.assert_array_equal(got.waveform, want.waveform)
+
+
 def test_dp_int16_transfer_matches_single_device(tiny_bundle):
     """With ``transfer_int16`` every shard rounds on its replica: one int16 level."""
     config, params = tiny_bundle
@@ -271,8 +285,11 @@ def test_make_mesh_shapes_and_refusals():
     assert mesh.devices.shape == (4, 1) and all(d == CPU for d in mesh.devices.flat)
     with pytest.raises(ValueError):
         make_mesh(data=3, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError):
-        make_mesh(model=2, devices=["cpu"] * 4)
+    tp = make_mesh(model=2, devices=["cpu"] * 4)
+    assert tp.axis_names == ("data", "model") and tp.shape == {"data": 2, "model": 2}
+    assert tp.devices.shape == (2, 2)
+    with pytest.raises(ValueError):
+        make_mesh(model=3, devices=["cpu"] * 4)
     assert replica_devices("cpu", 3) == [CPU] * 3
     if torch.cuda.device_count() < 2:
         # more CUDA devices than are visible: raise, never fewer replicas or the CPU

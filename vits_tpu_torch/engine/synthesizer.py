@@ -64,9 +64,13 @@ tier.
 
 A mesh engine (``Synthesizer(mesh=make_mesh(...))``, ``parallel/mesh.py``)
 serves over the mesh's data axis, as the JAX engine's ``shard_map`` does
-(``vits_tpu/engine/synthesizer.py:267-297``): one :class:`Replica` per mesh
-entry, each with its own parameters, vocoder packs, kernel 6 pack and
-generators on its device, placed from the same numpy parameters. A dispatch
+(``vits_tpu/engine/synthesizer.py:267-297``): one :class:`Replica` per entry
+of the data axis, each with its own parameters, vocoder packs, kernel 6 pack
+and generators on its device, placed from the same numpy parameters. On a
+mesh with ``model > 1`` JAX's engine shards rows over 'data' and replicates
+over 'model' (``vits_tpu/engine/synthesizer.py:105-121``); here a data entry's
+replica lies on the first device of its row, and the other model entries do
+not repeat its rows. A dispatch
 pads its rows to a multiple of the data axis, splits them into that many
 contiguous shards (``PartitionSpec("data")``'s order) and runs each shard's
 whole per-row program on its replica, on a host thread of its own
@@ -333,7 +337,10 @@ class Synthesizer:
         if mesh is not None:
             if DATA_AXIS not in mesh.axis_names:
                 raise ValueError(f"mesh needs a '{DATA_AXIS}' axis: {mesh}")
-            devices = [torch.device(d) for d in mesh.devices.reshape(-1)]
+            # one replica per data entry, on its first device: the engine replicates
+            # over the other axes ('model'), as JAX's does, without repeating its rows
+            rows = np.moveaxis(mesh.devices, mesh.axis_names.index(DATA_AXIS), 0)
+            devices = [torch.device(d) for d in rows.reshape(rows.shape[0], -1)[:, 0]]
         else:
             devices = [torch.device(device)]
         if len({d.type for d in devices}) != 1:

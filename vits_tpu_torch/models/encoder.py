@@ -17,6 +17,11 @@ Serving at bf16 (``EngineConfig.compute_dtype="bfloat16"``: bf16 parameters
 and masks) runs kernel A on bf16 q, k, v at ``tier`` (``Tier.bf16_compute``,
 ``ops/tiers.py::Tiers.bf16_compute``); with kernel A off (the JAX engine's CPU
 default) the module's bf16 graph, which only a CPU tensor takes.
+
+Tensor parallel (``tp``, a ``parallel/tensor.py::TensorParallel``; training):
+where a layer's q/k/v hold the rank's heads, the attention runs on those heads
+(kernels A and 4 included) and ``out_proj`` on their rows, one sum over the
+model group; where ``conv_1`` holds the rank's channels, the FFN likewise.
 """
 
 from __future__ import annotations
@@ -45,13 +50,19 @@ class EncoderOutput(NamedTuple):
 
 def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
                config: VitsConfig, trainable: bool = False,
-               tier: Tier = EXACT_TIER) -> torch.Tensor:
+               tier: Tier = EXACT_TIER, tp=None) -> torch.Tensor:
     """Multi-head self-attention with relative position bias; x: (B, T, H).
-    Kernels A (and 4) run at ``tier``; the plain training path ignores it."""
+    Kernels A (and 4) run at ``tier``; the plain training path ignores it.
+    Under ``tp`` with the rank's heads in q/k/v: those heads, then a sum."""
     if not config.window_size:
         raise NotImplementedError("attention without a relative window is not ported")
     bsz, tgt_len, embed_dim = x.shape
-    num_heads, head_dim = config.num_attention_heads, config.head_dim
+    head_dim = config.head_dim
+    rel_k, rel_v = p["emb_rel_k"], p["emb_rel_v"]
+    split = tp is not None and p["q_proj.weight"].shape[1] != embed_dim
+    if split:  # the tables are shared by every head: their gradients sum over the group
+        x, rel_k, rel_v = tp.copy_in(x, rel_k, rel_v)
+    num_heads = p["q_proj.weight"].shape[1] // head_dim
 
     def shape4(t):  # (B, T, H) -> (B, heads, T, head_dim)
         return t.reshape(bsz, tgt_len, num_heads, head_dim).transpose(1, 2).contiguous()
@@ -71,37 +82,46 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     else:
         attend = rel_attention_reference
     attn = attend(
-        shape4(query), shape4(key), shape4(value),
-        p["emb_rel_k"][0], p["emb_rel_v"][0],
+        shape4(query), shape4(key), shape4(value), rel_k[0], rel_v[0],
         window=config.window_size, lengths=lengths, **kw,
     )
-    attn = attn.transpose(1, 2).reshape(bsz, tgt_len, embed_dim)
+    attn = attn.transpose(1, 2).reshape(bsz, tgt_len, num_heads * head_dim)
+    if split:  # out_proj's rows of the rank's heads; its bias once, after the sum
+        return tp.reduce(attn @ p["out_proj.weight"]) + p["out_proj.bias"]
     return attn @ p["out_proj.weight"] + p["out_proj.bias"]
 
 
 def _feed_forward(p: ParamView, x: torch.Tensor, padding_mask: torch.Tensor,
-                  config: VitsConfig) -> torch.Tensor:
-    """Conv-FFN; x: (B, T, H)."""
+                  config: VitsConfig, tp=None) -> torch.Tensor:
+    """Conv-FFN; x: (B, T, H). Under ``tp`` with the rank's channels in
+    ``conv_1``: those channels, then ``conv_2``'s rows of them and a sum."""
     k = config.ffn_kernel_size
     pad = ((k - 1) // 2, k // 2)
     if config.hidden_act == "relu":
         act = torch.relu
     else:  # jax.nn.gelu's default is the tanh approximation
         act = lambda t: F.gelu(t, approximate="tanh")  # noqa: E731
-    h = conv1d(x * padding_mask, p["conv_1.weight"], p["conv_1.bias"], padding=pad)
+    x = x * padding_mask
+    split = tp is not None and p["conv_1.weight"].shape[2] != config.ffn_dim
+    if split:
+        x, = tp.copy_in(x)
+    h = conv1d(x, p["conv_1.weight"], p["conv_1.bias"], padding=pad)
     h = act(h) * padding_mask
-    h = conv1d(h, p["conv_2.weight"], p["conv_2.bias"], padding=pad)
+    if split:
+        h = tp.reduce(conv1d(h, p["conv_2.weight"], padding=pad)) + p["conv_2.bias"]
+    else:
+        h = conv1d(h, p["conv_2.weight"], p["conv_2.bias"], padding=pad)
     return h * padding_mask
 
 
 def encoder_layer(layer: ParamView, hidden: torch.Tensor, lengths: torch.Tensor,
                   padding_mask: torch.Tensor, config: VitsConfig,
-                  trainable: bool = False, tier: Tier = EXACT_TIER) -> torch.Tensor:
+                  trainable: bool = False, tier: Tier = EXACT_TIER, tp=None) -> torch.Tensor:
     """One transformer layer: rel-pos attention + conv-FFN, post-layernorms."""
-    attn_out = _attention(layer.sub("attention"), hidden, lengths, config, trainable, tier)
+    attn_out = _attention(layer.sub("attention"), hidden, lengths, config, trainable, tier, tp)
     hidden = layer_norm(hidden + attn_out, layer["layer_norm.weight"],
                         layer["layer_norm.bias"], config.layer_norm_eps)
-    ffn_out = _feed_forward(layer.sub("feed_forward"), hidden, padding_mask, config)
+    ffn_out = _feed_forward(layer.sub("feed_forward"), hidden, padding_mask, config, tp)
     return layer_norm(hidden + ffn_out, layer["final_layer_norm.weight"],
                       layer["final_layer_norm.bias"], config.layer_norm_eps)
 
@@ -113,6 +133,7 @@ def text_encoder(
     padding_mask: torch.Tensor,  # (B, T, 1) float, a prefix mask
     trainable: bool = False,
     tier: Tier = EXACT_TIER,  # kernel A's (the JAX reduce_precision(pallas_precision))
+    tp=None,  # a parallel/tensor.py::TensorParallel (training)
 ) -> EncoderOutput:
     p = params.sub("text_encoder")
     hidden = p["embed_tokens.weight"][input_ids]
@@ -124,7 +145,7 @@ def text_encoder(
     enc = p.sub("encoder")
     for i in range(config.num_hidden_layers):
         hidden = encoder_layer(enc.sub(f"layers.{i}"), hidden, lengths, padding_mask, config,
-                               trainable, tier)
+                               trainable, tier, tp)
 
     hidden = hidden * padding_mask
     stats = conv1d(hidden, p["project.weight"], p["project.bias"]) * padding_mask

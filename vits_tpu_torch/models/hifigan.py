@@ -52,6 +52,13 @@ C and 7 compute that graph (``ops/tiers.py::BF16_COMPUTE_TIER``: bf16 in and
 out, rounding where XLA's graph rounds); the glue between them (conv_pre,
 cond, the wide stages' upsamplers) runs as bf16 PyTorch ops. The waveform
 comes back bf16, as JAX's does; the engine upcasts it on the host.
+
+Tensor parallel (``tp``, a ``parallel/tensor.py::TensorParallel``; training
+only): ``conv_pre`` computes the rank's channels and ``upsampler.0`` their
+rows; each later upsampler whose rows split takes the rank's channels of the
+whole activation; each sum over the model group is followed by the
+upsampler's bias. The resblocks (kernel 5 on the wide stages) run whole on
+gathered weights.
 """
 
 from __future__ import annotations
@@ -184,20 +191,28 @@ def hifigan(
     trainable: bool = False,
     tiers: Tiers = EXACT_TIERS,
     packs: dict | None = None,
+    tp=None,  # a parallel/tensor.py::TensorParallel (trainable only)
 ) -> torch.Tensor:
     """Latents -> waveform (B, T * prod(upsample_rates)), fp32 (trainable: in the
     parameters' dtype; bf16 serving: bf16)."""
     if trainable and frame_mask is not None:
         raise ValueError("trainable decoding takes unmasked segments (frame_mask=None)")
+    if tp is not None and not trainable:
+        raise ValueError("tensor-parallel decoding is a training path (trainable=True)")
     p = params.sub("decoder")
     packs = packs or {}
     num_kernels = len(config.resblock_kernel_sizes)
     slope = config.leaky_relu_slope
     compute16 = not trainable and tiers.compute_dtype == torch.bfloat16  # bf16 serving
 
+    width = config.upsample_initial_channel
+    split = tp is not None and p["conv_pre.weight"].shape[2] != width  # h: the rank's channels
+    if split:
+        spectrogram, = tp.copy_in(spectrogram)
     h = conv1d(spectrogram, p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
     if global_conditioning is not None:
-        h = h + conv1d(global_conditioning, p["cond.weight"], p["cond.bias"])
+        cond = conv1d(global_conditioning, p["cond.weight"], p["cond.bias"])
+        h = h + (tp.copy_in(cond)[0][..., tp.channels(width)] if split else cond)
     mask = frame_mask
     if mask is not None:
         h = h * mask
@@ -238,12 +253,20 @@ def hifigan(
         h = leaky_relu(h, slope)
         if h.dtype != up_w.dtype:  # an fp32 weight promotes the carry, as in JAX
             h = h.float()
+        # the upsampler's rows are the rank's (conv_pre's out channels split with
+        # upsampler.0's rows: one width, one divisibility)
+        rows = tp is not None and c_in != width >> i
+        if rows and not split:  # the rank's channels of the whole activation
+            h = tp.copy_in(h)[0][..., tp.channels(width >> i)]
         # bf16 training and serving: the JAX decoder's per-phase form where it
         # applies, as it rounds
         phases = ((trainable or compute16) and h.dtype == torch.bfloat16
                   and per_tap(kernel_size, rate, up_padding))
-        h = conv_transpose1d(h, up_w, up_b, stride=rate, padding=up_padding,
+        h = conv_transpose1d(h, up_w, None if rows else up_b, stride=rate, padding=up_padding,
                              method="phases" if phases else None)
+        if rows:  # the bias once, after the sum
+            h = tp.reduce(h) + up_b
+        split = False
         if mask is not None:
             mask = torch.repeat_interleave(mask, rate, dim=1)
             h = h * mask.to(h.dtype)

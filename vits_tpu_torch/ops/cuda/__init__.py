@@ -167,6 +167,13 @@ def booked_to(label: str):
         _BOOK.label = outer
 
 
+def current_book() -> str | None:
+    """The label of the innermost :func:`booked_to` of this thread (None outside
+    one): an autograd function keeps it for its backward, which autograd may run
+    on another thread."""
+    return getattr(_BOOK, "label", None)
+
+
 def count_launch(wrapper, attr: str = "launches") -> None:
     """Add one to ``wrapper.<attr>`` (a bare ``+= 1`` from several threads can
     drop one) and, inside :func:`booked_to`, to ``wrapper.replica_launches``."""

@@ -30,8 +30,10 @@ from vits_tpu_torch.ops.attention import (
     relative_position_to_absolute_position,
 )
 from vits_tpu_torch.ops.cuda import (
+    booked_to,
     check,
     count_launch,
+    current_book,
     cuda_lengths,
     library,
     on_cuda,
@@ -171,7 +173,7 @@ class _TrainableRelAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, rel_k, rel_v, lengths, window, tier):
         out, lse = flash_rel_attention(q, k, v, rel_k, rel_v, window=window, lengths=lengths,
                                        return_lse=True, tier=tier)
-        ctx.window, ctx.tier = window, tier
+        ctx.window, ctx.tier, ctx.book = window, tier, current_book()
         ctx.save_for_backward(q, k, v, rel_k, rel_v, lse, out,
                               *(() if lengths is None else (lengths,)))
         return out
@@ -179,9 +181,10 @@ class _TrainableRelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, rel_k, rel_v, lse, out, *lengths = ctx.saved_tensors
-        grads = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout.contiguous(), out,
-                                  window=ctx.window, lengths=lengths[0] if lengths else None,
-                                  tier=ctx.tier)
+        with booked_to(ctx.book):  # the forward's label (a pipeline stage's)
+            grads = rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout.contiguous(), out,
+                                      window=ctx.window,
+                                      lengths=lengths[0] if lengths else None, tier=ctx.tier)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None, None)
 

@@ -43,8 +43,10 @@ import torch.nn.functional as F
 from vits_tpu_torch.ops.conv import conv1d, leaky_relu
 from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER, EXACT_TIER, TRAIN_TIERS, Tier, carry_slope
 from vits_tpu_torch.ops.cuda import (
+    booked_to,
     check,
     count_launch,
+    current_book,
     cuda_lengths,
     device_sm_count,
     library,
@@ -298,7 +300,7 @@ class _TrainableTrio(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slope, metas, tier, *weights):
         out, acts = trio_forward_with_acts(x, _blocks_of(metas, weights), slope=slope, tier=tier)
-        ctx.slope, ctx.metas, ctx.tier = slope, metas, tier
+        ctx.slope, ctx.metas, ctx.tier, ctx.book = slope, metas, tier, current_book()
         ctx.save_for_backward(x, *weights, *flat_acts(acts))
         return out
 
@@ -306,9 +308,10 @@ class _TrainableTrio(torch.autograd.Function):
     def backward(ctx, g):
         x, *rest = ctx.saved_tensors
         n_w = sum(4 * len(d) for _, d in ctx.metas)
-        dx, dweights = trio_backward(g.contiguous(), x, _blocks_of(ctx.metas, rest[:n_w]),
-                                     rest[n_w:], slope=ctx.slope,
-                                     need_x=ctx.needs_input_grad[0], tier=ctx.tier)
+        with booked_to(ctx.book):  # the forward's label
+            dx, dweights = trio_backward(g.contiguous(), x, _blocks_of(ctx.metas, rest[:n_w]),
+                                         rest[n_w:], slope=ctx.slope,
+                                         need_x=ctx.needs_input_grad[0], tier=ctx.tier)
         return (dx, None, None, None,
                 *(gw if need else None for gw, need in zip(dweights, ctx.needs_input_grad[4:])))
 

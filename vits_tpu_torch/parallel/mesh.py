@@ -1,14 +1,16 @@
-"""The data axis: a mesh of replicas for serving, and the rows, collectives and
-ZeRO-1 owners of multi-process training.
+"""The data and model axes: a mesh of replicas for serving, and the rows,
+collectives, ZeRO-1 owners and tensor-parallel parameter rules of
+multi-process training.
 
-Counterpart of the data axis of ``vits_tpu/parallel/mesh.py``.
+Counterpart of ``vits_tpu/parallel/mesh.py``.
 
 Serving (:func:`make_mesh`): a :class:`Mesh` lays devices out on the
 ('data', 'model') axes, as JAX's ``make_mesh`` does. A mesh engine
 (``Synthesizer(mesh=)``) keeps one replica of the weights on each entry of the
 data axis and runs each replica's share of a batch there; the time-sharded
 decode (``engine/sp.py``) runs one window on each. A device may repeat: each
-entry is a replica, as each of JAX's virtual CPU devices is one.
+entry is a replica, as each of JAX's virtual CPU devices is one. The engine
+replicates over 'model' (``Synthesizer`` keeps one replica per data entry).
 
 Training: JAX shards a global batch over a 'data' mesh axis and GSPMD inserts
 the collectives; here every process (rank) holds the whole global batch, keeps
@@ -18,14 +20,25 @@ The collectives are ``all_reduce`` and ``broadcast`` only, so the same code
 runs over NCCL and over gloo, which has neither ``all_gather`` nor
 ``reduce_scatter`` for CUDA tensors.
 
-Not ported: the 'model' axis (``make_mesh(model=2)`` raises
-``NotImplementedError``; tensor-parallel parameter rules,
-``shard_params(model_parallel=True)``) and the 'slice' axis.
+The model axis (tensor parallelism over processes): a world of ``data x
+model`` ranks, model innermost (rank = d * model + m, JAX's
+``reshape(data, model)``), with one data group (the ranks of one model index)
+and one model group (the ranks of one data index) per rank
+(:func:`data_axis`, :func:`model_axis`). JAX's parameter rules
+(:data:`_PARAM_RULES`, :func:`param_spec`) say which dimension of a tensor
+splits over 'model'; a dimension that does not divide falls back to
+replication, as in JAX's ``shard_params``. :func:`shard_params` gives a rank
+its slices of the split tensors (:func:`split_plan`) and the whole of every
+other; :func:`gather_params` is its inverse, a collective. How the split
+tensors compute is ``parallel/tensor.py``'s.
+
+Not ported: the 'slice' axis (XLA's DCN layout).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import re
+from typing import Any, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,11 +84,9 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     device), as JAX's ``make_mesh``; ``data`` defaults to ``len(devices) //
     model``. A device may repeat (``[cuda:0] * 2``, ``[cpu] * 4``): each entry
     is a replica. Raises where ``data * model`` is not the number of devices
-    or a device does not exist; ``model > 1`` (tensor parallelism) is not
-    ported."""
-    if model != 1:
-        raise NotImplementedError("the 'model' (tensor-parallel) mesh axis is not ported "
-                                  "(ROADMAP.md queue 1)")
+    or a device does not exist."""
+    if model < 1:
+        raise ValueError(f"model={model}: at least 1")
     if devices is None:
         if not torch.cuda.is_available():
             raise ValueError("make_mesh: no CUDA device is visible (pass devices=)")
@@ -104,17 +115,208 @@ def replica_devices(device, n: int) -> list[torch.device]:
 
 
 class DataParallel(NamedTuple):
-    """A process's place on the data axis: ``world`` ranks, this one ``rank``."""
+    """A process's place on the data axis: ``world`` ranks, this one ``rank``;
+    ``group`` their process group (None: the whole world)."""
 
     world: int
     rank: int
+    group: Any = None
 
 
-def data_axis() -> Optional[DataParallel]:
-    """The data axis of the initialized process group, or None without one."""
+class ModelParallel(NamedTuple):
+    """A process's place on the model axis: ``size`` ranks hold the slices of
+    one model, this one ``rank``; ``group`` their process group."""
+
+    size: int
+    rank: int
+    group: Any = None
+
+
+# Each model size's (world group, data group, model group) of this process: every
+# rank creates every group (dist.new_group's rule), once per process group.
+_GROUPS: dict[int, tuple] = {}
+
+
+def _axis_groups(model: int) -> tuple:
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model < 1 or world % model:
+        raise ValueError(f"a world of {world} ranks does not divide by model_parallel={model}")
+    if model == 1:
+        return None, None
+    cached = _GROUPS.get(model)
+    if cached is not None and cached[0] is dist.group.WORLD:
+        return cached[1:]
+    data = world // model
+    data_group = model_group = None
+    for m in range(model):
+        group = dist.new_group([d * model + m for d in range(data)])
+        if rank % model == m:
+            data_group = group
+    for d in range(data):
+        group = dist.new_group([d * model + m for m in range(model)])
+        if rank // model == d:
+            model_group = group
+    _GROUPS[model] = (dist.group.WORLD, data_group, model_group)
+    return data_group, model_group
+
+
+def data_axis(model: int = 1) -> Optional[DataParallel]:
+    """The data axis of the initialized process group under a model axis of
+    ``model`` ranks (the ranks of this rank's model index), or None without a
+    process group. Raises ``ValueError`` where the world does not divide by
+    ``model``."""
     if not dist.is_initialized():
+        if model != 1:
+            raise ValueError(f"model_parallel={model} needs a process group of a multiple of "
+                             f"{model} ranks")
         return None
-    return DataParallel(dist.get_world_size(), dist.get_rank())
+    group, _ = _axis_groups(model)
+    return DataParallel(dist.get_world_size() // model, dist.get_rank() // model, group)
+
+
+def model_axis(model: int) -> ModelParallel:
+    """This rank's place on a model axis of ``model`` ranks (the ranks of its data
+    index, innermost). Raises ``ValueError`` without a process group or where
+    the world does not divide by ``model``."""
+    if not dist.is_initialized():
+        raise ValueError(f"model_parallel={model} needs a process group of a multiple of "
+                         f"{model} ranks")
+    _, group = _axis_groups(model)
+    return ModelParallel(model, dist.get_rank() % model, group)
+
+
+# ---------------------------------------------------------------------- #
+# Parameter rules, JAX's (vits_tpu/parallel/mesh.py): the first regex that
+# matches a canonical-layout name wins; a spec names the dimension that splits
+# over 'model'. Layouts (io/params.py): linear (in, out), conv (k, in, out),
+# conv_transpose (k, in, out), embeddings (vocab, dim). Column-split producers
+# pair with row-split consumers (parallel/tensor.py).
+_PARAM_RULES: list[tuple[re.Pattern, tuple]] = [
+    # --- text encoder ---------------------------------------------------
+    (re.compile(r".*\.attention\.(q|k|v)_proj\.weight$"), (None, MODEL_AXIS)),
+    (re.compile(r".*\.attention\.(q|k|v)_proj\.bias$"), (MODEL_AXIS,)),
+    (re.compile(r".*\.attention\.out_proj\.weight$"), (MODEL_AXIS, None)),
+    (re.compile(r".*\.feed_forward\.conv_1\.weight$"), (None, None, MODEL_AXIS)),
+    (re.compile(r".*\.feed_forward\.conv_1\.bias$"), (MODEL_AXIS,)),
+    (re.compile(r".*\.feed_forward\.conv_2\.weight$"), (None, MODEL_AXIS, None)),
+    # --- wavenet gates (2*hidden wide) ----------------------------------
+    (re.compile(r".*wavenet\.in_layers\.\d+\.weight$"), (None, None, MODEL_AXIS)),
+    (re.compile(r".*wavenet\.in_layers\.\d+\.bias$"), (MODEL_AXIS,)),
+    # --- hifigan: shard the wide channel dims ---------------------------
+    (re.compile(r"decoder\.conv_pre\.weight$"), (None, None, MODEL_AXIS)),
+    (re.compile(r"decoder\.conv_pre\.bias$"), (MODEL_AXIS,)),
+    (re.compile(r"decoder\.upsampler\.\d+\.weight$"), (None, MODEL_AXIS, None)),
+    (re.compile(r"decoder\.resblocks\.\d+\.convs\d\.\d+\.weight$"), (None, None, MODEL_AXIS)),
+    (re.compile(r"decoder\.resblocks\.\d+\.convs\d\.\d+\.bias$"), (MODEL_AXIS,)),
+    # --- posterior encoder ----------------------------------------------
+    (re.compile(r"posterior_encoder\.conv_pre\.weight$"), (None, None, MODEL_AXIS)),
+    (re.compile(r"posterior_encoder\.conv_pre\.bias$"), (MODEL_AXIS,)),
+]
+
+
+def param_spec(name: str, shape: tuple[int, ...], model_parallel: bool = True) -> tuple:
+    """The partition spec of one parameter, as JAX's ``PartitionSpec`` entries:
+    ``MODEL_AXIS`` on the dimension that splits, () where nothing matches (the
+    divisibility fallback is :func:`split_plan`'s)."""
+    if model_parallel:
+        for pattern, spec in _PARAM_RULES:
+            if pattern.match(name):
+                return spec
+    return ()
+
+
+class Split(NamedTuple):
+    """How one parameter splits over the model axis."""
+
+    dim: int  # the dimension of the canonical layout
+    gate: bool = False  # a WaveNet gate's 2*hidden outputs: the rank's share of each half
+    whole: bool = False  # split at rest only: gathered whole where it computes
+
+
+# Split tensors whose consumer is not row-split: kept as slices, computed whole
+# (parallel/tensor.py::TensorParallel.gather). The resblocks' consumer is kernel 5,
+# which fuses every conv of the trio.
+_WHOLE = re.compile(r"decoder\.resblocks\.|posterior_encoder\.conv_pre\.")
+_ATTENTION = re.compile(r"(.*\.attention\.)(q_proj|k_proj|v_proj|out_proj)\.")
+_GATE = re.compile(r".*wavenet\.in_layers\.\d+\.")
+
+
+def split_plan(params: Mapping[str, Any], size: int) -> dict[str, Split]:
+    """Name -> :class:`Split` of every parameter that splits over a model axis of
+    ``size`` ranks: a rule matches and its dimension divides (JAX's fallback
+    replicates the others). The attention splits its compute by heads where the
+    heads divide, the gates where each half divides; otherwise, and for the
+    resblocks and the posterior's ``conv_pre``, the slices are gathered whole
+    where they compute."""
+    plan = {}
+    for name, value in params.items():
+        shape = tuple(value.shape)
+        dims = [d for d, axis in enumerate(param_spec(name, shape)) if axis == MODEL_AXIS]
+        if size == 1 or not dims or shape[dims[0]] % size:
+            continue
+        dim, gate, whole = dims[0], False, bool(_WHOLE.match(name))
+        attention = _ATTENTION.match(name)
+        if attention:  # heads = width / head_dim, head_dim from the shared rel table
+            rel = params.get(attention.group(1) + "emb_rel_k")
+            whole = rel is None or (shape[dim] // rel.shape[-1]) % size != 0
+        elif _GATE.match(name):
+            gate = (shape[dim] // 2) % size == 0
+            whole = not gate
+        plan[name] = Split(dim, gate, whole)
+    return plan
+
+
+def shard_index(split: Split, n: int, size: int, rank: int) -> np.ndarray:
+    """The indices along ``split.dim`` (of length ``n``) that ``rank`` holds: a
+    contiguous ``n / size``, or for a gate the matching ``n / (2 size)`` of each
+    half (tanh's, then sigmoid's)."""
+    if split.gate:
+        half, w = n // 2, n // (2 * size)
+        return np.concatenate([np.arange(rank * w, (rank + 1) * w),
+                               half + np.arange(rank * w, (rank + 1) * w)])
+    w = n // size
+    return np.arange(rank * w, (rank + 1) * w)
+
+
+def _take(value, split: Split, size: int, rank: int):
+    index = shard_index(split, value.shape[split.dim], size, rank)
+    if torch.is_tensor(value):
+        return value.index_select(split.dim, torch.as_tensor(index, device=value.device))
+    return np.ascontiguousarray(np.take(np.asarray(value), index, axis=split.dim))
+
+
+def take_shards(params: Mapping[str, Any], plan: Mapping[str, Split],
+                model_parallel: ModelParallel) -> dict:
+    """Rank ``model_parallel.rank``'s slices of the tensors in ``plan`` and the
+    whole of every other, numpy or tensors as given (slices are copies)."""
+    size, rank = model_parallel.size, model_parallel.rank
+    return {name: _take(value, plan[name], size, rank) if name in plan else value
+            for name, value in params.items()}
+
+
+def shard_params(params: Mapping[str, Any], model_parallel: ModelParallel) -> dict:
+    """Rank ``model_parallel.rank``'s slices of the tensors that split
+    (:func:`split_plan`) and the whole of every other (:func:`take_shards`)."""
+    return take_shards(params, split_plan(params, model_parallel.size), model_parallel)
+
+
+def gather_params(params: Mapping[str, torch.Tensor], plan: Mapping[str, Split],
+                  model_parallel: ModelParallel) -> dict[str, torch.Tensor]:
+    """The whole tensors of a rank's ``params`` (:func:`shard_params`' layout):
+    every rank of the model group calls it. One SUM ``all_reduce`` of the slices
+    placed in zero-filled whole tensors (fp32), the others as they are."""
+    names = [name for name in params if name in plan]
+    whole = {}
+    for name in names:
+        value, split = params[name].detach(), plan[name]
+        shape = list(value.shape)
+        shape[split.dim] *= model_parallel.size
+        full = torch.zeros(shape, dtype=torch.float32, device=value.device)
+        index = torch.as_tensor(shard_index(split, shape[split.dim], model_parallel.size,
+                                            model_parallel.rank), device=value.device)
+        whole[name] = full.index_copy_(split.dim, index, value.float())
+    all_reduce_(list(whole.values()), model_parallel.group)
+    return {name: whole.get(name, value) for name, value in params.items()}
 
 
 def pad_rows(batch, world: int, segment_frames: int):
@@ -183,19 +385,20 @@ def _unflat(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
         torch._foreach_copy_(list(tensors), torch._utils._unflatten_dense_tensors(flat, tensors))
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor]) -> None:
-    """SUM every tensor over the ranks, in place: one collective over one flat
-    fp32 buffer, not one call per tensor."""
+def all_reduce_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """SUM every tensor over the ranks of ``group`` (None: the world), in place:
+    one collective over one flat fp32 buffer, not one call per tensor."""
     if not tensors:
         return
     flat = _flat(tensors)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     _unflat(flat, tensors)
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
-    """Rank ``src``'s values of ``tensors`` into every rank's, in place: one
-    collective over one flat fp32 buffer."""
+def broadcast_(tensors: Sequence[torch.Tensor], src: int, group=None) -> None:
+    """Rank ``src``'s values of ``tensors`` into those of every rank of ``group``
+    (None: the world), in place: one collective over one flat fp32 buffer.
+    ``src`` is a rank of the world."""
     if not tensors:
         return
     if dist.get_rank() == src:
@@ -203,7 +406,7 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
     else:
         flat = torch.empty(sum(t.numel() for t in tensors), dtype=torch.float32,
                            device=tensors[0].device)
-    dist.broadcast(flat, src)
+    dist.broadcast(flat, src, group=group)
     if dist.get_rank() != src:
         _unflat(flat, tensors)
 

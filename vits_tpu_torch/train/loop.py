@@ -22,8 +22,17 @@ Every rank reads the same batch stream, pads each batch to a multiple of the
 world (``parallel/mesh.py::pad_rows``) and computes its rows of it
 (``train/step.py``); ``zero1`` splits the Adam moments over the ranks
 (``train/schedule.py``). Only the primary process logs and writes
-checkpoints. ``model_parallel > 1`` raises ``NotImplementedError``
-(tensor and pipeline parallelism are ROADMAP.md queue 1, item 1.3).
+checkpoints.
+
+Tensor parallel (``model_parallel=k``, ``--model-parallel k``): the world is
+``world / k`` data ranks x ``k`` model ranks, model innermost
+(``parallel/mesh.py::data_axis``, ``model_axis``); each rank holds its slices
+of the generator's split tensors and their moments (``shard_params``), the
+discriminator whole, as JAX's ``train(model_parallel=k)`` shards them. The
+writer gathers whole tensors under their JAX names, so a checkpoint written
+at ``model=2`` resumes at ``model=1`` and the other way round::
+
+    torchrun --nproc-per-node 8 -m vits_tpu_torch.train.loop --model-parallel 2 ...
 """
 
 from __future__ import annotations
@@ -40,7 +49,14 @@ from vits_tpu_torch.io import loader
 from vits_tpu_torch.io.params import from_jax_params
 from vits_tpu_torch.models.discriminator import init_discriminator_params
 from vits_tpu_torch.parallel import distributed
-from vits_tpu_torch.parallel.mesh import data_axis, pad_rows
+from vits_tpu_torch.parallel.mesh import (
+    data_axis,
+    gather_params,
+    model_axis,
+    pad_rows,
+    shard_params,
+)
+from vits_tpu_torch.parallel.tensor import tensor_parallel
 from vits_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from vits_tpu_torch.train.data import Prefetcher, VitsDataset
 from vits_tpu_torch.train.schedule import ParamEMA, vits_optimizer
@@ -86,15 +102,19 @@ def train(
     """Train from ``model_source`` (.ggml with the training modules, or an HF dir)
     on ``corpus_dir``; returns the generator parameters.
 
-    Data parallel over the initialized process group, if any (module
-    docstring): each rank then trains on ``distributed.local_device(device)``."""
-    if model_parallel > 1:
-        raise NotImplementedError("model_parallel > 1 (tensor and pipeline parallelism) is not "
-                                  "ported yet: ROADMAP.md queue 1, item 1.3")
+    Data parallel over the initialized process group, if any, and tensor
+    parallel over ``model_parallel`` of its ranks (module docstring): each rank
+    then trains on ``distributed.local_device(device)``. Raises ``ValueError``
+    where the world does not divide by ``model_parallel``. Returns the whole
+    parameters on every rank (gathered under a model axis)."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel={model_parallel}: at least 1")
     resolve_compute_dtype(compute_dtype)
-    dp = data_axis()
+    dp = data_axis(model_parallel)
+    mp = model_axis(model_parallel) if model_parallel > 1 else None
     world = 1 if dp is None else dp.world
-    device = torch.device(device) if world == 1 else distributed.local_device(device)
+    device = (torch.device(device) if distributed.process_count() == 1
+              else distributed.local_device(device))
     primary = distributed.is_primary()
     say = log if primary else (lambda *_: None)  # the training log: the primary's only
 
@@ -109,13 +129,22 @@ def train(
 
     dataset = VitsDataset(corpus_dir, tokenizer, config)
     say(f"dataset: {len(dataset)} utterances")
-    gen_params = {k: v.requires_grad_() for k, v in from_jax_params(params_np, device).items()}
+    tp = None if mp is None else tensor_parallel(params_np, mp)
+
+    def own(arrays):  # the rank's slices of whole arrays
+        return arrays if mp is None else shard_params(arrays, mp)
+
+    def whole(params):  # whole tensors from the rank's slices (a collective)
+        return params if mp is None else gather_params(params, tp.plan, mp)
+
+    gen_params = {k: v.requires_grad_() for k, v in
+                  from_jax_params(own(params_np), device).items()}
     disc_params = {k: v.requires_grad_() for k, v in
                    from_jax_params(init_discriminator_params(seed), device).items()}
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     shard = dp if zero1 else None
     gen_opt = vits_optimizer(gen_params, learning_rate, steps_per_epoch=steps_per_epoch,
-                             zero1=shard)
+                             zero1=shard, model_parallel=tp)
     disc_opt = vits_optimizer(
         disc_params, disc_learning_rate if disc_learning_rate is not None else learning_rate,
         steps_per_epoch=steps_per_epoch, zero1=shard)
@@ -125,7 +154,7 @@ def train(
     start_step = 0
     if latest_step(out_dir) is not None:
         restored = restore_checkpoint(out_dir)
-        _load_into(gen_params, restored["gen_params"])
+        _load_into(gen_params, own(restored["gen_params"]))
         if restored["disc_params"] is not None:
             _load_into(disc_params, restored["disc_params"])
         if restored["gen_opt"] is not None:
@@ -133,7 +162,7 @@ def train(
         if restored["disc_opt"] is not None:
             disc_opt.load_state_arrays(restored["disc_opt"])
         if restored["gen_params_ema"] is not None:
-            _load_into(ema_params, restored["gen_params_ema"])
+            _load_into(ema_params, own(restored["gen_params_ema"]))
             say("restored EMA weights")
         start_step = restored["step"]
         say(f"resumed from step {start_step}")
@@ -141,11 +170,12 @@ def train(
     if adversarial:
         step_fn = make_gan_train_step(config, gen_params, disc_params, gen_opt, disc_opt,
                                       segment_frames=segment_frames, grad_accum=grad_accum,
-                                      compute_dtype=compute_dtype, data_parallel=dp)
+                                      compute_dtype=compute_dtype, data_parallel=dp,
+                                      model_parallel=tp)
     else:
         step_fn = make_train_step(config, gen_params, gen_opt, segment_frames=segment_frames,
                                   grad_accum=grad_accum, compute_dtype=compute_dtype,
-                                  data_parallel=dp)
+                                  data_parallel=dp, model_parallel=tp)
     noise_gen = torch.Generator(device=device).manual_seed(seed + start_step)
 
     with contextlib.ExitStack() as teardown:
@@ -174,20 +204,23 @@ def train(
                     metrics_hook(step_idx, values, rate)
 
             if step_idx % checkpoint_every == 0 or step_idx == steps:
-                # every rank gathers the optimizer states (a collective under
-                # ZeRO-1); one writer: concurrent writers would corrupt the directory
-                if primary or zero1:
+                # every rank gathers the optimizer states and the split tensors (a
+                # collective under ZeRO-1 or a model axis); one writer: concurrent
+                # writers would corrupt the directory
+                if primary or zero1 or mp is not None:
                     gen_state = gen_opt.state_arrays()
                     disc_state = disc_opt.state_arrays() if adversarial else None
+                    gen_whole, ema_whole = whole(gen_params), whole(ema_params)
                 if primary:
                     save_checkpoint(
-                        out_dir, step_idx, gen_params, gen_state,
-                        disc_params if adversarial else None, disc_state, ema_params,
-                        metadata={"batch_size": batch_size, "lr": learning_rate})
+                        out_dir, step_idx, gen_whole, gen_state,
+                        disc_params if adversarial else None, disc_state, ema_whole,
+                        metadata={"batch_size": batch_size, "lr": learning_rate,
+                                  "model_parallel": model_parallel})
                     log(f"checkpointed step {step_idx}")
                 if dp is not None:
                     torch.distributed.barrier()
-    return gen_params
+    return whole(gen_params)
 
 
 def main(argv=None) -> int:
@@ -209,7 +242,8 @@ def main(argv=None) -> int:
     ap.add_argument("--zero1", action="store_true",
                     help="split the optimizer moments over the data-parallel ranks (ZeRO-1)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor-parallel degree (only 1: not ported)")
+                    help="tensor-parallel degree: ranks that hold the slices of one model "
+                         "(the world must divide by it)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print(f"error: --device {args.device}, but no CUDA device is visible "

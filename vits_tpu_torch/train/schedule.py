@@ -19,7 +19,17 @@ gloo has for CUDA tensors too. ``torch.distributed.optim.
 ZeroRedundancyOptimizer`` does the same split, but its state gathers through
 pickled objects indexed by parameter position; this keeps the checkpoint's
 by-name moments, so a state saved under ZeRO-1 loads without it and the other
-way round.
+way round. With a model axis ZeRO-1 splits over the data group.
+
+Tensor parallel (``model_parallel=``, a ``parallel/tensor.py::
+TensorParallel``): the parameters are the rank's slices and so are their
+moments. The clip's norm is the global gradient's: the squares of the split
+tensors summed over the model group, each replicated tensor counted once, so
+every rank clips by one scale. The state arrays gather whole moments under
+their names (a collective over the model group) and load back into slices,
+so a state saved at ``model=2`` loads at ``model=1`` and the other way round.
+Parameters may lie on several devices (a pipeline's stages): the norm is
+summed on the first one's.
 """
 
 from __future__ import annotations
@@ -29,7 +39,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from vits_tpu_torch.parallel.mesh import DataParallel, broadcast_, zero1_owners
+import torch.distributed as dist
+
+from vits_tpu_torch.parallel.mesh import (
+    DataParallel,
+    all_reduce_,
+    broadcast_,
+    gather_params,
+    take_shards,
+    zero1_owners,
+)
+from vits_tpu_torch.parallel.tensor import TensorParallel
 
 
 class VitsOptimizer:
@@ -37,13 +57,19 @@ class VitsOptimizer:
 
     ``step()`` reads each parameter's ``.grad``, as ``torch.optim`` does.
     ``zero1``: this rank's place on the data axis; it keeps the moments of the
-    tensors it owns (module docstring).
+    tensors it owns. ``model_parallel``: ``params`` are the rank's slices
+    (module docstring).
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
                  steps_per_epoch: int = 1000, clip_norm: float | None = 500.0,
-                 gamma_per_epoch: float = 0.999875, zero1: DataParallel | None = None):
+                 gamma_per_epoch: float = 0.999875, zero1: DataParallel | None = None,
+                 model_parallel: TensorParallel | None = None):
         self.names = list(params)
+        self.tp = model_parallel
+        # the tensors whose gradients are slices, summed over the model group in the norm
+        self.split = [model_parallel is not None and n in model_parallel.plan
+                      for n in self.names]
         self.params = list(params.values())
         self.base_lr = base_lr
         self.per_step = gamma_per_epoch ** (1.0 / steps_per_epoch)
@@ -64,31 +90,56 @@ class VitsOptimizer:
     def _owned_by(self, rank: int) -> list[int]:
         return [i for i, owner in enumerate(self.owners) if owner == rank]
 
+    def _owner_rank(self, rank: int) -> int:
+        """The world rank of the data axis's ``rank`` (ZeRO-1's broadcast source)."""
+        group = self.zero1.group
+        return rank if group is None else dist.get_global_rank(group, rank)
+
     def learning_rate(self) -> float:
         return self.base_lr * self.per_step ** self.count
+
+    def _moment_plan(self) -> dict:
+        """The split of each moment's state array: its parameter's."""
+        return {f"{name}.{key}": split for name, split in self.tp.plan.items()
+                for key in ("exp_avg", "exp_avg_sq")}
+
+    @torch.no_grad()
+    def grad_norm(self) -> torch.Tensor:
+        """The global L2 norm of the parameters' ``.grad`` (module docstring), on the
+        first parameter's device."""
+        device = self.params[0].device
+        norms = torch.stack([torch.linalg.vector_norm(p.grad).to(device) for p in self.params])
+        if self.tp is None:
+            return torch.linalg.vector_norm(norms)
+        split = torch.tensor(self.split, device=device)
+        squares = torch.stack([(norms[split] ** 2).sum(), (norms[~split] ** 2).sum()])
+        split_sq = squares[:1].clone()
+        all_reduce_([split_sq], self.tp.group)
+        return torch.sqrt(split_sq[0] + squares[1])
 
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad for p in self.params]
         if self.clip_norm:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
-                                                         for g in grads]))
+            norm = self.grad_norm()
             scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
             for g in grads:
-                g.mul_(scale)
+                g.mul_(scale.to(g.device))
         for group in self.adamw.param_groups:
             group["lr"] = self.learning_rate()
         self.adamw.step()
         self.count += 1
         if self.owners is not None:
             for rank in range(self.zero1.world):
-                broadcast_([self.params[i] for i in self._owned_by(rank)], rank)
+                broadcast_([self.params[i] for i in self._owned_by(rank)],
+                           self._owner_rank(rank), self.zero1.group)
 
     def state_arrays(self) -> dict[str, np.ndarray]:
         """Adam moments by parameter name, and the update count, as numpy.
 
-        Under ZeRO-1 a collective: every rank calls it, each owner broadcasts
-        its moments, and every rank returns all of them."""
+        Under ZeRO-1 or a model axis a collective: every rank calls it, each
+        owner broadcasts its moments, the slices of split tensors are gathered
+        whole, and every rank returns all of them."""
         out = {"count": np.asarray(self.count, np.int64)}
         moments = {}
         for i, p in enumerate(self.params):
@@ -101,16 +152,23 @@ class VitsOptimizer:
                 for i in owned:
                     moments.setdefault(i, (torch.empty_like(self.params[i]),
                                            torch.empty_like(self.params[i])))
-                broadcast_([m for i in owned for m in moments[i]], rank)
-        for i, (exp_avg, exp_avg_sq) in sorted(moments.items()):
-            out[f"{self.names[i]}.exp_avg"] = exp_avg.detach().cpu().numpy()
-            out[f"{self.names[i]}.exp_avg_sq"] = exp_avg_sq.detach().cpu().numpy()
+                broadcast_([m for i in owned for m in moments[i]], self._owner_rank(rank),
+                           self.zero1.group)
+        named = {f"{self.names[i]}.{key}": m for i, pair in sorted(moments.items())
+                 for key, m in zip(("exp_avg", "exp_avg_sq"), pair)}
+        if self.tp is not None and self.count:
+            named = gather_params(named, self._moment_plan(), self.tp.axis)
+        for key, m in named.items():
+            out[key] = m.detach().cpu().numpy()
         return out
 
     def load_state_arrays(self, arrays: Mapping[str, np.ndarray]) -> None:
         """Inverse of :meth:`state_arrays` (under ZeRO-1 each rank keeps the
-        moments it owns); raises if a parameter is missing."""
+        moments it owns, under a model axis its slices); raises if a parameter
+        is missing."""
         self.count = int(arrays["count"])
+        if self.tp is not None:  # the rank's slices of the whole moments
+            arrays = take_shards(arrays, self._moment_plan(), self.tp.axis)
         for i, (name, p) in enumerate(zip(self.names, self.params)):
             if self.count and f"{name}.exp_avg" not in arrays:
                 raise ValueError(f"optimizer state lacks parameter {name!r}")
@@ -124,8 +182,10 @@ class VitsOptimizer:
 
 def vits_optimizer(params: Mapping[str, torch.Tensor], base_lr: float = 2e-4,
                    steps_per_epoch: int = 1000, clip_norm: float | None = 500.0,
-                   zero1: DataParallel | None = None) -> VitsOptimizer:
-    return VitsOptimizer(params, base_lr, steps_per_epoch, clip_norm, zero1=zero1)
+                   zero1: DataParallel | None = None,
+                   model_parallel: TensorParallel | None = None) -> VitsOptimizer:
+    return VitsOptimizer(params, base_lr, steps_per_epoch, clip_norm, zero1=zero1,
+                         model_parallel=model_parallel)
 
 
 class ParamEMA:

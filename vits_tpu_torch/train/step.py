@@ -49,6 +49,19 @@ are summed too, so every rank returns the global values. With ``grad_accum``
 each microbatch's normalizers are that microbatch's global sums. JAX's
 GSPMD step computes the whole batch's loss on a 'data' mesh; this is the same
 function, summed in another order.
+
+Tensor parallelism (``model_parallel=``, a ``parallel/tensor.py::
+TensorParallel``; the generator's parameters are the rank's slices,
+``parallel/mesh.py::shard_params``): the ranks of a model group compute one
+batch's rows together, the split layers on their slices
+(``parallel/tensor.py``), everything else whole on every rank; the tensors
+split only at rest are gathered once a forward. The discriminator stays
+replicated. With a model axis, ``data_parallel`` is the data axis of the
+same world (``parallel/mesh.py::data_axis(model)``): the gradient and metric
+sums run over its group, the ranks of one model index, never over the world
+(that would add one rank's q-slice gradient to another's k-slice).
+``generator_forward``'s ``encoder_fn`` replaces the text encoder (the
+pipelined one, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +82,7 @@ from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.align import monotonic_align, prior_log_likelihood
 from vits_tpu_torch.ops.tiers import training_tiers
 from vits_tpu_torch.parallel.mesh import DataParallel, all_reduce_, rank_rows
+from vits_tpu_torch.parallel.tensor import TensorParallel
 from vits_tpu_torch.train.losses import (
     discriminator_loss,
     feature_matching_loss,
@@ -196,14 +210,20 @@ def generator_forward(
     mel_kwargs: Optional[dict] = None,
     compute_dtype=None,
     share: Optional[RowShare] = None,
+    tp: Optional[TensorParallel] = None,
+    encoder_fn: Optional[Callable] = None,
 ) -> GeneratorOutput:
     """Forward pass with the reconstruction losses (``vits_tpu`` ``generator_forward``).
 
     ``wave_fake`` comes back in the compute dtype, ``wave_real`` in fp32.
     ``share``: ``batch`` is a rank's rows of a global batch, and the losses are
-    its part of the global batch's (module docstring)."""
+    its part of the global batch's (module docstring). ``tp``: ``params`` are
+    the rank's slices. ``encoder_fn(params, config, input_ids, padding_mask3)
+    -> EncoderOutput`` replaces the text encoder."""
     cd = resolve_compute_dtype(compute_dtype)
     tiers = training_tiers(cd)
+    if tp is not None:
+        params = tp.gather(params)
     if cd != torch.float32:
         params = cast_generator_params(params, cd)
     mel_kwargs = dict(mel_kwargs or {})
@@ -219,13 +239,16 @@ def generator_forward(
 
     # posterior + flow forward
     z, _, logs_q = posterior_encoder(p, config, batch.spectrogram, frame_mask3, noise.posterior,
-                                     speakers)
-    z_p, _ = residual_coupling_forward(p, config, z, frame_mask3, speakers)
+                                     speakers, tp)
+    z_p, _ = residual_coupling_forward(p, config, z, frame_mask3, speakers, tp)
 
     # text prior (bf16 masks with bf16 parameters) + MAS alignment (a constant
     # target: no gradient) on fp32 likelihoods
-    enc = text_encoder(p, config, batch.input_ids, token_mask3.to(cd), trainable=True,
-                       tier=tiers.attention)
+    if encoder_fn is None:
+        enc = text_encoder(p, config, batch.input_ids, token_mask3.to(cd), trainable=True,
+                           tier=tiers.attention, tp=tp)
+    else:
+        enc = encoder_fn(params, config, batch.input_ids, token_mask3.to(cd))
     log_lik = prior_log_likelihood(z_p, enc.prior_means, enc.prior_log_variances).float()
     attn = monotonic_align(log_lik.detach(), batch.frame_mask, batch.token_mask)
     durations = attn.sum(dim=1)
@@ -246,7 +269,7 @@ def generator_forward(
     starts = random_segment_starts(noise.segment_u, frame_lengths, segment_frames)
     wave_fake = hifigan(p, config, slice_segments(z, starts, segment_frames).to(cd), None,
                         None if speakers is None else speakers.to(cd), trainable=True,
-                        tiers=tiers)
+                        tiers=tiers, tp=tp)
     up = config.total_upsample
     wave_real = slice_segments(batch.audio.reshape(B, S, up), starts,
                                segment_frames).reshape(B, segment_frames * up)
@@ -261,10 +284,10 @@ def generator_forward(
 
 
 def generator_loss(params, config, batch, noise, segment_frames=32, mel_weight=45.0,
-                   mel_kwargs=None, compute_dtype=None, share=None):
+                   mel_kwargs=None, compute_dtype=None, share=None, tp=None, encoder_fn=None):
     """(total reconstruction loss, TrainMetrics)."""
     out = generator_forward(params, config, batch, noise, segment_frames, mel_weight,
-                            mel_kwargs, compute_dtype, share)
+                            mel_kwargs, compute_dtype, share, tp, encoder_fn)
     return out.loss, out.metrics
 
 
@@ -277,9 +300,10 @@ def gradients(loss: torch.Tensor, params: Mapping[str, torch.Tensor]) -> list[to
 
 def _apply(params: Mapping[str, torch.Tensor], optimizer, grads,
            data_parallel: Optional[DataParallel] = None) -> None:
-    """Hand ``grads`` (summed over the ranks first) to ``optimizer`` and step it."""
+    """Hand ``grads`` (summed over the data axis's ranks first) to ``optimizer``
+    and step it."""
     if data_parallel is not None:
-        all_reduce_(grads)
+        all_reduce_(grads, data_parallel.group)
     for p, g in zip(params.values(), grads):
         p.grad = g
     optimizer.step()
@@ -290,7 +314,7 @@ def _microbatches(batch: TrainBatch, noise: TrainNoise, n: int,
     """[(batch rows, noise rows, RowShare or None)] of each of ``n`` microbatches:
     the whole microbatch's, or the rank's rows of it under ``data_parallel``."""
     B = batch.input_ids.shape[0]
-    world, rank = (1, 0) if data_parallel is None else data_parallel
+    world, rank = (1, 0) if data_parallel is None else (data_parallel.world, data_parallel.rank)
     held = rank_rows(B, world, rank, n)  # raises where the rows do not divide
     m = B // n
     per = m // world
@@ -315,7 +339,7 @@ def _mean_metrics(cls, items, data_parallel: Optional[DataParallel] = None):
     values = torch.stack([torch.stack([torch.as_tensor(x) for x in xs]).mean()
                           for xs in zip(*items)])
     if data_parallel is not None:
-        all_reduce_([values])
+        all_reduce_([values], data_parallel.group)
     return cls(*values.unbind())
 
 
@@ -329,6 +353,8 @@ def make_train_step(
     grad_accum: int = 1,
     compute_dtype=None,
     data_parallel: Optional[DataParallel] = None,
+    model_parallel: Optional[TensorParallel] = None,
+    encoder_fn: Optional[Callable] = None,
 ) -> Callable[..., TrainMetrics]:
     """Generator-only step ``step(batch, generator=None, noise=None) -> TrainMetrics``.
 
@@ -336,8 +362,9 @@ def make_train_step(
     the batch into N microbatches and averages their gradients before one
     update; the step's noise is drawn for the whole batch and split with it.
     ``data_parallel``: ``batch`` is the global batch and this rank computes its
-    rows (module docstring). Turns TF32 off when the parameters lie on a CUDA
-    device.
+    rows; ``model_parallel``: ``params`` are the rank's slices (module
+    docstring). ``encoder_fn``: :func:`generator_forward`'s. Turns TF32 off
+    when the parameters lie on a CUDA device.
     """
     resolve_compute_dtype(compute_dtype)
     fp32_backends(params)
@@ -349,7 +376,8 @@ def make_train_step(
         acc, all_metrics = None, []
         for mb, mn, share in _microbatches(batch, noise, grad_accum, data_parallel):
             loss, metrics = generator_loss(params, config, mb, mn, segment_frames, mel_weight,
-                                           mel_kwargs, compute_dtype, share)
+                                           mel_kwargs, compute_dtype, share, model_parallel,
+                                           encoder_fn)
             grads = gradients(loss, params)
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             all_metrics.append(tuple(m.detach() for m in metrics))
@@ -374,6 +402,7 @@ def make_gan_train_step(
     compute_dtype=None,
     reuse_forward: bool = True,
     data_parallel: Optional[DataParallel] = None,
+    model_parallel: Optional[TensorParallel] = None,
 ) -> Callable[..., GanTrainMetrics]:
     """Adversarial step ``step(batch, generator=None, noise=None) -> GanTrainMetrics``.
 
@@ -391,8 +420,9 @@ def make_gan_train_step(
     parameters, on bf16 waves. ``data_parallel``: ``batch`` is the global batch
     and this rank computes its rows (module docstring); the discriminator's
     gradients are summed over the ranks before its update, the generator's
-    after the adversarial terms. Turns TF32 off when the parameters lie on a
-    CUDA device.
+    after the adversarial terms. ``model_parallel``: the generator's
+    parameters are the rank's slices; the discriminator is replicated. Turns
+    TF32 off when the parameters lie on a CUDA device.
     """
     cd = resolve_compute_dtype(compute_dtype)
     fp32_backends(gen_params, disc_params)
@@ -403,7 +433,7 @@ def make_gan_train_step(
 
     def forward(batch, noise, share):
         return generator_forward(gen_params, config, batch, noise, segment_frames, mel_weight,
-                                 mel_kwargs, cd, share)
+                                 mel_kwargs, cd, share, model_parallel)
 
     def weighted(loss, share):  # a mean loss: the rank's part of the global batch's
         return loss if share is None else loss * share.rows
