@@ -214,7 +214,22 @@ printing its result line:
    ranks' slices reassembled), one head a rank, A, 4 and 5 launched on each,
    each rank's bytes of parameters and moments, its steady step ms and the
    time inside gloo's all-reduces; (c) pp x dp on ``make_pipe_mesh(2, data=2,
-   devices=[cuda:0] * 4)`` against ``text_encoder``.
+   devices=[cuda:0] * 4)`` against ``text_encoder``;
+15. what the JAX package runs and the port once refused, in a process of its
+   own (``--refusals-phase``): (a) kernels A and 4 against their plain twins at
+   head_dim 160, 192, 256 by window 4, 16, 32 (B=2, H=2, L=512, lengths 507 and
+   300), in every mode (A on fp32 values at each tier, on bf16 storage with and
+   without lse, its bf16 serving mode; 4 at exact on fp32 and at fast on bf16),
+   each within its tier's bound, with device, event and plain ms and the bound;
+   (b) MMS-TTS at full width with random weights in two variants, one head of
+   192 at window 16 (A, A with lse and 4 launched) and no window (neither
+   launched): the 87-token request at "exact" and "fast" through the engine and
+   on one NoiseOverride against the CPU plain path (phase 4's bounds at exact;
+   at fast equal frame counts, the latents within TIER_TOL and the waveform's
+   mel-L1 within FAST_STREAM_MEL_L1), three GAN steps on phase 7's batch and one generator loss card vs
+   CPU within phase 7's bounds; (c) two gloo ranks sharing the card at six rows
+   and grad_accum=2 (microbatches of three over two ranks) against the
+   one-process step at grad_accum=2, within phase 12b's bounds.
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -231,7 +246,9 @@ and 5, its world-1 step and 12b's rank 0; ``multi_device_launches``: phase 13's
 calls of A, B, C and 6 by path, replica and device; ``multi_device``: phase 13's
 numbers; phase 14's kernel shapes as ``*_mp`` entries with the launches of 14a's
 pipelined steps and 14b's rank 0, ``model_parallel_launches`` by path and
-``stage_launches`` by stage; ``model_parallel``: phase 14's numbers), and last
+``stage_launches`` by stage; ``model_parallel``: phase 14's numbers; phase 15a's
+shapes as ``*_wide`` entries with the launches of 15b's head_dim-192 variant;
+``refusals``: phase 15's numbers), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1149,8 +1166,11 @@ def training_batch(config, device, token_lengths=(512, 300), frame_lengths=(1280
     return batch_to(TrainBatch(ids, token_mask, spec, frame_mask, audio), device)
 
 
-def gan_steps(config, device, card: str) -> dict:
-    """Phase 5a: three GAN steps at full MMS width; the launch counts over them."""
+def gan_steps(config, device, card: str, attention_kernels: bool = True,
+              profile: bool = True) -> dict:
+    """Phase 5a: three GAN steps at full MMS width; the launch counts over them.
+    Without ``attention_kernels`` (a model with no relative window) kernels A and
+    4 must launch no time; without ``profile`` no profiled step."""
     from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
@@ -1217,9 +1237,12 @@ def gan_steps(config, device, card: str) -> dict:
     print(f"  median {float(np.median(times)):.1f} ms per step after the warm-up (B=2, 512 "
           f"tokens, 1280 frames, {n_gen / 1e6:.1f} M generator + {n_disc / 1e6:.1f} M "
           f"discriminator parameters), peak {peak_gib:.2f} GiB allocated ({card})", flush=True)
-    for name in ("flash_rel_attention_lse", "rel_attention_bwd", "trio_forward_with_acts",
-                 "trio_backward"):
-        if launches[name] == 0:
+    attention = ("flash_rel_attention_lse", "rel_attention_bwd")
+    for name in attention + ("trio_forward_with_acts", "trio_backward"):
+        if name in attention and not attention_kernels:
+            if launches[name] or launches["flash_rel_attention"]:
+                raise RuntimeError(f"kernel {name} launched for a model without a window")
+        elif launches[name] == 0:
             raise RuntimeError(f"kernel {name} was never launched on the training path")
     for name in ("fused_resblock_trio", "fused_stage"):
         if launches[name]:
@@ -1233,7 +1256,8 @@ def gan_steps(config, device, card: str) -> dict:
             raise RuntimeError(f"parameter {name} did not move in 3 steps")
     print(f"  all {len(gen)} generator and {len(disc)} discriminator parameters have finite "
           "gradients and moved", flush=True)
-    profile = profile_step(step_fn, batch, noise_gen, float(np.median(times)), card)
+    if profile:
+        profile = profile_step(step_fn, batch, noise_gen, float(np.median(times)), card)
     initial = {k: before[k].requires_grad_() for k in gen}
     return {"launches": launches, "step_ms": times, "peak_gib": peak_gib, "gen": initial,
             "batch": batch, "profile": profile}
@@ -3340,18 +3364,19 @@ def leaves_on(arrays: dict, device) -> dict:
 
 
 def gan_step_once(config, gen_np, disc_np, batch, noise, device, data_parallel=None,
-                  zero1=False, steps: int = 1):
+                  zero1=False, steps: int = 1, grad_accum: int = 1):
     """``steps`` GAN steps from fresh copies of the parameters, each on ``batch``
     and ``noise``, with the AdamW recipe (``train/schedule.py``; ``zero1`` under
-    data parallelism). Returns the last step's metrics, and the (clipped)
-    gradients and the parameters after it."""
+    data parallelism), at ``grad_accum``. Returns the last step's metrics, and
+    the (clipped) gradients and the parameters after it."""
     from vits_tpu_torch.train.schedule import vits_optimizer
     from vits_tpu_torch.train.step import make_gan_train_step
 
     gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
     shard = data_parallel if zero1 else None
     opts = vits_optimizer(gen, zero1=shard), vits_optimizer(disc, zero1=shard)
-    step_fn = make_gan_train_step(config, gen, disc, *opts, data_parallel=data_parallel)
+    step_fn = make_gan_train_step(config, gen, disc, *opts, data_parallel=data_parallel,
+                                  grad_accum=grad_accum)
     for _ in range(steps):
         metrics = step_fn(batch, noise=noise)
     params = list(gen.values()) + list(disc.values())
@@ -3490,35 +3515,40 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
             "step_ms": step_ms, "all_reduce": reduce_ms, "train_zero1_s": loop_s}
 
 
-def dp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
+def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
+                 frames=DP_FRAMES, grad_accum: int = 1, full: bool = True) -> dict:
     """Phase 12b: two gloo ranks on the one card (NCCL refuses two ranks on one
-    GPU) against the one-process B=4 step: equal MAS durations, losses within
-    DP_LOSS_RTOL, gradients within phase 7's noise-floor bounds (the floor of the
-    one-process step on the card); ZeRO-1 on and off; step ms and gloo's
-    all-reduce ms."""
+    GPU) against the one-process step on the same rows (B=4) at ``grad_accum``:
+    equal MAS durations, losses within DP_LOSS_RTOL, gradients within phase 7's
+    noise-floor bounds (the floor of the one-process step on the card); with
+    ``full`` also ZeRO-1 on and off, step ms and gloo's all-reduce ms (phase
+    15c: six rows at grad_accum=2, without them)."""
     import tempfile
 
     from vits_tpu_torch.train.step import draw_noise, generator_forward
 
-    batch = training_batch(config, device, DP_TOKENS, DP_FRAMES)
+    batch = training_batch(config, device, tokens, frames)
     noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(2))
     with torch.no_grad():
         durations = generator_forward(leaves_on(gen_np, device), config, batch,
                                       noise).durations.cpu()
-    want_metrics, want, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device)
+    want_metrics, want, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device,
+                                          grad_accum=grad_accum)
     want = [g.cpu() for g in want]
     rng = np.random.default_rng(3)
     floors, floor_metrics = [], []
     for _ in range(FLOOR_SAMPLES):  # every weight moved by 1e-7, relative
         moved = [{k: (v * (1 + 1e-7 * rng.standard_normal(v.shape))).astype(np.float32)
                   for k, v in arrays.items()} for arrays in (gen_np, disc_np)]
-        metrics, grads, _ = gan_step_once(config, *moved, batch, noise, device)
+        metrics, grads, _ = gan_step_once(config, *moved, batch, noise, device,
+                                          grad_accum=grad_accum)
         floors.append([g.cpu() for g in grads])
         floor_metrics.append(metrics.tolist())
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         Path(f"{tmp}/setup.json").write_text(json.dumps(
-            {"config": dataclasses.asdict(config), "device": str(device)}))
+            {"config": dataclasses.asdict(config), "device": str(device),
+             "grad_accum": grad_accum, "full": full}))
         np.savez(f"{tmp}/inputs.npz", **{f"gen.{k}": v for k, v in gen_np.items()},
                  **{f"disc.{k}": v for k, v in disc_np.items()},
                  **{f"batch.{k}": v.cpu().numpy() for k, v in batch._asdict().items()
@@ -3549,19 +3579,22 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
         with np.load(f"{tmp}/grads0.npz") as f:
             got = [torch.from_numpy(f[str(i)]) for i in range(len(want))]
     a, b = reports
-    print(f"  two gloo ranks on one card: steady GAN step {a['step_ms']:.1f} ms (B=4, two rows "
-          f"a rank), gradient all-reduce through the host: generator "
-          f"{a['all_reduce']['generator']['ms']:.2f} ms, discriminator "
-          f"{a['all_reduce']['discriminator']['ms']:.2f} ms ({card})", flush=True)
-    print(f"  ZeRO-1 on vs off, 2 AdamW steps: parameters max|diff| "
-          f"{max(r['zero1']['max_abs_diff'] for r in reports):.3e} (the replicated run, three "
-          f"times, against itself {max(r['zero1']['spread'] for r in reports):.3e}); rank "
-          f"moments {[round(r['zero1']['moment_share'], 3) for r in reports]} of the "
-          f"optimizer state; launches of rank 0's step {a['launches']}", flush=True)
+    B = len(tokens)
+    if full:
+        print(f"  two gloo ranks on one card: steady GAN step {a['step_ms']:.1f} ms (B={B}, "
+              f"{B // 2} rows a rank), gradient all-reduce through the host: generator "
+              f"{a['all_reduce']['generator']['ms']:.2f} ms, discriminator "
+              f"{a['all_reduce']['discriminator']['ms']:.2f} ms ({card})", flush=True)
+        print(f"  ZeRO-1 on vs off, 2 AdamW steps: parameters max|diff| "
+              f"{max(r['zero1']['max_abs_diff'] for r in reports):.3e} (the replicated run, "
+              f"three times, against itself {max(r['zero1']['spread'] for r in reports):.3e});"
+              f" rank moments {[round(r['zero1']['moment_share'], 3) for r in reports]} of the "
+              f"optimizer state", flush=True)
+    print(f"  launches of rank 0's step at grad_accum={grad_accum}: {a['launches']}", flush=True)
     for r, rep in enumerate(reports):
         if rep["durations"] != durations[rep["rows"]].tolist():
             raise RuntimeError(f"rank {r}: MAS durations differ from the one-process step's")
-        if rep["zero1"]["max_abs_diff"] > DP_SPREAD_FACTOR * rep["zero1"]["spread"]:
+        if full and rep["zero1"]["max_abs_diff"] > DP_SPREAD_FACTOR * rep["zero1"]["spread"]:
             raise RuntimeError(f"ZeRO-1 on and off: parameters differ by "
                                f"{rep['zero1']['max_abs_diff']:.3e}, past {DP_SPREAD_FACTOR} x "
                                f"the replicated run's own spread {rep['zero1']['spread']:.3e}")
@@ -3574,9 +3607,10 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
               f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
         if not abs(g - w) <= bound:
             raise RuntimeError(f"two ranks and one process: {name} differs past {bound:.3e}")
-    print(f"  two gloo ranks on one card vs the one-process B=4 step: equal MAS durations "
-          f"({int(durations.sum())} frames), equal metrics and gradients on both ranks, "
-          f"losses within {DP_LOSS_RTOL} relative or 10x their noise floor", flush=True)
+    print(f"  two gloo ranks on one card vs the one-process B={B} step at grad_accum="
+          f"{grad_accum}: equal MAS durations ({int(durations.sum())} frames), equal metrics "
+          f"and gradients on both ranks, losses within {DP_LOSS_RTOL} relative or 10x their "
+          f"noise floor", flush=True)
     hold_gradients(list(gen_np) + list(disc_np), got, want, floors, "two ranks vs one process")
     return {"ranks": reports, "launches": a["launches"]}
 
@@ -3632,8 +3666,10 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
                                                                 for t in batch)),
                 TrainNoise(*(t[idx] for t in noise)),
                 share=RowShare(batch.frame_mask.sum(), batch.token_mask.sum(), 0.5)).durations
+        grad_accum, full = setup.get("grad_accum", 1), setup.get("full", True)
         zero_training_launches()
-        metrics, grads, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp)
+        metrics, grads, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp,
+                                          grad_accum=grad_accum)
         launches = training_launches()
         digest = hashlib.sha256()
         for g in grads:
@@ -3642,6 +3678,12 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
             np.savez(f"{tmp}/grads0.npz", **{str(i): g.cpu().numpy() for i, g in
                                              enumerate(grads)})
         del grads
+        report = {"rows": rows.tolist(), "durations": durations.cpu().tolist(),
+                  "metrics": metrics.tolist(), "grad_digest": digest.hexdigest(),
+                  "launches": launches}
+        if not full:
+            Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(report))
+            return
 
         gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
         step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen),
@@ -3657,13 +3699,11 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
                for _ in range(3)]
         numels = [v.size for v in {**gen_np, **disc_np}.values()]
         owned = sum(n for n, owner in zip(numels, zero1_owners(numels, 2)) if owner == rank)
-        report = {"rows": rows.tolist(), "durations": durations.cpu().tolist(),
-                  "metrics": metrics.tolist(), "grad_digest": digest.hexdigest(),
-                  "launches": launches, "step_ms": step_ms, "all_reduce": reduce_ms,
-                  "zero1": {"max_abs_diff": max_diff(on, off[0]),
-                            "spread": max(max_diff(x, y) for i, x in enumerate(off)
-                                          for y in off[i + 1:]),
-                            "moment_share": owned / sum(numels)}}
+        report.update({"step_ms": step_ms, "all_reduce": reduce_ms,
+                       "zero1": {"max_abs_diff": max_diff(on, off[0]),
+                                 "spread": max(max_diff(x, y) for i, x in enumerate(off)
+                                               for y in off[i + 1:]),
+                                 "moment_share": owned / sum(numels)}})
         Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(report))
     finally:
         torch.distributed.destroy_process_group()
@@ -4539,6 +4579,237 @@ MP_KERNEL_ENTRIES = {"flash_rel_attention_mp": ("flash_rel_attention_lse",),
                      "trainable_trio_mp": ("trio_forward_with_acts", "trio_backward")}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 15: what vits_tpu runs that the port once refused -- kernels A and 4 past
+# head_dim 128 and window 15, attention with no relative window, grad_accum
+# microbatches that do not divide over the data ranks -- in a process of its own.
+# --------------------------------------------------------------------------- #
+
+REFUSALS_FLAG = "--refusals-phase"
+REFUSALS_RESULT = "refusals-phase result: "
+# 15a: kernels A and 4 at every head width and window pair of these, B=2, H=2, L=512
+WIDE_HEAD_DIMS = (160, 192, 256)
+WIDE_WINDOWS = (4, 16, 32)
+WIDE_LENGTHS = (507, 300)
+# 15b: MMS-TTS at full width in two variants no checkpoint of the repo reaches: one
+# head of 192 at window 16 (kernels A and 4 past their former ceiling), and no window
+# (no kernel A or 4 at all: JAX's plain attention)
+VARIANTS = {"head_dim 192, window 16": dict(num_attention_heads=1, window_size=16),
+            "window 0": dict(window_size=0)}
+# 15c: six rows at grad_accum=2: microbatches of three over two ranks (two and one)
+UNEVEN_TOKENS = (512, 300, 448, 256, 384, 200)
+UNEVEN_FRAMES = (1280, 800, 1100, 640, 960, 500)
+WIDE_VARIANT = "head_dim 192, window 16"  # the variant whose path launches A and 4
+
+
+def wide_kernels_vs_plain(device) -> dict:
+    """15a: kernels A and 4 against their plain twins at d in WIDE_HEAD_DIMS x w in
+    WIDE_WINDOWS, B=2, H=2, L=512, lengths WIDE_LENGTHS, in every mode they have: A
+    on fp32 values at fast, high and highest (TIER_TOL); A on bf16 storage without
+    and with lse (the serving fast tier and bf16 training), A's bf16 serving mode at
+    high and highest (its fast mode is the bf16 storage route), within two bf16 ulps
+    (BF16_KERNEL_TOL); 4 at exact on fp32 (KERNEL_TOL) and at fast on bf16 storage
+    (BF16_KERNEL_TOL), each row over its valid length."""
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_plain
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER, EXACT_TIER, Tier, resolve_tier
+
+    rng = np.random.default_rng(15)
+    B, H, L = 2, 2, 512
+    lens = torch.tensor(WIDE_LENGTHS, dtype=torch.int32, device=device)
+    results = {"flash_rel_attention_wide": [], "trainable_rel_attention_wide": []}
+
+    def valid(grads):
+        return (*(g[b, :, :n] for g in grads[:3] for b, n in enumerate(WIDE_LENGTHS)),
+                *grads[3:])
+
+    for d in WIDE_HEAD_DIMS:
+        for w in WIDE_WINDOWS:
+            f32 = [torch.tensor(rng.standard_normal(shape) * 0.5, dtype=torch.float32,
+                                device=device) for shape in ((B, H, L, d),) * 4
+                   + ((2 * w + 1, d),) * 2]
+            bf16 = [t.to(torch.bfloat16) for t in f32]
+            shape = f"d={d} w={w} B=2 H=2 L=512 len={WIDE_LENGTHS}"
+            flops = attention_flops(WIDE_LENGTHS, H, d, w)
+            bwd_flops = attention_flops(WIDE_LENGTHS, H, d, w, backward=True)
+            modes = [(name, f32, resolve_tier(None if name == "fast" else name), False,
+                      TIER_TOL[name], TIER_PEAK[name]) for name in ("fast", "high", "highest")]
+            modes += [("bf16 storage", bf16, BF16_TRAIN_TIER, False, BF16_KERNEL_TOL,
+                       PEAK_BF16_FLOPS),
+                      ("bf16 storage+lse", bf16, BF16_TRAIN_TIER, True, BF16_KERNEL_TOL,
+                       PEAK_BF16_FLOPS)]
+            modes += [(f"bf16 serving {name}", bf16,
+                       resolve_tier(name)._replace(bf16_compute=True), False, BF16_KERNEL_TOL,
+                       TIER_PEAK[name]) for name in ("high", "highest")]
+            for label, (q, k, v, _, rel_k, rel_v), tier, lse, tol, peak in modes:
+                plain_tier = tier._replace(bf16_compute=False)
+                args = (q, k, v, rel_k, rel_v)
+                out = flash_rel_attention(*args, window=w, lengths=lens, tier=tier)
+                results["flash_rel_attention_wide"].append(compare(
+                    "flash_rel_attention", f"{shape} {label}",
+                    lambda: flash_rel_attention(*args, window=w, lengths=lens, return_lse=lse,
+                                                tier=tier),
+                    lambda: rel_attention_plain(*args, window=w, lengths=lens, return_lse=lse,
+                                                tier=plain_tier),
+                    tol=tol, peak=peak, work=(flops, nbytes(*args, lens, out) + (
+                        4 * B * H * L if lse else 0))))
+            for label, (q, k, v, dout, rel_k, rel_v), tier, tol, peak in (
+                    ("exact", f32, EXACT_TIER, KERNEL_TOL, PEAK_FP32_ACCURATE_FLOPS),
+                    ("bf16 storage", bf16, BF16_TRAIN_TIER, BF16_KERNEL_TOL, PEAK_BF16_FLOPS)):
+                out, lse = flash_rel_attention(q, k, v, rel_k, rel_v, window=w, lengths=lens,
+                                               return_lse=True, tier=tier)
+                args = (q, k, v, rel_k, rel_v, lse, dout, out)
+                results["trainable_rel_attention_wide"].append(compare(
+                    "rel_attention_bwd", f"{shape} {label} valid region",
+                    lambda: valid(rel_attention_bwd(*args, window=w, lengths=lens, tier=tier)),
+                    lambda: valid(rel_attention_bwd_reference(*args, window=w, lengths=lens,
+                                                              tier=tier)),
+                    tol=tol, peak=peak,
+                    work=(bwd_flops, nbytes(*args, lens, q, k, v, rel_k, rel_v))))
+    return results
+
+
+def attention_launches() -> dict:
+    """Kernel A's (all, and with lse) and kernel 4's launch counts."""
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+
+    return {"flash_rel_attention": flash_rel_attention.launches,
+            "flash_rel_attention_lse": flash_rel_attention.lse_launches,
+            "rel_attention_bwd": rel_attention_bwd.launches}
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def variant_requests(config, label: str, device, card: str) -> dict:
+    """15b: the 87-token request through the engine at "exact" and at "fast" (its
+    frames, steady ms, device busy ms and the kernels' launches), then the same text
+    on one NoiseOverride on the card and through the CPU plain path at the same
+    tier. At "exact" phase 4's bounds: equal frame counts, LATENT_RTOL, WAVE_ATOL.
+    At "fast" the kernels round their operands where the JAX kernels do, not where
+    their twins do (kernel A rounds a running softmax weight, its twin the
+    normalised one: TIER_TOL), and the card's fp32 sums in another order put values
+    on the other side of a bf16 rounding, which the saturating random-weight
+    vocoder amplifies; so fp32's bounds do not apply there. It is held with equal
+    frame counts, the latents within the fast tier's kernel bound (TIER_TOL, of
+    max(1, max|plain|)), the waveform's mel-L1 within phase 9's fast-tier bound
+    (FAST_STREAM_MEL_L1), and a waveform other than exact's (the tier in effect)."""
+    import vits_tpu_torch
+    from vits_tpu_torch import EngineConfig
+    from vits_tpu_torch.models.vits import NoiseOverride, synthesize
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+
+    blob = checkpoint(config, False)
+    rng = np.random.default_rng(5)
+    num_frames = 1024  # room for the 87 tokens' frames at random weights
+    dur = rng.standard_normal((1, 128, 2)).astype(np.float32)
+    prior = rng.standard_normal((1, num_frames, config.flow_size)).astype(np.float32)
+    windowed = bool(config.window_size)
+
+    def run(m) -> dict:
+        """The text on the NoiseOverride through ``m`` (the engine's tiers and packs)."""
+        ids, mask = m.tokenizer.pad([m.tokenizer.encode(SINGLE_TEXTS[1])], pad_to=128)
+        dev = m.device
+        with torch.inference_mode():
+            out = synthesize(
+                m.params, config, torch.tensor(ids, dtype=torch.long, device=dev),
+                torch.tensor(mask, dtype=torch.float32, device=dev), num_frames,
+                noise=NoiseOverride(torch.tensor(dur, device=dev),
+                                    torch.tensor(prior, device=dev)),
+                use_pallas_flow=m.engine.use_pallas_flow, flow_pack=m._flow_pack(),
+                tiers=m.tiers, vocoder_packs=m._vocoder_packs())
+        return {k: getattr(out, k).float().cpu().numpy()
+                for k in ("waveform", "latents", "frame_lengths")}
+
+    results, outs = {}, {}
+    for tier in ("exact", "fast"):
+        kw = EngineConfig.fidelity_kwargs(tier)
+        model = vits_tpu_torch.load_model(blob, EngineConfig(**kw), device=device)
+        model.synthesize_raw([SINGLE_TEXTS[1]], seed=[5])  # cuDNN's algorithms, the packs
+        for fn in (fused_resblock_trio, fused_stage):
+            fn.launches = 0
+        zero_training_launches()
+        profile = request_profile(model, card, reps=2)
+        launches = {**attention_launches(), "fused_resblock_trio": fused_resblock_trio.launches,
+                    "fused_stage": fused_stage.launches}
+        if windowed != (launches["flash_rel_attention"] > 0) or not launches["fused_stage"]:
+            raise RuntimeError(f"{label} at {tier}: kernel launches {launches}")
+        print(f"  {label} at {tier}: launches {launches} ({card})", flush=True)
+        outs["card", tier] = run(model)
+        outs["cpu", tier] = run(vits_tpu_torch.load_model(blob, EngineConfig(
+            use_pallas_vocoder=True, use_pallas_attention=True, **kw), device="cpu"))
+        check_audio(outs["card", tier]["waveform"][0], f"{label} at {tier}")
+        results[tier] = {**profile, "launches": launches}
+    check_close(f"{label}, 87 tokens at exact", outs["card", "exact"], outs["cpu", "exact"])
+    card_out, cpu_out = outs["card", "fast"], outs["cpu", "fast"]
+    frames = int(cpu_out["frame_lengths"][0])
+    latent_err = float(np.abs(card_out["latents"] - cpu_out["latents"]).max())
+    latent_tol = TIER_TOL["fast"] * max(1.0, float(np.abs(cpu_out["latents"]).max()))
+    wave = [o["waveform"][0, : frames * config.total_upsample] for o in (card_out, cpu_out)]
+    mel = mel_l1(wave[0][None], wave[1][None], config.sampling_rate)
+    print(f"  card vs CPU plain path, {label} at fast: frames "
+          f"{card_out['frame_lengths'].tolist()} / {cpu_out['frame_lengths'].tolist()}, latents "
+          f"max|diff| {latent_err:.3e} (tol {latent_tol:.3e}), relative L2 "
+          f"{rel_l2(card_out['latents'], cpu_out['latents']):.3e}; waveform mel-L1 {mel:.3e} "
+          f"(bound {FAST_STREAM_MEL_L1})", flush=True)
+    if not np.array_equal(card_out["frame_lengths"], cpu_out["frame_lengths"]):
+        raise RuntimeError(f"{label} at fast: card and CPU predict different frame counts")
+    if not (latent_err <= latent_tol and mel <= FAST_STREAM_MEL_L1):
+        raise RuntimeError(f"{label} at fast: card and CPU differ past the bound")
+    if np.array_equal(card_out["waveform"], outs["card", "exact"]["waveform"]):
+        raise RuntimeError(f"{label}: the fast tier computed what exact computes")
+    results["fast"].update(latents_max_abs_vs_cpu=latent_err, mel_l1_vs_cpu=mel)
+    return results
+
+
+def refusals_phase(device) -> dict:
+    """Phase 15's work (a child of :func:`run_child`)."""
+    from vits_tpu_torch import VitsConfig
+    from vits_tpu_torch.io import random_params
+    from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops import cuda as kernels
+
+    card = card_line()
+    kernels.library()
+    t0 = time.perf_counter()
+    print(f"  [15a] kernels A and 4 past head_dim 128 and window 15 against their plain twins "
+          f"({card}):", flush=True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    measured = wide_kernels_vs_plain(device)
+    variants = {}
+    for label, fields in VARIANTS.items():
+        config = dataclasses.replace(VitsConfig(), **fields)
+        print(f"  [15b] MMS-TTS width, {label} (head_dim {config.head_dim}), random weights "
+              f"({card}):", flush=True)
+        variants[label] = variant_requests(config, label, device, card)
+        trained = gan_steps(config, device, card, attention_kernels=bool(config.window_size),
+                            profile=False)
+        train_card_vs_cpu(config, trained["gen"], trained["batch"])
+        variants[label]["training"] = {"launches": trained["launches"],
+                                       "step_ms": trained["step_ms"]}
+        del trained
+        torch.cuda.empty_cache()
+    print(f"  [15c] two gloo ranks sharing the card, six rows at grad_accum=2 (microbatches "
+          f"of three over two ranks) ({card}):", flush=True)
+    config = VitsConfig()
+    uneven = dp_two_ranks(config, random_params(config, seed=0, keep_training=True),
+                          init_discriminator_params(0), device, card, UNEVEN_TOKENS,
+                          UNEVEN_FRAMES, grad_accum=2, full=False)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 15: {seconds:.1f} s", flush=True)
+    return {"kernels": measured, "variants": variants,
+            "uneven": {"launches": uneven["launches"],
+                       "metrics": [r["metrics"] for r in uneven["ranks"]]},
+            "seconds": seconds, "card": card, "profiler_sessions": PROFILER_SESSIONS}
+
+
+
 def run_child(flag: str, prefix: str, phase: int) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
@@ -4590,8 +4861,11 @@ def main() -> None:
     if sys.argv[1:2] == [MP_RANK_FLAG]:
         mp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if sys.argv[1:] == [REFUSALS_FLAG]:
+        print(REFUSALS_RESULT + json.dumps(refusals_phase(device)), flush=True)
+        return
     card = card_line()
-    print("[1/14] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/15] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -4605,7 +4879,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/14] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/15] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -4620,7 +4894,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/14] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/15] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -4629,13 +4903,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/14] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/15] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/14] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/15] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -4648,12 +4922,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/14] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/15] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/14] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/15] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -4663,41 +4937,47 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/14] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/15] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/14] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/15] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/14] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/15] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
-    print(f"[11/14] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+    print(f"[11/15] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
     serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
 
-    print(f"[12/14] data-parallel training at MMS-TTS width, random weights, in a process of "
+    print(f"[12/15] data-parallel training at MMS-TTS width, random weights, in a process of "
           f"its own ({card}):", flush=True)
     data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
 
-    print(f"[13/14] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
+    print(f"[13/15] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
           f"replicas sharing the card, in a process of its own ({card}):", flush=True)
     multi = run_child(MULTI_FLAG, MULTI_RESULT, 13)
 
-    print(f"[14/14] model-parallel training: the GPipe encoder over stages and two "
+    print(f"[14/15] model-parallel training: the GPipe encoder over stages and two "
           f"tensor-parallel ranks sharing the card, in a process of its own ({card}):",
           flush=True)
     model_parallel = run_child(MP_FLAG, MP_RESULT, 14)
     measured.update(model_parallel["kernels"])
+
+    print(f"[15/15] what the port once refused: kernels A and 4 past head_dim 128 and window "
+          f"15, attention without a window, uneven grad_accum microbatches over two ranks, in "
+          f"a process of its own ({card}):", flush=True)
+    refusals = run_child(REFUSALS_FLAG, REFUSALS_RESULT, 15)
+    measured.update(refusals["kernels"])
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -4728,6 +5008,11 @@ def main() -> None:
     # gathered weights; their launches over 14a's pipelined steps and 14b's rank 0
     for name in MP_KERNEL_ENTRIES:
         sources[name] = sources[name[:-len("_mp")]]
+    # phase 15: A and 4 past head_dim 128 and window 15; their launches over 15b's
+    # head_dim-192, window-16 variant (its requests at both tiers and three GAN steps)
+    wide = refusals["variants"][WIDE_VARIANT]
+    for name in ("flash_rel_attention_wide", "trainable_rel_attention_wide"):
+        sources[name] = sources[name[:-len("_wide")]]
     mp_paths = {f"14a_pp_step {label}": run["launches"]
                 for label, run in model_parallel["pipelined"].items()}
     mp_paths["14b_rank0"] = model_parallel["two_ranks"]["launches"]
@@ -4741,7 +5026,11 @@ def main() -> None:
                                              serve16_run["launches"].items() if path != "warmup")
                    for name in SERVE16_KERNELS},
                 **{name: sum(counts[counters[0]] for counts in mp_paths.values())
-                   for name, counters in MP_KERNEL_ENTRIES.items()}}
+                   for name, counters in MP_KERNEL_ENTRIES.items()},
+                "flash_rel_attention_wide": sum(wide[t]["launches"]["flash_rel_attention"]
+                                                for t in ("exact", "fast"))
+                + wide["training"]["launches"]["flash_rel_attention"],
+                "trainable_rel_attention_wide": wide["training"]["launches"]["rel_attention_bwd"]}
     report = {"kernels": []}
     for name, runs in measured.items():
         timed = [r for r in runs if r["ms"] is not None]
@@ -4812,6 +5101,9 @@ def main() -> None:
                     label: {k: n for k, n in run["stage_launches"].items()
                             if k.startswith(wrapper + " |")}
                     for label, run in model_parallel["pipelined"].items()}
+        if entry["name"] == "flash_rel_attention_wide":
+            entry["lse_launches_training"] = wide["training"]["launches"][
+                "flash_rel_attention_lse"]
         if entry["name"] == "trainable_trio_mp":
             entry["backward_launches"] = sum(c["trio_backward"] for c in mp_paths.values())
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
@@ -4843,6 +5135,7 @@ def main() -> None:
     report["model_parallel"] = {k: model_parallel[k] for k in ("encoder", "pipelined",
                                                               "seconds", "card")} | {
         "two_ranks": {k: v for k, v in model_parallel["two_ranks"].items() if k != "launches"}}
+    report["refusals"] = {k: refusals[k] for k in ("variants", "uneven", "seconds", "card")}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}", flush=True)

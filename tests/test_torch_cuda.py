@@ -1223,6 +1223,138 @@ def test_attention_kernel_bf16_serving_matches_plain_on_card(cuda_device, name):
     _assert_close(got.float().cpu(), want.float().cpu(), BF16_ATOL)
 
 
+# Kernels A and 4 past head_dim 128 (two column chunks) and window 15 (2w + 1 > 32
+# offsets), up to their ceiling (ops/cuda/attention.py::MAX_HEAD_DIM, MAX_WINDOW):
+# every mode they have, against the plain twins at the same tier and tolerance as
+# at MMS's d = 96, w = 4. Rows: one whole, one 0 long, one ending mid-tile.
+WIDE_SHAPES = [(160, 16), (192, 32), (256, 4), (256, 32)]
+WIDE_LENGTHS = [200, 0, 77]
+
+
+def _wide_inputs(seed, d, w, device, dtype=torch.float32, with_dout=False):
+    rng = np.random.default_rng(seed)
+    B, H, L = len(WIDE_LENGTHS), 2, WIDE_LENGTHS[0]
+    dev = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s) * 0.5, dtype=torch.float32, device=device).to(dtype)
+    q, k, v = (dev(B, H, L, d) for _ in range(3))
+    tables = dev(2 * w + 1, d), dev(2 * w + 1, d)
+    lens = torch.tensor(WIDE_LENGTHS, dtype=torch.int32, device=device)
+    return (q, k, v, *tables), lens, (dev(B, H, L, d) if with_dout else None)
+
+
+def _assert_grads_close(got, want, atol=ATOL):
+    """dq, dk, dv over each row's valid region (zeros in a length-0 row), the tables whole."""
+    for g, ref in zip(got[:3], want[:3]):
+        for b, n in enumerate(WIDE_LENGTHS):
+            if n:
+                _assert_close(g[b, :, :n].float().cpu(), ref[b, :, :n].float().cpu(), atol)
+            else:
+                assert float(g[b].float().abs().max()) == 0.0
+    for g, ref in zip(got[3:], want[3:]):
+        _assert_close(g.float().cpu(), ref.float().cpu(), atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+@pytest.mark.parametrize("d,w", WIDE_SHAPES)
+def test_attention_kernel_wide_tiers_match_plain_on_card(cuda_device, d, w, name):
+    """Kernel A at each tier on fp32 values past d = 128 and w = 15."""
+    from vits_tpu_torch.ops.tiers import resolve_tier
+
+    args, lens, _ = _wide_inputs(41, d, w, cuda_device)
+    tier = resolve_tier(None if name == "fast" else name)
+    before = flash_rel_attention.launches
+    got = flash_rel_attention(*args, window=w, lengths=lens, tier=tier)
+    assert flash_rel_attention.launches == before + 1 and bool(torch.isfinite(got).all())
+    want = rel_attention_reference(*args, window=w, lengths=lens, tier=tier)
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,w", WIDE_SHAPES)
+def test_attention_lse_and_backward_wide_match_plain_on_card(cuda_device, d, w):
+    """Kernel A with lse and kernel 4 at the exact tier (fp32 training) past d = 128
+    and w = 15; a repeated backward bit-identical (no atomics across the chunks)."""
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+
+    args, lens, dout = _wide_inputs(42, d, w, cuda_device, with_dout=True)
+    out, lse = flash_rel_attention(*args, window=w, lengths=lens, return_lse=True)
+    want, want_lse = rel_attention_reference(*args, window=w, lengths=lens, return_lse=True)
+    _assert_close(out.cpu(), want.cpu())
+    for b in range(len(WIDE_LENGTHS)):
+        _assert_close(lse[b].cpu(), want_lse[b].cpu())
+    before = rel_attention_bwd.launches
+    got = rel_attention_bwd(*args, lse, dout, out, window=w, lengths=lens)
+    assert rel_attention_bwd.launches == before + 1
+    _assert_grads_close(got, rel_attention_bwd_reference(*args, lse, dout, out, window=w,
+                                                         lengths=lens))
+    again = rel_attention_bwd(*args, lse, dout, out, window=w, lengths=lens)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,w", WIDE_SHAPES)
+def test_attention_kernels_wide_bf16_match_plain_on_card(cuda_device, d, w):
+    """Kernels A (with and without lse) and 4 on bf16 storage at the bf16 training
+    tier past d = 128 and w = 15, within BF16_ATOL of the twins."""
+    from vits_tpu_torch.ops.cuda.attention import rel_attention_plain
+    from vits_tpu_torch.ops.cuda.attention_grad import (
+        rel_attention_bwd,
+        rel_attention_bwd_reference,
+    )
+    from vits_tpu_torch.ops.tiers import BF16_TRAIN_TIER as tier
+
+    args, lens, dout = _wide_inputs(43, d, w, cuda_device, torch.bfloat16, with_dout=True)
+    plain = flash_rel_attention(*args, window=w, lengths=lens, tier=tier)
+    out, lse = flash_rel_attention(*args, window=w, lengths=lens, return_lse=True, tier=tier)
+    want, want_lse = rel_attention_plain(*args, window=w, lengths=lens, return_lse=True,
+                                         tier=tier)
+    assert plain.dtype == out.dtype == torch.bfloat16 and torch.equal(plain, out)
+    _assert_close(out.float().cpu(), want.float().cpu(), BF16_ATOL)
+    for b in range(len(WIDE_LENGTHS)):
+        _assert_close(lse[b].cpu(), want_lse[b].cpu())
+    got = rel_attention_bwd(*args, lse, dout, out, window=w, lengths=lens, tier=tier)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _assert_grads_close(got, rel_attention_bwd_reference(*args, lse, dout, out, window=w,
+                                                         lengths=lens, tier=tier), BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TIER_BOUNDS))
+@pytest.mark.parametrize("d,w", WIDE_SHAPES)
+def test_attention_kernel_wide_bf16_serving_matches_plain_on_card(cuda_device, d, w, name):
+    """Kernel A at bf16 serving at each tier past d = 128 and w = 15."""
+    from vits_tpu_torch.ops.cuda.attention import rel_attention_plain
+    from vits_tpu_torch.ops.tiers import Tier, resolve_tier
+
+    args, lens, _ = _wide_inputs(44, d, w, cuda_device, torch.bfloat16)
+    mode = resolve_tier(None if name == "fast" else name).mode
+    got = flash_rel_attention(*args, window=w, lengths=lens, tier=Tier(mode, False, True))
+    assert got.dtype == torch.bfloat16
+    want = rel_attention_plain(*args, window=w, lengths=lens, tier=Tier(mode))
+    _assert_close(got.float().cpu(), want.float().cpu(), BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,w", [(257, 4), (96, 33)])
+def test_attention_kernels_refuse_past_the_ceiling_on_card(cuda_device, d, w):
+    """Past head_dim 256 or window 32 both kernels raise with the numbers, and
+    neither takes its plain twin."""
+    from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
+
+    args, lens, dout = _wide_inputs(45, d, w, cuda_device, with_dout=True)
+    counts = flash_rel_attention.launches, rel_attention_bwd.launches
+    with pytest.raises(ValueError, match=f"head_dim {d}, window {w}"):
+        flash_rel_attention(*args, window=w, lengths=lens)
+    lse = torch.zeros(args[0].shape[:3], dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"head_dim {d}, window {w}"):
+        rel_attention_bwd(*args, lse, dout, args[0], window=w, lengths=lens)
+    assert (flash_rel_attention.launches, rel_attention_bwd.launches) == counts
+
+
 @pytest.mark.cuda
 def test_engine_bf16_serving_on_card(cuda_device):
     """EngineConfig(compute_dtype="bfloat16") on the card: bf16 parameters, no packs,

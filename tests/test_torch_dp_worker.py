@@ -103,11 +103,12 @@ def make_batch(config, seed: int, lengths=LENGTHS):
     )
 
 
-def step_inputs(config, step: int):
-    """The global batch and noise of training step ``step`` (both keyed by it)."""
+def step_inputs(config, step: int, rows: int = len(LENGTHS)):
+    """The global batch (its first ``rows`` rows) and noise of training step
+    ``step`` (both keyed by it)."""
     from vits_tpu_torch.train.step import batch_to, draw_noise
 
-    batch = batch_to(make_batch(config, 1000 + step), "cpu")
+    batch = batch_to(make_batch(config, 1000 + step, LENGTHS[:rows]), "cpu")
     return batch, draw_noise(config, batch, torch.Generator().manual_seed(step))
 
 
@@ -319,7 +320,8 @@ def elastic_scenario(rank: int, world: int, out: str, total_steps: str, checkpoi
 def tensor_parallel_scenario(rank: int, world: int, out: str, model: str) -> None:
     """``world / model`` data ranks x ``model`` model ranks on the inputs of
     ``out/inputs.npz``: one GAN step (G at lr 0, D by -g) on the rank's slices
-    (their gradients to ``tp-arrays-<rank>.npz``), the clip's global norm of
+    (their gradients to ``tp-arrays-<rank>.npz``), at a data axis of one also at
+    bf16 (``bf16.``-prefixed gradients), the clip's global norm of
     that step's gradients, what the rank holds of the split tensors and their
     moments, three AdamW generator steps on step-keyed inputs (with a data
     axis, with and without ZeRO-1) with a checkpoint of step 2 (gathered whole,
@@ -356,6 +358,15 @@ def tensor_parallel_scenario(rank: int, world: int, out: str, model: str) -> Non
     if rank == 0:
         arrays.update({f"g.{k}": gen[k].grad.numpy() for k in replicated})
         arrays.update({f"d.{k}": p.grad.numpy() for k, p in disc.items()})
+    if dp.world == 1:  # the same step at bf16 (held against JAX's model=2 bf16 spread)
+        gen, disc = leaves(shard_params(gen_np, mp)), leaves(disc_np)
+        metrics = _gan(config, gen, disc, _sgd(gen, 0.0), _sgd(disc, 1.0), dp,
+                       model_parallel=tp, compute_dtype="bfloat16")(batch, noise=noise)
+        report["bf16_metrics"] = [float(v) for v in metrics]
+        arrays.update({f"bf16.g.{k}": gen[k].grad.numpy() for k in split})
+        if rank == 0:
+            arrays.update({f"bf16.g.{k}": gen[k].grad.numpy() for k in replicated})
+            arrays.update({f"bf16.d.{k}": p.grad.numpy() for k, p in disc.items()})
     if dp.rank == 0:
         np.savez(os.path.join(out, f"tp-arrays-{rank}.npz"), **arrays)
 
@@ -387,8 +398,105 @@ def tensor_parallel_scenario(rank: int, world: int, out: str, model: str) -> Non
         json.dump(report, f)
 
 
+# Six rows: a grad_accum=2 microbatch of three does not divide over two data ranks
+UNEVEN_LENGTHS = LENGTHS + ((7, 15), (12, 20))
+
+
+def uneven_scenario(rank: int, world: int, out: str, model: str) -> None:
+    """``world / model`` data ranks x ``model`` model ranks on the six rows of
+    ``out/inputs.npz``: one GAN step at grad_accum=2 (G at lr 0, D by -g; the
+    gradients of data index 0 to ``uneven-arrays-<rank>.npz``), then, at a data
+    axis of two, three generator steps at grad_accum=2 on two-row batches (each
+    microbatch of one row: data rank 0 holds none of it), with and without
+    ZeRO-1; every rank's metrics and digests to ``uneven-report-<rank>.json``."""
+    from vits_tpu_torch.parallel.mesh import data_axis, model_axis, shard_params
+    from vits_tpu_torch.parallel.tensor import tensor_parallel
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import TrainBatch, TrainNoise, make_train_step
+
+    model = int(model)
+    dp, mp = data_axis(model), model_axis(model)
+    config, gen_np, disc_np = fixture_params()
+    tp = tensor_parallel(gen_np, mp) if model > 1 else None
+    own = (lambda a: shard_params(a, mp)) if model > 1 else (lambda a: a)  # noqa: E731
+    with np.load(os.path.join(out, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    batch = TrainBatch(*(torch.tensor(inputs[f"batch.{k}"]) if f"batch.{k}" in inputs else None
+                         for k in TrainBatch._fields))
+    noise = TrainNoise(*(torch.tensor(inputs[f"noise.{k}"]) for k in TrainNoise._fields))
+    report: dict = {"rank": rank, "data": dp.rank, "model": mp.rank}
+
+    gen, disc = leaves(own(gen_np)), leaves(disc_np)
+    metrics = _gan(config, gen, disc, _sgd(gen, 0.0), _sgd(disc, 1.0), dp, grad_accum=2,
+                   model_parallel=tp)(batch, noise=noise)
+    report["metrics"] = [float(v) for v in metrics]
+    report["grad_digest"] = digest([p.grad for p in {**gen, **disc}.values()])
+    if dp.rank == 0:
+        arrays = {f"g.{k}": p.grad.numpy() for k, p in gen.items()}
+        arrays.update({f"d.{k}": p.grad.numpy() for k, p in disc.items()})
+        np.savez(os.path.join(out, f"uneven-arrays-{rank}.npz"), **arrays)
+
+    for zero1 in (False, True):
+        gen = leaves(own(gen_np))
+        opt = vits_optimizer(gen, zero1=dp if zero1 else None, model_parallel=tp)
+        step = make_train_step(config, gen, opt, SEGMENT, mel_kwargs=MEL_KWARGS, grad_accum=2,
+                               data_parallel=dp, model_parallel=tp)
+        losses = []
+        for s in (1, 2, 3):
+            step_batch, step_noise = step_inputs(config, s, rows=2)
+            losses.append([float(v) for v in step(step_batch, noise=step_noise)])
+        report[f"small_zero1_{zero1}_metrics"] = losses
+        report[f"small_zero1_{zero1}_param_digest"] = digest(gen.values())
+    with open(os.path.join(out, f"uneven-report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def no_window_params():
+    """(config, generator params, discriminator params): the tiny fixture with
+    ``window_size`` 0 and its relative tables dropped."""
+    import dataclasses
+
+    config, gen_np, disc_np = fixture_params()
+    return (dataclasses.replace(config, window_size=0),
+            {k: v for k, v in gen_np.items() if ".emb_rel_" not in k}, disc_np)
+
+
+def no_window_scenario(rank: int, world: int, out: str) -> None:
+    """``data=1 x model=world`` on a model without a relative window: the attention's
+    heads split by ``head_dim`` (no table to read it from), one GAN step (G at lr
+    0, D by -g) on the inputs of ``out/inputs.npz``; the rank's slices' gradients
+    (rank 0 also the replicated ones) to ``nw-arrays-<rank>.npz``."""
+    from vits_tpu_torch.parallel.mesh import data_axis, model_axis, shard_params
+    from vits_tpu_torch.parallel.tensor import tensor_parallel
+    from vits_tpu_torch.train.step import TrainBatch, TrainNoise
+
+    dp, mp = data_axis(world), model_axis(world)
+    config, gen_np, disc_np = no_window_params()
+    tp = tensor_parallel(gen_np, mp, config.head_dim)
+    with np.load(os.path.join(out, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    batch = TrainBatch(*(torch.tensor(inputs[f"batch.{k}"]) if f"batch.{k}" in inputs else None
+                         for k in TrainBatch._fields))
+    noise = TrainNoise(*(torch.tensor(inputs[f"noise.{k}"]) for k in TrainNoise._fields))
+    gen = leaves(shard_params(gen_np, mp, config.head_dim))
+    disc = leaves(disc_np)
+    metrics = _gan(config, gen, disc, _sgd(gen, 0.0), _sgd(disc, 1.0), dp,
+                   model_parallel=tp)(batch, noise=noise)
+    arrays = {f"g.{k}": p.grad.numpy() for k, p in gen.items() if k in tp.plan or rank == 0}
+    if rank == 0:
+        arrays.update({f"d.{k}": p.grad.numpy() for k, p in disc.items()})
+    np.savez(os.path.join(out, f"nw-arrays-{rank}.npz"), **arrays)
+    report = {"metrics": [float(v) for v in metrics],
+              "split_heads": sorted(k for k, s in tp.plan.items()
+                                    if ".attention." in k and not s.whole),
+              "held": {k: [list(gen[k].shape), list(gen_np[k].shape)] for k in tp.plan}}
+    with open(os.path.join(out, f"nw-report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
 SCENARIOS = {"steps": steps_scenario, "writer": writer_scenario, "elastic": elastic_scenario,
-             "tensor_parallel": tensor_parallel_scenario}
+             "tensor_parallel": tensor_parallel_scenario, "uneven": uneven_scenario,
+             "no_window": no_window_scenario}
 
 
 def main(argv) -> int:

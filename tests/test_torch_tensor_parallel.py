@@ -91,17 +91,21 @@ KEY = 5  # test_torch_train_dp.py's
 FIELDS = step.GanTrainMetrics._fields
 WORLDS = {"m2": (2, 1), "d2m2": (4, 2)}  # label: (ranks, data)
 NORM_RTOL = 1e-5
+# The port's two-rank bf16 spread, at most this multiple of JAX's (its largest over
+# the losses and the modules' gradients): test_bf16_model_axis_within_jax_spread.
+BF16_SPREAD_FACTOR = 2.0
 
 
-def _jax_model_parallel_step(config, gen_np, disc_np, batch, key, data):
-    """JAX's GAN step on a data x model=2 mesh, the generator sharded by the rules:
-    G at lr 0 and D by -g, each recording its gradient."""
-    mesh = jax_mesh.make_mesh(data=data, model=2, devices=jax.devices()[:2 * data])
+def _jax_model_parallel_step(config, gen_np, disc_np, batch, key, data, model=2,
+                             compute_dtype=None):
+    """JAX's GAN step on a data x model mesh (data=1, model=1: one device), the
+    generator sharded by the rules: G at lr 0 and D by -g, each recording its gradient."""
+    mesh = jax_mesh.make_mesh(data=data, model=model, devices=jax.devices()[:model * data])
     jstep = jax_step.make_gan_train_step(config, _recording(0.0), _recording(1.0),
                                          segment_frames=SEGMENT, mel_kwargs=MEL_KWARGS,
-                                         donate=False)
+                                         donate=False, compute_dtype=compute_dtype)
     with mesh, jax.default_matmul_precision("highest"):
-        gp = jax_mesh.shard_params(gen_np, mesh, model_parallel=True)
+        gp = jax_mesh.shard_params(gen_np, mesh, model_parallel=model > 1)
         dp = jax_mesh.shard_params(disc_np, mesh, model_parallel=False)
         sharded = jax_step.TrainBatch(*(None if x is None else jax.device_put(
             x, jax_mesh.data_sharding(mesh)) for x in batch))
@@ -133,14 +137,26 @@ def runs(tmp_path_factory):
                                                     data)
                     for label, (_, data) in WORLDS.items()}
         jax_runs["d2"] = _jax_data_parallel_step(jconfig, jparams, disc_np, batch_np, key)
+        # JAX's own spread at bf16: its model=2 step against its one-device step, and
+        # that step's bf16-versus-fp32 gap
+        jax_bf16 = {label: _jax_model_parallel_step(jconfig, jparams, disc_np, batch_np, key,
+                                                    1, model, dtype)
+                    for label, model, dtype in (("m2", 2, "bfloat16"), ("one", 1, "bfloat16"),
+                                                ("one_fp32", 1, None))}
+        one = {}
         with torch.backends.mkldnn.flags(enabled=False):  # the workers' setting
-            gen, disc = leaves(gen_np), leaves(disc_np)
-            fn = step.make_gan_train_step(
-                config, gen, disc, torch.optim.SGD(list(gen.values()), lr=0.0),
-                torch.optim.SGD(list(disc.values()), lr=1.0), segment_frames=SEGMENT,
-                mel_kwargs=MEL_KWARGS)
-            fn(step.batch_to(batch_np, "cpu"), noise=noise)
-            norm = float(vits_optimizer(gen).grad_norm())
+            for label, dtype in (("fp32", None), ("bf16", "bfloat16")):
+                gen, disc = leaves(gen_np), leaves(disc_np)
+                fn = step.make_gan_train_step(
+                    config, gen, disc, torch.optim.SGD(list(gen.values()), lr=0.0),
+                    torch.optim.SGD(list(disc.values()), lr=1.0), segment_frames=SEGMENT,
+                    mel_kwargs=MEL_KWARGS, compute_dtype=dtype)
+                metrics = fn(step.batch_to(batch_np, "cpu"), noise=noise)
+                one[label] = ({k: float(v) for k, v in metrics._asdict().items()},
+                              {k: p.grad.numpy() for k, p in gen.items()},
+                              {k: p.grad.numpy() for k, p in disc.items()})
+                if dtype is None:
+                    norm = float(vits_optimizer(gen).grad_norm())
     finally:
         wait_all(procs)
     results = {}
@@ -156,7 +172,7 @@ def runs(tmp_path_factory):
         results[label] = {"reports": reports, "arrays": ranks, "jax": jax_runs[label],
                           "out": outs[label]}
     yield {"config": config, "gen": gen_np, "disc": disc_np, "norm": norm,
-           "jax_d2": jax_runs["d2"], **results}
+           "jax_d2": jax_runs["d2"], "jax_bf16": jax_bf16, "one": one, **results}
     for out in outs.values():
         shutil.rmtree(out, ignore_errors=True)
 
@@ -341,3 +357,53 @@ def test_model_parallel_checkpoint_resumes_in_one_process(runs, label):
     with torch.backends.mkldnn.flags(enabled=False):
         loss = float(fn(batch, noise=noise).loss)
     _assert_close(loss, runs[label]["reports"][0]["losses"][2], what="step 3 loss")
+
+
+def _gaps(m2, one, one_fp32) -> dict[str, float]:
+    """Each loss's model=2-versus-one-device difference at bf16, as a multiple of
+    the one-device step's own bf16-versus-fp32 gap."""
+    return {k: abs(m2[k] - one[k]) / abs(one[k] - one_fp32[k]) for k in one}
+
+
+def _module_gaps(m2, one, one_fp32) -> dict[str, float]:
+    """The same per module of gradients (relative L2 over the module's tensors)."""
+    def by_module(grads):
+        out: dict[str, list] = {}
+        for name in sorted(grads):
+            out.setdefault(name.split(".")[0], []).append(np.ravel(grads[name]).astype(np.float64))
+        return {k: np.concatenate(v) for k, v in out.items()}
+    m2, one, one_fp32 = by_module(m2), by_module(one), by_module(one_fp32)
+    return {k: float(np.linalg.norm(m2[k] - one[k]) / np.linalg.norm(one[k] - one_fp32[k]))
+            for k in one}
+
+
+def test_bf16_model_axis_within_jax_spread(runs):
+    """The port's bf16 step on two ranks (data=1 x model=2) against its one-process
+    bf16 step, in multiples of that step's bf16-versus-fp32 gap, within
+    BF16_SPREAD_FACTOR x the largest such multiple that JAX's own model=2 bf16 step
+    shows against its one-device bf16 step (on JAX's noise, the same inputs), over
+    the losses and, per module, the gradients. bf16 rounds the partial sums of a
+    split layer before the model group adds them, so the two-rank step differs from
+    the one-process one by bf16 noise, which the duration predictor and the KL
+    amplify (JAX's spread reaches several gaps on some losses); a missing or doubled
+    collective moves a loss by far more than its bf16 gap."""
+    jax_bf16, one = runs["jax_bf16"], runs["one"]
+    jax_losses = _gaps(*(jax_bf16[k][0] for k in ("m2", "one", "one_fp32")))
+    jax_grads = _module_gaps(*({**jax_bf16[k][1], **jax_bf16[k][2]}
+                               for k in ("m2", "one", "one_fp32")))
+    bound = BF16_SPREAD_FACTOR * max(max(jax_losses.values()), max(jax_grads.values()))
+    report = runs["m2"]["reports"][0]
+    port_losses = _gaps(dict(zip(FIELDS, report["bf16_metrics"])), one["bf16"][0],
+                        one["fp32"][0])
+    arrays = [{k[len("bf16."):]: v for k, v in a.items() if k.startswith("bf16.")}
+              for a in runs["m2"]["arrays"]]
+    port_g = {**_reassembled(runs["gen"], arrays),
+              **{k[2:]: v for k, v in arrays[0].items() if k.startswith("d.")}}
+    port_grads = _module_gaps(port_g, {**one["bf16"][1], **one["bf16"][2]},
+                              {**one["fp32"][1], **one["fp32"][2]})
+    print(f"JAX model=2 bf16 spread, in bf16 gaps: losses {jax_losses}, grads {jax_grads}")
+    print(f"port two-rank bf16 spread: losses {port_losses}, grads {port_grads}")
+    for r in runs["m2"]["reports"]:  # every rank returns the same global losses
+        assert r["bf16_metrics"] == report["bf16_metrics"]
+    for name, ratio in {**port_losses, **port_grads}.items():
+        assert ratio <= bound, f"{name}: {ratio:.3g} gaps > {bound:.3g}"

@@ -88,6 +88,16 @@ __device__ __forceinline__ float fma_tier(float a, float b, float c) {
   }
 }
 
+// The dot of a row (staged fp32 or stored) with a stored table row over d, one
+// thread, each product at the tier M (the attention kernels' window logits).
+template <int M, class R, class T>
+__device__ __forceinline__ float dot_rel(const R* row, const T* rel, int d) {
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < d; ++c) s = fma_tier<M>(ldf(row + c), ldf(rel + c), s);
+  return s;
+}
+
 // Two floats as one register of two bf16 (x in the low half), rounded to nearest.
 __device__ __forceinline__ unsigned pack_bf16(float x, float y) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);

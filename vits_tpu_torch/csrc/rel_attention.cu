@@ -33,9 +33,12 @@
 //   exact: a key at or past len scores s + finfo.min, which rounds to finfo.min
 //   in fp32, and exp(finfo.min - m) is exactly 0 because m comes from a valid
 //   key. A len = 0 row walks all L keys and keeps its uniform weights.
-// - The rel_v term needs the final weights of the 2w+1 keys around each
-//   query: after the merge the block recomputes those few scores (one warp
-//   per (query, r), lanes over d) and weights them with the merged m and l.
+// - The window terms cost no pass of their own. The rel-key logits q_i .
+//   rel_k[r] (16 x (2w + 1) per block) are one dot a thread before the loop.
+//   The lane that scores a window key keeps its final logit in shared memory;
+//   after its loop each warp adds p rel_v[r] for the window keys it walked to
+//   its own accumulators, p = exp(x - m_w) in the warp's softmax units, which
+//   the merge rescales as it rescales the rest of the warp's sum.
 // - Precision tiers (the template's M, common.cuh TierMode): every product
 //   of the JAX kernel's dots (q.rel_k, q.k, p.v and the window weights'
 //   rel_v term) is an fma_tier<M>: fp32 at kExact, both operands rounded to
@@ -46,6 +49,15 @@
 //   8 values a 16-byte load, in place of cp.async), as the JAX kernel upcasts
 //   its blocks (attention.py:38-95); everything after is the fp32 kernel. The
 //   output is written as bf16, lse as fp32.
+// - Any head width up to kMaxD and window up to kMaxW, as the JAX kernel takes
+//   any d and w (its blocks are the whole d and 2w + 1). A lane owns 4 x 4 * NC
+//   accumulators, NC <= 4 column groups of 32; a wider head (d > 128) is cut
+//   into CH = 2 column chunks, one block each: every chunk block walks the
+//   same keys (its scores and softmax over the whole d, the same bits in each)
+//   and stages, accumulates and writes only its chunk's columns of V and the
+//   output. The window's logits (2w + 1 per query) are per-block shared
+//   arrays, so the window costs shared memory and not lanes; the tables are
+//   read from device memory (L1/L2) and never staged.
 #include <math.h>
 
 #include "common.cuh"
@@ -55,7 +67,8 @@ namespace {
 constexpr int kTQ = 16;         // queries per block
 constexpr int kTK = 16;         // keys per warp step
 constexpr int kMaxWarps = 8;
-constexpr int kMaxR = 32;       // 2w + 1 <= 32
+constexpr int kMaxD = 256;      // head_dim ceiling: CH * NC * 32 columns, CH <= 2, NC <= 4
+constexpr int kMaxW = 32;       // window ceiling: 2w + 1 <= 65 relative offsets
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -3.402823466e+38f;  // finfo(float32).min
 
@@ -63,25 +76,21 @@ constexpr float kNeg = -3.402823466e+38f;  // finfo(float32).min
 // warp reads as float4 at one column fall on 32 distinct banks.
 inline __host__ __device__ int qk_stride(int d) { return (d + 7) / 8 * 8 + 4; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// Fixed shared memory (floats): Q tile, rel_k logits, per-warp m and l, per-warp
+// merge scales, the window keys' logits (kTQ * nr: a multiple of 16, so the
+// stages after them stay 16-byte aligned).
+inline __host__ __device__ int fixed_floats(int d, int nr) {
+  return kTQ * qk_stride(d) + kTQ * nr + 3 * kMaxWarps * kTQ + kTQ * nr;
 }
 
-// Fixed shared memory (floats): Q tile, rel_k logits, per-warp m and l, merged
-// m and l, per-warp merge scales, window weights.
-inline __host__ __device__ int fixed_floats(int d) {
-  return kTQ * qk_stride(d) + kTQ * kMaxR + 2 * kMaxWarps * kTQ + 2 * kTQ +
-         kMaxWarps * kTQ + kTQ * kMaxR;
-}
-
-// Rows [j0, j0 + kTK) of a bf16 (L, d) head into fp32 rows of stride rs (zero
-// past L), by one warp: 8 values a 16-byte load when vec (d % 8 == 0, aligned).
-__device__ __forceinline__ void load_rows16(float* dst, const __nv_bfloat16* src, int j0, int L,
-                                            int d, int rs, int vec, int lane) {
+// Columns [c0, c0 + n) of rows [j0, j0 + kTK) of a bf16 (L, d) head into fp32
+// rows of stride rs (zero past L), by one warp: 8 values a 16-byte load when
+// vec (d % 8 == 0, aligned; c0 and n are then multiples of 8).
+__device__ __forceinline__ void load_rows(float* dst, const __nv_bfloat16* src, int j0, int L,
+                                          int d, int c0, int n, int rs, int vec, int lane) {
+  src += c0;
   if (vec) {
-    const int d8 = d >> 3;
+    const int d8 = n >> 3;
     for (int idx = lane; idx < kTK * d8; idx += 32) {
       const int r = idx / d8, c = (idx - r * d8) * 8;
       float* o = dst + r * rs + c;
@@ -100,16 +109,39 @@ __device__ __forceinline__ void load_rows16(float* dst, const __nv_bfloat16* src
       }
     }
   } else {
-    for (int idx = lane; idx < kTK * d; idx += 32) {
-      const int r = idx / d, c = idx - r * d;
+    for (int idx = lane; idx < kTK * n; idx += 32) {
+      const int r = idx / n, c = idx - r * n;
       dst[r * rs + c] = j0 + r < L ? ldf(src + (size_t)(j0 + r) * d + c) : 0.f;
     }
   }
 }
 
-// NC = ceil(d / 32): the float4 column groups a lane owns in p.v. T: the storage
-// of q, k, v, the tables and out (fp32 or bf16).
-template <int NC, int M, class T>
+// Rows [j0, j0 + kTK), columns [c0, c0 + n) of an fp32 (L, d) head into rows
+// of stride rs (zero past L), by one warp's cp.async: 16 bytes a copy when vec
+// (d % 4 == 0, aligned; c0 and n are then multiples of 4), else 4.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int j0, int L, int d,
+                                          int c0, int n, int rs, int vec, int lane) {
+  src += c0;
+  if (vec) {
+    const int d4 = n >> 2;
+    for (int idx = lane; idx < kTK * d4; idx += 32) {
+      const int r = idx / d4, c = (idx - r * d4) * 4;
+      const bool in = j0 + r < L;
+      cp_async16_zfill(dst + r * rs + c, src + (in ? (size_t)(j0 + r) * d + c : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int idx = lane; idx < kTK * n; idx += 32) {
+      const int r = idx / n, c = idx - r * n;
+      const bool in = j0 + r < L;
+      cp_async4_zfill(dst + r * rs + c, src + (in ? (size_t)(j0 + r) * d + c : 0), in ? 4 : 0);
+    }
+  }
+}
+
+// NC: the float4 column groups a lane owns in p.v (ceil(d / 32) / CH); CH: the
+// column chunks of the output, one block each. T: the storage of q, k, v, the
+// tables and out (fp32 or bf16).
+template <int NC, int CH, int M, class T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     rel_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ rel_k,
@@ -119,20 +151,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   extern __shared__ __align__(16) float smem[];
   const int nr = 2 * w + 1;
   const int dp = qk_stride(d);  // Q and K rows
-  constexpr int dv = 32 * NC;   // V rows: every column a lane reads exists
+  constexpr int dv = 32 * NC;   // V rows (the chunk's columns): every column a lane reads exists
+  const int chunk = CH == 1 ? 0 : blockIdx.x % CH;
+  const int c0 = chunk * dv;                      // the chunk's first column
+  const int ncols = d - c0 < dv ? d - c0 : dv;    // ... and its columns inside d
   const int nw = blockDim.x >> 5;
   const int stage = kTK * (dp + dv);  // K and V of one step
   float* qs = smem;                   // kTQ x dp, zero-padded
-  float* rl = qs + kTQ * dp;          // kTQ x kMaxR: q_i . rel_k[r]
-  float* ms = rl + kTQ * kMaxR;       // kMaxWarps x kTQ: each warp's running max
+  float* rl = qs + kTQ * dp;          // kTQ x nr: q_i . rel_k[r]
+  float* ms = rl + kTQ * nr;          // kMaxWarps x kTQ: each warp's running max
   float* ls = ms + kMaxWarps * kTQ;   // ... and running sum
-  float* mt = ls + kMaxWarps * kTQ;   // kTQ merged max
-  float* lt = mt + kTQ;               // kTQ merged sum
-  float* sc = lt + kTQ;               // kMaxWarps x kTQ: exp(m_w - m) / l
-  float* pw = sc + kMaxWarps * kTQ;   // kTQ x kMaxR: final weights of the window keys
-  float* kv = pw + kTQ * kMaxR;       // per warp: 2 stages of (K kTK x dp, V kTK x dv)
+  float* sc = ls + kMaxWarps * kTQ;   // kMaxWarps x kTQ: exp(m_w - m) / l
+  float* xw = sc + kMaxWarps * kTQ;   // kTQ x nr: the window keys' final logits
+  float* kv = xw + kTQ * nr;          // per warp: 2 stages of (K kTK x dp, V kTK x dv)
 
-  const int q0 = blockIdx.x * kTQ;
+  const int q0 = (CH == 1 ? blockIdx.x : blockIdx.x / CH) * kTQ;
   const int b = blockIdx.z;
   const size_t head = ((size_t)b * H + blockIdx.y) * L * d;
   const T* qh = q + head;
@@ -154,13 +187,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   // padding columns of K and V are never copied: they stay zero
   for (int idx = tid; idx < nw * 2 * stage; idx += blockDim.x) kv[idx] = 0.f;
+  // a window key no step walks (past the sequence, or at or past len) weighs 0
+  for (int idx = tid; idx < kTQ * nr; idx += blockDim.x) xw[idx] = -INFINITY;
   __syncthreads();
-  for (int task = warp; task < kTQ * nr; task += nw) {
-    const int qi = task / nr, r = task - qi * nr;
-    float s = 0.f;
-    for (int c = lane; c < d; c += 32) s = fma_tier<M>(qs[qi * dp + c], ldf(rel_k + r * d + c), s);
-    s = warp_sum(s);
-    if (lane == 0) rl[qi * kMaxR + r] = s;
+  for (int task = tid; task < kTQ * nr; task += blockDim.x) {  // one dot a thread
+    const int qi = task % kTQ, r = task / kTQ;
+    rl[qi * nr + r] = dot_rel<M>(qs + qi * dp, rel_k + (size_t)r * d, d);
   }
   __syncthreads();  // the last block barrier before the merge
 
@@ -168,27 +200,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float* ks = kvw + slot * stage;
     float* vs = ks + kTK * dp;
     const int j0 = step * kTK;
-    if constexpr (sizeof(T) == 2) {
-      load_rows16(ks, kh, j0, L, d, dp, vec, lane);
-      load_rows16(vs, vh, j0, L, d, dv, vec, lane);
-    } else if (vec) {
-      const int d4 = d >> 2;
-      for (int idx = lane; idx < kTK * d4; idx += 32) {
-        const int r = idx / d4, c = (idx - r * d4) * 4;
-        const bool in = j0 + r < L;
-        const size_t off = in ? (size_t)(j0 + r) * d + c : 0;
-        cp_async16_zfill(ks + r * dp + c, kh + off, in ? 16 : 0);
-        cp_async16_zfill(vs + r * dv + c, vh + off, in ? 16 : 0);
-      }
-    } else {
-      for (int idx = lane; idx < kTK * d; idx += 32) {
-        const int r = idx / d, c = idx - r * d;
-        const bool in = j0 + r < L;
-        const size_t off = in ? (size_t)(j0 + r) * d + c : 0;
-        cp_async4_zfill(ks + r * dp + c, kh + off, in ? 4 : 0);
-        cp_async4_zfill(vs + r * dv + c, vh + off, in ? 4 : 0);
-      }
-    }
+    load_rows(ks, kh, j0, L, d, 0, d, dp, vec, lane);       // K: every column (the scores)
+    load_rows(vs, vh, j0, L, d, c0, ncols, dv, vec, lane);  // V: the chunk's columns
     cp_async_commit();
   };
 
@@ -244,12 +257,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       for (int e = 0; e < 2; ++e) {
         const int j = j0 + kg + 8 * e;
         const int delta = j - (q0 + qi);
+        const bool win = delta >= -w && delta <= w;
         float x = s[u][e];
-        if (delta >= -w && delta <= w) x += rl[qi * kMaxR + delta + w];
+        if (win) x += rl[qi * nr + delta + w];
         if (j < L)
           x += j < len ? 0.f : kNeg;
         else
           x = -INFINITY;  // past the sequence: no weight at all
+        if (win) xw[qi * nr + delta + w] = x;  // this lane's pair: one writer
         s[u][e] = x;
         mx = fmaxf(mx, x);
       }
@@ -291,6 +306,32 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   cp_async_wait<0>();
   __syncwarp();
 
+  // the rel_v term of the window keys this warp walked, in its softmax units:
+  // p = exp(x - m_w) for key j = i + r - w of a step this warp took
+  // (steps warp, warp + nw, ...; its xw entries are its own lanes' writes)
+  for (int r = 0; r < nr; ++r) {
+    float p[4];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = q0 + qg * 4 + u + r - w, step = j / kTK;
+      const bool mine = j >= 0 && j < L && step < steps && step % nw == warp;
+      p[u] = mine ? expf(xw[(qg * 4 + u) * nr + r] - m[u]) : 0.f;
+      any |= mine;
+    }
+    if (!__any_sync(kFull, any)) continue;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * kg + 32 * n + e;
+        const float rv = c < d ? ldf(rel_v + (size_t)r * d + c) : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u][4 * n + e] = fma_tier<M>(p[u], rv, acc[u][4 * n + e]);
+      }
+    }
+  }
+
   // merge: each warp's state to shared memory (acc over its own stage buffers)
   float* accw = kvw;  // kTQ x dv
   if (kg == 0) {
@@ -312,57 +353,38 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int wi = 0; wi < nw; ++wi) mm = fmaxf(mm, ms[wi * kTQ + tid]);
     float ll = 0.f;
     for (int wi = 0; wi < nw; ++wi) ll += ls[wi * kTQ + tid] * expf(ms[wi * kTQ + tid] - mm);
-    mt[tid] = mm;
-    lt[tid] = ll;
     for (int wi = 0; wi < nw; ++wi) sc[wi * kTQ + tid] = expf(ms[wi * kTQ + tid] - mm) / ll;
-    if (lseh && q0 + tid < L) lseh[q0 + tid] = mm + logf(ll);
+    if (lseh && chunk == 0 && q0 + tid < L) lseh[q0 + tid] = mm + logf(ll);
   }
   __syncthreads();
-  // the final weights of the keys i + r - w, for the rel_v term
-  for (int task = warp; task < kTQ * nr; task += nw) {
-    const int qi = task / nr, r = task - qi * nr;
-    const int i = q0 + qi, j = i + r - w;
-    float p = 0.f;
-    if (i < L && j >= 0 && j < L) {
-      float x = 0.f;
-      for (int c = lane; c < d; c += 32)
-        x = fma_tier<M>(qs[qi * dp + c], ldf(kh + (size_t)j * d + c), x);
-      x = warp_sum(x) + rl[qi * kMaxR + r];
-      if (j >= len) x += kNeg;
-      p = expf(x - mt[qi]) / lt[qi];
-    }
-    if (lane == 0) pw[qi * kMaxR + r] = p;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kTQ * d; idx += blockDim.x) {
-    const int qi = idx / d, c = idx - qi * d;
+  for (int idx = tid; idx < kTQ * ncols; idx += blockDim.x) {
+    const int qi = idx / ncols, cl = idx - qi * ncols, c = c0 + cl;
     const int i = q0 + qi;
     if (i >= L) break;  // idx only grows, and i with it
     float o = 0.f;
     for (int wi = 0; wi < nw; ++wi)
-      o = fmaf(kv[wi * 2 * stage + qi * dv + c], sc[wi * kTQ + qi], o);
-    for (int r = 0; r < nr; ++r) o = fma_tier<M>(pw[qi * kMaxR + r], ldf(rel_v + r * d + c), o);
+      o = fmaf(kv[wi * 2 * stage + qi * dv + cl], sc[wi * kTQ + qi], o);
     stf(oh + (size_t)i * d + c, o);
   }
 }
 
-template <int NC, int M, class T>
+template <int NC, int CH, int M, class T>
 cudaError_t launch(const T* q, const T* k, const T* v, const T* rel_k, const T* rel_v,
                    const int* lengths, T* out, float* lse, int B, int H, int L, int d, int w,
                    cudaStream_t stream) {
   const int per_warp = 2 * kTK * (qk_stride(d) + 32 * NC);  // two stages of K and V
-  const int fixed = fixed_floats(d);
+  const int fixed = fixed_floats(d, 2 * w + 1);
   int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed) / per_warp;
   nw = nw < kMaxWarps ? nw : kMaxWarps;
   if (nw < 1) return cudaErrorInvalidValue;
   const int smem = (fixed + nw * per_warp) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_kernel<NC, M, T>, smem);
+  cudaError_t err = vk_set_smem(rel_attention_kernel<NC, CH, M, T>, smem);
   if (err != cudaSuccess) return err;
   const int vec = d % (16 / static_cast<int>(sizeof(T))) == 0 &&
                   reinterpret_cast<size_t>(k) % 16 == 0 && reinterpret_cast<size_t>(v) % 16 == 0;
-  const dim3 grid((L + kTQ - 1) / kTQ, H, B);
-  rel_attention_kernel<NC, M, T><<<grid, nw * 32, smem, stream>>>(q, k, v, rel_k, rel_v, lengths,
-                                                               out, lse, H, L, d, w, vec);
+  const dim3 grid((L + kTQ - 1) / kTQ * CH, H, B);
+  rel_attention_kernel<NC, CH, M, T><<<grid, nw * 32, smem, stream>>>(
+      q, k, v, rel_k, rel_v, lengths, out, lse, H, L, d, w, vec);
   return cudaGetLastError();
 }
 
@@ -374,15 +396,20 @@ cudaError_t launch_mode(const void* q_, const void* k_, const void* v_, const vo
   const T *v = static_cast<const T*>(v_), *rel_k = static_cast<const T*>(rel_k_);
   const T* rel_v = static_cast<const T*>(rel_v_);
   T* out = static_cast<T*>(out_);
-  switch ((d + 31) / 32) {
+  switch ((d + 31) / 32) {  // column groups of 32: up to 4 in one block, else two chunks
     case 1:
-      return launch<1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch<1, 1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     case 2:
-      return launch<2, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch<2, 1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     case 3:
-      return launch<3, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch<3, 1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 4:
+      return launch<4, 1, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+    case 5:
+    case 6:
+      return launch<3, 2, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
     default:
-      return launch<4, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
+      return launch<4, 2, M>(q, k, v, rel_k, rel_v, lengths, out, lse, B, H, L, d, w, s);
   }
 }
 
@@ -394,8 +421,7 @@ VK_EXPORT int vk_rel_attention(const void* q, const void* k, const void* v, cons
                                const void* rel_v, const int* lengths, void* out, float* lse,
                                int B, int H, int L, int d, int w, int mode, int bf16,
                                void* stream) {
-  const int nr = 2 * w + 1;
-  if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || w < 0 || w > kMaxW || L < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return mode == kFast ? launch_mode<kFast, __nv_bfloat16>(q, k, v, rel_k, rel_v, lengths, out,

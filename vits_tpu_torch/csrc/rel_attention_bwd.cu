@@ -36,8 +36,11 @@
 // - Each warp streams its steps through its own two-stage cp.async buffer:
 //   K and V (dq blocks) or Q, dout, lse and D (dkv blocks).
 // - The window logits q.rel_k and dout.rel_v are computed once per block
-//   before the loop: for the block's 16 queries, or for the 16 + 2w queries
-//   that fall in the window of the block's 16 keys.
+//   before the loop, one dot a thread for the block's 16 queries, or four
+//   (one query row against four table rows) for the 16 + 2w queries that fall
+//   in the window of the block's 16 keys. The dq
+//   block's rel_k term joins each warp's dq sum for the window keys the warp
+//   walked (their ds are its own lanes' writes), so it costs no pass of its own.
 // - The products are register-tiled FFMA: lane (group of 4 rows, one of 8
 //   columns) holds 4 x 2 (row, column) pairs of s and dp over float4
 //   channels (rows padded to 32 * ceil(d / 32) + 4 floats: conflict-free),
@@ -63,6 +66,16 @@
 //   bf16; the rel-table partials, lse and D stay fp32, and the caller sums the
 //   partials in fp32 and casts once to the table's dtype (attention_grad.py:
 //   253-257).
+// - Any head width up to kMaxD and window up to kMaxW, as the JAX kernel takes
+//   any d and w. A lane owns 4 x 4 * NC accumulators of dq (dk and dv), NC <= 4
+//   column groups of 32 (at NC = 4 the dk/dv block already holds 255
+//   registers); a wider head (d > 128) is cut into CH = 2 column chunks, one
+//   block each. Every chunk block stages whole rows (the scores and dp are
+//   dots over the whole d, the same bits in each chunk) and accumulates and
+//   writes only its chunk's columns of dq (dk, dv) and of the rel-table
+//   partials. The window logits and sums are per-block shared arrays of 2w + 1
+//   per row (16 + 2w rows in a dk/dv block), so the window costs shared memory
+//   and not lanes; the tables are read from device memory (L1/L2).
 #include <math.h>
 
 #include "common.cuh"
@@ -71,31 +84,30 @@ namespace {
 
 constexpr int kT = 16;                // rows per block (queries or keys) and per warp step
 constexpr int kMaxWarps = 8;
-constexpr int kMaxR = 32;             // 2w + 1 <= 32
-constexpr int kWin = kT + kMaxR - 1;  // queries within the window of a 16-key tile
+constexpr int kMaxD = 256;            // head_dim ceiling: CH * NC * 32 columns, CH <= 2, NC <= 4
+constexpr int kMaxW = 32;             // window ceiling: 2w + 1 <= 65 relative offsets
 constexpr unsigned kFull = 0xffffffffu;
 
-// Row stride of every staged (rows, d) tile: the 32 * NC channels a lane
-// reads in dq (dk, dv), plus 4, so that the 8 rows a quarter warp reads as
-// float4 at one column fall on 32 distinct banks. Columns past d stay zero.
-template <int NC>
+// Row stride of every staged (rows, d) tile: the 32 * NC * CH channels the
+// lanes of the CH chunks read in dq (dk, dv), plus 4, so that the 8 rows a
+// quarter warp reads as float4 at one column fall on 32 distinct banks.
+// Columns past d stay zero.
+template <int NC, int CH>
 __host__ __device__ constexpr int row_stride() {
-  return 32 * NC + 4;
+  return 32 * NC * CH + 4;
 }
-// Shared memory (floats): the block's fixed tiles, and each warp's region.
-template <int NC>
-__host__ __device__ constexpr int fixed_floats() {
-  return 2 * kT * row_stride<NC>() + 2 * kWin * kMaxR;
+// Shared memory (floats): the block's fixed tiles -- two (kT, d) tiles, then a
+// dq block's four kT x nr window arrays or a dk/dv block's two (kT + 2w) x nr
+// ones, rounded to 4 floats so that the warps' regions stay 16-byte aligned --
+// and each warp's region.
+template <int NC, int CH>
+__host__ __device__ int fixed_floats(int w) {
+  const int nr = 2 * w + 1, rows = 4 * kT > 2 * (kT + 2 * w) ? 4 * kT : 2 * (kT + 2 * w);
+  return (2 * kT * row_stride<NC, CH>() + rows * nr + 3) / 4 * 4;
 }
-template <int NC>
+template <int NC, int CH>
 __host__ __device__ constexpr int warp_floats() {  // two stages of two tiles and two row vectors
-  return 2 * (2 * kT * row_stride<NC>() + 2 * kT);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  return 2 * (2 * kT * row_stride<NC, CH>() + 2 * kT);
 }
 
 template <int M>
@@ -173,11 +185,37 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int 
   }
 }
 
+// Zeros into columns [c0, c0 + n) of rows [r0, r0 + kT) of an (L, d) head.
 template <class T>
-__device__ __forceinline__ void zero_rows(T* dst, int r0, int L, int d) {
-  for (int idx = threadIdx.x; idx < kT * d; idx += blockDim.x) {
-    if (r0 + idx / d >= L) break;  // idx only grows, and the row with it
-    stf(dst + (size_t)r0 * d + idx, 0.f);
+__device__ __forceinline__ void zero_rows(T* dst, int r0, int L, int d, int c0, int n) {
+  for (int idx = threadIdx.x; idx < kT * n; idx += blockDim.x) {
+    const int r = idx / n;
+    if (r0 + r >= L) break;  // idx only grows, and the row with it
+    stf(dst + (size_t)(r0 + r) * d + c0 + idx - r * n, 0.f);
+  }
+}
+
+// q . rel_k[r] and o . rel_v[r] for the four table rows r0..r0+3 (rows past nr
+// read row nr - 1 and are not kept), over d, each product at the tier M.
+template <int M, class T>
+__device__ __forceinline__ void window_dots(const T* q, const T* o, const T* rel_k,
+                                            const T* rel_v, int r0, int nr, int d, float* x,
+                                            float* y) {
+  const T *k[4], *v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = r0 + e < nr ? r0 + e : nr - 1;
+    k[e] = rel_k + (size_t)r * d;
+    v[e] = rel_v + (size_t)r * d;
+  }
+#pragma unroll 2
+  for (int c = 0; c < d; ++c) {
+    const float qc = ldf(q + c), oc = ldf(o + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = fma_tier<M>(qc, ldf(k[e] + c), x[e]);
+      y[e] = fma_tier<M>(oc, ldf(v[e] + c), y[e]);
+    }
   }
 }
 
@@ -193,20 +231,23 @@ struct Args {
   int H, L, d, w, vec;
 };
 
-// dq and the rel-table partials of queries [q0, q0 + kT).
-template <int NC, int M, class T>
-__device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, size_t bh, int nk) {
-  constexpr int RS = row_stride<NC>();
+// dq and the rel-table partials of queries [q0, q0 + kT), columns of ``chunk``.
+template <int NC, int CH, int M, class T>
+__device__ void dq_block(const Args<T>& a, float* smem, int tile, int chunk, int tiles,
+                         size_t bh, int nk) {
+  constexpr int RS = row_stride<NC, CH>();
   constexpr int DV = 32 * NC;
   const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
+  const int c0 = chunk * DV, ncols = d - c0 < DV ? d - c0 : DV;  // the chunk's columns
   const int q0 = tile * kT;
   const size_t head = bh * L * d;
   const size_t part = (bh * tiles + tile) * nr * d;
   if (nk == 0) {  // every p of the row is 0
-    zero_rows(a.dq + head, q0, L, d);
-    for (int idx = threadIdx.x; idx < nr * d; idx += blockDim.x) {
-      a.drk_part[part + idx] = 0.f;
-      a.drv_part[part + idx] = 0.f;
+    zero_rows(a.dq + head, q0, L, d, c0, ncols);
+    for (int idx = threadIdx.x; idx < nr * ncols; idx += blockDim.x) {
+      const int r = idx / ncols, c = c0 + idx - r * ncols;
+      a.drk_part[part + r * d + c] = 0.f;
+      a.drv_part[part + r * d + c] = 0.f;
     }
     return;
   }
@@ -215,32 +256,23 @@ __device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, siz
   const int qg = lane >> 3, kg = lane & 7;  // queries qg*4 + u; keys kg, kg + 8 / columns 4*kg
   float* qs = smem;               // kT x RS
   float* dos = qs + kT * RS;      // kT x RS
-  float* rl = dos + kT * RS;      // kT x kMaxR: q_i . rel_k[r]
-  float* dr = rl + kT * kMaxR;    // kT x kMaxR: dout_i . rel_v[r]
-  float* dsr = dr + kT * kMaxR;   // kT x kMaxR: ds_{i, i+r-w}
-  float* pr = dsr + kT * kMaxR;   // kT x kMaxR: p_{i, i+r-w}
-  float* region = smem + fixed_floats<NC>();
-  float* kvw = region + warp * warp_floats<NC>();
+  float* rl = dos + kT * RS;      // kT x nr: q_i . rel_k[r]
+  float* dr = rl + kT * nr;       // kT x nr: dout_i . rel_v[r]
+  float* dsr = dr + kT * nr;      // kT x nr: ds_{i, i+r-w}
+  float* pr = dsr + kT * nr;      // kT x nr: p_{i, i+r-w}
+  float* region = smem + fixed_floats<NC, CH>(w);
+  float* kvw = region + warp * warp_floats<NC, CH>();
   constexpr int stage = 2 * kT * RS;  // K and V of one step
 
   load_tile(qs, a.q + head, q0, L, d, RS);
   load_tile(dos, a.dout + head, q0, L, d, RS);
-  for (int idx = tid; idx < 2 * kT * kMaxR; idx += blockDim.x) dsr[idx] = 0.f;  // dsr and pr
-  for (int idx = tid; idx < nw * warp_floats<NC>(); idx += blockDim.x) region[idx] = 0.f;
+  for (int idx = tid; idx < 2 * kT * nr; idx += blockDim.x) dsr[idx] = 0.f;  // dsr and pr
+  for (int idx = tid; idx < nw * warp_floats<NC, CH>(); idx += blockDim.x) region[idx] = 0.f;
   __syncthreads();
-  for (int task = warp; task < kT * nr; task += nw) {
-    const int qi = task / nr, r = task - qi * nr;
-    float x = 0.f, y = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      x = fma_tier<M>(qs[qi * RS + c], ldf(a.rel_k + r * d + c), x);
-      y = fma_tier<M>(dos[qi * RS + c], ldf(a.rel_v + r * d + c), y);
-    }
-    x = warp_sum(x);
-    y = warp_sum(y);
-    if (lane == 0) {
-      rl[qi * kMaxR + r] = x;
-      dr[qi * kMaxR + r] = y;
-    }
+  for (int task = tid; task < kT * nr; task += blockDim.x) {  // two dots a thread
+    const int qi = task % kT, r = task / kT;
+    rl[qi * nr + r] = dot_rel<M>(qs + qi * RS, a.rel_k + (size_t)r * d, d);
+    dr[qi * nr + r] = dot_rel<M>(dos + qi * RS, a.rel_v + (size_t)r * d, d);
   }
   __syncthreads();  // the last block barrier before the merge
 
@@ -307,19 +339,19 @@ __device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, siz
         const bool win = delta >= -w && delta <= w;
         float x = s[u][e], y = t[u][e];
         if (win) {
-          x += rl[qi * kMaxR + delta + w];
-          y += dr[qi * kMaxR + delta + w];
+          x += rl[qi * nr + delta + w];
+          y += dr[qi * nr + delta + w];
         }
         const float p = j < nk && i < L ? expf(x - lse_u[u]) : 0.f;
         const float ds = p * (y - d_u[u]);
         if (win) {
-          dsr[qi * kMaxR + delta + w] = ds;
-          pr[qi * kMaxR + delta + w] = p;
+          dsr[qi * nr + delta + w] = ds;
+          pr[qi * nr + delta + w] = p;
         }
         s[u][e] = ds;
       }
     }
-    // dq += ds k: lane (qg, kg) holds queries qg*4 + u at columns 4*kg + 32*n + (0..3)
+    // dq += ds k: lane (qg, kg) holds queries qg*4 + u at columns c0 + 4*kg + 32*n + (0..3)
 #pragma unroll
     for (int jj = 0; jj < kT; ++jj) {
       float g[4];
@@ -327,7 +359,7 @@ __device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, siz
       for (int u = 0; u < 4; ++u) g[u] = __shfl_sync(kFull, s[u][jj >> 3], (lane & 24) | (jj & 7));
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
-        const float4 kk = *reinterpret_cast<const float4*>(ks + jj * RS + 4 * kg + 32 * n);
+        const float4 kk = *reinterpret_cast<const float4*>(ks + jj * RS + c0 + 4 * kg + 32 * n);
 #pragma unroll
         for (int u = 0; u < 4; ++u) fma4<M>(&acc[u][4 * n], g[u], kk);
       }
@@ -338,7 +370,32 @@ __device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, siz
   cp_async_wait<0>();
   __syncwarp();
 
-  // merge the warps' dq in warp order, add the rel_k term, write
+  // the rel_k term of the window keys this warp walked: ds_{i, i+r-w} rel_k[r] for
+  // key j = i + r - w of a step this warp took (its dsr entries are its own lanes')
+  for (int r = 0; r < nr; ++r) {
+    float g[4];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = q0 + qg * 4 + u + r - w, step = j / kT;
+      const bool mine = j >= 0 && j < L && step < steps && step % nw == warp;
+      g[u] = mine ? dsr[(qg * 4 + u) * nr + r] : 0.f;
+      any |= mine;
+    }
+    if (!__any_sync(kFull, any)) continue;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 4 * kg + 32 * n + e;
+        const float rk = c < d ? ldf(a.rel_k + (size_t)r * d + c) : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u][4 * n + e] = fma_tier<M>(g[u], rk, acc[u][4 * n + e]);
+      }
+    }
+  }
+
+  // merge the warps' dq in warp order, write
 #pragma unroll
   for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -346,39 +403,39 @@ __device__ void dq_block(const Args<T>& a, float* smem, int tile, int tiles, siz
       *reinterpret_cast<float4*>(kvw + (qg * 4 + u) * DV + 4 * kg + 32 * n) =
           make_float4(acc[u][4 * n], acc[u][4 * n + 1], acc[u][4 * n + 2], acc[u][4 * n + 3]);
   __syncthreads();
-  for (int idx = tid; idx < kT * d; idx += blockDim.x) {
-    const int qi = idx / d, c = idx - qi * d;
+  for (int idx = tid; idx < kT * ncols; idx += blockDim.x) {
+    const int qi = idx / ncols, cl = idx - qi * ncols, c = c0 + cl;
     const int i = q0 + qi;
     if (i >= L) break;  // idx only grows, and i with it
     float o = 0.f;
-    for (int wi = 0; wi < nw; ++wi) o += region[wi * warp_floats<NC>() + qi * DV + c];
-    for (int r = 0; r < nr; ++r) o = fma_tier<M>(dsr[qi * kMaxR + r], ldf(a.rel_k + r * d + c), o);
+    for (int wi = 0; wi < nw; ++wi) o += region[wi * warp_floats<NC, CH>() + qi * DV + cl];
     stf(a.dq + head + (size_t)i * d + c, o);
   }
   // this tile's share of drel_k = sum_i dsr_i q_i and drel_v = sum_i pr_i dout_i
-  for (int idx = tid; idx < nr * d; idx += blockDim.x) {
-    const int r = idx / d, c = idx - r * d;
+  for (int idx = tid; idx < nr * ncols; idx += blockDim.x) {
+    const int r = idx / ncols, c = c0 + idx - r * ncols;
     float x = 0.f, y = 0.f;
     for (int qi = 0; qi < kT; ++qi) {
-      x = fma_tier<M>(dsr[qi * kMaxR + r], qs[qi * RS + c], x);
-      y = fma_tier<M>(pr[qi * kMaxR + r], dos[qi * RS + c], y);
+      x = fma_tier<M>(dsr[qi * nr + r], qs[qi * RS + c], x);
+      y = fma_tier<M>(pr[qi * nr + r], dos[qi * RS + c], y);
     }
-    a.drk_part[part + idx] = x;
-    a.drv_part[part + idx] = y;
+    a.drk_part[part + r * d + c] = x;
+    a.drv_part[part + r * d + c] = y;
   }
 }
 
-// dk and dv of keys [k0, k0 + kT).
-template <int NC, int M, class T>
-__device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, int nk) {
-  constexpr int RS = row_stride<NC>();
+// dk and dv of keys [k0, k0 + kT), columns of ``chunk``.
+template <int NC, int CH, int M, class T>
+__device__ void dkv_block(const Args<T>& a, float* smem, int tile, int chunk, size_t bh, int nk) {
+  constexpr int RS = row_stride<NC, CH>();
   constexpr int DV = 32 * NC;
   const int L = a.L, d = a.d, w = a.w, nr = 2 * w + 1;
+  const int c0 = chunk * DV, ncols = d - c0 < DV ? d - c0 : DV;  // the chunk's columns
   const int k0 = tile * kT;
   const size_t head = bh * L * d;
   if (k0 >= nk) {  // every key of the tile lies at or past len: p = 0 throughout
-    zero_rows(a.dk + head, k0, L, d);
-    zero_rows(a.dv + head, k0, L, d);
+    zero_rows(a.dk + head, k0, L, d, c0, ncols);
+    zero_rows(a.dv + head, k0, L, d, c0, ncols);
     return;
   }
   const int nw = blockDim.x >> 5;
@@ -386,33 +443,30 @@ __device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, in
   const int kq = lane >> 3, qc = lane & 7;  // keys kq*4 + u; queries qc, qc + 8 / columns 4*qc
   float* ks = smem;                // kT x RS
   float* vs = ks + kT * RS;        // kT x RS
-  float* qrl = vs + kT * RS;       // kWin x kMaxR: q_i . rel_k[r] for i = k0 - w + row
-  float* drl = qrl + kWin * kMaxR; // kWin x kMaxR: dout_i . rel_v[r]
-  float* region = smem + fixed_floats<NC>();
-  float* qw = region + warp * warp_floats<NC>();
+  const int nwin = kT + 2 * w;     // queries within the window of the tile's keys
+  float* qrl = vs + kT * RS;       // nwin x nr: q_i . rel_k[r] for i = k0 - w + row
+  float* drl = qrl + nwin * nr;    // nwin x nr: dout_i . rel_v[r]
+  float* region = smem + fixed_floats<NC, CH>(w);
+  float* qw = region + warp * warp_floats<NC, CH>();
   constexpr int stage = 2 * kT * RS + 2 * kT;  // Q, dout, lse and D of one step
 
   load_tile(ks, a.k + head, k0, L, d, RS);
   load_tile(vs, a.v + head, k0, L, d, RS);
-  for (int idx = tid; idx < nw * warp_floats<NC>(); idx += blockDim.x) region[idx] = 0.f;
+  for (int idx = tid; idx < nw * warp_floats<NC, CH>(); idx += blockDim.x) region[idx] = 0.f;
   const T* qh = a.q + head;
   const T* oh = a.dout + head;
-  const int nwin = kT + 2 * w;
-  for (int task = warp; task < nwin * nr; task += nw) {
-    const int row = task / nr, r = task - row * nr;
-    const int i = k0 - w + row;
-    float x = 0.f, y = 0.f;
-    if (i >= 0 && i < L) {
-      for (int c = lane; c < d; c += 32) {
-        x = fma_tier<M>(ldf(qh + (size_t)i * d + c), ldf(a.rel_k + r * d + c), x);
-        y = fma_tier<M>(ldf(oh + (size_t)i * d + c), ldf(a.rel_v + r * d + c), y);
+  const int nq = (nr + 3) / 4;  // the table's rows in fours: one query row read per four
+  for (int task = tid; task < nwin * nq; task += blockDim.x) {
+    const int row = task / nq, r0 = (task - row * nq) * 4, i = k0 - w + row;
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+    if (i >= 0 && i < L)
+      window_dots<M>(qh + (size_t)i * d, oh + (size_t)i * d, a.rel_k, a.rel_v, r0, nr, d, x, y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (r0 + e < nr) {
+        qrl[row * nr + r0 + e] = x[e];
+        drl[row * nr + r0 + e] = y[e];
       }
-    }
-    x = warp_sum(x);
-    y = warp_sum(y);
-    if (lane == 0) {
-      qrl[row * kMaxR + r] = x;
-      drl[row * kMaxR + r] = y;
     }
   }
   __syncthreads();  // the last block barrier before the merge
@@ -483,15 +537,15 @@ __device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, in
         float x = s[u][e], y = t[u][e];
         if (delta >= -w && delta <= w) {
           const int row = i - k0 + w;
-          x += qrl[row * kMaxR + delta + w];
-          y += drl[row * kMaxR + delta + w];
+          x += qrl[row * nr + delta + w];
+          y += drl[row * nr + delta + w];
         }
         const float p = j < nk && i < L ? expf(x - lses[il]) : 0.f;
         s[u][e] = p * (y - ds_row[il]);
         t[u][e] = p;
       }
     }
-    // dk += ds q, dv += p dout: lane (kq, qc) holds keys kq*4 + u at columns 4*qc + 32*n
+    // dk += ds q, dv += p dout: lane (kq, qc) holds keys kq*4 + u at columns c0 + 4*qc + 32*n
 #pragma unroll
     for (int ii = 0; ii < kT; ++ii) {
       float g[4], h[4];
@@ -502,8 +556,8 @@ __device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, in
       }
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
-        const float4 qq = *reinterpret_cast<const float4*>(qs + ii * RS + 4 * qc + 32 * n);
-        const float4 oo = *reinterpret_cast<const float4*>(dos + ii * RS + 4 * qc + 32 * n);
+        const float4 qq = *reinterpret_cast<const float4*>(qs + ii * RS + c0 + 4 * qc + 32 * n);
+        const float4 oo = *reinterpret_cast<const float4*>(dos + ii * RS + c0 + 4 * qc + 32 * n);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           fma4<M>(&dka[u][4 * n], g[u], qq);
@@ -529,13 +583,13 @@ __device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, in
           make_float4(dva[u][4 * n], dva[u][4 * n + 1], dva[u][4 * n + 2], dva[u][4 * n + 3]);
     }
   __syncthreads();
-  for (int idx = tid; idx < kT * d; idx += blockDim.x) {
-    const int kl = idx / d, c = idx - kl * d;
+  for (int idx = tid; idx < kT * ncols; idx += blockDim.x) {
+    const int kl = idx / ncols, cl = idx - kl * ncols, c = c0 + cl;
     const int j = k0 + kl;
     if (j >= L) break;  // idx only grows, and j with it
     float x = 0.f, y = 0.f;
     for (int wi = 0; wi < nw; ++wi) {
-      const float* src = region + wi * warp_floats<NC>() + kl * DV + c;
+      const float* src = region + wi * warp_floats<NC, CH>() + kl * DV + cl;
       x += src[0];
       y += src[kT * DV];
     }
@@ -544,45 +598,54 @@ __device__ void dkv_block(const Args<T>& a, float* smem, int tile, size_t bh, in
   }
 }
 
-// Block x < tiles: the dkv block of key tile x; else the dq block of query tile x - tiles.
-template <int NC, int M, class T>
+// Block x < tiles * CH: the dkv block of key tile x / CH, chunk x % CH; else the
+// dq block of query tile (x - tiles * CH) / CH, chunk (x - tiles * CH) % CH.
+template <int NC, int CH, int M, class T>
 __global__ void __launch_bounds__(kMaxWarps * 32) rel_attention_bwd_kernel(const Args<T> a) {
   extern __shared__ __align__(16) float smem[];
-  const int tiles = gridDim.x / 2;
+  const int tiles = gridDim.x / (2 * CH);
   const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
   const int len = a.lengths[blockIdx.z];
   const int nk = len < 0 ? 0 : (len < a.L ? len : a.L);  // keys that can weigh anything
-  if ((int)blockIdx.x < tiles)
-    dkv_block<NC, M, T>(a, smem, blockIdx.x, bh, nk);
+  const int x = blockIdx.x;
+  if (x < tiles * CH)
+    dkv_block<NC, CH, M, T>(a, smem, x / CH, x % CH, bh, nk);
   else
-    dq_block<NC, M, T>(a, smem, blockIdx.x - tiles, tiles, bh, nk);
+    dq_block<NC, CH, M, T>(a, smem, (x - tiles * CH) / CH, (x - tiles * CH) % CH, tiles, bh,
+                           nk);
 }
 
-template <int NC, int M, class T>
+template <int NC, int CH, int M, class T>
 cudaError_t launch(const Args<T>& a, int B, cudaStream_t stream) {
-  int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed_floats<NC>()) /
-           warp_floats<NC>();
+  const int fixed = fixed_floats<NC, CH>(a.w);
+  int nw = (kMaxSmemBytes / static_cast<int>(sizeof(float)) - fixed) / warp_floats<NC, CH>();
   nw = nw < kMaxWarps ? nw : kMaxWarps;
   if (nw < 1) return cudaErrorInvalidValue;
-  const int smem = (fixed_floats<NC>() + nw * warp_floats<NC>()) * static_cast<int>(sizeof(float));
-  cudaError_t err = vk_set_smem(rel_attention_bwd_kernel<NC, M, T>, smem);
+  const int smem = (fixed + nw * warp_floats<NC, CH>()) * static_cast<int>(sizeof(float));
+  cudaError_t err = vk_set_smem(rel_attention_bwd_kernel<NC, CH, M, T>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.L + kT - 1) / kT;
-  rel_attention_bwd_kernel<NC, M, T><<<dim3(2 * tiles, a.H, B), nw * 32, smem, stream>>>(a);
+  rel_attention_bwd_kernel<NC, CH, M, T><<<dim3(2 * tiles * CH, a.H, B), nw * 32, smem,
+                                           stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int M, class T>
 cudaError_t launch_nc(const Args<T>& a, int B, cudaStream_t s) {
-  switch ((a.d + 31) / 32) {
+  switch ((a.d + 31) / 32) {  // column groups of 32: up to 4 in one block, else two chunks
     case 1:
-      return launch<1, M, T>(a, B, s);
+      return launch<1, 1, M, T>(a, B, s);
     case 2:
-      return launch<2, M, T>(a, B, s);
+      return launch<2, 1, M, T>(a, B, s);
     case 3:
-      return launch<3, M, T>(a, B, s);
+      return launch<3, 1, M, T>(a, B, s);
+    case 4:
+      return launch<4, 1, M, T>(a, B, s);
+    case 5:
+    case 6:
+      return launch<3, 2, M, T>(a, B, s);
     default:
-      return launch<4, M, T>(a, B, s);
+      return launch<4, 2, M, T>(a, B, s);
   }
 }
 
@@ -620,8 +683,7 @@ VK_EXPORT int vk_rel_attention_bwd(const void* q, const void* k, const void* v,
                                    void* dq, void* dk, void* dv, float* drk_part,
                                    float* drv_part, int B, int H, int L, int d, int w, int mode,
                                    int bf16, void* stream) {
-  const int nr = 2 * w + 1;
-  if (d < 1 || d > 128 || w < 0 || nr > kMaxR || L < 1 || B < 1 || H < 1)
+  if (d < 1 || d > kMaxD || w < 0 || w > kMaxW || L < 1 || B < 1 || H < 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_typed<__nv_bfloat16>(q, k, v, rel_k, rel_v, lengths, lse, drow, dout, dq,

@@ -18,6 +18,12 @@ and masks) runs kernel A on bf16 q, k, v at ``tier`` (``Tier.bf16_compute``,
 ``ops/tiers.py::Tiers.bf16_compute``); with kernel A off (the JAX engine's CPU
 default) the module's bf16 graph, which only a CPU tensor takes.
 
+No relative window (``config.window_size`` 0, no ``emb_rel_k``/``emb_rel_v``):
+the JAX module's plain path -- scores, the additive key-padding bias, softmax
+and the value product (``rel_attention_reference`` without tables) -- for
+serving and training alike, on any device: the JAX package runs it outside any
+kernel, so kernels A and 4 have nothing to replace there.
+
 Tensor parallel (``tp``, a ``parallel/tensor.py::TensorParallel``; training):
 where a layer's q/k/v hold the rank's heads, the attention runs on those heads
 (kernels A and 4 included) and ``out_proj`` on their rows, one sum over the
@@ -52,16 +58,14 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
                config: VitsConfig, trainable: bool = False,
                tier: Tier = EXACT_TIER, tp=None) -> torch.Tensor:
     """Multi-head self-attention with relative position bias; x: (B, T, H).
-    Kernels A (and 4) run at ``tier``; the plain training path ignores it.
-    Under ``tp`` with the rank's heads in q/k/v: those heads, then a sum."""
-    if not config.window_size:
-        raise NotImplementedError("attention without a relative window is not ported")
+    Kernels A (and 4) run at ``tier``; the plain paths ignore it. Under ``tp``
+    with the rank's heads in q/k/v: those heads, then a sum."""
     bsz, tgt_len, embed_dim = x.shape
-    head_dim = config.head_dim
-    rel_k, rel_v = p["emb_rel_k"], p["emb_rel_v"]
+    head_dim, window = config.head_dim, config.window_size
+    tables = (p["emb_rel_k"], p["emb_rel_v"]) if window else ()
     split = tp is not None and p["q_proj.weight"].shape[1] != embed_dim
     if split:  # the tables are shared by every head: their gradients sum over the group
-        x, rel_k, rel_v = tp.copy_in(x, rel_k, rel_v)
+        x, *tables = tp.copy_in(x, *tables)
     num_heads = p["q_proj.weight"].shape[1] // head_dim
 
     def shape4(t):  # (B, T, H) -> (B, heads, T, head_dim)
@@ -71,7 +75,9 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
     key = x @ p["k_proj.weight"] + p["k_proj.bias"]
     value = x @ p["v_proj.weight"] + p["v_proj.bias"]
     kw = {}
-    if not trainable and x.dtype == torch.bfloat16 and not tier.bf16_compute:
+    if not window:
+        attend = rel_attention_reference  # no table: JAX's plain path, no kernel
+    elif not trainable and x.dtype == torch.bfloat16 and not tier.bf16_compute:
         if x.device.type != "cpu":
             raise ValueError("bf16 serving runs kernel A: its tier needs bf16_compute")
         attend = rel_attention_reference  # kernel A off: the module's bf16 graph
@@ -81,10 +87,9 @@ def _attention(p: ParamView, x: torch.Tensor, lengths: torch.Tensor,
         attend, kw = trainable_rel_attention, {"tier": tier}
     else:
         attend = rel_attention_reference
-    attn = attend(
-        shape4(query), shape4(key), shape4(value), rel_k[0], rel_v[0],
-        window=config.window_size, lengths=lengths, **kw,
-    )
+    rel_k, rel_v = (t[0] for t in tables) if window else (None, None)
+    attn = attend(shape4(query), shape4(key), shape4(value), rel_k, rel_v, window=window,
+                  lengths=lengths, **kw)
     attn = attn.transpose(1, 2).reshape(bsz, tgt_len, num_heads * head_dim)
     if split:  # out_proj's rows of the rank's heads; its bias once, after the sum
         return tp.reduce(attn @ p["out_proj.weight"]) + p["out_proj.bias"]

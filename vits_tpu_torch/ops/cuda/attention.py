@@ -45,6 +45,21 @@ from vits_tpu_torch.ops.cuda import (
 )
 
 
+# The kernels' ceiling (rel_attention.cu and rel_attention_bwd.cu, kMaxD and kMaxW):
+# head widths up to 256 in two column chunks of up to 128, windows up to 32 (65
+# relative offsets in shared memory). A shape past it raises; it never takes the
+# plain twin on the card.
+MAX_HEAD_DIM = 256
+MAX_WINDOW = 32
+
+
+def check_ceiling(what: str, head_dim: int, window: int) -> None:
+    """Raise where kernels A and 4 do not take ``head_dim`` or ``window``."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM or not 0 <= window <= MAX_WINDOW:
+        raise ValueError(f"{what} kernel takes 1 <= head_dim <= {MAX_HEAD_DIM} and "
+                         f"0 <= window <= {MAX_WINDOW}, got head_dim {head_dim}, window {window}")
+
+
 def _rel_product(a: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bqd,rd->bqr", a, rel)
 
@@ -65,23 +80,26 @@ def _product(op, a: torch.Tensor, b: torch.Tensor, tier: Tier) -> torch.Tensor:
     return tier_product(op, a, b, tier)
 
 
-def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor,
+def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, rel_k: torch.Tensor | None,
                          window: int, tier: Tier = EXACT_TIER) -> torch.Tensor:
-    """(B*H, L, L) scores q.k plus the windowed rel-key logits, before any mask."""
+    """(B*H, L, L) scores q.k plus the windowed rel-key logits (none without a
+    table), before any mask."""
     B, H, L, d = q.shape
     qf, kf = q.reshape(B * H, L, d), k.reshape(B * H, L, d)
+    scores = _product(_scores_product, qf, kf, tier)
+    if rel_k is None:
+        return scores
     key_rel = get_relative_embeddings(rel_k[None], L, window)
     rel_logits = _product(_rel_product, qf, key_rel[0], tier)
-    return (_product(_scores_product, qf, kf, tier)
-            + relative_position_to_absolute_position(rel_logits))
+    return scores + relative_position_to_absolute_position(rel_logits)
 
 
 def rel_attention_reference(
     q: torch.Tensor,  # (B, H, L, d), pre-scaled by 1/sqrt(d)
     k: torch.Tensor,
     v: torch.Tensor,
-    rel_k: torch.Tensor,  # (2w+1, d)
-    rel_v: torch.Tensor,
+    rel_k: torch.Tensor | None,  # (2w+1, d)
+    rel_v: torch.Tensor | None,
     *,
     window: int,
     lengths: torch.Tensor | None = None,  # (B,) valid keys per row
@@ -90,7 +108,10 @@ def rel_attention_reference(
 ):
     """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel
     values, every product at ``tier``, in the inputs' dtype (on bf16 tensors the
-    JAX module's bf16 graph: the encoder's plain path in bf16 training).
+    JAX module's bf16 graph: the encoder's plain path in bf16 training). With
+    no tables (``rel_k = rel_v = None``, a model with ``window_size`` 0) the
+    same without the relative terms: the JAX module's path at window 0
+    (``vits_tpu/models/encoder.py:82-110``), which no kernel replaces.
 
     With ``return_lse`` returns ``(out, lse)``, lse (B, H, L) the logsumexp of
     each query row's masked scores.
@@ -105,9 +126,11 @@ def rel_attention_reference(
     lse = torch.logsumexp(weights, dim=-1) if return_lse else None
     weights = softmax(weights)  # on bf16: jax.nn.softmax's steps, as bf16 training runs it
     out = _product(torch.bmm, weights, vf, tier)
-    value_rel = get_relative_embeddings(rel_v[None], L, window)
-    rel_weights = absolute_position_to_relative_position(weights)
-    out = (out + _product(_rel_weighted, rel_weights, value_rel[0], tier)).reshape(B, H, L, d)
+    if rel_v is not None:
+        value_rel = get_relative_embeddings(rel_v[None], L, window)
+        rel_weights = absolute_position_to_relative_position(weights)
+        out = out + _product(_rel_weighted, rel_weights, value_rel[0], tier)
+    out = out.reshape(B, H, L, d)
     return (out, lse.reshape(B, H, L)) if return_lse else out
 
 
@@ -142,7 +165,7 @@ def flash_rel_attention(
     and the tables in the tier's value dtype (bf16 values only at the fast
     tier; bf16 compute at every tier, without lse). CPU tensors take
     :func:`rel_attention_plain`; CUDA tensors launch the kernel (contiguous,
-    d <= 128, 2*window+1 <= 32, no autograd) or raise.
+    ``d <= MAX_HEAD_DIM``, ``window <= MAX_WINDOW``, no autograd) or raise.
     """
     if tier.bf16_compute:
         if return_lse:
@@ -171,8 +194,7 @@ def flash_rel_attention(
         raise ValueError(f"q/k/v shapes differ: {q.shape}, {k.shape}, {v.shape}")
     if rel_k.shape != (nr, d) or rel_v.shape != (nr, d):
         raise ValueError(f"rel tables must be ({nr}, {d}): {rel_k.shape}, {rel_v.shape}")
-    if not 1 <= d <= 128 or nr > 32:
-        raise ValueError(f"kernel takes head_dim <= 128 and window <= 15, got {d}, {window}")
+    check_ceiling("rel_attention", d, window)
     lens = cuda_lengths(lengths, B, L, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None

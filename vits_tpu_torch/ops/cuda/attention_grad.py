@@ -40,7 +40,11 @@ from vits_tpu_torch.ops.cuda import (
     on_device,
     stream_of,
 )
-from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_scores
+from vits_tpu_torch.ops.cuda.attention import (
+    check_ceiling,
+    flash_rel_attention,
+    rel_attention_scores,
+)
 from vits_tpu_torch.ops.tiers import EXACT_TIER, FAST, TRAIN_TIERS, Tier, tier_product
 
 _TILE = 16  # queries per dq block, one rel-table partial each (rel_attention_bwd.cu)
@@ -124,7 +128,7 @@ def rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths,
     (bf16 at the fast tier only), lse fp32.
 
     CPU tensors take :func:`rel_attention_bwd_reference`; CUDA tensors launch
-    the kernel (contiguous, as kernel A takes them) or raise.
+    the kernel (contiguous, at kernel A's ceiling) or raise.
     """
     dtype = tier.value_dtype
     if any(t.dtype != dtype for t in (q, k, v, rel_k, rel_v, dout, out)) or (
@@ -147,6 +151,7 @@ def rel_attention_bwd(q, k, v, rel_k, rel_v, lse, dout, out, *, window, lengths,
     if lse.shape != (B, H, L) or rel_k.shape != (nr, d) or rel_v.shape != (nr, d):
         raise ValueError(f"rel_attention_bwd: lse {tuple(lse.shape)} or rel tables "
                          f"{tuple(rel_k.shape)}, {tuple(rel_v.shape)} do not fit ({B}, {H}, {L}, {d})")
+    check_ceiling("rel_attention_bwd", d, window)
     lens = cuda_lengths(lengths, B, L, q.device)
     drow = (dout.float() * out.float()).sum(dim=-1).contiguous()  # D in fp32, outside as in JAX
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)

@@ -241,13 +241,16 @@ _ATTENTION = re.compile(r"(.*\.attention\.)(q_proj|k_proj|v_proj|out_proj)\.")
 _GATE = re.compile(r".*wavenet\.in_layers\.\d+\.")
 
 
-def split_plan(params: Mapping[str, Any], size: int) -> dict[str, Split]:
+def split_plan(params: Mapping[str, Any], size: int,
+               head_dim: int | None = None) -> dict[str, Split]:
     """Name -> :class:`Split` of every parameter that splits over a model axis of
     ``size`` ranks: a rule matches and its dimension divides (JAX's fallback
     replicates the others). The attention splits its compute by heads where the
     heads divide, the gates where each half divides; otherwise, and for the
     resblocks and the posterior's ``conv_pre``, the slices are gathered whole
-    where they compute."""
+    where they compute. The attention's head width is ``head_dim`` or, by
+    default, its relative table's; a model with no table (``window_size`` 0)
+    and no ``head_dim`` gathers its attention whole."""
     plan = {}
     for name, value in params.items():
         shape = tuple(value.shape)
@@ -256,9 +259,10 @@ def split_plan(params: Mapping[str, Any], size: int) -> dict[str, Split]:
             continue
         dim, gate, whole = dims[0], False, bool(_WHOLE.match(name))
         attention = _ATTENTION.match(name)
-        if attention:  # heads = width / head_dim, head_dim from the shared rel table
+        if attention:  # heads = width / head_dim, head_dim by default from the shared rel table
             rel = params.get(attention.group(1) + "emb_rel_k")
-            whole = rel is None or (shape[dim] // rel.shape[-1]) % size != 0
+            width = head_dim or (None if rel is None else rel.shape[-1])
+            whole = width is None or (shape[dim] // width) % size != 0
         elif _GATE.match(name):
             gate = (shape[dim] // 2) % size == 0
             whole = not gate
@@ -294,10 +298,12 @@ def take_shards(params: Mapping[str, Any], plan: Mapping[str, Split],
             for name, value in params.items()}
 
 
-def shard_params(params: Mapping[str, Any], model_parallel: ModelParallel) -> dict:
+def shard_params(params: Mapping[str, Any], model_parallel: ModelParallel,
+                 head_dim: int | None = None) -> dict:
     """Rank ``model_parallel.rank``'s slices of the tensors that split
     (:func:`split_plan`) and the whole of every other (:func:`take_shards`)."""
-    return take_shards(params, split_plan(params, model_parallel.size), model_parallel)
+    return take_shards(params, split_plan(params, model_parallel.size, head_dim),
+                       model_parallel)
 
 
 def gather_params(params: Mapping[str, torch.Tensor], plan: Mapping[str, Split],
@@ -351,24 +357,32 @@ def pad_rows(batch, world: int, segment_frames: int):
     )
 
 
-def rank_rows(batch_size: int, world: int, rank: int, grad_accum: int = 1) -> np.ndarray:
-    """The global rows ``rank`` holds, microbatch by microbatch.
+def microbatch_rows(batch_size: int, world: int, rank: int,
+                    grad_accum: int = 1) -> list[np.ndarray]:
+    """The global rows ``rank`` holds of each microbatch, in order.
 
     Microbatch ``i`` of ``grad_accum`` is global rows ``[i*m, (i+1)*m)``,
     ``m = batch_size / grad_accum`` (the one-process step's split); the rank
-    holds its ``1/world`` of each, so its own rows split into ``grad_accum``
-    equal runs are its share of each microbatch. Raises ``ValueError`` where a
-    microbatch's rows do not divide by ``world`` (JAX's GSPMD pads inside).
+    holds rows ``[rank*m // world, (rank+1)*m // world)`` of it. Where ``m`` does
+    not divide by ``world`` the shares differ by one row and a rank may hold
+    none (as JAX's GSPMD step runs such a microbatch). Raises ``ValueError``
+    where ``batch_size`` does not divide by ``grad_accum`` or by ``world``, as
+    JAX does (:func:`pad_rows` pads a batch to the world).
     """
     if batch_size % grad_accum:
         raise ValueError(f"batch size {batch_size} not divisible by grad_accum={grad_accum}")
+    if batch_size % world:
+        raise ValueError(f"batch size {batch_size} does not divide over {world} ranks "
+                         "(pad_rows pads it)")
     m = batch_size // grad_accum
-    if m % world:
-        raise ValueError(f"a microbatch of {m} rows (batch {batch_size}, grad_accum "
-                         f"{grad_accum}) does not divide over {world} ranks")
-    per = m // world
-    return np.concatenate([np.arange(i * m + rank * per, i * m + (rank + 1) * per)
-                           for i in range(grad_accum)])
+    lo, hi = rank * m // world, (rank + 1) * m // world
+    return [np.arange(i * m + lo, i * m + hi) for i in range(grad_accum)]
+
+
+def rank_rows(batch_size: int, world: int, rank: int, grad_accum: int = 1) -> np.ndarray:
+    """The global rows ``rank`` holds, microbatch by microbatch
+    (:func:`microbatch_rows`, concatenated)."""
+    return np.concatenate(microbatch_rows(batch_size, world, rank, grad_accum))
 
 
 # The flat buffer is built and split in C++ (torch._utils' helpers DDP uses) and

@@ -161,9 +161,10 @@ class TensorParallel(NamedTuple):
         return {name: wholes.get(name, value) for name, value in params.items()}
 
 
-def tensor_parallel(params: Mapping, axis: ModelParallel) -> TensorParallel:
+def tensor_parallel(params: Mapping, axis: ModelParallel,
+                    head_dim: int | None = None) -> TensorParallel:
     """The :class:`TensorParallel` of ``axis`` for the whole ``params`` (numpy or
-    tensors: only their names and shapes are read)."""
+    tensors: only their names and shapes are read); ``head_dim``: ``split_plan``'s."""
     if not dist.is_initialized() and axis.size > 1:
         raise ValueError("tensor parallelism needs a process group")
-    return TensorParallel(axis, split_plan(params, axis.size))
+    return TensorParallel(axis, split_plan(params, axis.size, head_dim))

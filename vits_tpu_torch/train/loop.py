@@ -129,10 +129,10 @@ def train(
 
     dataset = VitsDataset(corpus_dir, tokenizer, config)
     say(f"dataset: {len(dataset)} utterances")
-    tp = None if mp is None else tensor_parallel(params_np, mp)
+    tp = None if mp is None else tensor_parallel(params_np, mp, config.head_dim)
 
     def own(arrays):  # the rank's slices of whole arrays
-        return arrays if mp is None else shard_params(arrays, mp)
+        return arrays if mp is None else shard_params(arrays, mp, config.head_dim)
 
     def whole(params):  # whole tensors from the rank's slices (a collective)
         return params if mp is None else gather_params(params, tp.plan, mp)

@@ -46,7 +46,11 @@ matching) are scaled by its share of the rows. The gradients are summed over
 the ranks before each optimizer update, so the global-norm clip and the
 update see the global batch's gradient, identical on every rank; the metrics
 are summed too, so every rank returns the global values. With ``grad_accum``
-each microbatch's normalizers are that microbatch's global sums. JAX's
+each microbatch's normalizers are that microbatch's global sums, and a rank
+holds its share of each microbatch (``microbatch_rows``): where the microbatch
+does not divide over the ranks the shares differ by one row, and a rank that
+holds none of it adds zero losses and gradients without running the model
+(every rank still calls the same collectives, in the same order). JAX's
 GSPMD step computes the whole batch's loss on a 'data' mesh; this is the same
 function, summed in another order.
 
@@ -81,7 +85,7 @@ from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.align import monotonic_align, prior_log_likelihood
 from vits_tpu_torch.ops.tiers import training_tiers
-from vits_tpu_torch.parallel.mesh import DataParallel, all_reduce_, rank_rows
+from vits_tpu_torch.parallel.mesh import DataParallel, all_reduce_, microbatch_rows
 from vits_tpu_torch.parallel.tensor import TensorParallel
 from vits_tpu_torch.train.losses import (
     discriminator_loss,
@@ -315,22 +319,34 @@ def _microbatches(batch: TrainBatch, noise: TrainNoise, n: int,
     the whole microbatch's, or the rank's rows of it under ``data_parallel``."""
     B = batch.input_ids.shape[0]
     world, rank = (1, 0) if data_parallel is None else (data_parallel.world, data_parallel.rank)
-    held = rank_rows(B, world, rank, n)  # raises where the rows do not divide
     m = B // n
-    per = m // world
     out = []
-    for i in range(n):
+    # raises where the rows do not divide by n or by the world
+    for i, held in enumerate(microbatch_rows(B, world, rank, n)):
         # a view of microbatch i where this rank holds all of it
         mine = slice(i * m, (i + 1) * m) if world == 1 else torch.as_tensor(
-            held[i * per:(i + 1) * per], device=batch.input_ids.device)
+            held, device=batch.input_ids.device)
 
         def rows(t):
             return None if t is None else t[mine]
         share = None if data_parallel is None else RowShare(
             batch.frame_mask[i * m:(i + 1) * m].sum(), batch.token_mask[i * m:(i + 1) * m].sum(),
-            per / m)
+            len(held) / m)
         out.append((TrainBatch(*map(rows, batch)), TrainNoise(*map(rows, noise)), share))
     return out
+
+
+def _holds_none(batch: TrainBatch) -> bool:
+    """A rank's part of a microbatch that it holds no row of."""
+    return batch.input_ids.shape[0] == 0
+
+
+def _zeros(params: Mapping[str, torch.Tensor]) -> list[torch.Tensor]:
+    return [torch.zeros_like(p) for p in params.values()]
+
+
+def _zero_metrics(n: int, batch: TrainBatch) -> tuple[torch.Tensor, ...]:
+    return tuple(torch.zeros((), device=batch.input_ids.device) for _ in range(n))
 
 
 def _mean_metrics(cls, items, data_parallel: Optional[DataParallel] = None):
@@ -375,10 +391,13 @@ def make_train_step(
         noise = draw_noise(config, batch, generator) if noise is None else noise
         acc, all_metrics = None, []
         for mb, mn, share in _microbatches(batch, noise, grad_accum, data_parallel):
-            loss, metrics = generator_loss(params, config, mb, mn, segment_frames, mel_weight,
-                                           mel_kwargs, compute_dtype, share, model_parallel,
-                                           encoder_fn)
-            grads = gradients(loss, params)
+            if _holds_none(mb):
+                grads, metrics = _zeros(params), _zero_metrics(len(TrainMetrics._fields), mb)
+            else:
+                loss, metrics = generator_loss(params, config, mb, mn, segment_frames,
+                                               mel_weight, mel_kwargs, compute_dtype, share,
+                                               model_parallel, encoder_fn)
+                grads = gradients(loss, params)
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             all_metrics.append(tuple(m.detach() for m in metrics))
         _apply(params, optimizer, [a / grad_accum for a in acc] if grad_accum > 1 else acc,
@@ -476,20 +495,27 @@ def make_gan_train_step(
 
         d_acc, d_losses = None, []
         for mb, mn, share in micro:
-            with torch.no_grad():
-                out = forward(mb, mn, share)
-            d_loss = d_loss_of(out.wave_real, out.wave_fake, share)
-            grads = gradients(d_loss, disc_params)
+            if _holds_none(mb):  # no rows of this microbatch: a zero part, no forward
+                grads, d_loss = _zeros(disc_params), _zero_metrics(1, mb)[0]
+            else:
+                with torch.no_grad():
+                    out = forward(mb, mn, share)
+                d_loss = d_loss_of(out.wave_real, out.wave_fake, share)
+                grads = gradients(d_loss, disc_params)
             d_acc = grads if d_acc is None else [a + g for a, g in zip(d_acc, grads)]
             d_losses.append(d_loss.detach())
         _apply(disc_params, disc_optimizer, [a / grad_accum for a in d_acc], dp)
         g_acc, items = None, []
         for (mb, mn, share), d_loss in zip(micro, d_losses):
-            out = forward(mb, mn, share)
-            g_loss, adv, fm = g_loss_of(out, share)
-            grads = gradients(g_loss, gen_params)
+            if _holds_none(mb):
+                grads, item = _zeros(gen_params), _zero_metrics(len(GanTrainMetrics._fields), mb)
+            else:
+                out = forward(mb, mn, share)
+                g_loss, adv, fm = g_loss_of(out, share)
+                grads = gradients(g_loss, gen_params)
+                item = metrics_of(g_loss, d_loss, out, adv, fm)
             g_acc = grads if g_acc is None else [a + g for a, g in zip(g_acc, grads)]
-            items.append(metrics_of(g_loss, d_loss, out, adv, fm))
+            items.append(item)
         _apply(gen_params, gen_optimizer, [a / grad_accum for a in g_acc], dp)
         return _mean_metrics(GanTrainMetrics, items, dp)
 
