@@ -139,7 +139,7 @@ printing its result line:
    (d) ``reuse_forward=False`` against the single forward (losses 1e-5,
    parameters after one AdamW step rtol 1e-4, atol 1e-6); (e)
    ``python -m vits_tpu_torch.train.loop --dtype bfloat16`` on the
-   synthetic corpus, 4 steps with checkpoints, resumed to 6;
+   synthetic corpus, 2 steps with checkpoints, resumed to 3;
 11. bf16 serving (``EngineConfig(compute_dtype="bfloat16")``, ``ops/tiers.py::
    Tiers.bf16_compute``), in a process of its own as phases 9 and 10
    (``--bf16-serving-phase``): (a) each kernel's bf16 serving mode against
@@ -226,10 +226,29 @@ printing its result line:
    launched): the 87-token request at "exact" and "fast" through the engine and
    on one NoiseOverride against the CPU plain path (phase 4's bounds at exact;
    at fast equal frame counts, the latents within TIER_TOL and the waveform's
-   mel-L1 within FAST_STREAM_MEL_L1), three GAN steps on phase 7's batch and one generator loss card vs
+   mel-L1 within FAST_STREAM_MEL_L1), one GAN step (after a warm-up) on phase 7's batch and one generator loss card vs
    CPU within phase 7's bounds; (c) two gloo ranks sharing the card at six rows
    and grad_accum=2 (microbatches of three over two ranks) against the
-   one-process step at grad_accum=2, within phase 12b's bounds.
+   one-process step at grad_accum=2, within phase 12b's bounds;
+16. the serving start-up artifacts, in a process of its own (``--startup-phase``),
+   on MMS-TTS at full width with random weights (seed 0) at ``fast``: (a) an AOT
+   bundle (``io/aot.py``) of batch 1 and 4 at the 87-token request's bucket, both
+   rng layouts, no speaker, from the library phase 2 built (no second nvcc), and
+   an engine with ``compilation_cache_dir`` set to an empty directory, which the
+   loaded library is copied into; (b) a process with nvcc hidden (off PATH, no
+   CUDA_HOME, any build raising; ``--startup-child``) serving the 87-token request
+   and batches of 4 and 3 from the bundle: every row bit-identical to the
+   exporting engine's, build_seconds 0.0, 2 hits and 1 miss (the batch of 3),
+   A, B and C launched, its seconds from process start to first audio; (c) the
+   same from the library cache; (d) the bundle refused by an ``exact`` engine,
+   and a copy with one byte of its library flipped refused before any library
+   load; (e) ``utils/devprofile.py``'s ``device_ms`` of the 87-token request (the
+   median of three readings, each through devprofile's lost-record check: a
+   device record for every host call that put work on the card, and no fewer
+   records of a wrapper's own kernel than its count; a session that lost a
+   record is taken again, up to three sessions a reading) within
+   DEVPROFILE_RTOL of phase 9's reading of the same call in another process
+   (``profiled``, which reads through devprofile too).
 
 Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
@@ -248,7 +267,8 @@ numbers; phase 14's kernel shapes as ``*_mp`` entries with the launches of 14a's
 pipelined steps and 14b's rank 0, ``model_parallel_launches`` by path and
 ``stage_launches`` by stage; ``model_parallel``: phase 14's numbers; phase 15a's
 shapes as ``*_wide`` entries with the launches of 15b's head_dim-192 variant;
-``refusals``: phase 15's numbers), and last
+``refusals``: phase 15's numbers; ``startup_launches`` phase 16's children's launches of
+A, B and C; ``startup``: phase 16's numbers), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -305,12 +325,9 @@ BATCH_ATOL = 2e-3
 # outside the tensor cores. And HBM.
 PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
-# Profiler sessions: idle seconds at each end, and the runtime calls that each
-# put work on the card (a device event with the call's correlation id).
-PROFILE_PAD_S = 0.005
-DEVICE_WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
-# Profiler sessions of this run, and those run again because CUPTI lost a record.
-PROFILER_SESSIONS = {"sessions": 0, "rerun": 0}
+# Profiler sessions of this run, those run again because CUPTI lost a record,
+# and readings kept although every session of theirs lost one.
+PROFILER_SESSIONS = {"sessions": 0, "rerun": 0, "kept_lost": 0}
 
 SINGLE_TEXTS = (
     "hello world.",
@@ -802,12 +819,43 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
     return results
 
 
+# A directory the main process makes for the run (removed at its exit); its child
+# processes inherit the variable and share the random weights saved there.
+WEIGHTS_ENV = "CHIP_SMOKE_WEIGHTS"
+
+
+def random_weights(config, keep_training: bool = True) -> dict:
+    """``vits_tpu_torch.io.random_params(config, seed=0, keep_training)``, made
+    once per run: saved as an .npz under the directory ``CHIP_SMOKE_WEIGHTS``
+    names and loaded from there by every later call in any process of the run
+    (each child would otherwise import transformers and initialise the model
+    again). Without the variable (a phase run alone) it calls ``random_params``."""
+    import hashlib
+    import os
+
+    from vits_tpu_torch.io import random_params
+
+    root = os.environ.get(WEIGHTS_ENV)
+    if root is None:
+        return random_params(config, seed=0, keep_training=keep_training)
+    key = hashlib.sha256(repr((config, keep_training)).encode()).hexdigest()[:16]
+    path = Path(root) / f"{key}.npz"
+    if path.exists():
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    params = random_params(config, seed=0, keep_training=keep_training)
+    tmp = Path(root) / f"{key}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **params)
+    os.replace(tmp, path)
+    return params
+
+
 @functools.lru_cache(maxsize=None)
 def checkpoint(config, keep_training: bool) -> bytes:
     """The .ggml bytes of a model with random weights (seed 0), made once per config."""
-    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml
 
-    params = random_params(config, seed=0, keep_training=keep_training)
+    params = random_weights(config, keep_training)
     tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)},
                               pad_token="k", unk_token="z")
     buf = io.BytesIO()
@@ -1167,11 +1215,10 @@ def training_batch(config, device, token_lengths=(512, 300), frame_lengths=(1280
 
 
 def gan_steps(config, device, card: str, attention_kernels: bool = True,
-              profile: bool = True) -> dict:
-    """Phase 5a: three GAN steps at full MMS width; the launch counts over them.
+              profile: bool = True, steps: int = 3) -> dict:
+    """Phase 5a: ``steps`` GAN steps at full MMS width; the launch counts over them.
     Without ``attention_kernels`` (a model with no relative window) kernels A and
     4 must launch no time; without ``profile`` no profiled step."""
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
@@ -1183,7 +1230,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
     from vits_tpu_torch.train.step import make_gan_train_step
 
     gen = {k: v.requires_grad_() for k, v in
-           from_jax_params(random_params(config, seed=0, keep_training=True), device).items()}
+           from_jax_params(random_weights(config, keep_training=True), device).items()}
     disc = {k: v.requires_grad_() for k, v in
             from_jax_params(init_discriminator_params(0), device).items()}
     n_gen, n_disc = (sum(p.numel() for p in ps.values()) for ps in (gen, disc))
@@ -1220,7 +1267,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
         fn.launches = 0
     flash_rel_attention.lse_launches = 0
     times = []
-    for i in range(3):
+    for i in range(steps):
         t0 = time.perf_counter()
         metrics = step_fn(batch, noise_gen)
         torch.cuda.synchronize()
@@ -1233,7 +1280,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
     launches = {fn.__name__: fn.launches for fn in wrappers}
     launches["flash_rel_attention_lse"] = flash_rel_attention.lse_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  launches over the 3 steps: {launches}", flush=True)
+    print(f"  launches over the {steps} steps: {launches}", flush=True)
     print(f"  median {float(np.median(times)):.1f} ms per step after the warm-up (B=2, 512 "
           f"tokens, 1280 frames, {n_gen / 1e6:.1f} M generator + {n_disc / 1e6:.1f} M "
           f"discriminator parameters), peak {peak_gib:.2f} GiB allocated ({card})", flush=True)
@@ -1253,7 +1300,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
             raise RuntimeError(f"parameter {name}: no finite gradient")
         if torch.equal(p.detach(), before[name]):
-            raise RuntimeError(f"parameter {name} did not move in 3 steps")
+            raise RuntimeError(f"parameter {name} did not move in {steps} steps")
     print(f"  all {len(gen)} generator and {len(disc)} discriminator parameters have finite "
           "gradients and moved", flush=True)
     if profile:
@@ -1280,53 +1327,22 @@ KERNEL_FAMILIES = (
 
 
 def profiled(fn, attempts: int = 3) -> tuple[float, list, float]:
-    """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock to a
-    synchronise), its device events (kernels, memcpy, memset) and the device
-    busy ms (the union of their intervals).
+    """One call of ``fn`` under ``torch.profiler`` through ``utils/devprofile.py``
+    (``read``): its wall ms (host clock to a synchronise), its device events
+    (kernels, memcpy, memset) and the device busy ms (the union of their
+    intervals). A session that lost a record is taken again, up to
+    ``attempts`` sessions; where every one lost a record, the fullest is kept
+    and what it lost is printed."""
+    from vits_tpu_torch.utils import devprofile
 
-    CUPTI now and then loses the first device records of a session (at times
-    all of them): a launch on the host's side then has no device event of its
-    correlation id. So the session starts and ends with PROFILE_PAD_S of idle
-    card, and a session that lost a record is run again, up to ``attempts``
-    times; the one with the most device events is kept."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
-    best = None
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-            time.sleep(PROFILE_PAD_S)
-        with tempfile.TemporaryDirectory() as tmp:
-            prof.export_chrome_trace(f"{tmp}/trace.json")
-            with open(f"{tmp}/trace.json") as f:
-                events = json.load(f)["traceEvents"]
-        device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if best is None or len(device) > len(best[1]):
-            best = (wall_ms, device)
-        recorded = {e.get("args", {}).get("correlation") for e in device}
-        lost = [e for e in events if e.get("cat") == "cuda_runtime"
-                and any(word in e.get("name", "") for word in DEVICE_WORK_CALLS)
-                and e.get("args", {}).get("correlation") not in recorded]
-        PROFILER_SESSIONS["sessions"] += 1
-        if device and not lost:
-            break
-        PROFILER_SESSIONS["rerun"] += 1
-    wall_ms, device = best
-    if not device:
-        raise RuntimeError(f"the profiler saw no device activity in {attempts} sessions")
-    busy_ms, end = 0.0, -np.inf
-    for e in sorted(device, key=lambda e: e["ts"]):  # union of the intervals, in us
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        busy_ms += max(0.0, stop - max(start, end)) / 1e3
-        end = max(end, stop)
-    return wall_ms, device, busy_ms
+    reading = devprofile.read(fn, attempts=attempts)
+    PROFILER_SESSIONS["sessions"] += reading.sessions
+    PROFILER_SESSIONS["rerun"] += reading.sessions - (0 if reading.lost else 1)
+    if reading.lost:
+        PROFILER_SESSIONS["kept_lost"] += 1
+        print(f"  profiler: every one of {attempts} sessions lost records; the fullest kept "
+              f"({'; '.join(reading.lost)})", flush=True)
+    return reading.wall_ms, reading.events, reading.busy_ms
 
 
 def by_family(device: list, families) -> dict[str, list]:
@@ -1522,7 +1538,7 @@ def train_loop(card: str, zero1: bool = False) -> None:
     import tempfile
 
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml
     from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
     from vits_tpu_torch.train.loop import train
 
@@ -1531,10 +1547,9 @@ def train_loop(card: str, zero1: bool = False) -> None:
         corpus, model, out_dir = f"{tmp}/corpus", f"{tmp}/model.ggml", f"{tmp}/run"
         generate_micro_corpus(corpus, n_utts=16)
         tokenizer = VitsTokenizer(vocab=corpus_vocab(), pad_token="_", unk_token="?")
-        export_to_ggml(model, config, tokenizer, random_params(config, seed=0,
-                                                               keep_training=True),
+        export_to_ggml(model, config, tokenizer, random_weights(config, keep_training=True),
                        fp16_convs=False)
-        for steps in (4, 6):
+        for steps in (2, 3):
             logs, rates = [], []
             t0 = time.perf_counter()
             gen = train(corpus, model, out_dir, steps=steps, batch_size=4, checkpoint_every=2,
@@ -1547,7 +1562,7 @@ def train_loop(card: str, zero1: bool = False) -> None:
                 raise RuntimeError("train(): non-finite parameters")
             print(f"  train(steps={steps}): {time.perf_counter() - t0:.1f} s wall, median "
                   f"{float(np.median(rates)):.2f} it/s ({card})", flush=True)
-        expected = ("resumed from step 4", "restored EMA weights", "checkpointed step 6")
+        expected = ("resumed from step 2", "restored EMA weights", "checkpointed step 3")
         if not all(e in logs for e in expected):
             raise RuntimeError(f"resume to step 6 did not run as expected: {logs}")
 
@@ -2310,14 +2325,14 @@ def tier_requests(device, card: str, wrappers) -> dict:
     import vits_tpu_torch
     from vits_tpu_torch import EngineConfig, VitsConfig
     from vits_tpu_torch.engine.streaming import StreamingDecoder
-    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml
     from vits_tpu_torch.io.params import ParamView
     from vits_tpu_torch.io.quantize import quantize_params
     from vits_tpu_torch.models.hifigan import hifigan
     from vits_tpu_torch.models.vits import NoiseOverride, latents_from_prior, text_to_prior
 
     config = VitsConfig()
-    params = random_params(config, seed=0, keep_training=False)
+    params = random_weights(config, keep_training=False)
     tokenizer = VitsTokenizer(vocab={c: i for i, c in enumerate(VOCAB)}, pad_token="k",
                               unk_token="z")
     blobs = {}
@@ -2626,7 +2641,6 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
     on bf16 tensors; the gradients of one bf16 generator loss against fp32 by
     cosine, held over all and per module for COSINE_MODULES, printed for the
     other modules and per tensor."""
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
@@ -2641,7 +2655,7 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
     )
 
     initial = {k: torch.as_tensor(v) for k, v in
-               random_params(config, seed=0, keep_training=True).items()}
+               random_weights(config, keep_training=True).items()}
     disc_np = init_discriminator_params(0)
     batch = training_batch(config, device)
     noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(7))
@@ -2755,14 +2769,13 @@ def speaker_gan_step(device, card: str) -> None:
     card against the CPU's plain path (phase 7's noise-floor bounds), embed_speaker
     included."""
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.train.schedule import vits_optimizer
     from vits_tpu_torch.train.step import make_gan_train_step
 
     config = VitsConfig(**VCTK)
-    initial = random_params(config, seed=0, keep_training=True)
+    initial = random_weights(config, keep_training=True)
     gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
     disc = {k: v.requires_grad_() for k, v in
             from_jax_params(init_discriminator_params(0), device).items()}
@@ -2791,12 +2804,11 @@ def reuse_forward_on_card(config, device) -> None:
     """Phase 10d: the two-forward GAN step (reuse_forward=False) against the single
     forward on the card, the CPU test's bounds (losses, and every parameter after
     one AdamW step); cuDNN pinned to deterministic algorithms for the comparison."""
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.train.step import draw_noise, make_gan_train_step
 
-    initial = random_params(config, seed=0, keep_training=True)
+    initial = random_weights(config, keep_training=True)
     disc_np = init_discriminator_params(0)
     batch = training_batch(config, device)
     noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(9))
@@ -2835,12 +2847,15 @@ def reuse_forward_on_card(config, device) -> None:
 
 def train_cli_bf16(card: str) -> None:
     """Phase 10e: ``python -m vits_tpu_torch.train.loop --dtype bfloat16`` (its default
-    device, the card) on the synthetic micro-corpus at MMS width: 4 steps (a
-    checkpoint at the last), then resumed to 6."""
+    device, the card) on the synthetic micro-corpus at MMS width: 2 steps in a
+    process of its own (a checkpoint at the last), then the same ``main`` in this
+    process resumed to 3 (a second process would repeat ~30 s of start-up)."""
+    import contextlib
     import tempfile
 
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml, random_params
+    from vits_tpu_torch.io import VitsTokenizer, export_to_ggml
+    from vits_tpu_torch.train import loop
     from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
 
     config = VitsConfig()
@@ -2849,27 +2864,33 @@ def train_cli_bf16(card: str) -> None:
         generate_micro_corpus(corpus, n_utts=16)
         export_to_ggml(model, config, VitsTokenizer(vocab=corpus_vocab(), pad_token="_",
                                                     unk_token="?"),
-                       random_params(config, seed=0, keep_training=True), fp16_convs=False)
-        for steps in (4, 6):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "vits_tpu_torch.train.loop", "--corpus", corpus,
-                 "--model", model, "--out", out_dir, "--dtype", "bfloat16", "--steps",
-                 str(steps), "--batch-size", "4"], capture_output=True, text=True,
-                timeout=600, check=False,
-                cwd=str(Path(__file__).resolve().parent))
-            lines = proc.stdout.splitlines()
-            for line in lines:
-                print(f"    {line}", flush=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"train.loop --dtype bfloat16 failed ({proc.returncode}):\n"
-                                   f"{proc.stderr[-3000:]}")
-            print(f"  train.loop --dtype bfloat16 --steps {steps}: "
-                  f"{time.perf_counter() - t0:.1f} s wall ({card})", flush=True)
-        expected = ("resumed from step 4", "restored EMA weights", "checkpointed step 6")
-        if not all(e in lines for e in expected):
-            raise RuntimeError(f"the bf16 loop's resume to step 6 did not run as expected: "
-                               f"{lines}")
+                       random_weights(config, keep_training=True), fp16_convs=False)
+        args = ["--corpus", corpus, "--model", model, "--out", out_dir, "--dtype", "bfloat16",
+                "--batch-size", "4", "--steps"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vits_tpu_torch.train.loop", *args, "2"],
+                              capture_output=True, text=True, timeout=600, check=False,
+                              cwd=str(Path(__file__).resolve().parent))
+        for line in proc.stdout.splitlines():
+            print(f"    {line}", flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"train.loop --dtype bfloat16 failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-3000:]}")
+        print(f"  train.loop --dtype bfloat16 --steps 2: {time.perf_counter() - t0:.1f} s wall "
+              f"({card})", flush=True)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = loop.main([*args, "3"])
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(f"    {line}", flush=True)
+        print(f"  train.loop's main --steps 3 in this process: {time.perf_counter() - t0:.1f} s "
+              f"wall ({card})", flush=True)
+        expected = ("resumed from step 2", "restored EMA weights", "checkpointed step 3")
+        if code != 0 or not all(e in lines for e in expected):
+            raise RuntimeError(f"the bf16 loop's resume to step 3 did not run as expected "
+                               f"(exit {code}): {lines}")
 
 
 TIERS_FLAG = "--tiers-phase"  # the child's argument
@@ -2905,7 +2926,6 @@ TRAINING_RESULT = "bf16-training-phase result: "
 def bf16_training_phase(device) -> dict:
     """Phase 10's work (a child of :func:`run_child`)."""
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.ops import cuda as kernels
 
@@ -2913,7 +2933,7 @@ def bf16_training_phase(device) -> dict:
     kernels.library()
     config = VitsConfig()
     t0 = time.perf_counter()
-    measured = bf16_kernels_vs_plain(from_jax_params(random_params(config, seed=0), device),
+    measured = bf16_kernels_vs_plain(from_jax_params(random_weights(config), device),
                                      config, device)
     run = bf16_vs_fp32_steps(config, device, card)
     speaker_gan_step(device, card)
@@ -3712,7 +3732,6 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
 def data_parallel_phase(device) -> dict:
     """Phase 12's work (a child of :func:`run_child`)."""
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.ops import cuda as kernels
 
@@ -3720,7 +3739,7 @@ def data_parallel_phase(device) -> dict:
     kernels.library()
     t0 = time.perf_counter()
     config = VitsConfig()
-    gen_np = random_params(config, seed=0, keep_training=True)
+    gen_np = random_weights(config, keep_training=True)
     disc_np = init_discriminator_params(0)
     world_one = dp_world_one(config, gen_np, disc_np, device, card)
     two_ranks = dp_two_ranks(config, gen_np, disc_np, device, card)
@@ -4535,7 +4554,6 @@ def mp_rank(rank: int, port: int, tmp: str) -> None:
 def model_parallel_phase(device) -> dict:
     """Phase 14's work (a child of :func:`run_child`)."""
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.ops import cuda as kernels
     from vits_tpu_torch.train.step import fp32_backends
@@ -4544,7 +4562,7 @@ def model_parallel_phase(device) -> dict:
     kernels.library()
     t0 = time.perf_counter()
     config = VitsConfig()
-    gen_np = random_params(config, seed=0, keep_training=True)
+    gen_np = random_weights(config, keep_training=True)
     disc_np = init_discriminator_params(0)
     params = leaves_on(gen_np, device)
     fp32_backends(params)  # the plain twins and the steps in fp32, as the training path
@@ -4589,7 +4607,7 @@ REFUSALS_FLAG = "--refusals-phase"
 REFUSALS_RESULT = "refusals-phase result: "
 # 15a: kernels A and 4 at every head width and window pair of these, B=2, H=2, L=512
 WIDE_HEAD_DIMS = (160, 192, 256)
-WIDE_WINDOWS = (4, 16, 32)
+WIDE_WINDOWS = (4, 16, 32)  # 2w+1 = 9, 33 (the first past a 32-lane chunk), 65
 WIDE_LENGTHS = (507, 300)
 # 15b: MMS-TTS at full width in two variants no checkpoint of the repo reaches: one
 # head of 192 at window 16 (kernels A and 4 past their former ceiling), and no window
@@ -4771,7 +4789,6 @@ def variant_requests(config, label: str, device, card: str) -> dict:
 def refusals_phase(device) -> dict:
     """Phase 15's work (a child of :func:`run_child`)."""
     from vits_tpu_torch import VitsConfig
-    from vits_tpu_torch.io import random_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
     from vits_tpu_torch.ops import cuda as kernels
 
@@ -4782,14 +4799,17 @@ def refusals_phase(device) -> dict:
           f"({card}):", flush=True)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     measured = wide_kernels_vs_plain(device)
+    print(f"  15a: {time.perf_counter() - t0:.1f} s", flush=True)
     variants = {}
     for label, fields in VARIANTS.items():
         config = dataclasses.replace(VitsConfig(), **fields)
         print(f"  [15b] MMS-TTS width, {label} (head_dim {config.head_dim}), random weights "
               f"({card}):", flush=True)
         variants[label] = variant_requests(config, label, device, card)
+        # one step after the warm-up (phase 7 times three): keeps the script inside its
+        # time with phase 16
         trained = gan_steps(config, device, card, attention_kernels=bool(config.window_size),
-                            profile=False)
+                            profile=False, steps=1)
         train_card_vs_cpu(config, trained["gen"], trained["batch"])
         variants[label]["training"] = {"launches": trained["launches"],
                                        "step_ms": trained["step_ms"]}
@@ -4798,7 +4818,7 @@ def refusals_phase(device) -> dict:
     print(f"  [15c] two gloo ranks sharing the card, six rows at grad_accum=2 (microbatches "
           f"of three over two ranks) ({card}):", flush=True)
     config = VitsConfig()
-    uneven = dp_two_ranks(config, random_params(config, seed=0, keep_training=True),
+    uneven = dp_two_ranks(config, random_weights(config, keep_training=True),
                           init_discriminator_params(0), device, card, UNEVEN_TOKENS,
                           UNEVEN_FRAMES, grad_accum=2, full=False)
     seconds = time.perf_counter() - t0
@@ -4808,6 +4828,262 @@ def refusals_phase(device) -> dict:
                        "metrics": [r["metrics"] for r in uneven["ranks"]]},
             "seconds": seconds, "card": card, "profiler_sessions": PROFILER_SESSIONS}
 
+
+
+STARTUP_FLAG = "--startup-phase"
+STARTUP_RESULT = "startup-phase result: "
+# A server started from an artifact: the flag, its mode ("bundle" or "cache"), the
+# checkpoint, the artifact's directory, the frame ratio (cache), an output .npz and
+# the parent's clock at the start (time.time()).
+STARTUP_CHILD_FLAG = "--startup-child"
+STARTUP_CHILD_RESULT = "startup-child result: "
+# 16's requests, every one at the 87-token request's bucket and with per-row seeds:
+# that request alone, a batch of four (both exported) and a batch of three (a miss).
+STARTUP_REQUESTS = {
+    "one": ((SINGLE_TEXTS[1],), (5,)),
+    "four": ((SINGLE_TEXTS[1],) + BATCH_TEXTS, (5,) + BATCH_SEEDS),
+    "three": ((SINGLE_TEXTS[1],) + BATCH_TEXTS[:2], (5,) + BATCH_SEEDS[:2]),
+}
+DEVPROFILE_RTOL = 0.02  # devprofile's busy ms of the 87-token request against phase 9's
+DEVPROFILE_READINGS = 3  # the median of this many device_ms readings
+DEVPROFILE_ATTEMPTS = 3  # profiler sessions a reading may take for a lost record
+
+
+def startup_requests(model, first_audio=None) -> dict:
+    """STARTUP_REQUESTS through ``model.synthesize`` in order: each row's audio,
+    checked; ``first_audio()`` is called once the first request's audio is back."""
+    out = {}
+    for name, (texts, seeds) in STARTUP_REQUESTS.items():
+        waves = model.synthesize(list(texts), seed=list(seeds))
+        if first_audio is not None and not out:
+            first_audio()
+        for i, wave in enumerate(waves):
+            check_audio(wave, f"startup request {name} row {i}")
+            out[f"{name}_{i}"] = wave
+    return out
+
+
+def _no_nvcc():
+    raise RuntimeError("nvcc is hidden from this process: a build was attempted")
+
+
+def startup_child(device, mode: str, ckpt: str, artifact: str, ratio: float, out: str,
+                  t_start: float) -> None:
+    """16b/16c: a fresh process with nvcc hidden (off PATH, no CUDA_HOME, and any
+    build raising) that serves STARTUP_REQUESTS from the bundle (``mode`` "bundle")
+    or the library cache ("cache"); prints its result line."""
+    import vits_tpu_torch
+    from vits_tpu_torch import EngineConfig
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
+    from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
+    from vits_tpu_torch.ops.cuda.stage import fused_stage
+
+    kernels._nvcc = _no_nvcc
+    wrappers = (flash_rel_attention, fused_resblock_trio, fused_stage)
+    engine = (EngineConfig(aot_bundle_dir=artifact) if mode == "bundle"
+              else EngineConfig(compilation_cache_dir=artifact, frames_per_token=ratio))
+    model = vits_tpu_torch.load_model(ckpt, engine, device=device)
+    for fn in wrappers:
+        fn.launches = 0
+    first = {}
+    waves = startup_requests(model, lambda: first.setdefault("s", time.time() - t_start))
+    np.savez(out, **waves)
+    print(STARTUP_CHILD_RESULT + json.dumps({
+        "mode": mode, "first_audio_s": first["s"], "build_seconds": kernels.build_seconds,
+        "library": str(kernels.loaded_library()),
+        "launches": {fn.__name__: fn.launches for fn in wrappers},
+        **{k: v for k, v in model.stats.items() if k.startswith("aot_")}}), flush=True)
+
+
+def run_startup_child(mode: str, ckpt: str, artifact: str, ratio: float, tmp: str) -> dict:
+    """:func:`startup_child` in a process of its own, with nvcc off PATH and no
+    CUDA_HOME; its result and its audio."""
+    import os
+    import shutil
+
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    if shutil.which("nvcc", path=env["PATH"]) is not None:
+        raise RuntimeError("nvcc is still on the child's PATH")
+    out = str(Path(tmp) / f"{mode}.npz")
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), STARTUP_CHILD_FLAG, mode, ckpt,
+         artifact, repr(ratio), out, repr(time.time())],
+        capture_output=True, text=True, timeout=300, check=False, env=env)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(STARTUP_CHILD_RESULT):
+            result = json.loads(line[len(STARTUP_CHILD_RESULT):])
+        else:
+            print(line, flush=True)
+    if proc.returncode != 0 or result is None:
+        raise RuntimeError(f"16 {mode} child failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    with np.load(out) as f:
+        result["audio"] = {k: f[k] for k in f.files}
+    return result
+
+
+def same_audio(what: str, got: dict, want: dict) -> None:
+    """Every row bit-identical to the exporting engine's."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"{what}: rows {sorted(got)} != {sorted(want)}")
+    for key in want:
+        if got[key].shape != want[key].shape or not np.array_equal(got[key], want[key]):
+            diff = (float(np.abs(got[key] - want[key]).max())
+                    if got[key].shape == want[key].shape else None)
+            raise RuntimeError(f"{what}: row {key} differs from the exporting engine's "
+                               f"(shapes {got[key].shape}, {want[key].shape}; max|diff| {diff})")
+
+
+def startup_phase(device) -> dict:
+    """Phase 16's work (a child of :func:`run_child`)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import vits_tpu_torch
+    from vits_tpu_torch import EngineConfig, VitsConfig
+    from vits_tpu_torch.io.aot import MANIFEST, export_bundle
+    from vits_tpu_torch.ops import cuda as kernels
+    from vits_tpu_torch.utils import devprofile
+
+    card = card_line()
+    t0 = time.perf_counter()
+    kernels.library()  # phase 2's build, found in the build directory
+    if kernels.build_seconds != 0.0:
+        raise RuntimeError(f"16 built the library again ({kernels.build_seconds} s of nvcc)")
+    tmp = tempfile.mkdtemp(prefix="startup_")
+    try:
+        ckpt = str(Path(tmp) / "mms.ggml")
+        Path(ckpt).write_bytes(checkpoint(VitsConfig(), keep_training=False))
+        bundle, cache = str(Path(tmp) / "bundle"), str(Path(tmp) / "cache")
+
+        print(f"  [16a] export a fast bundle of MMS-TTS (random weights) at the 87-token "
+              f"request's bucket, batch 1 and 4 ({card}):", flush=True)
+        model = vits_tpu_torch.load_model(ckpt, EngineConfig(), device=device)
+        for _ in range(4):  # raise the frame ratio until these requests fit it
+            redispatches = model.stats["redispatches"]
+            startup_requests(model)
+            if model.stats["redispatches"] == redispatches:
+                break
+        else:
+            raise RuntimeError("16a: the requests still overflow after four passes")
+        bucket = next(b for b in model.engine.token_buckets
+                      if b >= len(model.tokenizer.encode(SINGLE_TEXTS[1])))
+        t_export = time.perf_counter()
+        manifest = export_bundle(model, bundle, batch_sizes=(1, 4), token_buckets=(bucket,),
+                                 per_row_seeds=(False, True), with_speaker=False)
+        export_s = time.perf_counter() - t_export
+        ratio = manifest["frames_per_token"]
+        redispatches = model.stats["redispatches"]
+        want = startup_requests(model)
+        if model.stats["redispatches"] != redispatches:
+            raise RuntimeError("16a: a request overflowed the exported frame capacity")
+        lib = manifest["library"]
+        bundle_bytes = sum(f.stat().st_size for f in Path(bundle).iterdir())
+        signatures = [(e["batch"], e["tokens"], e["frames"], e["rng_rows"])
+                      for e in manifest["programs"]]
+        print(f"  bundle: {len(signatures)} signatures {signatures}, frames_per_token "
+              f"{ratio}, library {lib['file']} (sha256 {lib['sha256'][:16]}...), "
+              f"{bundle_bytes} bytes, exported in {export_s:.2f} s ({card})", flush=True)
+        if lib["file"] != kernels.loaded_library().name:
+            raise RuntimeError("the bundle's library is not the loaded one")
+        vits_tpu_torch.load_model(ckpt, EngineConfig(compilation_cache_dir=cache), device=device)
+        cached = Path(cache) / lib["file"]
+        if hashlib.sha256(cached.read_bytes()).hexdigest() != lib["sha256"]:
+            raise RuntimeError(f"compilation_cache_dir did not receive the loaded library")
+        print(f"  compilation_cache_dir {cache}: the loaded library copied in", flush=True)
+
+        children = {}
+        for mode, artifact in (("bundle", bundle), ("cache", cache)):
+            print(f"  [16{'b' if mode == 'bundle' else 'c'}] a process with nvcc hidden "
+                  f"serving from the {mode} ({card}):", flush=True)
+            run = run_startup_child(mode, ckpt, artifact, ratio, tmp)
+            same_audio(f"16 {mode} child", run.pop("audio"), want)
+            if run["build_seconds"] != 0.0 or Path(run["library"]).parent != Path(artifact):
+                raise RuntimeError(f"16 {mode} child did not load the {mode}'s library: {run}")
+            if not all(run["launches"].values()):
+                raise RuntimeError(f"16 {mode} child missed a kernel: {run['launches']}")
+            if mode == "bundle" and (run["aot_hits"], run["aot_misses"]) != (2, 1):
+                raise RuntimeError(f"16 bundle child: hits {run['aot_hits']}, misses "
+                                   f"{run['aot_misses']}, not 2 and 1 (batch 3 a miss)")
+            children[mode] = run
+            print(f"  {mode}: first audio {run['first_audio_s']:.2f} s after the process "
+                  f"started, build_seconds {run['build_seconds']}, "
+                  + (f"hits {run['aot_hits']} misses {run['aot_misses']}, " if mode == "bundle"
+                     else "") + f"launches {run['launches']}; every row bit-identical to "
+                  f"the exporting engine's ({card})", flush=True)
+
+        print(f"  [16d] refusals ({card}):", flush=True)
+        refusals = {}
+        try:
+            vits_tpu_torch.load_model(ckpt, EngineConfig(
+                aot_bundle_dir=bundle, **EngineConfig.fidelity_kwargs("exact")), device=device)
+        except ValueError as exc:
+            refusals["exact engine"] = str(exc)[:200]
+        tampered = str(Path(tmp) / "tampered")
+        shutil.copytree(bundle, tampered)
+        lib_file = Path(tampered) / lib["file"]
+        data = bytearray(lib_file.read_bytes())
+        data[len(data) // 2] ^= 0x01
+        lib_file.write_bytes(bytes(data))
+        loads, real_load = [], kernels.load_library
+        kernels.load_library = lambda *a: loads.append(a) or real_load(*a)
+        try:
+            vits_tpu_torch.load_model(ckpt, EngineConfig(aot_bundle_dir=tampered), device=device)
+        except ValueError as exc:
+            refusals["one byte flipped"] = str(exc)[:200]
+        finally:
+            kernels.load_library = real_load
+        if len(refusals) != 2 or loads:
+            raise RuntimeError(f"16d: refused {sorted(refusals)}, library loads {loads}")
+        for what, msg in refusals.items():
+            print(f"    {what}: ValueError: {msg}", flush=True)
+        if json.loads(Path(bundle, MANIFEST).read_text()) != manifest:
+            raise RuntimeError("16d changed the bundle")
+
+        print(f"  [16e] devprofile.device_ms of the 87-token request at fast ({card}):",
+              flush=True)
+        fast = vits_tpu_torch.load_model(ckpt, EngineConfig(), device=device)
+
+        def request():
+            return fast.synthesize_raw([SINGLE_TEXTS[1]], seed=[5])
+
+        request()  # as phase 9: one call, then the measured one
+        sessions = PROFILER_SESSIONS["sessions"]
+        readings = []
+        for _ in range(DEVPROFILE_READINGS):
+            reading = devprofile.read(request, attempts=DEVPROFILE_ATTEMPTS)
+            PROFILER_SESSIONS["sessions"] += reading.sessions
+            PROFILER_SESSIONS["rerun"] += reading.sessions - (0 if reading.lost else 1)
+            if reading.lost:
+                raise devprofile.LostRecords("; ".join(reading.lost))
+            readings.append(reading)
+        busy = float(np.median([r.busy_ms for r in readings]))
+        first = readings[0]
+        print(f"    busy {busy:.4f} ms (median of {[r.busy_ms for r in readings]}); "
+              f"{first.host_calls} host calls that put work on the card, each with its "
+              f"device record; {first.port_held} of the {len(first.invocations)} records of "
+              f"the port's kernels have their host call in the trace; "
+              f"{PROFILER_SESSIONS['sessions'] - sessions} sessions for "
+              f"{DEVPROFILE_READINGS} readings ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 16: {seconds:.1f} s", flush=True)
+    return {"bundle": {"signatures": signatures, "frames_per_token": ratio,
+                       "bytes": bundle_bytes, "library": lib["file"], "export_s": export_s},
+            "children": children, "refusals": refusals,
+            "devprofile": {"busy_ms": busy, "readings_ms": [r.busy_ms for r in readings],
+                           "host_calls": readings[0].host_calls,
+                           "port_records": len(readings[0].invocations),
+                           "port_records_held": readings[0].port_held,
+                           "sessions": [r.sessions for r in readings]},
+            "seconds": seconds, "card": card, "profiler_sessions": PROFILER_SESSIONS}
 
 
 def run_child(flag: str, prefix: str, phase: int) -> dict:
@@ -4864,8 +5140,24 @@ def main() -> None:
     if sys.argv[1:] == [REFUSALS_FLAG]:
         print(REFUSALS_RESULT + json.dumps(refusals_phase(device)), flush=True)
         return
+    if sys.argv[1:] == [STARTUP_FLAG]:
+        print(STARTUP_RESULT + json.dumps(startup_phase(device)), flush=True)
+        return
+    if sys.argv[1:2] == [STARTUP_CHILD_FLAG]:
+        mode, ckpt, artifact, ratio, out, t_start = sys.argv[2:]
+        startup_child(device, mode, ckpt, artifact, float(ratio), out, float(t_start))
+        return
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    t_run = time.perf_counter()
+    weights = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    os.environ[WEIGHTS_ENV] = weights  # random_weights: shared with the child phases
+    atexit.register(shutil.rmtree, weights, True)
     card = card_line()
-    print("[1/15] card (nvidia-smi name, power limit):", flush=True)
+    print("[1/16] card (nvidia-smi name, power limit):", flush=True)
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -4879,7 +5171,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.library()
-    print(f"[2/15] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
+    print(f"[2/16] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
 
     t0 = time.perf_counter()
@@ -4894,7 +5186,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 must be off on the main path")
-    print(f"[3/15] kernels vs plain on the card ({card}), tolerance "
+    print(f"[3/16] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
@@ -4903,13 +5195,13 @@ def main() -> None:
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
 
-    print(f"[4/15] the slice at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[4/16] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
 
-    print(f"[5/15] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
+    print(f"[5/16] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
                                            fused_stage, fused_flow),
@@ -4922,12 +5214,12 @@ def main() -> None:
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
 
-    print(f"[6/15] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
+    print(f"[6/16] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
 
-    print(f"[7/15] training at MMS-TTS width, random weights ({card}):", flush=True)
+    print(f"[7/16] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
     trained = gan_steps(config, device, card)
@@ -4937,47 +5229,63 @@ def main() -> None:
     del trained["gen"], trained["batch"]
     train_loop(card)
 
-    print(f"[8/15] streaming and HTTP serving ({card}):", flush=True)
+    print(f"[8/16] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
 
-    print(f"[9/15] the precision tiers, in a process of its own ({card}):", flush=True)
+    print(f"[9/16] the precision tiers, in a process of its own ({card}):", flush=True)
     tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
-    print(f"[10/15] bf16 training at MMS-TTS width, random weights, in a process of its own "
+    print(f"[10/16] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
     training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
-    print(f"[11/15] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
+    print(f"[11/16] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
     serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
 
-    print(f"[12/15] data-parallel training at MMS-TTS width, random weights, in a process of "
+    print(f"[12/16] data-parallel training at MMS-TTS width, random weights, in a process of "
           f"its own ({card}):", flush=True)
     data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
 
-    print(f"[13/15] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
+    print(f"[13/16] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
           f"replicas sharing the card, in a process of its own ({card}):", flush=True)
     multi = run_child(MULTI_FLAG, MULTI_RESULT, 13)
 
-    print(f"[14/15] model-parallel training: the GPipe encoder over stages and two "
+    print(f"[14/16] model-parallel training: the GPipe encoder over stages and two "
           f"tensor-parallel ranks sharing the card, in a process of its own ({card}):",
           flush=True)
     model_parallel = run_child(MP_FLAG, MP_RESULT, 14)
     measured.update(model_parallel["kernels"])
 
-    print(f"[15/15] what the port once refused: kernels A and 4 past head_dim 128 and window "
+    print(f"[15/16] what the port once refused: kernels A and 4 past head_dim 128 and window "
           f"15, attention without a window, uneven grad_accum microbatches over two ranks, in "
           f"a process of its own ({card}):", flush=True)
     refusals = run_child(REFUSALS_FLAG, REFUSALS_RESULT, 15)
     measured.update(refusals["kernels"])
+
+    print(f"[16/16] serving start-up artifacts: an AOT bundle and the library cache, each "
+          f"served by a process with nvcc hidden, their refusals, and devprofile, in a "
+          f"process of its own ({card}):", flush=True)
+    startup = run_child(STARTUP_FLAG, STARTUP_RESULT, 16)
+    phase9_busy = tiers_run["fast"]["device_busy_ms"]
+    startup["devprofile"]["phase9_busy_ms"] = phase9_busy
+    rel = abs(startup["devprofile"]["busy_ms"] - phase9_busy) / phase9_busy
+    print(f"  devprofile's busy ms {startup['devprofile']['busy_ms']:.4f} against phase 9's "
+          f"{phase9_busy:.4f}: {100 * rel:.2f}% apart (bound {100 * DEVPROFILE_RTOL:.0f}%); "
+          f"first audio with nvcc's build of phase 2 ({kernels.build_seconds:.1f} s) ahead of "
+          f"the cache child's {startup['children']['cache']['first_audio_s']:.2f} s: "
+          f"{kernels.build_seconds + startup['children']['cache']['first_audio_s']:.1f} s "
+          f"({card})", flush=True)
+    if not rel <= DEVPROFILE_RTOL:
+        raise RuntimeError(f"devprofile's busy ms is {100 * rel:.2f}% from phase 9's")
 
     train_launches = trained["launches"]
     serving = {name: sum(path["launches"].get(name, 0) for path in paths.values())
@@ -5104,6 +5412,9 @@ def main() -> None:
         if entry["name"] == "flash_rel_attention_wide":
             entry["lse_launches_training"] = wide["training"]["launches"][
                 "flash_rel_attention_lse"]
+        if entry["name"] in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
+            entry["startup_launches"] = {mode: run["launches"][entry["name"]]
+                                         for mode, run in startup["children"].items()}
         if entry["name"] == "trainable_trio_mp":
             entry["backward_launches"] = sum(c["trio_backward"] for c in mp_paths.values())
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"
@@ -5136,9 +5447,16 @@ def main() -> None:
                                                               "seconds", "card")} | {
         "two_ranks": {k: v for k, v in model_parallel["two_ranks"].items() if k != "launches"}}
     report["refusals"] = {k: refusals[k] for k in ("variants", "uneven", "seconds", "card")}
+    report["startup"] = {k: startup[k] for k in ("bundle", "children", "refusals", "devprofile",
+                                                 "seconds", "card")} | {
+        "nvcc_seconds_phase2": kernels.build_seconds}
     report["profiler_sessions"] = PROFILER_SESSIONS
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
-          f"record {PROFILER_SESSIONS['rerun']}", flush=True)
+          f"record {PROFILER_SESSIONS['rerun']}, kept with a lost record "
+          f"{PROFILER_SESSIONS['kept_lost']}", flush=True)
+    report["seconds"] = time.perf_counter() - t_run
+    print(f"  chip_smoke: {report['seconds']:.1f} s from the card query to the report",
+          flush=True)
     print(card, flush=True)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -269,8 +269,9 @@ def test_convert_voice_bf16_matches_jax(bundle):
         return (np.asarray(out.posterior_mean.astype(jnp.float32)),
                 np.asarray(wave.astype(jnp.float32)))
 
-    # the posterior encoder; then the flows and the vocoder from JAX's posterior
-    mean16, _ = jax_convert("bfloat16")
+    # the posterior encoder; then the flows and the vocoder from JAX's bf16 posterior
+    # (the bf16 call's own conversion: it converts that posterior)
+    mean16, wave16 = jax_convert("bfloat16")
     mean32, _ = jax_convert("float32")
     _gap_check("posterior mean", got.posterior_mean, mean16, mean32)
     with torch.inference_mode():
@@ -279,8 +280,7 @@ def test_convert_voice_bf16_matches_jax(bundle):
         z_p, _ = residual_coupling_forward(p, port.config, z, m3)
         lat = vits.latents_from_prior(port.params, port.config, z_p, m3)
         wave = port_hifigan(p, port.config, lat, m3, tiers=port.tiers)
-    _gap_check("converted waveform", wave, jax_convert("bfloat16", mean16)[1],
-               jax_convert("float32", mean16)[1])
+    _gap_check("converted waveform", wave, wave16, jax_convert("float32", mean16)[1])
 
 
 # --------------------------------------------------------------------------- #
@@ -471,14 +471,20 @@ def _flow_config():
                                prior_encoder_num_wavenet_layers=2)
 
 
+@pytest.fixture(scope="module")
+def flow_params():
+    """(config, the flow's random weights): made once for every tier's case."""
+    config = _flow_config()
+    return config, {k: v for k, v in random_params(config, seed=0, keep_training=False).items()
+                    if k.startswith("flow.")}
+
+
 @pytest.mark.parametrize("name", list(TIER_BOUNDS))
-def test_flow_bf16_twin_matches_jax_kernel(name):
+def test_flow_bf16_twin_matches_jax_kernel(name, flow_params):
     """Kernel 6 at bf16 serving (with speakers) against the JAX kernel in interpret
     mode on bf16 inputs and its bf16 weights packed as fp32 (its tier's bound
     plus one bf16 ulp)."""
-    config = _flow_config()
-    params = {k: v for k, v in random_params(config, seed=0, keep_training=False).items()
-              if k.startswith("flow.")}
+    config, params = flow_params
     jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
     rng = np.random.default_rng(2)
     lengths = [40, 17, 33]

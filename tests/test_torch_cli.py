@@ -2,11 +2,11 @@
 ``main`` on the CPU, with ``tests/fixtures/tiny-vits.ggml``.
 
 Synthesis to a WAV, ``--stream`` (the TTFA printed; the audio within one
-int16 step of the one-shot decode), ``--long``, ``--convert``; every flag the
-port does not honour exits non-zero, and so does the default ``--device
-cuda`` where no CUDA device is visible. The server is started as a user
-starts it (``--device cpu --port 0``) and answers ``/synthesize`` and
-``/stream``.
+int16 step of the one-shot decode), ``--long``, ``--convert``; the default
+``--device cuda`` exits non-zero where no CUDA device is visible
+(``--aot-bundle`` and ``--compilation-cache``: tests/test_torch_aot.py). The
+server is started as a user starts it (``--device cpu --port 0``) and
+answers ``/synthesize`` and ``/stream``.
 """
 
 import json
@@ -89,17 +89,6 @@ def test_cli_convert(tmp_path):
     np.testing.assert_allclose(audio, want, atol=INT16_STEP, rtol=0)
 
 
-@pytest.mark.parametrize("flags", [
-    ("--compilation-cache", "cache"),
-])
-def test_cli_refuses_unported_flags(tmp_path, flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        _run(tmp_path, "--text", "hi", *flags)
-    assert exc.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (tmp_path / "out.wav").exists()
-
-
 class _Loaded(Exception):
     """Raised by a stand-in load_model: carries the EngineConfig main built."""
 
@@ -133,6 +122,16 @@ def test_cli_and_server_take_every_fidelity_tier(tier, engine_of_main):
                 default.pallas_weight_format, default.matmul_precision) == (None,) * 4
 
 
+def test_startup_artifact_flags_reach_engine_config(engine_of_main):
+    """The CLI's ``--compilation-cache`` and the server's ``--compilation-cache``
+    and ``--aot-bundle`` reach EngineConfig, as in the JAX package's mains."""
+    eng = engine_of_main(cli.main, "--text", "hi", "--compilation-cache", "cache")
+    assert (eng.compilation_cache_dir, eng.aot_bundle_dir) == ("cache", None)
+    eng = engine_of_main(server.main, "--port", "0", "--aot-bundle", "bundle",
+                         "--compilation-cache", "cache")
+    assert (eng.compilation_cache_dir, eng.aot_bundle_dir) == ("cache", "bundle")
+
+
 def test_cli_fidelity_tiers_synthesize_on_cpu(tmp_path):
     """Every tier synthesizes through the CLI on the CPU (there the engine's
     defaults compute fp32, so each tier's audio is the default's)."""
@@ -153,16 +152,6 @@ def test_cli_and_server_default_to_cuda(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
         server.main(["--model", GGML, "--port", "0"])
     assert exc.value.code not in (0, None) and "no CUDA device" in str(exc.value.code)
-
-
-@pytest.mark.parametrize("flags", [
-    ("--aot-bundle", "bundle"), ("--compilation-cache", "cache"),
-])
-def test_server_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        server.main(["--model", GGML, "--device", "cpu", "--port", "0", *flags])
-    assert exc.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
 
 
 def test_server_main_serves_on_cpu():

@@ -2,8 +2,8 @@
 
 Noise contract, batching parity (a padded row equals its solo run), seed
 determinism, the overflow re-dispatch ladder, warmup, batch buckets,
-long-form synthesis, and the EngineConfig fields the port does not honour
-yet. Waveforms cross to the host as int16 PCM, so two runs that agree in fp32
+long-form synthesis, and the EngineConfig fields the port refuses (its
+kernels cannot be turned off). Waveforms cross to the host as int16 PCM, so two runs that agree in fp32
 may differ by one int16 step (1/32767): rows of batches of different sizes
 are held within INT16_STEP (the plain convs' summation order follows the
 batch size), rows of the same dispatch bit for bit.
@@ -109,10 +109,11 @@ def test_adaptive_capacity_align_stays_on_rungs():
 
 @pytest.mark.parametrize("field,value", [
     ("use_pallas_attention", False),
-    ("compilation_cache_dir", "cache"), ("aot_bundle_dir", "bundle"),
     ("use_pallas_vocoder", False),
 ])
 def test_engine_rejects_unported_fields(field, value):
+    """The port has no kernel-off switch (compilation_cache_dir and
+    aot_bundle_dir: tests/test_torch_aot.py)."""
     with pytest.raises(NotImplementedError, match=field):
         vits_tpu_torch.load_model(GGML, EngineConfig(**{field: value}), device="cpu")
 

@@ -58,7 +58,8 @@ def test_port_never_imports_jax():
         "from vits_tpu_torch.parallel import distributed, mesh\n"
         "from vits_tpu_torch import cli\n"
         "from vits_tpu_torch.engine import mux, server, sp, streaming\n"
-        "from vits_tpu_torch.io import quantize\n"
+        "from vits_tpu_torch.io import aot, quantize\n"
+        "from vits_tpu_torch.utils import devprofile\n"
         "from vits_tpu_torch.ops import precision, tiers\n"
         f"m = vits_tpu_torch.load_model({GGML!r}, device='cpu')\n"
         "audio = m.synthesize('hello world')\n"
@@ -83,10 +84,14 @@ def _imported_modules(path: Path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    files = sorted(Path(REPO, "vits_tpu_torch").rglob("*.py")) + [
+    # scripts/torch_bf16_spread.py measures the port against the JAX package on the CPU
+    scripts = sorted(f for f in Path(REPO, "scripts").glob("torch_*.py")
+                     if f.name != "torch_bf16_spread.py")
+    files = sorted(Path(REPO, "vits_tpu_torch").rglob("*.py")) + scripts + [
         Path(REPO, "chip_smoke.py"), Path(REPO, "tests", "test_torch_dp_worker.py")]
     found = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
              if m.split(".")[0] in ("jax", "jaxlib", "vits_tpu")]
+    assert Path(REPO, "scripts", "torch_export_aot.py") in scripts
     assert len(files) > 30 and not found, found
 
 

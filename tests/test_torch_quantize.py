@@ -101,16 +101,23 @@ def test_int8_ggml_through_the_loader_and_the_engine(fixture_bundle):
                                   plain.synthesize("hello world", seed=2))
 
 
+@pytest.fixture(scope="module")
+def kernel_shaped_int8():
+    """``quantize_params`` of the kernel-shaped config's random weights (seed 0),
+    made once for the tests that take it."""
+    from tests.test_torch_slice_kernels import KERNEL_SHAPED
+
+    return KERNEL_SHAPED, jax_quantize.quantize_params(
+        random_params(KERNEL_SHAPED, seed=0, keep_training=False))
+
+
 @pytest.mark.parametrize("weight_format", ["int8", "bfloat16"])
-def test_vocoder_packs_match_jax_packs(weight_format):
+def test_vocoder_packs_match_jax_packs(weight_format, kernel_shaped_int8):
     """The wide stage's trio packs (int8 values and per-(pair, out-channel)
     scales, or bf16) and its bf16 upsampler equal the JAX packs; the stage
     kernel stages' scales are the JAX packs' (tiled over their packed slots;
     their int8 values are held in tests/test_torch_precision.py)."""
-    from tests.test_torch_slice_kernels import KERNEL_SHAPED
-
-    params = jax_quantize.quantize_params(random_params(KERNEL_SHAPED, seed=0,
-                                                        keep_training=False))
+    KERNEL_SHAPED, params = kernel_shaped_int8
     jax_packs = jax_precompute_vocoder_packs(JaxParamView(params), KERNEL_SHAPED,
                                              weight_format=weight_format)
     port = precompute_vocoder_packs(ParamView(from_jax_params(params, "cpu")),
@@ -145,13 +152,12 @@ def test_int8_engine_tiers_match_jax_engine(tier, fixture_bundle):
     assert port._weight_format == ("int8" if tier in ("fast", "glue32") else "float32")
 
 
-def test_int8_engine_fast_tier_on_every_vocoder_kernel():
+def test_int8_engine_fast_tier_on_every_vocoder_kernel(kernel_shaped_int8):
     """A quantized checkpoint's fast tier where the vocoder takes kernels B and
     C: int8 packs (scales on every conv's sum), the bf16 carry."""
-    from tests.test_torch_slice_kernels import KERNEL_SHAPED, _inputs
+    from tests.test_torch_slice_kernels import _inputs
 
-    params = jax_quantize.quantize_params(random_params(KERNEL_SHAPED, seed=0,
-                                                        keep_training=False))
+    KERNEL_SHAPED, params = kernel_shaped_int8
     ids, mask, dur, prior = _inputs(KERNEL_SHAPED, 1, lengths=(12, 3), num_frames=16)
     port = engine_parity(KERNEL_SHAPED, params, "fast", ids, mask, dur, prior, 16)
     packs = port._vocoder_packs()

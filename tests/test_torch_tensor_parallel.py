@@ -198,15 +198,17 @@ def _reassembled(gen_np, arrays) -> dict[str, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def _mms_width_params():
     from vits_tpu.config import VitsConfig as JaxVitsConfig
-    from vits_tpu.io.random_init import random_params
+    from vits_tpu.io.random_init import _random_params_numpy
 
-    # MMS-TTS's widths (VitsConfig()), its depth cut
-    return random_params(JaxVitsConfig(num_hidden_layers=1, prior_encoder_num_flows=1,
-                                       prior_encoder_num_wavenet_layers=1,
-                                       posterior_encoder_num_wavenet_layers=1,
-                                       duration_predictor_num_flows=1,
-                                       depth_separable_num_layers=1),
-                         seed=0, keep_training=True)
+    # MMS-TTS's widths (VitsConfig()), its depth cut. The specs and the plan read
+    # names and shapes only, which the numpy initialiser gives as the HF one does
+    # (without importing transformers and building the HF model).
+    return _random_params_numpy(JaxVitsConfig(num_hidden_layers=1, prior_encoder_num_flows=1,
+                                              prior_encoder_num_wavenet_layers=1,
+                                              posterior_encoder_num_wavenet_layers=1,
+                                              duration_predictor_num_flows=1,
+                                              depth_separable_num_layers=1),
+                                0, True)
 
 
 @pytest.mark.parametrize("which", ["tiny", "mms_width"])

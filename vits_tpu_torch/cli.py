@@ -56,13 +56,12 @@ def main(argv=None) -> int:
     parser.add_argument("--long", action="store_true", dest="longform",
                         help="split long text at sentences, batch, and stitch")
     parser.add_argument("--compilation-cache", default=None, metavar="DIR",
-                        help="XLA compilation cache: not ported (ROADMAP.md, 'Not ported')")
+                        help="kernel library cache (EngineConfig.compilation_cache_dir): "
+                             "the first run builds the CUDA kernels into DIR, repeat runs "
+                             "load them from there without nvcc")
     args = parser.parse_args(argv)
     if not args.text and not args.convert:
         parser.error("provide --text (synthesis) or --convert (voice conversion)")
-    if args.compilation_cache is not None:
-        parser.error("--compilation-cache: XLA's cache is not ported (ROADMAP.md, "
-                     "'Not ported')")
 
     import numpy as np
     import torch
@@ -90,6 +89,7 @@ def main(argv=None) -> int:
             placement = {"mesh": mesh}
     model = vits_tpu_torch.load_model(
         args.model, EngineConfig(compute_dtype=args.dtype,
+                                 compilation_cache_dir=args.compilation_cache,
                                  **EngineConfig.fidelity_kwargs(args.fidelity)),
         **placement)
     controls = dict(

@@ -273,16 +273,16 @@ class EngineConfig:
     # keep their own pallas_precision/value-dtype policy.  Fidelity table:
     # BENCH_DETAIL value_dtype_fidelity* (glue32 rows).
     matmul_precision: str | None = None
-    # Persistent XLA compilation-cache directory: compiled bucket programs
-    # survive process restarts, so a serving process skips the 20-40 s/program
-    # cold compile on its second and later launches.  None = disabled.
-    # NOTE jax has ONE process-global cache — the last engine constructed
+    # Kernel library directory (ops/cuda::use_build_dir): the CUDA kernels are
+    # built into it once and later processes load them from it, skipping the
+    # nvcc build.  None = the package's _build/.
+    # NOTE the directory is process-global — the last engine constructed
     # with a non-None dir wins for the whole process.
     compilation_cache_dir: str | None = None
-    # AOT program bundle (io/aot.py): dispatch pre-exported StableHLO
-    # programs instead of tracing the model — a versioned, auditable serving
-    # artifact.  Exported signatures dispatch trace-free; others fall back
-    # to normal jit (stats["aot_misses"]).  None = disabled.
+    # AOT bundle (io/aot.py): serve with a bundle's verified kernel library
+    # and manifest — a versioned, auditable serving artifact.  Exported
+    # signatures count stats["aot_hits"], others stats["aot_misses"]; both
+    # run the same kernels.  None = disabled.
     aot_bundle_dir: str | None = None
 
     @staticmethod

@@ -297,7 +297,7 @@ def make_handler(worker: BatchingWorker, model, request_timeout_s: float = 120.0
             if self.path == "/healthz":
                 engine_stats = {
                     k: v for k, v in getattr(model, "stats", {}).items()
-                    if k.startswith("aot_")  # AOT bundle hit/miss (JAX engine only)
+                    if k.startswith("aot_")  # AOT bundle hit/miss (io/aot.py)
                 }
                 self._json(200, {"status": "ok", **worker.stats, **engine_stats})
             elif self.path == "/metrics":
@@ -548,8 +548,9 @@ def main(argv=None) -> int:
                          "are visible), --device cpu N CPU replicas; each batch "
                          "dispatch shards its rows over them")
     ap.add_argument("--compilation-cache", default=None, metavar="DIR",
-                    help="XLA compilation cache: not ported (ROADMAP.md, "
-                         "'Not ported')")
+                    help="kernel library cache (EngineConfig.compilation_cache_dir): "
+                         "the first start builds the CUDA kernels into DIR, restarts "
+                         "load them from there without nvcc")
     ap.add_argument("--warm-overflow", type=int, default=0, metavar="N",
                     help="run N rungs of the overflow-redispatch ladder at "
                          "startup so no request meets a new shape there "
@@ -561,8 +562,9 @@ def main(argv=None) -> int:
                     help="with --warm-overflow: let adaptive capacity use "
                          "fine-grained steps (off the warmed rungs)")
     ap.add_argument("--aot-bundle", default=None, metavar="DIR",
-                    help="AOT program bundle: not ported (ROADMAP.md, "
-                         "'Not ported')")
+                    help="AOT bundle (scripts/torch_export_aot.py): serve with its "
+                         "verified kernel library, without nvcc, counting the "
+                         "exported signatures' hits (/healthz)")
     ap.add_argument("--fidelity", choices=["fast", "glue32", "high", "exact"],
                     default="fast",
                     help="precision tier (EngineConfig.fidelity_kwargs): fast = "
@@ -571,10 +573,6 @@ def main(argv=None) -> int:
                          "glue is fp32 at every tier), high = bf16x3 kernels, "
                          "exact = fp32 (3xTF32) kernels")
     args = ap.parse_args(argv)
-    if args.aot_bundle is not None:
-        ap.error("--aot-bundle: AOT bundles are not ported (ROADMAP.md, 'Not ported')")
-    if args.compilation_cache is not None:
-        ap.error("--compilation-cache: XLA's cache is not ported (ROADMAP.md, 'Not ported')")
 
     import torch
 
@@ -602,7 +600,9 @@ def main(argv=None) -> int:
         buckets.append(b)
         b *= 2
     buckets.append(args.max_batch)
-    eng = EngineConfig(batch_buckets=tuple(dict.fromkeys(buckets)),
+    eng = EngineConfig(compilation_cache_dir=args.compilation_cache,
+                       aot_bundle_dir=args.aot_bundle,
+                       batch_buckets=tuple(dict.fromkeys(buckets)),
                        adaptive_capacity_align=(
                            args.warm_overflow > 0 and not args.no_capacity_align),
                        **EngineConfig.fidelity_kwargs(args.fidelity))

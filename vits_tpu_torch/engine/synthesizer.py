@@ -53,6 +53,15 @@ PyTorch's switches are process-wide, and TF32 convs can flip
 card. Int8 checkpoints are dequantized once at load outside the packs (the
 values the JAX ``ParamView`` reads).
 
+Start-up artifacts (``vits_tpu/engine/synthesizer.py:94-102, 190-205``):
+``EngineConfig.compilation_cache_dir`` is the directory the kernel library is
+built into and found in (``ops/cuda::use_build_dir``, process-global: the last
+engine that names one wins), so a restart loads it without ``nvcc``;
+``EngineConfig.aot_bundle_dir`` serves from a bundle (``io/aot.py``): verified,
+its library loaded without a build, its ``frames_per_token`` adopted (and the
+floor of the decay), and every dispatch counted in ``stats["aot_hits"]`` or
+``stats["aot_misses"]`` by its signature. A miss runs the same kernels.
+
 ``EngineConfig.compute_dtype="bfloat16"`` serves at bf16 as the JAX engine
 does: every fp32 parameter is cast to bf16 at load (int8 weights stay int8
 and their scales become bf16, so they dequantize to bf16), the masks and the
@@ -99,25 +108,23 @@ from vits_tpu_torch.models.hifigan import hifigan, precompute_vocoder_packs
 from vits_tpu_torch.models.vits import PriorOutput, latents_from_prior, text_to_prior
 from vits_tpu_torch.models.vits import synthesize as synthesize_fn
 from vits_tpu_torch.models.vits import voice_convert
+from vits_tpu_torch.ops import cuda as kernels
 from vits_tpu_torch.ops.cuda import booked_to
 from vits_tpu_torch.ops.cuda.flow import FlowPack, pack_flow_weights
 from vits_tpu_torch.ops.tiers import Tiers
 from vits_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
-# EngineConfig fields the port does not honour yet: each must keep its default
-# (the kernels cannot be turned off on the card).
-_UNSUPPORTED_FIELDS = ("compilation_cache_dir", "aot_bundle_dir")
+# EngineConfig fields the port refuses at False: the kernels cannot be turned off
+# on the card.
 _NO_KERNEL_OFF = ("use_pallas_vocoder", "use_pallas_attention")
 
 
 def _check_engine_config(engine: EngineConfig) -> None:
-    default = EngineConfig()
-    changed = [f for f in _UNSUPPORTED_FIELDS if getattr(engine, f) != getattr(default, f)]
-    changed += [f for f in _NO_KERNEL_OFF if getattr(engine, f) is False]
+    changed = [f for f in _NO_KERNEL_OFF if getattr(engine, f) is False]
     if changed:
         raise NotImplementedError(
-            f"EngineConfig fields not ported to vits_tpu_torch yet: {', '.join(changed)} "
-            "(ROADMAP.md)")
+            f"EngineConfig {', '.join(changed)}=False: vits_tpu_torch has no kernel-off "
+            "switch (its kernels always run on the card; ROADMAP.md)")
 
 
 def resolve_tiers(engine: EngineConfig, device: torch.device,
@@ -347,8 +354,9 @@ class Synthesizer:
             raise ValueError(f"mesh of CUDA and CPU devices: {mesh}")
         self.device = devices[0]
         _fp32_backends(self.device)
-        quantized = any(k.startswith("decoder.") and k.endswith(".scale") for k in params)
-        self.tiers, self._weight_format = resolve_tiers(self.engine, self.device, quantized)
+        self._quantized = any(k.startswith("decoder.") and k.endswith(".scale") for k in params)
+        self.tiers, self._weight_format = resolve_tiers(self.engine, self.device,
+                                                        self._quantized)
         self.compute_dtype = self.tiers.compute_dtype
 
         def place(device: torch.device) -> dict:
@@ -375,6 +383,26 @@ class Synthesizer:
             "audio_seconds": 0.0,
             "wall_seconds": 0.0,
         }
+        # AOT bundle (io/aot.py): verified against this model and engine, then its
+        # library loaded without a build, all before any dispatch. The bundle's
+        # frame ratio is adopted so that dispatch capacities meet its signatures.
+        self._aot = None
+        if self.engine.aot_bundle_dir:
+            from vits_tpu_torch.io.aot import AotBundle
+
+            self._aot = AotBundle(self.engine.aot_bundle_dir)
+            self._aot.verify(self)
+            self._aot.load_library()
+            self._frames_per_token = self._aot.frames_per_token
+            self.stats["aot_hits"] = 0
+            self.stats["aot_misses"] = 0
+        if self.engine.compilation_cache_dir:
+            # Process-global, as JAX's compilation cache: the last engine that names
+            # a directory wins. The kernel library is built into and found in it from
+            # now on; a library already loaded from elsewhere (a bundle's) is copied
+            # there (ops/cuda::use_build_dir). Nothing is built here, and a CPU
+            # engine never builds.
+            kernels.use_build_dir(self.engine.compilation_cache_dir)
 
     @property
     def params(self) -> dict:
@@ -456,6 +484,10 @@ class Synthesizer:
         if len(self.replicas) > 1 and not isinstance(seed, tuple):
             raise ValueError("a mesh dispatch needs per-row seeds")
         self._check_speakers(speaker)  # on this thread, before any shard runs
+        if self._aot is not None:  # a miss runs the same kernels: it is only counted
+            hit = self._aot.lookup(ids.shape[0], ids.shape[1], num_frames,
+                                   rng_rows=isinstance(seed, tuple), speaker=speaker is not None)
+            self.stats["aot_hits" if hit is not None else "aot_misses"] += 1
         jobs = [(ids[s], mask[s], seed[s] if isinstance(seed, tuple) else seed,
                  None if speaker is None else speaker[s]) for s in self._shards(ids.shape[0])]
         device_out = tuple(self.replicas.run(
@@ -743,7 +775,7 @@ class Synthesizer:
         return self._transfer(out.waveform)
 
     def warmup(self, batch_sizes=(1,), token_buckets=None, per_row_seeds=False,
-               overflow_ladder: int = 0) -> None:
+               overflow_ladder: int = 0, speaker: bool | None = None) -> None:
         """Run each dispatch shape a server expects once, before its first request.
 
         As the JAX engine's ``warmup``: every (batch size, token bucket) at the
@@ -755,7 +787,8 @@ class Synthesizer:
         pick its algorithms and, with ``use_pallas_flow``, captures kernel 6's
         graph, which the flow pack keeps for good (``FlowPack.keeping``). A
         multi-speaker model dispatches speaker 0 on every row, the shapes of
-        requests that name a speaker. On a mesh engine each batch size rounds
+        requests that name a speaker (``speaker=True`` or ``False``: with or
+        without speaker ids, whatever the model). On a mesh engine each batch size rounds
         up to the data axis and seeds are per row, as a mesh dispatch's are:
         every replica runs its shard's shapes.
         """
@@ -763,7 +796,8 @@ class Synthesizer:
         with self._keeping_flow_graphs():
             for bs in batch_sizes:
                 bs = -(-bs // n) * n
-                speaker = np.zeros((bs,), np.int64) if self.config.num_speakers > 1 else None
+                ids_of_speaker = (np.zeros((bs,), np.int64) if (
+                    self.config.num_speakers > 1 if speaker is None else speaker) else None)
                 seed = (0,) * bs if per_row_seeds or self.mesh is not None else 0
                 for tb in token_buckets or self.engine.token_buckets:
                     ids = np.zeros((bs, tb), np.int32)
@@ -771,7 +805,7 @@ class Synthesizer:
                     mask[:, 0] = 1.0
                     capacity = self._frame_capacity(tb)
                     for rung in range(overflow_ladder + 1):
-                        self._dispatch(ids, mask, capacity * 2 ** rung, seed, speaker,
+                        self._dispatch(ids, mask, capacity * 2 ** rung, seed, ids_of_speaker,
                                        self._controls(None, None, None))
         self._synchronize()
 
@@ -825,11 +859,14 @@ class Synthesizer:
             self._rate_window.clear()
 
     def _maybe_decay(self) -> None:
-        """After a full window of dispatches, fall back to what the window needed."""
+        """After a full window of dispatches, fall back to what the window needed,
+        never below the config's ratio nor an AOT bundle's."""
         eng = self.engine
         if not (eng.adaptive_capacity and eng.adaptive_capacity_decay):
             return
         floor = float(eng.frames_per_token)
+        if self._aot is not None:
+            floor = max(floor, self._aot.frames_per_token)
         if self._frames_per_token <= floor or len(self._rate_window) < self._rate_window.maxlen:
             return
         if eng.adaptive_capacity_align:

@@ -3,10 +3,13 @@
 The sources under ``vits_tpu_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` (one process per source, in parallel) and linked into ONE shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use into ``vits_tpu_torch/_build/`` (git-ignored), keyed by a hash of
-the sources and flags, so a fresh checkout
-builds everything on its first kernel call and later processes reuse the
-library. Nothing here runs at import: the CPU tests import every module.
+first use into the build directory (``vits_tpu_torch/_build/``, git-ignored,
+unless :func:`use_build_dir` names another: ``EngineConfig.compilation_cache_dir``),
+keyed by a digest of the sources and flags (:func:`source_digest`), so a fresh
+checkout builds everything on its first kernel call and later processes reuse
+the library. :func:`load_library` loads a built library from a given file (an
+AOT bundle's, ``io/aot.py``) without building; one process loads one library,
+of one digest. Nothing here runs at import: the CPU tests import every module.
 
 Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
 ``flow.py``, ``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
@@ -71,6 +74,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_path: Path | None = None  # the file the loaded library was opened from
+_lib_digest: str | None = None  # and its source digest
+_build_dir: Path = BUILD_DIR
 build_seconds: float | None = None  # wall time of this process's build (0.0 = cached)
 
 
@@ -88,16 +94,51 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def source_digest() -> str:
+    """The digest of the sources and flags that names the library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libvits_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def library_name(digest: str) -> str:
+    return f"libvits_kernels_{digest}.so"
+
+
+def library_path() -> Path:
+    return _build_dir / library_name(source_digest())
+
+
+def loaded_library() -> Path | None:
+    """The file this process's library was opened from (None before the first load)."""
+    return _lib_path
+
+
+def use_build_dir(path) -> Path:
+    """Build the library into, and find it in, ``path`` from now on, in the
+    whole process (the last caller wins, as JAX's one compilation cache).
+
+    Nothing is built here. Where the library is already loaded from another
+    directory, the loaded file is copied into ``path`` (unless it is there), so
+    the next process finds it there and builds nothing."""
+    global _build_dir
+    path = Path(path).absolute()
+    with _lock:
+        _build_dir = path
+        if _lib_path is not None and not (path / _lib_path.name).exists():
+            # through a temporary file: a process that finds the library finds all of it
+            path.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=path)
+            os.close(fd)
+            shutil.copyfile(_lib_path, tmp)
+            os.replace(tmp, path / _lib_path.name)
+    return path
 
 
 def build() -> Path:
-    """Compile the kernels unless this source hash is already built.
+    """Compile the kernels unless this source digest is already built.
 
     One ``nvcc -c`` per source, all started together, then one link.
     """
@@ -106,10 +147,10 @@ def build() -> Path:
     if out.exists():
         build_seconds = build_seconds or 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objects, procs = [], []
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
@@ -135,20 +176,62 @@ def build() -> Path:
     return out
 
 
+def _file_sha256(path: Path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def _open(path: Path, digest: str) -> ctypes.CDLL:
+    """``ctypes`` open of the library at ``path`` with every C signature set (under ``_lock``)."""
+    global _lib, _lib_path, _lib_digest
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vk_error_string.argtypes = [ctypes.c_int]
+    lib.vk_error_string.restype = ctypes.c_char_p
+    _lib, _lib_path, _lib_digest = lib, Path(path), digest
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.vk_error_string.argtypes = [ctypes.c_int]
-            lib.vk_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        return _lib if _lib is not None else _open(build(), source_digest())
+
+
+def load_library(path, digest: str) -> ctypes.CDLL:
+    """Load the built library at ``path``, of source digest ``digest``, without
+    building: this process's library from now on.
+
+    Raises ``ValueError`` before anything is opened when a library of another
+    digest is already loaded in this process (both digests named: a process
+    never keeps the first library silently), or when ``digest`` or the file's
+    name is not this checkout's :func:`source_digest` (the C signatures above
+    match these sources only). A library of the same digest already loaded is
+    returned as it is where its file holds the bytes of ``path``, and refused
+    with ``ValueError`` where it does not (a build of the same sources elsewhere):
+    the process would serve other bytes than the ones asked for."""
+    global build_seconds
+    path = Path(path)
+    with _lock:
+        if _lib is not None:
+            if digest != _lib_digest:
+                raise ValueError(f"kernel library of digest {digest} asked for, but this "
+                                 f"process has loaded digest {_lib_digest} ({_lib_path})")
+            if path.resolve() != _lib_path.resolve() and (
+                    _file_sha256(path) != _file_sha256(_lib_path)):
+                raise ValueError(f"kernel library {path} asked for, but this process has "
+                                 f"loaded {_lib_path}, of the same digest and other bytes")
+            return _lib
+        want = source_digest()
+        if digest != want or path.name != library_name(digest):
+            raise ValueError(f"kernel library {path.name} (digest {digest}) was not built from "
+                             f"these sources (digest {want})")
+        if not path.is_file():
+            raise FileNotFoundError(f"kernel library {path} does not exist")
+        build_seconds = build_seconds or 0.0
+        return _open(path, digest)
 
 
 _COUNT_LOCK = threading.Lock()

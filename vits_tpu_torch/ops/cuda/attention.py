@@ -107,7 +107,10 @@ def rel_attention_reference(
     tier: Tier = EXACT_TIER,
 ):
     """Plain PyTorch: scores, rel-key logits, finfo.min key mask, softmax, rel
-    values, every product at ``tier``, in the inputs' dtype (on bf16 tensors the
+    values, every product at ``tier`` (at the fast tier the NORMALISED weights
+    are rounded where the JAX kernel rounds exp(s - m): still nearer that
+    kernel's arithmetic than the exact tier is, tests/test_torch_attention_fast.py),
+    in the inputs' dtype (on bf16 tensors the
     JAX module's bf16 graph: the encoder's plain path in bf16 training). With
     no tables (``rel_k = rel_v = None``, a model with ``window_size`` 0) the
     same without the relative terms: the JAX module's path at window 0
