@@ -175,6 +175,15 @@ printing its result line:
    within phase 7's noise-floor bounds (the floor of the one-process step on
    the card); ZeRO-1 on and off after two steps within the replicated run's
    spread; the steady step ms and gloo's all-reduce ms through the host;
+   (c) four gloo ranks sharing the card as ``slice=2 x data=2``
+   (``data_axis(slices=2)``; grandchildren as 12b's) on 12b's batch, one row a
+   rank, against 12b's one-process step with 12b's bounds, A with lse, 4 and 5
+   launched on every rank, each sum of the data axis exactly an all-reduce over
+   the slice's two ranks, one of this rank's half over the two ranks across
+   slices, then each half broadcast in the slice (SLICE_CALLS), the steady step
+   ms (median of 3) and each stage's gloo ms, timed in those steps; where four
+   cards are visible, the same world over NCCL on distinct cards, else a line
+   saying it did not run;
 13. multi-device serving (``parallel/mesh.py::make_mesh``, ``Synthesizer(mesh=)``,
    ``engine/sp.py``), in a process of its own (``--multi-device-phase``), over
    ``make_mesh(devices=[cuda:0, cuda:0])``: two replicas that share the card,
@@ -261,7 +270,7 @@ entries with the launches of its request paths; ``library_ms`` is null:
 no single PyTorch call computes any of these functions; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier; ``data_parallel_launches``: phase 12's counts for A with lse, 4
-and 5, its world-1 step and 12b's rank 0; ``multi_device_launches``: phase 13's
+and 5, its world-1 step, 12b's rank 0 and 12c's rank 0; ``multi_device_launches``: phase 13's
 calls of A, B, C and 6 by path, replica and device; ``multi_device``: phase 13's
 numbers; phase 14's kernel shapes as ``*_mp`` entries with the launches of 14a's
 pipelined steps and 14b's rank 0, ``model_parallel_launches`` by path and
@@ -278,6 +287,7 @@ import dataclasses
 import functools
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -3330,7 +3340,8 @@ def bf16_serving_phase(device) -> dict:
 
 DP_FLAG = "--data-parallel-phase"
 DP_RESULT = "data-parallel-phase result: "
-DP_RANK_FLAG = "--data-parallel-rank"  # a rank of 12b: the flag, its rank, the port, a directory
+# a rank of 12b, 12c or 15c: the flag, its rank, the port, a directory
+DP_RANK_FLAG = "--data-parallel-rank"
 # 12b: phase 7's shapes at four rows, two a rank, padded to 512 tokens (kernels A with lse
 # and 4) and 1280 frames; unequal lengths, so the global normalizers matter
 DP_TOKENS = (512, 300, 448, 256)
@@ -3423,11 +3434,12 @@ def within_spread(what: str, got, runs) -> dict:
     return {"max_abs_diff": err, "spread": spread}
 
 
-def timed_steps(step_fns: dict, batch, noise, rounds: int = 3) -> dict:
+def timed_steps(step_fns: dict, batch, noise, rounds: int = 3, warm: bool = True) -> dict:
     """Steady wall ms per step of each step function, in turns (a, b, b, a, ...)
-    after one warm-up each, host clock to a synchronise."""
+    after one warm-up each (``warm``; else the caller ran one), host clock to a
+    synchronise."""
     times = {name: [] for name in step_fns}
-    for fn in step_fns.values():
+    for fn in step_fns.values() if warm else ():
         fn(batch, noise=noise)
     torch.cuda.synchronize()
     order = list(step_fns)
@@ -3535,14 +3547,13 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
             "step_ms": step_ms, "all_reduce": reduce_ms, "train_zero1_s": loop_s}
 
 
-def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
-                 frames=DP_FRAMES, grad_accum: int = 1, full: bool = True) -> dict:
-    """Phase 12b: two gloo ranks on the one card (NCCL refuses two ranks on one
-    GPU) against the one-process step on the same rows (B=4) at ``grad_accum``:
-    equal MAS durations, losses within DP_LOSS_RTOL, gradients within phase 7's
-    noise-floor bounds (the floor of the one-process step on the card); with
-    ``full`` also ZeRO-1 on and off, step ms and gloo's all-reduce ms (phase
-    15c: six rows at grad_accum=2, without them)."""
+def dp_reference(config, gen_np, disc_np, device, tokens=DP_TOKENS, frames=DP_FRAMES,
+                 grad_accum: int = 1) -> dict:
+    """The one-process step that phase 12b and 12c hold their ranks against, on the
+    same rows (B=4) at ``grad_accum``: the batch and noise, the MAS durations, the
+    metrics and clipped gradients, and their noise floor (the same step with every
+    weight moved by 1e-7, FLOOR_SAMPLES times), and the ranks' inputs in a temporary
+    directory."""
     import tempfile
 
     from vits_tpu_torch.train.step import draw_noise, generator_forward
@@ -3554,7 +3565,6 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
                                       noise).durations.cpu()
     want_metrics, want, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device,
                                           grad_accum=grad_accum)
-    want = [g.cpu() for g in want]
     rng = np.random.default_rng(3)
     floors, floor_metrics = [], []
     for _ in range(FLOOR_SAMPLES):  # every weight moved by 1e-7, relative
@@ -3565,20 +3575,38 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
         floors.append([g.cpu() for g in grads])
         floor_metrics.append(metrics.tolist())
     torch.cuda.empty_cache()
+    # the ranks' inputs, written once for every world run on this reference (removed
+    # with the reference)
+    inputs = tempfile.TemporaryDirectory()
+    np.savez(f"{inputs.name}/inputs.npz", **{f"gen.{k}": v for k, v in gen_np.items()},
+             **{f"disc.{k}": v for k, v in disc_np.items()},
+             **{f"batch.{k}": v.cpu().numpy() for k, v in batch._asdict().items()
+                if v is not None},
+             **{f"noise.{k}": v.cpu().numpy() for k, v in noise._asdict().items()})
+    return {"batch": batch, "noise": noise, "durations": durations, "grad_accum": grad_accum,
+            "metrics": want_metrics.tolist(), "grads": [g.cpu() for g in want],
+            "floors": floors, "floor_metrics": floor_metrics, "inputs": inputs}
+
+
+def run_ranks(config, ref: dict, world: int, what: str, **setup) -> tuple:
+    """``world`` ranks as grandchildren (``--data-parallel-rank``) on ``ref``'s
+    weights, batch and noise, each with ``setup`` (``slices``, ``full``,
+    ``backend``; an NCCL rank takes card ``rank``). Returns their reports and
+    rank 0's gradients."""
+    import tempfile
+
     with tempfile.TemporaryDirectory() as tmp:
         Path(f"{tmp}/setup.json").write_text(json.dumps(
-            {"config": dataclasses.asdict(config), "device": str(device),
-             "grad_accum": grad_accum, "full": full}))
-        np.savez(f"{tmp}/inputs.npz", **{f"gen.{k}": v for k, v in gen_np.items()},
-                 **{f"disc.{k}": v for k, v in disc_np.items()},
-                 **{f"batch.{k}": v.cpu().numpy() for k, v in batch._asdict().items()
-                    if v is not None},
-                 **{f"noise.{k}": v.cpu().numpy() for k, v in noise._asdict().items()})
+            {"config": dataclasses.asdict(config), "device": str(ref["batch"].input_ids.device),
+             "grad_accum": ref["grad_accum"], "world": world,
+             "inputs": f"{ref['inputs'].name}/inputs.npz", **setup}))
         port = free_port()
-        logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(2)]
+        logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(world)]
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DP_RANK_FLAG,
                                    str(r), str(port), tmp], stdout=logs[r],
-                                  stderr=subprocess.STDOUT) for r in range(2)]
+                                  stderr=subprocess.STDOUT,
+                                  env=dict(os.environ, LOCAL_RANK=str(r)))
+                 for r in range(world)]
         try:
             for p in procs:
                 p.wait(timeout=600)
@@ -3593,12 +3621,51 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
             with open(f"{tmp}/rank{r}.log") as f:
                 text = f.read()
             if p.returncode != 0:
-                raise RuntimeError(f"phase 12b rank {r} failed (exit {p.returncode}):\n"
+                raise RuntimeError(f"{what} rank {r} failed (exit {p.returncode}):\n"
                                    f"{text[-4000:]}")
-        reports = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(2)]
+        reports = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(world)]
         with np.load(f"{tmp}/grads0.npz") as f:
-            got = [torch.from_numpy(f[str(i)]) for i in range(len(want))]
-    a, b = reports
+            got = [torch.from_numpy(f[str(i)]) for i in range(len(ref["grads"]))]
+    return reports, got
+
+
+def hold_ranks(reports: list, got: list, ref: dict, names: list, what: str) -> None:
+    """The ranks against the one-process step: equal MAS durations, every rank's
+    metrics and gradients bit-identical, losses within DP_LOSS_RTOL relative or
+    10x their noise floor, rank 0's gradients within phase 7's noise-floor bounds."""
+    durations = ref["durations"]
+    for r, rep in enumerate(reports):
+        if rep["durations"] != durations[rep["rows"]].tolist():
+            raise RuntimeError(f"{what} rank {r}: MAS durations differ from the one-process "
+                               f"step's")
+    if (len({json.dumps(r["metrics"]) for r in reports}) != 1
+            or len({r["grad_digest"] for r in reports}) != 1):
+        raise RuntimeError(f"{what}: the ranks hold different metrics or gradients")
+    for i, (name, g, w) in enumerate(zip(GAN_FIELDS, reports[0]["metrics"], ref["metrics"])):
+        floor = max(abs(m[i] - w) for m in ref["floor_metrics"])
+        bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
+        print(f"    {name}: {what} {g:.7g}, one process {w:.7g}, |diff| {abs(g - w):.3e} "
+              f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
+        if not abs(g - w) <= bound:
+            raise RuntimeError(f"{what} and one process: {name} differs past {bound:.3e}")
+    B = ref["batch"].input_ids.shape[0]
+    print(f"  {what} vs the one-process B={B} step at grad_accum={ref['grad_accum']}: equal "
+          f"MAS durations ({int(durations.sum())} frames), equal metrics and gradients on all "
+          f"{len(reports)} ranks, losses within {DP_LOSS_RTOL} relative or 10x their noise "
+          f"floor", flush=True)
+    hold_gradients(names, got, ref["grads"], ref["floors"], f"{what} vs one process")
+
+
+def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
+                 frames=DP_FRAMES, grad_accum: int = 1, full: bool = True) -> dict:
+    """Phase 12b: two gloo ranks on the one card (NCCL refuses two ranks on one
+    GPU) against the one-process step on the same rows (B=4) at ``grad_accum``
+    (:func:`hold_ranks`); with ``full`` also ZeRO-1 on and off, step ms and
+    gloo's all-reduce ms (phase 15c: six rows at grad_accum=2, without them).
+    Returns the reports, rank 0's launches and the reference."""
+    ref = dp_reference(config, gen_np, disc_np, device, tokens, frames, grad_accum)
+    reports, got = run_ranks(config, ref, 2, "phase 12b", full=full)
+    a = reports[0]
     B = len(tokens)
     if full:
         print(f"  two gloo ranks on one card: steady GAN step {a['step_ms']:.1f} ms (B={B}, "
@@ -3610,29 +3677,74 @@ def dp_two_ranks(config, gen_np, disc_np, device, card: str, tokens=DP_TOKENS,
               f"three times, against itself {max(r['zero1']['spread'] for r in reports):.3e});"
               f" rank moments {[round(r['zero1']['moment_share'], 3) for r in reports]} of the "
               f"optimizer state", flush=True)
+        for rep in reports:
+            if rep["zero1"]["max_abs_diff"] > DP_SPREAD_FACTOR * rep["zero1"]["spread"]:
+                raise RuntimeError(f"ZeRO-1 on and off: parameters differ by "
+                                   f"{rep['zero1']['max_abs_diff']:.3e}, past "
+                                   f"{DP_SPREAD_FACTOR} x the replicated run's own spread "
+                                   f"{rep['zero1']['spread']:.3e}")
     print(f"  launches of rank 0's step at grad_accum={grad_accum}: {a['launches']}", flush=True)
+    hold_ranks(reports, got, ref, list(gen_np) + list(disc_np), "two ranks")
+    return {"ranks": reports, "launches": a["launches"], "ref": ref}
+
+
+# 12c: a slice x data world of four ranks, one row a rank, and the collectives each sum
+# of the data axis makes (``data_all_reduce_``): the all-reduce in the slice, this rank's
+# half across slices, then each half broadcast in the slice from the rank that summed it
+SLICE_WORLD = (2, 2)  # (slices, data)
+SLICE_SUM = [["all_reduce", "slice", 2], ["all_reduce", "cross", 2],
+             ["broadcast", "slice", 2], ["broadcast", "slice", 2]]
+SLICE_CALLS = SLICE_SUM * 3  # the discriminator's, the generator's, metrics
+SLICE_ROUNDS = 3  # timed steps; each stage of their sums is timed in them
+# the stages of one timed sum, by the recorded [op, group name]; 'sum': all of them
+SLICE_STAGES = {"slice": ("all_reduce", "slice"), "cross": ("all_reduce", "cross"),
+                "broadcasts": ("broadcast", "slice"), "sum": None}
+
+
+def dp_slices(config, gen_np, disc_np, ref: dict, card: str) -> dict:
+    """Phase 12c: four ranks as slice=2 x data=2 (``data_axis(slices=2)``), gloo ranks
+    sharing the card, on 12b's batch (one row a rank) against 12b's one-process
+    step (:func:`hold_ranks`); A with lse, 4 and 5 launched on every rank; every
+    rank's reductions exactly SLICE_CALLS (collectives of two ranks each, never
+    one over four); the steady step ms and the gloo ms of each stage. With
+    four cards or more, the same world over NCCL on distinct cards."""
+    slices, data = SLICE_WORLD
+    world = slices * data
+    reports, got = run_ranks(config, ref, world, "phase 12c", slices=slices, full=False)
     for r, rep in enumerate(reports):
-        if rep["durations"] != durations[rep["rows"]].tolist():
-            raise RuntimeError(f"rank {r}: MAS durations differ from the one-process step's")
-        if full and rep["zero1"]["max_abs_diff"] > DP_SPREAD_FACTOR * rep["zero1"]["spread"]:
-            raise RuntimeError(f"ZeRO-1 on and off: parameters differ by "
-                               f"{rep['zero1']['max_abs_diff']:.3e}, past {DP_SPREAD_FACTOR} x "
-                               f"the replicated run's own spread {rep['zero1']['spread']:.3e}")
-    if a["metrics"] != b["metrics"] or a["grad_digest"] != b["grad_digest"]:
-        raise RuntimeError("the two ranks hold different metrics or gradients")
-    for i, (name, g, w) in enumerate(zip(GAN_FIELDS, a["metrics"], want_metrics.tolist())):
-        floor = max(abs(m[i] - w) for m in floor_metrics)
-        bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
-        print(f"    {name}: two ranks {g:.7g}, one process {w:.7g}, |diff| {abs(g - w):.3e} "
-              f"(noise floor {floor:.3e}, bound {bound:.3e})", flush=True)
-        if not abs(g - w) <= bound:
-            raise RuntimeError(f"two ranks and one process: {name} differs past {bound:.3e}")
-    print(f"  two gloo ranks on one card vs the one-process B={B} step at grad_accum="
-          f"{grad_accum}: equal MAS durations ({int(durations.sum())} frames), equal metrics "
-          f"and gradients on both ranks, losses within {DP_LOSS_RTOL} relative or 10x their "
-          f"noise floor", flush=True)
-    hold_gradients(list(gen_np) + list(disc_np), got, want, floors, "two ranks vs one process")
-    return {"ranks": reports, "launches": a["launches"]}
+        missing = [name for name, n in rep["launches"].items() if not n]
+        if missing:
+            raise RuntimeError(f"phase 12c rank {r}: kernels {missing} were not launched")
+        if rep["collectives"] != SLICE_CALLS:
+            raise RuntimeError(f"phase 12c rank {r}: the data axis's sums made the collectives "
+                               f"{rep['collectives']}, not {SLICE_CALLS}")
+    a = reports[0]
+    print(f"  launches of each rank's step: {[rep['launches'] for rep in reports]}; each sum of "
+          f"the data axis: an all-reduce over the slice's 2 ranks, this rank's half over the 2 "
+          f"ranks across slices, then each half broadcast in the slice", flush=True)
+    for r, rep in enumerate(reports):
+        levels = "; ".join(f"{name} " + " / ".join(f"{rep['levels'][name][stage]:.2f}"
+                                                    for stage in SLICE_STAGES)
+                           for name in ("generator", "discriminator"))
+        print(f"  rank {r}: steady GAN step {rep['step_ms']:.1f} ms (median of {SLICE_ROUNDS}, "
+              f"B=4, one row a rank); its gradient sums through the host, ms in the slice / "
+              f"across slices / broadcasts / sum (median of the {SLICE_ROUNDS} steps): "
+              f"{levels} ({card}); "
+              f"seconds { {k: round(v, 1) for k, v in rep['seconds'].items()} }", flush=True)
+    names = list(gen_np) + list(disc_np)
+    hold_ranks(reports, got, ref, names, "slice=2 x data=2")
+    distinct = None
+    if torch.cuda.device_count() >= world:
+        nccl, got = run_ranks(config, ref, world, "phase 12c (NCCL)", slices=slices,
+                              full=False, backend="nccl")
+        print(f"  the same world over NCCL on cards 0-{world - 1}: steady GAN step "
+              f"{nccl[0]['step_ms']:.1f} ms; levels {nccl[0]['levels']} ({card})", flush=True)
+        hold_ranks(nccl, got, ref, names, "slice=2 x data=2 over NCCL")
+        distinct = [{k: rep[k] for k in ("step_ms", "levels", "launches")} for rep in nccl]
+    else:
+        print(f"  the same world over NCCL on distinct cards: not run "
+              f"({torch.cuda.device_count()} card visible, {world} needed)", flush=True)
+    return {"ranks": reports, "launches": a["launches"], "distinct_cards": distinct}
 
 
 # the kernels entries of the JSON line that phase 12's path launches, and their counters
@@ -3648,10 +3760,61 @@ def tuples(value):
     return tuple(map(tuples, value)) if isinstance(value, list) else value
 
 
+def recorded_collectives(groups: dict, timed: bool = False) -> tuple[list, callable]:
+    """Record every ``torch.distributed.all_reduce`` and ``broadcast`` as [op, group
+    name, ranks] (``groups`` maps a name to a group; 'world' is the default group),
+    with ``timed`` also its wall ms to a synchronise of the card; returns the list
+    and a function that stops the recording."""
+    dist = torch.distributed
+    calls, originals = [], {op: getattr(dist, op) for op in ("all_reduce", "broadcast")}
+
+    def recorder(op):
+        def recorded(tensor, *args, group=None, **kwargs):
+            name = "world" if group is None else next(
+                (n for n, g in groups.items() if g is group), "other")
+            call = [op, name, dist.get_world_size(group)]
+            calls.append(call)
+            if timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = originals[op](tensor, *args, group=group, **kwargs)
+            if timed:
+                torch.cuda.synchronize()
+                call.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return recorded
+
+    for op in originals:
+        setattr(dist, op, recorder(op))
+    return calls, lambda: [setattr(dist, op, fn) for op, fn in originals.items()]
+
+
+def slice_stage_ms(calls: list) -> dict:
+    """Each stage's wall ms (SLICE_STAGES) of the discriminator's and of the
+    generator's gradient sum, median over the timed steps whose collectives
+    ``calls`` recorded (each step's exactly SLICE_CALLS: the discriminator's sum,
+    the generator's, the metrics'); 'sum' is the stages' total."""
+    per_step, per_sum = len(SLICE_CALLS), len(SLICE_SUM)
+    steps = [calls[i:i + per_step] for i in range(0, len(calls), per_step)]
+    if any([c[:3] for c in step] != SLICE_CALLS for step in steps):
+        raise RuntimeError(f"phase 12c: the timed steps made the collectives {calls}")
+    out = {}
+    for k, name in enumerate(("discriminator", "generator")):
+        times = {stage: [] for stage in SLICE_STAGES}
+        for step in steps:
+            sums = step[k * per_sum:(k + 1) * per_sum]
+            for stage, key in SLICE_STAGES.items():
+                times[stage].append(sum(c[3] for c in sums
+                                        if key is None or tuple(c[:2]) == key))
+        out[name] = {stage: float(np.median(t)) for stage, t in times.items()}
+    return out
+
+
 def dp_rank(rank: int, port: int, tmp: str) -> None:
-    """A rank of phase 12b (a child of :func:`dp_two_ranks`): its MAS durations, one
-    GAN step (metrics and gradients to ``tmp``), step and all-reduce ms, and
-    ZeRO-1 on and off."""
+    """A rank of phase 12b, 12c or 15c (a child of :func:`run_ranks`): its MAS
+    durations, one GAN step (metrics and gradients to ``tmp``, its collectives
+    recorded); 12b: step and all-reduce ms, ZeRO-1 on and off; 12c: step ms and
+    each stage's ms of the gradient sums."""
     import hashlib
 
     from vits_tpu_torch import VitsConfig
@@ -3661,12 +3824,15 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
     from vits_tpu_torch.train.step import (
         RowShare, TrainBatch, TrainNoise, generator_forward, make_gan_train_step)
 
+    t0 = time.perf_counter()
     setup = json.loads(Path(f"{tmp}/setup.json").read_text())
-    device = torch.device(setup["device"])
-    initialize(f"localhost:{port}", 2, rank, device=device, backend="gloo")
+    world, slices = setup["world"], setup.get("slices", 1)
+    backend = setup.get("backend", "gloo")
+    device = torch.device("cuda", rank) if backend == "nccl" else torch.device(setup["device"])
+    initialize(f"localhost:{port}", world, rank, device=device, backend=backend)
     try:
         config = VitsConfig(**{k: tuples(v) for k, v in setup["config"].items()})
-        with np.load(f"{tmp}/inputs.npz") as f:
+        with np.load(setup["inputs"]) as f:
             arrays = {k: f[k] for k in f.files}
         part = {prefix: {k[len(prefix) + 1:]: v for k, v in arrays.items()
                          if k.startswith(prefix + ".")} for prefix in ("gen", "disc", "batch",
@@ -3677,20 +3843,34 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
                              for k in TrainBatch._fields))
         noise = TrainNoise(*(torch.tensor(part["noise"][k], device=device)
                              for k in TrainNoise._fields))
-        dp = data_axis()
-        rows = rank_rows(batch.input_ids.shape[0], 2, rank)
+        dp = data_axis(slices=slices)
+        B = batch.input_ids.shape[0]
+        rows = rank_rows(B, world, rank)
         idx = torch.as_tensor(rows, device=device)
         with torch.no_grad():
             durations = generator_forward(
                 leaves_on(gen_np, device), config, TrainBatch(*(None if t is None else t[idx]
                                                                 for t in batch)),
                 TrainNoise(*(t[idx] for t in noise)),
-                share=RowShare(batch.frame_mask.sum(), batch.token_mask.sum(), 0.5)).durations
+                share=RowShare(batch.frame_mask.sum(), batch.token_mask.sum(),
+                               len(rows) / B)).durations
         grad_accum, full = setup.get("grad_accum", 1), setup.get("full", True)
+        seconds = {"ready": time.perf_counter() - t0}
+        # one GAN step from the given weights (the checked one), its all-reduces
+        # recorded; its step function is then the timed one
+        gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
+        step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen),
+                                      vits_optimizer(disc), data_parallel=dp,
+                                      grad_accum=grad_accum)
         zero_training_launches()
-        metrics, grads, _ = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp,
-                                          grad_accum=grad_accum)
+        calls, stop = recorded_collectives(
+            {"slice": dp.group, "cross": dp.cross_group} if slices > 1 else {"data": dp.group})
+        try:
+            metrics = torch.stack(list(step_fn(batch, noise=noise))).detach()
+        finally:
+            stop()
         launches = training_launches()
+        grads = [p.grad for p in {**gen, **disc}.values()]
         digest = hashlib.sha256()
         for g in grads:
             digest.update(g.cpu().numpy().tobytes())
@@ -3698,21 +3878,31 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
             np.savez(f"{tmp}/grads0.npz", **{str(i): g.cpu().numpy() for i, g in
                                              enumerate(grads)})
         del grads
+        seconds["checked_step"] = time.perf_counter() - t0 - seconds["ready"]
         report = {"rows": rows.tolist(), "durations": durations.cpu().tolist(),
                   "metrics": metrics.tolist(), "grad_digest": digest.hexdigest(),
-                  "launches": launches}
+                  "launches": launches, "collectives": calls, "seconds": seconds}
+        if slices > 1:  # 12c: the steady step and each stage of its gradient sums
+            timed, stop = recorded_collectives({"slice": dp.group, "cross": dp.cross_group},
+                                               timed=True)
+            try:
+                report["step_ms"] = timed_steps({"slices": step_fn}, batch, noise,
+                                                rounds=SLICE_ROUNDS, warm=False)["slices"]
+            finally:
+                stop()
+            report["levels"] = slice_stage_ms(timed)
+            seconds["timed"] = time.perf_counter() - t0 - sum(seconds.values())
         if not full:
             Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(report))
             return
 
-        gen, disc = leaves_on(gen_np, device), leaves_on(disc_np, device)
-        step_fn = make_gan_train_step(config, gen, disc, vits_optimizer(gen),
-                                      vits_optimizer(disc), data_parallel=dp)
-        step_ms = timed_steps({"two ranks": step_fn}, batch, noise)["two ranks"]
-        reduce_ms = all_reduce_ms(gen, disc)
+        step_ms = timed_steps({"two ranks": step_fn}, batch, noise, rounds=2,
+                              warm=False)["two ranks"]
+        reduce_ms = all_reduce_ms(gen, disc, 3)
         del step_fn, gen, disc
         torch.cuda.empty_cache()
-        # ZeRO-1 on and off: two AdamW steps each; the replicated run twice for its spread
+        # ZeRO-1 on and off: two AdamW steps each; the replicated run three times for its
+        # spread (the card's step is not bit-deterministic)
         _, _, on = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, zero1=True,
                                  steps=2)
         off = [gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, steps=2)[2]
@@ -3743,8 +3933,13 @@ def data_parallel_phase(device) -> dict:
     disc_np = init_discriminator_params(0)
     world_one = dp_world_one(config, gen_np, disc_np, device, card)
     two_ranks = dp_two_ranks(config, gen_np, disc_np, device, card)
-    print(f"  phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"world_one": world_one, "two_ranks": two_ranks, "card": card,
+    t_slices = time.perf_counter()
+    print(f"  [12c] slice=2 x data=2: four gloo ranks sharing the card ({card}):", flush=True)
+    slices = dp_slices(config, gen_np, disc_np, two_ranks.pop("ref"), card)
+    slices["seconds"] = time.perf_counter() - t_slices
+    print(f"  12c: {slices['seconds']:.1f} s; phase 12: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"world_one": world_one, "two_ranks": two_ranks, "slices": slices, "card": card,
             "profiler_sessions": PROFILER_SESSIONS}
 
 
@@ -4821,6 +5016,7 @@ def refusals_phase(device) -> dict:
     uneven = dp_two_ranks(config, random_weights(config, keep_training=True),
                           init_discriminator_params(0), device, card, UNEVEN_TOKENS,
                           UNEVEN_FRAMES, grad_accum=2, full=False)
+    del uneven["ref"]
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)
     return {"kernels": measured, "variants": variants,
@@ -5386,7 +5582,8 @@ def main() -> None:
             counts = DP_KERNEL_ENTRIES[entry["name"]]
             entry["data_parallel_launches"] = {
                 "world_one": {c: data_parallel["world_one"]["launches"][c] for c in counts},
-                "two_ranks_rank0": {c: data_parallel["two_ranks"]["launches"][c] for c in counts}}
+                "two_ranks_rank0": {c: data_parallel["two_ranks"]["launches"][c] for c in counts},
+                "slices_rank0": {c: data_parallel["slices"]["launches"][c] for c in counts}}
         if entry["name"] in MULTI_KERNELS:  # phase 13's paths, by kernel, replica and device
             entry["multi_device_launches"] = {
                 path: {key: n for key, n in run["per_replica"].items()
@@ -5439,7 +5636,11 @@ def main() -> None:
     report["data_parallel"] = {
         "world_one": {k: v for k, v in data_parallel["world_one"].items() if k != "launches"},
         "two_ranks": [{k: v for k, v in r.items() if k not in ("durations", "rows")}
-                      for r in data_parallel["two_ranks"]["ranks"]], "card": card}
+                      for r in data_parallel["two_ranks"]["ranks"]],
+        "slices": {"ranks": [{k: v for k, v in r.items() if k not in ("durations", "rows")}
+                             for r in data_parallel["slices"]["ranks"]],
+                   "distinct_cards": data_parallel["slices"]["distinct_cards"],
+                   "seconds": data_parallel["slices"]["seconds"]}, "card": card}
     report["multi_device"] = {k: multi[k] for k in ("mesh_mms", "mesh_vctk", "sharded", "http",
                                                      "timings", "distinct_cards", "seconds",
                                                      "card")}

@@ -494,9 +494,81 @@ def no_window_scenario(rank: int, world: int, out: str) -> None:
         json.dump(report, f)
 
 
+def slice_axis_scenario(rank: int, world: int, out: str, slices: str, model: str) -> None:
+    """``slices x data x model`` ranks on the inputs of ``out/inputs.npz``, one
+    thread a rank: each group's ranks, one GAN step (G at lr 0, D by -g) with
+    every ``all_reduce`` and ``broadcast`` recorded by its group
+    (``chip_smoke.py::recorded_collectives``), the gradients of data index 0
+    to ``slice-arrays-<rank>.npz``, and with a data axis of two in each slice,
+    three AdamW generator steps on step-keyed inputs with and without ZeRO-1;
+    every rank's report to ``slice-report-<rank>.json``."""
+    from chip_smoke import recorded_collectives
+    from vits_tpu_torch.parallel.mesh import data_axis, model_axis, shard_params
+    from vits_tpu_torch.parallel.tensor import tensor_parallel
+    from vits_tpu_torch.train.schedule import vits_optimizer
+    from vits_tpu_torch.train.step import TrainBatch, TrainNoise, make_train_step
+
+    torch.set_num_threads(1)  # replicated layers bit-identical across a model group
+    slices, model = int(slices), int(model)
+    dp = data_axis(model, slices)
+    mp = model_axis(model) if model > 1 else None
+    config, gen_np, disc_np = fixture_params()
+    tp = None if mp is None else tensor_parallel(gen_np, mp)
+    own = (lambda a: a) if mp is None else (lambda a: shard_params(a, mp))  # noqa: E731
+    with np.load(os.path.join(out, "inputs.npz")) as f:
+        inputs = {k: f[k] for k in f.files}
+    batch = TrainBatch(*(torch.tensor(inputs[f"batch.{k}"]) if f"batch.{k}" in inputs else None
+                         for k in TrainBatch._fields))
+    noise = TrainNoise(*(torch.tensor(inputs[f"noise.{k}"]) for k in TrainNoise._fields))
+    size, index, _ = dp.in_slice
+    groups = {"slice": dp.group, "cross": dp.cross_group,
+              "model": None if mp is None else mp.group}
+    report: dict = {"rank": rank, "data_rank": dp.rank, "slice": dp.rank // size,
+                    "in_slice": index, "model": 0 if mp is None else mp.rank,
+                    "groups": {name: dist.get_process_group_ranks(g)
+                               for name, g in groups.items() if g is not None}}
+
+    gen, disc = leaves(own(gen_np)), leaves(disc_np)
+    calls, stop = recorded_collectives(groups)
+    try:
+        metrics = _gan(config, gen, disc, _sgd(gen, 0.0), _sgd(disc, 1.0), dp,
+                       model_parallel=tp)(batch, noise=noise)
+    finally:
+        stop()
+    report["collectives"] = calls
+    report["metrics"] = [float(v) for v in metrics]
+    split = [] if tp is None else sorted(tp.plan)
+    replicated = [k for k in gen_np if k not in split]
+    report["replicated_grad_digest"] = digest([gen[k].grad for k in replicated]
+                                              + [p.grad for p in disc.values()])
+    report["split_grad_digest"] = digest([gen[k].grad for k in split])
+    if dp.rank == 0:
+        arrays = {f"g.{k}": p.grad.numpy() for k, p in gen.items()}
+        arrays.update({f"d.{k}": p.grad.numpy() for k, p in disc.items()})
+        np.savez(os.path.join(out, f"slice-arrays-{rank}.npz"), **arrays)
+
+    for zero1 in (False, True) if size > 1 else ():
+        gen = leaves(own(gen_np))
+        opt = vits_optimizer(gen, zero1=dp if zero1 else None, model_parallel=tp)
+        step = make_train_step(config, gen, opt, SEGMENT, mel_kwargs=MEL_KWARGS,
+                               data_parallel=dp, model_parallel=tp)
+        losses = []
+        for s in (1, 2, 3):
+            step_batch, step_noise = step_inputs(config, s)
+            losses.append(float(step(step_batch, noise=step_noise).loss))
+        report[f"zero1_{zero1}_losses"] = losses
+        report[f"zero1_{zero1}_param_digest"] = digest(gen.values())
+        if zero1:
+            report["owned"] = [n for i, n in enumerate(opt.names) if opt.owns(i)]
+            held = sum(2 * s["exp_avg"].numel() for s in opt.adamw.state.values())
+            report["moment_share"] = held / (2 * sum(p.numel() for p in opt.params))
+    with open(os.path.join(out, f"slice-report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
 SCENARIOS = {"steps": steps_scenario, "writer": writer_scenario, "elastic": elastic_scenario,
              "tensor_parallel": tensor_parallel_scenario, "uneven": uneven_scenario,
-             "no_window": no_window_scenario}
+             "no_window": no_window_scenario, "slice_axis": slice_axis_scenario}
 
 
 def main(argv) -> int:

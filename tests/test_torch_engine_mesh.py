@@ -113,6 +113,34 @@ def test_model_axis_mesh_replicates_over_model(tiny_bundle, meshes):
     np.testing.assert_array_equal(got.waveform, want.waveform)
 
 
+def test_slice_axis_mesh_replicates_over_slice(tiny_bundle, meshes):
+    """``make_mesh(slices=2, data=2)`` of four entries serves as the data=2 mesh
+    does (one replica per data entry, slice 0's device; JAX's engine replicates
+    over 'slice'), the same rows bit for bit, and as JAX's engine on its
+    ``slices=2, data=2`` mesh at zero noise within the whole-slice bound."""
+    config, params = tiny_bundle
+    sliced = Synthesizer(config, _tokenizer(), params, _engine(),
+                         mesh=make_mesh(slices=2, data=2, devices=[CPU] * 4))
+    assert sliced.mesh.axis_names == ("slice", "data", "model")
+    assert len(sliced.replicas) == 2 and all(r.device == CPU for r in sliced.replicas)
+    want = meshes(2).synthesize_raw(TEXTS, seed=SEEDS, pad_to_batch=8)
+    got = sliced.synthesize_raw(TEXTS, seed=SEEDS, pad_to_batch=8)
+    np.testing.assert_array_equal(got.frame_lengths, want.frame_lengths)
+    np.testing.assert_array_equal(got.waveform, want.waveform)
+    jax_sliced = JaxSynthesizer(
+        config, JaxVitsTokenizer(vocab=dict(VOCAB), pad_token="k", unk_token="z"), params,
+        JaxEngineConfig(token_buckets=(32,), frames_per_token=4.0, transfer_int16=False),
+        mesh=jax_make_mesh(slices=2, data=2, model=1, devices=jax.devices()[:4]))
+    zero = dict(noise_scale=0.0, noise_scale_duration=0.0)
+    want = jax_sliced.synthesize_raw(TEXTS, seed=SEEDS, **zero)
+    got = sliced.synthesize_raw(TEXTS, seed=SEEDS, **zero)
+    np.testing.assert_array_equal(got.frame_lengths, want.frame_lengths)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    assert got.waveform.shape == np.asarray(want.waveform).shape
+    np.testing.assert_allclose(got.waveform, np.asarray(want.waveform, np.float32),
+                               atol=WAVE_ATOL, rtol=0)
+
+
 def test_dp_int16_transfer_matches_single_device(tiny_bundle):
     """With ``transfer_int16`` every shard rounds on its replica: one int16 level."""
     config, params = tiny_bundle

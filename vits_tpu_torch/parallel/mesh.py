@@ -1,23 +1,24 @@
-"""The data and model axes: a mesh of replicas for serving, and the rows,
-collectives, ZeRO-1 owners and tensor-parallel parameter rules of
+"""The slice, data and model axes: a mesh of replicas for serving, and the
+rows, collectives, ZeRO-1 owners and tensor-parallel parameter rules of
 multi-process training.
 
 Counterpart of ``vits_tpu/parallel/mesh.py``.
 
 Serving (:func:`make_mesh`): a :class:`Mesh` lays devices out on the
-('data', 'model') axes, as JAX's ``make_mesh`` does. A mesh engine
-(``Synthesizer(mesh=)``) keeps one replica of the weights on each entry of the
-data axis and runs each replica's share of a batch there; the time-sharded
-decode (``engine/sp.py``) runs one window on each. A device may repeat: each
-entry is a replica, as each of JAX's virtual CPU devices is one. The engine
-replicates over 'model' (``Synthesizer`` keeps one replica per data entry).
+('data', 'model') axes, or ('slice', 'data', 'model') with ``slices > 1``, as
+JAX's ``make_mesh`` does. A mesh engine (``Synthesizer(mesh=)``) keeps one
+replica of the weights on each entry of the data axis and runs each replica's
+share of a batch there; the time-sharded decode (``engine/sp.py``) runs one
+window on each. A device may repeat: each entry is a replica, as each of JAX's
+virtual CPU devices is one. The engine replicates over 'slice' and 'model'
+(``Synthesizer`` keeps one replica per data entry).
 
 Training: JAX shards a global batch over a 'data' mesh axis and GSPMD inserts
 the collectives; here every process (rank) holds the whole global batch, keeps
 its rows (:func:`rank_rows`) and sums its gradients with the others'
-(:func:`all_reduce_`) before one identical optimizer update on every rank.
-The collectives are ``all_reduce`` and ``broadcast`` only, so the same code
-runs over NCCL and over gloo, which has neither ``all_gather`` nor
+(:func:`data_all_reduce_`) before one identical optimizer update on every
+rank. The collectives are ``all_reduce`` and ``broadcast`` only, so the same
+code runs over NCCL and over gloo, which has neither ``all_gather`` nor
 ``reduce_scatter`` for CUDA tensors.
 
 The model axis (tensor parallelism over processes): a world of ``data x
@@ -32,7 +33,22 @@ its slices of the split tensors (:func:`split_plan`) and the whole of every
 other; :func:`gather_params` is its inverse, a collective. How the split
 tensors compute is ``parallel/tensor.py``'s.
 
-Not ported: the 'slice' axis (XLA's DCN layout).
+The slice axis (``data_axis(model, slices=k)``): a world of ``slices x data x
+model`` ranks, slice outermost (rank = (s * data + d) * model + m, JAX's
+``reshape(slices, data, model)``). The batch splits over slice and data
+together, slice-major (JAX's ``P(('slice', 'data'))``), so a rank's place on
+the data axis stays ``rank // model``. A rank's data group is then its slice's
+(the ranks d = 0..data-1 of its slice and model index), and it also joins its
+cross-slice group (the ranks s = 0..slices-1 of its data and model index).
+:func:`data_all_reduce_` sums in three stages, JAX's psum over ('slice',
+'data'): inside the slice; then each in-slice rank d sums chunk d (1/data of
+the buffer) across slices; then each chunk is broadcast inside the slice from
+the rank that summed it. Each rank sends 2 (slices-1) / slices of 1/data of the
+buffer across slices, so a slice sends about as much across as one flat ring
+would; the rest stays inside the slice (on GPUs, a node's NVLink). No run over
+several nodes has timed it. ZeRO-1 splits the moments over the slice's data
+ranks alone (JAX's ``opt_state_shardings`` splits over 'data'; each slice
+keeps a whole copy).
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SLICE_AXIS = "slice"
 
 
 class Mesh:
@@ -79,14 +96,16 @@ def _mesh_device(device) -> torch.device:
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None, slices: int = 1) -> Mesh:
     """A ('data', 'model') mesh over ``devices`` (default: every visible CUDA
-    device), as JAX's ``make_mesh``; ``data`` defaults to ``len(devices) //
-    model``. A device may repeat (``[cuda:0] * 2``, ``[cpu] * 4``): each entry
-    is a replica. Raises where ``data * model`` is not the number of devices
-    or a device does not exist."""
-    if model < 1:
-        raise ValueError(f"model={model}: at least 1")
+    device), or ('slice', 'data', 'model') with ``slices > 1``, as JAX's
+    ``make_mesh``; ``data`` defaults to ``len(devices) // (model * slices)``.
+    The devices are taken slice-major, so the inner axes hold consecutive
+    devices. A device may repeat (``[cuda:0] * 2``, ``[cpu] * 4``): each entry
+    is a replica. Raises where ``slices * data * model`` is not the number of
+    devices or a device does not exist."""
+    if model < 1 or slices < 1:
+        raise ValueError(f"model={model}, slices={slices}: at least 1 each")
     if devices is None:
         if not torch.cuda.is_available():
             raise ValueError("make_mesh: no CUDA device is visible (pass devices=)")
@@ -94,11 +113,13 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     devices = [_mesh_device(d) for d in devices]
     n = len(devices)
     if data is None:
-        data = n // model
-    if data < 1 or data * model != n:
-        raise ValueError(f"mesh {data}x{model} != {n} devices")
+        data = n // (model * slices)
+    if data < 1 or slices * data * model != n:
+        raise ValueError(f"mesh {slices}x{data}x{model} != {n} devices")
     arr = np.empty((n,), dtype=object)
     arr[:] = devices
+    if slices > 1:
+        return Mesh(arr.reshape(slices, data, model), (SLICE_AXIS, DATA_AXIS, MODEL_AXIS))
     return Mesh(arr.reshape(data, model))
 
 
@@ -115,12 +136,25 @@ def replica_devices(device, n: int) -> list[torch.device]:
 
 
 class DataParallel(NamedTuple):
-    """A process's place on the data axis: ``world`` ranks, this one ``rank``;
-    ``group`` their process group (None: the whole world)."""
+    """A process's place on the data axis: ``world`` ranks, this one ``rank``.
+    ``group`` is the process group of its data ranks (None: the whole world).
+    With a slice axis (``slices`` > 1) the data axis is slice x data,
+    slice-major: ``group`` holds the ``world // slices`` data ranks of this
+    rank's slice, ``cross_group`` the ``slices`` ranks of its in-slice index,
+    one in each slice."""
 
     world: int
     rank: int
     group: Any = None
+    slices: int = 1
+    cross_group: Any = None
+
+    @property
+    def in_slice(self) -> tuple[int, int, Any]:
+        """(ranks, this rank's index, group) of its slice's data axis: the whole data
+        axis without a slice axis. ZeRO-1 splits the moments over it."""
+        size = self.world // self.slices
+        return size, self.rank % size, self.group
 
 
 class ModelParallel(NamedTuple):
@@ -132,46 +166,68 @@ class ModelParallel(NamedTuple):
     group: Any = None
 
 
-# Each model size's (world group, data group, model group) of this process: every
-# rank creates every group (dist.new_group's rule), once per process group.
-_GROUPS: dict[int, tuple] = {}
+# This process's group of each (axis, slices, model): every rank creates every
+# group of an axis (dist.new_group's rule), in the same order, once per process group.
+_GROUPS: dict[tuple[str, int, int], tuple] = {}
 
 
-def _axis_groups(model: int) -> tuple:
-    world, rank = dist.get_world_size(), dist.get_rank()
+def axis_rank_sets(world: int, model: int = 1, slices: int = 1) -> dict[str, list[list[int]]]:
+    """The ranks of every group of each axis in a world of ``slices x data x
+    model`` ranks, model innermost (rank = (s * data + d) * model + m, JAX's
+    ``reshape(slices, data, model)``): 'data' one per model index (the whole
+    data axis, every slice), 'model' one per (slice, data) index, 'slice' one
+    per (slice, model) index (the data ranks of one slice), 'cross' one per
+    (data, model) index (one rank a slice). Raises ``ValueError`` where the
+    world does not divide."""
     if model < 1 or world % model:
         raise ValueError(f"a world of {world} ranks does not divide by model_parallel={model}")
-    if model == 1:
-        return None, None
-    cached = _GROUPS.get(model)
+    if slices < 1 or world % (slices * model):
+        raise ValueError(f"a world of {world} ranks does not divide by slices={slices} x "
+                         f"model_parallel={model}")
+    data = world // (slices * model)
+
+    def rank(s, d, m):
+        return (s * data + d) * model + m
+    S, D, M = range(slices), range(data), range(model)
+    return {"data": [[rank(s, d, m) for s in S for d in D] for m in M],
+            "model": [[rank(s, d, m) for m in M] for s in S for d in D],
+            "slice": [[rank(s, d, m) for d in D] for s in S for m in M],
+            "cross": [[rank(s, d, m) for s in S] for d in D for m in M]}
+
+
+def _group(axis: str, model: int, slices: int = 1) -> Any:
+    """This rank's group of ``axis`` (a key of :func:`axis_rank_sets`), made once
+    per process group: every rank creates every group of the axis, in order."""
+    cached = _GROUPS.get((axis, slices, model))
     if cached is not None and cached[0] is dist.group.WORLD:
-        return cached[1:]
-    data = world // model
-    data_group = model_group = None
-    for m in range(model):
-        group = dist.new_group([d * model + m for d in range(data)])
-        if rank % model == m:
-            data_group = group
-    for d in range(data):
-        group = dist.new_group([d * model + m for m in range(model)])
-        if rank // model == d:
-            model_group = group
-    _GROUPS[model] = (dist.group.WORLD, data_group, model_group)
-    return data_group, model_group
+        return cached[1]
+    rank, mine = dist.get_rank(), None
+    for ranks in axis_rank_sets(dist.get_world_size(), model, slices)[axis]:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    _GROUPS[(axis, slices, model)] = (dist.group.WORLD, mine)
+    return mine
 
 
-def data_axis(model: int = 1) -> Optional[DataParallel]:
+def data_axis(model: int = 1, slices: int = 1) -> Optional[DataParallel]:
     """The data axis of the initialized process group under a model axis of
-    ``model`` ranks (the ranks of this rank's model index), or None without a
-    process group. Raises ``ValueError`` where the world does not divide by
-    ``model``."""
+    ``model`` ranks (the ranks of this rank's model index) and a slice axis of
+    ``slices`` (its in-slice and cross-slice groups), or None without a process
+    group. Raises ``ValueError`` where the world does not divide by ``slices *
+    model``."""
     if not dist.is_initialized():
-        if model != 1:
-            raise ValueError(f"model_parallel={model} needs a process group of a multiple of "
-                             f"{model} ranks")
+        if model != 1 or slices != 1:
+            raise ValueError(f"slices={slices} x model_parallel={model} needs a process group "
+                             f"of a multiple of {slices * model} ranks")
         return None
-    group, _ = _axis_groups(model)
-    return DataParallel(dist.get_world_size() // model, dist.get_rank() // model, group)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    axis_rank_sets(world, model, slices)  # raises where the world does not divide
+    if slices == 1:
+        return DataParallel(world // model, rank // model,
+                            None if model == 1 else _group("data", model))
+    return DataParallel(world // model, rank // model, _group("slice", model, slices), slices,
+                        _group("cross", model, slices))
 
 
 def model_axis(model: int) -> ModelParallel:
@@ -181,8 +237,9 @@ def model_axis(model: int) -> ModelParallel:
     if not dist.is_initialized():
         raise ValueError(f"model_parallel={model} needs a process group of a multiple of "
                          f"{model} ranks")
-    _, group = _axis_groups(model)
-    return ModelParallel(model, dist.get_rank() % model, group)
+    axis_rank_sets(dist.get_world_size(), model)  # raises where the world does not divide
+    return ModelParallel(model, dist.get_rank() % model,
+                         None if model == 1 else _group("model", model))
 
 
 # ---------------------------------------------------------------------- #
@@ -406,6 +463,26 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group=None) -> None:
         return
     flat = _flat(tensors)
     dist.all_reduce(flat, group=group)
+    _unflat(flat, tensors)
+
+
+def data_all_reduce_(tensors: Sequence[torch.Tensor], data_parallel: DataParallel) -> None:
+    """SUM every tensor over the data axis, in place, over one flat fp32 buffer:
+    one ``all_reduce`` over the data group, then with a slice axis the rest of
+    the module docstring's three stages: chunk d of the slice's data ranks summed
+    across slices by in-slice rank d, then broadcast from it inside the slice. A
+    stage over one rank is skipped; every rank ends with the same bits."""
+    if not tensors:
+        return
+    size, index, group = data_parallel.in_slice
+    flat = _flat(tensors)
+    if size > 1 or data_parallel.slices == 1:
+        dist.all_reduce(flat, group=group)
+    if data_parallel.slices > 1:
+        chunks = flat.tensor_split(size)
+        dist.all_reduce(chunks[index], group=data_parallel.cross_group)
+        for i, chunk in enumerate(chunks if size > 1 else ()):
+            dist.broadcast(chunk, dist.get_global_rank(group, i), group=group)
     _unflat(flat, tensors)
 
 

@@ -19,7 +19,10 @@ gloo has for CUDA tensors too. ``torch.distributed.optim.
 ZeroRedundancyOptimizer`` does the same split, but its state gathers through
 pickled objects indexed by parameter position; this keeps the checkpoint's
 by-name moments, so a state saved under ZeRO-1 loads without it and the other
-way round. With a model axis ZeRO-1 splits over the data group.
+way round. With a model axis ZeRO-1 splits over the data group; with a slice
+axis over the data ranks of the rank's slice alone (``DataParallel.in_slice``,
+JAX's split over 'data'), so each slice keeps a whole copy of the moments and
+the broadcasts stay inside the slice.
 
 Tensor parallel (``model_parallel=``, a ``parallel/tensor.py::
 TensorParallel``): the parameters are the rank's slices and so are their
@@ -75,24 +78,26 @@ class VitsOptimizer:
         self.per_step = gamma_per_epoch ** (1.0 / steps_per_epoch)
         self.clip_norm = clip_norm
         self.count = 0  # completed updates
-        self.zero1 = zero1
-        # each tensor's owner rank; None: every rank steps every tensor
-        self.owners = (None if zero1 is None
-                       else zero1_owners([p.numel() for p in self.params], zero1.world))
+        # each tensor's owner on the slice's data axis (the whole data axis without a
+        # slice axis); None: every rank steps every tensor
+        self.shard = None if zero1 is None else zero1.in_slice
+        self.owners = (None if self.shard is None or self.shard[0] == 1
+                       else zero1_owners([p.numel() for p in self.params], self.shard[0]))
         self.adamw = torch.optim.AdamW([p for i, p in enumerate(self.params) if self.owns(i)],
                                        lr=base_lr, betas=(0.8, 0.99), eps=1e-9,
                                        weight_decay=1e-4)
 
     def owns(self, i: int) -> bool:
         """Whether this rank keeps the moments of (and steps) parameter ``i``."""
-        return self.owners is None or self.owners[i] == self.zero1.rank
+        return self.owners is None or self.owners[i] == self.shard[1]
 
     def _owned_by(self, rank: int) -> list[int]:
         return [i for i, owner in enumerate(self.owners) if owner == rank]
 
     def _owner_rank(self, rank: int) -> int:
-        """The world rank of the data axis's ``rank`` (ZeRO-1's broadcast source)."""
-        group = self.zero1.group
+        """The world rank of index ``rank`` of the slice's data axis (ZeRO-1's
+        broadcast source)."""
+        group = self.shard[2]
         return rank if group is None else dist.get_global_rank(group, rank)
 
     def learning_rate(self) -> float:
@@ -130,9 +135,9 @@ class VitsOptimizer:
         self.adamw.step()
         self.count += 1
         if self.owners is not None:
-            for rank in range(self.zero1.world):
+            for rank in range(self.shard[0]):
                 broadcast_([self.params[i] for i in self._owned_by(rank)],
-                           self._owner_rank(rank), self.zero1.group)
+                           self._owner_rank(rank), self.shard[2])
 
     def state_arrays(self) -> dict[str, np.ndarray]:
         """Adam moments by parameter name, and the update count, as numpy.
@@ -147,13 +152,13 @@ class VitsOptimizer:
             if state:
                 moments[i] = (state["exp_avg"], state["exp_avg_sq"])
         if self.owners is not None and self.count:
-            for rank in range(self.zero1.world):
+            for rank in range(self.shard[0]):
                 owned = self._owned_by(rank)
                 for i in owned:
                     moments.setdefault(i, (torch.empty_like(self.params[i]),
                                            torch.empty_like(self.params[i])))
                 broadcast_([m for i in owned for m in moments[i]], self._owner_rank(rank),
-                           self.zero1.group)
+                           self.shard[2])
         named = {f"{self.names[i]}.{key}": m for i, pair in sorted(moments.items())
                  for key, m in zip(("exp_avg", "exp_avg_sq"), pair)}
         if self.tp is not None and self.count:

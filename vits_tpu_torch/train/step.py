@@ -63,7 +63,10 @@ split only at rest are gathered once a forward. The discriminator stays
 replicated. With a model axis, ``data_parallel`` is the data axis of the
 same world (``parallel/mesh.py::data_axis(model)``): the gradient and metric
 sums run over its group, the ranks of one model index, never over the world
-(that would add one rank's q-slice gradient to another's k-slice).
+(that would add one rank's q-slice gradient to another's k-slice). With a
+slice axis (``data_axis(model, slices=k)``) the rows split over slice x data,
+slice-major, and each sum runs inside the slice, then in chunks across slices
+(``parallel/mesh.py::data_all_reduce_``), JAX's psum over ('slice', 'data').
 ``generator_forward``'s ``encoder_fn`` replaces the text encoder (the
 pipelined one, ``parallel/pipeline.py``).
 """
@@ -85,7 +88,7 @@ from vits_tpu_torch.models.hifigan import hifigan
 from vits_tpu_torch.models.posterior import posterior_encoder
 from vits_tpu_torch.ops.align import monotonic_align, prior_log_likelihood
 from vits_tpu_torch.ops.tiers import training_tiers
-from vits_tpu_torch.parallel.mesh import DataParallel, all_reduce_, microbatch_rows
+from vits_tpu_torch.parallel.mesh import DataParallel, data_all_reduce_, microbatch_rows
 from vits_tpu_torch.parallel.tensor import TensorParallel
 from vits_tpu_torch.train.losses import (
     discriminator_loss,
@@ -307,7 +310,7 @@ def _apply(params: Mapping[str, torch.Tensor], optimizer, grads,
     """Hand ``grads`` (summed over the data axis's ranks first) to ``optimizer``
     and step it."""
     if data_parallel is not None:
-        all_reduce_(grads, data_parallel.group)
+        data_all_reduce_(grads, data_parallel)
     for p, g in zip(params.values(), grads):
         p.grad = g
     optimizer.step()
@@ -355,7 +358,7 @@ def _mean_metrics(cls, items, data_parallel: Optional[DataParallel] = None):
     values = torch.stack([torch.stack([torch.as_tensor(x) for x in xs]).mean()
                           for xs in zip(*items)])
     if data_parallel is not None:
-        all_reduce_([values], data_parallel.group)
+        data_all_reduce_([values], data_parallel)
     return cls(*values.unbind())
 
 
