@@ -37,7 +37,13 @@ printing its result line:
    0-1 for 320 frames, beside the six-launch route it replaced (B's conv twice
    per pair, ``run_pairs``) timed in the same call, and once at kernel C's MMS
    resblock shape (C=64, T=40960, B=1, k=11) as a probe; kernel C at C_out 16
-   and 8 at HiFi-GAN V2's stages 2-3;
+   and 8 at HiFi-GAN V2's stages 2-3; the MAS kernel (``csrc/align.cu``, the
+   port of JAX's hot-path ``lax.scan``) equal to its plain loop on the card in
+   every case of ``ops/cuda/align.py``'s MAS_CASES (ties, rows with no valid
+   token or frame, T=1, S=1, S<T, padding, phase 7's 1280 x 512 at B=2 and
+   B=16, the values in registers up to 1024 tokens and in device scratch past
+   them, the choices in device scratch at 3000 x 700), the kernel's event and
+   device ms, the loop's wall and device ms and the bound at MAS_TIMED;
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; ``Synthesizer.warmup`` (every token bucket at batch 1
@@ -71,7 +77,9 @@ printing its result line:
    (padded to 512) over 1280 frames -- losses finite, every parameter with a
    finite gradient and moved, kernels A-with-lse, 4 and 5 (forward and
    backward) launched and B, C
-   not -- with ms per step and peak memory; one step with each call site
+   not, MAS once a step (:func:`hold_mas`: phases 10, 12, 14 and 15 hold
+   each GAN step's MAS launches the same way, one a generator forward on each
+   rank) -- with ms per step and peak memory; one step with each call site
    timed between synchronisations and one under ``torch.profiler`` (device
    busy time, idle share, device ms per kernel family); one ``generator_loss``
    and its gradients at the weights the steps started from, on the card vs
@@ -128,13 +136,15 @@ printing its result line:
    steps at bf16 and at fp32 from the same weights on the same batch and
    noise: steady ms, device busy ms, idle share, peak memory, master
    parameters fp32 and moved, every kernel call of the bf16 steps on bf16
-   storage (the C entry points' arguments), and one generator loss's
-   gradients at bf16 against fp32 by cosine (>= 0.97, the CPU tests'
-   bound, over all and for the text encoder, the decoder and the posterior
-   encoder; the flow and the duration predictor follow MAS's durations and
-   are reported, as is each tensor); (c) a speaker-conditioned GAN step at
-   VCTK width (speakers 108
-   and 17), then its generator loss and gradients on the card against the
+   storage (the C entry points' arguments), MAS launched once a step, and
+   one generator loss's gradients at bf16 against fp32 by cosine (>= 0.97,
+   the CPU tests' bound, over all and for the text encoder, the decoder and
+   the posterior encoder; the flow and the duration predictor follow MAS's
+   durations and are reported, as is each tensor), then the same with the
+   fp32 run's alignment substituted for MAS in the bf16 run, every module
+   held at 0.97 but the duration predictor (fp32 in both: held against the
+   fp32 run on the bf16 run's encoder states, DP_CONTROL_COSINE); (c) a
+   speaker-conditioned GAN step at VCTK width (speakers 108 and 17), then its generator loss and gradients on the card against the
    CPU's plain path (phase 7's bounds, ``embed_speaker.weight`` included);
    (d) ``reuse_forward=False`` against the single forward (losses 1e-5,
    parameters after one AdamW step rtol 1e-4, atol 1e-6); (e)
@@ -263,7 +273,8 @@ Each path's launch counts are set to 0 just before it and read just after.
 Then one JSON line of the kernels' numbers (``ms``/``plain_ms``/``device_ms``/
 ``plain_device_ms``/``bound_ms``: the sums over the kernel's timed shapes;
 ``launches``: the count over the paths that run the kernel, the serving
-paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4 and 5, kernel 5's backward
+paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4, 5 and MAS (its
+entry's ``mas_launches``: every training path's count), kernel 5's backward
 apart as ``backward_launches``; phase 10's bf16 kernels as ``*_bf16`` entries with the
 launches of its three bf16 steps, phase 11's bf16 serving modes as ``*_bf16_serve``
 entries with the launches of its request paths; ``library_ms`` is null:
@@ -829,6 +840,86 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
     return results
 
 
+# Monotonic Alignment Search (csrc/align.cu) against its plain loop at every case of
+# ops/cuda/align.py's MAS_CASES, and the shapes whose times are taken (the plain
+# loop's ~0.3 ms a frame keeps the rest untimed).
+MAS_TIMED = ("training", "training_b16", "choices_in_scratch")
+# The loop's device ms only here: a profiled call of it is 20,000-65,000 launches, and
+# CUPTI then loses records and the session is taken again (seconds each).
+MAS_PLAIN_PROFILED = "training"
+# fp32 outside the tensor cores (MAS's adds and compares)
+PEAK_FP32_FLOPS = 67e12
+
+
+def mas_kernel_vs_plain(device) -> dict:
+    """Phase 3, MAS: the kernel's alignment equal to the plain loop's
+    (``monotonic_align_reference`` on the same card tensors) in every MAS_CASES
+    case, one launch a call; at MAS_TIMED the kernel's event ms (median of 10)
+    and device ms, the loop's wall ms (one call, host clock to a synchronise)
+    and the bound: the likelihoods read and the alignment written once at
+    PEAK_HBM_BYTES, one add and one compare a cell at PEAK_FP32_FLOPS; at
+    MAS_PLAIN_PROFILED also the loop's device ms, and only that shape's numbers
+    are the report's ``ms`` ... ``bound_ms`` (the others under ``kernel_ms``,
+    ``kernel_device_ms``, ``plain_wall_ms``)."""
+    from vits_tpu_torch.ops.cuda.align import (
+        MAS_CASES,
+        mas_case,
+        mas_plan,
+        monotonic_align,
+        monotonic_align_reference,
+    )
+
+    results = []
+    for case in MAS_CASES:
+        inputs = tuple(torch.tensor(a, device=device) for a in mas_case(case))
+        B, S, T = inputs[0].shape
+        before = monotonic_align.launches
+        got = monotonic_align(*inputs)
+        torch.cuda.synchronize()
+        if monotonic_align.launches != before + 1:
+            raise RuntimeError(f"MAS {case}: {monotonic_align.launches - before} launches")
+        t0 = time.perf_counter()
+        want = monotonic_align_reference(*inputs)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plan = mas_plan(S, T)
+        shape = (f"{case} B={B} S={S} T={T} ({'mas_kernel' if plan.registers else 'mas_generic'}"
+                 f" x {plan.threads}, choices {'shared' if plan.choices_shared else 'scratch'})")
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise RuntimeError(f"MAS {shape}: the kernel's alignment differs from the loop's "
+                               f"({int((got != want).sum())} cells)")
+        result = {"shape": shape, "max_abs_err": 0.0, "err_over_tol": 0.0, "ms": None,
+                  "plain_ms": None, "device_ms": None, "plain_device_ms": None,
+                  "library_ms": None}
+        if case in MAS_TIMED:
+            kernel = lambda: monotonic_align(*inputs)  # noqa: E731
+            flops = 2 * B * S * T
+            size = 2 * nbytes(inputs[0]) + nbytes(*inputs[1:])
+            ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * size / PEAK_HBM_BYTES
+            bound = {"flops": flops, "bytes": size, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            ms, device_ms = median_ms(kernel), host_and_device(kernel)["device_busy_ms"]
+            if case == MAS_PLAIN_PROFILED:
+                plain_device_ms = host_and_device(lambda: monotonic_align_reference(*inputs),
+                                                  calls=1)["device_busy_ms"]
+                result.update(ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                              plain_device_ms=plain_device_ms, **bound)
+                plain = f"device {plain_device_ms:.2f}"
+            else:
+                result.update(kernel_ms=ms, kernel_device_ms=device_ms, plain_wall_ms=plain_ms,
+                              **bound)
+                plain = "device not profiled"
+            times = (f"kernel {ms:.4f} ms (device {device_ms:.4f})  plain loop {plain_ms:.1f} "
+                     f"ms wall ({plain})  bound {bound['bound_ms']:.4f} ms "
+                     f"({bound['bound_by']})  library: none")
+        else:
+            times = "(not timed)"
+        print(f"  {'monotonic_align':24s} {shape} equal to the loop  {times}", flush=True)
+        results.append(result)
+    return {"monotonic_align": results}
+
+
 # A directory the main process makes for the run (removed at its exit); its child
 # processes inherit the variable and share the random weights saved there.
 WEIGHTS_ENV = "CHIP_SMOKE_WEIGHTS"
@@ -1231,6 +1322,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
     4 must launch no time; without ``profile`` no profiled step."""
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
     from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
     from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio
@@ -1272,7 +1364,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
           "cuDNN/cuBLAS at these shapes)", flush=True)
 
     wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward,
-                fused_resblock_trio, fused_stage)
+                fused_resblock_trio, fused_stage, monotonic_align)
     for fn in wrappers:
         fn.launches = 0
     flash_rel_attention.lse_launches = 0
@@ -1306,6 +1398,7 @@ def gan_steps(config, device, card: str, attention_kernels: bool = True,
             raise RuntimeError(f"inference kernel {name} launched on the training path")
     if launches["flash_rel_attention"] != launches["flash_rel_attention_lse"]:
         raise RuntimeError("kernel A launched without lse on the training path")
+    hold_mas(launches, steps * mas_per_step(), f"{steps} GAN steps")
     for name, p in {**gen, **disc}.items():
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
             raise RuntimeError(f"parameter {name}: no finite gradient")
@@ -2478,10 +2571,17 @@ BF16_COSINE = 0.97  # bf16 vs fp32 gradients, tests/test_torch_train_bf16.py (JA
 # 0.18-0.33 of the control, a twin that leaves out one rounding point (the bias add) 1.11;
 # the kernel on the H100 reads 0.35-0.52.
 ROUNDING_SHARE = 0.75
-# Modules whose bf16 generator gradients are held to BF16_COSINE one by one. The flow's and
-# the duration predictor's follow MAS's durations, which bf16 prior statistics move (the
-# run prints whether they moved), so those two are printed only.
+# Modules whose bf16 generator gradients are held to BF16_COSINE one by one where each
+# dtype runs its own MAS. The flow's and the duration predictor's follow MAS's durations,
+# which bf16 prior statistics move (the run prints how many moved), so there those two
+# are printed only. On one fixed alignment (the fp32 run's in both) every module is held
+# there but the duration predictor: an fp32 module in both dtypes whose gradient turns
+# the bf16 encoder's states into a cosine far below 0.97 in the JAX package too
+# (tests/test_torch_bf16_alignment.py holds the port at JAX's figure on the CPU). On the
+# card it is held against its control, the fp32 run with the bf16 run's states handed to
+# it: the same computation, so equal up to the card's summation order.
 COSINE_MODULES = ("text_encoder", "decoder", "posterior_encoder")
+DP_CONTROL_COSINE = 0.9999
 REUSE_LOSS_RTOL, REUSE_PARAM_RTOL, REUSE_PARAM_ATOL = 1e-5, 1e-4, 1e-6  # test_torch_train_speaker
 
 
@@ -2648,14 +2748,19 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
     """Phase 10b: GAN steps at bf16 and at fp32 from the same weights, on the same
     batch and noise: steady ms, busy ms, idle share and peak memory; master
     parameters fp32 and moved; the launches of the bf16 steps, each kernel call
-    on bf16 tensors; the gradients of one bf16 generator loss against fp32 by
-    cosine, held over all and per module for COSINE_MODULES, printed for the
-    other modules and per tensor."""
+    on bf16 tensors, MAS once a step at both dtypes; the gradients of one bf16
+    generator loss against fp32 by cosine, held over all and per module for
+    COSINE_MODULES, printed for the other modules and per tensor; and on one
+    fixed alignment (the fp32 run's, substituted for MAS in the bf16 run) held
+    over all and for every module but the duration predictor, which is held
+    against its control (DP_CONTROL_COSINE)."""
     from vits_tpu_torch.io.params import from_jax_params
     from vits_tpu_torch.models.discriminator import init_discriminator_params
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
     from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
     from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
+    from vits_tpu_torch.train import step as step_module
     from vits_tpu_torch.train.schedule import vits_optimizer
     from vits_tpu_torch.train.step import (
         draw_noise,
@@ -2669,7 +2774,8 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
     disc_np = init_discriminator_params(0)
     batch = training_batch(config, device)
     noise = draw_noise(config, batch, torch.Generator(device=device).manual_seed(7))
-    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward)
+    wrappers = (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward,
+                monotonic_align)
     runs = {}
     for dtype in ("bfloat16", "float32"):
         gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
@@ -2714,6 +2820,7 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
                   f"({sorted({name for name, _ in seen})})", flush=True)
             if any(n == 0 for n in launches.values()):
                 raise RuntimeError(f"bf16 steps: a training kernel never launched {launches}")
+        hold_mas(launches, 3 * mas_per_step(), f"three {dtype} GAN steps")
         steady = float(np.median(times))
         wall_ms, device_events, busy_ms = profiled(lambda: step_fn(batch, noise=noise))
         families = by_family(device_events, KERNEL_FAMILIES)
@@ -2733,44 +2840,106 @@ def bf16_vs_fp32_steps(config, device, card: str) -> dict:
         torch.cuda.empty_cache()
 
     # gradients of one generator loss at the initial weights, bf16 against fp32: over all,
-    # and per module for COSINE_MODULES (per tensor only reported)
-    grads, outs = {}, {}
-    for dtype in ("float32", "bfloat16"):
+    # and per module for COSINE_MODULES (per tensor only reported); then both on one
+    # fixed alignment, the fp32 run's, substituted for MAS in the bf16 run (MAS is a
+    # constant target: the fp32 run on its own alignment is the fp32 run), every
+    # module held but the duration predictor (below)
+    def gen_grads(dtype):
         gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
         out = generator_forward(gen, config, batch, noise, compute_dtype=dtype)
-        grads[dtype] = dict(zip(gen, (g.detach().double() for g in gradients(out.loss, gen))))
-        outs[dtype] = out.durations.detach()
-    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))  # noqa: E731
-    total = cos(torch.cat([g.flatten() for g in grads["bfloat16"].values()]),
-                torch.cat([g.flatten() for g in grads["float32"].values()]))
-    modules: dict = {}
-    for name in grads["float32"]:
-        modules.setdefault(name.split(".")[0], []).append(name)
-    worst, per_module = [], {}
-    for module, names in modules.items():
-        a, b = (torch.cat([grads[dt][n].flatten() for n in names])
-                for dt in ("bfloat16", "float32"))
-        per_module[module] = cos(a, b)
-        norm = float(b.norm())
-        for n in names:  # tensors whose fp32 gradient is rounding noise (exact 0) aside
-            ref = grads["float32"][n]
-            if float(ref.norm()) > 1e-6 * norm:
-                worst.append((cos(grads["bfloat16"][n].flatten(), ref.flatten()), n))
-    worst.sort()
+        return (dict(zip(gen, (g.detach().double() for g in gradients(out.loss, gen)))),
+                out.durations.detach())
+
+    grads, outs, seen = {}, {}, []
+
+    def record(*args):
+        seen.append(monotonic_align(*args))
+        return seen[-1]
+
+    try:
+        step_module.monotonic_align = record
+        grads["float32"], outs["float32"] = gen_grads("float32")
+    finally:
+        step_module.monotonic_align = monotonic_align
+    grads["bfloat16"], outs["bfloat16"] = gen_grads("bfloat16")
+    # the duration predictor is fp32 in both runs (train/step.py BF16_SUBTREES): on one
+    # alignment its one input that bf16 moves is the encoder's states. Its control: the
+    # fp32 run with the bf16 run's states handed to it, against the bf16 run
+    nll, states = step_module.stochastic_duration_predictor_nll, []
+
+    def record_states(p, cfg, x, *rest):
+        states.append(x.detach())
+        return nll(p, cfg, x, *rest)
+
+    try:
+        step_module.monotonic_align = lambda *a: seen[0]
+        step_module.stochastic_duration_predictor_nll = record_states
+        fixed, _ = gen_grads("bfloat16")
+        step_module.stochastic_duration_predictor_nll = (
+            lambda p, cfg, x, *rest: nll(p, cfg, states[0], *rest))
+        control, _ = gen_grads("float32")
+    finally:
+        step_module.monotonic_align = monotonic_align
+        step_module.stochastic_duration_predictor_nll = nll
+    total, per_module, worst = bf16_cosines(grads["bfloat16"], grads["float32"])
+    fixed_total, fixed_module, fixed_worst = bf16_cosines(fixed, grads["float32"])
+    dp_control = bf16_cosines(fixed, control)[1]["duration_predictor"]
     same_durations = bool(torch.equal(outs["bfloat16"], outs["float32"]))
+    moved = int((outs["bfloat16"] != outs["float32"]).sum())
     print(f"  bf16 vs fp32 gradients: cosine {total:.5f} over all, bound {BF16_COSINE} over all "
-          f"and for {', '.join(COSINE_MODULES)}; per module " + ", ".join(f"{m} {c:.4f}" for m, c in per_module.items())
+          f"and for {', '.join(COSINE_MODULES)}; per module "
+          + ", ".join(f"{m} {c:.4f}" for m, c in per_module.items())
           + f"; median tensor {float(np.median([c for c, _ in worst])):.4f}, lowest "
           f"{[(n, round(c, 4)) for c, n in worst[:3]]}; MAS durations "
-          f"{'equal' if same_durations else 'differ'}", flush=True)
+          f"{'equal' if same_durations else f'differ in {moved} tokens'}", flush=True)
+    print(f"  on the fp32 run's alignment in both: cosine {fixed_total:.5f} over all, bound "
+          f"{BF16_COSINE} over all and for every module but the duration predictor; per module "
+          + ", ".join(f"{m} {c:.4f}" for m, c in fixed_module.items())
+          + f"; median tensor {float(np.median([c for c, _ in fixed_worst])):.4f}, lowest "
+          f"{[(n, round(c, 4)) for c, n in fixed_worst[:3]]}; the duration predictor against "
+          f"the fp32 run on the bf16 run's encoder states {dp_control:.6f} (bound "
+          f"{DP_CONTROL_COSINE}) ({card})", flush=True)
     off = {m: c for m, c in per_module.items() if m in COSINE_MODULES and not c >= BF16_COSINE}
     if not total >= BF16_COSINE:
         off["all"] = total
+    off.update({f"{m} (fixed alignment)": c for m, c in fixed_module.items()
+                if m != "duration_predictor" and not c >= BF16_COSINE})
+    if not fixed_total >= BF16_COSINE:
+        off["all (fixed alignment)"] = fixed_total
+    if not dp_control >= DP_CONTROL_COSINE:
+        off["duration_predictor against its control"] = dp_control
     if off:
         raise RuntimeError(f"bf16 gradients off the fp32 ones past cosine {BF16_COSINE}: {off}")
     return {**runs, "cosine": total, "cosine_per_module": per_module,
             "median_tensor_cosine": float(np.median([c for c, _ in worst])),
-            "lowest_tensor_cosines": worst[:5], "same_durations": same_durations, "card": card}
+            "lowest_tensor_cosines": worst[:5], "same_durations": same_durations,
+            "durations_moved": moved, "fixed_alignment": {
+                "cosine": fixed_total, "cosine_per_module": fixed_module,
+                "duration_predictor_vs_control": dp_control,
+                "median_tensor_cosine": float(np.median([c for c, _ in fixed_worst])),
+                "lowest_tensor_cosines": fixed_worst[:5]}, "card": card}
+
+
+def bf16_cosines(got: dict, want: dict) -> tuple:
+    """Cosines of the gradients ``got`` against ``want`` (name -> tensor): over all,
+    per module (the first name component), and per tensor, lowest first (tensors
+    whose ``want`` is rounding noise against its module's norm aside)."""
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))  # noqa: E731
+    total = cos(torch.cat([g.flatten() for g in got.values()]),
+                torch.cat([want[n].flatten() for n in got]))
+    modules: dict = {}
+    for name in want:
+        modules.setdefault(name.split(".")[0], []).append(name)
+    worst, per_module = [], {}
+    for module, names in modules.items():
+        a, b = (torch.cat([grads[n].flatten() for n in names]) for grads in (got, want))
+        per_module[module] = cos(a, b)
+        norm = float(b.norm())
+        for n in names:  # tensors whose fp32 gradient is rounding noise (exact 0) aside
+            if float(want[n].norm()) > 1e-6 * norm:
+                worst.append((cos(got[n].flatten(), want[n].flatten()), n))
+    worst.sort()
+    return total, per_module, worst
 
 
 def speaker_gan_step(device, card: str) -> None:
@@ -3369,7 +3538,9 @@ def free_port() -> int:
 
 
 def training_launches() -> dict:
-    """The launch counts of the training kernels (A with lse, 4, 5's forward and backward)."""
+    """The launch counts of the training kernels (A with lse, 4, 5's forward and
+    backward, MAS)."""
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
     from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
     from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
@@ -3377,17 +3548,35 @@ def training_launches() -> dict:
     return {"flash_rel_attention_lse": flash_rel_attention.lse_launches,
             "rel_attention_bwd": rel_attention_bwd.launches,
             "trio_forward_with_acts": trio_forward_with_acts.launches,
-            "trio_backward": trio_backward.launches}
+            "trio_backward": trio_backward.launches,
+            "monotonic_align": monotonic_align.launches}
 
 
 def zero_training_launches() -> None:
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
     from vits_tpu_torch.ops.cuda.attention import flash_rel_attention
     from vits_tpu_torch.ops.cuda.attention_grad import rel_attention_bwd
     from vits_tpu_torch.ops.cuda.trio_grad import trio_backward, trio_forward_with_acts
 
-    for fn in (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward):
+    for fn in (flash_rel_attention, rel_attention_bwd, trio_forward_with_acts, trio_backward,
+               monotonic_align):
         fn.launches = 0
     flash_rel_attention.lse_launches = 0
+
+
+def mas_per_step(grad_accum: int = 1, reuse_forward: bool = True) -> int:
+    """MAS launches of one GAN step on a rank that holds rows of every microbatch:
+    one a generator forward. At grad_accum 1 the step runs one forward (with
+    ``reuse_forward``); else each microbatch runs one in the discriminator's
+    phase and one in the generator's."""
+    return 1 if grad_accum == 1 and reuse_forward else 2 * grad_accum
+
+
+def hold_mas(launches: dict, want: int, what: str) -> None:
+    """Raise unless MAS launched ``want`` times in ``launches`` (one a forward)."""
+    if launches["monotonic_align"] != want:
+        raise RuntimeError(f"{what}: the MAS kernel launched {launches['monotonic_align']} "
+                           f"times, not {want} (one a generator forward)")
 
 
 def leaves_on(arrays: dict, device) -> dict:
@@ -3510,6 +3699,7 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
         for name, n in launches.items():
             if not n:
                 raise RuntimeError(f"kernel {name} was not launched by the data-parallel step")
+        hold_mas(launches, mas_per_step(), "the world-1 GAN step")
         print("  against the plain one-process step from the same parameters and noise (run "
               "three times):", flush=True)
         held = {what: within_spread(what, got[i], [run[i] for run in plain])
@@ -3638,6 +3828,8 @@ def hold_ranks(reports: list, got: list, ref: dict, names: list, what: str) -> N
         if rep["durations"] != durations[rep["rows"]].tolist():
             raise RuntimeError(f"{what} rank {r}: MAS durations differ from the one-process "
                                f"step's")
+        # every rank here holds rows of every microbatch
+        hold_mas(rep["launches"], mas_per_step(ref["grad_accum"]), f"{what} rank {r}")
     if (len({json.dumps(r["metrics"]) for r in reports}) != 1
             or len({r["grad_digest"] for r in reports}) != 1):
         raise RuntimeError(f"{what}: the ranks hold different metrics or gradients")
@@ -3650,7 +3842,8 @@ def hold_ranks(reports: list, got: list, ref: dict, names: list, what: str) -> N
             raise RuntimeError(f"{what} and one process: {name} differs past {bound:.3e}")
     B = ref["batch"].input_ids.shape[0]
     print(f"  {what} vs the one-process B={B} step at grad_accum={ref['grad_accum']}: equal "
-          f"MAS durations ({int(durations.sum())} frames), equal metrics and gradients on all "
+          f"MAS durations ({int(durations.sum())} frames), the MAS kernel launched "
+          f"{mas_per_step(ref['grad_accum'])} times a rank, equal metrics and gradients on all "
           f"{len(reports)} ranks, losses within {DP_LOSS_RTOL} relative or 10x their noise "
           f"floor", flush=True)
     hold_gradients(names, got, ref["grads"], ref["floors"], f"{what} vs one process")
@@ -4502,6 +4695,7 @@ def pp_step(config, gen_np: dict, batch, device, card: str) -> dict:
         for name, n in launches.items():
             if not n:
                 raise RuntimeError(f"kernel {name} was not launched by the pipelined step")
+        hold_mas(launches, 1, "the pipelined generator step")
         label = f"pipe={stages}, M={M}" + (", remat" if remat else "")
         print(f"  [14a] make_pp_train_step {label} against make_train_step, same weights and "
               f"noise: launches {launches}, by stage {books}", flush=True)
@@ -4619,6 +4813,7 @@ def mp_two_ranks(config, gen_np, disc_np, device, card: str) -> dict:
         for name, n in rep["launches"].items():
             if not n:
                 raise RuntimeError(f"rank {r} did not launch kernel {name}")
+        hold_mas(rep["launches"], mas_per_step(), f"model rank {r}")
     for i, (name, g, w) in enumerate(zip(GAN_FIELDS, a["metrics"], want_metrics.tolist())):
         floor = max(abs(m[i] - w) for m in floor_metrics)
         bound = max(DP_LOSS_RTOL * max(1.0, abs(w)), 10 * floor)
@@ -5021,6 +5216,8 @@ def refusals_phase(device) -> dict:
     print(f"  phase 15: {seconds:.1f} s", flush=True)
     return {"kernels": measured, "variants": variants,
             "uneven": {"launches": uneven["launches"],
+                       "mas_launches": [r["launches"]["monotonic_align"]
+                                        for r in uneven["ranks"]],
                        "metrics": [r["metrics"] for r in uneven["ranks"]]},
             "seconds": seconds, "card": card, "profiler_sessions": PROFILER_SESSIONS}
 
@@ -5386,7 +5583,7 @@ def main() -> None:
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
-                 slice_kernels_vs_plain(vctk, narrow, device)):
+                 slice_kernels_vs_plain(vctk, narrow, device), mas_kernel_vs_plain(device)):
         for name, shapes in runs.items():
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
@@ -5500,6 +5697,8 @@ def main() -> None:
         "fused_flow": ("vits_tpu_torch/csrc/flow.cu", "vits_tpu/ops/pallas/flow.py:230"),
         "fused_resblock": ("vits_tpu_torch/csrc/resblock_block.cu",
                            "vits_tpu/ops/pallas/resblock.py:629"),
+        # no Pallas kernel: JAX's hot-path lax.scan (forward :51, backtrace :70)
+        "monotonic_align": ("vits_tpu_torch/csrc/align.cu", "vits_tpu/ops/align.py:51"),
     }
     # phase 10: the same kernels on bf16 storage, their launches over its three bf16 steps
     for name in ("flash_rel_attention", "trainable_rel_attention", "trainable_trio"):
@@ -5522,6 +5721,7 @@ def main() -> None:
     mp_paths["14b_rank0"] = model_parallel["two_ranks"]["launches"]
     bf16_launches = bf16_run["bfloat16"]["launches"]
     launches = {**serving, "trainable_rel_attention": train_launches["rel_attention_bwd"],
+                "monotonic_align": train_launches["monotonic_align"],
                 "trainable_trio": train_launches["trio_forward_with_acts"],
                 "flash_rel_attention_bf16": bf16_launches["flash_rel_attention"],
                 "trainable_rel_attention_bf16": bf16_launches["rel_attention_bwd"],
@@ -5535,6 +5735,24 @@ def main() -> None:
                                                 for t in ("exact", "fast"))
                 + wide["training"]["launches"]["flash_rel_attention"],
                 "trainable_rel_attention_wide": wide["training"]["launches"]["rel_attention_bwd"]}
+    # MAS's launches on every training path, each held there at one a generator forward
+    mas_launches = {
+        "7_gan_steps": train_launches["monotonic_align"],
+        "10b": {dt: bf16_run[dt]["launches"]["monotonic_align"]
+                for dt in ("bfloat16", "float32")},
+        "12a_world_one": data_parallel["world_one"]["launches"]["monotonic_align"],
+        "12b_ranks": [r["launches"]["monotonic_align"]
+                      for r in data_parallel["two_ranks"]["ranks"]],
+        "12c_ranks": [r["launches"]["monotonic_align"] for r in data_parallel["slices"]["ranks"]],
+        **{f"14a_pp_step {label}": run["launches"]["monotonic_align"]
+           for label, run in model_parallel["pipelined"].items()},
+        "14b_ranks": [r["launches"]["monotonic_align"]
+                      for r in model_parallel["two_ranks"]["ranks"]],
+        **{f"15b {label}": run["training"]["launches"]["monotonic_align"]
+           for label, run in refusals["variants"].items()},
+        "15c_ranks": refusals["uneven"]["mas_launches"]}
+    print(f"  MAS launches by path (one a generator forward, each held where it ran): "
+          f"{mas_launches}", flush=True)
     report = {"kernels": []}
     for name, runs in measured.items():
         timed = [r for r in runs if r["ms"] is not None]
@@ -5612,6 +5830,10 @@ def main() -> None:
         if entry["name"] in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
             entry["startup_launches"] = {mode: run["launches"][entry["name"]]
                                          for mode, run in startup["children"].items()}
+        if entry["name"] == "monotonic_align":  # one a generator forward, on every path
+            entry["replaces_scan"] = ("lax.scan, forward vits_tpu/ops/align.py:51, backtrace "
+                                      ":70; no Pallas kernel")
+            entry["mas_launches"] = mas_launches
         if entry["name"] == "trainable_trio_mp":
             entry["backward_launches"] = sum(c["trio_backward"] for c in mp_paths.values())
             entry["backward_source"] = "vits_tpu_torch/csrc/trio_grad.cu"

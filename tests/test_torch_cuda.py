@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from vits_tpu_torch.ops.cuda import align as cuda_align
 from vits_tpu_torch.ops.cuda.attention import flash_rel_attention, rel_attention_reference
 from vits_tpu_torch.ops.cuda.resblock import fused_resblock_trio, resblock_trio_reference
 from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference
@@ -1400,3 +1401,41 @@ def test_engine_bf16_serving_on_card(cuda_device):
                 use_pallas_flow=True, flow_pack=m._flow_pack(), tiers=m.tiers)
         frames.append(int(out.frame_lengths[0]))
     assert abs(frames[0] - frames[1]) <= 0.1 * frames[1], frames
+
+
+# Monotonic Alignment Search (csrc/align.cu) at ops/cuda/align.py's MAS_CASES. The
+# kernel does the plain loop's fp32 add and compare per cell: alignments equal.
+def mas_inputs(case: str, device):
+    return tuple(torch.tensor(a, device=device) for a in cuda_align.mas_case(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(cuda_align.MAS_CASES))
+def test_mas_kernel_equals_plain_on_card(cuda_device, case):
+    from vits_tpu_torch.ops.cuda.align import mas_plan, monotonic_align, monotonic_align_reference
+
+    inputs = mas_inputs(case, cuda_device)
+    before = monotonic_align.launches
+    got = monotonic_align(*inputs)
+    torch.cuda.synchronize()
+    assert monotonic_align.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == inputs[0].shape
+    want = monotonic_align_reference(*(t.cpu() for t in inputs))
+    assert torch.equal(got.cpu(), want), (case, mas_plan(*inputs[0].shape[1:]))
+
+
+@pytest.mark.cuda
+def test_mas_kernel_refuses_what_it_does_not_take(cuda_device):
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
+
+    ll, fmask, tmask = mas_inputs("padded", cuda_device)
+    before = monotonic_align.launches
+    with pytest.raises(ValueError, match="dtype"):
+        monotonic_align(ll.double(), fmask, tmask)
+    with pytest.raises(ValueError, match="dtype"):
+        monotonic_align(ll, fmask.bool(), tmask)
+    with pytest.raises(ValueError, match="not contiguous"):
+        monotonic_align(ll.transpose(1, 2).contiguous().transpose(1, 2), fmask, tmask)
+    with pytest.raises(ValueError, match="masks"):
+        monotonic_align(ll, fmask[:, :-1].contiguous(), tmask)
+    assert monotonic_align.launches == before

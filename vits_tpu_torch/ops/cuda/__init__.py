@@ -12,9 +12,9 @@ AOT bundle's, ``io/aot.py``) without building; one process loads one library,
 of one digest. Nothing here runs at import: the CPU tests import every module.
 
 Each kernel's wrapper (``ops/cuda/attention.py``, ``attention_grad.py``,
-``flow.py``, ``resblock.py``, ``trio_grad.py``, ``stage.py``) takes its plain PyTorch
-version for a tensor on the CPU and launches the kernel for a tensor on a
-CUDA device, raising on anything the kernel does not take -- there is no
+``flow.py``, ``resblock.py``, ``trio_grad.py``, ``stage.py``, ``align.py``)
+takes its plain PyTorch version for a tensor on the CPU and launches the
+kernel for a tensor on a CUDA device, raising on anything the kernel does not take -- there is no
 fallback and no switch. Every launch runs with its tensors' device current
 (:func:`on_device`). Each wrapper carries a plain-integer ``launches``
 count, bumped (:func:`count_launch`, under a lock: the server's threads
@@ -70,6 +70,7 @@ _SIGNATURES = {
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _I, _P],
     "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
                           _F, _I, _P],
+    "vk_monotonic_align": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -58,6 +58,7 @@ OWN_KERNELS = {
     "fused_stage": r"\bupsample(16)?_kernel\b",
     "fused_flow": r"\bFlowEpi\b",
     "trio_backward": r"\bwgrad_kernel\b",
+    "monotonic_align": r"\bmas_(kernel|generic)\b",
 }
 
 
@@ -174,12 +175,21 @@ def lost_records(events, launched: dict) -> list:
 
 
 def _wrappers() -> dict:
-    from vits_tpu_torch.ops.cuda import attention, attention_grad, flow, resblock, stage, trio_grad
+    from vits_tpu_torch.ops.cuda import (
+        align,
+        attention,
+        attention_grad,
+        flow,
+        resblock,
+        stage,
+        trio_grad,
+    )
 
     return {fn.__name__: fn for fn in (
         attention.flash_rel_attention, attention_grad.rel_attention_bwd,
         resblock.fused_resblock_trio, resblock.fused_resblock, stage.fused_stage,
-        flow.fused_flow, trio_grad.trio_forward_with_acts, trio_grad.trio_backward)}
+        flow.fused_flow, trio_grad.trio_forward_with_acts, trio_grad.trio_backward,
+        align.monotonic_align)}
 
 
 def read(run, *, attempts: int = 1, trace_dir: str | None = None) -> Reading:
