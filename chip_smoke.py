@@ -40,10 +40,12 @@ printing its result line:
    and 8 at HiFi-GAN V2's stages 2-3; the MAS kernel (``csrc/align.cu``, the
    port of JAX's hot-path ``lax.scan``) equal to its plain loop on the card in
    every case of ``ops/cuda/align.py``'s MAS_CASES (ties, rows with no valid
-   token or frame, T=1, S=1, S<T, padding, phase 7's 1280 x 512 at B=2 and
-   B=16, the values in registers up to 1024 tokens and in device scratch past
-   them, the choices in device scratch at 3000 x 700), the kernel's event and
-   device ms, the loop's wall and device ms and the bound at MAS_TIMED;
+   token or frame, T=1, S=1, S<T, padding, an odd T, each switch of the
+   plan's K tokens a lane, phase 7's 1280 x 512 at B=2 and B=16, the choices
+   in the cluster's shared memory at 3000 x 700 and on both sides of the one
+   block's and the cluster's capacity, two token strips), with the plan (K,
+   warps, cluster) of each, the kernel's event and device ms and its device
+   ms / S (in ns), the loop's wall and device ms and the bound at MAS_TIMED;
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; ``Synthesizer.warmup`` (every token bucket at batch 1
@@ -843,7 +845,7 @@ def training_kernels_vs_plain(params: dict, config, device) -> dict:
 # Monotonic Alignment Search (csrc/align.cu) against its plain loop at every case of
 # ops/cuda/align.py's MAS_CASES, and the shapes whose times are taken (the plain
 # loop's ~0.3 ms a frame keeps the rest untimed).
-MAS_TIMED = ("training", "training_b16", "choices_in_scratch")
+MAS_TIMED = ("training", "training_b16", "choices_in_cluster")
 # The loop's device ms only here: a profiled call of it is 20,000-65,000 launches, and
 # CUPTI then loses records and the session is taken again (seconds each).
 MAS_PLAIN_PROFILED = "training"
@@ -882,9 +884,9 @@ def mas_kernel_vs_plain(device) -> dict:
         want = monotonic_align_reference(*inputs)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        plan = mas_plan(S, T)
-        shape = (f"{case} B={B} S={S} T={T} ({'mas_kernel' if plan.registers else 'mas_generic'}"
-                 f" x {plan.threads}, choices {'shared' if plan.choices_shared else 'scratch'})")
+        plan = mas_plan(S, T, B, torch.cuda.get_device_properties(device).multi_processor_count)
+        shape = (f"{case} B={B} S={S} T={T} (K={plan.K} x {plan.warps} warps, cluster of "
+                 f"{plan.cluster}, choices {plan.choices})")
         if got.dtype != torch.float32 or not torch.equal(got, want):
             raise RuntimeError(f"MAS {shape}: the kernel's alignment differs from the loop's "
                                f"({int((got != want).sum())} cells)")
@@ -910,9 +912,10 @@ def mas_kernel_vs_plain(device) -> dict:
                 result.update(kernel_ms=ms, kernel_device_ms=device_ms, plain_wall_ms=plain_ms,
                               **bound)
                 plain = "device not profiled"
-            times = (f"kernel {ms:.4f} ms (device {device_ms:.4f})  plain loop {plain_ms:.1f} "
-                     f"ms wall ({plain})  bound {bound['bound_ms']:.4f} ms "
-                     f"({bound['bound_by']})  library: none")
+            result["device_ns_over_S"] = 1e6 * device_ms / S
+            times = (f"kernel {ms:.4f} ms (device {device_ms:.4f}; device ms / S "
+                     f"{1e6 * device_ms / S:.1f} ns)  plain loop {plain_ms:.1f} ms wall ({plain})  "
+                     f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})  library: none")
         else:
             times = "(not timed)"
         print(f"  {'monotonic_align':24s} {shape} equal to the loop  {times}", flush=True)

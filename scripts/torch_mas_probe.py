@@ -24,11 +24,13 @@ batch (B=2, 512 and 300 tokens padded to 512, 1280 and 800 frames padded to
    steady step (1 - busy / median), and MAS's launches in the timed steps.
 3. Where the kernel's time goes: its event ms (median of 10; one launch a
    call, so the kernel's time and a launch's) at B=2, 640 and 1280 frames and
-   SWEEP_TOKENS tokens, the values in registers (``mas_kernel``) and in device
-   scratch (``mas_generic``), a block of one thread a token and the choices in
-   shared memory, launched through ``vk_monotonic_align`` as the wrapper
-   launches it, each alignment equal to the wrapper's; the ns a frame of each
-   (the difference over 640 frames). With ``--plans-only`` only this.
+   SWEEP_TOKENS tokens, for each plan of SWEEP_K tokens a lane on as many
+   chain warps as cover T (``ops/cuda/align.py::mas_plan`` with ``K=`` and
+   ``warps=``; the default plan marked), launched through
+   ``ops/cuda/align.py::launch`` as the wrapper launches it, each alignment
+   equal to the plain loop's; the chain's ns a frame of each (the difference
+   over 640 frames).
+   With ``--plans-only`` only this.
 
 Prints each number as it comes, the card's name and power limit, and writes
 everything as JSON to ``--out``.
@@ -47,6 +49,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 TURNS = ("plain", "kernel", "kernel", "plain")
 SWEEP_TOKENS = (512, 768, 1024)
 SWEEP_FRAMES = (640, 1280)
+SWEEP_K = (4, 16)
 
 
 def main() -> None:
@@ -138,8 +141,9 @@ def main() -> None:
           f"plain loop {alone['plain_wall_ms']:.1f} ms wall (device "
           f"{alone['plain_device_ms']:.2f} ms, {alone['plain_device_ops']:.0f} ops), bound "
           f"{bound_ms:.4f} ms (bytes); kernel device ms at 1280 / 2560 frames "
-          f"{per_frames[1280]:.4f} / {per_frames[2560]:.4f}: {alone['chain_ns_per_frame']:.1f} "
-          f"ns a frame ({card})", flush=True)
+          f"{per_frames[1280]:.4f} / {per_frames[2560]:.4f}: chain "
+          f"{alone['chain_ns_per_frame']:.1f} ns a frame (difference over 1280 frames) ({card})",
+          flush=True)
     result["alone"] = alone
     del fn
 
@@ -184,40 +188,41 @@ def plan_sweep(device, card: str, result: dict, out: str) -> None:
     import torch
 
     import chip_smoke as cs
-    from vits_tpu_torch.ops.cuda import check, library, stream_of
-    from vits_tpu_torch.ops.cuda.align import mas_plan, monotonic_align
+    from vits_tpu_torch.ops.cuda.align import (
+        MAX_WARPS,
+        MAX_WARPS_NARROW,
+        launch,
+        mas_plan,
+        monotonic_align_reference,
+    )
 
-    def launch(ll, fm, tm, registers):
-        B, S, T = ll.shape
-        out = torch.empty_like(ll)
-        values = None if registers else torch.empty((B, 2, T), device=device)
-        check(library().vk_monotonic_align(
-            ll.data_ptr(), fm.data_ptr(), tm.data_ptr(), out.data_ptr(), None,
-            None if values is None else values.data_ptr(), B, S, T, mas_plan(S, T).threads,
-            stream_of(ll)), f"T={T}, registers={registers}")
-        return out
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     rng = np.random.default_rng(1)
     plans = {}
     for T in SWEEP_TOKENS:
-        for frames in SWEEP_FRAMES:
-            ll = torch.tensor((rng.standard_normal((2, frames, T)) * 3 - 10).astype(np.float32),
-                              device=device)
-            masks = torch.ones((2, frames), device=device), torch.ones((2, T), device=device)
-            want = monotonic_align(ll, *masks)
-            for registers in (True, False):
-                if not torch.equal(launch(ll, *masks, registers), want):
-                    raise RuntimeError(f"T={T}, registers={registers} aligns differently")
-                plan = plans.setdefault(
-                    f"T={T} {'mas_kernel' if registers else 'mas_generic'}",
-                    {"threads": mas_plan(frames, T).threads})
-                plan[frames] = cs.median_ms(lambda: launch(ll, *masks, registers))
+        default = mas_plan(SWEEP_FRAMES[-1], T, 2, sms)
+        for K in SWEEP_K:
+            warps = -(-T // (32 * K))
+            if warps > (MAX_WARPS if K == 16 else MAX_WARPS_NARROW):
+                continue
+            name = f"T={T} K={K} x {warps} warps" + (
+                " (the plan's)" if (K, warps) == (default.K, default.warps) else "")
+            plan = plans.setdefault(name, {"K": K, "warps": warps})
+            for frames in SWEEP_FRAMES:
+                ll = torch.tensor((rng.standard_normal((2, frames, T)) * 3 - 10).astype(np.float32),
+                                  device=device)
+                masks = torch.ones((2, frames), device=device), torch.ones((2, T), device=device)
+                how = mas_plan(frames, T, 2, sms, K, warps)
+                if not torch.equal(launch(how, ll, *masks), monotonic_align_reference(ll, *masks)):
+                    raise RuntimeError(f"{name} aligns differently from the loop")
+                plan[frames] = cs.median_ms(lambda: launch(how, ll, *masks))
     lo, hi = SWEEP_FRAMES
     for name, ms in plans.items():
-        ms["ns_per_frame"] = 1e6 * (ms[hi] - ms[lo]) / (hi - lo)
-        print(f"{name} ({ms['threads']} threads): event ms at {lo} / {hi} frames "
-              f"{ms[lo]:.4f} / {ms[hi]:.4f}, {ms['ns_per_frame']:.1f} ns a frame ({card})",
-              flush=True)
+        ms["chain_ns_per_frame"] = 1e6 * (ms[hi] - ms[lo]) / (hi - lo)
+        print(f"{name}: event ms at {lo} / {hi} frames {ms[lo]:.4f} / {ms[hi]:.4f}, chain "
+              f"{ms['chain_ns_per_frame']:.1f} ns a frame (difference over {hi - lo} frames) "
+              f"({card})", flush=True)
     result["plans"] = plans
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,8 +5,8 @@ Identical seeded numpy inputs go through ``vits_tpu.ops.align.monotonic_align``
 plain twin, the loop that the CUDA kernel ``csrc/align.cu`` is held equal to on
 the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``). The two do the
 same fp32 add and compare per cell, so the alignments must be equal. The
-choice-storage rule of the kernel (shared memory or device scratch) is pure
-Python and is pinned here with its byte counts.
+kernel's launch plan (``mas_plan``: tokens a lane, warps, ring, cluster, where
+the choices live) is pure Python and is pinned here with its byte counts.
 """
 
 import jax
@@ -59,41 +59,93 @@ def test_wrapper_never_takes_the_loop_off_the_cpu():
     assert cuda_align.monotonic_align.launches == before
 
 
-# (S, T) -> threads, values in registers, choice bytes, base bytes, choices in shared memory
-_REGISTER_BASE = 4 * (8 * 512 + 2 * 16) + 4360  # the ring, the exchange, the tail at 512
+# (B, S, T) -> K tokens a lane, chain warps, strips, frames a chunk, chunks, cluster
+# blocks, where the choices live, shared memory a block
 PLANS = {
-    # the training shape: (1280 - 1) frames x 16 words x 4 bytes = 81,856 bytes of choices
-    (1280, 512): (512, True, 81856, _REGISTER_BASE, True),
-    # the last frame count whose choices fit beside the ring (232,392 bytes in all) ...
-    (3306, 512): (512, True, 211520, _REGISTER_BASE, True),
-    # ... and the first that does not (232,456): mas_generic, its choices still shared
-    (3307, 512): (512, False, 211584, 4360, True),
-    # the last that fits beside mas_generic's 4,360 bytes (232,392) and the first that not
-    (3564, 512): (512, False, 228032, 4360, True),
-    (3565, 512): (512, False, 228096, 4360, False),
-    # 2999 x 22 x 4 = 263,912 bytes: past the 232,448 a block may have, device scratch
-    (3000, 700): (704, False, 263912, 4360, False),
-    (1, 1): (32, True, 0, 4 * (8 * 32 + 2) + 4360, True),
-    # mas_kernel's widest block, then past it the values in device scratch
-    (640, 1024): (1024, True, 639 * 32 * 4, 4 * (8 * 1024 + 2 * 32) + 4360, True),
-    (200, 1025): (1024, False, 199 * 33 * 4, 4360, True),
-    (40, 4097): (1024, False, 39 * 129 * 4, 4360, True),
-    (2000, 20000): (1024, False, 1999 * 625 * 4, 4360, False),
+    # the training shape: K = 4 on 4 warps (512 tokens); chunks of 16 frames as they
+    # lie in memory (16 x 512 + 4 floats a slot), 4 slots: 131,136 ring bytes after
+    # 4,480 (mbarriers, lengths, 4 x 128 exchange slots), then 1279 choice rows of
+    # 16 words: 135,616 + 81,856
+    (2, 1280, 512): (4, 4, 1, 16, 4, 4, "shared", 217472),
+    (16, 1280, 512): (4, 4, 1, 16, 4, 4, "shared", 217472),
+    # 64 rows of clusters of 4 would pass the 132 SMs: a writer block a row
+    (64, 1280, 512): (4, 4, 1, 16, 4, 2, "shared", 217472),
+    # 2999 rows of 22 words (263,912 bytes): block 0 holds 1328, block 1 the rest;
+    # 8.4 MB of output: 7 writer blocks
+    (2, 3000, 700): (4, 6, 1, 8, 5, 8, "cluster", 232448),
+    (1, 1, 1): (4, 1, 1, 32, 2, 2, "shared", 1696),  # one frame: no choice rows
+    (2, 23, 7): (4, 1, 1, 32, 2, 2, "shared", 3320),
+    # K = 4: a warp each 128 tokens, the last token of a warp count and the next
+    (1, 30, 128): (4, 1, 1, 32, 2, 2, "shared", 34672),
+    (1, 30, 129): (4, 2, 1, 32, 2, 2, "shared", 36068),
+    (1, 30, 256): (4, 2, 1, 32, 2, 2, "shared", 68928),
+    (1, 30, 257): (4, 3, 1, 24, 3, 2, "shared", 78564),
+    (1, 30, 512): (4, 4, 1, 16, 4, 2, "shared", 137472),
+    (1, 30, 513): (4, 5, 1, 8, 7, 2, "shared", 119940),
+    # K = 4's widest (8 warps), then K = 16, a warp each 512 tokens
+    (1, 30, 1024): (4, 8, 1, 8, 4, 2, "shared", 139328),
+    (1, 30, 1025): (16, 3, 1, 6, 5, 2, "shared", 128100),
+    (1, 30, 2048): (16, 4, 1, 4, 4, 2, "shared", 139968),
+    (1, 30, 2049): (16, 5, 1, 2, 7, 2, "shared", 123476),
+    # the widest strip (16 x 24 warps): a ring of 2 slots of 2 rows of 12,288 floats;
+    # 22 choice rows of 384 words beside it, then 150 a block of the cluster ...
+    (1, 23, 12288): (16, 24, 1, 2, 2, 3, "shared", 232352),
+    (1, 24, 12288): (16, 24, 1, 2, 2, 3, "cluster", 232448),
+    (1, 1073, 12288): (16, 24, 1, 2, 2, 8, "cluster", 232448),
+    # ... and past 22 + 7 x 150 rows, device scratch
+    (1, 1074, 12288): (16, 24, 1, 2, 2, 8, "scratch", 198560),
+    (1, 60, 13000): (16, 24, 2, 2, 2, 4, "cluster", 232448),  # two strips
+    (1, 2000, 20000): (16, 24, 2, 2, 2, 8, "scratch", 198624),
 }
 
 
-@pytest.mark.parametrize("shape", list(PLANS), ids=lambda s: f"S{s[0]}-T{s[1]}")
-def test_choice_storage_rule(shape):
-    plan = cuda_align.mas_plan(*shape)
-    assert (plan.threads, plan.registers, plan.choice_bytes, plan.base_bytes,
-            plan.choices_shared) == PLANS[shape]
-    assert plan.choices_shared == (plan.base_bytes + plan.choice_bytes <= 232448)
-    assert plan.base_bytes + plan.choice_bytes * plan.choices_shared <= 232448
-    # mas_kernel: a thread a token, its choices in shared memory
-    assert not plan.registers or (plan.threads >= shape[1] and plan.choices_shared)
-    assert plan.threads % 32 == 0 and plan.threads <= 1024
+@pytest.mark.parametrize("shape", list(PLANS), ids=lambda s: f"B{s[0]}-S{s[1]}-T{s[2]}")
+def test_launch_plan(shape):
+    """The plan, and the bounds that vk_monotonic_align checks it against before
+    it launches (align.cu takes the layout as given)."""
+    B, S, T = shape
+    plan = cuda_align.mas_plan(S, T, B)
+    assert (plan.K, plan.warps, plan.strips, plan.frames, plan.chunks, plan.cluster,
+            plan.choices, plan.smem_bytes) == PLANS[shape]
+    G, W, rows = 32 // plan.K, -(-T // 32), S - 1
+    assert plan.choice_bytes == 4 * rows * W
+    assert plan.strips == -(-T // (32 * plan.K * plan.warps))
+    assert plan.frames % G == 0 and plan.frames <= 32 and 2 <= plan.chunks <= 8
+    assert plan.slots > plan.chunks * plan.frames and plan.slots & (plan.slots - 1) == 0
+    # one strip: a chunk's rows as they lie in memory; strips: a row a frame, from
+    # a ragged start (up to 3 floats) with the strip's 32 K warps tokens after it
+    assert plan.row_floats == (T if plan.strips == 1 else 32 * plan.K * plan.warps + 4)
+    assert plan.slot_floats % 4 == 0 and plan.slot_floats >= plan.frames * plan.row_floats + 4
+    # block 0: mbarriers and lengths, the exchange, the ring (128-byte aligned), choices
+    assert plan.xs_off % 16 == 0 and plan.xs_off >= 16 * plan.chunks + 4 * 64 + 4 * 2
+    assert plan.ring_off % 128 == 0 and plan.ring_off >= plan.xs_off + 8 * plan.warps * plan.slots
+    assert plan.base_off >= plan.ring_off + 4 * plan.chunks * plan.slot_floats
+    assert plan.base_off <= plan.smem_bytes <= 232448
+    assert 2 <= plan.cluster <= 8 and plan.warps <= (24 if plan.K == 16 else 8)
+    assert plan.strips == 1 or plan.K == 16
+    if plan.choices == "shared":
+        assert plan.smem_bytes == plan.base_off + 4 * rows * W and plan.rows0 == rows
+    elif plan.choices == "cluster":  # whole groups of G rows a block, every row held
+        assert plan.rows0 % G == 0 and plan.rows1 % G == 0 and plan.rows1 >= G
+        assert plan.base_off + 4 * W * plan.rows0 <= 232448 and 4 * W * plan.rows1 <= 232448
+        assert plan.rows0 + (plan.cluster - 1) * plan.rows1 >= rows
+    else:
+        assert plan.smem_bytes == plan.base_off and plan.rows0 == plan.rows1 == 0
+        assert (232448 - plan.base_off) // (4 * W) // G * G + 7 * (232448 // (4 * W) // G * G) \
+            < rows
 
 
 def test_plan_refuses_an_empty_alignment():
     with pytest.raises(ValueError, match="S=0"):
         cuda_align.mas_plan(0, 5)
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    """K is 4 or 16, only K = 16 runs its tokens in strips, and a block keeps its
+    warps."""
+    with pytest.raises(ValueError, match="only K=16"):
+        cuda_align.mas_plan(30, 1024, K=4, warps=4)
+    with pytest.raises(ValueError, match="9 warps at K=4"):
+        cuda_align.mas_plan(30, 1024, K=4, warps=9)
+    with pytest.raises(ValueError, match="K=8 is not 4 or 16"):
+        cuda_align.mas_plan(30, 96, K=8)

@@ -1421,7 +1421,19 @@ def test_mas_kernel_equals_plain_on_card(cuda_device, case):
     assert monotonic_align.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == inputs[0].shape
     want = monotonic_align_reference(*(t.cpu() for t in inputs))
-    assert torch.equal(got.cpu(), want), (case, mas_plan(*inputs[0].shape[1:]))
+    assert torch.equal(got.cpu(), want), (case, mas_plan(*inputs[0].shape[1:], inputs[0].shape[0]))
+
+
+@pytest.mark.cuda
+def test_mas_kernel_launches_are_bit_identical(cuda_device):
+    """Two launches at the training shape write the same bits: the wavefront's
+    hand-offs and the cluster's zeros and ones leave no order to chance."""
+    from vits_tpu_torch.ops.cuda.align import monotonic_align
+
+    inputs = mas_inputs("training", cuda_device)
+    first, second = monotonic_align(*inputs), monotonic_align(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _I, _P],
     "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
                           _F, _I, _P],
-    "vk_monotonic_align": [_P] * 6 + [_I] * 4 + [_P],
+    "vk_monotonic_align": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 _lock = threading.Lock()

@@ -3,15 +3,32 @@
 Replaces no Pallas kernel: the JAX package runs MAS as two ``lax.scan``s in
 XLA (the Viterbi forward at ``vits_tpu/ops/align.py:51``, the backtrace at
 ``:70``), over every frame of every training step. The CUDA kernel is
-``vits_tpu_torch/csrc/align.cu`` (one block per batch row; up to
-REGISTER_TOKENS tokens the values in registers, shifted by warp shuffles and
-one barrier a frame, and the choices packed into bits in shared memory;
-every other shape through ``mas_generic``, the values and, where they do not
-fit, the choices in device scratch; one thread walks the bits back and the
-block writes the one-hot rows). Its plain twin is
+``vits_tpu_torch/csrc/align.cu``; its plain twin is
 :func:`monotonic_align_reference`, the Python loop over frames. Both compute
 JAX's arithmetic cell for cell (one fp32 add and one compare), so their
 alignments are equal, not close.
+
+What bounds it on an H100 is the chain: S - 1 dependent frames a row, each
+needing all of the frame before. Its bytes (the likelihoods read once and the
+alignment written once, at 3.35 TB/s: 3.1 us at B=2, 1280 x 512) are small
+beside that chain at the training batch. The design answers it so
+(:func:`mas_plan` picks the numbers):
+
+- each lane of a chain warp holds K consecutive tokens in registers; a frame is
+  one warp shuffle and K independent max-adds, and the warps run as a skewed
+  wavefront that hands each frame's last value on through tagged slots in
+  shared memory, with no block barrier inside the frame loop;
+- a producer warp brings the likelihoods in chunks of frames by TMA bulk copies
+  into a ring in shared memory, each chunk's mbarrier waited on by the chain
+  (a row's ragged edge by 4-byte ``cp.async`` on the same mbarrier);
+- the choice bits are packed by each lane and transposed by shuffles into
+  32-bit words a frame, kept in block 0's shared memory, else in the
+  cluster's distributed shared memory, else (past what 8 blocks hold) in
+  device scratch;
+- the backtrace resolves 32 frames at a time from registers;
+- each batch row is a cluster of blocks: block 0 runs the chain and the
+  backtrace, the others write the row's masked zeros while the chain runs,
+  and block 0 then writes the ones.
 """
 
 from __future__ import annotations
@@ -21,57 +38,129 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vits_tpu_torch.ops.cuda import check, count_launch, library, on_cuda, on_device, stream_of
+from vits_tpu_torch.ops.cuda import (
+    check,
+    count_launch,
+    device_sm_count,
+    library,
+    on_cuda,
+    on_device,
+    stream_of,
+)
 
 _NEG_INF = -1e9
 
 # sm_90's most dynamic shared memory a block may use (common.cuh kMaxSmemBytes)
 SMEM_BYTES = 232448
-# align.cu's constants: frames in the likelihood ring, frames of the path walked
-# between writes, the most threads a block has
-RING_FRAMES = 8
-PATH_CHUNK = 1024
-MAX_THREADS = 1024
-# The most tokens that mas_kernel takes (one a thread, values in registers): up to
-# its 1024 threads it beats mas_generic at every width measured (ns a frame at B=2,
-# 372.6 against 586.5 at T=512, 498.7 against 675.6 at 768, 690.1 against 849.7 at
-# 1024; scripts/torch_mas_probe.py on an H100 80GB HBM3 at 700 W)
-REGISTER_TOKENS = 1024
+# align.cu's kMaxWarps (chain warps of a block at K = 16; kMaxWarpsNarrow at K = 4,
+# whose lanes keep more of a group's likelihoods in registers) and kMaxCluster
+# (the portable cluster size)
+MAX_WARPS = 24
+MAX_WARPS_NARROW = 8
+MAX_CLUSTER = 8
+# K (tokens a lane): 4 on a warp each 128 tokens up to 1,024 tokens, else 16 on a
+# warp each 512 tokens up to MAX_WARPS, then strips. Measured on an H100
+# (scripts/torch_mas_probe.py, B=2, 1,280 frames): at 512-1,024 tokens K = 4 ran
+# 3.1-3.4x faster than K = 16, whose lane issues ~100 instructions a frame.
+NARROW_TOKENS = 32 * 4 * MAX_WARPS_NARROW
+# a chunk's bytes aimed at, the frames the ring aims to hold in flight, and
+# the ring's most bytes (at least two chunks whatever their size)
+CHUNK_BYTES = 32768
+RING_FRAMES = 64
+RING_BYTES = 131072
+# output bytes a writer block takes while the chain runs (the cluster's size)
+WRITER_BYTES = 1 << 20
+# an H100's SMs: the cluster shrinks where B rows of clusters would pass them
+H100_SMS = 132
 
 
 class MasPlan(NamedTuple):
-    """How ``vk_monotonic_align`` runs a (S, T) alignment."""
+    """How ``vk_monotonic_align`` runs a (B, S, T) alignment."""
 
-    threads: int  # the block's threads
-    registers: bool  # values in registers (mas_kernel), else in device scratch (mas_generic)
+    K: int  # tokens a lane
+    warps: int  # chain warps of block 0 (and one producer warp)
+    strips: int  # token strips of 32 K warps tokens, run one after another
+    frames: int  # frames a chunk of the likelihood ring (a multiple of 32 / K)
+    chunks: int  # chunks of the ring
+    row_floats: int  # floats a frame in the ring: T (one strip), else 32 K warps + 4
+    slot_floats: int  # floats a chunk's slot: frames x row_floats + 4, to 16 bytes
+    slots: int  # exchange slots a warp (a power of two past chunks x frames)
+    cluster: int  # blocks a batch row: block 0 the chain, the others its zeros
+    xs_off: int  # block 0's bytes before its exchange slots (mbarriers, lengths)
+    ring_off: int  # and before its likelihood ring (128-byte aligned)
+    base_off: int  # and before its choice rows: its shared memory besides them
+    rows0: int  # choice rows in block 0's shared memory
+    rows1: int  # and in each other block's (0: all in block 0, or in scratch)
+    choices: str  # "shared" (block 0), "cluster" (distributed) or "scratch" (device)
+    smem_bytes: int  # each block's dynamic shared memory
     choice_bytes: int  # (S - 1) * ceil(T / 32) * 4: one bit a cell
-    base_bytes: int  # shared memory besides the choices
-    choices_shared: bool  # choices in shared memory (else device scratch)
 
 
-def mas_plan(S: int, T: int) -> MasPlan:
-    """The kernel, the block and where the choices live, for S frames and T
-    tokens (align.cu's shared-memory layout, byte for byte).
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
 
-    mas_kernel where T <= REGISTER_TOKENS and its choices fit in shared memory
-    beside its likelihood ring; else mas_generic, its choices in shared memory
-    where they fit, else in device scratch. A block of one thread a token, up
-    to MAX_THREADS."""
+
+def mas_plan(S: int, T: int, B: int = 1, sms: int = H100_SMS, K: int | None = None,
+             warps: int | None = None) -> MasPlan:
+    """The launch of a (B, S, T) alignment and block 0's shared-memory layout,
+    which align.cu takes as given and only bounds-checks. ``K`` and ``warps``
+    override the rule (K = 4 up to NARROW_TOKENS, else 16) for a sweep; the rest
+    follows from them."""
     if S < 1 or T < 1:
         raise ValueError(f"monotonic_align needs a frame and a token, got S={S}, T={T}")
-    tail = 4 * PATH_CHUNK + 4 * 64 + 4 * 2  # path chunk, reduction, lengths
-    threads = 32 * -(-min(T, MAX_THREADS) // 32)
-    choice_bytes = 4 * (S - 1) * -(-T // 32)
-    if T <= REGISTER_TOKENS:
-        base = 4 * (RING_FRAMES * threads + 2 * (threads // 32)) + tail
-        if base + choice_bytes <= SMEM_BYTES:
-            return MasPlan(threads, True, choice_bytes, base, True)
-    return MasPlan(threads, False, choice_bytes, tail, tail + choice_bytes <= SMEM_BYTES)
+    if K is None:
+        K = 4 if T <= NARROW_TOKENS else 16
+    if K not in (4, 16):
+        raise ValueError(f"monotonic_align: K={K} is not 4 or 16")
+    most = MAX_WARPS if K == 16 else MAX_WARPS_NARROW
+    if warps is None:
+        warps = min(most, -(-T // (32 * K)))
+    if not 1 <= warps <= most:
+        raise ValueError(f"monotonic_align: {warps} warps at K={K}, not 1..{most}")
+    G = 32 // K  # frames a lane packs into one word
+    Ts = 32 * K * warps
+    strips = -(-T // Ts)
+    if strips > 1 and K != 16:
+        raise ValueError(f"monotonic_align: {T} tokens pass K={K} x {warps} warps; only K=16 "
+                         "runs in strips")
+    # one strip: a chunk's frames as they lie in memory; strips: a row a frame
+    row_floats = T if strips == 1 else Ts + 4
+    frame_bytes = 4 * row_floats
+    frames = G * max(1, min(32 // G, CHUNK_BYTES // (frame_bytes * G)))
+    chunks = min(8, max(2, -(-RING_FRAMES // frames)))
+    while chunks > 2 and chunks * frames * frame_bytes > RING_BYTES:
+        chunks -= 1
+    slot_floats = _up(frames * row_floats + 4, 4)  # + a ragged start
+    slots = 1 << (chunks * frames).bit_length()  # a power of two past chunks x frames
+    xs = _up(16 * chunks + 4 * 64 + 4 * 2, 16)
+    ring = _up(xs + 8 * warps * slots, 128)
+    base = ring + 4 * chunks * slot_floats
+    if base > SMEM_BYTES:
+        raise ValueError(f"monotonic_align: K={K} x {warps} warps at T={T} needs {base} "
+                         f"bytes of shared memory before its choices")
+    row_bytes = 4 * -(-T // 32)
+    rows = S - 1
+    need = 1
+    if rows * row_bytes <= SMEM_BYTES - base:
+        choices, smem, rows0, rows1 = "shared", base + rows * row_bytes, rows, 0
+    else:
+        rows0 = (SMEM_BYTES - base) // row_bytes // G * G
+        rows1 = SMEM_BYTES // row_bytes // G * G
+        need = 1 + -(-(rows - rows0) // rows1) if rows1 else MAX_CLUSTER + 1
+        if need <= MAX_CLUSTER:
+            choices, smem = "cluster", SMEM_BYTES
+        else:
+            choices, smem, rows0, rows1, need = "scratch", base, 0, 0, 1
+    writers = min(MAX_CLUSTER - 1, max(1, -(-4 * S * T // WRITER_BYTES)))
+    cluster = max(need, min(1 + writers, max(2, sms // max(B, 1))))
+    return MasPlan(K, warps, strips, frames, chunks, row_floats, slot_floats, slots, cluster,
+                   xs, ring, base, rows0, rows1, choices, smem, rows * row_bytes)
 
 
 # The shapes the kernel is held equal to its plain loop at (tests/test_torch_cuda.py,
 # chip_smoke.py) and, up to "training", the loop to JAX's on the CPU
-# (tests/test_torch_align.py): (B, S, T, frame lengths, token lengths).
+# (tests/test_torch_align.py): (B, S, T, frame lengths, token lengths). The
+# comments name the plan (K tokens a lane x chain warps) where a case is an edge.
 MAS_CASES = {
     "tied": (2, 23, 7, (23, 15), (7, 4)),  # every likelihood 0: every path tied
     "empty_rows": (4, 19, 6, (19, 0, 0, 19), (0, 6, 0, 6)),  # no valid token / frame / both
@@ -79,14 +168,27 @@ MAS_CASES = {
     "one_frame": (3, 1, 8, (1, 1, 0), (8, 3, 1)),
     "fewer_frames": (2, 5, 40, (5, 3), (40, 12)),  # S < T
     "padded": (3, 61, 37, (61, 44, 20), (37, 30, 9)),
-    "random": (3, 300, 97, (300, 211, 150), (97, 64, 33)),
-    "training": (2, 1280, 512, (1280, 800), (512, 300)),  # chip_smoke.py's phase 7 batch
+    "random": (3, 300, 97, (300, 211, 150), (97, 64, 33)),  # 97 of 4 x 1's 128 tokens
+    "odd_row": (2, 40, 301, (40, 31), (301, 188)),  # odd T: unaligned rows, 4 x 3
+    "two_warps_widest": (2, 30, 256, (30, 19), (256, 170)),  # 4 x 2
+    "three_warps_narrowest": (2, 30, 257, (30, 26), (257, 257)),  # 4 x 3
+    "four_warps_widest": (1, 30, 512, (30,), (500,)),  # 4 x 4
+    "five_warps_narrowest": (1, 30, 513, (30,), (513,)),  # 4 x 5
+    "k16_narrowest": (2, 24, 1025, (24, 20), (1025, 800)),  # 16 x 3
+    "training": (2, 1280, 512, (1280, 800), (512, 300)),  # chip_smoke.py's phase 7 batch; 4 x 4
     "training_b16": (16, 1280, 512, tuple(range(1280, 480, -50)), tuple(range(512, 192, -20))),
-    "register_tokens": (2, 640, 1024, (640, 500), (1024, 700)),  # mas_kernel's widest
-    "past_register_tokens": (1, 200, 1025, (200,), (1025,)),  # mas_generic's narrowest
-    "choices_in_scratch": (2, 3000, 700, (3000, 2100), (700, 450)),
-    "values_in_scratch": (2, 40, 5000, (40, 31), (5000, 4100)),
-    "both_in_scratch": (1, 400, 9000, (400,), (8999,)),
+    "k4_widest": (2, 640, 1024, (640, 500), (1024, 700)),  # 4 x 8
+    "k16_four_warps": (1, 120, 2048, (120,), (2000,)),  # 16 x 4
+    "k16_five_warps": (1, 200, 2049, (200,), (2049,)),  # 16 x 5
+    "choices_in_cluster": (2, 3000, 700, (3000, 2100), (700, 450)),  # 264 KB of choices; 4 x 6
+    "k16_ten_warps": (2, 40, 5000, (40, 31), (5000, 4100)),
+    "k16_eighteen_warps": (1, 400, 9000, (400,), (8999,)),  # choices in a cluster of 3
+    # 16 x 24, the widest strip: block 0 holds 22 choice rows beside its ring
+    "one_block_full": (1, 23, 12288, (23,), (12288,)),
+    "one_block_past": (1, 24, 12288, (24,), (12000,)),  # 23 rows: the cluster's
+    "cluster_full": (1, 1073, 12288, (1073,), (12288,)),  # 22 + 7 x 150 rows
+    "cluster_past": (1, 1074, 12288, (1000,), (12288,)),  # choices in device scratch
+    "strips": (2, 60, 13000, (60, 41), (13000, 12500)),  # two strips of 12,288 tokens
 }
 
 
@@ -162,8 +264,8 @@ def monotonic_align(
     likelihood's dtype, no gradient (a constant target, as in VITS).
 
     CPU tensors take :func:`monotonic_align_reference`. CUDA tensors launch the
-    kernel: fp32 likelihoods and masks (the training step's), contiguous, on
-    one device, any S and T (:func:`mas_plan`), or raise.
+    kernel once: fp32 likelihoods and masks (the training step's), contiguous,
+    on one device, any S and T (:func:`mas_plan`), or raise.
     """
     if not on_cuda("monotonic_align", log_likelihood, frame_mask, token_mask):
         return monotonic_align_reference(log_likelihood, frame_mask, token_mask)
@@ -174,22 +276,34 @@ def monotonic_align(
     if frame_mask.shape != (B, S) or token_mask.shape != (B, T):
         raise ValueError(f"monotonic_align: masks {tuple(frame_mask.shape)} and "
                          f"{tuple(token_mask.shape)} for likelihoods {(B, S, T)}")
-    out = torch.empty_like(log_likelihood)
     if B == 0:
-        return out
-    plan = mas_plan(S, T)
-    choices = None if plan.choices_shared else torch.empty(
-        (B, plan.choice_bytes // 4), dtype=torch.int32, device=out.device)
-    values = None if plan.registers else torch.empty(
-        (B, 2, T), dtype=torch.float32, device=out.device)
+        return torch.empty_like(log_likelihood)
+    out = launch(mas_plan(S, T, B, device_sm_count(log_likelihood.device)), log_likelihood,
+                 frame_mask, token_mask)
+    count_launch(monotonic_align)
+    return out
+
+
+def launch(plan: MasPlan, log_likelihood: torch.Tensor, frame_mask: torch.Tensor,
+           token_mask: torch.Tensor) -> torch.Tensor:
+    """One launch of ``mas_wavefront`` by ``plan`` on checked CUDA tensors, not
+    counted: :func:`monotonic_align` counts its own, and the probe's sweep
+    (``scripts/torch_mas_probe.py``) launches other plans through this."""
+    B, S, T = log_likelihood.shape
+    out = torch.empty_like(log_likelihood)
+    scratch = torch.empty((B, plan.choice_bytes // 4), dtype=torch.int32, device=out.device) \
+        if plan.choices == "scratch" else None
+    column = torch.empty((B, 2, S), dtype=torch.float32, device=out.device) \
+        if plan.strips > 1 else None
     with on_device(log_likelihood):
         check(library().vk_monotonic_align(
             log_likelihood.data_ptr(), frame_mask.data_ptr(), token_mask.data_ptr(),
-            out.data_ptr(), None if choices is None else choices.data_ptr(),
-            None if values is None else values.data_ptr(), B, S, T, plan.threads,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            None if column is None else column.data_ptr(), B, S, T, plan.K, plan.warps,
+            plan.frames, plan.chunks, plan.slot_floats, plan.slots, plan.rows0, plan.rows1,
+            plan.xs_off, plan.ring_off, plan.base_off, plan.cluster, plan.smem_bytes,
             stream_of(log_likelihood)),
             f"monotonic_align kernel (B={B}, S={S}, T={T}, {plan})")
-    count_launch(monotonic_align)
     return out
 
 

@@ -58,7 +58,7 @@ OWN_KERNELS = {
     "fused_stage": r"\bupsample(16)?_kernel\b",
     "fused_flow": r"\bFlowEpi\b",
     "trio_backward": r"\bwgrad_kernel\b",
-    "monotonic_align": r"\bmas_(kernel|generic)\b",
+    "monotonic_align": r"\bmas_wavefront\b",
 }
 
 
