@@ -46,6 +46,13 @@ printing its result line:
    block's and the cluster's capacity, two token strips), with the plan (K,
    warps, cluster) of each, the kernel's event and device ms and its device
    ms / S (in ns), the loop's wall and device ms and the bound at MAS_TIMED;
+   the resblock conv's Hopper route (``csrc/conv_wgmma.cuh``, B's and C's
+   resblock convs at the fast tier on bf16 packs) against its plain twin
+   ``conv_reference`` within the fast tier's bound at every (C, k, dil) that
+   MMS-TTS, VCTK and small_config run on it, B = 1 and 4, T off the tile,
+   rows of length 0 and shorter than a tile, each epilogue mode (residual and
+   round, accumulate, the mean's scale, out16), plans that split K over a
+   cluster, and the same input twice bit-identical (WGMMA_CONVS);
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; ``Synthesizer.warmup`` (every token bucket at batch 1
@@ -119,15 +126,21 @@ printing its result line:
    int8 packs, against the plain twin at the same tier on the card at phase
    3's shapes (bounds 0.03 / 1e-4 / KERNEL_TOL; the bound at the tier's peak:
    bf16 for "fast", a third of it for "high", 3xTF32 for "highest", bytes at
-   the formats' widths); the 87-token MMS request at each fidelity tier
-   (``EngineConfig.fidelity_kwargs``: fast, glue32, high, exact) and at fast
-   on the same weights quantized: its frames, steady wall ms, device busy ms,
-   idle share and launches, and its flow and vocoder at the exact tier's
+   the formats' widths), and beside B at "fast" on bf16 packs its library
+   yardstick: cuDNN's bf16 ``F.conv1d`` once per conv launch, the trio's 18
+   summed (the products alone; the port never calls it); the 87-token MMS
+   request at each fidelity tier (``EngineConfig.fidelity_kwargs``: fast,
+   glue32, high, exact) and at fast on the same weights quantized: its
+   frames, steady wall ms, device busy ms, idle share and launches, B's and
+   C's resblock convs by route (Hopper's at fast on bf16 packs and only
+   there, mma.sync for C's 32 channels and every other tier or format), and
+   its flow and vocoder at the exact tier's
    durations with mel-L1 against exact; a fast-tier stream against its
    one-shot decode (mel-L1); the CLI's ``main`` with its defaults
    (``--device cuda --fidelity fast``);
 10. bf16 training (``compute_dtype="bfloat16"``, ``ops/tiers.py::
-   BF16_TRAIN_TIER``) at phase 7's shapes, in a process of its own as phase
+   BF16_TRAIN_TIER``) at phase 7's shapes (the depth cut to TRAIN_DEPTH: two
+   flows, four posterior WaveNet layers), in a process of its own as phase
    9 (``--bf16-training-phase``; in the main process the profiler lost kernel
    A's bf16 records after phases 3-8): (a) kernels A with lse, 4, and 5
    (forward with acts, backward) on bf16 storage against their plain twins
@@ -218,7 +231,8 @@ printing its result line:
    not run;
 14. model-parallel training (``parallel/pipeline.py``, the model axis of
    ``parallel/mesh.py`` and ``parallel/tensor.py``), in a process of its own
-   (``--model-parallel-phase``), at MMS width with random weights, B=4 at 512
+   (``--model-parallel-phase``), at MMS width with random weights (the depth
+   cut to TRAIN_DEPTH), B=4 at 512
    tokens (one row 300) over 1280 frames, cuDNN pinned to deterministic
    algorithms: kernels A with lse and 4 at a pipeline microbatch (B=2, both
    heads) and at one rank's head (B=4, H=1), and 5 at the decoded-segment
@@ -242,7 +256,9 @@ printing its result line:
    300), in every mode (A on fp32 values at each tier, on bf16 storage with and
    without lse, its bf16 serving mode; 4 at exact on fp32 and at fast on bf16),
    each within its tier's bound, with device, event and plain ms and the bound;
-   (b) MMS-TTS at full width with random weights in two variants, one head of
+   (b) MMS-TTS at full width with random weights (the depth cut to
+   TRAIN_DEPTH_SHALLOW: two flows, four posterior WaveNet layers, two
+   text-encoder layers) in two variants, one head of
    192 at window 16 (A, A with lse and 4 launched) and no window (neither
    launched): the 87-token request at "exact" and "fast" through the engine and
    on one NoiseOverride against the CPU plain path (phase 4's bounds at exact;
@@ -364,6 +380,17 @@ VOCAB = "kzyuvdheswm' ablcfgijnopqrtx0123456789_-"
 # The published VCTK VITS (jaywalnut310/vits configs/vctk_base.json): every other
 # width as MMS-TTS's.
 VCTK = dict(num_speakers=109, speaker_embedding_size=256, sampling_rate=22050)
+# Phases 10, 14 and 15b train at MMS-TTS's widths at a cut depth, to keep the
+# script inside its time: two flows in the prior (four) and four WaveNet layers in
+# the posterior encoder (16); 15b also two text-encoder layers (six; phase 14's
+# pipelines split six over two and three stages, and phase 10's bf16 cosines are
+# held per module at six). Every kernel keeps phase 7's shapes (A and 4 at two
+# heads of 96 over 512 tokens, 5 at the decoder's widths, MAS at 512 x 1280).
+# Phase 12 and 15c keep the full depth: their ranks are held to the one-process
+# step's MAS durations, and at either cut depth a near tie of the random weights
+# flips one between the two batchings.
+TRAIN_DEPTH = dict(prior_encoder_num_flows=2, posterior_encoder_num_wavenet_layers=4)
+TRAIN_DEPTH_SHALLOW = dict(TRAIN_DEPTH, num_hidden_layers=2)
 SINGLE_SPEAKERS = (0, 17, 108)
 BATCH_SPEAKERS = (5, 17, 0)
 
@@ -522,6 +549,110 @@ def kernels_vs_plain(params: dict, config, device) -> dict:
             lambda: rel_attention_reference(q, k, v, *rel, window=w, lengths=lens),
             work=(attention_flops((L - 5, 0), heads, d, w), nbytes(q, k, v, q, *rel, lens))))
     return results
+
+
+# Phase 3's cases of the resblock conv's Hopper route (csrc/conv_wgmma.cuh): every
+# (C, k, dil) that MMS-TTS, VCTK and small_config run on it (B at 256 and 128, C's
+# resblocks at 64; tests/test_torch_conv_plan.py::FAST_CONVS), at B = 1 (the 320-frame
+# request's rows, 37 steps short of T) and B = 4 (T = 700, off the 128-row tile;
+# lengths 700, 0, 37, 333: an empty row, rows shorter than a tile, one ending
+# mid-tile); the epilogue's modes at B = 4; splits of K over a cluster.
+WGMMA_CONVS = [(C, k, d) for C in (256, 128, 64) for k in (3, 7, 11) for d in (1, 3, 5)]
+WGMMA_ROWS = {1: {256: (2560, [2523]), 128: (20480, [20443]), 64: (40960, [40923])},
+              4: (700, [700, 0, 37, 333])}
+# (accumulate, scale, round, out16): conv2 of a pair, a later resblock's last pair,
+# the trio's last (its mean), into bf16
+WGMMA_EPILOGUES = {"residual+round": (False, 1.0, True, False),
+                   "accumulate": (True, 1.0, True, False),
+                   "accumulate+scale": (True, 1.0 / 3, True, False),
+                   "out16": (True, 1.0 / 3, True, True)}
+WGMMA_SLOPE = 0.1  # MMS-TTS's leaky slope (VitsConfig().leaky_relu_slope)
+
+
+def wgmma_conv_vs_plain(device) -> dict:
+    """Phase 3: the resblock conv's Hopper route (``ops/cuda/resblock.py::conv`` at
+    the fast tier on bf16 weights: ``vk_conv_wgmma``, TMA, an mbarrier ring,
+    wgmma) against its plain twin ``conv_reference`` on the same inputs, within
+    the fast tier's bound, at every case of WGMMA_CONVS x WGMMA_ROWS and
+    WGMMA_EPILOGUES; each launch must take the route (its count), rows past each
+    length must be zero, some plans must split K over a cluster, and the same
+    input twice must give the same bits. Untimed: the trio's and the stage's rows
+    of phase 9 time the route. Returns one aggregated result of ``compare``'s keys."""
+    from vits_tpu_torch.ops.cuda import device_sm_count, stream_of
+    from vits_tpu_torch.ops.cuda.resblock import conv, conv_reference, wgmma_plan
+    from vits_tpu_torch.ops.tiers import carry
+
+    tier, tol = kernel_tier("fast"), TIER_TOL["fast"]
+    rng = np.random.default_rng(20)
+    sms = device_sm_count(device)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+
+    def inputs(B, C, k):
+        T, lengths = WGMMA_ROWS[4] if B == 4 else WGMMA_ROWS[1][C]
+        valid = (np.arange(T)[None, :] < np.asarray(lengths)[:, None])[..., None]
+        x = carry(dev(rng.standard_normal((B, T, C)) * valid), tier)  # the bf16 carry
+        w = dev(rng.standard_normal((k, C, C)) * 0.05).to(torch.bfloat16)
+        bias, res = dev(rng.standard_normal(C) * 0.05), dev(rng.standard_normal((B, T, C)) * valid)
+        return (x, w, bias, res, dev(rng.standard_normal((B, T, C))),
+                torch.tensor(lengths, dtype=torch.int32, device=device))
+
+    def launch(x, w, bias, res, prev, lens, k, dil, accumulate, scale, round_, out16):
+        out = prev.clone()
+        o16 = torch.empty_like(x, dtype=torch.bfloat16) if out16 else None
+        before = conv.wgmma_launches
+        conv(x, out, w, bias, res, None, lens, k, dil, WGMMA_SLOPE, int(accumulate), scale,
+             int(round_), o16, 0, 1, tier, 1, stream_of(x), "wgmma conv")
+        torch.cuda.synchronize()
+        if conv.wgmma_launches != before + 1:
+            raise RuntimeError(f"conv C={x.shape[2]} k={k} dil={dil}: not the wgmma route")
+        return out if o16 is None else o16
+
+    worst = err = 0.0
+    cases = splits = 0
+    plan_cases = [(B, C, k, d, (False, 1.0, False, False)) for B in (1, 4)
+                  for C, k, d in WGMMA_CONVS]
+    plan_cases += [(4, C, k, 1, mode) for C, k in ((256, 11), (128, 3), (64, 7))
+                   for mode in WGMMA_EPILOGUES.values()]
+    for B, C, k, dil, (accumulate, scale, round_, out16) in plan_cases:
+        x, w, bias, res, prev, lens = inputs(B, C, k)
+        plan = wgmma_plan(B, x.shape[1], C, C, k, dil, sms)
+        if plan is None:
+            raise RuntimeError(f"no wgmma plan at B={B} T={x.shape[1]} C={C} k={k} dil={dil}")
+        splits += plan.split > 1
+        got = launch(x, w, bias, res, prev, lens, k, dil, accumulate, scale, round_, out16)
+        want = conv_reference(x, w, bias, res, lens, k, dil, WGMMA_SLOPE, tier,
+                              prev if accumulate else None, scale, round_)
+        if out16:
+            want = want.to(torch.bfloat16)
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"wgmma conv C={C} k={k} dil={dil} B={B}: non-finite output")
+        if not accumulate:
+            for b, n in enumerate(lens.tolist()):
+                if float(got[b, n:].abs().sum()) != 0.0:
+                    raise RuntimeError(f"wgmma conv C={C} k={k} dil={dil}: row {b} not zero "
+                                       f"past its length {n}")
+        e = float((got - want).abs().max())
+        ratio = e / (tol * max(1.0, float(want.abs().max())))
+        if not ratio <= 1.0:
+            raise RuntimeError(f"wgmma conv C={C} k={k} dil={dil} B={B} {plan}: off by "
+                               f"{ratio:.3g} times the tolerance (max|diff| {e})")
+        err, worst, cases = max(err, e), max(worst, ratio), cases + 1
+    if not splits:
+        raise RuntimeError("no case split K over a cluster")
+    x, w, bias, res, prev, lens = inputs(1, 256, 11)
+    a, b = (launch(x, w, bias, res, prev, lens, 11, 5, True, 1.0 / 3, True, False)
+            for _ in range(2))
+    if not torch.equal(a, b):
+        raise RuntimeError("the wgmma conv is not bit-identical on the same input")
+    shape = (f"wgmma conv: {len(WGMMA_CONVS)} (C, k, dil) x B 1, 4 + "
+             f"{len(plan_cases) - 2 * len(WGMMA_CONVS)} epilogue cases")
+    print(f"  {'fused_resblock_trio':24s} {shape} max|diff| {err:.3e} ({worst:.3g} of tol "
+          f"{tol}); {splits} cases split K over a cluster; the same input twice bit-identical",
+          flush=True)
+    return {"shape": shape, "max_abs_err": err, "err_over_tol": worst, "ms": None,
+            "plain_ms": None, "device_ms": None, "plain_device_ms": None, "library_ms": None,
+            "cases": cases, "split_cases": splits}
 
 
 def compare_stage(decoder, config, i: int, x_lens) -> dict:
@@ -1638,9 +1769,10 @@ def train_card_vs_cpu(config, gen: dict, batch) -> None:
           "losses and gradients within bounds", flush=True)
 
 
-def train_loop(card: str, zero1: bool = False) -> None:
+def train_loop(card: str, zero1: bool = False, config=None) -> None:
     """Phase 5c: ``train()`` on a synthetic micro-corpus, checkpoints, then a resume
-    (phase 12a: with ``zero1``, over a one-rank NCCL group)."""
+    (phase 12a: with ``zero1``, over a one-rank NCCL group), at ``config``
+    (MMS-TTS's by default)."""
     import tempfile
 
     from vits_tpu_torch import VitsConfig
@@ -1648,7 +1780,7 @@ def train_loop(card: str, zero1: bool = False) -> None:
     from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
     from vits_tpu_torch.train.loop import train
 
-    config = VitsConfig()
+    config = config or VitsConfig()
     with tempfile.TemporaryDirectory() as tmp:
         corpus, model, out_dir = f"{tmp}/corpus", f"{tmp}/model.ggml", f"{tmp}/run"
         generate_micro_corpus(corpus, n_utts=16)
@@ -2286,6 +2418,25 @@ def tier_blocks(decoder, config, i: int, fmt: str, packs: dict) -> list[dict]:
     return packs[fmt][i]["blocks"] if fmt != "float32" else _stage_resblocks(decoder, config, i)
 
 
+def cudnn_trio_ms(x: torch.Tensor, blocks) -> tuple[float, float]:
+    """Kernel B's library yardstick: one cuDNN bf16 ``F.conv1d`` per conv launch of
+    the trio (each pair's dilated conv1 and conv2), on x's shape and the blocks'
+    weights as bf16, the 18 summed -- the products alone: leaky, bias, residual
+    and mask excluded. Its median event ms and device busy ms; the port never
+    calls it."""
+    xs = x.to(torch.bfloat16).transpose(1, 2).contiguous()
+    convs = [(blk[name][i].to(torch.bfloat16).permute(2, 1, 0).contiguous(),
+              dil * (blk["kernel_size"] - 1) // 2, dil)
+             for blk in blocks for i, d in enumerate(blk["dilations"])
+             for name, dil in (("w1", d), ("w2", 1))]
+
+    def run():
+        return [torch.nn.functional.conv1d(xs, w, padding=pad, dilation=dil)
+                for w, pad, dil in convs]
+
+    return median_ms(run), host_and_device(run)["device_busy_ms"]
+
+
 def tier_kernels_vs_plain(model, vctk, narrow, device) -> dict:
     """Each of A, B, C, 7 and 6 at fast, high and highest, and B and C with int8
     (and bf16) weights, against the plain twin at the same tier on the card, at
@@ -2328,13 +2479,20 @@ def tier_kernels_vs_plain(model, vctk, narrow, device) -> dict:
             C = decoder[f"upsampler.{i}.weight"].shape[2]
             x, lens = activ(T, C, T - 37, tier.value_dtype)
             blocks = tier_blocks(decoder, config, i, fmt, packs)
-            record("fused_resblock_trio", label, compare(
+            result = compare(
                 "fused_resblock_trio", f"{label} C={C} T={T}",
                 lambda: fused_resblock_trio(x, blocks, slope=slope, lengths=lens, tier=tier),
                 lambda: resblock_trio_reference(x, blocks, slope=slope, lengths=lens, tier=tier),
                 work=(resblocks_flops(steps_of(x, lens), C, blocks),
                       nbytes(x, x, lens, *pair_weights(blocks), *pair_scales(blocks))),
-                tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+                tol=TIER_TOL[name], peak=TIER_PEAK[name])
+            if (name, fmt) == ("fast", "bfloat16"):
+                result["library_ms"], result["library_device_ms"] = cudnn_trio_ms(x, blocks)
+                print(f"    library yardstick: cuDNN bf16 F.conv1d, one per conv launch, the "
+                      f"trio's 18 summed (the products alone: leaky, bias, residual and mask "
+                      f"excluded): {result['library_ms']:.4f} ms (device "
+                      f"{result['library_device_ms']:.4f})", flush=True)
+            record("fused_resblock_trio", label, result)
         for i, T_in in ((2, 64 * frames), (3, 128 * frames)):  # C: MMS stages 2 and 3
             up_w = decoder[f"upsampler.{i}.weight"]
             (k_up, c_in, c_out), rate = up_w.shape, config.upsample_rates[i]
@@ -2436,6 +2594,8 @@ def tier_requests(device, card: str, wrappers) -> dict:
     from vits_tpu_torch.io.quantize import quantize_params
     from vits_tpu_torch.models.hifigan import hifigan
     from vits_tpu_torch.models.vits import NoiseOverride, latents_from_prior, text_to_prior
+    from vits_tpu_torch.ops.cuda.resblock import conv
+    from vits_tpu_torch.ops.tiers import FAST
 
     config = VitsConfig()
     params = random_weights(config, keep_training=False)
@@ -2483,22 +2643,32 @@ def tier_requests(device, card: str, wrappers) -> dict:
         model.synthesize_raw([text], seed=[5])  # cuDNN's algorithms, the packs
         for fn in wrappers:
             fn.launches = 0
+        conv.wgmma_launches = conv.mma_sync_launches = 0
         profile = request_profile(model, card)
         launches = {fn.__name__: fn.launches for fn in wrappers}
         for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
             if launches[name] == 0:
                 raise RuntimeError(f"{label}: kernel {name} was never launched")
+        # B's and C's resblock convs by route: Hopper's (csrc/conv_wgmma.cuh) at the fast
+        # tier on bf16 packs, conv_gemm.cuh's mma.sync otherwise and for C's 32 channels
+        routes = {"wgmma": conv.wgmma_launches, "mma_sync": conv.mma_sync_launches}
+        on_wgmma = model.tiers.stage(0).mode == FAST and model._weight_format == "bfloat16"
+        if (routes["wgmma"] > 0) != on_wgmma or routes["mma_sync"] == 0:
+            raise RuntimeError(f"{label}: resblock convs by route {routes}; the wgmma route "
+                               f"{'expected' if on_wgmma else 'not expected'}")
+
         wave = decode(model)
         check_audio(wave, f"{label} at the exact tier's durations")
         mel = mel_l1(wave[None], reference[None], config.sampling_rate)
-        results[label] = {**profile, "launches": launches, "mel_l1_vs_exact": mel,
+        results[label] = {**profile, "launches": launches, "conv_routes": routes,
+                          "mel_l1_vs_exact": mel,
                           "max_abs_vs_exact": float(np.abs(wave - reference).max()),
                           "weight_format": model._weight_format}
         print(f"  {label:10s}: {profile['frames']} frames, steady {profile['steady_ms']:.1f} ms "
               f"wall, device busy {profile['device_busy_ms']:.2f} ms, idle "
               f"{profile['idle_share']:.3f}; at exact's {frames} frames mel-L1 vs exact "
               f"{mel:.3e}, max|diff| {results[label]['max_abs_vs_exact']:.3e}; launches "
-              f"{launches} ({card})", flush=True)
+              f"{launches}, resblock convs by route {routes} ({card})", flush=True)
     if results["exact"]["mel_l1_vs_exact"] != 0.0:
         raise RuntimeError("the exact tier's decode is not deterministic")
     for label in ("fast", "high"):
@@ -2956,7 +3126,7 @@ def speaker_gan_step(device, card: str) -> None:
     from vits_tpu_torch.train.schedule import vits_optimizer
     from vits_tpu_torch.train.step import make_gan_train_step
 
-    config = VitsConfig(**VCTK)
+    config = VitsConfig(**VCTK, **TRAIN_DEPTH)
     initial = random_weights(config, keep_training=True)
     gen = {k: v.requires_grad_() for k, v in from_jax_params(initial, device).items()}
     disc = {k: v.requires_grad_() for k, v in
@@ -3040,7 +3210,7 @@ def train_cli_bf16(card: str) -> None:
     from vits_tpu_torch.train import loop
     from vits_tpu_torch.train.data import corpus_vocab, generate_micro_corpus
 
-    config = VitsConfig()
+    config = VitsConfig(**TRAIN_DEPTH)
     with tempfile.TemporaryDirectory() as tmp:
         corpus, model, out_dir = f"{tmp}/corpus", f"{tmp}/model.ggml", f"{tmp}/run"
         generate_micro_corpus(corpus, n_utts=16)
@@ -3113,7 +3283,7 @@ def bf16_training_phase(device) -> dict:
 
     card = card_line()
     kernels.library()
-    config = VitsConfig()
+    config = VitsConfig(**TRAIN_DEPTH)
     t0 = time.perf_counter()
     measured = bf16_kernels_vs_plain(from_jax_params(random_weights(config), device),
                                      config, device)
@@ -3732,7 +3902,7 @@ def dp_world_one(config, gen_np, disc_np, device, card: str) -> dict:
               f"({reduce_ms['discriminator']['mib']:.0f} MiB) ({card})", flush=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        train_loop(card, zero1=True)
+        train_loop(card, zero1=True, config=config)
         loop_s = time.perf_counter() - t0
     finally:
         torch.distributed.destroy_process_group()
@@ -4954,7 +5124,7 @@ def model_parallel_phase(device) -> dict:
     card = card_line()
     kernels.library()
     t0 = time.perf_counter()
-    config = VitsConfig()
+    config = VitsConfig(**TRAIN_DEPTH)
     gen_np = random_weights(config, keep_training=True)
     disc_np = init_discriminator_params(0)
     params = leaves_on(gen_np, device)
@@ -5195,7 +5365,7 @@ def refusals_phase(device) -> dict:
     print(f"  15a: {time.perf_counter() - t0:.1f} s", flush=True)
     variants = {}
     for label, fields in VARIANTS.items():
-        config = dataclasses.replace(VitsConfig(), **fields)
+        config = dataclasses.replace(VitsConfig(**TRAIN_DEPTH_SHALLOW), **fields)
         print(f"  [15b] MMS-TTS width, {label} (head_dim {config.head_dim}), random weights "
               f"({card}):", flush=True)
         variants[label] = variant_requests(config, label, device, card)
@@ -5482,12 +5652,21 @@ def startup_phase(device) -> dict:
             "seconds": seconds, "card": card, "profiler_sessions": PROFILER_SESSIONS}
 
 
-def run_child(flag: str, prefix: str, phase: int) -> dict:
+def phase_seconds(phase: int, t0: float) -> float:
+    """Print and return the seconds since ``t0`` as phase ``phase``'s."""
+    seconds = time.perf_counter() - t0
+    print(f"  phase {phase}: {seconds:.1f} s", flush=True)
+    return seconds
+
+
+def run_child(flag: str, prefix: str, phase: int, seconds: dict | None = None) -> dict:
     """A phase in a child process: after phases 3-8 in one process,
     torch.profiler loses every device record of kernel A's sessions (phase 9's
     fast tier, three times over; phase 10's bf16 calls); a fresh process
     profiles them. The child's lines are printed here; it fails
-    the run if it fails."""
+    the run if it fails. ``seconds[phase]`` gets its wall time, the process's
+    start included."""
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                           capture_output=True, text=True, timeout=900, check=False)
@@ -5502,6 +5681,8 @@ def run_child(flag: str, prefix: str, phase: int) -> dict:
                            f"{proc.stderr[-4000:]}")
     for key in PROFILER_SESSIONS:
         PROFILER_SESSIONS[key] += result["profiler_sessions"][key]
+    if seconds is not None:
+        seconds[phase] = time.perf_counter() - t0
     return result
 
 
@@ -5557,6 +5738,7 @@ def main() -> None:
     print(card, flush=True)
     print(f"      torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    seconds = {1: phase_seconds(1, t_run)}
 
     from vits_tpu_torch import EngineConfig, VitsConfig
     from vits_tpu_torch.ops import cuda as kernels
@@ -5569,6 +5751,10 @@ def main() -> None:
     kernels.library()
     print(f"[2/16] build: {time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds:.1f} s) "
           f"-> {kernels.library_path().name}", flush=True)
+    print("      nvcc seconds by source (all started together): " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in sorted(kernels.build_source_seconds.items(),
+                                                    key=lambda item: -item[1])), flush=True)
+    seconds[2] = phase_seconds(2, t0)
 
     t0 = time.perf_counter()
     model = make_model(device, engine_config=exact_engine())
@@ -5585,18 +5771,23 @@ def main() -> None:
     print(f"[3/16] kernels vs plain on the card ({card}), tolerance "
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
+    measured["fused_resblock_trio"].append(wgmma_conv_vs_plain(device))
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
                  slice_kernels_vs_plain(vctk, narrow, device), mas_kernel_vs_plain(device)):
         for name, shapes in runs.items():
             measured.setdefault(name, []).extend(shapes)
     stage_probe = block_probe_at_stage_shape(model.params, model.config, device)
+    seconds[3] = phase_seconds(3, t0)  # the three models' loads included
 
+    t0 = time.perf_counter()
     print(f"[4/16] the slice at MMS-TTS width, random weights ({card}):", flush=True)
     paths = {"mms": run_slice(model, card, (flash_rel_attention, fused_resblock_trio,
                                             fused_stage))}
     card_vs_cpu(model)
     mms_request = request_profile(model, card)
+    seconds[4] = phase_seconds(4, t0)
 
+    t0 = time.perf_counter()
     print(f"[5/16] multi-speaker serving at VCTK width, use_pallas_flow=True ({card}):",
           flush=True)
     paths["vctk"] = run_slice(vctk, card, (flash_rel_attention, fused_resblock_trio,
@@ -5609,12 +5800,16 @@ def main() -> None:
     card_vs_cpu(vctk, speaker_id=BATCH_SPEAKERS)
     flow_ms = flow_on_off(vctk, card)
     voice_conversion(vctk, card)
+    seconds[5] = phase_seconds(5, t0)
 
+    t0 = time.perf_counter()
     print(f"[6/16] narrow vocoder: HiFi-GAN V2 decoder at upsample_initial_channel=128 "
           f"({card}):", flush=True)
     narrow_run = narrow_vocoder(narrow, card, (flash_rel_attention, fused_resblock, fused_stage))
     paths["narrow"] = narrow_run
+    seconds[6] = phase_seconds(6, t0)
 
+    t0 = time.perf_counter()
     print(f"[7/16] training at MMS-TTS width, random weights ({card}):", flush=True)
     config = model.config
     del model, vctk, narrow
@@ -5624,53 +5819,57 @@ def main() -> None:
     train_card_vs_cpu(config, trained["gen"], trained["batch"])
     del trained["gen"], trained["batch"]
     train_loop(card)
+    seconds[7] = phase_seconds(7, t0)
 
+    t0 = time.perf_counter()
     print(f"[8/16] streaming and HTTP serving ({card}):", flush=True)
     serving_layer_run = serving_layer(device, card, (flash_rel_attention, fused_resblock_trio,
                                                      fused_stage, fused_flow))
     for path in ("stream", "mux", "server"):
         paths[path] = serving_layer_run[path]
+    seconds[8] = time.perf_counter() - t0
 
     print(f"[9/16] the precision tiers, in a process of its own ({card}):", flush=True)
-    tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9)
+    tiers = run_child(TIERS_FLAG, TIERS_RESULT, 9, seconds)
+    print(f"  phase 9: {seconds[9]:.1f} s", flush=True)
     tier_measured, tiers_run, cli_run = tiers["kernels"], tiers["requests"], tiers["cli"]
 
     print(f"[10/16] bf16 training at MMS-TTS width, random weights, in a process of its own "
           f"({card}):", flush=True)
-    training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10)
+    training = run_child(TRAINING_FLAG, TRAINING_RESULT, 10, seconds)
     measured.update(training["kernels"])
     bf16_run = training["run"]
 
     print(f"[11/16] bf16 serving (compute_dtype=\"bfloat16\") at MMS-TTS, VCTK and HiFi-GAN V2 "
           f"width, random weights, in a process of its own ({card}):", flush=True)
-    serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11)
+    serving16 = run_child(SERVE16_FLAG, SERVE16_RESULT, 11, seconds)
     measured.update(serving16["kernels"])
     serve16_run = serving16["requests"]
 
     print(f"[12/16] data-parallel training at MMS-TTS width, random weights, in a process of "
           f"its own ({card}):", flush=True)
-    data_parallel = run_child(DP_FLAG, DP_RESULT, 12)
+    data_parallel = run_child(DP_FLAG, DP_RESULT, 12, seconds)
 
     print(f"[13/16] multi-device serving: a mesh engine, ShardedDecoder and serve() over "
           f"replicas sharing the card, in a process of its own ({card}):", flush=True)
-    multi = run_child(MULTI_FLAG, MULTI_RESULT, 13)
+    multi = run_child(MULTI_FLAG, MULTI_RESULT, 13, seconds)
 
     print(f"[14/16] model-parallel training: the GPipe encoder over stages and two "
           f"tensor-parallel ranks sharing the card, in a process of its own ({card}):",
           flush=True)
-    model_parallel = run_child(MP_FLAG, MP_RESULT, 14)
+    model_parallel = run_child(MP_FLAG, MP_RESULT, 14, seconds)
     measured.update(model_parallel["kernels"])
 
     print(f"[15/16] what the port once refused: kernels A and 4 past head_dim 128 and window "
           f"15, attention without a window, uneven grad_accum microbatches over two ranks, in "
           f"a process of its own ({card}):", flush=True)
-    refusals = run_child(REFUSALS_FLAG, REFUSALS_RESULT, 15)
+    refusals = run_child(REFUSALS_FLAG, REFUSALS_RESULT, 15, seconds)
     measured.update(refusals["kernels"])
 
     print(f"[16/16] serving start-up artifacts: an AOT bundle and the library cache, each "
           f"served by a process with nvcc hidden, their refusals, and devprofile, in a "
           f"process of its own ({card}):", flush=True)
-    startup = run_child(STARTUP_FLAG, STARTUP_RESULT, 16)
+    startup = run_child(STARTUP_FLAG, STARTUP_RESULT, 16, seconds)
     phase9_busy = tiers_run["fast"]["device_busy_ms"]
     startup["devprofile"]["phase9_busy_ms"] = phase9_busy
     rel = abs(startup["devprofile"]["busy_ms"] - phase9_busy) / phase9_busy
@@ -5784,6 +5983,9 @@ def main() -> None:
             "tiers": {label: {
                 key: sum(r[key] for r in tier_runs) for key in
                 ("device_ms", "ms", "plain_ms", "plain_device_ms", "bound_ms")} | {
+                key: (sum(r[key] for r in tier_runs)
+                      if all(r.get(key) is not None for r in tier_runs) else None)
+                for key in ("library_ms", "library_device_ms")} | {
                 "max_abs_err": max(r["max_abs_err"] for r in tier_runs),
                 "bound_by": "operations" if sum(r["ops_ms"] for r in tier_runs)
                 >= sum(r["bytes_ms"] for r in tier_runs) else "bytes"}
@@ -5833,6 +6035,15 @@ def main() -> None:
         if entry["name"] in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
             entry["startup_launches"] = {mode: run["launches"][entry["name"]]
                                          for mode, run in startup["children"].items()}
+        if entry["name"] in ("fused_resblock_trio", "fused_stage"):
+            # their resblock convs at the fast tier on bf16 packs: Hopper's route
+            entry["conv_source"] = "vits_tpu_torch/csrc/conv_wgmma.cuh"
+            entry["conv_routes_fast_request"] = tiers_run["fast"]["conv_routes"]
+        if entry["name"] == "fused_resblock_trio":  # cuDNN's bf16 products, phase 9's fast row
+            entry["library_ms"] = entry["tiers"]["fast bfloat16"]["library_ms"]
+            entry["library_note"] = ("fast tier, bf16 packs: one cuDNN bf16 F.conv1d per conv "
+                                     "launch, the trio's 18 summed at each shape -- the products "
+                                     "alone: leaky, bias, residual and mask excluded")
         if entry["name"] == "monotonic_align":  # one a generator forward, on every path
             entry["replaces_scan"] = ("lax.scan, forward vits_tpu/ops/align.py:51, backtrace "
                                       ":70; no Pallas kernel")
@@ -5880,6 +6091,9 @@ def main() -> None:
     print(f"  profiler sessions {PROFILER_SESSIONS['sessions']}, run again for a lost device "
           f"record {PROFILER_SESSIONS['rerun']}, kept with a lost record "
           f"{PROFILER_SESSIONS['kept_lost']}", flush=True)
+    report["phase_seconds"] = seconds  # the children's with their process starts
+    print("  phase seconds (children with their process starts): " + ", ".join(
+        f"{n} {sec:.1f}" for n, sec in sorted(seconds.items())), flush=True)
     report["seconds"] = time.perf_counter() - t_run
     print(f"  chip_smoke: {report['seconds']:.1f} s from the card query to the report",
           flush=True)

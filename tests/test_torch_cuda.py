@@ -1451,3 +1451,144 @@ def test_mas_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="masks"):
         monotonic_align(ll, fmask[:, :-1].contiguous(), tmask)
     assert monotonic_align.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# Hopper's route of B's and C's resblock conv at the fast tier on bf16 packs
+# (csrc/conv_wgmma.cuh: TMA, an mbarrier ring, wgmma; ops/cuda/resblock.py::
+# wgmma_plan and conv), one launch against its plain twin conv_reference: the
+# tier's conv (bf16 operands, fp32 sums), the mask, the residual, the bf16 carry
+# (round), the running sum (accumulate) and its scale, or the bf16 result
+# (out16). Bound: the fast tier's 0.03 x max(1, max|plain|).
+# --------------------------------------------------------------------------- #
+
+# Every (C, k, dil) the three configurations (MMS-TTS, VCTK, small_config) run on
+# the route (tests/test_torch_conv_plan.py::FAST_CONVS on the 64 grid): B at 256
+# and 128, C's resblocks at 64; conv1 at each dilation, conv2 at 1.
+WGMMA_CONVS = [(C, k, d) for C in (256, 128, 64) for k in (3, 7, 11) for d in (1, 3, 5)]
+# (B, T, lengths): T off the 128-row tile, a length-0 row, rows shorter than one
+# tile, a row ending mid-tile; B = 1 at B's phase-3 width (2560 + 37 off)
+WGMMA_BATCHES = {1: (2523, [2523]), 4: (700, [700, 0, 37, 333])}
+
+
+def _wgmma_case(device, C, k, dil, B, seed, bf16_x=False):
+    rng = np.random.default_rng(seed)
+    T, lengths = WGMMA_BATCHES[B]
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    x = dev(_masked(rng, B, T, C, lengths))
+    if bf16_x:  # the value carry of the fast tier
+        x = x.to(torch.bfloat16).float()
+    w = dev(rng.standard_normal((k, C, C)) * 0.05).to(torch.bfloat16)
+    bias, res = dev(rng.standard_normal(C) * 0.05), dev(_masked(rng, B, T, C, lengths))
+    prev = dev(rng.standard_normal((B, T, C)))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return x, w, bias, res, prev, lens
+
+
+def _wgmma_reference(x, w, bias, res, prev, lens, k, dil, accumulate, scale, round_):
+    from vits_tpu_torch.ops.cuda.resblock import conv_reference
+
+    return conv_reference(x, w, bias, res, lens, k, dil, SLOPE, _tier("fast"),
+                          prev if accumulate else None, scale, round_)
+
+
+def _wgmma_launch(x, w, bias, res, prev, lens, k, dil, accumulate, scale, round_, out16=False):
+    from vits_tpu_torch.ops.cuda import stream_of
+    from vits_tpu_torch.ops.cuda.resblock import conv
+
+    out = prev.clone()
+    o16 = torch.empty_like(x, dtype=torch.bfloat16) if out16 else None
+    conv(x, out, w, bias, res, None, lens, k, dil, SLOPE, int(accumulate), scale, int(round_),
+         o16, 0, 1, _tier("fast"), 1, stream_of(x), "wgmma conv")
+    torch.cuda.synchronize()
+    return out if o16 is None else o16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", sorted(WGMMA_BATCHES))
+@pytest.mark.parametrize("C,k,dil", WGMMA_CONVS)
+def test_wgmma_conv_matches_plain_on_card(cuda_device, C, k, dil, B):
+    """The conv with bias, mask and residual at every (C, k, dil) of the route,
+    B = 1 and 4: one launch of vk_conv_wgmma (the route's count), zero rows past
+    each length, within the fast tier's bound."""
+    from vits_tpu_torch.ops.cuda.resblock import conv, wgmma_plan
+
+    args = _wgmma_case(cuda_device, C, k, dil, B, seed=C + k + dil + B)
+    x, lens = args[0], args[-1]
+    assert wgmma_plan(B, x.shape[1], C, C, k, dil, 132) is not None
+    before = conv.wgmma_launches
+    got = _wgmma_launch(*args, k, dil, False, 1.0, False)
+    assert conv.wgmma_launches == before + 1
+    want = _wgmma_reference(*args, k, dil, False, 1.0, False)
+    for b, n in enumerate(lens.tolist()):
+        assert float(got[b, n:].abs().sum()) == 0.0
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS["fast"])
+
+
+# The epilogue's modes, at B = 4: conv2 of a pair (residual, the carry rounded),
+# the last pair of a later resblock (accumulate), the trio's last (accumulate and
+# the mean's scale, and out16: the bf16 result).
+WGMMA_EPILOGUES = {"residual+round": (False, 1.0, True, False),
+                   "accumulate": (True, 1.0, True, False),
+                   "accumulate+scale": (True, 1.0 / 3, True, False),
+                   "out16": (True, 1.0 / 3, True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(WGMMA_EPILOGUES))
+@pytest.mark.parametrize("C,k", [(256, 11), (128, 3), (64, 7)])
+def test_wgmma_conv_epilogue_modes_on_card(cuda_device, C, k, mode):
+    accumulate, scale, round_, out16 = WGMMA_EPILOGUES[mode]
+    args = _wgmma_case(cuda_device, C, k, 1, 4, seed=C + k, bf16_x=True)
+    got = _wgmma_launch(*args, k, 1, accumulate, scale, round_, out16)
+    want = _wgmma_reference(*args, k, 1, accumulate, scale, round_)
+    if out16:
+        assert got.dtype == torch.bfloat16
+        want = want.to(torch.bfloat16)
+    _assert_close(got.float().cpu(), want.float().cpu(), atol=TIER_BOUNDS["fast"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T,k,dil", [(256, 2560, 3, 1), (256, 256, 11, 5), (128, 2048, 7, 3)])
+def test_wgmma_conv_cluster_split_on_card(cuda_device, C, T, k, dil):
+    """Shapes whose plan splits K over a cluster (short rows at B = 1 and 4): the
+    partial tiles summed in distributed shared memory."""
+    from vits_tpu_torch.ops.cuda import device_sm_count
+    from vits_tpu_torch.ops.cuda.resblock import wgmma_plan
+
+    B = 1 if T == 2560 else 4
+    rng = np.random.default_rng(T + k)
+    lengths = [T - 37] + [T, 0, 100][: B - 1]
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    x = dev(_masked(rng, B, T, C, lengths))
+    w = dev(rng.standard_normal((k, C, C)) * 0.05).to(torch.bfloat16)
+    bias, res = dev(rng.standard_normal(C) * 0.05), dev(_masked(rng, B, T, C, lengths))
+    prev = torch.zeros_like(x)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    assert wgmma_plan(B, T, C, C, k, dil, device_sm_count(cuda_device)).split > 1
+    args = (x, w, bias, res, prev, lens)
+    got = _wgmma_launch(*args, k, dil, False, 1.0, False)
+    want = _wgmma_reference(*args, k, dil, False, 1.0, False)
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS["fast"])
+
+
+@pytest.mark.cuda
+def test_wgmma_conv_and_trio_repeat_bit_identical_on_card(cuda_device):
+    """The same input twice gives the same bits: one conv (a split plan's cluster
+    sums its partials in a fixed order, no atomics), and kernel B's whole trio at
+    the fast tier on bf16 weights, whose 18 convs all take the route."""
+    from vits_tpu_torch.ops.cuda.resblock import conv
+
+    args = _wgmma_case(cuda_device, 256, 11, 5, 1, seed=5)
+    a, b = (_wgmma_launch(*args, 11, 5, True, 1.0 / 3, True) for _ in range(2))
+    assert torch.equal(a, b)
+    rng = np.random.default_rng(6)
+    tier = _tier("fast")
+    x = torch.tensor(_masked(rng, 1, 2560, 256, [2523]), device=cuda_device).to(torch.bfloat16)
+    blocks = _tier_blocks(_blocks(rng, 256), "bfloat16", cuda_device)
+    lens = torch.tensor([2523], dtype=torch.int32, device=cuda_device)
+    before = conv.wgmma_launches
+    a, b = (fused_resblock_trio(x, blocks, slope=SLOPE, lengths=lens, tier=tier)
+            for _ in range(2))
+    assert conv.wgmma_launches == before + 36
+    assert torch.equal(a, b)

@@ -119,12 +119,6 @@ constexpr int kMaxWarpsNarrow = 8;  // and for K = 4, whose lanes keep more regi
 template <int K>
 constexpr int kBlockThreads = 32 * ((K == 16 ? kMaxWarps : kMaxWarpsNarrow) + 1);
 constexpr int kMaxCluster = 8;  // the portable cluster size
-// A wait on a hand-off (an exchange slot's tag, a ring slot's mbarrier) that has
-// not ended after this many cycles (~2 s at the H100's clocks; a hand-off takes
-// microseconds) never will: the thread traps, so a broken plan or layout fails
-// its launch with a CUDA error instead of hanging the process.
-constexpr long long kSpinCycles = 1ll << 32;
-
 struct Mas {
   const float* ll;     // (B, S, T)
   const float* fmask;  // (B, S)
@@ -147,41 +141,6 @@ struct Mas {
 // from a ragged start) when the row is one strip, else one row of RW = 32 K NW
 // + 4 floats a frame; slot_floats >= F x row + 4 (a ragged start).
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kSpinCycles) __trap();
-}
 // The mbarrier's phase waits also for this thread's earlier cp.async copies.
 __device__ __forceinline__ void mbar_track_cp_async(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
@@ -193,9 +152,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-__device__ __forceinline__ void prefetch_l2(const void* src, unsigned bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");

@@ -59,7 +59,11 @@
 //   tile in the loaders; the epilogue skips columns past C_out.
 //
 // Precision tiers (common.cuh TierMode, the kernel's kMode): kExact is the
-// 3xTF32 above. kFast and kHigh (the serving tiers "fast" and "high") run
+// 3xTF32 above. The resblock convs of B and C at kFast on bf16 weights and fp32
+// x run on Hopper's route instead (conv_wgmma.cuh: TMA, an mbarrier ring,
+// wgmma) wherever C_in and C_out are multiples of 64; here stay kHigh, kFast
+// with int8 or fp32 weights, bf16 x (XT), kTransW, kernel 6's products and C's
+// 32 channels. kFast and kHigh (the serving tiers "fast" and "high") run
 // mma.sync.m16n8k16 bf16 with fp32 accumulators: when a chunk's window lands
 // the block applies leaky and rounds it to bf16 once (kHigh: and the rest,
 // bf16(x - hi)), into bf16 windows of 32 + 8 values a row (conflict-free
@@ -137,7 +141,24 @@ struct ResEpi {
   int round = 0;
   __nv_bfloat16* out16 = nullptr;
 
+  // What the epilogue of one float4 reads from device memory besides y: the
+  // residual and the running sum (fetch), so that a caller can have many in flight
+  // before it computes (finish); operator() is the two in turn.
+  struct In {
+    float4 res, prev;
+  };
+  __device__ __forceinline__ In fetch(int b, int p, int co, bool valid) const {
+    const size_t off = ((size_t)b * T + p) * C + co;
+    In in{make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+    if (valid && residual) in.res = *reinterpret_cast<const float4*>(residual + off);
+    if (accumulate) in.prev = *reinterpret_cast<const float4*>(out + off);
+    return in;
+  }
   __device__ __forceinline__ void operator()(int b, int p, int co, float4 y, bool valid) const {
+    finish(b, p, co, y, valid, fetch(b, p, co, valid));
+  }
+  __device__ __forceinline__ void finish(int b, int p, int co, float4 y, bool valid,
+                                         const In& in) const {
     const size_t off = ((size_t)b * T + p) * C + co;
     if (wscale) {
       const float4 sv = *reinterpret_cast<const float4*>(wscale + co);
@@ -156,14 +177,14 @@ struct ResEpi {
                         a.z >= 0.f ? y.z : y.z * aux_slope, a.w >= 0.f ? y.w : y.w * aux_slope);
       }
       if (residual) {
-        const float4 r4 = *reinterpret_cast<const float4*>(residual + off);
+        const float4 r4 = in.res;
         y = make_float4(r4.x + y.x, r4.y + y.y, r4.z + y.z, r4.w + y.w);
       }
     }
     if (round) y = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z), bf16_round(y.w));
     float4* o = reinterpret_cast<float4*>(out + off);
     if (accumulate) {
-      const float4 prev = *o;
+      const float4 prev = in.prev;
       y = make_float4(prev.x + y.x, prev.y + y.y, prev.z + y.z, prev.w + y.w);
     }
     y = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "vk_flow_capture": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
     "vk_flow_run": [_P] * 7 + [_I] * 4 + [_P, _I, _P],
     "vk_graph_destroy": [_P],
+    "vk_conv_wgmma": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _I, _I, _P, _P],
     "vk_conv_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _P],
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _I, _P],
     "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
@@ -79,6 +80,7 @@ _lib_path: Path | None = None  # the file the loaded library was opened from
 _lib_digest: str | None = None  # and its source digest
 _build_dir: Path = BUILD_DIR
 build_seconds: float | None = None  # wall time of this process's build (0.0 = cached)
+build_source_seconds: dict[str, float] = {}  # each source's nvcc wall time in that build
 
 
 def _sources() -> list[Path]:
@@ -141,7 +143,8 @@ def use_build_dir(path) -> Path:
 def build() -> Path:
     """Compile the kernels unless this source digest is already built.
 
-    One ``nvcc -c`` per source, all started together, then one link.
+    One ``nvcc -c`` per source, all started together, then one link; each
+    source's seconds land in :data:`build_source_seconds`.
     """
     global build_seconds
     out = library_path()
@@ -152,18 +155,25 @@ def build() -> Path:
     t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objects, procs = [], []
+        objects, procs = [], {}
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.PIPE, text=True)))
+            log = open(Path(tmp) / f"{src.stem}.log", "w+")  # closed as its nvcc ends
+            procs[src.name] = (cmd, log, subprocess.Popen(cmd, stdout=log, stderr=log))
             objects.append(str(obj))
-        failures = []
-        for cmd, proc in procs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"{' '.join(cmd)}\n{err}")
+        failures, waiting = [], dict(procs)
+        while waiting:  # each source's wall time as it ends
+            for name, (cmd, log, proc) in list(waiting.items()):
+                if proc.poll() is None:
+                    continue
+                build_source_seconds[name] = time.perf_counter() - t0
+                del waiting[name]
+                log.seek(0)
+                if proc.returncode != 0:
+                    failures.append(f"{' '.join(cmd)}\n{log.read()}")
+                log.close()
+            time.sleep(0.05)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         tmp_out = Path(tmp) / out.name

@@ -5,10 +5,13 @@ the mean over a wide stage's resblocks, each a chain of masked (dilated conv,
 conv) pairs. It is the conv of ``vits_tpu_torch/csrc/resblock_trio.cu``,
 launched twice per pair by :func:`run_pairs` (18 launches for a trio); the
 last pair of each resblock folds its output into the mean in place. The conv
-takes every channel count the JAX kernels take: a tensor-core path (3xTF32
-MMA) for C % 32 == 0 and a narrow one (3xTF32 on n8 tiles,
-``csrc/narrow_gemm.cuh``) for other C; :func:`conv_plan` picks the path, the
-tile and the split of each launch.
+takes every channel count the JAX kernels take: a tensor-core path
+(``csrc/conv_gemm.cuh``, mma.sync) for C % 32 == 0 and a narrow one (3xTF32
+on n8 tiles, ``csrc/narrow_gemm.cuh``) for other C, :func:`conv_plan` picking
+the path, the tile and the split of each launch; at the fast tier on bf16
+weights, C % 64 == 0, Hopper's route (``csrc/conv_wgmma.cuh``: TMA, an
+mbarrier ring, wgmma), planned by :func:`wgmma_plan`. :func:`conv` launches
+one conv on its route; :func:`conv_reference` is its plain twin.
 
 Kernel 7 replaces ``fused_resblock`` of the same file: ONE resblock, which
 the JAX package runs on the narrow stages that fail the stage kernel's check
@@ -115,6 +118,123 @@ BLOCK_TAP_NS = 5.955
 BLOCK_TILE_NS = 6.152
 BLOCK_PUSH_NS = 0.0272
 BLOCK_CLUSTER_FILL = 0.91
+
+
+# Hopper's route of the conv (csrc/conv_wgmma.cuh): at the fast tier with bf16
+# weights and fp32 activations, every conv with C_in and C_out multiples of
+# WGMMA_CHUNK and a window of at most 64 * nc + WGMMA_MAX_HALO rows (one TMA
+# box). Blocks of nc consumer warpgroups (64 output steps each) x bn
+# out-channels (WGMMA_SHAPES), a ring of 2-8 weight stages, K steps of
+# WGMMA_CHUNK input channels x one tap.
+WGMMA_CHUNK = 64
+# (bn, nc) built, and the blocks an SM each is built for by its registers (csrc's
+# kBlocksPerSm): nc = 2, two consumer warpgroups and a producer one (setmaxnreg),
+# one an SM; nc = 1, one and a producer warp, three an SM. A plan runs that many
+# where their shared memory (and the 1 KB the card reserves a block) fits the
+# SM's 228 KB, else fewer. (64, 2) and (256, 1) measured no faster than these at
+# any shape of B and C (scripts/torch_wgmma_probe.py --sweep).
+WGMMA_SHAPES = {(128, 2): 1, (256, 2): 1, (64, 1): 3, (128, 1): 3}
+WGMMA_MAX_HALO = 128
+WGMMA_STAGES = range(2, 9)
+WGMMA_A_STRIDE = WGMMA_CHUNK + 8  # bf16 window row, values
+SM_SMEM_BYTES = 233472
+# wgmma_plan's cost model (ns), fitted to scripts/torch_wgmma_probe.py --sweep on
+# an H100 at B's and C's MMS shapes: a wave's fixed cost (its windows, the
+# cluster reduction, the epilogue: the activations' bytes, mostly), a K step's
+# own and per out-channel of a 128-row tile; the blocks of a wave on one SM
+# share the steps' time.
+WGMMA_BLOCK_NS = 4000.0
+WGMMA_STEP_NS = 100.0
+WGMMA_COL_NS = 2.0
+
+
+class WgmmaPlan(NamedTuple):
+    bn: int  # out-channels of a block's tile
+    nc: int  # consumer warpgroups of a block: 64 * nc output steps
+    stages: int  # weight slots of the ring
+    split: int  # blocks of a cluster, each summing ceil(steps / split) of the K steps
+    smem: int  # dynamic shared memory of a block, bytes
+    blocks: int  # grid size, counting every block of a cluster
+    per_sm: int  # blocks an SM runs at once
+
+
+def wgmma_smem(bn: int, stages: int, halo: int, nc: int) -> int:
+    """Shared memory of one block of csrc/conv_wgmma.cuh (its ``Smem``): 1 KB of
+    mbarriers, the ring of (WGMMA_CHUNK x bn) bf16 stages, the raw fp32 window of
+    64 * nc + halo rows, a bf16 window of 64 + halo rows a consumer warpgroup;
+    the staged fp32 output tile (rows of bn + 8) reuses it from the ring on; plus
+    1 KB to align the base to the 128-byte swizzle's 1 KB atoms."""
+    ring = 1024
+    pipe = (ring + stages * WGMMA_CHUNK * bn * 2 + (64 * nc + halo) * WGMMA_CHUNK * 4
+            + nc * (64 + halo) * WGMMA_A_STRIDE * 2)
+    tile = ring + 64 * nc * (bn + 8) * 4
+    return max(pipe, tile) + 1024
+
+
+def wgmma_tensor_maps(B: int, T: int, C_in: int, C_out: int, k: int, dil: int,
+                      nc: int) -> dict:
+    """The two TMA tensor maps of one conv on Hopper's route, as
+    csrc/conv_wgmma.cuh::launch encodes them: ``dims`` and ``box`` innermost
+    first, ``strides`` in bytes (the innermost dimension's left out). x, fp32:
+    (C_in, T, B), a box a chunk's raw window (WGMMA_CHUNK channels x 64 * nc +
+    (k - 1) * dil steps x one row). w, bf16, 128-byte swizzle: (C_out, k *
+    C_in), a box 64 out-channels (128 bytes) x WGMMA_CHUNK rows."""
+    return {
+        "x": {"dims": (C_in, T, B), "strides": (C_in * 4, T * C_in * 4),
+              "box": (WGMMA_CHUNK, 64 * nc + (k - 1) * dil, 1), "elem_bytes": 4},
+        "w": {"dims": (C_out, k * C_in), "strides": (C_out * 2,), "box": (64, WGMMA_CHUNK),
+              "elem_bytes": 2},
+    }
+
+
+def wgmma_fits(bn: int, nc: int, halo: int) -> tuple[int, int] | None:
+    """(stages, blocks an SM) of one block shape: the most blocks its registers allow
+    (WGMMA_SHAPES) whose shared memory fits the SM, at the deepest ring that
+    lets them; None when no ring fits a block."""
+    for per_sm in range(WGMMA_SHAPES[bn, nc], 0, -1):
+        fits = [s for s in WGMMA_STAGES if wgmma_smem(bn, s, halo, nc) <= MAX_SMEM_BYTES
+                and per_sm * (wgmma_smem(bn, s, halo, nc) + 1024) <= SM_SMEM_BYTES]
+        if fits:
+            return fits[-1], per_sm
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def wgmma_plan(B: int, T: int, C_in: int, C_out: int, k: int, dil: int,
+               sm_count: int) -> WgmmaPlan | None:
+    """Tile width, warpgroups, ring depth and K split of one conv on Hopper's
+    route, or None for a shape off its grid (C_in or C_out not a multiple of
+    WGMMA_CHUNK, or (k - 1) * dil past WGMMA_MAX_HALO), which keeps
+    :func:`conv_plan`'s route.
+
+    Each (bn, nc) takes :func:`wgmma_fits`' ring and blocks an SM; among them
+    and the splits (1, 2, 4, 8; every block of a cluster with K steps) the least
+    modelled time: waves of ``per_sm`` blocks an SM, each a fixed cost plus
+    ``per_sm`` shares of the steps at (WGMMA_STEP_NS + WGMMA_COL_NS * bn) x
+    64 * nc / 128 each."""
+    halo = (k - 1) * dil
+    if C_in % WGMMA_CHUNK or C_out % WGMMA_CHUNK or halo > WGMMA_MAX_HALO:
+        return None
+    steps = k * (C_in // WGMMA_CHUNK)
+    best = None
+    for bn, nc in WGMMA_SHAPES:
+        fit = wgmma_fits(bn, nc, halo) if C_out % bn == 0 else None
+        if fit is None:
+            continue
+        stages, per_sm = fit
+        tiles = -(-T // (64 * nc)) * (C_out // bn) * B
+        for split in CONV_SPLITS:
+            share = -(-steps // split)
+            if (split - 1) * share >= steps or 64 * nc % split:
+                continue
+            blocks = tiles * split
+            cost = -(-blocks // (sm_count * per_sm)) * (
+                WGMMA_BLOCK_NS + per_sm * share * (WGMMA_STEP_NS + WGMMA_COL_NS * bn) * nc / 2)
+            plan = WgmmaPlan(bn, nc, stages, split, wgmma_smem(bn, stages, halo, nc), blocks,
+                             per_sm)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    return None if best is None else best[1]
 
 
 class ConvPlan(NamedTuple):
@@ -283,6 +403,62 @@ def check_weights(name: str, blocks: Sequence[dict], tier: Tier) -> int:
     return fmt
 
 
+def conv_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   residual: torch.Tensor | None, lengths: torch.Tensor, k: int, dil: int,
+                   slope: float, tier: Tier, prev: torch.Tensor | None = None,
+                   scale: float = 1.0, round_: bool = False) -> torch.Tensor:
+    """Plain PyTorch: one resblock conv as :func:`conv` launches it (fp32 x and
+    result), at ``tier``: mask(conv(leaky(x)) + bias [+ residual]), rounded to the
+    tier's carry with ``round_``, added to ``prev`` (accumulate), times ``scale``
+    (the steps of :func:`_trio_mean`)."""
+    y = tier_conv1d(leaky_relu(x, slope), w, bias, tier, None, padding=dil * (k - 1) // 2,
+                    dilation=dil)
+    mask = length_mask(lengths, x.shape[1], torch.float32)
+    y = y * mask
+    if residual is not None:
+        y = (y + residual) * mask
+    if round_:
+        y = carry(y, tier)
+    if prev is not None:
+        y = prev + y
+    return y * scale
+
+
+def conv(x: torch.Tensor, out: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+         residual: torch.Tensor | None, wscale: torch.Tensor | None, lengths: torch.Tensor,
+         k: int, dil: int, slope: float, accumulate: int, scale: float, round_: int,
+         out16: torch.Tensor | None, tile: int, split: int, tier: Tier, wfmt: int, stream: int,
+         what: str) -> None:
+    """One resblock conv of fp32 x (B, T, C) into out: Hopper's route
+    (``vk_conv_wgmma``, :func:`wgmma_plan`) at the fast tier on bf16 weights for
+    the shapes on its grid, else ``vk_conv`` with conv_plan's tile and split."""
+    B, T, C = x.shape
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    plan = (wgmma_plan(B, T, C, C, k, dil, device_sm_count(x.device))
+            if tier.mode == FAST and wfmt == 1 else None)
+    lib = library()
+    with on_device(x):
+        if plan is not None:
+            check(lib.vk_conv_wgmma(
+                x.data_ptr(), out.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(residual),
+                lengths.data_ptr(), B, T, C, C, k, dil, dil * (k - 1) // 2, slope, accumulate,
+                scale, plan.bn, plan.nc, plan.stages, plan.split, round_, ptr(out16), stream),
+                what)
+            count_launch(conv, "wgmma_launches")
+            return
+        check(lib.vk_conv(
+            x.data_ptr(), out.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(residual),
+            lengths.data_ptr(), B, T, C, C, k, dil, dil * (k - 1) // 2, slope, accumulate, scale,
+            tile, split, tier.mode, wfmt, ptr(wscale), round_, ptr(out16), stream), what)
+    count_launch(conv, "mma_sync_launches")
+
+
+# Launches of each route (the resblock wrappers count their calls): Hopper's and
+# conv_gemm.cuh's mma.sync
+conv.wgmma_launches = 0
+conv.mma_sync_launches = 0
+
+
 def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
               lengths: torch.Tensor, slope: float, acts: Sequence | None = None,
               tier: Tier = EXACT_TIER, out16: torch.Tensor | None = None) -> None:
@@ -358,19 +534,13 @@ def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
                 scale = 1.0 / n if last and j == n - 1 else 1.0
                 final16 = out16 if last and j == n - 1 else None
                 # y1 = mask(dilated conv(leaky(src)) (* s1) + b1)
-                check(lib.vk_conv(
-                    src.data_ptr(), y1.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
-                    lengths.data_ptr(), B, T, C, C, k, d, d * (k - 1) // 2, x_slope, 0, 1.0,
-                    tile, split, tier.mode, wfmt, None if s1 is None else s1.data_ptr(), 0, None,
-                    stream), "resblock conv1 kernel")
+                conv(src, y1, w1, b1, None, s1, lengths, k, d, x_slope, 0, 1.0, 0, None, tile,
+                     split, tier, wfmt, stream, "resblock conv1 kernel")
                 # dst = carry(mask(src + conv(leaky(y1)) (* s2) + b2)), folded into the mean on the
                 # last pair
-                check(lib.vk_conv(
-                    y1.data_ptr(), dst.data_ptr(), w2.data_ptr(), b2.data_ptr(), src.data_ptr(),
-                    lengths.data_ptr(), B, T, C, C, k, 1, (k - 1) // 2, slope, accumulate, scale,
-                    tile, split, tier.mode, wfmt, None if s2 is None else s2.data_ptr(),
-                    int(tier.bf16_values), None if final16 is None else final16.data_ptr(),
-                    stream), "resblock conv2 kernel")
+                conv(y1, dst, w2, b2, src, s2, lengths, k, 1, slope, accumulate, scale,
+                     int(tier.bf16_values), final16, tile, split, tier, wfmt, stream,
+                     "resblock conv2 kernel")
                 src = dst
 
 
