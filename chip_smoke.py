@@ -32,8 +32,10 @@ printing its result line:
    with lengths (320, 137, 0) for T=320, and at B=8, T=640 and B=16,
    T=1280, with the B=1 call's host enqueue ms and its device busy ms under
    ``torch.profiler``, kernel and plain (the kernel on weights packed once, as
-   the engine keeps them); kernel 7 (one resblock, one launch: the profiler
-   must see one device operation a call) at the shapes of HiFi-GAN V2's stages
+   the engine keeps them); kernel 7 (one resblock, one launch: one device
+   operation a call, counted from a profiler session that lost no record, or
+   where all three sessions lost one by the wrapper's ``count_launch``, the
+   source printed) at the shapes of HiFi-GAN V2's stages
    0-1 for 320 frames, beside the six-launch route it replaced (B's conv twice
    per pair, ``run_pairs``) timed in the same call, and once at kernel C's MMS
    resblock shape (C=64, T=40960, B=1, k=11) as a probe; kernel C at C_out 16
@@ -52,7 +54,15 @@ printing its result line:
    MMS-TTS, VCTK and small_config run on it, B = 1 and 4, T off the tile,
    rows of length 0 and shorter than a tile, each epilogue mode (residual and
    round, accumulate, the mean's scale, out16), plans that split K over a
-   cluster, and the same input twice bit-identical (WGMMA_CONVS);
+   cluster, and the same input twice bit-identical (WGMMA_CONVS); kernel C's own
+   Hopper routes at the fast tier on bf16 packs (``ops/cuda/stage.py::
+   stage_routes``): the upsampler (``csrc/upsample_wgmma.cu``) at every C stage
+   of MMS-TTS, VCTK and small_config into fp32 and bf16, and each 32-channel
+   pair in one launch (``csrc/pair_wgmma.cu``) in each epilogue mode, at B = 1
+   and 4 (lengths 0 and at tile edges), against their twins
+   ``upsample_reference`` and ``pair_reference`` within the fast bound, then
+   timed at MMS's shapes beside their twins and cuDNN's bf16 products
+   (ROUTE_UPSAMPLES, PAIR_TAPS, PAIR_EPILOGUES);
 4. serving: ``vits_tpu_torch.load_model`` of a full-width MMS-TTS model
    (``VitsConfig()``, random weights from ``vits_tpu_torch.io.random_params``,
    seed 0) on ``cuda``; ``Synthesizer.warmup`` (every token bucket at batch 1
@@ -128,13 +138,18 @@ printing its result line:
    bf16 for "fast", a third of it for "high", 3xTF32 for "highest", bytes at
    the formats' widths), and beside B at "fast" on bf16 packs its library
    yardstick: cuDNN's bf16 ``F.conv1d`` once per conv launch, the trio's 18
-   summed (the products alone; the port never calls it); the 87-token MMS
+   summed (the products alone; the port never calls it), and beside C there
+   its device ms by launch family and route (STAGE_LAUNCHES) and its yardstick:
+   cuDNN's bf16 ``F.conv_transpose1d``, the trio's 18 ``F.conv1d`` and conv_post's
+   on the last stage; the 87-token MMS
    request at each fidelity tier (``EngineConfig.fidelity_kwargs``: fast,
    glue32, high, exact) and at fast on the same weights quantized: its
    frames, steady wall ms, device busy ms, idle share and launches, B's and
-   C's resblock convs by route (Hopper's at fast on bf16 packs and only
-   there, mma.sync for C's 32 channels and every other tier or format), and
-   its flow and vocoder at the exact tier's
+   C's launches by route (at fast on bf16 packs and only there: Hopper's conv
+   at 64 channels and up, C's pair route at 32, nine a 64->32 stage call, C's
+   upsampler on Hopper's route, no mma.sync conv; elsewhere mma.sync and
+   stage.cu's upsampler), the "kernel C upsample, conv_post" family at fast
+   beside exact, and its flow and vocoder at the exact tier's
    durations with mel-L1 against exact; a fast-tier stream against its
    one-shot decode (mel-L1); the CLI's ``main`` with its defaults
    (``--device cuda --fidelity fast``);
@@ -198,7 +213,8 @@ printing its result line:
    both ranks' metrics and gradients bit-identical, losses within
    DP_LOSS_RTOL relative (or 10x their noise floor where larger), gradients
    within phase 7's noise-floor bounds (the floor of the one-process step on
-   the card); ZeRO-1 on and off after two steps within the replicated run's
+   the card); ZeRO-1 on and off after two steps (cuDNN pinned deterministic)
+   within the replicated run's
    spread; the steady step ms and gloo's all-reduce ms through the host;
    (c) four gloo ranks sharing the card as ``slice=2 x data=2``
    (``data_axis(slices=2)``; grandchildren as 12b's) on 12b's batch, one row a
@@ -295,8 +311,11 @@ paths (phases 4-6 and 8) for A, B, C, 6, 7 and training for 4, 5 and MAS (its
 entry's ``mas_launches``: every training path's count), kernel 5's backward
 apart as ``backward_launches``; phase 10's bf16 kernels as ``*_bf16`` entries with the
 launches of its three bf16 steps, phase 11's bf16 serving modes as ``*_bf16_serve``
-entries with the launches of its request paths; ``library_ms`` is null:
-no single PyTorch call computes any of these functions; ``tiers``: phase 9's
+entries with the launches of its request paths; ``library_ms``: cuDNN's bf16
+products on the same inputs (the products alone, never called by the port) for B
+and C (phase 9's fast row) and for kernel C's two Hopper routes
+(``fused_stage_upsample_wgmma``, ``fused_stage_pairs``: phase 3 at MMS's shapes,
+their launches phase 9's fast-tier requests), null elsewhere; ``tiers``: phase 9's
 sums per tier and weight format, ``tier_launches`` its requests' launches per
 fidelity tier; ``data_parallel_launches``: phase 12's counts for A with lse, 4
 and 5, its world-1 step, 12b's rank 0 and 12c's rank 0; ``multi_device_launches``: phase 13's
@@ -491,8 +510,7 @@ def compare(name: str, shape: str, kernel, plain, grad_rtol: float | None = None
         result.update(flops=work[0], bytes=work[1], ops_ms=ops_ms, bytes_ms=bytes_ms,
                       bound_ms=max(ops_ms, bytes_ms),
                       bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-        times += (f"  bound {result['bound_ms']:.4f} ms ({result['bound_by']})"
-                  "  library: none (no one PyTorch call computes it)")
+        times += f"  bound {result['bound_ms']:.4f} ms ({result['bound_by']})"
     print(f"  {name:24s} {shape:34s} max|diff| {err:.3e} ({worst:.3g} of tol)  {times}",
           flush=True)
     return result
@@ -655,6 +673,191 @@ def wgmma_conv_vs_plain(device) -> dict:
             "cases": cases, "split_cases": splits}
 
 
+# Phase 3's cases of kernel C's own Hopper routes at the fast tier on bf16 packs
+# (ops/cuda/stage.py::stage_routes): the upsampler (csrc/upsample_wgmma.cu) at every C
+# stage of MMS-TTS, VCTK and small_config, writing fp32 (for the 64-channel convs and
+# the narrow path) and bf16 (for the pairs); each 32-channel pair (csrc/pair_wgmma.cu)
+# in each epilogue mode; at B = 1 (320 frames, the row 37 steps short) and B = 4 (T =
+# 700 off the tiles; lengths 700, 0, one tile's rows, one short of two tiles).
+ROUTE_UPSAMPLES = ((128, 64, 64), (64, 32, 128), (32, 16, 256))  # C_in, C_out, steps a frame
+PAIR_TAPS = [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)]
+# (accumulate, scale, into bf16): a pair inside a resblock (bf16 scratch), a later
+# resblock's last pair (the fp32 running sum), the last pair of all (the mean), the
+# mean into bf16 when the next stage is chained
+PAIR_EPILOGUES = {"bf16 out": (False, 1.0, True), "accumulate": (True, 1.0, False),
+                  "accumulate+scale": (True, 1.0 / 3, False),
+                  "out16 chained": (True, 1.0 / 3, True)}
+
+
+def stage_routes_vs_plain(device) -> dict:
+    """Phase 3: kernel C's upsampler and 32-channel pair launches on Hopper's routes
+    (``ops/cuda/stage.py::upsample``, ``resblock.py::pair``) against their plain twins
+    (``upsample_reference``, ``pair_reference``) within the fast tier's bound at every
+    case above, each launch on its route (its counter), rows past each length zero,
+    the same input twice bit-identical; then timed at MMS-TTS's shapes for 320
+    frames beside their plain twins and their library yardsticks (cuDNN's bf16
+    ``F.conv_transpose1d``; one bf16 ``F.conv1d`` per conv of the trio, 18 summed:
+    the products alone, never called by the port). Returns the two kernels' rows."""
+    from vits_tpu_torch.ops.cuda import device_sm_count, stream_of
+    from vits_tpu_torch.ops.cuda.resblock import (
+        PAIR_C,
+        conv,
+        fused_pairs_reference,
+        pair,
+        pair_plan,
+        pair_reference,
+        run_fused_pairs,
+    )
+    from vits_tpu_torch.ops.cuda.stage import upsample, upsample_plan, upsample_reference
+
+    tier, tol, frames = kernel_tier("fast"), TIER_TOL["fast"], 320
+    rng = np.random.default_rng(21)
+    sms = device_sm_count(device)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    b16 = lambda a: f32(a).to(torch.bfloat16)  # noqa: E731
+
+    def rows(B, T, C, lengths):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        valid = (torch.arange(T, device=device)[None, :] < lens[:, None])[..., None]
+        return b16(rng.standard_normal((B, T, C))) * valid, lens
+
+    worst = {"upsample": [0.0, 0.0, 0], "pair": [0.0, 0.0, 0]}  # max err, of tol, cases
+
+    def hold(kind, name, got, want, lens, zero_past, stride=1):
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{name}: non-finite output")
+        if zero_past:
+            for b, n in enumerate(lens.tolist()):
+                if float(got[b, stride * n:].abs().sum()) != 0.0:
+                    raise RuntimeError(f"{name}: row {b} not zero past its length {n}")
+        e = float((got - want).abs().max())
+        ratio = e / (tol * max(1.0, float(want.abs().max())))
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{name}: off by {ratio:.3g} times the tolerance (max|diff| {e})")
+        w = worst[kind]
+        w[0], w[1], w[2] = max(w[0], e), max(w[1], ratio), w[2] + 1
+
+    ups = {}
+    for C_in, C_out, per_frame in ROUTE_UPSAMPLES:
+        w = b16(rng.standard_normal((4, C_in, C_out)) * 0.05)
+        bias = f32(rng.standard_normal(C_out) * 0.1)
+        ups[C_in, C_out] = (w, bias)
+        for B, T in ((1, per_frame * frames), (4, 700)):
+            plan = upsample_plan(B, T, C_in, C_out, 4, 2, 1, sms)
+            lengths = [T - 37] if B == 1 else [700, 0, 64 * plan.nw, 128 * plan.nw - 1]
+            x, lens = rows(B, T, C_in, lengths)
+            want = upsample_reference(x, w, bias, stride=2, up_padding=1, slope=WGMMA_SLOPE,
+                                      lengths=lens, tier=tier)
+            for dtype in (torch.float32, torch.bfloat16):
+                up = torch.empty((B, 2 * T, C_out), dtype=dtype, device=device)
+                before = upsample.wgmma_launches
+                upsample(x, up, w, bias, lens, stride=2, up_padding=1, slope=WGMMA_SLOPE,
+                         tier=tier, up_fmt=1, up_scale=None, plan=plan)
+                torch.cuda.synchronize()
+                name = f"upsampler {C_in}->{C_out} B={B} T_in={T} nw={plan.nw} -> {dtype}"
+                if upsample.wgmma_launches != before + 1:
+                    raise RuntimeError(f"{name}: not the wgmma route")
+                hold("upsample", name, up, want, lens, True, stride=2)
+    pair_w = {}
+    for k, d in PAIR_TAPS:
+        pw = tuple(b16(rng.standard_normal((k, PAIR_C, PAIR_C)) * 0.05) if i % 2 == 0
+                   else f32(rng.standard_normal(PAIR_C) * 0.05) for i in range(4))
+        pair_w[k, d] = pw
+        for B, T in ((1, 256 * frames), (4, 700)):
+            plan = pair_plan(B, T, PAIR_C, k, d, sms)
+            lengths = [T - 37] if B == 1 else [700, 0, plan.rows, 2 * plan.rows - 1]
+            x, lens = rows(B, T, PAIR_C, lengths)
+            prev = f32(rng.standard_normal((B, T, PAIR_C)))
+            modes = PAIR_EPILOGUES if B == 4 else ("bf16 out", "out16 chained")
+            for mode in modes:
+                accumulate, scale, into16 = PAIR_EPILOGUES[mode]
+                out32 = prev.clone() if accumulate else None
+                out16 = torch.empty_like(x) if into16 else None
+                before = conv.pair_launches
+                pair(x, out32, out16, *pw, lens, k, d, WGMMA_SLOPE, int(accumulate), scale, plan,
+                     tier, stream_of(x))
+                torch.cuda.synchronize()
+                name = f"pair k={k} dil={d} B={B} T={T} nw={plan.nw} {mode}"
+                if conv.pair_launches != before + 1:
+                    raise RuntimeError(f"{name}: not the pair route")
+                want = pair_reference(x, *pw, lens, k, d, WGMMA_SLOPE, tier,
+                                      prev if accumulate else None, scale)
+                hold("pair", name, out16 if into16 else out32, want, lens, not accumulate)
+    x, lens = rows(1, 256 * frames, PAIR_C, [256 * frames - 37])
+    plan = pair_plan(1, x.shape[1], PAIR_C, 11, 5, sms)
+    a, b = (torch.empty_like(x) for _ in range(2))
+    for out in (a, b):
+        pair(x, None, out, *pair_w[11, 5], lens, 11, 5, WGMMA_SLOPE, 0, 1.0, plan, tier,
+             stream_of(x))
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise RuntimeError("the pair kernel is not bit-identical on the same input")
+    for kind, what in (("upsample", f"{len(ROUTE_UPSAMPLES)} stages x B 1, 4 x fp32, bf16 out"),
+                       ("pair", f"{len(PAIR_TAPS)} (k, dil) x B 1, 4 x epilogue modes")):
+        e, ratio, n = worst[kind]
+        print(f"  {'fused_stage ' + kind:24s} {what}: {n} cases, max|diff| {e:.3e} ({ratio:.3g} "
+              f"of tol {tol}); on the route each time; rows past each length zero"
+              + ("; the same input twice bit-identical" if kind == "pair" else ""), flush=True)
+
+    # timed at MMS-TTS's shapes (320 frames; the row 37 steps short), as the main path
+    # runs them: 128->64 into fp32 (the 64-channel convs stage fp32), 64->32 into bf16
+    untimed = {kind: {"shape": f"{worst[kind][2]} cases (untimed)", "max_abs_err": worst[kind][0],
+                      "err_over_tol": worst[kind][1], "ms": None, "plain_ms": None,
+                      "device_ms": None, "plain_device_ms": None, "library_ms": None}
+               for kind in worst}
+    results = {"fused_stage_upsample_wgmma": [], "fused_stage_pairs": []}
+    for (C_in, C_out, per_frame), dtype in zip(ROUTE_UPSAMPLES[:2],
+                                               (torch.float32, torch.bfloat16)):
+        T = per_frame * frames
+        w, bias = ups[C_in, C_out]
+        x, lens = rows(1, T, C_in, [T - 37])
+        plan = upsample_plan(1, T, C_in, C_out, 4, 2, 1, sms)
+        up = torch.empty((1, 2 * T, C_out), dtype=dtype, device=device)
+        kw = dict(stride=2, up_padding=1, slope=WGMMA_SLOPE)
+        result = compare(
+            "fused_stage upsampler", f"wgmma {C_in}->{C_out} T_in={T} nw={plan.nw} -> {dtype}",
+            lambda: upsample(x, up, w, bias, lens, tier=tier, up_fmt=1, up_scale=None,
+                             plan=plan, **kw) or up,
+            lambda: upsample_reference(x, w, bias, lengths=lens, tier=tier, **kw).to(dtype),
+            work=(conv_flops(steps_of(x, lens), 4, C_in, C_out),
+                  nbytes(x, w, bias, lens, up)), tol=tol, peak=PEAK_BF16_FLOPS)
+        xt = x.transpose(1, 2).contiguous()
+        wt = w.flip(0).permute(1, 2, 0).contiguous()
+        bt = bias.to(torch.bfloat16)
+        library = lambda: torch.nn.functional.conv_transpose1d(xt, wt, bt, stride=2,  # noqa: E731
+                                                               padding=1)
+        result["library_ms"] = median_ms(library)
+        result["library_device_ms"] = host_and_device(library)["device_busy_ms"]
+        print(f"    library yardstick: cuDNN bf16 F.conv_transpose1d (the products alone) "
+              f"{result['library_ms']:.4f} ms (device {result['library_device_ms']:.4f})",
+              flush=True)
+        results["fused_stage_upsample_wgmma"].append(result)
+    T = 256 * frames
+    x, lens = rows(1, T, PAIR_C, [T - 37])
+    blocks = [dict(kernel_size=k, dilations=(1, 3, 5),
+                   **{name: [pair_w[k, d][i] for d in (1, 3, 5)]
+                      for i, name in enumerate(("w1", "b1", "w2", "b2"))}) for k in (3, 7, 11)]
+    plans = tuple(tuple(pair_plan(1, T, PAIR_C, k, d, sms) for d in (1, 3, 5))
+                  for k in (3, 7, 11))
+    h = torch.empty((1, T, PAIR_C), dtype=torch.float32, device=device)
+    result = compare(
+        "fused_stage pairs", f"C=32 T={T} trio, 9 pair launches",
+        lambda: run_fused_pairs(x, h, blocks, lens, WGMMA_SLOPE, plans, tier) or h,
+        lambda: fused_pairs_reference(x, blocks, slope=WGMMA_SLOPE, lengths=lens, tier=tier),
+        work=(resblocks_flops(steps_of(x, lens), PAIR_C, blocks),
+              nbytes(x, lens, h, *(t for blk in blocks for name in ("w1", "b1", "w2", "b2")
+                                   for t in blk[name]))), tol=tol, peak=PEAK_BF16_FLOPS)
+    result["library_ms"], result["library_device_ms"] = cudnn_trio_ms(x, blocks)
+    print(f"    library yardstick: cuDNN bf16 F.conv1d, one per conv of the trio, 18 summed (the "
+          f"products alone) {result['library_ms']:.4f} ms (device "
+          f"{result['library_device_ms']:.4f})", flush=True)
+    results["fused_stage_pairs"].append(result)
+    results["fused_stage_upsample_wgmma"].append(untimed["upsample"])
+    results["fused_stage_pairs"].append(untimed["pair"])
+    return results
+
+
 def compare_stage(decoder, config, i: int, x_lens) -> dict:
     """Kernel C against its plain version on stage i of ``decoder``."""
     from vits_tpu_torch.models.hifigan import _stage_resblocks
@@ -694,7 +897,8 @@ def compare_stage(decoder, config, i: int, x_lens) -> dict:
         yard["conv_post"] = host_and_device(
             lambda: torch.nn.functional.conv1d(ht, wp, padding=3))["device_busy_ms"]
     print("    device ms by launch: " + ", ".join(
-        f"{name} {ms:.4f}" + (f" (cuDNN yardstick {yard[name]:.4f})" if name in yard else "")
+        f"{name} {ms:.4f}" + (f" (cuDNN yardstick {yard[name.split(' (')[0]]:.4f})"
+                              if name.split(" (")[0] in yard else "")
         for name, ms in split.items()), flush=True)
     result.update(launch_device_ms=split, cudnn_yardstick_ms=yard)
     return result
@@ -792,17 +996,42 @@ def compare_resblock(x, lens, blk, slope: float, shape: str) -> dict:
                            nbytes(x, x, lens, *pair_weights([blk]))))
     out = torch.empty_like(x)
     six = lambda: run_pairs(x, out, [blk], lens, slope)  # noqa: E731
-    ops = host_and_device(kernel)["device_ops"]
+    ops, counted_by = launches_a_call(kernel, fused_resblock)
     earlier = {"ms": median_ms(six), "device_ms": host_and_device(six)["device_busy_ms"]}
     if ops != 1:
-        raise RuntimeError(f"kernel 7 at C={C} {shape}: {ops} device launches a call, not 1")
+        raise RuntimeError(f"kernel 7 at C={C} {shape}: {ops} device launches a call, not 1 "
+                           f"(counted by {counted_by})")
     verdict = "at or below" if result["device_ms"] <= earlier["device_ms"] else "ABOVE"
-    print(f"    plan bm={plan.bm} cluster={plan.cluster}; 1 device launch a call; the six-launch "
-          f"route {earlier['ms']:.3f} ms (device {earlier['device_ms']:.4f}): kernel 7 {verdict} "
-          "it", flush=True)
+    print(f"    plan bm={plan.bm} cluster={plan.cluster}; 1 device launch a call (counted by "
+          f"{counted_by}); the six-launch route {earlier['ms']:.3f} ms (device "
+          f"{earlier['device_ms']:.4f}): kernel 7 {verdict} it", flush=True)
     result.update(plan={"bm": plan.bm, "cluster": plan.cluster}, device_ops=ops,
-                  six_launch_ms=earlier["ms"], six_launch_device_ms=earlier["device_ms"])
+                  device_ops_counted_by=counted_by, six_launch_ms=earlier["ms"],
+                  six_launch_device_ms=earlier["device_ms"])
     return result
+
+
+def launches_a_call(fn, wrapper, calls: int = 5) -> tuple[float, str]:
+    """Device launches a call of ``fn``, and what counted them: the device records
+    of a profiler session that lost none (``utils/devprofile.py::read``, up to three
+    sessions); only where every session lost a record, the wrapper's own count of
+    the launches it made (``count_launch``) over ``calls`` calls."""
+    from vits_tpu_torch.utils import devprofile
+
+    fn()
+    torch.cuda.synchronize()
+    reading = devprofile.read(lambda: [fn() for _ in range(calls)], attempts=3)
+    PROFILER_SESSIONS["sessions"] += reading.sessions
+    PROFILER_SESSIONS["rerun"] += reading.sessions - (0 if reading.lost else 1)
+    if not reading.lost:
+        return len(reading.events) / calls, "a profiler session that lost no record"
+    before = wrapper.launches
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return ((wrapper.launches - before) / calls,
+            f"{wrapper.__name__}'s count_launch (every one of {reading.sessions} profiler "
+            f"sessions lost a record: {'; '.join(reading.lost)})")
 
 
 def block_probe_at_stage_shape(params: dict, config, device) -> dict:
@@ -1263,10 +1492,15 @@ def batch_buckets(model, batch_speakers) -> None:
                            "outside the buckets")
 
 
-# The launches of one kernel C call, by the first pattern their name contains.
+# The launches of one kernel C call, by the first pattern their name contains: the
+# upsampler and the resblock convs by route (Hopper's at the fast tier on bf16 packs:
+# csrc/upsample_wgmma.cu, pair_wgmma.cu, conv_wgmma.cuh), and conv_post.
 STAGE_LAUNCHES = (
-    ("upsample", ("upsample_kernel",)),
-    ("resblock convs", ("conv_kernel",)),  # conv_kernel<...> and narrow_conv_kernel<...>
+    ("upsample (wgmma)", ("wgmma_upsample_kernel",)),
+    ("upsample (mma.sync)", ("upsample_kernel",)),  # upsample_kernel<...>, upsample16_kernel
+    ("resblock pairs (wgmma, one a pair)", ("pair_conv_kernel",)),
+    ("resblock convs (wgmma)", ("wgmma_conv_kernel",)),
+    ("resblock convs (mma.sync)", ("conv_kernel",)),  # conv_kernel<...>, narrow_conv_kernel
     ("conv_post", ("wave_kernel",)),
 )
 
@@ -2437,6 +2671,32 @@ def cudnn_trio_ms(x: torch.Tensor, blocks) -> tuple[float, float]:
     return median_ms(run), host_and_device(run)["device_busy_ms"]
 
 
+def cudnn_stage_ms(x: torch.Tensor, up_w, blocks, stride: int, up_padding: int,
+                   w_post=None) -> tuple[float, float]:
+    """Kernel C's library yardstick: cuDNN's bf16 ``F.conv_transpose1d`` of the
+    upsampler, one bf16 ``F.conv1d`` per conv of the trio (:func:`cudnn_trio_ms`'s
+    18) on the upsampled shape, and conv_post's ``F.conv1d`` on the last stage, on
+    x's shape and the weights as bf16 -- the products alone: leaky, bias, residual,
+    mask and tanh excluded. Its median event ms and device busy ms; the port never
+    calls it."""
+    xs = x.to(torch.bfloat16).transpose(1, 2).contiguous()
+    wt = up_w.to(torch.bfloat16).flip(0).permute(1, 2, 0).contiguous()
+    h = torch.zeros((x.shape[0], x.shape[1] * stride, up_w.shape[2]), dtype=torch.bfloat16,
+                    device=x.device)
+    trio_ms, trio_device = cudnn_trio_ms(h, blocks)
+    parts = [lambda: torch.nn.functional.conv_transpose1d(xs, wt, stride=stride,
+                                                          padding=up_padding)]
+    if w_post is not None:
+        ht = h.transpose(1, 2).contiguous()
+        wp = w_post.to(torch.bfloat16).permute(2, 1, 0).contiguous()
+        parts.append(lambda: torch.nn.functional.conv1d(ht, wp, padding=(wp.shape[2] - 1) // 2))
+
+    def run():
+        return [part() for part in parts]
+
+    return trio_ms + median_ms(run), trio_device + host_and_device(run)["device_busy_ms"]
+
+
 def tier_kernels_vs_plain(model, vctk, narrow, device) -> dict:
     """Each of A, B, C, 7 and 6 at fast, high and highest, and B and C with int8
     (and bf16) weights, against the plain twin at the same tier on the card, at
@@ -2514,12 +2774,25 @@ def tier_kernels_vs_plain(model, vctk, narrow, device) -> dict:
                 flops += conv_flops(steps * rate, w_post.shape[0], c_out, 1)
                 weights.append(kw["final_conv"][0])
             out_bytes = (4 if final else x.element_size() * c_out) * x.shape[1] * rate
-            record("fused_stage", label, compare(
+            result = compare(
                 "fused_stage", f"{label} {c_in}->{c_out} T_in={T_in}"
                 + (" +conv_post" if final else ""),
                 lambda: fused_stage(*args, **kw), lambda: stage_reference(*args, **kw),
                 work=(flops, nbytes(x, lens, *weights) + out_bytes),
-                tol=TIER_TOL[name], peak=TIER_PEAK[name]))
+                tol=TIER_TOL[name], peak=TIER_PEAK[name])
+            if (name, fmt) == ("fast", "bfloat16"):  # the main path: its launches by route
+                result["launch_device_ms"] = launch_device_ms(lambda: fused_stage(*args, **kw),
+                                                              STAGE_LAUNCHES)
+                result["library_ms"], result["library_device_ms"] = cudnn_stage_ms(
+                    x, args[1], blocks, rate, kw["up_padding"],
+                    kw["final_conv"][0] if final else None)
+                print("    device ms by launch: " + ", ".join(
+                    f"{family} {ms:.4f}" for family, ms in result["launch_device_ms"].items())
+                    + f"; library yardstick: cuDNN bf16 F.conv_transpose1d + the trio's 18 "
+                    f"F.conv1d" + (" + conv_post's" if final else "") + " (the products alone) "
+                    f"{result['library_ms']:.4f} ms (device {result['library_device_ms']:.4f})",
+                    flush=True)
+            record("fused_stage", label, result)
 
     layer = ParamView(model.params).sub("text_encoder.encoder.layers.0.attention")
     heads, d, w = config.num_attention_heads, config.head_dim, config.window_size
@@ -2595,6 +2868,7 @@ def tier_requests(device, card: str, wrappers) -> dict:
     from vits_tpu_torch.models.hifigan import hifigan
     from vits_tpu_torch.models.vits import NoiseOverride, latents_from_prior, text_to_prior
     from vits_tpu_torch.ops.cuda.resblock import conv
+    from vits_tpu_torch.ops.cuda.stage import upsample
     from vits_tpu_torch.ops.tiers import FAST
 
     config = VitsConfig()
@@ -2643,19 +2917,33 @@ def tier_requests(device, card: str, wrappers) -> dict:
         model.synthesize_raw([text], seed=[5])  # cuDNN's algorithms, the packs
         for fn in wrappers:
             fn.launches = 0
-        conv.wgmma_launches = conv.mma_sync_launches = 0
+        conv.wgmma_launches = conv.mma_sync_launches = conv.pair_launches = 0
+        upsample.wgmma_launches = upsample.mma_sync_launches = 0
         profile = request_profile(model, card)
         launches = {fn.__name__: fn.launches for fn in wrappers}
         for name in ("flash_rel_attention", "fused_resblock_trio", "fused_stage"):
             if launches[name] == 0:
                 raise RuntimeError(f"{label}: kernel {name} was never launched")
-        # B's and C's resblock convs by route: Hopper's (csrc/conv_wgmma.cuh) at the fast
-        # tier on bf16 packs, conv_gemm.cuh's mma.sync otherwise and for C's 32 channels
-        routes = {"wgmma": conv.wgmma_launches, "mma_sync": conv.mma_sync_launches}
-        on_wgmma = model.tiers.stage(0).mode == FAST and model._weight_format == "bfloat16"
-        if (routes["wgmma"] > 0) != on_wgmma or routes["mma_sync"] == 0:
-            raise RuntimeError(f"{label}: resblock convs by route {routes}; the wgmma route "
-                               f"{'expected' if on_wgmma else 'not expected'}")
+        # B's and C's launches by route. At the fast tier on bf16 packs: Hopper's conv
+        # (csrc/conv_wgmma.cuh) at 64 channels and up, C's pair route (csrc/pair_wgmma.cu)
+        # at 32, nine a stage call, no mma.sync conv, and C's upsampler on Hopper's route
+        # (csrc/upsample_wgmma.cu). Every other tier and format: mma.sync and stage.cu's
+        # upsampler, and none of the three.
+        routes = {"wgmma": conv.wgmma_launches, "mma_sync": conv.mma_sync_launches,
+                  "pair": conv.pair_launches, "upsample_wgmma": upsample.wgmma_launches,
+                  "upsample_mma_sync": upsample.mma_sync_launches}
+        on_hopper = model.tiers.stage(0).mode == FAST and model._weight_format == "bfloat16"
+        expect = ({"wgmma": True, "pair": True, "mma_sync": False, "upsample_wgmma": True,
+                   "upsample_mma_sync": False} if on_hopper else
+                  {"wgmma": False, "pair": False, "mma_sync": True, "upsample_wgmma": False,
+                   "upsample_mma_sync": True})
+        wrong = [route for route, on in expect.items() if (routes[route] > 0) != on]
+        if on_hopper and 2 * routes["pair"] != 9 * launches["fused_stage"]:
+            wrong.append("pair: not 9 launches a 64->32 stage call")
+        if wrong:
+            raise RuntimeError(f"{label}: launches by route {routes}, against the rule at "
+                               f"{'fast on bf16 packs' if on_hopper else 'this tier and format'}"
+                               f" for {wrong}")
 
         wave = decode(model)
         check_audio(wave, f"{label} at the exact tier's durations")
@@ -2669,6 +2957,10 @@ def tier_requests(device, card: str, wrappers) -> dict:
               f"{profile['idle_share']:.3f}; at exact's {frames} frames mel-L1 vs exact "
               f"{mel:.3e}, max|diff| {results[label]['max_abs_vs_exact']:.3e}; launches "
               f"{launches}, resblock convs by route {routes} ({card})", flush=True)
+    family = "kernel C upsample, conv_post"
+    print(f"  the request's {family!r} device ms: fast "
+          f"{results['fast']['families_ms'].get(family, 0.0):.4f}, exact "
+          f"{results['exact']['families_ms'].get(family, 0.0):.4f} ({card})", flush=True)
     if results["exact"]["mel_l1_vs_exact"] != 0.0:
         raise RuntimeError("the exact tier's decode is not deterministic")
     for label in ("fast", "high"):
@@ -4268,11 +4560,20 @@ def dp_rank(rank: int, port: int, tmp: str) -> None:
         del step_fn, gen, disc
         torch.cuda.empty_cache()
         # ZeRO-1 on and off: two AdamW steps each; the replicated run three times for its
-        # spread (the card's step is not bit-deterministic)
-        _, _, on = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, zero1=True,
-                                 steps=2)
-        off = [gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, steps=2)[2]
-               for _ in range(3)]
+        # spread. cuDNN pinned to deterministic algorithms, as 12a and 10d pin it: with
+        # its free choice the card's step is not bit-deterministic, and AdamW's first
+        # steps turn a gradient near 0 whose sign flips into a move of ~lr, so the
+        # replicated runs fell into two modes (~3e-5 and ~6e-4 apart), and three of them
+        # in one mode against ZeRO-1's in the other failed a correct ZeRO-1
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, _, on = gan_step_once(config, gen_np, disc_np, batch, noise, device, dp,
+                                     zero1=True, steps=2)
+            off = [gan_step_once(config, gen_np, disc_np, batch, noise, device, dp, steps=2)[2]
+                   for _ in range(3)]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         numels = [v.size for v in {**gen_np, **disc_np}.values()]
         owned = sum(n for n, owner in zip(numels, zero1_owners(numels, 2)) if owner == rank)
         report.update({"step_ms": step_ms, "all_reduce": reduce_ms,
@@ -5772,6 +6073,7 @@ def main() -> None:
           f"{KERNEL_TOL} x max(1, max|plain|) per output:", flush=True)
     measured = kernels_vs_plain(model.params, model.config, device)
     measured["fused_resblock_trio"].append(wgmma_conv_vs_plain(device))
+    measured.update(stage_routes_vs_plain(device))
     for runs in (training_kernels_vs_plain(model.params, model.config, device),
                  slice_kernels_vs_plain(vctk, narrow, device), mas_kernel_vs_plain(device)):
         for name, shapes in runs.items():
@@ -5892,6 +6194,11 @@ def main() -> None:
         "fused_resblock_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
                                 "vits_tpu/ops/pallas/resblock.py:238"),
         "fused_stage": ("vits_tpu_torch/csrc/stage.cu", "vits_tpu/ops/pallas/stage.py:379"),
+        # kernel C's own launches on Hopper's routes at the fast tier on bf16 packs
+        "fused_stage_upsample_wgmma": ("vits_tpu_torch/csrc/upsample_wgmma.cu",
+                                       "vits_tpu/ops/pallas/stage.py:379"),
+        "fused_stage_pairs": ("vits_tpu_torch/csrc/pair_wgmma.cu",
+                              "vits_tpu/ops/pallas/stage.py:379"),
         "trainable_rel_attention": ("vits_tpu_torch/csrc/rel_attention_bwd.cu",
                                     "vits_tpu/ops/pallas/attention_grad.py:262"),
         "trainable_trio": ("vits_tpu_torch/csrc/resblock_trio.cu",
@@ -5936,7 +6243,10 @@ def main() -> None:
                 "flash_rel_attention_wide": sum(wide[t]["launches"]["flash_rel_attention"]
                                                 for t in ("exact", "fast"))
                 + wide["training"]["launches"]["flash_rel_attention"],
-                "trainable_rel_attention_wide": wide["training"]["launches"]["rel_attention_bwd"]}
+                "trainable_rel_attention_wide": wide["training"]["launches"]["rel_attention_bwd"],
+                # the main path at the card's default tier: phase 9's fast-tier requests
+                "fused_stage_upsample_wgmma": tiers_run["fast"]["conv_routes"]["upsample_wgmma"],
+                "fused_stage_pairs": tiers_run["fast"]["conv_routes"]["pair"]}
     # MAS's launches on every training path, each held there at one a generator forward
     mas_launches = {
         "7_gan_steps": train_launches["monotonic_align"],
@@ -6039,11 +6349,25 @@ def main() -> None:
             # their resblock convs at the fast tier on bf16 packs: Hopper's route
             entry["conv_source"] = "vits_tpu_torch/csrc/conv_wgmma.cuh"
             entry["conv_routes_fast_request"] = tiers_run["fast"]["conv_routes"]
-        if entry["name"] == "fused_resblock_trio":  # cuDNN's bf16 products, phase 9's fast row
+        if entry["name"] in ("fused_resblock_trio", "fused_stage"):
+            # cuDNN's bf16 products, phase 9's fast row
             entry["library_ms"] = entry["tiers"]["fast bfloat16"]["library_ms"]
-            entry["library_note"] = ("fast tier, bf16 packs: one cuDNN bf16 F.conv1d per conv "
-                                     "launch, the trio's 18 summed at each shape -- the products "
-                                     "alone: leaky, bias, residual and mask excluded")
+            entry["library_note"] = (
+                "fast tier, bf16 packs: one cuDNN bf16 F.conv1d per conv launch, the trio's "
+                "18 summed at each shape" + (", with the upsampler's F.conv_transpose1d and "
+                                            "conv_post's F.conv1d" if entry["name"] ==
+                                            "fused_stage" else "")
+                + " -- the products alone: leaky, bias, residual and mask excluded")
+        if entry["name"] in ("fused_stage_upsample_wgmma", "fused_stage_pairs"):
+            # phase 3's yardsticks at MMS's shapes; launches: phase 9's fast-tier requests
+            timed = [r for r in entry["shapes"] if r["ms"] is not None]
+            entry["library_ms"] = sum(r["library_ms"] for r in timed)
+            entry["library_device_ms"] = sum(r["library_device_ms"] for r in timed)
+            entry["library_note"] = (
+                "cuDNN bf16 " + ("F.conv_transpose1d" if entry["name"].endswith("wgmma") else
+                                 "F.conv1d, one per conv of the trio, 18 summed")
+                + " on the same inputs -- the products alone")
+            entry["launches_path"] = "phase 9: the fast-tier (default) 87-token requests"
         if entry["name"] == "monotonic_align":  # one a generator forward, on every path
             entry["replaces_scan"] = ("lax.scan, forward vits_tpu/ops/align.py:51, backtrace "
                                       ":70; no Pallas kernel")

@@ -215,7 +215,9 @@ def test_wgmma_tensor_maps_fit_tma(kernel, C, k, dil):
     if C % WGMMA_CHUNK:
         return
     for nc in (1, 2):
-        _hold_tma_limits(wgmma_tensor_maps(4, 2560, C, C, k, dil, nc))
+        maps = wgmma_tensor_maps(4, 2560, C, C, k, dil, nc)
+        _hold_tma_limits(maps)
+        assert maps["w"]["box"][0] * maps["w"]["elem_bytes"] == maps["w"]["swizzle"] == 128
 
 
 def _hold_tma_limits(maps):
@@ -224,7 +226,8 @@ def _hold_tma_limits(maps):
         assert all(s % 16 == 0 for s in m["strides"]), (name, m["strides"])
         assert m["box"][0] * m["elem_bytes"] % 16 == 0
         assert all(b <= d for b, d in zip(m["box"][:1], m["dims"]))
-    assert maps["w"]["box"][0] * maps["w"]["elem_bytes"] == 128
+        if "swizzle" in m:  # a swizzled box's row is its swizzle's span
+            assert m["box"][0] * m["elem_bytes"] == m["swizzle"] in (32, 64, 128), (name, m)
 
 
 class _Lib:

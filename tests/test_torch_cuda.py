@@ -1592,3 +1592,117 @@ def test_wgmma_conv_and_trio_repeat_bit_identical_on_card(cuda_device):
             for _ in range(2))
     assert conv.wgmma_launches == before + 36
     assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel C's own Hopper routes at the fast tier on bf16 packs (ops/cuda/stage.py::
+# stage_routes): the upsampler (csrc/upsample_wgmma.cu) and the 32-channel pair in
+# one launch (csrc/pair_wgmma.cu), each against its plain twin, and the stage on
+# both routes against stage_reference. Bound: the fast tier's 0.03 x max(1, |plain|).
+# --------------------------------------------------------------------------- #
+
+STAGE_ROUTE_BATCHES = {1: (2523, [2523]), 4: (700, [700, 0, 64, 255])}
+
+
+def _bf16_rows(device, rng, B, C, T, lengths):
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    x = torch.tensor(_masked(rng, B, T, C, lengths), device=device).to(torch.bfloat16)
+    return x, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", sorted(STAGE_ROUTE_BATCHES))
+@pytest.mark.parametrize("C_in,C_out", [(128, 64), (64, 32), (32, 16)])
+def test_upsample_wgmma_matches_plain_on_card(cuda_device, C_in, C_out, B, dtype):
+    """One upsampler launch on Hopper's route (its count), into fp32 or bf16, zero
+    rows past each length, within the fast bound of upsample_reference."""
+    from vits_tpu_torch.ops.cuda import device_sm_count
+    from vits_tpu_torch.ops.cuda.stage import upsample, upsample_plan, upsample_reference
+
+    rng = np.random.default_rng(C_in + B)
+    T, lengths = STAGE_ROUTE_BATCHES[B]
+    x, lens = _bf16_rows(cuda_device, rng, B, C_in, T, lengths)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    w = dev(rng.standard_normal((4, C_in, C_out)) * 0.05).to(torch.bfloat16)
+    bias = dev(rng.standard_normal(C_out) * 0.1)
+    plan = upsample_plan(B, T, C_in, C_out, 4, 2, 1, device_sm_count(cuda_device))
+    up = torch.empty((B, 2 * T, C_out), dtype=getattr(torch, dtype), device=cuda_device)
+    before = upsample.wgmma_launches
+    kw = dict(stride=2, up_padding=1, slope=SLOPE, tier=_tier("fast"))
+    upsample(x, up, w, bias, lens, up_fmt=1, up_scale=None, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert upsample.wgmma_launches == before + 1
+    for b, n in enumerate(lengths):
+        assert float(up[b, 2 * n:].float().abs().sum()) == 0.0
+    want = upsample_reference(x, w, bias, lengths=lens, **kw)
+    _assert_close(up.float().cpu(), want.cpu(), atol=TIER_BOUNDS["fast"])
+
+
+PAIR_MODES = {"bf16 out": (False, 1.0, True), "accumulate": (True, 1.0, False),
+              "accumulate+scale": (True, 1.0 / 3, False), "out16": (True, 1.0 / 3, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(PAIR_MODES))
+@pytest.mark.parametrize("k,dil", [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)])
+def test_pair_wgmma_matches_plain_on_card(cuda_device, k, dil, mode):
+    """One pair in one launch of the pair route (its count) at B = 4 (a length-0
+    row, lengths at tile edges), each epilogue mode, within the fast bound of
+    pair_reference."""
+    from vits_tpu_torch.ops.cuda import device_sm_count, stream_of
+    from vits_tpu_torch.ops.cuda.resblock import conv, pair, pair_plan, pair_reference
+
+    accumulate, scale, into16 = PAIR_MODES[mode]
+    rng = np.random.default_rng(k * 10 + dil)
+    T, lengths = STAGE_ROUTE_BATCHES[4]
+    x, lens = _bf16_rows(cuda_device, rng, 4, 32, T, lengths)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    w1, w2 = (dev(rng.standard_normal((k, 32, 32)) * 0.05).to(torch.bfloat16) for _ in range(2))
+    b1, b2 = (dev(rng.standard_normal(32) * 0.05) for _ in range(2))
+    prev = dev(rng.standard_normal((4, T, 32)))
+    plan = pair_plan(4, T, 32, k, dil, device_sm_count(cuda_device))
+    out32 = prev.clone() if accumulate else None
+    out16 = torch.empty_like(x) if into16 else None
+    before = conv.pair_launches
+    pair(x, out32, out16, w1, b1, w2, b2, lens, k, dil, SLOPE, int(accumulate), scale, plan,
+         _tier("fast"), stream_of(x))
+    torch.cuda.synchronize()
+    assert conv.pair_launches == before + 1
+    got = (out16 if into16 else out32).float()
+    want = pair_reference(x, w1, b1, w2, b2, lens, k, dil, SLOPE, _tier("fast"),
+                          prev if accumulate else None, scale)
+    if not accumulate:
+        for b, n in enumerate(lengths):
+            assert float(got[b, n:].abs().sum()) == 0.0
+    _assert_close(got.cpu(), want.cpu(), atol=TIER_BOUNDS["fast"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [False, True])
+def test_stage_on_hopper_routes_matches_plain_on_card(cuda_device, final):
+    """fused_stage at 64->32 (with conv_post, and chained into bf16) at the fast tier
+    on bf16 packs: one upsampler launch on Hopper's route, nine pair launches, no
+    mma.sync conv, within the fast bound of stage_reference."""
+    from vits_tpu_torch.ops.cuda.resblock import conv
+    from vits_tpu_torch.ops.cuda.stage import fused_stage, stage_reference, upsample
+
+    rng = np.random.default_rng(21)
+    T, lengths = STAGE_ROUTE_BATCHES[4]
+    x, lens = _bf16_rows(cuda_device, rng, 4, 64, T, lengths)
+    dev = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    blocks = _to(_blocks(rng, 32, ks=(3, 7, 11), scale=0.05),
+                 lambda a: dev(a).to(torch.bfloat16) if a.ndim == 4 else dev(a))
+    kw = dict(stride=2, up_padding=1, slope=SLOPE, lengths=lens, tier=_tier("fast"),
+              chain=not final, final_conv=(dev(rng.standard_normal((7, 32, 1)) * 0.3).to(
+                  torch.bfloat16), 3) if final else None)
+    args = (x, dev(rng.standard_normal((4, 64, 32)) * 0.05).to(torch.bfloat16),
+            dev(rng.standard_normal(32) * 0.1), blocks)
+    counts = (upsample.wgmma_launches, conv.pair_launches, conv.mma_sync_launches)
+    got = fused_stage(*args, **kw)
+    torch.cuda.synchronize()
+    assert (upsample.wgmma_launches - counts[0], conv.pair_launches - counts[1],
+            conv.mma_sync_launches - counts[2]) == (1, 9, 0)
+    want = stage_reference(*args, **kw)
+    assert got.dtype == want.dtype
+    _assert_close(got.float().cpu(), want.float().cpu(), atol=TIER_BOUNDS["fast"])

@@ -71,7 +71,7 @@ def test_port_kernels_are_the_csrc_globals():
     names = devprofile.port_kernels()
     assert {"rel_attention_kernel", "rel_attention_bwd_kernel", "conv_kernel",
             "block_kernel", "upsample_kernel", "wave_kernel", "wgrad_kernel",
-            "mas_wavefront"} <= names
+            "mas_wavefront", "wgmma_upsample_kernel", "pair_conv_kernel"} <= names
     assert not {"mas_kernel", "mas_generic"} & names  # the first MAS design is gone
     assert set(devprofile.OWN_KERNELS) <= set(devprofile._wrappers())
     # each own kernel's pattern matches its kernel's records and no other kernel of the port
@@ -79,7 +79,7 @@ def test_port_kernels_are_the_csrc_globals():
     records["FlowEpi"] = FLOW
     own = {"flash_rel_attention": {"rel_attention_kernel"},
            "rel_attention_bwd": {"rel_attention_bwd_kernel"},
-           "fused_stage": {"upsample_kernel", "upsample16_kernel"},
+           "fused_stage": {"upsample_kernel", "upsample16_kernel", "wgmma_upsample_kernel"},
            "fused_flow": {"FlowEpi"}, "trio_backward": {"wgrad_kernel"},
            "monotonic_align": {"mas_wavefront"}}
     assert {wrapper: {name for name, record in records.items() if re.search(pattern, record)}

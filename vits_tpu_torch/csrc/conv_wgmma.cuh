@@ -63,8 +63,10 @@
 // Left on conv_gemm.cuh's mma.sync: the `high` and `exact` tiers, int8
 // weights at `fast`, bf16 activations (vk_conv_bf16: bf16 serving, kernel 5's
 // bf16 forward), kTransW (kernel 5's input gradients), kernel 6's products,
-// and channel counts off the 64 grid (C's 32-wide resblocks; the narrow path
-// below 32).
+// and channel counts off the 64 grid (the narrow path below 32; kernel B at 32,
+// which no configuration runs). C's 32-wide resblocks at `fast` on bf16 packs
+// run as one launch a pair on pair_wgmma.cu, and C's upsampler on
+// upsample_wgmma.cu (stage_wgmma.cuh).
 #pragma once
 
 #include <cuda.h>

@@ -1,7 +1,9 @@
 // One tile of a direct conv over narrow channels on the tensor cores (3xTF32
 // mma.sync m16n8k8), shared by the resblock convs below 32 channels
 // (resblock_trio.cu::narrow_conv_kernel) and the polyphase upsampler
-// (stage.cu::upsample_kernel):
+// (stage.cu::upsample_kernel; at the `fast` tier on bf16 packs with bf16 values
+// and C_out 16, 32 or 64 the upsampler is upsample_wgmma.cu's instead, which
+// stages the bf16 weights and input by TMA as they are):
 //
 //   out[b, os*t + oo] = mask_t(bias + sum_i leaky(x[b, t - pad + i*dil]) @ w[wt0 + wts*i]
 //                              [+ residual]) [+ out], times scale
@@ -13,7 +15,9 @@
 //
 // What bounds it: at the vocoder's narrow stages (C = 8 .. 128 in, 8 .. 64
 // out) the products are a few GFLOP at most, so bytes bound it: each input
-// read once, each output written once (and read once with accumulate). At
+// read once, each output written once (and read once with accumulate). Its
+// bf16 and int8 weights are staged by scalar loads, every block again: the
+// reason the `fast` upsampler moved to TMA. At
 // these sizes a block is short, so its latency is what costs: the tile
 // issues every 16-byte cp.async of the (taps, C_in, cols) weights and the raw
 // x window at once (one round trip, not one per copy), zero-padded to

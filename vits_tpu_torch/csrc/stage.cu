@@ -9,13 +9,20 @@
 // on the tensor cores at C_out = 64, 32 on MMS stages 2-3; narrow_conv_kernel
 // at C_out = 16, 8 on HiFi-GAN V2's), and wave_kernel below for the terminal
 // conv_post. No packing: the channels map onto MMA tiles and threads directly.
+// At the `fast` tier on bf16 packs (bf16 values) the routes are Hopper's
+// (ops/cuda/stage.py::stage_routes): the upsampler on upsample_wgmma.cu wherever
+// C_out is 16, 32 or 64, the resblocks at 64 channels on conv_wgmma.cuh and at
+// 32 on pair_wgmma.cu (one launch a pair); upsample_kernel keeps the `high` and
+// `exact` tiers, int8 packs, fp32 values and C_out 8, and wave_kernel every tier.
 //
-// What bounds a stage on an H100: the resblock convs, 18 launches of 3xTF32
-// products (operations at C_out = 64, 32; bytes at 16, 8). The upsampler and
-// conv_post are bound by bytes: each reads its input once and writes its
-// output once (21 MB and 11 MB at MMS stage 2 and 3 for 320 frames, 3-6 us
-// at 3.35 TB/s), against 1.3 GFLOP of upsampler products (8 us at the
-// fp32-accurate 165 TFLOP/s).
+// What bounds a stage on an H100: bytes, below ~295 operations a byte. At `fast`
+// MMS's 64->32 stage for 320 frames does 21 GFLOP of resblock products (0.022 ms
+// at 989 TFLOP/s, 0.13 ms at the fp32-accurate 165) against its activations: on
+// the two-launch route every conv moved its fp32 input, residual and output
+// (10.5 MB apiece, ~470 MB a stage, ~0.14 ms of HBM); on the pair route a pair
+// reads and writes bf16 once and keeps y1 on chip. The upsampler and conv_post
+// read their input once and write their output once (16 MB and 11 MB at MMS
+// stage 2 and 3, 3-5 us at 3.35 TB/s), against 1.3 GFLOP of upsampler products.
 //
 // upsample_kernel: the ConvTranspose1d as a polyphase implicit GEMM. With
 // pe = k - 1 - pad, output row v = s*t + phi takes only the taps

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "vk_graph_destroy": [_P],
     "vk_conv_wgmma": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _I, _I, _P, _P],
     "vk_conv_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _P],
+    "vk_upsample_wgmma": [_P, _P, _I, _P, _P, _P] + [_I] * 7 + [_F, _I, _I, _P],
+    "vk_pair_wgmma": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _F, _I, _I, _P],
     "vk_trio_backward": [_P, _I, _P, _I, _I, _I, _F, _I, _P],
     "vk_resblock_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _I,
                           _F, _I, _P],

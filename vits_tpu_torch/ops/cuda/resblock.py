@@ -11,7 +11,12 @@ on n8 tiles, ``csrc/narrow_gemm.cuh``) for other C, :func:`conv_plan` picking
 the path, the tile and the split of each launch; at the fast tier on bf16
 weights, C % 64 == 0, Hopper's route (``csrc/conv_wgmma.cuh``: TMA, an
 mbarrier ring, wgmma), planned by :func:`wgmma_plan`. :func:`conv` launches
-one conv on its route; :func:`conv_reference` is its plain twin.
+one conv on its route; :func:`conv_reference` is its plain twin. Kernel C's
+resblocks at C = 32 on that tier (bf16 packs, bf16 values; the rule is
+``stage.py::stage_routes``) take a route of their own: one launch a pair
+(``csrc/pair_wgmma.cu``, :func:`pair`, :func:`pair_plan`), y1 kept on chip,
+the outputs between resblocks in bf16 buffers (:func:`run_fused_pairs`; twins
+:func:`pair_reference`, :func:`fused_pairs_reference`); B's launches stay.
 
 Kernel 7 replaces ``fused_resblock`` of the same file: ONE resblock, which
 the JAX package runs on the narrow stages that fail the stage kernel's check
@@ -175,7 +180,8 @@ def wgmma_tensor_maps(B: int, T: int, C_in: int, C_out: int, k: int, dil: int,
                       nc: int) -> dict:
     """The two TMA tensor maps of one conv on Hopper's route, as
     csrc/conv_wgmma.cuh::launch encodes them: ``dims`` and ``box`` innermost
-    first, ``strides`` in bytes (the innermost dimension's left out). x, fp32:
+    first, ``strides`` in bytes (the innermost dimension's left out), ``swizzle`` the
+    span of a swizzled map in bytes. x, fp32:
     (C_in, T, B), a box a chunk's raw window (WGMMA_CHUNK channels x 64 * nc +
     (k - 1) * dil steps x one row). w, bf16, 128-byte swizzle: (C_out, k *
     C_in), a box 64 out-channels (128 bytes) x WGMMA_CHUNK rows."""
@@ -183,7 +189,7 @@ def wgmma_tensor_maps(B: int, T: int, C_in: int, C_out: int, k: int, dil: int,
         "x": {"dims": (C_in, T, B), "strides": (C_in * 4, T * C_in * 4),
               "box": (WGMMA_CHUNK, 64 * nc + (k - 1) * dil, 1), "elem_bytes": 4},
         "w": {"dims": (C_out, k * C_in), "strides": (C_out * 2,), "box": (64, WGMMA_CHUNK),
-              "elem_bytes": 2},
+              "elem_bytes": 2, "swizzle": 128},
     }
 
 
@@ -235,6 +241,90 @@ def wgmma_plan(B: int, T: int, C_in: int, C_out: int, k: int, dil: int,
             if best is None or cost < best[0]:
                 best = (cost, plan)
     return None if best is None else best[1]
+
+
+# Kernel C's 32-channel pairs on Hopper (csrc/pair_wgmma.cu): at the fast tier on
+# bf16 packs with bf16 values, one launch a pair at C = PAIR_C. A tile of nw
+# warpgroups (PAIR_NWS) computes y1 over 64 * nw rows and the output over the
+# 64 * nw - (k - 1) rows in their middle; persistent blocks, up to
+# PAIR_BLOCKS_PER_SM an SM (the kernel's __launch_bounds__) where shared memory
+# allows, walk the (batch row, tile) items, each block loading the weights once.
+PAIR_C = 32
+PAIR_NWS = (1, 2)
+PAIR_BLOCKS_PER_SM = {1: 6, 2: 3}
+PAIR_MAX_WINDOW = 256  # the src window is one TMA box
+PAIR_Y_ROW = (PAIR_C + 8) * 2  # bytes of a y1 window row
+
+
+class PairPlan(NamedTuple):
+    nw: int  # warpgroups of a block: y1 over 64 * nw rows a tile
+    rows: int  # output rows of a tile, 64 * nw - (k - 1)
+    window: int  # rows of the src window, 64 * nw + (k - 1) * dil
+    smem: int  # dynamic shared memory of a block, bytes
+    blocks: int  # grid size: persistent blocks, at most one a (batch row, tile) item
+    per_sm: int  # blocks an SM runs at once
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def pair_smem(k: int, dil: int, nw: int) -> int:
+    """Shared memory of one block of csrc/pair_wgmma.cu (stage_wgmma.cuh's
+    ``PairSmem``): 1 KB of mbarriers, conv1's and conv2's k (32 x 32) bf16 weight
+    slabs, the src window (64 * nw + (k - 1) * dil rows of 64 bytes, 1 KB
+    aligned), the y1 window (64 * nw + k - 1 rows of PAIR_Y_ROW bytes), plus 1 KB
+    to align the base to the swizzle's atoms."""
+    slabs = 2 * k * PAIR_C * PAIR_C * 2
+    window = _round1024((64 * nw + (k - 1) * dil) * PAIR_C * 2)
+    return 1024 + slabs + window + (64 * nw + k - 1) * PAIR_Y_ROW + 1024
+
+
+def pair_tensor_maps(B: int, T: int, k: int, dil: int, nw: int) -> dict:
+    """The three TMA tensor maps of one pair launch, as csrc/pair_wgmma.cu::launch
+    encodes them (``dims`` and ``box`` innermost first, ``strides`` in bytes, the
+    innermost left out; ``swizzle`` the span in bytes). src, bf16: (32, T, B), a
+    box the window (32 channels x 64 * nw + (k - 1) * dil steps x one row); w1 and
+    w2, bf16: (32, k * 32), a box one tap's (32 x 32) slab; all with the 64-byte
+    swizzle (a row of 32 bf16)."""
+    w = {"dims": (PAIR_C, k * PAIR_C), "strides": (PAIR_C * 2,), "box": (PAIR_C, PAIR_C),
+         "elem_bytes": 2, "swizzle": 64}
+    return {
+        "x": {"dims": (PAIR_C, T, B), "strides": (PAIR_C * 2, T * PAIR_C * 2),
+              "box": (PAIR_C, 64 * nw + (k - 1) * dil, 1), "elem_bytes": 2, "swizzle": 64},
+        "w1": w, "w2": dict(w),
+    }
+
+
+@functools.lru_cache(maxsize=1024)
+def pair_plan(B: int, T: int, C: int, k: int, dil: int, sm_count: int) -> PairPlan | None:
+    """The block shape and grid of one pair launch on kernel C's pair route, or None
+    off its grid (C != PAIR_C, an even k, or no block shape whose src window fits
+    one TMA box and whose shared memory fits a block), which keeps
+    :func:`run_pairs`.
+
+    Each shape of PAIR_NWS runs ``per_sm`` blocks an SM (the kernel's register
+    bound, fewer where shared memory runs out), a grid of at most that many on
+    every SM. The wider tile (half the y1 rows recomputed at tile edges, half the
+    weight loads an SM) where its (batch row, tile) items fill that grid; else
+    the narrower, whose items spread over more of the card."""
+    if C != PAIR_C or k % 2 == 0:
+        return None
+    plans = []
+    for nw in PAIR_NWS:
+        window = 64 * nw + (k - 1) * dil
+        smem = pair_smem(k, dil, nw)
+        if window > PAIR_MAX_WINDOW or 64 * nw <= k - 1 or smem > MAX_SMEM_BYTES:
+            continue
+        per_sm = min(PAIR_BLOCKS_PER_SM[nw], SM_SMEM_BYTES // (smem + 1024))
+        rows = 64 * nw - (k - 1)
+        work = -(-T // rows) * B
+        plans.append((work >= sm_count * per_sm,
+                      PairPlan(nw, rows, window, smem, min(work, sm_count * per_sm), per_sm)))
+    if not plans:
+        return None
+    filled = [plan for full, plan in plans if full]
+    return filled[-1] if filled else plans[0][1]
 
 
 class ConvPlan(NamedTuple):
@@ -454,9 +544,101 @@ def conv(x: torch.Tensor, out: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
 
 
 # Launches of each route (the resblock wrappers count their calls): Hopper's and
-# conv_gemm.cuh's mma.sync
+# conv_gemm.cuh's mma.sync, one a conv; kernel C's pair route, one a pair (two convs)
 conv.wgmma_launches = 0
 conv.mma_sync_launches = 0
+conv.pair_launches = 0
+
+
+def pair_reference(src: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, lengths: torch.Tensor, k: int, dil: int, slope: float,
+                   tier: Tier, prev: torch.Tensor | None = None,
+                   scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch: one launch of kernel C's pair route (:func:`pair`), fp32 result:
+    the two :func:`conv_reference` launches of :func:`run_pairs` chained -- y1 at the
+    carry's slope, then conv2 with the residual, the bf16 carry, ``prev`` (the
+    running sum) and ``scale``."""
+    y1 = conv_reference(src.float(), w1, b1, None, lengths, k, dil, carry_slope(slope, tier),
+                        tier)
+    return conv_reference(y1, w2, b2, src.float(), lengths, k, 1, slope, tier, prev, scale,
+                          round_=True)
+
+
+def fused_pairs_reference(x: torch.Tensor, blocks: Sequence[dict], *, slope: float,
+                          lengths: torch.Tensor, tier: Tier,
+                          out16: bool = False) -> torch.Tensor:
+    """Plain PyTorch: kernel C's resblocks on the pair route as :func:`run_fused_pairs`
+    chains them, one :func:`pair_reference` a pair: the pairs' outputs between
+    resblocks stored in bf16 buffers, the running mean fp32 (bf16 with ``out16``)."""
+    n, total = len(blocks), None
+    for j, blk in enumerate(blocks):
+        src, k = x.to(torch.bfloat16), blk["kernel_size"]
+        for i, d in enumerate(blk["dilations"]):
+            last = i == len(blk["dilations"]) - 1
+            y = pair_reference(src, blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i],
+                               lengths, k, d, slope, tier,
+                               prev=total if last and j > 0 else None,
+                               scale=1.0 / n if last and j == n - 1 else 1.0)
+            if last:
+                total = y
+            else:
+                src = y.to(torch.bfloat16)
+    return total.to(torch.bfloat16) if out16 else total
+
+
+def pair(src: torch.Tensor, out32: torch.Tensor | None, out16: torch.Tensor | None,
+         w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+         lengths: torch.Tensor, k: int, dil: int, slope: float, accumulate: int, scale: float,
+         plan: PairPlan, tier: Tier, stream: int) -> None:
+    """One resblock pair of bf16 src (B, T, 32) in one launch of kernel C's pair
+    route (``vk_pair_wgmma``, :func:`pair_plan`): into out16 (bf16) where given,
+    else out32 (fp32); with ``accumulate`` the running sum is read from out32."""
+    B, T, C = src.shape
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with on_device(src):
+        check(library().vk_pair_wgmma(
+            src.data_ptr(), ptr(out32), ptr(out16), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), lengths.data_ptr(), B, T, C, k, dil, carry_slope(slope, tier), slope,
+            accumulate, scale, plan.nw, plan.blocks, stream), "resblock pair kernel")
+    count_launch(conv, "pair_launches")
+
+
+def run_fused_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],
+                    lengths: torch.Tensor, slope: float, plans: Sequence[Sequence[PairPlan]],
+                    tier: Tier, out16: torch.Tensor | None = None) -> None:
+    """Kernel C's route of its resblocks at C = 32 (fast tier, bf16 packs, bf16
+    values; ``stage.py::stage_routes`` decides): one :func:`pair` launch a pair,
+    ``plans[j][i]`` its :func:`pair_plan`. ``x`` (B, T, 32) is bf16 (the
+    upsampler's rounded output); the pairs' outputs between resblocks go through
+    two bf16 scratch buffers (bf16-exact at this tier), the last pair of each
+    resblock folds into ``out``'s fp32 running sum, and the last of all writes the
+    mean into ``out16`` (bf16) where given, else ``out``. Its plain twin is
+    :func:`fused_pairs_reference`."""
+    if x.dtype != torch.bfloat16 or out.dtype != torch.float32:
+        raise ValueError("resblock pair kernel takes bf16 activations and an fp32 mean")
+    check_weights("resblock pair kernel", blocks, tier)
+    stream = stream_of(x)
+    scratch = (torch.empty_like(x), torch.empty_like(x))
+    n = len(blocks)
+    for j, blk in enumerate(blocks):
+        k, src = blk["kernel_size"], x
+        dilations = tuple(blk["dilations"])
+        for i, d in enumerate(dilations):
+            w1, b1, w2, b2 = blk["w1"][i], blk["b1"][i], blk["w2"][i], blk["b2"][i]
+            for w in (w1, w2):
+                if (w.shape != (k, PAIR_C, PAIR_C) or w.dtype != torch.bfloat16
+                        or w.data_ptr() % 16):
+                    raise ValueError(f"resblock pair kernel weight {tuple(w.shape)} {w.dtype} "
+                                     f"!= ({k}, {PAIR_C}, {PAIR_C}) bf16, 16-byte aligned")
+            for vec in (b1, b2):
+                if vec.shape != (PAIR_C,) or vec.dtype != torch.float32 or vec.data_ptr() % 16:
+                    raise ValueError(f"resblock pair kernel bias {tuple(vec.shape)} != "
+                                     f"({PAIR_C},) fp32, 16-byte aligned")
+            last, final = i == len(dilations) - 1, i == len(dilations) - 1 and j == n - 1
+            dst16 = out16 if final else None if last else scratch[i % 2]
+            pair(src, out if last else None, dst16, w1, b1, w2, b2, lengths, k, d, slope,
+                 int(last and j > 0), 1.0 / n if final else 1.0, plans[j][i], tier, stream)
+            src = dst16
 
 
 def run_pairs(x: torch.Tensor, out: torch.Tensor, blocks: Sequence[dict],

@@ -11,6 +11,23 @@ is: every C_in, C_out that divide 128 with 128 / C_out = stride * 128 / C_in
 (HiFi-GAN V2's tail runs at C_out 16 and 8). The plain PyTorch twin is
 :func:`stage_reference`.
 
+Hopper's routes at the fast tier (:func:`stage_routes`, the one rule; no
+switch, no fallback). With bf16 values (not bf16 serving) and a bf16
+upsampler, the upsampler is ``csrc/upsample_wgmma.cu`` (:func:`upsample`,
+TMA and wgmma on the bf16 input as it is, no fp32 cast) wherever C_in is a
+multiple of 16 up to 256, C_out is 16, 32 or 64 and the window fits one TMA
+box (:func:`upsample_plan`): MMS's and VCTK's 128->64 and 64->32,
+small_config's 64->32 and 32->16, HiFi-GAN V2's 32->16; its output is bf16
+where the pairs read it and fp32 where the next launch stages fp32. Where it
+is on that route and the resblocks are bf16 packs at C = 32 (the 64->32
+stages), each pair is one launch of ``csrc/pair_wgmma.cu`` with y1 kept on
+chip (``resblock.py::run_fused_pairs``, ``pair_plan``). Off those domains the
+routes above stay: stage.cu's upsampler at ``high``, ``exact``, on int8
+packs, fp32 values and C_out 8 (V2's 16->8), and the resblocks of
+``run_pairs`` (at 64 channels on ``conv_wgmma.cuh`` at this tier). conv_post
+stays ``wave_kernel``. The twins of the launches are
+:func:`upsample_reference` and ``resblock.py::pair_reference``.
+
 The upsampler kernel is polyphase. With pe = k - 1 - padding, output row
 v = stride * t + phi takes only the taps j = j_phi + stride * i of the
 loader's reversed kernel, i < n_phi, applied to input row t + i - o_phi:
@@ -41,6 +58,7 @@ stage leaky(0.01), conv_post, tanh and the mask, all bf16 in and out.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -48,6 +66,7 @@ import torch
 from vits_tpu_torch.ops.conv import conv1d, conv_transpose1d, leaky_relu
 from vits_tpu_torch.ops.tiers import (
     EXACT_TIER,
+    FAST,
     Tier,
     carry,
     carry_slope,
@@ -59,6 +78,7 @@ from vits_tpu_torch.ops.cuda import (
     check,
     count_launch,
     cuda_lengths,
+    device_sm_count,
     library,
     no_autograd,
     on_cuda,
@@ -66,11 +86,18 @@ from vits_tpu_torch.ops.cuda import (
     stream_of,
 )
 from vits_tpu_torch.ops.cuda.resblock import (
+    MAX_SMEM_BYTES,
+    SM_SMEM_BYTES,
+    PairPlan,
+    _round1024,
     _trio_mean,
+    check_weights,
     length_mask,
+    pair_plan,
     pair_scales,
     pair_weights,
     resblocks_mean_bf16,
+    run_fused_pairs,
     run_pairs,
 )
 
@@ -126,6 +153,178 @@ def polyphase_upsample(
     y = torch.stack(phases, dim=2).reshape(B, T_in * stride, -1)  # row stride * t + phi
     mask = length_mask(None if lengths is None else lengths * stride, y.shape[1], y.dtype)
     return y if mask is None else y * mask
+
+
+# Kernel C's upsampler on Hopper (csrc/upsample_wgmma.cu): at the fast tier on bf16
+# packs with bf16 values, C_in a multiple of 16 (at most 256) and C_out one of
+# UPSAMPLE_WGMMA_COLS (a weight row of 32, 64 or 128 bytes: a TMA swizzle's span);
+# blocks of nw warpgroups (UPSAMPLE_WGMMA_NWS) of 64 input rows, every phase and
+# column, an SM running up to UPSAMPLE_BLOCKS_PER_SM of them (the kernel's
+# __launch_bounds__) where shared memory allows.
+UPSAMPLE_WGMMA_COLS = (16, 32, 64)
+UPSAMPLE_WGMMA_NWS = (1, 2)
+UPSAMPLE_BLOCKS_PER_SM = {1: 4, 2: 2}
+UPSAMPLE_MAX_WINDOW = 256  # the x window is one TMA box (a chunk of channels)
+
+
+class UpsamplePlan(NamedTuple):
+    nw: int  # warpgroups of a block: 64 * nw input rows
+    window: int  # rows of its x window
+    smem: int  # dynamic shared memory of a block, bytes
+    blocks: int  # grid size
+    per_sm: int  # blocks an SM runs at once
+
+
+def upsample_reach(k: int, stride: int, padding: int) -> tuple[int, int]:
+    """(lo, hi): output step t of any phase reads input rows t + lo .. t + hi."""
+    phases = upsample_phases(k, stride, padding)
+    return (min(0, *(-p.offset for p in phases)),
+            max(0, *(p.taps - 1 - p.offset for p in phases)))
+
+
+def upsample_smem(C_in: int, C_out: int, k: int, window: int) -> int:
+    """Shared memory of one block of csrc/upsample_wgmma.cu (stage_wgmma.cuh's
+    ``UpSmem``): 1 KB for the mbarrier, the k taps' (C_in x C_out) bf16 weight
+    slabs and the window's C_in / KC chunks of KC = min(C_in, 64) channels, each
+    1 KB aligned, plus 1 KB to align the base to the swizzle's atoms."""
+    kc = min(C_in, 64)
+    return (1024 + k * _round1024(C_in * C_out * 2) + (C_in // kc) * _round1024(window * kc * 2)
+            + 1024)
+
+
+def upsample_tensor_maps(B: int, T_in: int, C_in: int, C_out: int, k: int, stride: int,
+                         padding: int, nw: int) -> dict:
+    """The two TMA tensor maps of one upsampler launch, as csrc/upsample_wgmma.cu::launch
+    encodes them (``dims`` and ``box`` innermost first, ``strides`` in bytes, the
+    innermost left out; ``swizzle`` the span in bytes). x, bf16: (C_in, T_in, B), a
+    box one chunk of the window (KC channels x 64 * nw + the phases' reach x one
+    row); w, bf16: (C_out, k * C_in), a box one tap's (C_in x C_out) slab; each
+    with the swizzle of its box row."""
+    lo, hi = upsample_reach(k, stride, padding)
+    kc = min(C_in, 64)
+    return {
+        "x": {"dims": (C_in, T_in, B), "strides": (C_in * 2, T_in * C_in * 2),
+              "box": (kc, 64 * nw + hi - lo, 1), "elem_bytes": 2, "swizzle": 2 * kc},
+        "w": {"dims": (C_out, k * C_in), "strides": (C_out * 2,), "box": (C_out, C_in),
+              "elem_bytes": 2, "swizzle": 2 * C_out},
+    }
+
+
+@functools.lru_cache(maxsize=1024)
+def upsample_plan(B: int, T_in: int, C_in: int, C_out: int, k: int, stride: int, padding: int,
+                  sm_count: int) -> UpsamplePlan | None:
+    """The block shape of one upsampler launch on Hopper's route, or None off its
+    grid (C_in not a multiple of 16 or past 256, C_out not in
+    UPSAMPLE_WGMMA_COLS, or no block shape whose window fits one TMA box and
+    whose shared memory fits a block), which keeps stage.cu's upsampler.
+
+    Among the shapes of UPSAMPLE_WGMMA_NWS, the fewest waves of ``per_sm``
+    blocks an SM, each as long as a block's rows (64 * nw); on a tie the wider
+    block, which loads the weights for more rows."""
+    if C_in % 16 or not 16 <= C_in <= 256 or C_out not in UPSAMPLE_WGMMA_COLS:
+        return None
+    lo, hi = upsample_reach(k, stride, padding)
+    best = None
+    for nw in UPSAMPLE_WGMMA_NWS:
+        window = 64 * nw + hi - lo
+        smem = upsample_smem(C_in, C_out, k, window)
+        if window > UPSAMPLE_MAX_WINDOW or smem > MAX_SMEM_BYTES:
+            continue
+        per_sm = min(UPSAMPLE_BLOCKS_PER_SM[nw], SM_SMEM_BYTES // (smem + 1024))
+        blocks = -(-T_in // (64 * nw)) * B
+        cost = -(-blocks // (sm_count * per_sm)) * nw
+        if best is None or cost <= best[0]:
+            best = (cost, UpsamplePlan(nw, window, smem, blocks, per_sm))
+    return None if best is None else best[1]
+
+
+class StageRoutes(NamedTuple):
+    """Kernel C's Hopper routes for one stage call: the upsampler's plan (None:
+    stage.cu's upsampler) and each resblock's pair plans (None: run_pairs)."""
+
+    upsample: UpsamplePlan | None
+    pairs: tuple[tuple[PairPlan, ...], ...] | None
+
+
+def stage_routes(B: int, T_in: int, C_in: int, C_out: int, k_up: int, stride: int,
+                 up_padding: int, up_fmt: int, resblocks: Sequence[dict], tier: Tier,
+                 sm_count: int) -> StageRoutes:
+    """The one rule that routes kernel C's own launches. At the fast tier with bf16
+    values (not bf16 serving) and a bf16 upsampler: the upsampler takes Hopper's
+    route where :func:`upsample_plan` has a plan; and where it does and the
+    resblocks are bf16 too, they take the pair route where :func:`pair_plan` has a
+    plan for every pair (C = 32). Everything else keeps the routes of
+    stage.cu and :func:`run_pairs` (whose convs at C % 64 == 0 take
+    resblock.py::conv's Hopper route at this tier). No switch, no fallback."""
+    if tier.mode != FAST or tier.bf16_compute or not tier.bf16_values or up_fmt != 1:
+        return StageRoutes(None, None)
+    up = upsample_plan(B, T_in, C_in, C_out, k_up, stride, up_padding, sm_count)
+    if up is None or check_weights("stage kernel", resblocks, tier) != 1:
+        return StageRoutes(up, None)
+    T = T_in * stride
+    pairs = tuple(tuple(pair_plan(B, T, C_out, blk["kernel_size"], d, sm_count)
+                        for d in blk["dilations"]) for blk in resblocks)
+    if any(plan is None for plans in pairs for plan in plans):
+        return StageRoutes(up, None)
+    return StageRoutes(up, pairs)
+
+
+def upsample_reference(
+    x: torch.Tensor,  # (B, T_in, C_in), pre-leaky
+    up_weight: torch.Tensor,
+    up_bias: torch.Tensor,
+    *,
+    stride: int,
+    up_padding: int,
+    slope: float,
+    lengths: torch.Tensor | None = None,
+    tier: Tier = EXACT_TIER,
+    up_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch: the upsampler's launch as the kernels write it (fp32): the
+    steps of :func:`stage_reference` up to the mask, then the tier's value carry."""
+    h = tier_conv_transpose1d(leaky_relu(carry(x.float(), tier), carry_slope(slope, tier)),
+                              up_weight, up_bias, tier, up_scale, stride=stride,
+                              padding=up_padding)
+    mask = length_mask(None if lengths is None else lengths * stride, h.shape[1], torch.float32)
+    return carry(h if mask is None else h * mask, tier)
+
+
+def upsample(x: torch.Tensor, up: torch.Tensor, up_weight: torch.Tensor, up_bias: torch.Tensor,
+             lens: torch.Tensor, *, stride: int, up_padding: int, slope: float, tier: Tier,
+             up_fmt: int, up_scale: torch.Tensor | None, plan: UpsamplePlan | None) -> None:
+    """One upsampler launch of x (B, T_in, C_in) into up: with a plan, Hopper's
+    route (``vk_upsample_wgmma``) on the bf16 x as it is, up fp32 or bf16; else
+    stage.cu's (``vk_upsample``), which stages fp32 (x cast first), up fp32."""
+    B, T_in, C_in = x.shape
+    k_up, _, C_out = up_weight.shape
+    stream = stream_of(x)
+    lib = library()
+    if plan is not None:
+        if x.dtype != torch.bfloat16 or x.data_ptr() % 16 or up.data_ptr() % 16:
+            raise ValueError("stage upsample kernel takes 16-byte aligned bf16 x")
+        with on_device(x):
+            check(lib.vk_upsample_wgmma(
+                x.data_ptr(), up.data_ptr(), int(up.dtype == torch.bfloat16),
+                up_weight.data_ptr(), up_bias.data_ptr(), lens.data_ptr(), B, T_in, C_in, C_out,
+                k_up, stride, up_padding, carry_slope(slope, tier), int(tier.bf16_values),
+                plan.nw, stream), "stage upsample kernel (wgmma)")
+        count_launch(upsample, "wgmma_launches")
+        return
+    xf = x.float()  # the kernel stages fp32 (bf16 values stay bf16-exact)
+    with on_device(x):
+        check(lib.vk_upsample(
+            xf.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(),
+            lens.data_ptr(), B, T_in, C_in, C_out, k_up, stride, up_padding,
+            carry_slope(slope, tier), tier.mode, up_fmt,
+            None if up_scale is None else up_scale.data_ptr(), int(tier.bf16_values), 0, 0,
+            stream), "stage upsample kernel")
+    count_launch(upsample, "mma_sync_launches")
+
+
+# Launches of each upsampler route: Hopper's, and stage.cu's tf32 mma.sync tile
+upsample.wgmma_launches = 0
+upsample.mma_sync_launches = 0
 
 
 def _post(final_conv: tuple) -> tuple:
@@ -274,19 +473,19 @@ def fused_stage(
     if tier.bf16_compute:
         return _stage_bf16_kernels(x, up_weight, up_bias, resblocks, lens, post, stride=stride,
                                    up_padding=up_padding, slope=slope, tier=tier)
-    xf = x.float()  # the kernels stage fp32 (bf16 values stay bf16-exact)
-    up = torch.empty((B, T_out, C_out), dtype=torch.float32, device=x.device)
-    with on_device(x):
-        check(lib.vk_upsample(
-            xf.data_ptr(), up.data_ptr(), up_weight.data_ptr(), up_bias.data_ptr(),
-            lens.data_ptr(), B, T_in, C_in, C_out, k_up, stride, up_padding,
-            carry_slope(slope, tier), tier.mode, up_fmt,
-            None if up_scale is None else up_scale.data_ptr(), int(tier.bf16_values), 0, 0, stream),
-            "stage upsample kernel")
-    h = torch.empty_like(up)
+    routes = stage_routes(B, T_in, C_in, C_out, k_up, stride, up_padding, up_fmt, resblocks,
+                          tier, device_sm_count(x.device))
+    up = torch.empty((B, T_out, C_out), device=x.device,
+                     dtype=torch.bfloat16 if routes.pairs else torch.float32)
+    upsample(x, up, up_weight, up_bias, lens, stride=stride, up_padding=up_padding, slope=slope,
+             tier=tier, up_fmt=up_fmt, up_scale=up_scale, plan=routes.upsample)
+    h = torch.empty((B, T_out, C_out), dtype=torch.float32, device=x.device)
     h16 = (torch.empty((B, T_out, C_out), dtype=torch.bfloat16, device=x.device)
            if chain and final_conv is None and tier.bf16_values else None)
-    run_pairs(up, h, resblocks, lens * stride, slope, tier=tier, out16=h16)
+    if routes.pairs:
+        run_fused_pairs(up, h, resblocks, lens * stride, slope, routes.pairs, tier, out16=h16)
+    else:
+        run_pairs(up, h, resblocks, lens * stride, slope, tier=tier, out16=h16)
     if final_conv is None:
         count_launch(fused_stage)
         return h if h16 is None else h16

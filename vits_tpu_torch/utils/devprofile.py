@@ -55,7 +55,7 @@ PAD_S = 0.005
 OWN_KERNELS = {
     "flash_rel_attention": r"\brel_attention_kernel\b",
     "rel_attention_bwd": r"\brel_attention_bwd_kernel\b",
-    "fused_stage": r"\bupsample(16)?_kernel\b",
+    "fused_stage": r"\b(wgmma_)?upsample(16)?_kernel\b",  # one upsampler a call, either route
     "fused_flow": r"\bFlowEpi\b",
     "trio_backward": r"\bwgrad_kernel\b",
     "monotonic_align": r"\bmas_wavefront\b",
